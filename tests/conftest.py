@@ -22,3 +22,9 @@ def key():
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run them "
+        "on the card with `python -m pytest -m cuda tests/test_torch_*.py`")
