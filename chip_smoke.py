@@ -7,29 +7,38 @@ Needs one CUDA card, nvcc and this checkout; it imports nothing of JAX or
 of the JAX package.  Phases, each of which raises (exit code 1) on
 failure:
 
-1. build the four CUDA kernels from kernels/csrc (poisson_counts.cu and
-   fused_pass.cu, which holds the three fused ones; one nvcc per source,
-   all at once) and print the build seconds;
+1. build the six CUDA kernels from kernels/csrc (poisson_counts.cu,
+   fused_pass.cu, which holds the three fused ones, kmeans_assign.cu and
+   fused_kmeans.cu; one nvcc per source, all at once) and print the build
+   seconds;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
-   the session's shapes and at B=256, n=2^20+37, with and without a
+   the main paths' shapes and at B=256, n=2^20+37, with and without a
    validity mask, and on the binning's edge values: weights, w_tot and
-   histogram counts bitwise; s1 within 1e-5·Σw|x| and s2 within
-   1e-5·Σw·x² per entry; group members bitwise equal to the dedicated
-   kernels;
-4. the main path, with every launch count set to 0 first and the
+   histogram and k-means counts bitwise; s1 and k-means sums within
+   1e-5·Σw|x|, s2 within 1e-5·Σw·x² and k-means inertia within
+   1e-5·Σw·min-d² per entry; the k-means kernels also at k=16, d=8 (past
+   the fused kernel's register chunk) and on exact ties; group members
+   bitwise equal to the dedicated kernels, a KMeansStep member included;
+4. the quickstart path, with every launch count set to 0 first and the
    geometry of every launch logged: the quickstart session
    (N = 2,000,000, StatisticGroup(Mean, Quantile(0.5), Std)), a Mean()
    and a Median() session, a bootstrap of a user statistic without a
    fused path (the materialized poisson_counts route), and the one-shot
    bootstrap of the group at B=256, n=2^24-1000; the quickstart session is
    run again on the CPU and must agree;
-5. replay every distinct launch geometry that phase 4 logged (rows,
-   columns, RNG tile, column ranges, mask, slots) on fresh data and hold
-   it against the plain version as in phase 3;
-6. time each kernel (CUDA events) beside its plain version and its bound,
-   and the quickstart session's wall time over a few warm runs;
-7. print the kernels line, then the contract's last line.
+5. the k-means path (examples/analytics_kmeans.py, paper §6.3), again
+   from zeroed counts with its geometries logged: Lloyd over N = 400,000
+   rows (k=5, d=2, 8 iterations) and over a 2% PreMapSampler sample, the
+   bootstrap certificate over KMeansStep at B=24, and one bootstrap at
+   B=256 over n=2^22 rows whose peak memory must stay below an (n, k)
+   f32 tensor; the example is run again on the CPU and must agree;
+6. replay every distinct launch geometry that phases 4 and 5 logged on
+   fresh data and hold it against the plain version as in phase 3;
+7. time each kernel (CUDA events) beside its plain version and its bound,
+   the quickstart session's wall time and the example's walls over a few
+   warm runs;
+8. print the kernels line, then the contract's last line.
 
 Exit code 2: no card, or no port beside this script.
 """
@@ -48,24 +57,41 @@ INT32_OPS_PER_S = 67e12 / 4
 # 32-bit integer operations per implicit weight; the count and its
 # breakdown are in src/repro_torch/kernels/csrc/poisson_tile.cuh.
 OPS_PER_WEIGHT = 73
+# Published H100 SXM f32 rate outside the tensor cores (an FMA is two).
+F32_FLOPS_PER_S = 67e12
 
 REPLACES = {
     "poisson_counts": "src/repro/kernels/poisson_counts/kernel.py:63",
     "fused_poisson_moments": "src/repro/kernels/weighted_stats/kernel.py:173",
     "fused_poisson_hist": "src/repro/kernels/weighted_hist/kernel.py:253",
     "fused_poisson_multi": "src/repro/kernels/fused_multi/kernel.py:107",
+    "kmeans_assign": "src/repro/kernels/kmeans_assign/kernel.py:93",
+    "fused_poisson_kmeans": "src/repro/kernels/kmeans_assign/kernel.py:170",
 }
 SOURCES = {
     "poisson_counts": "src/repro_torch/kernels/csrc/poisson_counts.cu",
     "fused_poisson_moments": "src/repro_torch/kernels/csrc/fused_pass.cu",
     "fused_poisson_hist": "src/repro_torch/kernels/csrc/fused_pass.cu",
     "fused_poisson_multi": "src/repro_torch/kernels/csrc/fused_pass.cu",
+    "kmeans_assign": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
+    "fused_poisson_kmeans": "src/repro_torch/kernels/csrc/fused_kmeans.cu",
 }
+#: the kernels each main path must launch
+QUICKSTART_KERNELS = ("poisson_counts", "fused_poisson_moments",
+                      "fused_poisson_hist", "fused_poisson_multi")
+KMEANS_KERNELS = ("kmeans_assign", "fused_poisson_kmeans")
 NBINS, LO, HI = 2048, 0.0, 25.0
 QUICKSTART_N = 2_000_000
 BIG_B, BIG_N = 256, (1 << 20) + 37
 BOOT_N = (1 << 24) - 1000
 SESSION_REPS = 5
+# examples/analytics_kmeans.py: N rows of k 2-d blobs, ITERS Lloyd steps,
+# a 2% sample and B resamples; the wide (k, d) takes the fused kernel past
+# one register chunk (16 entries of k·(d+1)+1).
+KM_N, KM_K, KM_ITERS, KM_B = 400_000, 5, 8, 24
+KM_SAMPLE = KM_N // 50
+KM_WIDE = (16, 8)
+KM_BOOT_N = 1 << 22
 
 
 def check(ok: bool, what: str) -> None:
@@ -102,21 +128,33 @@ class Parity:
         """got/want = (w_tot, s1, s2); bound1 = Σw|x|, bound2 = Σw·x²."""
         self.bitwise(name, got[0], want[0], f"w_tot {what}")
         for i, bound in ((1, bound1), (2, bound2)):
-            diff = (got[i] - want[i]).abs()
-            self.err[name] = max(self.err[name], float(diff.max()))
-            check(bool((diff <= 1e-5 * bound).all()),
-                  f"{name} s{i} {what}: max |err| {float(diff.max())} over "
-                  f"1e-5·Σw|x^{i}|")
+            self.within(name, got[i], want[i], bound, f"s{i} {what}")
+
+    def within(self, name, got, want, bound, what):
+        diff = (got - want).abs()
+        self.err[name] = max(self.err[name], float(diff.max()))
+        check(bool((diff <= 1e-5 * bound).all()),
+              f"{name} {what}: max |err| {float(diff.max())} over its "
+              f"1e-5 bound")
+
+    def kmeans(self, name, got, want, bound_sums, what):
+        """got/want = (sums, counts, inertia); bound_sums = Σw|x| per dim
+        (broadcast over clusters); inertia is held to 1e-5 of itself."""
+        self.bitwise(name, got[1], want[1], f"counts {what}")
+        self.within(name, got[0], want[0], bound_sums, f"sums {what}")
+        self.within(name, got[2], want[2], want[2].abs(), f"inertia {what}")
 
 
 def wrappers():
-    """The four kernel wrappers, each with its ``launches`` count."""
+    """The six kernel wrappers, each with its ``launches`` count."""
     from repro_torch.kernels.fused_multi.ops import fused_poisson_multi
+    from repro_torch.kernels.kmeans_assign.ops import (fused_poisson_kmeans,
+                                                       kmeans_assign)
     from repro_torch.kernels.poisson_counts.ops import poisson_counts
     from repro_torch.kernels.weighted_hist.ops import fused_poisson_hist
     from repro_torch.kernels.weighted_stats.ops import fused_poisson_moments
     return (poisson_counts, fused_poisson_moments, fused_poisson_hist,
-            fused_poisson_multi)
+            fused_poisson_multi, kmeans_assign, fused_poisson_kmeans)
 
 
 def geometry(lib: str, args: tuple) -> tuple:
@@ -125,6 +163,15 @@ def geometry(lib: str, args: tuple) -> tuple:
     if lib == "poisson_counts":
         _, Bp, np_, bb, bn, _, _ = args
         fields = dict(Bp=Bp, np_=np_, bb=bb, bn=bn)
+    elif lib == "kmeans_assign":
+        n, d, k, _, _, _, cols, ranges, threads, _, _, _ = args
+        fields = dict(n=n, d=d, k=k, cols=cols, ranges=ranges,
+                      threads=threads)
+    elif lib == "fused_kmeans":
+        (_, n_valid, Bp, np_, bb, bn, d, k, _, mask, _, tpc, ranges,
+         _, _, _) = args
+        fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
+                      k=k, masked=mask is not None, tpc=tpc, ranges=ranges)
     else:
         (_, n_valid, Bp, np_, bb, bn, d, _, mask, rows, tpc, ranges, part_w,
          _, _, _, _, _, n_hist, _, _, _, hist_total, _, _) = args
@@ -248,6 +295,104 @@ def phase_parity(torch, parity: Parity) -> None:
           f"{json.dumps(parity.err)}")
 
 
+def km_data(torch, n: int, k: int, d: int, seed: int):
+    """k Gaussian blobs (n, d) on the card, and centroids near their
+    centers."""
+    import numpy as np
+    from repro_torch.data import synthetic_clusters
+    x, centers = synthetic_clusters(n, k=k, dim=d, seed=seed)
+    cent = centers + np.random.default_rng(seed).normal(0, 0.1, centers.shape)
+    return (torch.from_numpy(x).cuda(),
+            torch.from_numpy(cent.astype(np.float32)).cuda())
+
+
+def hold_fused_kmeans(parity, seed, x, cent, B, what, **kw) -> None:
+    """The fused k-means kernel against its plain version on one input;
+    ``kw`` are n_valid / valid_mask."""
+    from repro_torch.kernels.kmeans_assign.ops import (fused_kmeans_plain,
+                                                       fused_poisson_kmeans)
+    from repro_torch.kernels.weighted_stats.ops import moments_plain, prepare
+    got = fused_poisson_kmeans(seed, x, cent, B, **kw)
+    want = [t[:B] for t in fused_kmeans_plain(prepare(x, B, **kw), seed,
+                                              cent)]
+    bound = moments_plain(prepare(x.abs(), B, **kw), seed)[1][:B]
+    parity.kmeans("fused_poisson_kmeans", got, want, bound[:, None, :],
+                  what)
+
+
+def hold_kmeans_assign(parity, x, w, cent, what) -> None:
+    """kmeans_assign against its plain version under weights ``w``."""
+    from repro_torch.kernels.kmeans_assign.ops import (assign_plain,
+                                                       kmeans_assign)
+    parity.kmeans("kmeans_assign", kmeans_assign(x, w, cent),
+                  assign_plain(x, w, cent),
+                  (w.double() @ x.abs().double()).float(), what)
+
+
+def int_weights(torch, n: int, gen):
+    """Whole weights 0..3 on the card."""
+    return torch.randint(0, 4, (n,), generator=gen).float().cuda()
+
+
+def phase_parity_kmeans(torch, parity: Parity) -> None:
+    from repro_torch.core.reduce_api import (KMeansStep, Mean, Quantile,
+                                             StatisticGroup)
+    from repro_torch.kernels.fused_multi.ops import fused_poisson_multi
+    from repro_torch.kernels.kmeans_assign.ops import (fused_poisson_kmeans,
+                                                       kmeans_assign)
+    from repro_torch.kernels.weighted_stats.ops import fused_poisson_moments
+
+    gen = torch.Generator().manual_seed(17)
+    cases = [(KM_B, KM_SAMPLE), (4, KM_N), (BIG_B, BIG_N)]
+    for B, n in cases:
+        for k, d in ((KM_K, 2), KM_WIDE):
+            x, cent = km_data(torch, n, k, d, seed=n + k)
+            for masked in (False, True):
+                seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+                mask = None
+                if masked:
+                    mask = (torch.rand(n, generator=gen) > 0.3).float().cuda()
+                what = (f"k-means B={B} n={n} k={k} d={d}"
+                        f"{' masked' if masked else ''}")
+                n_valid = n - 17 if masked else n
+                hold_fused_kmeans(parity, seed, x, cent, B, what,
+                                  n_valid=n_valid, valid_mask=mask)
+                w = int_weights(torch, n, gen)
+                if masked:
+                    w = w * mask
+                    w[n_valid:] = 0.0
+                hold_kmeans_assign(parity, x, w, cent, what)
+    # exact ties: (0, y) is as far from (-1, 0) as from (1, 0); the lower
+    # cluster takes it, in the kernels as in the plain versions
+    y = torch.linspace(-1.0, 1.0, 300)
+    x = torch.stack([torch.zeros_like(y), y], dim=1).cuda()
+    cent = torch.tensor([[-1.0, 0.0], [1.0, 0.0], [0.0, 3.0]]).cuda()
+    hold_fused_kmeans(parity, 99, x, cent, 8, "exact ties")
+    hold_kmeans_assign(parity, x, int_weights(torch, 300, gen), cent,
+                       "exact ties")
+    counts = kmeans_assign(x, None, cent)[1]
+    check(counts.tolist() == [300.0, 0.0, 0.0],
+          f"tied points not all in cluster 0: {counts.tolist()}")
+    # a group with a KMeansStep member: each slot bitwise its dedicated
+    # kernel (the k-means slot runs the k-means kernel with the same seed)
+    x, cent = km_data(torch, KM_SAMPLE, KM_K, 2, seed=3)
+    group = StatisticGroup((Mean(), KMeansStep(cent),
+                            Quantile(0.5, nbins=256, lo=-8.0, hi=8.0)))
+    for mask in (None, (torch.rand(KM_SAMPLE, generator=gen) > 0.3).float()
+                 .cuda()):
+        g = fused_poisson_multi(group, 7, x, KM_B, valid_mask=mask)
+        ded_k = fused_poisson_kmeans(7, x, cent, KM_B, valid_mask=mask)
+        ded_m = fused_poisson_moments(7, x, KM_B, valid_mask=mask)
+        for a, b in zip((g[0].w, g[0].s1, g[0].s2, g[1].sums, g[1].counts,
+                         g[1].inertia), (*ded_m, *ded_k)):
+            check(bool((a == b).all()), "a group member differs from its "
+                  "dedicated kernel (KMeansStep group)")
+    torch.cuda.synchronize()
+    print(f"parity (k-means): both kernels match their plain versions; "
+          f"max |err| kmeans_assign {parity.err['kmeans_assign']}, "
+          f"fused_poisson_kmeans {parity.err['fused_poisson_kmeans']}")
+
+
 def phase_main_path(torch):
     """Runs the main path from zeroed launch counts; returns the counts,
     the logged launch geometries and the quickstart session (a function
@@ -324,8 +469,8 @@ def phase_main_path(torch):
           f"fused_poisson_multi x{quick_launches})")
     check(quick_launches > 0, "the quickstart session launched no "
           "fused_poisson_multi kernel")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path was not launched: {launches}")
+    check(all(launches[k] > 0 for k in QUICKSTART_KERNELS),
+          f"a kernel of the quickstart path was not launched: {launches}")
     names = ("mean", "median", "std")
     summary = dict(B=out.B, iterations=out.iterations, n_used=out.n_used,
                    worst_cv=out.cv, wall_s=wall, members={})
@@ -385,6 +530,131 @@ def phase_main_path(torch):
     return launches, log.geometries, quickstart
 
 
+def kmeans_example(torch, device):
+    """examples/analytics_kmeans.py on ``device``: Lloyd over the full data
+    and over a 2% sample, then the bootstrap certificate over KMeansStep.
+    Returns the two fits' centroids, the bootstrap and the walls."""
+    from repro_torch import random as trandom
+    from repro_torch.core import KMeansStep, bootstrap, kmeans_fit
+    from repro_torch.data import (PreMapSampler, ShardedStore,
+                                  synthetic_clusters)
+
+    x_np, _ = synthetic_clusters(KM_N, k=KM_K, dim=2, seed=5)
+    sampler = PreMapSampler(ShardedStore.from_array(x_np, 65_536), seed=6,
+                            device=device)
+    xs = sampler.take(0, KM_SAMPLE)
+    init = xs[:KM_K]
+    x_full = torch.from_numpy(x_np).to(sampler.device)
+
+    def sync():
+        if sampler.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    full, _ = kmeans_fit(x_full, KM_K, KM_ITERS, trandom.PRNGKey(0),
+                         init=init, device=device)
+    sync()
+    t1 = time.perf_counter()
+    earl, _ = kmeans_fit(xs, KM_K, KM_ITERS, trandom.PRNGKey(0), init=init,
+                         device=device)
+    boot = bootstrap(xs, KMeansStep(earl), KM_B, trandom.PRNGKey(0),
+                     device=device)
+    sync()
+    t2 = time.perf_counter()
+    return dict(x=x_np, full=full.cpu(), earl=earl.cpu(), boot=boot,
+                fit_full_s=t1 - t0, earl_s=t2 - t1)
+
+
+def mean_min_d2(x, cents) -> float:
+    """The example's inertia: mean squared distance to the nearest
+    centroid, in float64 numpy."""
+    import numpy as np
+    d2 = ((x[:, None, :].astype(np.float64)
+           - np.asarray(cents, np.float64)[None]) ** 2).sum(-1)
+    return float(d2.min(axis=1).mean())
+
+
+def phase_kmeans_path(torch):
+    """The k-means path from zeroed launch counts: the example, then a
+    B=256 bootstrap over 2^22 rows.  Returns the counts and the logged
+    geometries."""
+    from repro_torch import random as trandom
+    from repro_torch.core import KMeansStep, bootstrap
+
+    xb, cb = km_data(torch, KM_BOOT_N, KM_K, 2, seed=7)
+    torch.cuda.synchronize()
+    for f in wrappers():
+        f.launches = 0
+    with LaunchLog() as log:
+        ex = kmeans_example(torch, None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        big = bootstrap(xb, KMeansStep(cb), BIG_B, trandom.PRNGKey(11))
+        end.record()
+        end.synchronize()
+        boot_ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated() - base
+    launches = log.counts()
+    print(f"k-means path launches: {json.dumps(launches)}")
+    check(all(launches[k] > 0 for k in KMEANS_KERNELS),
+          f"a kernel of the k-means path was not launched: {launches}")
+
+    # ---- checks of what came out -------------------------------------
+    x = ex["x"]
+    i_full, i_earl = mean_min_d2(x, ex["full"]), mean_min_d2(x, ex["earl"])
+    gap = (i_earl - i_full) / i_full
+    thetas = ex["boot"].thetas
+    summary = dict(inertia_full=i_full, inertia_earl=i_earl, gap=gap,
+                   centroid_cv=ex["boot"].cv, fit_full_s=ex["fit_full_s"],
+                   earl_s=ex["earl_s"], rows=f"{KM_SAMPLE}/{KM_N}")
+    print("k-means example (cuda): " + json.dumps(summary))
+    check(thetas.shape == (KM_B, KM_K, 2)
+          and bool(torch.isfinite(thetas).all()), "example thetas")
+    check(math.isfinite(i_full) and gap < 0.05,
+          f"EARL inertia gap {gap} (the paper validates < 5%)")
+
+    # The CPU run: f32 sums in another order move a centroid by ~1e-6; a
+    # point within that of a boundary may then change cluster, which moves
+    # its centroid by |x - c| / count, under 1e-3 at the sample's ~1600
+    # rows a cluster.  So centroids and thetas agree within 1e-3 (data
+    # of scale 5), the example's inertia within 1e-4 of itself, and the
+    # cv (a spread of ~1e-2 over 24 thetas) within 5% of itself.
+    cpu = kmeans_example(torch, "cpu")
+    for name in ("full", "earl"):
+        diff = float((ex[name] - cpu[name]).abs().max())
+        check(diff <= 1e-3, f"{name} fit: cuda and cpu centroids differ "
+              f"by {diff}")
+    tdiff = float((thetas.cpu() - cpu["boot"].thetas).abs().max())
+    check(tdiff <= 1e-3, f"bootstrap thetas differ by {tdiff}")
+    ci_full = mean_min_d2(x, cpu["full"])
+    check(abs(ci_full - i_full) <= 1e-4 * i_full,
+          f"full-fit inertia cuda {i_full} vs cpu {ci_full}")
+    check(abs(cpu["boot"].cv - ex["boot"].cv) <= 0.05 * cpu["boot"].cv,
+          f"centroid cv cuda {ex['boot'].cv} vs cpu {cpu['boot'].cv}")
+    print(f"k-means example (cpu): agrees with the card; max |centroid "
+          f"diff| full {float((ex['full'] - cpu['full']).abs().max())} "
+          f"earl {float((ex['earl'] - cpu['earl']).abs().max())}, thetas "
+          f"{tdiff}; cv {cpu['boot'].cv}; walls fit_full "
+          f"{cpu['fit_full_s']:.2f} s, earl {cpu['earl_s']:.2f} s")
+
+    check(big.thetas.shape == (BIG_B, KM_K, 2)
+          and bool(torch.isfinite(big.thetas).all()),
+          "B=256 k-means bootstrap thetas not finite or of the wrong shape")
+    nk_bytes = KM_BOOT_N * KM_K * 4
+    check(peak < nk_bytes, f"k-means bootstrap peak {peak} B suggests an "
+          f"(n, k) tensor ({nk_bytes} B) or a (B, n) one "
+          f"({BIG_B * KM_BOOT_N * 4} B)")
+    print("k-means bootstrap (cuda): " + json.dumps(dict(
+        B=BIG_B, n=KM_BOOT_N, k=KM_K, d=2, ms=boot_ms, peak_bytes=peak,
+        nk_bytes=nk_bytes, Bn_bytes=BIG_B * KM_BOOT_N * 4, cv=big.cv,
+        weight_draws=BIG_B * KM_BOOT_N)))
+    return launches, log.geometries
+
+
 def phase_replay(torch, geometries, parity: Parity) -> None:
     """Holds every kernel against its plain version at each launch
     geometry of the main path, on fresh data: x is uniform on [LO, HI), so
@@ -406,10 +676,31 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
     shapes = {}
     for (name, fields), count in sorted(geometries.items(), key=str):
         g = dict(fields)
-        Bp, np_ = g["Bp"], g["np_"]
+        Bp, np_ = g.get("Bp"), g.get("np_")
         what = f"replay of {count} main-path launch(es) at {g}"
-        shapes.setdefault(name, []).append((Bp, np_))
+        shapes.setdefault(name, []).append(
+            (g["n"], g["k"], g["d"]) if name == "kmeans_assign"
+            else (Bp, np_))
         seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+        if name in KMEANS_KERNELS:
+            # the plain versions launch nothing, so the log sees only the
+            # kernel's launch
+            x, cent = km_data(torch, g.get("n", np_), g["k"], g["d"], seed)
+            with LaunchLog() as log:
+                if name == "kmeans_assign":
+                    hold_kmeans_assign(parity, x,
+                                       int_weights(torch, g["n"], gen),
+                                       cent, what)
+                else:
+                    mask = None
+                    if g["masked"]:
+                        mask = (torch.rand(np_, generator=gen) > 0.3
+                                ).float().cuda()
+                    hold_fused_kmeans(parity, seed, x, cent, Bp, what,
+                                      n_valid=g["n_valid"], valid_mask=mask)
+            check((name, fields) in log.geometries, f"{what}: launched "
+                  f"{list(log.geometries)}")
+            continue
         if name == "poisson_counts":
             with LaunchLog() as log:
                 w_k = poisson_counts(seed, Bp, np_, device="cuda")
@@ -463,8 +754,71 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                           "differs from the dedicated kernel")
     torch.cuda.synchronize()
     print(f"replay: {sum(len(v) for v in shapes.values())} main-path launch "
-          f"geometries match their plain versions; (Bp, np) per kernel "
-          f"{json.dumps(shapes)}")
+          f"geometries match their plain versions; (Bp, np), or (n, k, d) "
+          f"for kmeans_assign, per kernel {json.dumps(shapes)}")
+
+
+def kmeans_rows(torch, launches, parity: Parity):
+    """Kernel rows of the two k-means kernels, at the shapes their main
+    path gives them: kmeans_assign at the example's full fit (n = 400,000,
+    k = 5, d = 2, unit weights), the fused kernel at the B = 256,
+    n = 2^22 bootstrap."""
+    from repro_torch.kernels.kmeans_assign.ops import (assign_plain,
+                                                       fused_kmeans_plain,
+                                                       fused_poisson_kmeans,
+                                                       kmeans_assign)
+    from repro_torch.kernels.weighted_stats.ops import prepare
+
+    k, d, B, seed = KM_K, 2, BIG_B, 2025
+    entries = k * (d + 1) + 1
+    x, cent = km_data(torch, KM_N, k, d, seed=5)
+    w = torch.ones(KM_N, device="cuda")
+    xb, cb = km_data(torch, KM_BOOT_N, k, d, seed=7)
+    pr = prepare(xb, B)
+    # kmeans_assign: f32 operations a point, an FMA counted as two: xx
+    # (2d-1), per centroid x·c (2d-1) and d² (3), and the accumulation of
+    # d+1 sums and the inertia (2(d+2)); bytes: x and w read once, the
+    # centroids read and the state written once.
+    flops_pt = 2 * d - 1 + k * (2 * d + 2) + 2 * (d + 2)
+    a_bytes = KM_N * (d + 1) * 4 + (k * d + entries) * 4
+    a_flops = KM_N * flops_pt
+    # fused: 73 integer operations a weight (the hash) and one FMA into
+    # each of its row's k·(d+1)+1 entries; bytes: x read once, the states
+    # written once.
+    f_bytes = KM_BOOT_N * d * 4 + (k * d + B * entries) * 4
+    runs = {
+        "kmeans_assign": (
+            lambda: kmeans_assign(x, w, cent),
+            lambda: assign_plain(x, w, cent), a_bytes / HBM_BYTES_PER_S,
+            a_flops / F32_FLOPS_PER_S, dict(n=KM_N, k=k, d=d)),
+        "fused_poisson_kmeans": (
+            lambda: fused_poisson_kmeans(seed, xb, cb, B),
+            lambda: fused_kmeans_plain(pr, seed, cb),
+            f_bytes / HBM_BYTES_PER_S,
+            max(B * KM_BOOT_N * OPS_PER_WEIGHT / INT32_OPS_PER_S,
+                B * KM_BOOT_N * entries * 2 / F32_FLOPS_PER_S),
+            dict(B=B, n=KM_BOOT_N, k=k, d=d)),
+    }
+    rows = []
+    for name, (kernel, plain, t_bytes, t_ops, shape) in runs.items():
+        ms = time_ms(torch, kernel, 20 if name == "kmeans_assign" else 5)
+        plain_ms = time_ms(torch, plain, 1)
+        bound = max(t_bytes, t_ops) * 1e3
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, shape=shape))
+        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+              f"{bound:.4f} ms by {rows[-1]['bound_by']}) at {shape}")
+    # the example's shapes of the fused kernel, for the record
+    xs, cs = km_data(torch, KM_SAMPLE, k, d, seed=6)
+    ms = time_ms(torch, lambda: fused_poisson_kmeans(seed, xs, cs, KM_B), 20)
+    print(f"timing fused_poisson_kmeans at the example's B={KM_B}, "
+          f"n={KM_SAMPLE}: {ms:.4f} ms")
+    return rows
 
 
 def phase_timing(torch, launches, parity: Parity, quickstart):
@@ -530,6 +884,12 @@ def phase_timing(torch, launches, parity: Parity, quickstart):
         walls.append(time.perf_counter() - t0)
     print(f"quickstart session wall, {SESSION_REPS} warm runs (s): "
           f"{json.dumps(walls)}; median {sorted(walls)[SESSION_REPS // 2]}")
+    rows += kmeans_rows(torch, launches, parity)
+    walls = [kmeans_example(torch, None) for _ in range(SESSION_REPS)]
+    for key in ("fit_full_s", "earl_s"):
+        v = [w[key] for w in walls]
+        print(f"k-means example {key}, {SESSION_REPS} warm runs (s): "
+              f"{json.dumps(v)}; median {sorted(v)[SESSION_REPS // 2]}")
     return rows
 
 
@@ -550,19 +910,34 @@ def main() -> int:
     torch.manual_seed(0)
 
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"build: 4 kernels from {len(_build.SIGNATURES)} sources in "
-          f"{time.perf_counter() - t0:.1f} s")
+    logs = _build.build_all()
+    print(f"build: {len(REPLACES)} kernels from {len(_build.SIGNATURES)} "
+          f"sources in {time.perf_counter() - t0:.1f} s")
+    for lib, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line:
+                print(f"ptxas {lib}: {line.split(':', 1)[-1].strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
 
+    def lap(phase):
+        print(f"phase {phase} done at {time.perf_counter() - t0:.1f} s")
+
     parity = Parity()
     phase_parity(torch, parity)
+    phase_parity_kmeans(torch, parity)
+    lap("3 (parity)")
     launches, geometries, quickstart = phase_main_path(torch)
-    phase_replay(torch, geometries, parity)
+    lap("4 (quickstart path)")
+    km_launches, km_geometries = phase_kmeans_path(torch)
+    lap("5 (k-means path)")
+    launches = {k: launches[k] + km_launches[k] for k in launches}
+    phase_replay(torch, {**geometries, **km_geometries}, parity)
+    lap("6 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
+    lap("7 (timing)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

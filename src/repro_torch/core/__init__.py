@@ -12,9 +12,11 @@ from repro_torch.core.bootstrap import (BootstrapResult, bootstrap,
                                         seed_from_key)
 from repro_torch.core.delta import (PoissonDelta, poisson_delta_extend,
                                     poisson_delta_init, poisson_delta_result)
-from repro_torch.core.reduce_api import (Count, HistogramState, Mean, Median,
+from repro_torch.core.reduce_api import (Count, HistogramState, KMeansState,
+                                         KMeansStep, Mean, Median,
                                          MomentState, Quantile, Statistic,
-                                         StatisticGroup, Std, Sum, Var)
+                                         StatisticGroup, Std, Sum, Var,
+                                         kmeans_fit)
 from repro_torch.core.session import EarlSession, EarlyResult
 from repro_torch.core.ssabe import SSABEResult, ssabe
 
@@ -27,7 +29,8 @@ __all__ = [
     "seed_from_key",
     "PoissonDelta", "poisson_delta_extend", "poisson_delta_init",
     "poisson_delta_result",
-    "Count", "HistogramState", "Mean", "Median", "MomentState", "Quantile",
-    "Statistic", "StatisticGroup", "Std", "Sum", "Var",
+    "Count", "HistogramState", "KMeansState", "KMeansStep", "Mean", "Median",
+    "MomentState", "Quantile", "Statistic", "StatisticGroup", "Std", "Sum",
+    "Var", "kmeans_fit",
     "EarlSession", "EarlyResult", "SSABEResult", "ssabe",
 ]

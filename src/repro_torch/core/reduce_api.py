@@ -310,6 +310,98 @@ def Median(nbins: int = 2048, lo: float = 0.0, hi: float = 1.0) -> Quantile:
     return Quantile(0.5, nbins=nbins, lo=lo, hi=hi)
 
 
+@dataclasses.dataclass(frozen=True)
+class KMeansState:
+    sums: torch.Tensor      # (k, d) weighted point sums per cluster
+    counts: torch.Tensor    # (k,) weighted counts
+    inertia: torch.Tensor   # () weighted within-cluster SSE
+
+
+class KMeansStep(Statistic):
+    """One weighted Lloyd assignment pass against ``centroids`` (paper
+    §6.3 runs K-Means over the sample).
+
+    ``finalize`` gives the new centroids, ``finalize_inertia`` the mean
+    within-cluster SSE; ``kmeans_fit`` drives the Lloyd loop.  The device
+    of the values picks the kernels (kernels/kmeans_assign): ``update``
+    is one kmeans_assign pass, ``fused_poisson_states`` the bootstrap over
+    k-means; the centroids move to the values' device there."""
+
+    def __init__(self, centroids):
+        self.centroids = torch.as_tensor(centroids).to(torch.float32)
+
+    def init_state(self, dim: int, device="cpu") -> KMeansState:
+        k, d = self.centroids.shape
+        return KMeansState(
+            sums=torch.zeros(k, d, dtype=torch.float32, device=device),
+            counts=torch.zeros(k, dtype=torch.float32, device=device),
+            inertia=torch.zeros((), dtype=torch.float32, device=device))
+
+    def update(self, state: KMeansState, values, weights=None
+               ) -> KMeansState:
+        from repro_torch.kernels.kmeans_assign import ops as ka_ops
+        x = _as_2d(values).to(torch.float32)
+        sums, counts, inertia = ka_ops.kmeans_assign(x, weights,
+                                                     self.centroids)
+        return KMeansState(sums=state.sums + sums,
+                           counts=state.counts + counts,
+                           inertia=state.inertia + inertia)
+
+    def fused_poisson_states(self, seed, values, B, n_valid=None,
+                             valid_mask=None):
+        from repro_torch.kernels.kmeans_assign import ops as ka_ops
+        sums, counts, inertia = ka_ops.fused_poisson_kmeans(
+            seed, values, self.centroids, B, n_valid=n_valid,
+            valid_mask=valid_mask)
+        return KMeansState(sums=sums, counts=counts, inertia=inertia)
+
+    def tile_update(self, states: KMeansState, x_tile, w_tile
+                    ) -> KMeansState:
+        """The tile math of the fused plain version (``kmeans_tile``), so
+        a group member consumes the shared weight tile as its dedicated
+        run does."""
+        from repro_torch.kernels.kmeans_assign import ops as ka_ops
+        x = x_tile.to(torch.float32)
+        cent = ka_ops.centroids_on(self.centroids, x.device, x.shape[1])
+        sums, counts, inertia = ka_ops.kmeans_tile(x, w_tile, cent)
+        return KMeansState(sums=states.sums + sums,
+                           counts=states.counts + counts,
+                           inertia=states.inertia + inertia)
+
+    def finalize(self, state: KMeansState):
+        return state.sums / (state.counts.unsqueeze(-1) + _EPS)
+
+    def finalize_inertia(self, state: KMeansState):
+        """Inertia per unit weight; over the last axis, so a B-leading
+        batch of states gives (B,)."""
+        return state.inertia / (state.counts.sum(-1) + _EPS)
+
+
+def kmeans_fit(values, k: int, iters: int, key, weights=None, init=None,
+               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted Lloyd's on in-memory values; returns (centroids, the
+    inertia of the last pass).
+
+    ``init`` (k, d) pins the starting centroids; by default they are k
+    distinct rows drawn as ``jax.random.choice(key, n, (k,),
+    replace=False)`` draws them.  ``device=None`` means the card."""
+    from repro_torch.device import as_tensor, resolve_device
+    from repro_torch.random import permutation
+    x = _as_2d(as_tensor(values, resolve_device(device)))
+    if init is None:
+        init = x[permutation(key, x.shape[0])[:k].to(x.device)]
+    elif init.shape[0] != k:
+        raise ValueError(f"init has {init.shape[0]} centroids, expected "
+                         f"k={k}")
+    cent = torch.as_tensor(init).to(device=x.device, dtype=torch.float32)
+    inertia = torch.zeros((), device=x.device)
+    for _ in range(int(iters)):
+        step = KMeansStep(cent)
+        st = step.update(step.init_state(x.shape[1], x.device), x, weights)
+        cent, inertia = step.finalize(st), step.finalize_inertia(st)
+    return cent, inertia
+
+
 class StatisticGroup(Statistic):
     """k member statistics answered from ONE pass over the sample under ONE
     shared Poisson(1) resample stream.

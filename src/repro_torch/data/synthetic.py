@@ -2,6 +2,8 @@
 package's generator: numpy's ``default_rng(seed)``, cast to float32."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 
@@ -20,3 +22,13 @@ def synthetic_numeric(n: int, mean: float = 10.0, std: float = 2.0,
     else:
         raise ValueError(dist)
     return x.astype(np.float32)
+
+
+def synthetic_clusters(n: int, k: int = 5, dim: int = 2, spread: float = 0.4,
+                       seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Gaussian blobs for the K-Means experiment (paper §6.3)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-5.0, 5.0, size=(k, dim)).astype(np.float32)
+    assign = rng.integers(0, k, size=n)
+    x = centers[assign] + rng.normal(0, spread, size=(n, dim))
+    return x.astype(np.float32), centers

@@ -5,8 +5,9 @@ leaf, e.g. ``jax.tree_util.tree_map(np.asarray, state)``); nothing here
 imports jax or the JAX package.  What crosses:
 
 * a PRNG key: uint32[2];
-* statistic states: anything with ``w, s1, s2`` (a moment state) or
-  ``counts, lo, hi`` (a histogram state), or a tuple of them (a group);
+* statistic states: anything with ``w, s1, s2`` (a moment state),
+  ``counts, lo, hi`` (a histogram state) or ``sums, counts, inertia`` (a
+  k-means state), or a tuple of them (a group);
 * a Poisson delta run: its states, point-estimate state, key, n and step;
 * a sharded store: its splits.
 
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.delta import PoissonDelta
-from repro_torch.core.reduce_api import HistogramState, MomentState, Statistic
+from repro_torch.core.reduce_api import (HistogramState, KMeansState,
+                                         MomentState, Statistic)
 from repro_torch.data.store import ShardedStore
 from repro_torch.device import resolve_device
 from repro_torch.random import key_data
@@ -32,7 +34,8 @@ def key_from_numpy(key) -> torch.Tensor:
 
 
 def state_from_numpy(state: Any, device=None):
-    """A moment / histogram state, or a tuple of them, as port states."""
+    """A moment / histogram / k-means state, or a tuple of them, as port
+    states."""
     dev = resolve_device(device)
 
     def t(a):
@@ -45,6 +48,9 @@ def state_from_numpy(state: Any, device=None):
     if all(hasattr(state, f) for f in ("counts", "lo", "hi")):
         return HistogramState(counts=t(state.counts), lo=t(state.lo),
                               hi=t(state.hi))
+    if all(hasattr(state, f) for f in ("sums", "counts", "inertia")):
+        return KMeansState(sums=t(state.sums), counts=t(state.counts),
+                           inertia=t(state.inertia))
     raise TypeError(f"no port state for {type(state).__name__}")
 
 

@@ -12,7 +12,9 @@ The Poisson(1) CDF rungs reach the kernels through a generated header,
 exact hexadecimal float literals: the plain and the CUDA versions compare
 against the same f32 values, which are never typed out by hand.
 
-No ``--use_fast_math``: histogram bin edges need IEEE division.
+No ``--use_fast_math``: histogram bin edges need IEEE division.  ptxas
+reports each kernel's registers, shared memory and spills (``-Xptxas -v``);
+``build_all`` returns that report per library it built.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.kernels.poisson_counts.ref import POISSON_CDF_F32
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 VOID_P = ctypes.c_void_p
 INT = ctypes.c_int
@@ -40,6 +42,10 @@ SIGNATURES: Dict[str, tuple] = {
     "fused_pass": (INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P, INT,
                    INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
                    INT, VOID_P, VOID_P, VOID_P, INT, VOID_P, VOID_P),
+    "kmeans_assign": (INT, INT, INT, VOID_P, VOID_P, VOID_P, INT, INT, INT,
+                      VOID_P, VOID_P, VOID_P),
+    "fused_kmeans": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P,
+                     VOID_P, INT, INT, VOID_P, VOID_P, VOID_P),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -91,28 +97,32 @@ def _start(name: str):
     return proc, tmp, target
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started) -> str:
+    """Wait for nvcc; returns its output ("" when nothing was built)."""
     if started is None:
-        return
+        return ""
     proc, tmp, target = started
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
     os.replace(tmp, target)
+    return out
 
 
-def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> None:
-    """Build every named library, one nvcc per source, all at once."""
+def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
+    """Build every named library, one nvcc per source, all at once;
+    returns nvcc's output (the ptxas report) per library built."""
     names = list(names)
     started = {n: _start(n) for n in names}
-    errors = []
+    errors, logs = [], {}
     for n in names:
         try:
-            _finish(n, started[n])
+            logs[n] = _finish(n, started[n])
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return logs
 
 
 def library(name: str) -> ctypes.CDLL:

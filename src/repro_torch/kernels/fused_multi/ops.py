@@ -6,9 +6,11 @@ weight stream and one pass over x.  A CUDA tensor launches the
 hand-written kernel (csrc/fused_pass.cu, replacing the TPU kernel
 repro/kernels/fused_multi/kernel.py: fused_poisson_multi_kernel), which
 takes at most one moments slot and any number of histogram slots, or
-raises; a CPU tensor runs the plain version, the JAX package's
-``_multi_scan``: each weight tile is drawn once and handed to every
-slot's ``tile_update``.
+raises; each KMeansStep slot runs the k-means kernel
+(``fused_poisson_kmeans``) with the same seed, so it is bitwise its
+dedicated run and pays the hash once more.  A CPU tensor runs the plain
+version, the JAX package's ``_multi_scan``: each weight tile is drawn once
+and handed to every slot's ``tile_update``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._pass import (MAX_ROWS, check_cuda_f32, hist_rows,
                                        pass_geometry, stream_ptr)
+from repro_torch.kernels.kmeans_assign.ops import centroids_on, kmeans_cuda
 from repro_torch.kernels.weighted_hist.ops import (hist_slots_args,
                                                    range_vector)
 from repro_torch.kernels.weighted_stats.ops import (Prepared, mask_ptr,
@@ -29,15 +32,15 @@ from repro_torch.kernels.weighted_stats.ops import (Prepared, mask_ptr,
 def _multi_scan(slots, seed: int, pr: Prepared) -> Tuple:
     """Plain version: one scan, one weight tile per step, every slot fed.
 
-    A moments slot carries its running sums across tiles in float64 and
-    rounds them to f32 once, as ``moments_plain`` does."""
-    from repro_torch.core.reduce_api import MomentState
+    A moments or k-means slot carries its running sums across tiles in
+    float64 and rounds them to f32 once, as its dedicated plain version
+    (``moments_plain``, ``fused_kmeans_plain``) does."""
+    from repro_torch.core.reduce_api import KMeansState, MomentState, tree_map
 
     def sums_as(st, dtype):
-        if not isinstance(st, MomentState):
+        if not isinstance(st, (MomentState, KMeansState)):
             return st
-        return MomentState(w=st.w.to(dtype), s1=st.s1.to(dtype),
-                           s2=st.s2.to(dtype))
+        return tree_map(lambda a: a.to(dtype), st)
 
     states = [sums_as(s.init_batch(pr.d, pr.Bp, pr.device), torch.float64)
               for s in slots]
@@ -51,7 +54,8 @@ def _multi_scan(slots, seed: int, pr: Prepared) -> Tuple:
 
 
 def _multi_cuda(slots, seed: int, pr: Prepared) -> Tuple:
-    from repro_torch.core.reduce_api import (HistogramState, MomentState,
+    from repro_torch.core.reduce_api import (HistogramState, KMeansState,
+                                             KMeansStep, MomentState,
                                              Quantile, _MomentStatistic)
     kinds = []
     for s in slots:
@@ -59,10 +63,12 @@ def _multi_cuda(slots, seed: int, pr: Prepared) -> Tuple:
             kinds.append("moments")
         elif isinstance(s, Quantile):
             kinds.append("hist")
+        elif isinstance(s, KMeansStep):
+            kinds.append("kmeans")
         else:
             raise ValueError(
-                f"the fused_multi CUDA kernel takes moment and histogram "
-                f"slots only, not {type(s).__name__}")
+                f"the fused_multi CUDA kernels take moment, histogram and "
+                f"KMeansStep slots only, not {type(s).__name__}")
     if kinds.count("moments") > 1:
         raise ValueError("a group holds at most one moments slot")
     check_cuda_f32("values", pr.xp)
@@ -81,15 +87,20 @@ def _multi_cuda(slots, seed: int, pr: Prepared) -> Tuple:
                           device=pr.device)
         hist_args = (len(hists), meta.data_ptr(), lo_t.data_ptr(),
                      hi_t.data_ptr(), total, out.data_ptr())
-    fused_poisson_multi.launches += 1
-    _build.launch("fused_pass", int(seed), pr.n_valid, pr.Bp, pr.np_, pr.bb,
-                  pr.bn, pr.d, pr.xp.data_ptr(), mask_ptr(pr), rows, tpc,
-                  ranges, *ptrs, *hist_args, stream_ptr(pr.device))
+    if mom or hists:
+        fused_poisson_multi.launches += 1
+        _build.launch("fused_pass", int(seed), pr.n_valid, pr.Bp, pr.np_,
+                      pr.bb, pr.bn, pr.d, pr.xp.data_ptr(), mask_ptr(pr),
+                      rows, tpc, ranges, *ptrs, *hist_args,
+                      stream_ptr(pr.device))
 
     states, off = [], 0
     for s, kind in zip(slots, kinds):
         if kind == "moments":
             states.append(MomentState(w=bufs[3], s1=bufs[4], s2=bufs[5]))
+        elif kind == "kmeans":
+            states.append(KMeansState(*kmeans_cuda(
+                pr, seed, centroids_on(s.centroids, pr.device, pr.d))))
         else:
             width = pr.d * s.nbins
             counts = out[:, off:off + width].reshape(pr.Bp, pr.d, s.nbins)

@@ -1,0 +1,227 @@
+"""One weighted Lloyd pass, and the matrix-free bootstrap over k-means.
+
+``kmeans_assign`` gives (sums (k, d), counts (k,), inertia ()) of one
+weighted Lloyd assignment pass; ``fused_poisson_kmeans`` gives B of them
+under the shared implicit Poisson(1) weights, whose (B, n) matrix is never
+built.  Neither builds an (n, k) distance or one-hot matrix.  A CUDA tensor
+launches the hand-written kernel (csrc/kmeans_assign.cu, replacing the TPU
+kernel repro/kernels/kmeans_assign/kernel.py: kmeans_assign_kernel;
+csrc/fused_kmeans.cu, replacing fused_poisson_kmeans_kernel) or raises; a
+CPU tensor runs the plain version, the JAX package's scan lowering tile by
+tile.
+
+d² is computed elementwise in a fixed order, with no matrix product:
+xx = Σ_q x_q·x_q, cc = Σ_q c_q·c_q and xc = Σ_q x_q·c_q in ascending q,
+each product and each sum an f32 operation of its own, then
+max((xx − 2·xc) + cc, 0).  The kernels do the same with __fmul_rn and
+__fadd_rn, so d², and with it each point's cluster (ties to the lowest
+index, as ``argmin``), is bitwise the same in kernel and plain version, and
+counts (sums of whole weights, summed exactly) are bitwise too.  Sums and
+inertia agree to f32 rounding: each tile's contraction is f32 and the
+running sums across tiles are float64, rounded once, as the moments' are.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._pass import (SMEM_BYTES, TARGET_CTAS,
+                                       check_cuda_f32, pass_geometry,
+                                       stream_ptr)
+from repro_torch.kernels.poisson_counts.ref import weight_tile_blocks
+from repro_torch.kernels.weighted_stats.ops import (Prepared, _pad_to,
+                                                    mask_ptr, prepare,
+                                                    tile_scan)
+
+Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+#: Columns each thread of the kmeans_assign kernel folds, at the least,
+#: before the CTA count reaches TARGET_CTAS.
+COLS_PER_THREAD = 8
+#: Static shared memory of the fused kernel (csrc/fused_kmeans.cu): the
+#: (warps, 8 rows × 16 entries) reduction table and the 16-entry table.
+FUSED_STATIC_SMEM = 4 * 8 * 8 * 16 + 8 * 16
+
+
+def assign_tile(x: torch.Tensor, cent: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(one-hot (bn, k) f32, min-d² (bn,)) of x (bn, d) against cent (k, d):
+    the JAX package's ``_assign_tile`` with d² in the fixed order above."""
+    xx = x[:, 0] * x[:, 0]
+    cc = cent[:, 0] * cent[:, 0]
+    xc = x[:, :1] * cent[None, :, 0]
+    for q in range(1, x.shape[1]):
+        xx = xx + x[:, q] * x[:, q]
+        cc = cc + cent[:, q] * cent[:, q]
+        xc = xc + x[:, q:q + 1] * cent[None, :, q]
+    d2 = torch.clamp_min((xx[:, None] - 2.0 * xc) + cc[None, :], 0.0)
+    min_d2, a = d2.min(dim=1)
+    assign = torch.nn.functional.one_hot(a, cent.shape[0]).to(torch.float32)
+    return assign, min_d2
+
+
+def kmeans_tile(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
+                ) -> Triple:
+    """One tile's f32 (sums (B, k, d), counts (B, k), inertia (B,)) under
+    a (B, bn) weight tile: the tile math of ``_fused_kmeans_scan``, the
+    cluster-masked moments as one (B, bn) @ (bn, k·d) product."""
+    assign, min_d2 = assign_tile(x, cent)
+    bn, d = x.shape
+    k = cent.shape[0]
+    y = (assign[:, :, None] * x[:, None, :]).reshape(bn, k * d)
+    return (w @ y).reshape(w.shape[0], k, d), w @ assign, w @ min_d2
+
+
+def assign_plain(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
+                 ) -> Triple:
+    """Plain version of one weighted Lloyd pass over x (n, d), w (n,): the
+    JAX package's ``_assign_scan`` over n-tiles of the shared clamp."""
+    n, d = x.shape
+    bn = weight_tile_blocks(8, n)[1]
+    xp, wp = _pad_to(x, bn, 0), _pad_to(w, bn, 0)
+    k = cent.shape[0]
+    f64 = dict(dtype=torch.float64, device=x.device)
+    sums, counts = torch.zeros(k, d, **f64), torch.zeros(k, **f64)
+    inertia = torch.zeros((), **f64)
+    for t0 in range(0, xp.shape[0], bn):
+        xt, wt = xp[t0:t0 + bn], wp[t0:t0 + bn]
+        assign, min_d2 = assign_tile(xt, cent)
+        sums = sums + assign.T @ (xt * wt[:, None])
+        counts = counts + assign.T @ wt
+        inertia = inertia + (wt * min_d2).sum()
+    return sums.float(), counts.float(), inertia.float()
+
+
+def fused_kmeans_plain(pr: Prepared, seed: int, cent: torch.Tensor
+                       ) -> Triple:
+    """Plain version of the bootstrap over k-means: (sums (Bp, k, d),
+    counts (Bp, k), inertia (Bp,)), one ``kmeans_tile`` per weight tile of
+    the shared ``tile_scan``."""
+    k = cent.shape[0]
+    f64 = dict(dtype=torch.float64, device=pr.device)
+    acc = [torch.zeros(pr.Bp, k, pr.d, **f64), torch.zeros(pr.Bp, k, **f64),
+           torch.zeros(pr.Bp, **f64)]
+
+    def consume(w, xt):
+        for i, t in enumerate(kmeans_tile(xt, w, cent)):
+            acc[i] = acc[i] + t
+
+    tile_scan(pr, seed, consume)
+    return tuple(a.float() for a in acc)
+
+
+def split_entries(out: torch.Tensor, k: int, d: int) -> Triple:
+    """(..., k·(d+1)+1) kernel output -> (sums (..., k, d), counts (..., k),
+    inertia (...)): the sums of cluster j's dims, then the counts, then
+    the inertia."""
+    kd = k * d
+    return (out[..., :kd].reshape(*out.shape[:-1], k, d),
+            out[..., kd:kd + k], out[..., kd + k])
+
+
+def assign_geometry(n: int, k: int, d: int) -> Tuple[int, int, int]:
+    """(threads, columns per CTA, ranges) of a kmeans_assign pass, a
+    function of the shapes alone (the sums' order depends on it).  A thread
+    keeps its k·(d+1)+1 accumulators in shared memory, so a wide (k, d)
+    takes fewer threads a CTA."""
+    entries = k * (d + 1) + 1
+    for threads in (256, 128, 64, 32):
+        if 4 * (entries * threads + k * d + k) <= SMEM_BYTES:
+            break
+    else:
+        raise NotImplementedError(
+            f"kmeans_assign keeps k·(d+1)+1 = {entries} accumulators a "
+            "thread in shared memory, more than a Hopper SM holds for 32 "
+            "threads")
+    ranges = max(1, min(TARGET_CTAS, -(-n // (threads * COLS_PER_THREAD))))
+    cols = max(1, -(-n // ranges))
+    return threads, cols, max(1, -(-n // cols))
+
+
+def assign_cuda(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
+                ) -> Triple:
+    for name, t in (("values", x), ("weights", w), ("centroids", cent)):
+        check_cuda_f32(name, t)
+    n, d = x.shape
+    k = cent.shape[0]
+    threads, cols, ranges = assign_geometry(n, k, d)
+    entries = k * (d + 1) + 1
+    part = torch.empty(ranges, entries, dtype=torch.float32, device=x.device)
+    out = torch.empty(entries, dtype=torch.float32, device=x.device)
+    kmeans_assign.launches += 1
+    _build.launch("kmeans_assign", n, d, k, x.data_ptr(), w.data_ptr(),
+                  cent.data_ptr(), cols, ranges, threads, part.data_ptr(),
+                  out.data_ptr(), stream_ptr(x.device))
+    return split_entries(out, k, d)
+
+
+def kmeans_cuda(pr: Prepared, seed: int, cent: torch.Tensor) -> Triple:
+    """The fused kernel over a prepared call: Bp-row states on the card."""
+    check_cuda_f32("values", pr.xp)
+    check_cuda_f32("centroids", cent)
+    k = cent.shape[0]
+    tpc, ranges = pass_geometry(pr.Bp, pr.np_, pr.bn)
+    if 16 * tpc + 4 * (k * pr.d + k) > SMEM_BYTES - FUSED_STATIC_SMEM:
+        raise NotImplementedError(
+            f"{k} centroids of dimension {pr.d} do not fit in shared memory "
+            "beside the CTA's tile keys")
+    entries = k * (pr.d + 1) + 1
+    part = torch.empty(pr.Bp, ranges, entries, dtype=torch.float32,
+                       device=pr.device)
+    out = torch.empty(pr.Bp, entries, dtype=torch.float32, device=pr.device)
+    fused_poisson_kmeans.launches += 1
+    _build.launch("fused_kmeans", int(seed), pr.n_valid, pr.Bp, pr.np_,
+                  pr.bb, pr.bn, pr.d, k, pr.xp.data_ptr(), mask_ptr(pr),
+                  cent.data_ptr(), tpc, ranges, part.data_ptr(),
+                  out.data_ptr(), stream_ptr(pr.device))
+    return split_entries(out, k, pr.d)
+
+
+def centroids_on(centroids, device: torch.device, d: int) -> torch.Tensor:
+    """(k, d) f32 centroids, contiguous, on ``device``."""
+    cent = torch.as_tensor(centroids).to(device=device, dtype=torch.float32)
+    if cent.ndim != 2 or cent.shape[0] < 1 or cent.shape[1] != d:
+        raise ValueError(f"centroids must be (k, {d}) for {d}-dimensional "
+                         f"values, got {tuple(cent.shape)}")
+    return cent.contiguous()
+
+
+def kmeans_assign(values: torch.Tensor, weights, centroids) -> Triple:
+    """values (n, d) or (n,) × centroids (k, d) [× weights (n,)] ->
+    (sums (k, d), counts (k,), inertia ()); the centroids move to the
+    values' device."""
+    x = values if values.ndim == 2 else values.reshape(values.shape[0], -1)
+    x = x.to(torch.float32).contiguous()
+    w = (torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+         if weights is None else torch.as_tensor(weights).to(
+             device=x.device, dtype=torch.float32).contiguous())
+    if w.shape != (x.shape[0],):
+        raise ValueError(f"weights must be ({x.shape[0]},), got "
+                         f"{tuple(w.shape)}")
+    cent = centroids_on(centroids, x.device, x.shape[1])
+    if x.device.type == "cuda":
+        return assign_cuda(x, w, cent)
+    return assign_plain(x, w, cent)
+
+
+kmeans_assign.launches = 0
+
+
+def fused_poisson_kmeans(seed: int, values: torch.Tensor, centroids, B: int,
+                         n_valid=None, valid_mask=None) -> Triple:
+    """values (n, d) or (n,) × centroids (k, d) -> (sums (B, k, d),
+    counts (B, k), inertia (B,)) under the implicit Poisson(1) weights of
+    every fused path (``implicit_weights(seed, B, n)``).  ``n_valid`` and
+    ``valid_mask`` zero weight columns as in ``fused_poisson_moments``."""
+    pr = prepare(values, B, n_valid, valid_mask)
+    cent = centroids_on(centroids, pr.device, pr.d)
+    if pr.device.type == "cuda":
+        out = kmeans_cuda(pr, seed, cent)
+    else:
+        out = fused_kmeans_plain(pr, seed, cent)
+    return tuple(t[:pr.B] for t in out)
+
+
+fused_poisson_kmeans.launches = 0

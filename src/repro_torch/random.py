@@ -104,6 +104,21 @@ def bits(key, shape: Sequence[int], device="cpu") -> torch.Tensor:
     return (o0 ^ o1).reshape(tuple(shape))
 
 
+def permutation(key, n: int) -> torch.Tensor:
+    """A random permutation of [0, n), bitwise ``jax.random.permutation``:
+    ceil(3·ln n / ln(2^32 − 1)) rounds, each splitting the key and stably
+    sorting by fresh 32-bit bits of the subkey."""
+    x = torch.arange(int(n), dtype=torch.int64)
+    rounds = int(np.ceil(3 * np.log(max(1, int(n)))
+                         / np.log(np.iinfo(np.uint32).max)))
+    k = key_data(key)
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(bits(sub, (int(n),)), stable=True).indices
+        x = x[order]
+    return x
+
+
 def randint(key, shape: Sequence[int], minval: int,
             maxval: int) -> torch.Tensor:
     """int32 values in [minval, maxval), bitwise ``jax.random.randint``

@@ -7,16 +7,20 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -m cuda \
         tests/test_torch_cuda.py
 
-Weights, w_tot and histogram counts must be bitwise equal to the plain
-versions; s1 within 1e-5·Σw|x| and s2 within 1e-5·Σw·x² per entry; group
+Weights, w_tot, histogram and k-means counts must be bitwise equal to
+the plain versions; s1 and k-means sums within 1e-5·Σw|x|, s2 within
+1e-5·Σw·x² and k-means inertia within 1e-5·Σw·min-d² per entry; group
 members bitwise equal to the dedicated kernels.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.reduce_api import Mean, Quantile, StatisticGroup, Std
+from repro_torch.core.reduce_api import (KMeansStep, Mean, Quantile,
+                                         StatisticGroup, Std)
+from repro_torch.data import synthetic_clusters
 from repro_torch.kernels.fused_multi import ops as tfm
+from repro_torch.kernels.kmeans_assign import ops as tka
 from repro_torch.kernels.poisson_counts import ops as tpc
 from repro_torch.kernels.weighted_hist import ops as twh
 from repro_torch.kernels.weighted_stats import ops as tws
@@ -83,3 +87,66 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, monkeypatch):
         tws.fused_poisson_moments(1, x, 8)
     with pytest.raises(RuntimeError, match="refused"):
         twh.fused_poisson_hist(1, x, 0.0, 2.0, 16, 8)
+    with pytest.raises(RuntimeError, match="refused"):
+        tka.kmeans_assign(x, None, torch.zeros(2, 1, device=cuda))
+    with pytest.raises(RuntimeError, match="refused"):
+        tka.fused_poisson_kmeans(1, x, torch.zeros(2, 1, device=cuda), 8)
+
+
+def _within(got, want, bound):
+    return bool(((got.cpu().double() - want.double()).abs()
+                 <= 1e-5 * bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,k,d", [(3, 37, 3, 1), (24, 8000, 5, 2),
+                                     (130, 700, 16, 8),
+                                     (256, (1 << 16) + 37, 5, 2)])
+def test_cuda_kmeans_kernels_match_plain(cuda, B, n, k, d):
+    x, centers = synthetic_clusters(n, k=k, dim=d, seed=n + k)
+    rng = np.random.default_rng(n)
+    cent = (centers + rng.normal(0, 0.1, centers.shape)).astype(np.float32)
+    mask = (rng.random(n) > 0.3).astype(np.float32)
+    w = rng.integers(0, 4, n).astype(np.float32)
+    seed = int(rng.integers(0, 2 ** 31 - 1))
+    xc, cc, mc = (torch.from_numpy(a).to(cuda) for a in (x, cent, mask))
+    xt, ct, mt = (torch.from_numpy(a) for a in (x, cent, mask))
+    xd = xt.double().abs()
+
+    got = tka.kmeans_assign(xc, torch.from_numpy(w).to(cuda), cc)
+    want = tka.kmeans_assign(xt, torch.from_numpy(w), ct)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert _within(got[0], want[0], torch.from_numpy(w).double() @ xd)
+    assert _within(got[2], want[2], want[2].double().abs())
+
+    for kw in ({}, dict(n_valid=n - 5, valid_mask=mc)):
+        got = tka.fused_poisson_kmeans(seed, xc, cc, B, **kw)
+        cpu_kw = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                  for k, v in kw.items()}
+        want = tka.fused_poisson_kmeans(seed, xt, ct, B, **cpu_kw)
+        wts = tpc.poisson_counts(seed, B, n, device="cpu").double()
+        if kw:
+            wts[:, n - 5:] = 0.0
+            wts = wts * mt.double()
+        assert torch.equal(got[1].cpu(), want[1])
+        assert _within(got[0], want[0], (wts @ xd)[:, None, :])
+        assert _within(got[2], want[2], want[2].double().abs())
+
+    # a KMeansStep group member is bitwise its dedicated kernel
+    group = StatisticGroup((Mean(), KMeansStep(cc)))
+    g = tfm.fused_poisson_multi(group, seed, xc, B)
+    ded = tka.fused_poisson_kmeans(seed, xc, cc, B)
+    for a, b in zip((g[1].sums, g[1].counts, g[1].inertia), ded):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_ties_go_to_the_lowest_cluster(cuda):
+    y = torch.linspace(-1.0, 1.0, 300)
+    x = torch.stack([torch.zeros_like(y), y], dim=1).to(cuda)
+    cent = torch.tensor([[-1.0, 0.0], [1.0, 0.0], [0.0, 3.0]]).to(cuda)
+    assert tka.kmeans_assign(x, None, cent)[1].tolist() == [300.0, 0.0, 0.0]
+    counts = tka.fused_poisson_kmeans(3, x, cent, 8)[1]
+    assert torch.equal(counts.cpu(), tka.fused_poisson_kmeans(
+        3, x.cpu(), cent.cpu(), 8)[1])
+    assert float(counts[:, 1:].abs().sum()) == 0.0
