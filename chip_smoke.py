@@ -7,10 +7,10 @@ Needs one CUDA card, nvcc and this checkout; it imports nothing of JAX or
 of the JAX package.  Phases, each of which raises (exit code 1) on
 failure:
 
-1. build the six CUDA kernels from kernels/csrc (poisson_counts.cu,
-   fused_pass.cu, which holds the three fused ones, kmeans_assign.cu and
-   fused_kmeans.cu; one nvcc per source, all at once) and print the build
-   seconds;
+1. build the eight CUDA kernels from kernels/csrc (poisson_counts.cu,
+   fused_pass.cu, which holds the three fused ones, kmeans_assign.cu,
+   fused_kmeans.cu and fused_grouped.cu, which holds the two GROUP BY
+   ones; one nvcc per source, all at once) and print the build seconds;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at B=256, n=2^20+37, with and without a
@@ -20,6 +20,9 @@ failure:
    1e-5·Σw·min-d² per entry; the k-means kernels also at k=16, d=8 (past
    the fused kernel's register chunk) and on exact ties; group members
    bitwise equal to the dedicated kernels, a KMeansStep member included;
+   the GROUP BY kernels at G=8, d in {1, 4}, with a key that has no rows
+   and at G·(2d+1) > 128, and every keyed slot (moments, histogram,
+   k-means) bitwise equal to the dedicated kernel masked to its key;
 4. the quickstart path, with every launch count set to 0 first and the
    geometry of every launch logged: the quickstart session
    (N = 2,000,000, StatisticGroup(Mean, Quantile(0.5), Std)), a Mean()
@@ -33,12 +36,18 @@ failure:
    bootstrap certificate over KMeansStep at B=24, and one bootstrap at
    B=256 over n=2^22 rows whose peak memory must stay below an (n, k)
    f32 tensor; the example is run again on the CPU and must agree;
-6. replay every distinct launch geometry that phases 4 and 5 logged on
+6. the GROUP BY path (README "GROUP BY"), from zeroed counts with its
+   geometries logged: keyed Mean and median sessions over a
+   StratifiedSampler of N = 2,000,000 rows [value, key] (G = 8, key g
+   with frequency ∝ 2^-g), each run again on the CPU, which must agree,
+   and a keyed Mean bootstrap at B=256, n=2^24-1000 whose peak memory
+   must stay below an (n, G) f32 tensor;
+7. replay every distinct launch geometry that phases 4 to 6 logged on
    fresh data and hold it against the plain version as in phase 3;
-7. time each kernel (CUDA events) beside its plain version and its bound,
-   the quickstart session's wall time and the example's walls over a few
-   warm runs;
-8. print the kernels line, then the contract's last line.
+8. time each kernel (CUDA events) beside its plain version and its bound,
+   the sessions' wall times and the example's walls over a few warm runs,
+   and the grouped moments kernel against G masked moments launches;
+9. print the kernels line, then the contract's last line.
 
 Exit code 2: no card, or no port beside this script.
 """
@@ -67,6 +76,10 @@ REPLACES = {
     "fused_poisson_multi": "src/repro/kernels/fused_multi/kernel.py:107",
     "kmeans_assign": "src/repro/kernels/kmeans_assign/kernel.py:93",
     "fused_poisson_kmeans": "src/repro/kernels/kmeans_assign/kernel.py:170",
+    "fused_poisson_moments_grouped":
+        "src/repro/kernels/weighted_stats/kernel.py:275",
+    # no TPU kernel: the reference's keyed sketch is its scan lowering
+    "fused_poisson_hist_grouped": "src/repro/kernels/weighted_hist/ops.py:107",
 }
 SOURCES = {
     "poisson_counts": "src/repro_torch/kernels/csrc/poisson_counts.cu",
@@ -75,11 +88,17 @@ SOURCES = {
     "fused_poisson_multi": "src/repro_torch/kernels/csrc/fused_pass.cu",
     "kmeans_assign": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
     "fused_poisson_kmeans": "src/repro_torch/kernels/csrc/fused_kmeans.cu",
+    "fused_poisson_moments_grouped":
+        "src/repro_torch/kernels/csrc/fused_grouped.cu",
+    "fused_poisson_hist_grouped":
+        "src/repro_torch/kernels/csrc/fused_grouped.cu",
 }
 #: the kernels each main path must launch
 QUICKSTART_KERNELS = ("poisson_counts", "fused_poisson_moments",
                       "fused_poisson_hist", "fused_poisson_multi")
 KMEANS_KERNELS = ("kmeans_assign", "fused_poisson_kmeans")
+GROUPBY_KERNELS = ("fused_poisson_moments_grouped",
+                   "fused_poisson_hist_grouped")
 NBINS, LO, HI = 2048, 0.0, 25.0
 QUICKSTART_N = 2_000_000
 BIG_B, BIG_N = 256, (1 << 20) + 37
@@ -92,6 +111,10 @@ KM_N, KM_K, KM_ITERS, KM_B = 400_000, 5, 8, 24
 KM_SAMPLE = KM_N // 50
 KM_WIDE = (16, 8)
 KM_BOOT_N = 1 << 22
+# the GROUP BY path: N rows [value, key] over G keys; the grouped kernel
+# against G masked launches at the reference benchmark's shape
+GB_N, GB_G = 2_000_000, 8
+GB_RATIO_SHAPE = dict(B=256, n=65_536, d=4)
 
 
 def check(ok: bool, what: str) -> None:
@@ -146,15 +169,30 @@ class Parity:
 
 
 def wrappers():
-    """The six kernel wrappers, each with its ``launches`` count."""
+    """Each kernel's name and the function that counts its launches in
+    ``launches``: the wrapper, or for the GROUP BY kernels the card path
+    of the wrapper's keyed call."""
     from repro_torch.kernels.fused_multi.ops import fused_poisson_multi
     from repro_torch.kernels.kmeans_assign.ops import (fused_poisson_kmeans,
                                                        kmeans_assign)
     from repro_torch.kernels.poisson_counts.ops import poisson_counts
-    from repro_torch.kernels.weighted_hist.ops import fused_poisson_hist
-    from repro_torch.kernels.weighted_stats.ops import fused_poisson_moments
-    return (poisson_counts, fused_poisson_moments, fused_poisson_hist,
-            fused_poisson_multi, kmeans_assign, fused_poisson_kmeans)
+    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+                                                       grouped_hist_cuda)
+    from repro_torch.kernels.weighted_stats.ops import (
+        fused_poisson_moments, grouped_moments_cuda)
+    return {"poisson_counts": poisson_counts,
+            "fused_poisson_moments": fused_poisson_moments,
+            "fused_poisson_hist": fused_poisson_hist,
+            "fused_poisson_multi": fused_poisson_multi,
+            "kmeans_assign": kmeans_assign,
+            "fused_poisson_kmeans": fused_poisson_kmeans,
+            "fused_poisson_moments_grouped": grouped_moments_cuda,
+            "fused_poisson_hist_grouped": grouped_hist_cuda}
+
+
+def zero_counts() -> None:
+    for f in wrappers().values():
+        f.launches = 0
 
 
 def geometry(lib: str, args: tuple) -> tuple:
@@ -172,6 +210,13 @@ def geometry(lib: str, args: tuple) -> tuple:
          _, _, _) = args
         fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
                       k=k, masked=mask is not None, tpc=tpc, ranges=ranges)
+    elif lib == "fused_grouped":
+        (_, n_valid, Bp, np_, bb, bn, d, G, _, mask, _, dc, kg, rows, tpc,
+         ranges, part_w, _, _, _, _, _, nbins, _, _, _, _) = args
+        fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
+                      G=G, masked=mask is not None, dc=dc, kg=kg, rows=rows,
+                      tpc=tpc, ranges=ranges, moments=part_w is not None,
+                      nbins=nbins)
     else:
         (_, n_valid, Bp, np_, bb, bn, d, _, mask, rows, tpc, ranges, part_w,
          _, _, _, _, _, n_hist, _, _, _, hist_total, _, _) = args
@@ -197,7 +242,7 @@ class LaunchLog:
 
     @staticmethod
     def counts():
-        return {f.__name__: f.launches for f in wrappers()}
+        return {name: f.launches for name, f in wrappers().items()}
 
     def __enter__(self):
         self.orig, self.before = self.build.launch, self.counts()
@@ -393,6 +438,105 @@ def phase_parity_kmeans(torch, parity: Parity) -> None:
           f"fused_poisson_kmeans {parity.err['fused_poisson_kmeans']}")
 
 
+def keyed_rows(n: int, d: int = 1, G: int = 8, seed: int = 8, absent=None):
+    """Rows [x (d columns), key], numpy f32: key g with frequency ∝ 2^-g
+    (none for the key ``absent``; at n = 2,000,000 and G = 8 the rarest key
+    has about 7,800 rows), x Normal(10 + key, 2)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    p = 2.0 ** -np.arange(G)
+    if absent is not None:
+        p[absent] = 0.0
+    keys = rng.choice(G, size=n, p=p / p.sum())
+    x = rng.normal(10.0 + keys[:, None], 2.0, size=(n, d))
+    return np.concatenate([x, keys[:, None]], axis=1).astype(np.float32)
+
+
+def hold_grouped(torch, parity, seed, x, keys, G, B, nbins, what,
+                 mask=None, kmeans_plain=False) -> None:
+    """Both GROUP BY kernels against their plain versions on one input,
+    and every keyed slot (moments, histogram, k-means) against the
+    dedicated kernel masked to its key, bitwise."""
+    from repro_torch.kernels.kmeans_assign.ops import (fused_poisson_kmeans,
+                                                       grouped_kmeans_plain)
+    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+                                                       grouped_hist_plain)
+    from repro_torch.kernels.weighted_stats.ops import (
+        fused_poisson_moments, grouped_moments_plain, prepare)
+    kw = dict(valid_mask=mask, group_ids=keys, num_groups=G)
+    pr = prepare(x, B, **kw)
+    d = x.shape[1]
+    got = fused_poisson_moments(seed, x, B, **kw)
+    want = [t[:B] for t in grouped_moments_plain(pr, seed)]
+    bound = grouped_moments_plain(prepare(x.abs(), B, **kw), seed)[1][:B]
+    parity.moments("fused_poisson_moments_grouped", got, want, bound,
+                   want[2], what)
+    lo = torch.full((d,), LO, device="cuda")
+    hi = torch.full((d,), HI, device="cuda")
+    h = fused_poisson_hist(seed, x, LO, HI, nbins, B, **kw)
+    parity.bitwise("fused_poisson_hist_grouped", h,
+                   grouped_hist_plain(pr, seed, lo, hi, nbins)[:B],
+                   f"counts {what}")
+    cent = x[:KM_K].contiguous()
+    km = fused_poisson_kmeans(seed, x, cent, B, **kw)
+    if kmeans_plain:
+        wk = [t[:B] for t in grouped_kmeans_plain(pr, seed, cent)]
+        parity.kmeans("fused_poisson_kmeans", km, wk, bound[:, :, None, :],
+                      f"keyed {what}")
+    for g in range(G):
+        m = (keys == g).float() if mask is None else mask * (keys == g)
+        ded = fused_poisson_moments(seed, x, B, valid_mask=m)
+        for a, b, f in zip(got, ded, ("w_tot", "s1", "s2")):
+            check(torch.equal(a[:, g], b), f"grouped moments slot {g} {f} "
+                  f"differs from the masked kernel, {what}")
+        check(torch.equal(h[:, g], fused_poisson_hist(
+            seed, x, LO, HI, nbins, B, valid_mask=m)),
+            f"keyed hist slot {g} differs from the masked kernel, {what}")
+        ded = fused_poisson_kmeans(seed, x, cent, B, valid_mask=m)
+        for a, b, f in zip(km, ded, ("sums", "counts", "inertia")):
+            check(torch.equal(a[:, g], b), f"keyed k-means slot {g} {f} "
+                  f"differs from the masked kernel, {what}")
+
+
+def phase_parity_grouped(torch, parity: Parity) -> None:
+    from repro_torch.kernels._pass import grouped_geometry
+
+    gen = torch.Generator().manual_seed(19)
+    # (B, n, d, G, nbins, absent key): the main shapes, a key with no rows,
+    # and G·(2d+1) = 144 > 128, which takes two z chunks of 8 keys
+    cases = [(BIG_B, BIG_N, 1, GB_G, NBINS, None),
+             (BIG_B, BIG_N, 4, GB_G, 256, None),
+             (100, 8192, 1, GB_G + 1, NBINS, GB_G),
+             (64, (1 << 16) + 37, 4, 16, 64, 15)]
+    check(grouped_geometry(16, 4)[3] == 2, "G=16, d=4 is not chunked")
+    for B, n, d, G, nbins, absent in cases:
+        xk = torch.from_numpy(keyed_rows(n, d, G, seed=n + d + G,
+                                           absent=absent)).cuda()
+        x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
+        for masked in (False, True):
+            if absent is not None and masked:
+                continue
+            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+            mask = None
+            if masked:
+                mask = (torch.rand(n, generator=gen) > 0.3).float().cuda()
+            what = (f"grouped B={B} n={n} d={d} G={G}"
+                    f"{' masked' if masked else ''}")
+            hold_grouped(torch, parity, seed, x, keys, G, B, nbins, what,
+                         mask=mask, kmeans_plain=n < BIG_N)
+            if absent is not None:
+                from repro_torch.kernels.weighted_stats.ops import \
+                    fused_poisson_moments
+                w = fused_poisson_moments(seed, x, B, group_ids=keys,
+                                          num_groups=G)[0]
+                check(float(w[:, absent].abs().sum()) == 0.0,
+                      f"the key without rows has weight, {what}")
+    torch.cuda.synchronize()
+    print(f"parity (GROUP BY): both kernels match their plain versions and "
+          f"every keyed slot its masked dedicated kernel; max |err| "
+          f"grouped moments {parity.err['fused_poisson_moments_grouped']}")
+
+
 def phase_main_path(torch):
     """Runs the main path from zeroed launch counts; returns the counts,
     the logged launch geometries and the quickstart session (a function
@@ -438,8 +582,7 @@ def phase_main_path(torch):
     xs = torch.from_numpy(data[:65_536]).cuda()
     xb = torch.from_numpy(synthetic_numeric(BOOT_N, seed=7)).cuda()
     torch.cuda.synchronize()
-    for f in wrappers():
-        f.launches = 0
+    zero_counts()
     with LaunchLog() as log:
         t0 = time.perf_counter()
         out = quickstart(None)
@@ -584,8 +727,7 @@ def phase_kmeans_path(torch):
 
     xb, cb = km_data(torch, KM_BOOT_N, KM_K, 2, seed=7)
     torch.cuda.synchronize()
-    for f in wrappers():
-        f.launches = 0
+    zero_counts()
     with LaunchLog() as log:
         ex = kmeans_example(torch, None)
         torch.cuda.synchronize()
@@ -655,6 +797,121 @@ def phase_kmeans_path(torch):
     return launches, log.geometries
 
 
+def groupby_session(data, name, device):
+    """The README's keyed session of the inner ``GB_INNERS[name]`` over a
+    StratifiedSampler on ``device``; returns (result, session, wall of
+    run() in s)."""
+    import torch
+    from repro_torch import core
+    from repro_torch import random as trandom
+    from repro_torch.data import ShardedStore, StratifiedSampler
+    sampler = StratifiedSampler(ShardedStore.from_array(data, 65_536), GB_G,
+                                seed=1, device=device)
+    session = core.EarlSession(
+        sampler, core.GroupedStatistic(GB_INNERS[name](core), GB_G),
+        sigma=0.05, device=device)
+    t0 = time.perf_counter()
+    out = session.run(trandom.PRNGKey(0))
+    if sampler.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, session, time.perf_counter() - t0
+
+
+#: the inner statistics of the GROUP BY path's sessions
+GB_INNERS = {"mean": lambda core: core.Mean(),
+             "median": lambda core: core.Quantile(0.5, lo=LO, hi=HI)}
+
+
+def keyed_summary(out, session):
+    from repro_torch.core import KeyedAccuracyReport
+    return dict(B=out.B, n_used=out.n_used, iterations=out.iterations,
+                fell_back=out.fell_back,
+                worst_key=KeyedAccuracyReport(out.reports).worst_key,
+                p_keys=session._p_keys(out.n_used).tolist())
+
+
+def phase_groupby_path(torch):
+    """The GROUP BY path from zeroed launch counts: the keyed Mean and
+    median sessions, then a keyed Mean bootstrap at B=256, n=2^24-1000.
+    Returns the counts, the logged geometries and the sessions' cold
+    walls."""
+    import numpy as np
+    from repro_torch import random as trandom
+    from repro_torch.core import GroupedStatistic, Mean, bootstrap
+
+    data = keyed_rows(GB_N, G=GB_G)
+    xb = torch.from_numpy(keyed_rows(BOOT_N, G=GB_G, seed=9)).cuda()
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = {}
+    with LaunchLog() as log:
+        for name in GB_INNERS:
+            outs[name] = groupby_session(data, name, None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        big = bootstrap(xb, GroupedStatistic(Mean(), GB_G), BIG_B,
+                        trandom.PRNGKey(13))
+        end.record()
+        end.synchronize()
+        boot_ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated() - base
+    launches = log.counts()
+    print(f"GROUP BY path launches: {json.dumps(launches)}")
+    check(all(launches[k] > 0 for k in GROUPBY_KERNELS),
+          f"a kernel of the GROUP BY path was not launched: {launches}")
+
+    # ---- checks of what came out -------------------------------------
+    vals, keys = data[:, 0].astype(np.float64), data[:, 1]
+    exact = {"mean": [float(vals[keys == g].mean()) for g in range(GB_G)],
+             "median": [float(np.median(vals[keys == g]))
+                        for g in range(GB_G)]}
+    walls = {}
+    for name in GB_INNERS:
+        out, session, wall = outs[name]
+        walls[name] = wall
+        est = out.result.reshape(GB_G).cpu()
+        summary = keyed_summary(out, session)
+        check(not out.fell_back and len(out.reports) == GB_G,
+              f"keyed {name} session fell back or has no per-key reports")
+        check(bool(torch.isfinite(est).all()), f"keyed {name}: {est}")
+        rel = [abs(float(est[g]) - exact[name][g]) / exact[name][g]
+               for g in range(GB_G)]
+        check(max(rel) < 0.02, f"keyed {name} vs exact per key: rel {rel}")
+        summary.update(wall_s=wall, worst_cv=out.cv, max_rel_err=max(rel),
+                       cvs=[r.cv for r in out.reports])
+        print(f"keyed {name} session (cuda): " + json.dumps(summary))
+        cpu, cpu_session, cpu_wall = groupby_session(data, name, "cpu")
+        cpu_summary = keyed_summary(cpu, cpu_session)
+        same = {k: summary[k] for k in cpu_summary}
+        check(cpu_summary == same, f"keyed {name}: cpu {cpu_summary} vs "
+              f"cuda {same}")
+        # moments agree to f32 rounding; the median comes from histogram
+        # counts and is bitwise
+        got, want = est, cpu.result.reshape(GB_G)
+        if name == "median":
+            check(torch.equal(got, want), f"keyed median cuda {got} != "
+                  f"cpu {want}")
+        check(bool(((got - want).abs() <= 1e-5 * want.abs()).all()),
+              f"keyed {name} cuda {got} vs cpu {want}")
+        print(f"keyed {name} session (cpu): agrees with the card "
+              f"({json.dumps(cpu_summary)}); wall {cpu_wall:.2f} s")
+
+    check(big.thetas.shape == (BIG_B, GB_G, 1)
+          and bool(torch.isfinite(big.thetas).all()),
+          "keyed bootstrap thetas not finite or of the wrong shape")
+    ng_bytes = BOOT_N * GB_G * 4
+    check(peak < ng_bytes, f"keyed bootstrap peak {peak} B suggests an "
+          f"(n, G) tensor ({ng_bytes} B)")
+    print("keyed bootstrap (cuda): " + json.dumps(dict(
+        B=BIG_B, n=BOOT_N, G=GB_G, ms=boot_ms, peak_bytes=peak,
+        nG_bytes=ng_bytes, weight_draws=BIG_B * BOOT_N,
+        cvs=big.report.cvs, worst_key=big.report.worst_key)))
+    return launches, log.geometries, walls
+
+
 def phase_replay(torch, geometries, parity: Parity) -> None:
     """Holds every kernel against its plain version at each launch
     geometry of the main path, on fresh data: x is uniform on [LO, HI), so
@@ -682,6 +939,9 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
             (g["n"], g["k"], g["d"]) if name == "kmeans_assign"
             else (Bp, np_))
         seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+        if name in GROUPBY_KERNELS:
+            replay_grouped(torch, parity, gen, seed, name, fields, what)
+            continue
         if name in KMEANS_KERNELS:
             # the plain versions launch nothing, so the log sees only the
             # kernel's launch
@@ -758,6 +1018,40 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
           f"for kmeans_assign, per kernel {json.dumps(shapes)}")
 
 
+def replay_grouped(torch, parity, gen, seed, name, fields, what) -> None:
+    """One GROUP BY launch geometry on fresh data (x uniform on [LO, HI),
+    so the plain s1 is Σw|x|) against the plain version."""
+    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+                                                       grouped_hist_plain)
+    from repro_torch.kernels.weighted_stats.ops import (
+        fused_poisson_moments, grouped_moments_plain, prepare)
+    g = dict(fields)
+    Bp, np_, d, G = g["Bp"], g["np_"], g["d"], g["G"]
+    x = (torch.rand(np_, d, generator=gen) * (HI - LO) + LO).cuda()
+    keys = torch.randint(0, G, (np_,), generator=gen).float().cuda()
+    mask = None
+    if g["masked"]:
+        mask = (torch.rand(np_, generator=gen) > 0.3).float().cuda()
+    kw = dict(n_valid=g["n_valid"], valid_mask=mask, group_ids=keys,
+              num_groups=G)
+    pr = prepare(x, Bp, **kw)
+    with LaunchLog() as log:
+        if g["moments"]:
+            got = fused_poisson_moments(seed, x, Bp, **kw)
+        else:
+            got = fused_poisson_hist(seed, x, LO, HI, g["nbins"], Bp, **kw)
+    check((name, fields) in log.geometries, f"{what}: launched "
+          f"{list(log.geometries)}")
+    if g["moments"]:
+        want = grouped_moments_plain(pr, seed)
+        parity.moments(name, got, want, want[1], want[2], what)
+    else:
+        lo = torch.full((d,), LO, device="cuda")
+        hi = torch.full((d,), HI, device="cuda")
+        parity.bitwise(name, got, grouped_hist_plain(pr, seed, lo, hi,
+                                                     g["nbins"]), what)
+
+
 def kmeans_rows(torch, launches, parity: Parity):
     """Kernel rows of the two k-means kernels, at the shapes their main
     path gives them: kmeans_assign at the example's full fit (n = 400,000,
@@ -818,6 +1112,78 @@ def kmeans_rows(torch, launches, parity: Parity):
     ms = time_ms(torch, lambda: fused_poisson_kmeans(seed, xs, cs, KM_B), 20)
     print(f"timing fused_poisson_kmeans at the example's B={KM_B}, "
           f"n={KM_SAMPLE}: {ms:.4f} ms")
+    return rows
+
+
+def groupby_rows(torch, launches, parity: Parity, walls):
+    """Kernel rows of the two GROUP BY kernels at B = 256, n = 2^20 + 37,
+    G = 8, d = 1 (nbins = 2048), the sessions' warm walls, and the grouped
+    kernel against G masked moments launches at the reference benchmark's
+    shape."""
+    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+                                                       grouped_hist_plain)
+    from repro_torch.kernels.weighted_stats.ops import (
+        fused_poisson_moments, grouped_moments_plain, prepare)
+
+    B, n, G, d, seed = BIG_B, BIG_N, GB_G, 1, 2026
+    xk = torch.from_numpy(keyed_rows(n, d, G, seed=4)).cuda()
+    x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
+    kw = dict(group_ids=keys, num_groups=G)
+    pr = prepare(x, B, **kw)
+    lo = torch.full((d,), LO, device="cuda")
+    hi = torch.full((d,), HI, device="cuda")
+    weights = B * n
+    t_hash = weights * OPS_PER_WEIGHT / INT32_OPS_PER_S
+    # moments: one f32 FMA per weight and accumulator, G·(2d+1) of them;
+    # bytes: x and the keys read once, w_tot, s1, s2 written once
+    t_fma = weights * G * (2 * d + 1) * 2 / F32_FLOPS_PER_S
+    in_bytes = n * (d + 1) * 4
+    runs = {
+        "fused_poisson_moments_grouped": (
+            lambda: fused_poisson_moments(seed, x, B, **kw),
+            lambda: grouped_moments_plain(pr, seed),
+            in_bytes + B * G * (2 * d + 1) * 4, max(t_hash, t_fma)),
+        "fused_poisson_hist_grouped": (
+            lambda: fused_poisson_hist(seed, x, LO, HI, NBINS, B, **kw),
+            lambda: grouped_hist_plain(pr, seed, lo, hi, NBINS),
+            in_bytes + B * G * d * NBINS * 4, t_hash),
+    }
+    rows = []
+    for name, (kernel, plain, nbytes, t_ops) in runs.items():
+        ms = time_ms(torch, kernel, 5)
+        plain_ms = time_ms(torch, plain, 1)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound = max(t_bytes, t_ops) * 1e3
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, shape=dict(B=B, n=n, d=d, G=G, nbins=NBINS)))
+        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+              f"{bound:.4f} ms by {rows[-1]['bound_by']})")
+
+    # the grouped kernel against G masked launches of the moments kernel
+    sh = GB_RATIO_SHAPE
+    xk = torch.from_numpy(keyed_rows(sh["n"], sh["d"], G, seed=5)).cuda()
+    x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
+    masks = [(keys == g).float() for g in range(G)]
+    grouped_ms = time_ms(torch, lambda: fused_poisson_moments(
+        seed, x, sh["B"], group_ids=keys, num_groups=G), 20)
+    masked_ms = time_ms(torch, lambda: [fused_poisson_moments(
+        seed, x, sh["B"], valid_mask=m) for m in masks], 20)
+    print("grouped vs masked moments: " + json.dumps(dict(
+        shape=dict(sh, G=G), grouped_ms=grouped_ms, masked_ms=masked_ms,
+        masked_over_grouped=masked_ms / grouped_ms)))
+
+    data = keyed_rows(GB_N, G=GB_G)
+    for name in GB_INNERS:
+        warm = [groupby_session(data, name, None)[2]
+                for _ in range(SESSION_REPS)]
+        print(f"keyed {name} session wall (s): cold {walls[name]}, "
+              f"{SESSION_REPS} warm {json.dumps(warm)}; median "
+              f"{sorted(warm)[SESSION_REPS // 2]}")
     return rows
 
 
@@ -915,7 +1281,8 @@ def main() -> int:
           f"sources in {time.perf_counter() - t0:.1f} s")
     for lib, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line:
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill")):
                 print(f"ptxas {lib}: {line.split(':', 1)[-1].strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -928,16 +1295,22 @@ def main() -> int:
     parity = Parity()
     phase_parity(torch, parity)
     phase_parity_kmeans(torch, parity)
+    phase_parity_grouped(torch, parity)
     lap("3 (parity)")
     launches, geometries, quickstart = phase_main_path(torch)
     lap("4 (quickstart path)")
     km_launches, km_geometries = phase_kmeans_path(torch)
     lap("5 (k-means path)")
-    launches = {k: launches[k] + km_launches[k] for k in launches}
-    phase_replay(torch, {**geometries, **km_geometries}, parity)
-    lap("6 (replay)")
+    gb_launches, gb_geometries, gb_walls = phase_groupby_path(torch)
+    lap("6 (GROUP BY path)")
+    launches = {k: launches[k] + km_launches[k] + gb_launches[k]
+                for k in launches}
+    phase_replay(torch, {**geometries, **km_geometries, **gb_geometries},
+                 parity)
+    lap("7 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
-    lap("7 (timing)")
+    rows += groupby_rows(torch, launches, parity, gb_walls)
+    lap("8 (timing)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ from repro_torch.core.bootstrap import (BootstrapResult, bootstrap,
                                         seed_from_key)
 from repro_torch.core.delta import (PoissonDelta, poisson_delta_extend,
                                     poisson_delta_init, poisson_delta_result)
-from repro_torch.core.reduce_api import (Count, HistogramState, KMeansState,
+from repro_torch.core.reduce_api import (Count, GroupedStatistic,
+                                         HistogramState, KMeansState,
                                          KMeansStep, Mean, Median,
                                          MomentState, Quantile, Statistic,
                                          StatisticGroup, Std, Sum, Var,
@@ -29,8 +30,8 @@ __all__ = [
     "seed_from_key",
     "PoissonDelta", "poisson_delta_extend", "poisson_delta_init",
     "poisson_delta_result",
-    "Count", "HistogramState", "KMeansState", "KMeansStep", "Mean", "Median",
-    "MomentState", "Quantile", "Statistic", "StatisticGroup", "Std", "Sum",
-    "Var", "kmeans_fit",
+    "Count", "GroupedStatistic", "HistogramState", "KMeansState",
+    "KMeansStep", "Mean", "Median", "MomentState", "Quantile", "Statistic",
+    "StatisticGroup", "Std", "Sum", "Var", "kmeans_fit",
     "EarlSession", "EarlyResult", "SSABEResult", "ssabe",
 ]

@@ -94,6 +94,8 @@ def bootstrap(values, stat: Statistic, B: int, key, engine: str = "poisson",
     states = fused_resample_states(stat, seed_from_key(key), x2, int(B))
     thetas = stat.correct(stat.finalize_batch(states), p)
     estimate = stat.correct(stat(x2), p)
-    return BootstrapResult(estimate=estimate, thetas=thetas,
-                           report=accuracy.report_for(thetas, alpha=alpha),
+    report = accuracy.report_for(thetas, alpha=alpha,
+                                 num_groups=getattr(stat, "num_groups",
+                                                    None))
+    return BootstrapResult(estimate=estimate, thetas=thetas, report=report,
                            B=int(B), n=int(x2.shape[0]))

@@ -66,14 +66,27 @@ def poisson_delta_extend(pd: PoissonDelta, new_values) -> PoissonDelta:
 
 def poisson_delta_result(pd: PoissonDelta, estimate: Any = None,
                          p: float = 1.0, p_keys=None) -> BootstrapResult:
-    """Finalize a delta run; ``p`` is the sampled fraction for correct."""
-    if p_keys is not None:
-        raise NotImplementedError("per-key correction (GROUP BY) is not "
-                                  "ported yet")
-    thetas = pd.stat.correct(pd.stat.finalize_batch(pd.states), p)
+    """Finalize a delta run; ``p`` is the sampled fraction for correct.
+
+    For a keyed statistic under stratified sampling pass ``p_keys`` (one
+    sampled fraction per key) instead: each key's thetas and estimate are
+    corrected by its own fraction (``GroupedStatistic.correct_per_key``),
+    and the fractions appear on the ``KeyedAccuracyReport``."""
+    num_groups = getattr(pd.stat, "num_groups", None)
+    raw_thetas = pd.stat.finalize_batch(pd.states)
     if estimate is None:
         estimate = pd.stat.finalize(pd.est_state)
-    estimate = pd.stat.correct(estimate, p)
-    return BootstrapResult(estimate=estimate, thetas=thetas,
-                           report=accuracy.report_for(thetas), B=pd.B,
-                           n=pd.n)
+    if p_keys is not None:
+        if num_groups is None:
+            raise ValueError("p_keys needs a keyed statistic "
+                             "(GroupedStatistic)")
+        thetas = pd.stat.correct_per_key(raw_thetas, p_keys, key_axis=1)
+        estimate = pd.stat.correct_per_key(estimate, p_keys, key_axis=0)
+    else:
+        thetas = pd.stat.correct(raw_thetas, p)
+        estimate = pd.stat.correct(estimate, p)
+    return BootstrapResult(
+        estimate=estimate, thetas=thetas,
+        report=accuracy.report_for(thetas, num_groups=num_groups,
+                                   p_keys=p_keys),
+        B=pd.B, n=pd.n)

@@ -472,3 +472,155 @@ class StatisticGroup(Statistic):
         return fm_ops.fused_poisson_multi(self, seed, values, B,
                                           n_valid=n_valid,
                                           valid_mask=valid_mask)
+
+
+def _tree_take(state, g: int, axis: int):
+    """Index ``g`` off ``axis`` of every leaf: one key's view of a G-keyed
+    state or result."""
+    return tree_map(lambda a: a.select(axis, g), state)
+
+
+def _tree_stack(states, axis: int):
+    """Inverse of ``_tree_take``: stack per-key states into a G axis."""
+    return tree_map(lambda *ls: torch.stack(ls, dim=axis), *states)
+
+
+class GroupedStatistic(Statistic):
+    """GROUP BY for the bootstrap: the inner statistic per key, in one pass,
+    under ONE shared Poisson(1) resample stream.
+
+    The key is the LAST column of ``values``: integers 0..num_groups-1
+    stored as floats; the other columns are the inner statistic's data.
+    The state is the inner state with a leading (G, ...) key axis on every
+    leaf, (B, G, ...) in a batch; ``finalize``/``correct`` give the inner
+    result with a leading G axis, so bootstrap thetas are (B, G, ...) and
+    sessions and ``bootstrap`` build a ``KeyedAccuracyReport`` from
+    ``num_groups``.
+
+    Key g's thetas are bitwise the inner statistic run alone with
+    ``valid_mask = (key == g)`` under the same seed: each implicit weight
+    is drawn once and routed to its key's slot by an exact 0/1 mask.
+    ``fused_poisson_states`` takes the keyed kernels for moment, Quantile
+    and KMeansStep inners; a custom inner gets the materialized weights of
+    ``fused_resample_states``, like an ungrouped custom statistic.  The
+    device of the values picks the kernel, so the only ``backend`` is None.
+    """
+
+    _BACKENDS = (None,)
+
+    def __init__(self, inner: Statistic, num_groups: int, backend=None):
+        if isinstance(inner, GroupedStatistic):
+            raise TypeError("GroupedStatistic cannot nest another "
+                            "GroupedStatistic: use a single key column "
+                            "with the product of the key spaces")
+        if isinstance(inner, StatisticGroup):
+            raise TypeError("GroupedStatistic over a StatisticGroup is not "
+                            "supported: group the keyed statistics "
+                            "instead, StatisticGroup([GroupedStatistic(m, "
+                            "G) for m in members])")
+        if not isinstance(inner, Statistic):
+            raise TypeError(f"inner statistic {inner!r} is not a Statistic")
+        if backend not in self._BACKENDS:
+            raise ValueError(f"unknown grouped backend: {backend!r} (the "
+                             "device of the values picks the kernel)")
+        num_groups = int(num_groups)
+        if num_groups < 1:
+            raise ValueError(f"num_groups must be >= 1, got {num_groups}")
+        self.inner = inner
+        self.num_groups = num_groups
+
+    @staticmethod
+    def _split_key(values) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = _as_2d(values)
+        if x.shape[1] < 2:
+            raise ValueError("GroupedStatistic needs at least 2 columns: "
+                             "data columns plus the key as the LAST column")
+        return x[:, :-1], x[:, -1]
+
+    def init_state(self, dim: int, device="cpu") -> State:
+        # ``dim`` counts the key column; the inner statistic sees one fewer.
+        return _tree_stack([self.inner.init_state(dim - 1, device)
+                            for _ in range(self.num_groups)], 0)
+
+    def update(self, state, values, weights=None):
+        x, gid = self._split_key(values)
+        w = _w(x, weights)
+        return _tree_stack([
+            self.inner.update(_tree_take(state, g, 0), x,
+                              w * (gid == g).to(torch.float32))
+            for g in range(self.num_groups)], 0)
+
+    def merge(self, a, b):
+        return self.inner.merge(a, b)
+
+    def finalize(self, state) -> Result:
+        return _tree_stack([self.inner.finalize(_tree_take(state, g, 0))
+                            for g in range(self.num_groups)], 0)
+
+    def finalize_batch(self, states) -> Result:
+        return _tree_stack([
+            self.inner.finalize_batch(_tree_take(states, g, 1))
+            for g in range(self.num_groups)], 1)
+
+    def correct(self, result, p: float) -> Result:
+        return self.inner.correct(result, p)
+
+    def correct_per_key(self, result, p_keys, key_axis: int = 0) -> Result:
+        """Key g's slice corrected by its OWN sampled fraction p_keys[g].
+
+        Under stratified sampling each key is drawn at its own rate, so a
+        whole-table p mis-scales count-like inners (Sum, Count).
+        ``key_axis`` is 0 for an estimate (G, ...), 1 for thetas
+        (B, G, ...).  A key with p_g = 0 was never sampled: its result
+        passes through uncorrected instead of being divided to NaN."""
+        if key_axis not in (0, 1):
+            raise ValueError(f"key_axis must be 0 (an estimate) or 1 "
+                             f"(thetas), got {key_axis}")
+        if len(p_keys) != self.num_groups:
+            raise ValueError(f"p_keys has {len(p_keys)} entries for "
+                             f"{self.num_groups} keys")
+        outs = []
+        for g in range(self.num_groups):
+            pg = float(p_keys[g])
+            outs.append(self.inner.correct(
+                _tree_take(result, g, key_axis), pg if pg > 0.0 else 1.0))
+        return _tree_stack(outs, key_axis)
+
+    def tile_update(self, states, x_tile, w_tile):
+        """Each key's slot advances by the inner statistic's tile math
+        under w_tile · (key == g); ``states`` leaves are (B, G, ...)."""
+        x, gid = self._split_key(x_tile)
+        return _tree_stack([
+            self.inner.tile_update(
+                _tree_take(states, g, 1), x,
+                w_tile * (gid == g).to(torch.float32)[None, :])
+            for g in range(self.num_groups)], 1)
+
+    def fused_poisson_states(self, seed, values, B, n_valid=None,
+                             valid_mask=None):
+        """(B, G, ...) states under one implicit Poisson(1) stream,
+        segment-reduced per key in the kernels: no (B, n) weight matrix
+        and no (n, G) one-hot.  None for a custom inner (the caller then
+        materializes the same weights)."""
+        x, gid = self._split_key(values)
+        G, inner = self.num_groups, self.inner
+        kw = dict(n_valid=n_valid, valid_mask=valid_mask, group_ids=gid,
+                  num_groups=G)
+        if isinstance(inner, _MomentStatistic):
+            from repro_torch.kernels.weighted_stats import ops as ws_ops
+            return inner.from_moments(*ws_ops.fused_poisson_moments(
+                seed, x, B, **kw))
+        if isinstance(inner, Quantile):
+            from repro_torch.kernels.weighted_hist import ops as wh_ops
+            counts = wh_ops.fused_poisson_hist(seed, x, inner.lo, inner.hi,
+                                               inner.nbins, B, **kw)
+            d = x.shape[1]
+            return HistogramState(
+                counts=counts,
+                lo=torch.full((B, G, d), inner.lo, device=x.device),
+                hi=torch.full((B, G, d), inner.hi, device=x.device))
+        if isinstance(inner, KMeansStep):
+            from repro_torch.kernels.kmeans_assign import ops as ka_ops
+            return KMeansState(*ka_ops.fused_poisson_kmeans(
+                seed, x, inner.centroids, B, **kw))
+        return None

@@ -12,6 +12,8 @@ import dataclasses
 import time
 from typing import Any, List, Optional
 
+import numpy as np
+
 from repro_torch import random as trandom
 from repro_torch.core import ssabe as ssabe_mod
 from repro_torch.core.accuracy import AccuracyReport
@@ -37,7 +39,8 @@ class EarlyResult:
     wall_time_s: float
     ssabe: Optional[ssabe_mod.SSABEResult]
     #: StatisticGroup runs: one AccuracyReport per member, from the SAME
-    #: resamples (joint CIs); None for a single statistic.
+    #: resamples (joint CIs); GroupedStatistic runs: one per key (the
+    #: KeyedAccuracyReport's members); None for a single statistic.
     reports: Optional[tuple] = None
 
 
@@ -83,15 +86,35 @@ class EarlSession:
     def _take(self, start: int, stop: int):
         return as_tensor(self.sampler.take(start, stop), self.device)
 
+    def _p_keys(self, n_have: int) -> Optional[np.ndarray]:
+        """Per-key sampled fractions when the sampler stratifies a keyed
+        statistic, else None (the whole-table p applies): a stratified
+        prefix is uniform within each key but not across keys."""
+        if getattr(self.stat, "num_groups", None) is None:
+            return None
+        counts = getattr(self.sampler, "stratum_counts", None)
+        sizes = getattr(self.sampler, "stratum_sizes", None)
+        if counts is None or sizes is None:
+            return None
+        have = np.asarray(counts(n_have), dtype=np.float64)
+        total = np.asarray(sizes, dtype=np.float64)
+        return have / np.maximum(total, 1.0)
+
     def _full_job(self, t0: float, history) -> EarlyResult:
         N = self.sampler.N
         res = self.stat(self._take(0, N))
-        # groups get degenerate per-member reports on the exact job too
+        # groups, and keyed runs per key, get degenerate reports on the
+        # exact job too
         reports = None
         if isinstance(res, tuple):
             reports = tuple(AccuracyReport(cv=0.0, se=0.0, rel_halfwidth=0.0,
                                            ci_lo=r, ci_hi=r, boot_mean=r)
                             for r in res)
+        elif getattr(self.stat, "num_groups", None) is not None:
+            reports = tuple(AccuracyReport(cv=0.0, se=0.0, rel_halfwidth=0.0,
+                                           ci_lo=res[g], ci_hi=res[g],
+                                           boot_mean=res[g])
+                            for g in range(int(self.stat.num_groups)))
         return EarlyResult(
             result=res, cv=0.0, ci_lo=res, ci_hi=res, n_used=N, N=N,
             fraction=1.0, B=1, iterations=len(history), fell_back=True,
@@ -132,7 +155,8 @@ class EarlSession:
             n_have = n_goal
             p = n_have / N
             # the point estimate is delta-maintained in pd.est_state
-            res = poisson_delta_result(pd, p=p)
+            res = poisson_delta_result(pd, p=p,
+                                       p_keys=self._p_keys(n_have))
             entry = dict(iteration=iterations, n=n_have, B=int(B),
                          cv=float(res.cv), t=time.perf_counter() - t0)
             member_reports = getattr(res.report, "members", None)

@@ -26,11 +26,16 @@ from repro_torch.core.reduce_api import Statistic, _as_2d, tree_map
 from repro_torch.device import as_tensor, resolve_device
 
 
-def _cv_of(thetas) -> float:
-    """c_v of a theta distribution; the WORST member's for a group."""
+def _cv_of(thetas, num_groups=None) -> float:
+    """c_v of a theta distribution; the WORST member's for a group, and
+    with ``num_groups`` (a GroupedStatistic's (B, G, ...) thetas) the
+    WORST key's."""
     if isinstance(thetas, (tuple, list)):
         return max(float(accuracy.coefficient_of_variation(t))
                    for t in thetas)
+    if num_groups is not None:
+        return max(float(accuracy.coefficient_of_variation(thetas[:, g]))
+                   for g in range(int(num_groups)))
     return float(accuracy.coefficient_of_variation(thetas))
 
 
@@ -81,7 +86,8 @@ def estimate_B(values, stat: Statistic, tau: float, key,
     prev_cv = None
     chosen = B_max
     for B in candidates:
-        cv = _cv_of(tree_map(lambda t, B=B: t[:B], thetas_full))
+        cv = _cv_of(tree_map(lambda t, B=B: t[:B], thetas_full),
+                    num_groups=getattr(stat, "num_groups", None))
         history.append((B, cv))
         if prev_cv is not None and abs(cv - prev_cv) < tau:
             chosen = B

@@ -7,6 +7,9 @@
   bitwise the JAX package's, so both packages see the same sample.
 * ``PreMapSampler`` — the pre-map flavour: samples row indices first and
   reads only those rows (low load cost).
+* ``StratifiedSampler`` — the permutation reordered by stride scheduling
+  over an integer key column, so every prefix holds the keys in chosen
+  shares (GROUP BY sessions); bitwise the JAX package's order.
 
 ``take`` returns a float tensor on the sampler's device (the card unless
 ``device="cpu"``).
@@ -65,6 +68,65 @@ class PermutationSampler:
         stop = min(stop, self.N)
         return torch.from_numpy(self._rows(self.perm[start:stop])).to(
             self.device)
+
+
+class StratifiedSampler(PermutationSampler):
+    """Skew-aware prefix sampler for keyed (GROUP BY) sessions.
+
+    A uniform prefix of a skewed table starves rare keys, and a keyed
+    session gates on its worst key.  This sampler reorders the base
+    permutation by stride scheduling: within each stratum rows keep the
+    base order (each stratum's part of a prefix is a uniform sample of that
+    key), and row i of stratum g is scheduled at virtual time
+    (i+1)/share_g, the global order being the stable ascending sort of
+    those times.  ``shares=None`` gives equal shares.
+
+    The stratum is the last column, an integer key, which is the column
+    ``GroupedStatistic`` groups on; rows are read pre-map.  Prefixes are
+    uniform within each key but not across keys, so keyed sessions correct
+    per key with ``stratum_counts(n) / stratum_sizes``."""
+
+    def __init__(self, store: ShardedStore, num_groups: int, seed: int = 0,
+                 shares=None, device=None):
+        super().__init__(store, seed=seed, device=device)
+        self.num_groups = int(num_groups)
+        cols = []
+        for s in store.splits:
+            a = np.asarray(s)
+            if a.ndim < 2 or a.shape[1] < 2:
+                raise ValueError("StratifiedSampler needs keyed rows: data "
+                                 "columns plus an integer key column")
+            cols.append(a[:, -1])
+        keys = np.concatenate(cols)
+        if np.any(keys != np.floor(keys)):
+            raise ValueError("key column must hold integers")
+        keys = keys.astype(np.int64)
+        if keys.min() < 0 or keys.max() >= self.num_groups:
+            raise ValueError(f"keys must lie in [0, {self.num_groups}); got "
+                             f"range [{keys.min()}, {keys.max()}]")
+        if shares is None:
+            shares = np.ones(self.num_groups)
+        shares = np.asarray(shares, np.float64)
+        if shares.shape != (self.num_groups,) or not np.all(shares > 0):
+            raise ValueError("shares must be positive, one per group")
+        self.shares = shares / shares.sum()
+        #: rows of key g in the whole store: the per-key N for correct(p).
+        self.stratum_sizes = np.bincount(keys, minlength=self.num_groups)
+
+        kperm = keys[self.perm]
+        order = np.argsort(kperm, kind="stable")
+        sorted_k = kperm[order]
+        starts = np.searchsorted(sorted_k, np.arange(self.num_groups))
+        ranks = np.empty(self.N, np.int64)
+        ranks[order] = np.arange(self.N) - starts[sorted_k]
+        vtime = (ranks + 1) / self.shares[kperm]
+        self.perm = self.perm[np.argsort(vtime, kind="stable")]
+        self._kperm = keys[self.perm]
+
+    def stratum_counts(self, stop: int) -> np.ndarray:
+        """Rows of each key inside the prefix [0, stop)."""
+        stop = min(int(stop), self.N)
+        return np.bincount(self._kperm[:stop], minlength=self.num_groups)
 
 
 class PreMapSampler(PermutationSampler):

@@ -7,7 +7,8 @@ imports jax or the JAX package.  What crosses:
 * a PRNG key: uint32[2];
 * statistic states: anything with ``w, s1, s2`` (a moment state),
   ``counts, lo, hi`` (a histogram state) or ``sums, counts, inertia`` (a
-  k-means state), or a tuple of them (a group);
+  k-means state), or a tuple of them (a group); a GroupedStatistic's
+  states cross the same way, with the key axis G on every leaf;
 * a Poisson delta run: its states, point-estimate state, key, n and step;
 * a sharded store: its splits.
 

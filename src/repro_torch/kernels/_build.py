@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 VOID_P = ctypes.c_void_p
 INT = ctypes.c_int
 #: C signature of each library's entry point (all return cudaError_t).
-#: fused_pass serves fused_poisson_moments, _hist and _multi alike.
+#: fused_pass serves fused_poisson_moments, _hist and _multi alike;
+#: fused_grouped their keyed (GROUP BY) moments and histogram.
 SIGNATURES: Dict[str, tuple] = {
     "poisson_counts": (INT, INT, INT, INT, INT, VOID_P, VOID_P),
     "fused_pass": (INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P, INT,
@@ -46,6 +47,10 @@ SIGNATURES: Dict[str, tuple] = {
                       VOID_P, VOID_P, VOID_P),
     "fused_kmeans": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P,
                      VOID_P, INT, INT, VOID_P, VOID_P, VOID_P),
+    "fused_grouped": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P,
+                      VOID_P, INT, INT, INT, INT, INT, VOID_P, VOID_P,
+                      VOID_P, VOID_P, VOID_P, VOID_P, INT, VOID_P, VOID_P,
+                      VOID_P, VOID_P),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

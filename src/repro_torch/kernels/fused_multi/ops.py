@@ -54,11 +54,17 @@ def _multi_scan(slots, seed: int, pr: Prepared) -> Tuple:
 
 
 def _multi_cuda(slots, seed: int, pr: Prepared) -> Tuple:
-    from repro_torch.core.reduce_api import (HistogramState, KMeansState,
+    from repro_torch.core.reduce_api import (GroupedStatistic,
+                                             HistogramState, KMeansState,
                                              KMeansStep, MomentState,
                                              Quantile, _MomentStatistic)
     kinds = []
     for s in slots:
+        if isinstance(s, GroupedStatistic):
+            raise NotImplementedError(
+                "a GroupedStatistic member of a StatisticGroup has no CUDA "
+                "kernel yet; run the keyed statistics as separate "
+                "GroupedStatistic sessions")
         if isinstance(s, _MomentStatistic):
             kinds.append("moments")
         elif isinstance(s, Quantile):

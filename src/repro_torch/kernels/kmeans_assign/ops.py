@@ -8,7 +8,10 @@ launches the hand-written kernel (csrc/kmeans_assign.cu, replacing the TPU
 kernel repro/kernels/kmeans_assign/kernel.py: kmeans_assign_kernel;
 csrc/fused_kmeans.cu, replacing fused_poisson_kmeans_kernel) or raises; a
 CPU tensor runs the plain version, the JAX package's scan lowering tile by
-tile.
+tile.  With ``group_ids`` (GROUP BY) ``fused_poisson_kmeans`` gives one
+state per key: on the card one fused_kmeans.cu launch per key under
+valid · (key == g), which is the reference's contract for slot g and pays
+the hash G times; on the CPU the grouped scan, which assigns each tile once.
 
 d² is computed elementwise in a fixed order, with no matrix product:
 xx = Σ_q x_q·x_q, cc = Σ_q c_q·c_q and xc = Σ_q x_q·c_q in ascending q,
@@ -22,6 +25,7 @@ running sums across tiles are float64, rounded once, as the moments' are.
 """
 from __future__ import annotations
 
+import copy
 from typing import Tuple
 
 import torch
@@ -32,8 +36,8 @@ from repro_torch.kernels._pass import (SMEM_BYTES, TARGET_CTAS,
                                        stream_ptr)
 from repro_torch.kernels.poisson_counts.ref import weight_tile_blocks
 from repro_torch.kernels.weighted_stats.ops import (Prepared, _pad_to,
-                                                    mask_ptr, prepare,
-                                                    tile_scan)
+                                                    key_masks, mask_ptr,
+                                                    prepare, tile_scan)
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -62,16 +66,29 @@ def assign_tile(x: torch.Tensor, cent: torch.Tensor
     return assign, min_d2
 
 
-def kmeans_tile(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
-                ) -> Triple:
-    """One tile's f32 (sums (B, k, d), counts (B, k), inertia (B,)) under
-    a (B, bn) weight tile: the tile math of ``_fused_kmeans_scan``, the
-    cluster-masked moments as one (B, bn) @ (bn, k·d) product."""
+def tile_operands(x: torch.Tensor, cent: torch.Tensor) -> Triple:
+    """What a tile's contraction needs from x (bn, d) and the centroids:
+    the cluster-masked copies of x (bn, k·d), the one-hot (bn, k) and
+    min-d² (bn,)."""
     assign, min_d2 = assign_tile(x, cent)
     bn, d = x.shape
-    k = cent.shape[0]
-    y = (assign[:, :, None] * x[:, None, :]).reshape(bn, k * d)
-    return (w @ y).reshape(w.shape[0], k, d), w @ assign, w @ min_d2
+    y = (assign[:, :, None] * x[:, None, :]).reshape(bn, cent.shape[0] * d)
+    return y, assign, min_d2
+
+
+def contract_tile(w: torch.Tensor, ops: Triple, d: int) -> Triple:
+    """One tile's f32 (sums (B, k, d), counts (B, k), inertia (B,)) under
+    a (B, bn) weight tile, the cluster-masked moments as one
+    (B, bn) @ (bn, k·d) product."""
+    y, assign, min_d2 = ops
+    return ((w @ y).reshape(w.shape[0], assign.shape[1], d), w @ assign,
+            w @ min_d2)
+
+
+def kmeans_tile(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
+                ) -> Triple:
+    """The tile math of ``_fused_kmeans_scan``."""
+    return contract_tile(w, tile_operands(x, cent), x.shape[1])
 
 
 def assign_plain(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
@@ -107,6 +124,28 @@ def fused_kmeans_plain(pr: Prepared, seed: int, cent: torch.Tensor
     def consume(w, xt):
         for i, t in enumerate(kmeans_tile(xt, w, cent)):
             acc[i] = acc[i] + t
+
+    tile_scan(pr, seed, consume)
+    return tuple(a.float() for a in acc)
+
+
+def grouped_kmeans_plain(pr: Prepared, seed: int, cent: torch.Tensor
+                         ) -> Triple:
+    """Plain keyed version, the JAX package's ``_grouped_fused_kmeans_scan``:
+    (sums (Bp, G, k, d), counts (Bp, G, k), inertia (Bp, G)).  Each tile is
+    assigned once; slot g contracts w · (key == g) as
+    ``fused_kmeans_plain`` contracts its masked weights, bitwise."""
+    k = cent.shape[0]
+    f64 = dict(dtype=torch.float64, device=pr.device)
+    acc = [torch.zeros(pr.Bp, pr.G, k, pr.d, **f64),
+           torch.zeros(pr.Bp, pr.G, k, **f64),
+           torch.zeros(pr.Bp, pr.G, **f64)]
+
+    def consume(w, xt, gt):
+        ops = tile_operands(xt, cent)
+        for g, m in enumerate(key_masks(pr, gt)):
+            for i, t in enumerate(contract_tile(w * m[None, :], ops, pr.d)):
+                acc[i][:, g] += t
 
     tile_scan(pr, seed, consume)
     return tuple(a.float() for a in acc)
@@ -179,6 +218,21 @@ def kmeans_cuda(pr: Prepared, seed: int, cent: torch.Tensor) -> Triple:
     return split_entries(out, k, pr.d)
 
 
+def grouped_kmeans_cuda(pr: Prepared, seed: int, cent: torch.Tensor
+                        ) -> Triple:
+    """One fused k-means launch per key under valid · (key == g): slot g
+    is that launch, bitwise.  (Bp, G, ...) states on the card."""
+    outs = []
+    for g in range(pr.G):
+        keyed = copy.copy(pr)
+        keyed.mp = (pr.gp == g).to(torch.float32)
+        keyed.mp[pr.n:] = 0.0
+        if pr.mp is not None:
+            keyed.mp = keyed.mp * pr.mp
+        outs.append(kmeans_cuda(keyed, seed, cent))
+    return tuple(torch.stack(slots, dim=1) for slots in zip(*outs))
+
+
 def centroids_on(centroids, device: torch.device, d: int) -> torch.Tensor:
     """(k, d) f32 centroids, contiguous, on ``device``."""
     cent = torch.as_tensor(centroids).to(device=device, dtype=torch.float32)
@@ -210,18 +264,22 @@ kmeans_assign.launches = 0
 
 
 def fused_poisson_kmeans(seed: int, values: torch.Tensor, centroids, B: int,
-                         n_valid=None, valid_mask=None) -> Triple:
+                         n_valid=None, valid_mask=None, group_ids=None,
+                         num_groups=None) -> Triple:
     """values (n, d) or (n,) × centroids (k, d) -> (sums (B, k, d),
     counts (B, k), inertia (B,)) under the implicit Poisson(1) weights of
     every fused path (``implicit_weights(seed, B, n)``).  ``n_valid`` and
-    ``valid_mask`` zero weight columns as in ``fused_poisson_moments``."""
-    pr = prepare(values, B, n_valid, valid_mask)
+    ``valid_mask`` zero weight columns as in ``fused_poisson_moments``;
+    ``group_ids`` gives (B, G, k, d), (B, G, k), (B, G), slot g bitwise
+    the call under ``valid_mask = valid · (group_ids == g)``."""
+    pr = prepare(values, B, n_valid, valid_mask, group_ids, num_groups)
     cent = centroids_on(centroids, pr.device, pr.d)
     if pr.device.type == "cuda":
-        out = kmeans_cuda(pr, seed, cent)
+        run = grouped_kmeans_cuda if pr.gp is not None else kmeans_cuda
     else:
-        out = fused_kmeans_plain(pr, seed, cent)
-    return tuple(t[:pr.B] for t in out)
+        run = grouped_kmeans_plain if pr.gp is not None \
+            else fused_kmeans_plain
+    return tuple(t[:pr.B] for t in run(pr, seed, cent))
 
 
 fused_poisson_kmeans.launches = 0

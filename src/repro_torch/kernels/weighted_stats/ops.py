@@ -1,13 +1,15 @@
 """Matrix-free bootstrap moments, and the tile scan every fused path shares.
 
 ``fused_poisson_moments`` gives, for B resamples under implicit Poisson(1)
-weights W (never stored), w_tot = ΣW (B,), s1 = W·X and s2 = W·X² (B, d).
+weights W (never stored), w_tot = ΣW (B,), s1 = W·X and s2 = W·X² (B, d);
+with ``group_ids`` (GROUP BY) one such slot per key, (B, G) and (B, G, d).
 Dispatch is on the device of ``values``: a CUDA tensor launches the
 hand-written kernel (csrc/fused_pass.cu without histograms, replacing
 the TPU kernel repro/kernels/weighted_stats/kernel.py:
-fused_poisson_moments_kernel) or raises; a CPU tensor runs the plain
-version, the JAX package's scan lowering tile by tile in the same tile
-order.
+fused_poisson_moments_kernel; keyed, csrc/fused_grouped.cu, replacing
+fused_poisson_moments_grouped_kernel) or raises; a CPU tensor runs the
+plain version, the JAX package's scan lowering tile by tile in the same
+tile order.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._pass import (MAX_ROWS, check_cuda_f32,
-                                       pass_geometry, stream_ptr)
+                                       grouped_geometry, pass_geometry,
+                                       stream_ptr)
 from repro_torch.kernels.poisson_counts.ops import poisson_counts
 from repro_torch.kernels.poisson_counts.ref import (tiles_per_chunk,
                                                     weight_block,
@@ -51,9 +54,12 @@ def implicit_weights(seed: int, B: int, n: int, device=None) -> torch.Tensor:
 
 
 class Prepared:
-    """A fused call's arguments, padded to whole RNG tiles."""
+    """A fused call's arguments, padded to whole RNG tiles.  A keyed call
+    also carries its (np_,) f32 key column ``gp`` (padding: key 0, whose
+    weights n_valid already zeroes) and ``G``."""
 
-    def __init__(self, values: torch.Tensor, B: int, n_valid, valid_mask):
+    def __init__(self, values: torch.Tensor, B: int, n_valid, valid_mask,
+                 group_ids=None, num_groups=None):
         x = values if values.ndim == 2 else values.reshape(values.shape[0],
                                                            -1)
         self.n, self.d = x.shape
@@ -68,23 +74,39 @@ class Prepared:
             m = torch.as_tensor(valid_mask).to(device=x.device,
                                                dtype=torch.float32)
             self.mp = _pad_to(m.reshape(self.n), self.bn, 0).contiguous()
+        self.gp, self.G = None, None
+        if group_ids is not None:
+            if num_groups is None or int(num_groups) < 1:
+                raise ValueError("group_ids requires num_groups >= 1, got "
+                                 f"{num_groups!r}")
+            g = torch.as_tensor(group_ids).to(device=x.device,
+                                              dtype=torch.float32)
+            self.gp = _pad_to(g.reshape(self.n), self.bn, 0).contiguous()
+            self.G = int(num_groups)
         self.device = x.device
 
 
-def prepare(values: torch.Tensor, B: int, n_valid=None,
-            valid_mask=None) -> Prepared:
+def prepare(values: torch.Tensor, B: int, n_valid=None, valid_mask=None,
+            group_ids=None, num_groups=None) -> Prepared:
     if not isinstance(values, torch.Tensor):
         raise TypeError("fused ops take a torch.Tensor; its device picks "
                         "the kernel (cuda) or the plain version (cpu)")
     if values.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {values.device}")
-    return Prepared(values, int(B), n_valid, valid_mask)
+    return Prepared(values, int(B), n_valid, valid_mask, group_ids,
+                    num_groups)
 
 
-def tile_scan(pr: Prepared, seed: int,
-              consume: Callable[[torch.Tensor, torch.Tensor], None]) -> None:
+def key_masks(pr: Prepared, g_tile: torch.Tensor) -> torch.Tensor:
+    """(G, bn) exact 0/1 masks (key == g) of a key tile."""
+    keys = torch.arange(pr.G, dtype=torch.float32, device=g_tile.device)
+    return (g_tile[None, :] == keys[:, None]).to(torch.float32)
+
+
+def tile_scan(pr: Prepared, seed: int, consume: Callable[..., None]) -> None:
     """The scan lowering: every (Bp, bn) weight tile in n order,
-    handed to ``consume(w_tile, x_tile)`` with its (bn, d) x tile.
+    handed to ``consume(w_tile, x_tile)`` with its (bn, d) x tile, and,
+    for a keyed call, its (bn,) key tile as a third argument.
     Weights are drawn a chunk of tiles at a time."""
     nt = pr.np_ // pr.bn
     step = tiles_per_chunk(pr.Bp, pr.bn)
@@ -95,7 +117,11 @@ def tile_scan(pr: Prepared, seed: int,
                          valid=valid, device=pr.device)
         for t in range(c0, c1):
             lo = (t - c0) * pr.bn
-            consume(w[:, lo:lo + pr.bn], pr.xp[t * pr.bn:(t + 1) * pr.bn])
+            cols = slice(t * pr.bn, (t + 1) * pr.bn)
+            if pr.gp is None:
+                consume(w[:, lo:lo + pr.bn], pr.xp[cols])
+            else:
+                consume(w[:, lo:lo + pr.bn], pr.xp[cols], pr.gp[cols])
 
 
 def moments_plain(pr: Prepared, seed: int
@@ -116,6 +142,31 @@ def moments_plain(pr: Prepared, seed: int
         acc[0] = acc[0] + w.sum(dim=1)
         acc[1] = acc[1] + w @ xt
         acc[2] = acc[2] + w @ (xt * xt)
+
+    tile_scan(pr, seed, consume)
+    return tuple(a.float() for a in acc)
+
+
+def grouped_moments_plain(pr: Prepared, seed: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain keyed version: (w_tot (Bp, G), s1 (Bp, G, d), s2 (Bp, G, d)),
+    the JAX package's ``_grouped_fused_scan``.  Slot g runs
+    ``moments_plain``'s tile math on w · (key == g), with float64 running
+    sums, so it is bitwise ``moments_plain`` under
+    ``valid_mask = valid · (key == g)``: 0/1 masks compose exactly."""
+    f64 = dict(dtype=torch.float64, device=pr.device)
+    acc = [torch.zeros(pr.Bp, pr.G, **f64),
+           torch.zeros(pr.Bp, pr.G, pr.d, **f64),
+           torch.zeros(pr.Bp, pr.G, pr.d, **f64)]
+
+    def consume(w, xt, gt):
+        x2 = xt * xt
+        for g, m in enumerate(key_masks(pr, gt)):
+            wg = w * m[None, :]
+            acc[0][:, g] += wg.sum(dim=1)
+            acc[1][:, g] += wg @ xt
+            acc[2][:, g] += wg @ x2
 
     tile_scan(pr, seed, consume)
     return tuple(a.float() for a in acc)
@@ -149,19 +200,63 @@ def moments_cuda(pr: Prepared, seed: int):
     return bufs[3], bufs[4], bufs[5]
 
 
+def grouped_moments_cuda(pr: Prepared, seed: int):
+    """Kernel 6 (csrc/fused_grouped.cu) over a prepared keyed call:
+    (w_tot (Bp, G), s1 (Bp, G, d), s2 (Bp, G, d)) on the card."""
+    check_cuda_f32("values", pr.xp)
+    check_cuda_f32("group_ids", pr.gp)
+    tpc, ranges = pass_geometry(pr.Bp, pr.np_, pr.bn)
+    dc, kg, rows, _ = grouped_geometry(pr.G, pr.d)
+
+    def e(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=pr.device)
+    parts = (e(pr.Bp, ranges, pr.G), e(pr.Bp, ranges, pr.G, pr.d),
+             e(pr.Bp, ranges, pr.G, pr.d))
+    out = (e(pr.Bp, pr.G), e(pr.Bp, pr.G, pr.d), e(pr.Bp, pr.G, pr.d))
+    grouped_moments_cuda.launches += 1
+    _build.launch("fused_grouped", int(seed), pr.n_valid, pr.Bp, pr.np_,
+                  pr.bb, pr.bn, pr.d, pr.G, pr.xp.data_ptr(), mask_ptr(pr),
+                  pr.gp.data_ptr(), dc, kg, rows, tpc, ranges,
+                  *[t.data_ptr() for t in parts + out], 0, None, None, None,
+                  stream_ptr(pr.device))
+    return out
+
+
+grouped_moments_cuda.launches = 0
+
+
 def fused_poisson_moments(seed: int, values: torch.Tensor, B: int,
-                          n_valid=None, valid_mask=None):
+                          n_valid=None, valid_mask=None,
+                          stream: bool = False, group_ids=None,
+                          num_groups=None):
     """values (n, d) or (n,) -> (w_tot (B,), s1 (B, d), s2 (B, d)).
 
     ``n_valid`` zeroes weight columns >= n_valid; ``valid_mask`` ((n,)
     exact 0/1) multiplies the weights after that, so a prefix-shaped mask
-    reproduces ``n_valid`` bit for bit."""
-    pr = prepare(values, B, n_valid, valid_mask)
-    if pr.device.type == "cuda":
-        w_tot, s1, s2 = moments_cuda(pr, seed)
+    reproduces ``n_valid`` bit for bit.
+
+    ``group_ids`` ((n,) keys 0..num_groups-1, float storage is fine)
+    segment-reduces the same weights per key: (w_tot (B, G), s1 (B, G, d),
+    s2 (B, G, d)), slot g bitwise the call under
+    ``valid_mask = valid · (group_ids == g)``.
+
+    ``stream=True`` (the double-buffered kernel 5) is not ported."""
+    pr = prepare(values, B, n_valid, valid_mask, group_ids, num_groups)
+    if stream:
+        if pr.gp is not None:
+            raise ValueError("stream=True is not supported with group_ids "
+                             "(the grouped kernel keeps its G·d "
+                             "accumulators resident instead)")
+        raise NotImplementedError("fused_poisson_moments(stream=True) (the "
+                                  "double-buffered kernel) is not ported "
+                                  "yet")
+    cuda = pr.device.type == "cuda"
+    if pr.gp is not None:
+        out = grouped_moments_cuda(pr, seed) if cuda else \
+            grouped_moments_plain(pr, seed)
     else:
-        w_tot, s1, s2 = moments_plain(pr, seed)
-    return w_tot[:pr.B], s1[:pr.B], s2[:pr.B]
+        out = moments_cuda(pr, seed) if cuda else moments_plain(pr, seed)
+    return tuple(t[:pr.B] for t in out)
 
 
 fused_poisson_moments.launches = 0

@@ -10,7 +10,8 @@ machine that has only PyTorch:
 Weights, w_tot, histogram and k-means counts must be bitwise equal to
 the plain versions; s1 and k-means sums within 1e-5·Σw|x|, s2 within
 1e-5·Σw·x² and k-means inertia within 1e-5·Σw·min-d² per entry; group
-members bitwise equal to the dedicated kernels.
+members bitwise equal to the dedicated kernels; keyed (GROUP BY) slots
+bitwise equal to the dedicated kernels masked to their key.
 """
 import numpy as np
 import pytest
@@ -150,3 +151,74 @@ def test_cuda_kmeans_ties_go_to_the_lowest_cluster(cuda):
     assert torch.equal(counts.cpu(), tka.fused_poisson_kmeans(
         3, x.cpu(), cent.cpu(), 8)[1])
     assert float(counts[:, 1:].abs().sum()) == 0.0
+
+
+def _keyed(n, d, G, seed):
+    """x (n, d) with NaN/inf-free values, f32 keys in [0, G) with key G-1
+    absent, and a validity mask, numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    keys = rng.integers(0, max(1, G - 1), size=n).astype(np.float32)
+    mask = (rng.random(n) > 0.3).astype(np.float32)
+    return x, keys, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d,G", [(8, 300, 1, 3), (100, 1000, 2, 8),
+                                     (130, 700, 4, 8), (24, 5000, 4, 16),
+                                     (256, (1 << 16) + 37, 1, 8)])
+def test_cuda_grouped_kernels_match_plain_and_masked(cuda, B, n, d, G):
+    """Kernel ≡ plain (w_tot and counts bitwise, s1/s2 within 1e-5·Σw|x|
+    and Σw·x²), and slot g ≡ the dedicated kernel masked to key g, bitwise.
+    (24, 5000, 4, 16) has G·(2d+1) = 144 > 128 and takes two z chunks."""
+    x, keys, mask = _keyed(n, d, G, seed=n + G)
+    seed = 77 + n
+    xc, kc, mc = (torch.from_numpy(a).to(cuda) for a in (x, keys, mask))
+    xt, kt, mt = (torch.from_numpy(a) for a in (x, keys, mask))
+    for valid, valid_cpu in ((None, None), (mc, mt)):
+        kw = dict(group_ids=kc, num_groups=G, valid_mask=valid)
+        kw_cpu = dict(group_ids=kt, num_groups=G, valid_mask=valid_cpu)
+        got = tws.fused_poisson_moments(seed, xc, B, **kw)
+        want = tws.fused_poisson_moments(seed, xt, B, **kw_cpu)
+        absw = tws.fused_poisson_moments(seed, xt.abs(), B, **kw_cpu)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert _within(got[1], want[1], absw[1].double())
+        assert _within(got[2], want[2], want[2].double().abs())
+        h = twh.fused_poisson_hist(seed, xc, LO, HI, NBINS, B, **kw)
+        assert torch.equal(h.cpu(), twh.fused_poisson_hist(
+            seed, xt, LO, HI, NBINS, B, **kw_cpu))
+        cent = torch.from_numpy(x[:3].copy()).to(cuda)
+        km = tka.fused_poisson_kmeans(seed, xc, cent, B, **kw)
+        assert float(got[0][:, G - 1].abs().sum()) == 0.0
+        assert float(h[:, G - 1].sum()) == 0.0
+        for g in range(G):
+            m = (kc == g).float() if valid is None else valid * (kc == g)
+            for a, b in zip(got, tws.fused_poisson_moments(
+                    seed, xc, B, valid_mask=m)):
+                assert torch.equal(a[:, g], b)
+            assert torch.equal(h[:, g], twh.fused_poisson_hist(
+                seed, xc, LO, HI, NBINS, B, valid_mask=m))
+            for a, b in zip(km, tka.fused_poisson_kmeans(seed, xc, cent, B,
+                                                         valid_mask=m)):
+                assert torch.equal(a[:, g], b)
+
+
+@pytest.mark.cuda
+def test_cuda_keyed_tensor_never_reaches_the_plain_version(cuda,
+                                                           monkeypatch):
+    from repro_torch.kernels import _build
+
+    def refuse(name, *args):
+        raise RuntimeError(f"launch of {name} refused")
+
+    monkeypatch.setattr(_build, "launch", refuse)
+    x = torch.ones(100, 1, device=cuda)
+    keys = torch.zeros(100, device=cuda)
+    kw = dict(group_ids=keys, num_groups=2)
+    with pytest.raises(RuntimeError, match="refused"):
+        tws.fused_poisson_moments(1, x, 8, **kw)
+    with pytest.raises(RuntimeError, match="refused"):
+        twh.fused_poisson_hist(1, x, 0.0, 2.0, 16, 8, **kw)
+    with pytest.raises(RuntimeError, match="refused"):
+        tka.fused_poisson_kmeans(1, x, torch.zeros(2, 1, device=cuda), 8,
+                                 **kw)

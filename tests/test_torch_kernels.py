@@ -262,7 +262,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         twh.fused_poisson_hist(1, x, 0.0, 1.0, 8, 4, block_bins=128)
     with pytest.raises(NotImplementedError):
-        twh.fused_poisson_hist(1, x, 0.0, 1.0, 8, 4,
-                               group_ids=torch.zeros(10), num_groups=1)
+        tws.fused_poisson_moments(1, x, 4, stream=True)
     with pytest.raises(TypeError):
         tws.fused_poisson_moments(1, np.zeros((10, 1), np.float32), 4)
