@@ -7,10 +7,11 @@ Needs one CUDA card, nvcc and this checkout; it imports nothing of JAX or
 of the JAX package.  Phases, each of which raises (exit code 1) on
 failure:
 
-1. build the eight CUDA kernels from kernels/csrc (poisson_counts.cu,
+1. build the ten CUDA kernels from kernels/csrc (poisson_counts.cu,
    fused_pass.cu, which holds the three fused ones, kmeans_assign.cu,
-   fused_kmeans.cu and fused_grouped.cu, which holds the two GROUP BY
-   ones; one nvcc per source, all at once) and print the build seconds;
+   fused_kmeans.cu, fused_grouped.cu, which holds the two GROUP BY ones,
+   weighted_moments.cu and weighted_hist.cu; one nvcc per source, all at
+   once) and print the build seconds;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at B=256, n=2^20+37, with and without a
@@ -22,14 +23,20 @@ failure:
    bitwise equal to the dedicated kernels, a KMeansStep member included;
    the GROUP BY kernels at G=8, d in {1, 4}, with a key that has no rows
    and at G·(2d+1) > 128, and every keyed slot (moments, histogram,
-   k-means) bitwise equal to the dedicated kernel masked to its key;
+   k-means) bitwise equal to the dedicated kernel masked to its key; the
+   explicit-weight kernels (weighted_moments at B in {1, 7, 256}, n in
+   {1, 1000, 2^20+37}, d in {1, 3, 8}; weighted_histogram at R in
+   {1, 256}, d in {1, 4}, nbins in {256, 2048}, with NaN, +-inf, values
+   past the edges and zero weights) under whole-number and fractional
+   weights, and R = 256 rows bitwise 256 one-row launches;
 4. the quickstart path, with every launch count set to 0 first and the
    geometry of every launch logged: the quickstart session
    (N = 2,000,000, StatisticGroup(Mean, Quantile(0.5), Std)), a Mean()
    and a Median() session, a bootstrap of a user statistic without a
    fused path (the materialized poisson_counts route), and the one-shot
-   bootstrap of the group at B=256, n=2^24-1000; the quickstart session is
-   run again on the CPU and must agree;
+   bootstrap of the group at B=256, n=2^24-1000, all matrix-free
+   (backend="fused_rng"); the quickstart session is run again on the CPU
+   and must agree;
 5. the k-means path (examples/analytics_kmeans.py, paper §6.3), again
    from zeroed counts with its geometries logged: Lloyd over N = 400,000
    rows (k=5, d=2, 8 iterations) and over a 2% PreMapSampler sample, the
@@ -41,13 +48,29 @@ failure:
    StratifiedSampler of N = 2,000,000 rows [value, key] (G = 8, key g
    with frequency ∝ 2^-g), each run again on the CPU, which must agree,
    and a keyed Mean bootstrap at B=256, n=2^24-1000 whose peak memory
-   must stay below an (n, G) f32 tensor;
-7. replay every distinct launch geometry that phases 4 to 6 logged on
+   must stay below an (n, G) f32 tensor; the earlier kernels' launches
+   on phases 4 to 6 must equal EARLIER_LAUNCHES;
+7. the materialized path (the JAX package's default backend=None), from
+   zeroed counts with its geometries logged: the quickstart group's
+   session with no backend, on the card and the CPU, which must agree;
+   bootstraps at B=256, n=2^20 over a 1 GiB weight matrix (Mean with
+   kernel 11 against the cuBLAS product, within 1e-5·Σw|x|/Σw; Median
+   through kernel 10 at R=256) with the Knuth draw's own time and peak;
+   fig10's delta extends (B=32, 1.6M rows) and its multinomial baseline
+   (B=16, 30,000 + 30,000 rows; the same resamples and counts on the
+   CPU); fig3's shared-base bootstrap (B=64, 4,000 rows); the chunked
+   bootstrap with both backends at n=2^22;
+8. replay every distinct launch geometry that phases 4 to 7 logged on
    fresh data and hold it against the plain version as in phase 3;
-8. time each kernel (CUDA events) beside its plain version and its bound,
-   the sessions' wall times and the example's walls over a few warm runs,
-   and the grouped moments kernel against G masked moments launches;
-9. print the kernels line, then the contract's last line.
+9. time each kernel (CUDA events) beside its plain version, its bound
+   and, for the explicit-weight kernels, one PyTorch call computing the
+   same function; the sessions' wall times and the example's walls over a
+   few warm runs, and the grouped moments kernel against G masked
+   moments launches; then print the kernels line, then the contract's
+   last line.
+
+Every plain version that a kernel is held against or timed beside runs
+under a check that it launches no kernel.
 
 Exit code 2: no card, or no port beside this script.
 """
@@ -80,6 +103,8 @@ REPLACES = {
         "src/repro/kernels/weighted_stats/kernel.py:275",
     # no TPU kernel: the reference's keyed sketch is its scan lowering
     "fused_poisson_hist_grouped": "src/repro/kernels/weighted_hist/ops.py:107",
+    "weighted_moments": "src/repro/kernels/weighted_stats/kernel.py:67",
+    "weighted_histogram": "src/repro/kernels/weighted_hist/kernel.py:73",
 }
 SOURCES = {
     "poisson_counts": "src/repro_torch/kernels/csrc/poisson_counts.cu",
@@ -92,6 +117,8 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/fused_grouped.cu",
     "fused_poisson_hist_grouped":
         "src/repro_torch/kernels/csrc/fused_grouped.cu",
+    "weighted_moments": "src/repro_torch/kernels/csrc/weighted_moments.cu",
+    "weighted_histogram": "src/repro_torch/kernels/csrc/weighted_hist.cu",
 }
 #: the kernels each main path must launch
 QUICKSTART_KERNELS = ("poisson_counts", "fused_poisson_moments",
@@ -99,6 +126,15 @@ QUICKSTART_KERNELS = ("poisson_counts", "fused_poisson_moments",
 KMEANS_KERNELS = ("kmeans_assign", "fused_poisson_kmeans")
 GROUPBY_KERNELS = ("fused_poisson_moments_grouped",
                    "fused_poisson_hist_grouped")
+MATERIALIZED_KERNELS = ("weighted_moments", "weighted_histogram")
+#: launches of the earlier kernels on the quickstart, k-means and GROUP BY
+#: paths together in the run that ported the GROUP BY slice: a call that
+#: lost its explicit backend="fused_rng" would change them
+EARLIER_LAUNCHES = {"poisson_counts": 1, "fused_poisson_moments": 7,
+                    "fused_poisson_hist": 7, "fused_poisson_multi": 8,
+                    "kmeans_assign": 18, "fused_poisson_kmeans": 2,
+                    "fused_poisson_moments_grouped": 8,
+                    "fused_poisson_hist_grouped": 7}
 NBINS, LO, HI = 2048, 0.0, 25.0
 QUICKSTART_N = 2_000_000
 BIG_B, BIG_N = 256, (1 << 20) + 37
@@ -115,6 +151,15 @@ KM_BOOT_N = 1 << 22
 # against G masked launches at the reference benchmark's shape
 GB_N, GB_G = 2_000_000, 8
 GB_RATIO_SHAPE = dict(B=256, n=65_536, d=4)
+# the materialized path: bootstraps over a (B, n) weight matrix of 1 GiB;
+# fig10's delta extends (B = 32, 1.6M rows) and its multinomial baseline
+# (B = 16, 30,000 + 30,000 rows); fig3's shared-base bootstrap (B = 64,
+# 4,000 rows); the chunked bootstrap at n = 2^22
+MAT_B, MAT_N = 256, 1 << 20
+FIG10_B, FIG10_N = 32, 1_600_000
+MDB_B, MDB_ROWS = 16, 30_000
+SB_B, SB_N = 64, 4_000
+CHUNK_B, CHUNK_N, CHUNK = 64, 1 << 22, 65_536
 
 
 def check(ok: bool, what: str) -> None:
@@ -177,9 +222,10 @@ def wrappers():
                                                        kmeans_assign)
     from repro_torch.kernels.poisson_counts.ops import poisson_counts
     from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
-                                                       grouped_hist_cuda)
+                                                       grouped_hist_cuda,
+                                                       weighted_histogram)
     from repro_torch.kernels.weighted_stats.ops import (
-        fused_poisson_moments, grouped_moments_cuda)
+        fused_poisson_moments, grouped_moments_cuda, weighted_moments)
     return {"poisson_counts": poisson_counts,
             "fused_poisson_moments": fused_poisson_moments,
             "fused_poisson_hist": fused_poisson_hist,
@@ -187,7 +233,9 @@ def wrappers():
             "kmeans_assign": kmeans_assign,
             "fused_poisson_kmeans": fused_poisson_kmeans,
             "fused_poisson_moments_grouped": grouped_moments_cuda,
-            "fused_poisson_hist_grouped": grouped_hist_cuda}
+            "fused_poisson_hist_grouped": grouped_hist_cuda,
+            "weighted_moments": weighted_moments,
+            "weighted_histogram": weighted_histogram}
 
 
 def zero_counts() -> None:
@@ -210,6 +258,13 @@ def geometry(lib: str, args: tuple) -> tuple:
          _, _, _) = args
         fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
                       k=k, masked=mask is not None, tpc=tpc, ranges=ranges)
+    elif lib == "weighted_moments":
+        B, n, d, _, _, rows, cols, ranges = args[:8]
+        fields = dict(B=B, n=n, d=d, rows=rows, cols=cols, ranges=ranges)
+    elif lib == "weighted_hist":
+        R, n, d, nbins, _, w, _, _, rows, cols, ranges, _, _ = args
+        fields = dict(R=R, n=n, d=d, nbins=nbins, unit=w is None, rows=rows,
+                      cols=cols, ranges=ranges)
     elif lib == "fused_grouped":
         (_, n_valid, Bp, np_, bb, bn, d, G, _, mask, _, dc, kg, rows, tpc,
          ranges, part_w, _, _, _, _, _, nbins, _, _, _, _) = args
@@ -263,6 +318,33 @@ class LaunchLog:
         return self.orig(lib, *args)
 
 
+class NoLaunch:
+    """Fails on any kernel launch while it is entered: a plain version
+    that a kernel is held against, or timed beside, computes without one."""
+
+    def __init__(self, fn):
+        from repro_torch.kernels import _build
+        self.build, self.fn = _build, fn
+
+    def __enter__(self):
+        self.orig = self.build.launch
+        self.build.launch = self.launch
+        return self
+
+    def __exit__(self, *exc):
+        self.build.launch = self.orig
+
+    def launch(self, lib, *args):
+        check(False, f"the plain version {self.fn.__name__} launched the "
+              f"{lib} kernel")
+
+
+def plain(fn, *args, **kw):
+    """``fn(*args, **kw)``, a plain version, checked to launch nothing."""
+    with NoLaunch(fn):
+        return fn(*args, **kw)
+
+
 def phase_parity(torch, parity: Parity) -> None:
     from repro_torch.core.reduce_api import Mean, Quantile, StatisticGroup, Std
     from repro_torch.kernels.fused_multi.ops import (_multi_scan,
@@ -289,15 +371,16 @@ def phase_parity(torch, parity: Parity) -> None:
 
             pr = prepare(x, B, n_valid=n_valid, valid_mask=mask)
             w_k = poisson_counts(seed, B, n, device="cuda")
-            w_p = poisson_weights_plain(seed, pr.Bp, pr.np_, pr.bb, pr.bn,
-                                        device="cuda")[:B, :n]
+            w_p = plain(poisson_weights_plain, seed, pr.Bp, pr.np_, pr.bb,
+                        pr.bn, device="cuda")[:B, :n]
             parity.bitwise("poisson_counts", w_k, w_p, f"weights {what}")
 
             mom_k = fused_poisson_moments(seed, x, B, n_valid=n_valid,
                                           valid_mask=mask)
-            mom_p = [t[:B] for t in moments_plain(pr, seed)]
-            abs_p = [t[:B] for t in moments_plain(
-                prepare(x.abs(), B, n_valid=n_valid, valid_mask=mask), seed)]
+            mom_p = [t[:B] for t in plain(moments_plain, pr, seed)]
+            abs_p = [t[:B] for t in plain(
+                moments_plain, prepare(x.abs(), B, n_valid=n_valid,
+                                       valid_mask=mask), seed)]
             parity.moments("fused_poisson_moments", mom_k, mom_p, abs_p[1],
                            mom_p[2], what)
 
@@ -305,12 +388,12 @@ def phase_parity(torch, parity: Parity) -> None:
             hi = torch.full((1,), HI, device="cuda")
             h_k = fused_poisson_hist(seed, x, LO, HI, NBINS, B,
                                      n_valid=n_valid, valid_mask=mask)
-            h_p = hist_plain(pr, seed, lo, hi, NBINS)[:B]
+            h_p = plain(hist_plain, pr, seed, lo, hi, NBINS)[:B]
             parity.bitwise("fused_poisson_hist", h_k, h_p, f"counts {what}")
 
             g_k = fused_poisson_multi(group, seed, x, B, n_valid=n_valid,
                                       valid_mask=mask)
-            g_p = _multi_scan(group.slots, seed, pr)
+            g_p = plain(_multi_scan, group.slots, seed, pr)
             g_p = (tuple(t[:B] for t in (g_p[0].w, g_p[0].s1, g_p[0].s2)),
                    g_p[1].counts[:B])
             parity.moments("fused_poisson_multi",
@@ -334,7 +417,8 @@ def phase_parity(torch, parity: Parity) -> None:
     hi = torch.full((1,), HI, device="cuda")
     parity.bitwise("fused_poisson_hist",
                    fused_poisson_hist(seed, x, LO, HI, NBINS, 8),
-                   hist_plain(pr, seed, lo, hi, NBINS)[:8], "edge values")
+                   plain(hist_plain, pr, seed, lo, hi, NBINS)[:8],
+                   "edge values")
     torch.cuda.synchronize()
     print(f"parity: all kernels match their plain versions; max |err| "
           f"{json.dumps(parity.err)}")
@@ -358,9 +442,9 @@ def hold_fused_kmeans(parity, seed, x, cent, B, what, **kw) -> None:
                                                        fused_poisson_kmeans)
     from repro_torch.kernels.weighted_stats.ops import moments_plain, prepare
     got = fused_poisson_kmeans(seed, x, cent, B, **kw)
-    want = [t[:B] for t in fused_kmeans_plain(prepare(x, B, **kw), seed,
-                                              cent)]
-    bound = moments_plain(prepare(x.abs(), B, **kw), seed)[1][:B]
+    want = [t[:B] for t in plain(fused_kmeans_plain, prepare(x, B, **kw),
+                                 seed, cent)]
+    bound = plain(moments_plain, prepare(x.abs(), B, **kw), seed)[1][:B]
     parity.kmeans("fused_poisson_kmeans", got, want, bound[:, None, :],
                   what)
 
@@ -370,7 +454,7 @@ def hold_kmeans_assign(parity, x, w, cent, what) -> None:
     from repro_torch.kernels.kmeans_assign.ops import (assign_plain,
                                                        kmeans_assign)
     parity.kmeans("kmeans_assign", kmeans_assign(x, w, cent),
-                  assign_plain(x, w, cent),
+                  plain(assign_plain, x, w, cent),
                   (w.double() @ x.abs().double()).float(), what)
 
 
@@ -467,20 +551,21 @@ def hold_grouped(torch, parity, seed, x, keys, G, B, nbins, what,
     pr = prepare(x, B, **kw)
     d = x.shape[1]
     got = fused_poisson_moments(seed, x, B, **kw)
-    want = [t[:B] for t in grouped_moments_plain(pr, seed)]
-    bound = grouped_moments_plain(prepare(x.abs(), B, **kw), seed)[1][:B]
+    want = [t[:B] for t in plain(grouped_moments_plain, pr, seed)]
+    bound = plain(grouped_moments_plain, prepare(x.abs(), B, **kw),
+                  seed)[1][:B]
     parity.moments("fused_poisson_moments_grouped", got, want, bound,
                    want[2], what)
     lo = torch.full((d,), LO, device="cuda")
     hi = torch.full((d,), HI, device="cuda")
     h = fused_poisson_hist(seed, x, LO, HI, nbins, B, **kw)
     parity.bitwise("fused_poisson_hist_grouped", h,
-                   grouped_hist_plain(pr, seed, lo, hi, nbins)[:B],
+                   plain(grouped_hist_plain, pr, seed, lo, hi, nbins)[:B],
                    f"counts {what}")
     cent = x[:KM_K].contiguous()
     km = fused_poisson_kmeans(seed, x, cent, B, **kw)
     if kmeans_plain:
-        wk = [t[:B] for t in grouped_kmeans_plain(pr, seed, cent)]
+        wk = [t[:B] for t in plain(grouped_kmeans_plain, pr, seed, cent)]
         parity.kmeans("fused_poisson_kmeans", km, wk, bound[:, :, None, :],
                       f"keyed {what}")
     for g in range(G):
@@ -571,13 +656,14 @@ def phase_main_path(torch):
         store = ShardedStore.from_array(data, split_size=65_536)
         group = StatisticGroup((Mean(), Quantile(0.5, lo=LO, hi=HI), Std()))
         session = EarlSession(PreMapSampler(store, seed=1, device=device),
-                              group, sigma=0.05, device=device)
+                              group, sigma=0.05, backend="fused_rng",
+                              device=device)
         return session.run(trandom.PRNGKey(0))
 
     def single(stat):
         store = ShardedStore.from_array(data, split_size=65_536)
-        return EarlSession(PreMapSampler(store, seed=1), stat,
-                           sigma=0.05).run(trandom.PRNGKey(0))
+        return EarlSession(PreMapSampler(store, seed=1), stat, sigma=0.05,
+                           backend="fused_rng").run(trandom.PRNGKey(0))
 
     xs = torch.from_numpy(data[:65_536]).cuda()
     xb = torch.from_numpy(synthetic_numeric(BOOT_N, seed=7)).cuda()
@@ -591,7 +677,7 @@ def phase_main_path(torch):
         quick_launches = fused_poisson_multi.launches
         mean_out = single(Mean())
         median_out = single(Median(lo=LO, hi=HI))
-        rms = bootstrap(xs, RMS(), 64, trandom.PRNGKey(3))
+        rms = bootstrap(xs, RMS(), 64, trandom.PRNGKey(3), backend="fused_rng")
 
         group = StatisticGroup((Mean(), Quantile(0.5, lo=LO, hi=HI), Std()))
         key = trandom.PRNGKey(5)
@@ -600,7 +686,7 @@ def phase_main_path(torch):
         base = torch.cuda.memory_allocated()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        big = bootstrap(xb, group, BIG_B, key)
+        big = bootstrap(xb, group, BIG_B, key, backend="fused_rng")
         end.record()
         end.synchronize()
         boot_ms = start.elapsed_time(end)
@@ -702,7 +788,7 @@ def kmeans_example(torch, device):
     earl, _ = kmeans_fit(xs, KM_K, KM_ITERS, trandom.PRNGKey(0), init=init,
                          device=device)
     boot = bootstrap(xs, KMeansStep(earl), KM_B, trandom.PRNGKey(0),
-                     device=device)
+                     backend="fused_rng", device=device)
     sync()
     t2 = time.perf_counter()
     return dict(x=x_np, full=full.cpu(), earl=earl.cpu(), boot=boot,
@@ -735,7 +821,8 @@ def phase_kmeans_path(torch):
         base = torch.cuda.memory_allocated()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        big = bootstrap(xb, KMeansStep(cb), BIG_B, trandom.PRNGKey(11))
+        big = bootstrap(xb, KMeansStep(cb), BIG_B, trandom.PRNGKey(11),
+                        backend="fused_rng")
         end.record()
         end.synchronize()
         boot_ms = start.elapsed_time(end)
@@ -809,7 +896,7 @@ def groupby_session(data, name, device):
                                 seed=1, device=device)
     session = core.EarlSession(
         sampler, core.GroupedStatistic(GB_INNERS[name](core), GB_G),
-        sigma=0.05, device=device)
+        sigma=0.05, backend="fused_rng", device=device)
     t0 = time.perf_counter()
     out = session.run(trandom.PRNGKey(0))
     if sampler.device.type == "cuda":
@@ -853,7 +940,7 @@ def phase_groupby_path(torch):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         big = bootstrap(xb, GroupedStatistic(Mean(), GB_G), BIG_B,
-                        trandom.PRNGKey(13))
+                        trandom.PRNGKey(13), backend="fused_rng")
         end.record()
         end.synchronize()
         boot_ms = start.elapsed_time(end)
@@ -912,6 +999,349 @@ def phase_groupby_path(torch):
     return launches, log.geometries, walls
 
 
+def hold_weighted_moments(torch, parity, w, x, what) -> None:
+    """Kernel 11 against its plain version under (B, n) weights ``w``:
+    w_tot bitwise for whole-number weights (else within 1e-6·Σw), s1 and
+    s2 within 1e-5·Σw|x| and 1e-5·Σw·x²."""
+    from repro_torch.kernels.weighted_stats.ops import weighted_moments
+    from repro_torch.kernels.weighted_stats.ref import weighted_moments_ref
+    name = "weighted_moments"
+    got, want = weighted_moments(w, x), plain(weighted_moments_ref, w, x)
+    wd, xd = w.double(), x.double()
+    b1, b2 = wd @ xd.abs(), wd @ (xd * xd)
+    if bool((w == w.round()).all()):
+        parity.moments(name, got, want, b1, b2, what)
+    else:
+        parity.within(name, got[0], want[0], 0.1 * wd.sum(1), f"w_tot {what}")
+        parity.within(name, got[1], want[1], b1, f"s1 {what}")
+        parity.within(name, got[2], want[2], b2, f"s2 {what}")
+
+
+def hold_weighted_hist(torch, parity, x, w, nbins, what) -> None:
+    """Kernel 10 against its plain version: counts bitwise for
+    whole-number weights (``w`` None: unit weights), else within
+    1e-6·Σ|w| of the row a bin."""
+    from repro_torch.kernels.weighted_hist.ops import (weighted_hist_plain,
+                                                       weighted_histogram)
+    d = x.shape[1]
+    lo = torch.full((d,), LO, device="cuda")
+    hi = torch.full((d,), HI, device="cuda")
+    got = weighted_histogram(x, w, LO, HI, nbins)
+    want = plain(weighted_hist_plain, x, None if w is None else w.reshape(
+        -1, x.shape[0]), lo, hi, nbins).reshape(got.shape)
+    if w is None or bool((w == w.round()).all()):
+        parity.bitwise("weighted_histogram", got, want, what)
+    else:
+        bound = 0.1 * w.double().abs().sum(-1)
+        parity.within("weighted_histogram", got, want,
+                      bound.reshape(*bound.shape, 1, 1), what)
+
+
+def phase_parity_materialized(torch, parity: Parity) -> None:
+    """Kernels 11 and 10 against their plain versions: B in {1, 7, 256},
+    n in {1, 1000, 2^20+37}, d in {1, 3, 8} for kernel 11, and R in
+    {1, 256}, d in {1, 4}, nbins in {256, 2048} for kernel 10, with
+    whole-number and fractional weights; R = 256 also against 256 one-row
+    launches."""
+    from repro_torch.kernels.weighted_hist.ops import weighted_histogram
+    from repro_torch.kernels.weighted_stats.ops import weighted_moments
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for B in (1, 7, BIG_B):
+        for n in (1, 1000, BIG_N):
+            for d in (1, 3, 8):
+                x = torch.randn(n, d, device="cuda", generator=gen) * 2 + 3
+                whole = torch.randint(0, 5, (B, n), device="cuda",
+                                      generator=gen).float()
+                frac = torch.rand(B, n, device="cuda", generator=gen)
+                for w, kind in ((whole, "whole"), (frac, "fractional")):
+                    hold_weighted_moments(torch, parity, w, x,
+                                          f"B={B} n={n} d={d} {kind}")
+    again = [weighted_moments(frac, x) for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*again)),
+          "weighted_moments repeat runs differ (fractional weights)")
+    frac_repeat = []
+    for R in (1, BIG_B):
+        for d in (1, 4):
+            for nbins in (256, NBINS):
+                n = BIG_N
+                x = torch.randn(n, d, device="cuda", generator=gen) * 6 + 12
+                # NaN, +-inf, the bin edges and values past them
+                x[:7, 0] = torch.tensor([float("nan"), float("inf"),
+                                         -float("inf"), LO, HI, 10 * HI, -HI])
+                w = torch.randint(0, 5, (R, n), device="cuda",
+                                  generator=gen).float()
+                w[:, 100:200] = 0.0
+                what = f"R={R} n={n} d={d} nbins={nbins}"
+                hold_weighted_hist(torch, parity, x, w, nbins, what)
+                hold_weighted_hist(torch, parity, x, w[0], nbins,
+                                   f"{what} (n,) weights")
+                frac = torch.rand(R, n, device="cuda", generator=gen)
+                hold_weighted_hist(torch, parity, x, frac, nbins,
+                                   f"{what} fractional")
+                frac_repeat.append(torch.equal(
+                    weighted_histogram(x, frac, LO, HI, nbins),
+                    weighted_histogram(x, frac, LO, HI, nbins)))
+                if R == 1:
+                    hold_weighted_hist(torch, parity, x, None, nbins,
+                                       f"{what} unit weights")
+                else:
+                    rows = torch.stack([weighted_histogram(
+                        x, w[r], LO, HI, nbins) for r in range(R)])
+                    check(torch.equal(rows, weighted_histogram(
+                        x, w, LO, HI, nbins)), f"R={R} is not {R} one-row "
+                        f"launches, {what}")
+    torch.cuda.synchronize()
+    print(f"parity (materialized): both kernels match their plain versions; "
+          f"max |err| weighted_moments {parity.err['weighted_moments']}, "
+          f"weighted_histogram (fractional) "
+          f"{parity.err['weighted_histogram']}; repeat runs bitwise: "
+          f"weighted_moments True (fractional), weighted_histogram whole "
+          f"True, fractional {frac_repeat}")
+
+
+def materialized_session(data, device):
+    """The quickstart group's EarlSession with the JAX package's default
+    backend (None: materialized Poisson weights) on ``device``."""
+    from repro_torch import random as trandom
+    from repro_torch.core import (EarlSession, Mean, Quantile,
+                                  StatisticGroup, Std)
+    from repro_torch.data import PreMapSampler, ShardedStore
+    store = ShardedStore.from_array(data, split_size=65_536)
+    group = StatisticGroup((Mean(), Quantile(0.5, lo=LO, hi=HI), Std()))
+    return EarlSession(PreMapSampler(store, seed=1, device=device), group,
+                       sigma=0.05, device=device).run(trandom.PRNGKey(0))
+
+
+def timed(torch, fn):
+    """(result, wall s, peak bytes above what was allocated before) of
+    ``fn()`` on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def mdb_run(stat, rows, device):
+    """fig10's multinomial delta baseline: B = 16, two extends."""
+    from repro_torch.core import MultinomialDeltaBootstrap
+    m = MultinomialDeltaBootstrap(stat, MDB_B, seed=11, device=device)
+    m.extend(rows[:MDB_ROWS])
+    m.extend(rows[MDB_ROWS:])
+    return m, m.result()
+
+
+def phase_materialized_path(torch):
+    """The materialized path (the JAX package's default backend=None),
+    from zeroed launch counts with its geometries logged: the default
+    quickstart session, bootstraps over a 1 GiB weight matrix (Mean with
+    and without kernel 11, Median through kernel 10 at R = 256), fig10's
+    delta extends and multinomial baseline, fig3's shared-base bootstrap
+    and the chunked bootstrap with both backends.  Returns the counts and
+    the logged geometries."""
+    import numpy as np
+    from repro_torch import random as trandom
+    from repro_torch.core import (Mean, Median, Quantile, StatisticGroup,
+                                  Std, bootstrap, bootstrap_chunked,
+                                  poisson_delta_extend, poisson_delta_init,
+                                  poisson_delta_result, poisson_weights,
+                                  shared_base_bootstrap)
+    from repro_torch.data import synthetic_numeric
+    from repro_torch.kernels.weighted_hist.ops import weighted_histogram
+    from repro_torch.kernels.weighted_stats.ops import weighted_moments
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "f32 matmuls are not IEEE on the materialized path")
+    data = synthetic_numeric(QUICKSTART_N, mean=10.0, std=2.0, seed=0)
+    exact = (float(data.mean()), float(np.median(data)), float(data.std()))
+    xm = torch.from_numpy(synthetic_numeric(MAT_N, seed=21)).cuda()
+    x10 = torch.from_numpy(synthetic_numeric(FIG10_N, 10.0, 2.0,
+                                             seed=9)).cuda()
+    mdb_rows = synthetic_numeric(2 * MDB_ROWS, 10.0, 2.0, seed=10)
+    x3 = synthetic_numeric(SB_N, 10.0, 2.0, seed=1)
+    xc = torch.from_numpy(synthetic_numeric(CHUNK_N, seed=22)).cuda()
+    med = Median(lo=LO, hi=HI)
+    key = trandom.PRNGKey(31)
+    torch.cuda.synchronize()
+    zero_counts()
+    boots = {}
+    with LaunchLog() as log:
+        out, wall, _ = timed(torch, lambda: materialized_session(data, None))
+        session_hist = weighted_histogram.launches
+        for label, stat, uk in (("Mean use_kernel", Mean(), True),
+                                ("Mean", Mean(), False),
+                                ("Median", med, False)):
+            boots[label] = timed(torch, lambda: bootstrap(
+                xm, stat, MAT_B, key, use_kernel=uk))
+        half = FIG10_N // 2
+
+        def fig10():
+            pd = poisson_delta_init(Mean(), FIG10_B, 1, trandom.PRNGKey(6))
+            pd = poisson_delta_extend(pd, x10[:half])
+            return poisson_delta_result(poisson_delta_extend(pd, x10[half:]))
+        f10, f10_wall, f10_peak = timed(torch, fig10)
+        mdbs = {name: mdb_run(stat, mdb_rows, None)
+                for name, stat in (("mean", Mean()), ("median", med))}
+        sb, sb_wall, _ = timed(torch, lambda: shared_base_bootstrap(
+            x3, med, SB_B, trandom.PRNGKey(4)))
+        group = StatisticGroup((Mean(), Quantile(0.5, lo=LO, hi=HI), Std()))
+        chunked = {be: timed(torch, lambda be=be: bootstrap_chunked(
+            xc, group, CHUNK_B, trandom.PRNGKey(33), chunk=CHUNK,
+            backend=be)) for be in (None, "fused_rng")}
+    launches = log.counts()
+    print(f"materialized path launches: {json.dumps(launches)} (default "
+          f"session: weighted_histogram x{session_hist})")
+    check(all(launches[k] > 0 for k in MATERIALIZED_KERNELS),
+          f"a kernel of the materialized path was not launched: {launches}")
+
+    # ---- the default session, on the card and the CPU -----------------
+    names = ("mean", "median", "std")
+    summary = dict(B=out.B, iterations=out.iterations, n_used=out.n_used,
+                   worst_cv=out.cv, wall_s=wall, fell_back=out.fell_back,
+                   weighted_histogram_launches=session_hist, members={})
+    for name, res, ex in zip(names, out.result, exact):
+        est = float(torch.as_tensor(res).reshape(-1)[0])
+        rel = abs(est - ex) / abs(ex)
+        summary["members"][name] = dict(estimate=est, exact=ex, rel_err=rel)
+        check(math.isfinite(est) and rel < 0.02,
+              f"default session {name}: estimate {est} vs exact {ex}")
+    check(session_hist > 0, "the default session launched no "
+          "weighted_histogram kernel")
+    print("default session (cuda): " + json.dumps(summary))
+    cpu = materialized_session(data, "cpu")
+    check((cpu.B, cpu.n_used, cpu.iterations)
+          == (out.B, out.n_used, out.iterations),
+          f"default session: cpu took (B, n_used, iterations) = "
+          f"{(cpu.B, cpu.n_used, cpu.iterations)}, cuda "
+          f"{(out.B, out.n_used, out.iterations)}")
+    for name, a, b in zip(names, out.result, cpu.result):
+        a, b = float(a.reshape(-1)[0]), float(b.reshape(-1)[0])
+        if name == "median":
+            check(a == b, f"default session median cuda {a} != cpu {b}")
+        rtol = 26e-5 if name == "std" else 1e-5
+        check(abs(a - b) <= rtol * abs(b),
+              f"default session {name} cuda {a} vs cpu {b}")
+    print(f"default session (cpu): B={cpu.B} iterations={cpu.iterations} "
+          f"n_used={cpu.n_used}: agrees with the card")
+
+    # ---- the B = 256 bootstraps over a 1 GiB weight matrix --------------
+    # the Knuth draw alone: its own time and peak; its weights are the
+    # bootstraps' (same key), for the bound of the use_kernel comparison
+    w, draw_wall, draw_peak = timed(torch, lambda: poisson_weights(
+        key, MAT_B, MAT_N, device="cuda"))
+    x2 = xm.reshape(MAT_N, -1)
+    # the card's logf against the CPU's log: the share of equal weights
+    shape = (64, 1 << 16)
+    w_cpu = poisson_weights(key, *shape, device="cpu")
+    unequal = int((poisson_weights(key, *shape, device="cuda").cpu()
+                   != w_cpu).sum())
+    check(unequal <= 1e-4 * w_cpu.numel(), f"{unequal} Poisson weights "
+          f"differ between the card and the CPU")
+    print(f"Poisson(1) weights, card against CPU: {unequal} of "
+          f"{w_cpu.numel()} differ (share equal "
+          f"{1 - unequal / w_cpu.numel()})")
+    k11_ms = time_ms(torch, lambda: weighted_moments(w, x2), 5)
+    k10_ms = time_ms(torch, lambda: weighted_histogram(x2, w, LO, HI, NBINS),
+                     5)
+    wd = w.double()
+    theta_bound = 1e-5 * (wd @ x2.double().abs())[:, 0] / wd.sum(1)
+    tk, tp = (boots[k][0].thetas[:, 0] for k in ("Mean use_kernel", "Mean"))
+    diff = (tk.double() - tp.double()).abs()
+    check(bool((diff <= theta_bound).all()), f"Mean thetas with and without "
+          f"kernel 11 differ by up to {float(diff.max())}")
+    w_bytes = MAT_B * MAT_N * 4
+    for label, (res, bwall, peak) in boots.items():
+        th = res.thetas
+        check(th.shape[0] == MAT_B and bool(torch.isfinite(th).all()),
+              f"{label} bootstrap thetas")
+        check(peak < 4 * w_bytes, f"{label} bootstrap peak {peak} B, over "
+              f"four (B, n) weight matrices")
+        print(f"materialized bootstrap {label} (cuda): " + json.dumps(dict(
+            B=MAT_B, n=MAT_N, wall_s=bwall, peak_bytes=peak,
+            weight_bytes=w_bytes, cv=res.cv,
+            kernel="weighted_moments" if label == "Mean use_kernel" else
+            "weighted_histogram" if label == "Median" else "cuBLAS W @ x",
+            kernel_ms=k11_ms if label == "Mean use_kernel" else
+            k10_ms if label == "Median" else None)))
+    print("Knuth Poisson(1) draw (cuda): " + json.dumps(dict(
+        B=MAT_B, n=MAT_N, wall_s=draw_wall, peak_bytes=draw_peak,
+        weight_bytes=w_bytes, mean=float(w.mean()), var=float(w.var()),
+        max_abs_theta_diff_kernel_vs_matmul=float(diff.max()))))
+    del w, wd
+
+    # ---- fig10 and fig3 shapes -----------------------------------------
+    est = float(f10.estimate.reshape(-1)[0])
+    ex10 = float(x10.double().mean())
+    check(bool(torch.isfinite(f10.thetas).all())
+          and abs(est - ex10) <= 1e-5 * abs(ex10),
+          f"fig10 delta estimate {est} vs {ex10}")
+    print("fig10 materialized delta (cuda): " + json.dumps(dict(
+        B=FIG10_B, n=FIG10_N, extends=2, wall_s=f10_wall,
+        peak_bytes=f10_peak, cv=f10.cv)))
+    for name, stat in (("mean", Mean()), ("median", med)):
+        m, res = mdbs[name]
+        mc, rc = mdb_run(stat, mdb_rows, "cpu")
+        check((m.disk_accesses, m.items_moved, m.n)
+              == (mc.disk_accesses, mc.items_moved, mc.n)
+              and all(np.array_equal(a, b)
+                      for a, b in zip(m.resamples, mc.resamples)),
+              f"multinomial delta {name}: resamples or counts differ "
+              f"between the card and the CPU")
+        got, want = res.thetas.cpu(), rc.thetas
+        if name == "median":
+            check(torch.equal(got, want), "multinomial delta median thetas "
+                  "differ between the card and the CPU")
+        check(bool(((got - want).abs() <= 1e-5 * want.abs()).all()),
+              f"multinomial delta {name} thetas cuda vs cpu")
+        print(f"fig10 multinomial delta {name}: " + json.dumps(dict(
+            B=MDB_B, rows=2 * MDB_ROWS, disk_accesses=m.disk_accesses,
+            items_moved=m.items_moved, cv=res.cv,
+            cpu_agrees=True)))
+    sb_cpu = shared_base_bootstrap(x3, med, SB_B, trandom.PRNGKey(4),
+                                   device="cpu")
+    check(torch.equal(sb.thetas.cpu(), sb_cpu.thetas),
+          "shared-base median thetas differ between the card and the CPU")
+    print("fig3 shared-base bootstrap (cuda): " + json.dumps(dict(
+        B=SB_B, n=SB_N, wall_s=sb_wall, cv=sb.cv, cpu_agrees=True)))
+    (cn, cn_wall, cn_peak), (cf, cf_wall, cf_peak) = (
+        chunked[None], chunked["fused_rng"])
+    for a, b in zip(cn.estimate, cf.estimate):
+        check(torch.equal(a, b), "chunked estimates differ between backends")
+    for t in cn.thetas + cf.thetas:
+        check(bool(torch.isfinite(t).all()), "chunked thetas not finite")
+    ratios = [a / b for a, b in zip(cn.report.cvs, cf.report.cvs)]
+    check(all(0.5 < r < 2.0 for r in ratios),
+          f"chunked cvs of the two backends differ: {ratios}")
+    print("bootstrap_chunked (cuda): " + json.dumps(dict(
+        B=CHUNK_B, n=CHUNK_N, chunk=CHUNK, none=dict(
+            wall_s=cn_wall, peak_bytes=cn_peak, cvs=cn.report.cvs),
+        fused_rng=dict(wall_s=cf_wall, peak_bytes=cf_peak,
+                       cvs=cf.report.cvs))))
+    return launches, log.geometries
+
+
+def replay_materialized(torch, parity, gen, name, fields, what) -> None:
+    """One launch geometry of kernel 10 or 11 on fresh data (whole-number
+    weights) against the plain version."""
+    g = dict(fields)
+    rows = g["B"] if name == "weighted_moments" else g["R"]
+    x = (torch.rand(g["n"], g["d"], generator=gen) * (HI - LO) + LO).cuda()
+    w = torch.randint(0, 5, (rows, g["n"]), generator=gen).float().cuda()
+    with LaunchLog() as log:
+        if name == "weighted_moments":
+            hold_weighted_moments(torch, parity, w, x, what)
+        else:
+            hold_weighted_hist(torch, parity, x, None if g["unit"] else
+                               w[0] if rows == 1 else w, g["nbins"], what)
+    check((name, fields) in log.geometries, f"{what}: launched "
+          f"{list(log.geometries)}")
+
+
 def phase_replay(torch, geometries, parity: Parity) -> None:
     """Holds every kernel against its plain version at each launch
     geometry of the main path, on fresh data: x is uniform on [LO, HI), so
@@ -935,6 +1365,11 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
         g = dict(fields)
         Bp, np_ = g.get("Bp"), g.get("np_")
         what = f"replay of {count} main-path launch(es) at {g}"
+        if name in MATERIALIZED_KERNELS:
+            shapes.setdefault(name, []).append((g.get("B", g.get("R")),
+                                                g["n"]))
+            replay_materialized(torch, parity, gen, name, fields, what)
+            continue
         shapes.setdefault(name, []).append(
             (g["n"], g["k"], g["d"]) if name == "kmeans_assign"
             else (Bp, np_))
@@ -966,8 +1401,9 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                 w_k = poisson_counts(seed, Bp, np_, device="cuda")
             check((name, fields) in log.geometries, f"{what}: launched "
                   f"{list(log.geometries)}")
-            parity.bitwise(name, w_k, poisson_weights_plain(
-                seed, Bp, np_, g["bb"], g["bn"], device="cuda"), what)
+            parity.bitwise(name, w_k, plain(
+                poisson_weights_plain, seed, Bp, np_, g["bb"], g["bn"],
+                device="cuda"), what)
             continue
         d = g["d"]
         x = (torch.rand(np_, d, generator=gen) * (HI - LO) + LO).cuda()
@@ -995,13 +1431,13 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
         check((name, fields) in log.geometries, f"{what}: launched "
               f"{list(log.geometries)}")
         if name == "fused_poisson_moments":
-            want = moments_plain(pr, seed)
+            want = plain(moments_plain, pr, seed)
             parity.moments(name, mom_k, want, want[1], want[2], what)
         elif name == "fused_poisson_hist":
-            parity.bitwise(name, h_k, hist_plain(pr, seed, lo, hi, nbins),
-                           what)
+            parity.bitwise(name, h_k,
+                           plain(hist_plain, pr, seed, lo, hi, nbins), what)
         else:
-            for sk, sp in zip(g_k, _multi_scan(group.slots, seed, pr)):
+            for sk, sp in zip(g_k, plain(_multi_scan, group.slots, seed, pr)):
                 if isinstance(sk, MomentState):
                     parity.moments(name, (sk.w, sk.s1, sk.s2),
                                    (sp.w, sp.s1, sp.s2), sp.s1, sp.s2, what)
@@ -1014,8 +1450,9 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                           "differs from the dedicated kernel")
     torch.cuda.synchronize()
     print(f"replay: {sum(len(v) for v in shapes.values())} main-path launch "
-          f"geometries match their plain versions; (Bp, np), or (n, k, d) "
-          f"for kmeans_assign, per kernel {json.dumps(shapes)}")
+          f"geometries match their plain versions; (Bp, np), (n, k, d) "
+          f"for kmeans_assign, or (rows, n) for the explicit-weight "
+          f"kernels, per kernel {json.dumps(shapes)}")
 
 
 def replay_grouped(torch, parity, gen, seed, name, fields, what) -> None:
@@ -1043,13 +1480,13 @@ def replay_grouped(torch, parity, gen, seed, name, fields, what) -> None:
     check((name, fields) in log.geometries, f"{what}: launched "
           f"{list(log.geometries)}")
     if g["moments"]:
-        want = grouped_moments_plain(pr, seed)
+        want = plain(grouped_moments_plain, pr, seed)
         parity.moments(name, got, want, want[1], want[2], what)
     else:
         lo = torch.full((d,), LO, device="cuda")
         hi = torch.full((d,), HI, device="cuda")
-        parity.bitwise(name, got, grouped_hist_plain(pr, seed, lo, hi,
-                                                     g["nbins"]), what)
+        parity.bitwise(name, got, plain(grouped_hist_plain, pr, seed, lo,
+                                        hi, g["nbins"]), what)
 
 
 def kmeans_rows(torch, launches, parity: Parity):
@@ -1083,20 +1520,21 @@ def kmeans_rows(torch, launches, parity: Parity):
     runs = {
         "kmeans_assign": (
             lambda: kmeans_assign(x, w, cent),
-            lambda: assign_plain(x, w, cent), a_bytes / HBM_BYTES_PER_S,
+            lambda: plain(assign_plain, x, w, cent),
+            a_bytes / HBM_BYTES_PER_S,
             a_flops / F32_FLOPS_PER_S, dict(n=KM_N, k=k, d=d)),
         "fused_poisson_kmeans": (
             lambda: fused_poisson_kmeans(seed, xb, cb, B),
-            lambda: fused_kmeans_plain(pr, seed, cb),
+            lambda: plain(fused_kmeans_plain, pr, seed, cb),
             f_bytes / HBM_BYTES_PER_S,
             max(B * KM_BOOT_N * OPS_PER_WEIGHT / INT32_OPS_PER_S,
                 B * KM_BOOT_N * entries * 2 / F32_FLOPS_PER_S),
             dict(B=B, n=KM_BOOT_N, k=k, d=d)),
     }
     rows = []
-    for name, (kernel, plain, t_bytes, t_ops, shape) in runs.items():
+    for name, (kernel, plain_fn, t_bytes, t_ops, shape) in runs.items():
         ms = time_ms(torch, kernel, 20 if name == "kmeans_assign" else 5)
-        plain_ms = time_ms(torch, plain, 1)
+        plain_ms = time_ms(torch, plain_fn, 1)
         bound = max(t_bytes, t_ops) * 1e3
         rows.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -1141,17 +1579,17 @@ def groupby_rows(torch, launches, parity: Parity, walls):
     runs = {
         "fused_poisson_moments_grouped": (
             lambda: fused_poisson_moments(seed, x, B, **kw),
-            lambda: grouped_moments_plain(pr, seed),
+            lambda: plain(grouped_moments_plain, pr, seed),
             in_bytes + B * G * (2 * d + 1) * 4, max(t_hash, t_fma)),
         "fused_poisson_hist_grouped": (
             lambda: fused_poisson_hist(seed, x, LO, HI, NBINS, B, **kw),
-            lambda: grouped_hist_plain(pr, seed, lo, hi, NBINS),
+            lambda: plain(grouped_hist_plain, pr, seed, lo, hi, NBINS),
             in_bytes + B * G * d * NBINS * 4, t_hash),
     }
     rows = []
-    for name, (kernel, plain, nbytes, t_ops) in runs.items():
+    for name, (kernel, plain_fn, nbytes, t_ops) in runs.items():
         ms = time_ms(torch, kernel, 5)
-        plain_ms = time_ms(torch, plain, 1)
+        plain_ms = time_ms(torch, plain_fn, 1)
         t_bytes = nbytes / HBM_BYTES_PER_S
         bound = max(t_bytes, t_ops) * 1e3
         rows.append(dict(
@@ -1187,6 +1625,77 @@ def groupby_rows(torch, launches, parity: Parity, walls):
     return rows
 
 
+def materialized_rows(torch, launches, parity: Parity):
+    """Kernel rows of kernels 11 and 10 at B = 256, n = 2^20 + 37, d = 1
+    under Poisson(1) weights (nbins = 2048), and kernel 10 at the point
+    estimate of the one-shot bootstraps (unit weights, n = 2^24 - 1000)."""
+    from repro_torch.core import poisson_weights
+    from repro_torch.data import synthetic_numeric
+    from repro_torch.kernels.weighted_hist.ops import (weighted_hist_plain,
+                                                       weighted_histogram)
+    from repro_torch.kernels.weighted_hist.ref import _bin_indices
+    from repro_torch import random as trandom
+    from repro_torch.kernels.weighted_stats.ops import weighted_moments
+    from repro_torch.kernels.weighted_stats.ref import weighted_moments_ref
+
+    B, n, d = BIG_B, BIG_N, 1
+    x = (torch.randn(n, d, generator=torch.Generator().manual_seed(5))
+         * 2.0 + 10.0).cuda()
+    w = poisson_weights(trandom.PRNGKey(41), B, n, device="cuda")
+    lo = torch.full((d,), LO, device="cuda")
+    hi = torch.full((d,), HI, device="cuda")
+    x3 = torch.cat([torch.ones_like(x), x, x * x], dim=1)
+    flat = (torch.arange(B, device="cuda")[:, None] * (d * NBINS)
+            + _bin_indices(x, lo, hi, NBINS)[:, 0][None, :]).reshape(-1)
+    w_bytes, x_bytes = B * n * 4, n * d * 4
+    runs = {
+        # bytes: W and x read once, w_tot, s1, s2 written once; operations:
+        # an f32 add and 2d FMAs a weight
+        "weighted_moments": (
+            lambda: weighted_moments(w, x),
+            lambda: plain(weighted_moments_ref, w, x),
+            lambda: torch.matmul(w, x3),
+            w_bytes + x_bytes + B * (2 * d + 1) * 4,
+            B * n * (2 * d + 1) * 2),
+        # bytes: W and x read once, the counts written once; operations:
+        # one add a weight (the binning, per value, is n·d of them)
+        "weighted_histogram": (
+            lambda: weighted_histogram(x, w, LO, HI, NBINS),
+            lambda: plain(weighted_hist_plain, x, w, lo, hi, NBINS),
+            lambda: torch.bincount(flat, weights=w.reshape(-1),
+                                   minlength=B * d * NBINS),
+            w_bytes + x_bytes + B * d * NBINS * 4, B * n),
+    }
+    rows = []
+    for name, (kernel, plain_fn, library, nbytes, flops) in runs.items():
+        ms = time_ms(torch, kernel, 10)
+        plain_ms = time_ms(torch, plain_fn, 2)
+        library_ms = time_ms(torch, library, 5)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=library_ms,
+            shape=dict(B=B, n=n, d=d,
+                       nbins=NBINS if "hist" in name else None)))
+        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, library "
+              f"{library_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms by "
+              f"{rows[-1]['bound_by']})")
+    del w, flat
+    xb = torch.from_numpy(synthetic_numeric(BOOT_N, seed=7)).cuda().reshape(
+        BOOT_N, 1)
+    ms = time_ms(torch, lambda: weighted_histogram(xb, None, LO, HI, NBINS),
+                 20)
+    bound = (BOOT_N * 4 + NBINS * 4) / HBM_BYTES_PER_S * 1e3
+    print(f"timing weighted_histogram at the point estimate (unit weights, "
+          f"n={BOOT_N}, nbins={NBINS}): {ms:.4f} ms (bound {bound:.4f} ms by "
+          f"bytes)")
+    return rows
+
+
 def phase_timing(torch, launches, parity: Parity, quickstart):
     from repro_torch.core.reduce_api import Mean, Quantile, StatisticGroup, Std
     from repro_torch.kernels.fused_multi.ops import (_multi_scan,
@@ -1210,25 +1719,25 @@ def phase_timing(torch, launches, parity: Parity, quickstart):
     runs = {
         "poisson_counts": (
             lambda: poisson_counts(seed, B, n, device="cuda"),
-            lambda: poisson_weights_plain(seed, pr.Bp, pr.np_, pr.bb, pr.bn,
-                                          device="cuda"),
+            lambda: plain(poisson_weights_plain, seed, pr.Bp, pr.np_, pr.bb,
+                          pr.bn, device="cuda"),
             B * n * 4),
         "fused_poisson_moments": (
             lambda: fused_poisson_moments(seed, x, B),
-            lambda: moments_plain(pr, seed), x_bytes + 3 * B * 4),
+            lambda: plain(moments_plain, pr, seed), x_bytes + 3 * B * 4),
         "fused_poisson_hist": (
             lambda: fused_poisson_hist(seed, x, LO, HI, NBINS, B),
-            lambda: hist_plain(pr, seed, lo, hi, NBINS),
+            lambda: plain(hist_plain, pr, seed, lo, hi, NBINS),
             x_bytes + B * NBINS * 4),
         "fused_poisson_multi": (
             lambda: fused_poisson_multi(group, seed, x, B),
-            lambda: _multi_scan(group.slots, seed, pr),
+            lambda: plain(_multi_scan, group.slots, seed, pr),
             x_bytes + 3 * B * 4 + B * NBINS * 4),
     }
     rows = []
-    for name, (kernel, plain, out_bytes) in runs.items():
+    for name, (kernel, plain_fn, out_bytes) in runs.items():
         ms = time_ms(torch, kernel, 5)
-        plain_ms = time_ms(torch, plain, 1)
+        plain_ms = time_ms(torch, plain_fn, 1)
         t_bytes = out_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = weights * OPS_PER_WEIGHT / INT32_OPS_PER_S * 1e3
         rows.append(dict(
@@ -1296,6 +1805,7 @@ def main() -> int:
     phase_parity(torch, parity)
     phase_parity_kmeans(torch, parity)
     phase_parity_grouped(torch, parity)
+    phase_parity_materialized(torch, parity)
     lap("3 (parity)")
     launches, geometries, quickstart = phase_main_path(torch)
     lap("4 (quickstart path)")
@@ -1303,14 +1813,23 @@ def main() -> int:
     lap("5 (k-means path)")
     gb_launches, gb_geometries, gb_walls = phase_groupby_path(torch)
     lap("6 (GROUP BY path)")
-    launches = {k: launches[k] + km_launches[k] + gb_launches[k]
-                for k in launches}
-    phase_replay(torch, {**geometries, **km_geometries, **gb_geometries},
-                 parity)
-    lap("7 (replay)")
+    earlier = {k: launches[k] + km_launches[k] + gb_launches[k]
+               for k in launches}
+    check(all(earlier[k] == v for k, v in EARLIER_LAUNCHES.items()),
+          f"the earlier paths launched {earlier}, expected "
+          f"{EARLIER_LAUNCHES}")
+    mat_launches, mat_geometries = phase_materialized_path(torch)
+    lap("7 (materialized path)")
+    launches = {k: earlier[k] + mat_launches[k] for k in launches}
+    print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
+          f"four: {json.dumps(launches)}")
+    phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
+                         **mat_geometries}, parity)
+    lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)
-    lap("8 (timing)")
+    rows += materialized_rows(torch, launches, parity)
+    lap("9 (timing)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

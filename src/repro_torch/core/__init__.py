@@ -1,5 +1,6 @@
-"""EARL core in PyTorch: statistics, accuracy, the matrix-free bootstrap,
-delta maintenance, SSABE and the session driver."""
+"""EARL core in PyTorch: statistics, accuracy, the bootstrap engines
+(materialized and matrix-free), delta maintenance, SSABE and the session
+driver."""
 from repro_torch.core.accuracy import (AccuracyReport, GroupAccuracyReport,
                                        KeyedAccuracyReport,
                                        coefficient_of_variation,
@@ -8,10 +9,16 @@ from repro_torch.core.accuracy import (AccuracyReport, GroupAccuracyReport,
                                        theoretical_num_bootstraps,
                                        theoretical_sample_size)
 from repro_torch.core.bootstrap import (BootstrapResult, bootstrap,
-                                        fused_resample_states, offset_seed,
-                                        seed_from_key)
-from repro_torch.core.delta import (PoissonDelta, poisson_delta_extend,
-                                    poisson_delta_init, poisson_delta_result)
+                                        bootstrap_chunked, bootstrap_thetas,
+                                        fused_resample_states,
+                                        multinomial_counts, offset_seed,
+                                        poisson_weights, seed_from_key,
+                                        weights_for)
+from repro_torch.core.delta import (MultinomialDeltaBootstrap, PoissonDelta,
+                                    Sketch, optimal_y, p_shared,
+                                    poisson_delta_extend, poisson_delta_init,
+                                    poisson_delta_result,
+                                    shared_base_bootstrap, work_saved)
 from repro_torch.core.reduce_api import (Count, GroupedStatistic,
                                          HistogramState, KMeansState,
                                          KMeansStep, Mean, Median,
@@ -26,10 +33,12 @@ __all__ = [
     "coefficient_of_variation", "percentile_ci", "relative_halfwidth",
     "report_for", "standard_error", "theoretical_num_bootstraps",
     "theoretical_sample_size",
-    "BootstrapResult", "bootstrap", "fused_resample_states", "offset_seed",
-    "seed_from_key",
-    "PoissonDelta", "poisson_delta_extend", "poisson_delta_init",
-    "poisson_delta_result",
+    "BootstrapResult", "bootstrap", "bootstrap_chunked", "bootstrap_thetas",
+    "fused_resample_states", "multinomial_counts", "offset_seed",
+    "poisson_weights", "seed_from_key", "weights_for",
+    "MultinomialDeltaBootstrap", "PoissonDelta", "Sketch", "optimal_y",
+    "p_shared", "poisson_delta_extend", "poisson_delta_init",
+    "poisson_delta_result", "shared_base_bootstrap", "work_saved",
     "Count", "GroupedStatistic", "HistogramState", "KMeansState",
     "KMeansStep", "Mean", "Median", "MomentState", "Quantile", "Statistic",
     "StatisticGroup", "Std", "Sum", "Var", "kmeans_fit",

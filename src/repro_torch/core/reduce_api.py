@@ -18,6 +18,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.device import check_ieee_matmul
+
 State = Any
 Result = Any
 
@@ -55,8 +57,22 @@ def _w(values: torch.Tensor, weights: Optional[torch.Tensor]
                                        dtype=torch.float32)
 
 
+def _rows_of_update(stat, states, values: torch.Tensor,
+                    weights: torch.Tensor):
+    """B-leading ``states`` advanced by ``stat.update`` once per row of
+    the (B, n) ``weights``."""
+    rows = [stat.update(tree_map(lambda a, b=b: a[b], states), values,
+                        weights[b]) for b in range(weights.shape[0])]
+    return tree_map(lambda *xs: torch.stack(xs), *rows)
+
+
 class Statistic:
     """Base class: the paper's reducer protocol on dataclass states."""
+
+    #: (0, 1, 2) for statistics that are functions of (Σw, Σw·x, Σw·x²),
+    #: which ``bootstrap_thetas(use_kernel=True)`` contracts in one
+    #: weighted_moments pass; None otherwise.
+    moment_powers: Optional[Tuple[int, ...]] = None
 
     # Structural hash/eq: Mean() == Mean(); configured statistics compare
     # by their scalar attributes.
@@ -124,13 +140,22 @@ class Statistic:
         ``StatisticGroup``; None if it can never be shared."""
         return None
 
+    def update_batch(self, states: State, values: torch.Tensor,
+                     weights: torch.Tensor) -> State:
+        """Advance B-leading ``states`` by ``values`` under the (B, n)
+        ``weights``, row b under row b: the JAX package's
+        ``vmap(update)`` written as a batch dimension, on the values'
+        device (a statistic with a kernel for it launches the kernel on
+        the card).  The default is the plain ``tile_update``."""
+        return self.tile_update(states, values, weights)
+
     def tile_update(self, states: State, x_tile: torch.Tensor,
                     w_tile: torch.Tensor) -> State:
         """Advance B-leading ``states`` by one (x tile, (B, bn) weight
-        tile) block.  The default runs ``update`` once per weight row."""
-        rows = [self.update(tree_map(lambda a, b=b: a[b], states), x_tile,
-                            w_tile[b]) for b in range(w_tile.shape[0])]
-        return tree_map(lambda *xs: torch.stack(xs), *rows)
+        tile) block in plain PyTorch, launching no kernel: the tile math
+        of the fused paths' plain versions.  The default runs ``update``
+        once per weight row."""
+        return _rows_of_update(self, states, x_tile, w_tile)
 
     def __call__(self, values: torch.Tensor,
                  weights: Optional[torch.Tensor] = None) -> Result:
@@ -147,6 +172,8 @@ class MomentState:
 
 
 class _MomentStatistic(Statistic):
+    moment_powers = (0, 1, 2)
+
     def init_state(self, dim: int, device="cpu") -> MomentState:
         z = torch.zeros(dim, dtype=torch.float32, device=device)
         return MomentState(w=torch.zeros((), dtype=torch.float32,
@@ -175,8 +202,11 @@ class _MomentStatistic(Statistic):
 
     def tile_update(self, states: MomentState, x_tile, w_tile
                     ) -> MomentState:
-        """The tile math of the moments scan lowering."""
-        x = x_tile.to(torch.float32)
+        """The tile math of the moments scan lowering, and the batch
+        update: (B, n) W against x and x² as f32 matrix products (on the
+        card in IEEE f32, never TF32)."""
+        x = _as_2d(x_tile).to(torch.float32)
+        check_ieee_matmul(x)
         return MomentState(w=states.w + w_tile.sum(dim=1),
                            s1=states.s1 + w_tile @ x,
                            s2=states.s2 + w_tile @ (x * x))
@@ -247,13 +277,26 @@ class Quantile(Statistic):
             hi=torch.full((dim,), self.hi, device=device))
 
     def update(self, state: HistogramState, values, weights=None):
-        from repro_torch.kernels.weighted_hist.ref import \
-            weighted_hist_scatter_ref
+        """One weighted_histogram pass: kernel 10 for values on the card,
+        its plain version on the CPU; ``weights=None`` is unit weights."""
+        from repro_torch.kernels.weighted_hist.ops import weighted_histogram
         x = _as_2d(values).to(torch.float32)
-        delta = weighted_hist_scatter_ref(x, _w(x, weights), state.lo,
-                                          state.hi, self.nbins)
+        w = None if weights is None else _w(x, weights)
+        delta = weighted_histogram(x, w, state.lo, state.hi, self.nbins)
         return HistogramState(counts=state.counts + delta, lo=state.lo,
                               hi=state.hi)
+
+    def update_batch(self, states: HistogramState, values, weights
+                     ) -> HistogramState:
+        """All B rows of ``weights`` in one weighted_histogram pass (kernel
+        10 at R = B on the card)."""
+        from repro_torch.kernels.weighted_hist.ops import weighted_histogram
+        x = _as_2d(values).to(torch.float32)
+        d, B = x.shape[1], weights.shape[0]
+        delta = weighted_histogram(x, weights, self.lo, self.hi, self.nbins)
+        return HistogramState(
+            counts=states.counts + delta.reshape(B, d, self.nbins),
+            lo=states.lo, hi=states.hi)
 
     def merge(self, a: HistogramState, b: HistogramState) -> HistogramState:
         return HistogramState(counts=a.counts + b.counts, lo=a.lo, hi=a.hi)
@@ -276,7 +319,8 @@ class Quantile(Statistic):
 
     def tile_update(self, states: HistogramState, x_tile, w_tile
                     ) -> HistogramState:
-        """The tile math of the histogram scan lowering."""
+        """The tile math of the histogram scan lowering: a plain
+        scatter-add, never kernel 10."""
         from repro_torch.kernels.weighted_hist.ops import hist_tile_update
         x = x_tile.to(torch.float32)
         d = x.shape[1]
@@ -354,6 +398,11 @@ class KMeansStep(Statistic):
             seed, values, self.centroids, B, n_valid=n_valid,
             valid_mask=valid_mask)
         return KMeansState(sums=sums, counts=counts, inertia=inertia)
+
+    def update_batch(self, states: KMeansState, values, weights
+                     ) -> KMeansState:
+        """One kmeans_assign pass per weight row (kernel 9 on the card)."""
+        return _rows_of_update(self, states, values, weights)
 
     def tile_update(self, states: KMeansState, x_tile, w_tile
                     ) -> KMeansState:
@@ -450,6 +499,10 @@ class StatisticGroup(Statistic):
 
     def merge(self, a, b):
         return tuple(s.merge(ai, bi) for s, ai, bi in zip(self.slots, a, b))
+
+    def update_batch(self, states, values, weights):
+        return tuple(s.update_batch(st, values, weights)
+                     for s, st in zip(self.slots, states))
 
     def tile_update(self, states, x_tile, w_tile):
         return tuple(s.tile_update(st, x_tile, w_tile)
@@ -586,15 +639,24 @@ class GroupedStatistic(Statistic):
                 _tree_take(result, g, key_axis), pg if pg > 0.0 else 1.0))
         return _tree_stack(outs, key_axis)
 
-    def tile_update(self, states, x_tile, w_tile):
-        """Each key's slot advances by the inner statistic's tile math
-        under w_tile · (key == g); ``states`` leaves are (B, G, ...)."""
-        x, gid = self._split_key(x_tile)
+    def _per_key_batch(self, advance, states, values, weights):
+        x, gid = self._split_key(values)
         return _tree_stack([
-            self.inner.tile_update(
-                _tree_take(states, g, 1), x,
-                w_tile * (gid == g).to(torch.float32)[None, :])
+            advance(_tree_take(states, g, 1), x,
+                    weights * (gid == g).to(torch.float32)[None, :])
             for g in range(self.num_groups)], 1)
+
+    def update_batch(self, states, values, weights):
+        """Each key's slot advances by the inner ``update_batch`` under
+        weights · (key == g); ``states`` leaves are (B, G, ...)."""
+        return self._per_key_batch(self.inner.update_batch, states, values,
+                                   weights)
+
+    def tile_update(self, states, x_tile, w_tile):
+        """As ``update_batch``, with the inner statistic's plain tile
+        math."""
+        return self._per_key_batch(self.inner.tile_update, states, x_tile,
+                                   w_tile)
 
     def fused_poisson_states(self, seed, values, B, n_valid=None,
                              valid_mask=None):

@@ -17,6 +17,7 @@ import numpy as np
 from repro_torch import random as trandom
 from repro_torch.core import ssabe as ssabe_mod
 from repro_torch.core.accuracy import AccuracyReport
+from repro_torch.core.bootstrap import check_backend
 from repro_torch.core.delta import (poisson_delta_extend, poisson_delta_init,
                                     poisson_delta_result)
 from repro_torch.core.reduce_api import Statistic, _as_2d
@@ -50,21 +51,18 @@ class EarlSession:
     ``sampler`` provides ``N`` and ``take(start, stop)``: rows [start,
     stop) of a fixed uniform random permutation of the population, so
     prefixes are uniform samples without replacement and growth is a
-    prefix extension.  ``device=None`` runs on the card; the only ported
-    backend is the matrix-free ``"fused_rng"``.
+    prefix extension.  ``device=None`` runs on the card.  ``backend=None``
+    materializes Poisson weights for SSABE and the delta-maintained main
+    loop (the paper's engine); ``"fused_rng"`` runs both matrix-free.
     """
 
     def __init__(self, sampler, stat: Statistic, sigma: float = 0.05,
                  tau: float = 0.01, p_pilot: float = 0.01,
                  growth: float = 2.0, max_fraction: float = 1.0,
                  min_pilot: int = 64, max_pilot: int = 8192, l: int = 5,
-                 backend: Optional[str] = "fused_rng", mesh=None,
+                 backend: Optional[str] = None, mesh=None,
                  checkpoint=None, device=None):
-        if backend != "fused_rng":
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported; use 'fused_rng'")
-        if mesh is not None:
-            raise NotImplementedError("EarlSession(mesh=) is not ported yet")
+        check_backend(backend, "poisson", mesh)
         if checkpoint is not None:
             raise NotImplementedError(
                 "EarlSession(checkpoint=) is not ported yet")

@@ -4,7 +4,8 @@ Run on a pilot sample:
 
   Phase A: grow B over a doubling ladder up to ceil(1/τ) until
            |c_v(B_i) − c_v(B_{i−1})| < τ; the thetas of all B_max
-           resamples come from one fused pass and B is a prefix of them.
+           resamples come from one pass (over a (B_max, n) weight matrix,
+           or fused) and B is a prefix of them.
   Phase B: grow nested prefixes n_i = n/2^{l−i} with delta maintenance,
            fit c_v(n) = a·n^(−1/2) + c by least squares and invert it for
            the n that meets σ.
@@ -19,7 +20,9 @@ import numpy as np
 
 from repro_torch import random as trandom
 from repro_torch.core import accuracy
-from repro_torch.core.bootstrap import fused_resample_states, seed_from_key
+from repro_torch.core.bootstrap import (bootstrap_thetas, check_backend,
+                                        fused_resample_states, seed_from_key,
+                                        weights_for)
 from repro_torch.core.delta import (poisson_delta_extend, poisson_delta_init,
                                     poisson_delta_result)
 from repro_torch.core.reduce_api import Statistic, _as_2d, tree_map
@@ -51,27 +54,26 @@ class SSABEResult:
     n_theory: int               # CLT prediction
 
 
-def _check(engine: str, backend, mesh) -> None:
-    if engine != "poisson" or backend != "fused_rng":
-        raise NotImplementedError("only backend='fused_rng' with the "
-                                  "poisson engine is ported")
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
-
-
 def estimate_B(values, stat: Statistic, tau: float, key,
                engine: str = "poisson", B_min: int = 2,
-               B_max: int | None = None, backend: str | None = "fused_rng",
+               B_max: int | None = None, backend: str | None = None,
                mesh=None, device=None) -> Tuple[int, List[Tuple[int, float]]]:
-    """Phase A.  Implicit weights are keyed per (resample tile, item
-    tile), so row b's weights do not depend on B_max: prefixes of one
-    pass's thetas are nested resample sets."""
-    _check(engine, backend, mesh)
+    """Phase A.  The thetas of B_max resamples come from one pass, and
+    prefixes of them are nested resample sets (common random numbers):
+    rows of one (B_max, n) weight matrix of ``engine``, or with
+    ``backend="fused_rng"`` implicit weights keyed per (resample tile,
+    item tile), whose row b does not depend on B_max."""
+    check_backend(backend, engine, mesh)
     if B_max is None:
         B_max = max(B_min + 1, int(math.ceil(1.0 / tau)))
-    x = _as_2d(as_tensor(values, resolve_device(device)))
-    states = fused_resample_states(stat, seed_from_key(key), x, B_max)
-    thetas_full = stat.finalize_batch(states)
+    dev = resolve_device(device)
+    x = _as_2d(as_tensor(values, dev))
+    if backend == "fused_rng":
+        states = fused_resample_states(stat, seed_from_key(key), x, B_max)
+        thetas_full = stat.finalize_batch(states)
+    else:
+        thetas_full = bootstrap_thetas(
+            x, stat, weights_for(engine, key, B_max, x.shape[0], device=dev))
 
     # doubling candidates measure convergence of the bootstrap variance
     # estimate (consecutive integers would differ by O(1/B) and stop early)
@@ -117,16 +119,16 @@ def invert_cv_curve(a: float, c: float, sigma: float, n_cap: int) -> int:
 
 def estimate_n(values, stat: Statistic, sigma: float, B: int, key,
                l: int = 5, n_cap: int | None = None,
-               backend: str | None = "fused_rng", mesh=None, device=None
+               backend: str | None = None, mesh=None, device=None
                ) -> Tuple[int, List[Tuple[int, float]], float, float]:
     """Phase B: nested prefixes extend one delta-maintained run."""
-    _check("poisson", backend, mesh)
     dev = resolve_device(device)
     x = _as_2d(as_tensor(values, dev))
     n, dim = x.shape
     if n_cap is None:
         n_cap = 1 << 62
-    pd = poisson_delta_init(stat, B, dim, key, backend=backend, device=dev)
+    pd = poisson_delta_init(stat, B, dim, key, backend=backend, mesh=mesh,
+                            device=dev)
     history: List[Tuple[int, float]] = []
     prev = 0
     for i in range(1, l + 1):
@@ -143,10 +145,11 @@ def estimate_n(values, stat: Statistic, sigma: float, B: int, key,
 
 def ssabe(pilot_values, stat: Statistic, sigma: float, tau: float, key,
           l: int = 5, N: int | None = None, engine: str = "poisson",
-          backend: str | None = "fused_rng", mesh=None,
+          backend: str | None = None, mesh=None,
           device=None) -> SSABEResult:
-    """Both SSABE phases on a pilot sample."""
-    _check(engine, backend, mesh)
+    """Both SSABE phases on a pilot sample; ``engine`` draws phase A's
+    materialized weights."""
+    check_backend(backend, engine, mesh)
     dev = resolve_device(device)
     kb, kn = trandom.split(trandom.fold_in(key, 0xEA))
     B_hat, hist_B = estimate_B(pilot_values, stat, tau, kb, engine=engine,

@@ -26,3 +26,16 @@ def as_tensor(x, device: torch.device) -> torch.Tensor:
     if not t.is_floating_point():
         t = t.to(torch.float32)
     return t.to(device=device, dtype=torch.float32)
+
+
+def check_ieee_matmul(t: torch.Tensor) -> None:
+    """Raise unless f32 matrix products on ``t``'s device run in IEEE f32:
+    on the card, TF32 would keep about three decimal digits of a weighted
+    moment (the package turns it off at import; a caller may turn it on)."""
+    if t.is_cuda and (torch.backends.cuda.matmul.allow_tf32
+                      or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "f32 matmuls are set to TF32 (torch.backends.cuda.matmul."
+            "allow_tf32 / set_float32_matmul_precision); the weighted "
+            "moments need IEEE f32: set allow_tf32 = False and precision "
+            "'highest'")

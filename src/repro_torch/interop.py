@@ -9,7 +9,8 @@ imports jax or the JAX package.  What crosses:
   ``counts, lo, hi`` (a histogram state) or ``sums, counts, inertia`` (a
   k-means state), or a tuple of them (a group); a GroupedStatistic's
   states cross the same way, with the key axis G on every leaf;
-* a Poisson delta run: its states, point-estimate state, key, n and step;
+* a Poisson delta run: its states, point-estimate state, key, n, step
+  and backend;
 * a sharded store: its splits.
 
 This is the system's counterpart of carrying weights across: a run begun
@@ -22,6 +23,7 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from repro_torch.core.bootstrap import check_backend
 from repro_torch.core.delta import PoissonDelta
 from repro_torch.core.reduce_api import (HistogramState, KMeansState,
                                          MomentState, Statistic)
@@ -56,14 +58,17 @@ def state_from_numpy(state: Any, device=None):
 
 
 def poisson_delta_from_numpy(stat: Statistic, B: int, states, est_state,
-                             key, n: int, step: int,
+                             key, n: int, step: int, backend=None,
                              device=None) -> PoissonDelta:
-    """A port ``PoissonDelta`` continuing a JAX package delta run."""
+    """A port ``PoissonDelta`` continuing a JAX package delta run;
+    ``backend`` is the run's own (the JAX package's default is None)."""
+    check_backend(backend, "poisson", None)
     dev = resolve_device(device)
     return PoissonDelta(stat=stat, key=key_from_numpy(key),
                         states=state_from_numpy(states, dev),
                         est_state=state_from_numpy(est_state, dev),
-                        B=int(B), n=int(n), step=int(step), device=dev)
+                        B=int(B), n=int(n), step=int(step), device=dev,
+                        backend=backend)
 
 
 def store_from_splits(splits: Iterable[np.ndarray]) -> ShardedStore:

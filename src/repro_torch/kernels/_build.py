@@ -37,7 +37,8 @@ VOID_P = ctypes.c_void_p
 INT = ctypes.c_int
 #: C signature of each library's entry point (all return cudaError_t).
 #: fused_pass serves fused_poisson_moments, _hist and _multi alike;
-#: fused_grouped their keyed (GROUP BY) moments and histogram.
+#: fused_grouped their keyed (GROUP BY) moments and histogram;
+#: weighted_moments and weighted_hist take an explicit weight matrix.
 SIGNATURES: Dict[str, tuple] = {
     "poisson_counts": (INT, INT, INT, INT, INT, VOID_P, VOID_P),
     "fused_pass": (INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P, INT,
@@ -51,6 +52,11 @@ SIGNATURES: Dict[str, tuple] = {
                       VOID_P, INT, INT, INT, INT, INT, VOID_P, VOID_P,
                       VOID_P, VOID_P, VOID_P, VOID_P, INT, VOID_P, VOID_P,
                       VOID_P, VOID_P),
+    "weighted_moments": (INT, INT, INT, VOID_P, VOID_P, INT, INT, INT,
+                         VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
+                         VOID_P),
+    "weighted_hist": (INT, INT, INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, INT,
+                      INT, INT, VOID_P, VOID_P),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -40,6 +40,17 @@ def pass_geometry(Bp: int, np_: int, bn: int) -> Tuple[int, int]:
     return tpc, -(-nt // tpc)
 
 
+def explicit_geometry(R: int, n: int, rows: int) -> Tuple[int, int]:
+    """(cols, ranges) of a pass over an explicit (R, n) weight matrix,
+    ``rows`` rows of it a CTA: about TARGET_CTAS CTAs, each over a range
+    of ``cols`` columns, a whole number of warps wide."""
+    rowblocks = -(-R // rows)
+    ranges = max(1, min(-(-n // 256), -(-TARGET_CTAS // rowblocks)))
+    cols = -(-n // ranges)
+    cols += (-cols) % 32
+    return cols, -(-n // cols)
+
+
 def hist_rows(hist_total: int, tiles_per_cta: int) -> int:
     """Rows of W per CTA whose bins fit in shared memory beside the keys."""
     free = SMEM_BYTES - 16 * tiles_per_cta - 64

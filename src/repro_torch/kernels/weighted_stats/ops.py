@@ -1,4 +1,11 @@
-"""Matrix-free bootstrap moments, and the tile scan every fused path shares.
+"""Bootstrap moments: of an explicit weight matrix, and matrix-free; and
+the tile scan every fused path shares.
+
+``weighted_moments`` contracts an explicit (B, n) weight matrix W with X
+and X² (the materialized engines).  A CUDA tensor launches the
+hand-written kernel (csrc/weighted_moments.cu, replacing the TPU kernel
+repro/kernels/weighted_stats/kernel.py: weighted_moments_kernel) or
+raises; a CPU tensor runs the plain version, ``ref.weighted_moments_ref``.
 
 ``fused_poisson_moments`` gives, for B resamples under implicit Poisson(1)
 weights W (never stored), w_tot = ΣW (B,), s1 = W·X and s2 = W·X² (B, d);
@@ -19,12 +26,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._pass import (MAX_ROWS, check_cuda_f32,
-                                       grouped_geometry, pass_geometry,
-                                       stream_ptr)
+                                       explicit_geometry, grouped_geometry,
+                                       pass_geometry, stream_ptr)
 from repro_torch.kernels.poisson_counts.ops import poisson_counts
 from repro_torch.kernels.poisson_counts.ref import (tiles_per_chunk,
                                                     weight_block,
                                                     weight_tile_blocks)
+from repro_torch.kernels.weighted_stats.ref import weighted_moments_ref
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int,
@@ -37,6 +45,54 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int,
     shape[axis] = pad
     return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
                                      device=x.device)], dim=axis)
+
+
+def weighted_moments(weights: torch.Tensor, values: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """weights (B, n) × values (n, d) or (n,) -> (w_tot (B,), s1 (B, d),
+    s2 (B, d)).
+
+    On the card, kernel 11: w_tot is the exact total of whole-number
+    weights rounded once (bitwise the plain version's), s1 and s2 are
+    summed in a fixed order and agree with the plain version within
+    1e-5·Σw|x| and 1e-5·Σw·x²; repeated runs are bitwise equal."""
+    if not isinstance(values, torch.Tensor):
+        raise TypeError("weighted_moments takes torch.Tensors; the device "
+                        "of the values picks the kernel or the plain "
+                        "version")
+    x = values if values.ndim == 2 else values.reshape(values.shape[0], -1)
+    w = weights.to(torch.float32)
+    if w.ndim != 2 or w.shape[1] != x.shape[0]:
+        raise ValueError(f"weights {tuple(w.shape)} do not match values "
+                         f"{tuple(x.shape)}: expected (B, n)")
+    if x.device.type == "cuda":
+        return weighted_moments_cuda(w.contiguous(),
+                                     x.to(torch.float32).contiguous())
+    return weighted_moments_ref(w, x)
+
+
+weighted_moments.launches = 0
+
+
+def weighted_moments_cuda(w: torch.Tensor, x: torch.Tensor):
+    """Kernel 11 (csrc/weighted_moments.cu) on the card."""
+    check_cuda_f32("weights", w)
+    check_cuda_f32("values", x)
+    (B, n), d = w.shape, x.shape[1]
+
+    def e(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+    if B == 0 or n == 0:
+        return tuple(t.zero_() for t in (e(B), e(B, d), e(B, d)))
+    rows = min(MAX_ROWS, B)
+    cols, ranges = explicit_geometry(B, n, rows)
+    parts = (e(B, ranges), e(B, ranges, d), e(B, ranges, d))
+    out = (e(B), e(B, d), e(B, d))
+    weighted_moments.launches += 1
+    _build.launch("weighted_moments", B, n, d, w.data_ptr(), x.data_ptr(),
+                  rows, cols, ranges, *[t.data_ptr() for t in parts + out],
+                  stream_ptr(x.device))
+    return out
 
 
 def implicit_weight_tile(seed: int, n_valid: int, t: int, B: int,

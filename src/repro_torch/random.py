@@ -9,7 +9,16 @@ Bitwise equal to ``jax.random`` with ``jax_threefry_partitionable=True``
 * ``bits(key, shape)`` hashes ``(hi, lo)`` of each element's flat row-major
   index and returns ``bits1 ^ bits2``;
 * ``randint`` is JAX's two-draw modulus construction, with its uint32
-  wrap-around reproduced.
+  wrap-around reproduced;
+* ``uniform`` (f32) puts 23 random mantissa bits under the exponent of 1.0
+  and subtracts 1.0;
+* ``poisson`` for λ < 10 is Knuth's ladder as jax 0.9 runs it: iteration t
+  splits the key, draws a uniform over the whole shape and adds its log to
+  a running f32 sum; an entry's draw is the number of iterations it took
+  for the sum to reach −λ, minus one.  The log is the one place where
+  the packages may differ: XLA's and torch's f32 ``log`` (and CUDA's
+  ``logf``) can differ by an ulp, which flips an entry only when its sum
+  lies within an ulp of −λ.
 
 A key is an int64 tensor of shape (2,) holding two uint32 words, kept on
 the CPU: keys are host-side control state, only bit tensors are large.
@@ -25,6 +34,9 @@ import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
+#: Elements hashed at once by ``poisson`` and ``randint``: bounds their
+#: int64 threefry temporaries (about ten of 8 bytes an element).
+BLOCK = 1 << 24
 _KS_PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -94,14 +106,77 @@ def split(key, num: int = 2) -> torch.Tensor:
     return torch.stack([o0, o1], dim=1)
 
 
+def bits_at(key, counters: torch.Tensor) -> torch.Tensor:
+    """uint32 random bits (as int64) of the draw ``bits`` would make, at
+    the flat row-major positions ``counters`` (int64, on their device)."""
+    k = key_data(key).to(counters.device)
+    o0, o1 = threefry2x32(k[0], k[1], counters >> 32, counters & MASK32)
+    return o0 ^ o1
+
+
 def bits(key, shape: Sequence[int], device="cpu") -> torch.Tensor:
     """uint32 random bits (as int64) of ``shape``: element with flat index
     c hashes (c >> 32, c & 0xFFFFFFFF) and returns bits1 ^ bits2."""
-    k = key_data(key).to(device)
+    c = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    return bits_at(key, c).reshape(tuple(shape))
+
+
+def _unit_floats(b: torch.Tensor) -> torch.Tensor:
+    """f32 in [0, 1) from uint32 bits: the top 23 bits as the mantissa of
+    a float in [1, 2), minus 1 (exact)."""
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def uniform(key, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0, device="cpu") -> torch.Tensor:
+    """f32 uniform on [minval, maxval), bitwise ``jax.random.uniform``."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    f = _unit_floats(bits(key, shape, device))
+    return torch.maximum(lo, f * span + lo)
+
+
+def poisson(key, lam: float, shape: Sequence[int], dtype=torch.int32,
+            device="cpu") -> torch.Tensor:
+    """Poisson(``lam``) draws of ``shape``, ``jax.random.poisson``'s
+    Knuth ladder for 0 <= lam < 10 (module docstring).
+
+    An entry's draw depends only on the uniforms at its own position, so
+    the shape is drawn in blocks of ``BLOCK`` entries, and within a block
+    an iteration hashes only the entries whose sum is still above −λ: the
+    same values as hashing the whole shape every iteration, for about two
+    hashes an entry at λ = 1 instead of the ladder's length.  ``dtype``
+    may be a float type (the draws are small whole numbers), which spares
+    an integer copy of a large draw."""
+    lam = float(lam)
+    if not 0.0 <= lam < 10.0:
+        raise NotImplementedError("poisson for lam >= 10 (JAX's rejection "
+                                  "sampler) is not ported")
     size = math.prod(shape)
-    c = torch.arange(size, dtype=torch.int64, device=device)
-    o0, o1 = threefry2x32(k[0], k[1], c >> 32, c & MASK32)
-    return (o0 ^ o1).reshape(tuple(shape))
+    out = torch.zeros(size, dtype=dtype, device=device)
+    if lam == 0.0:
+        return out.reshape(tuple(shape))
+    neg_lam = torch.tensor(-lam, dtype=torch.float32, device=device)
+    rng, subkeys = key_data(key), []
+    for start in range(0, size, BLOCK):
+        live = torch.arange(start, min(size, start + BLOCK),
+                            dtype=torch.int64, device=device)
+        log_prod = torch.zeros(live.shape, dtype=torch.float32,
+                               device=device)
+        t = 0
+        while live.numel():
+            if t == len(subkeys):
+                rng, sub = split(rng)
+                subkeys.append(sub)
+            # uniform(...) is max(0, f) of these floats; f >= +0 already
+            log_prod = log_prod + torch.log(
+                _unit_floats(bits_at(subkeys[t], live)))
+            done = ~(log_prod > neg_lam)
+            out[live[done]] = t
+            live, log_prod = live[~done], log_prod[~done]
+            t += 1
+    return out.reshape(tuple(shape))
 
 
 def permutation(key, n: int) -> torch.Tensor:
@@ -119,31 +194,38 @@ def permutation(key, n: int) -> torch.Tensor:
     return x
 
 
-def randint(key, shape: Sequence[int], minval: int,
-            maxval: int) -> torch.Tensor:
+def randint(key, shape: Sequence[int], minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
     """int32 values in [minval, maxval), bitwise ``jax.random.randint``
     (int32 dtype): two bit draws from ``split(key)`` combined modulo the
-    span with JAX's uint32 wrap-around arithmetic."""
+    span with JAX's uint32 wrap-around arithmetic; hashed in blocks of
+    ``BLOCK`` entries."""
     imin, imax = -(1 << 31), (1 << 31) - 1
     out_of_range = maxval > imax
     lo_v = min(max(int(minval), imin), imax)
     hi_v = min(max(int(maxval), imin), imax)
     k1, k2 = split(key)
-    higher = bits(k1, shape)
-    lower = bits(k2, shape)
     span = (hi_v - lo_v) & MASK32
     if hi_v <= lo_v:
         span = 1
     if out_of_range and hi_v > lo_v:
         span = (span + 1) & MASK32
-    if span == 0:           # wrapped: remainders have no effect
-        offset = (higher * 0 + lower) & MASK32
-    else:
-        mult = (1 << 16) % span
-        mult = ((mult * mult) & MASK32) % span
-        offset = ((((higher % span) * mult) & MASK32)
-                  + (lower % span)) & MASK32
-        offset = offset % span
-    val = (lo_v + offset) & MASK32
-    val = torch.where(val >= (1 << 31), val - (1 << 32), val)
-    return val.to(torch.int32)
+    size = math.prod(shape)
+    out = torch.empty(size, dtype=torch.int32, device=device)
+    for start in range(0, size, BLOCK):
+        c = torch.arange(start, min(size, start + BLOCK), dtype=torch.int64,
+                         device=device)
+        higher = bits_at(k1, c)
+        lower = bits_at(k2, c)
+        if span == 0:           # wrapped: remainders have no effect
+            offset = lower
+        else:
+            mult = (1 << 16) % span
+            mult = ((mult * mult) & MASK32) % span
+            offset = ((((higher % span) * mult) & MASK32)
+                      + (lower % span)) & MASK32
+            offset = offset % span
+        val = (lo_v + offset) & MASK32
+        val = torch.where(val >= (1 << 31), val - (1 << 32), val)
+        out[start:start + c.numel()] = val.to(torch.int32)
+    return out.reshape(tuple(shape))

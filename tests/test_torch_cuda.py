@@ -11,7 +11,11 @@ Weights, w_tot, histogram and k-means counts must be bitwise equal to
 the plain versions; s1 and k-means sums within 1e-5·Σw|x|, s2 within
 1e-5·Σw·x² and k-means inertia within 1e-5·Σw·min-d² per entry; group
 members bitwise equal to the dedicated kernels; keyed (GROUP BY) slots
-bitwise equal to the dedicated kernels masked to their key.
+bitwise equal to the dedicated kernels masked to their key.  The explicit-
+weight kernels: weighted_moments' w_tot bitwise and s1/s2 within
+1e-5·Σw|x| (and Σw·x²); weighted_histogram's counts of whole-number
+weights bitwise, an (R, n) call bitwise R one-row calls, and fractional
+weights within 1e-6·Σ|w| of the row a bin.
 """
 import numpy as np
 import pytest
@@ -92,6 +96,12 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, monkeypatch):
         tka.kmeans_assign(x, None, torch.zeros(2, 1, device=cuda))
     with pytest.raises(RuntimeError, match="refused"):
         tka.fused_poisson_kmeans(1, x, torch.zeros(2, 1, device=cuda), 8)
+    w = torch.ones(4, 100, device=cuda)
+    with pytest.raises(RuntimeError, match="refused"):
+        tws.weighted_moments(w, x)
+    for weights in (None, w[0], w):
+        with pytest.raises(RuntimeError, match="refused"):
+            twh.weighted_histogram(x, weights, 0.0, 2.0, 16)
 
 
 def _within(got, want, bound):
@@ -222,3 +232,54 @@ def test_cuda_keyed_tensor_never_reaches_the_plain_version(cuda,
     with pytest.raises(RuntimeError, match="refused"):
         tka.fused_poisson_kmeans(1, x, torch.zeros(2, 1, device=cuda), 8,
                                  **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d", [(7, 1000, 3), (256, (1 << 16) + 37, 8)])
+def test_cuda_weighted_moments_match_plain(cuda, B, n, d):
+    rng = np.random.default_rng(B + n + d)
+    x = rng.normal(3.0, 2.0, size=(n, d)).astype(np.float32)
+    for w in (rng.poisson(1.0, size=(B, n)).astype(np.float32),
+              rng.random((B, n)).astype(np.float32)):
+        got = tws.weighted_moments(torch.from_numpy(w).to(cuda),
+                                   torch.from_numpy(x).to(cuda))
+        want = tws.weighted_moments(torch.from_numpy(w), torch.from_numpy(x))
+        wd, xd = torch.from_numpy(w).double(), torch.from_numpy(x).double()
+        if float((wd - wd.round()).abs().max()) == 0.0:
+            assert torch.equal(got[0].cpu(), want[0])
+        else:
+            assert _within(got[0], want[0], wd.sum(1))
+        assert _within(got[1], want[1], wd @ xd.abs())
+        assert _within(got[2], want[2], wd @ (xd * xd))
+        again = tws.weighted_moments(torch.from_numpy(w).to(cuda),
+                                     torch.from_numpy(x).to(cuda))
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,n,d,nbins", [(1, 5000, 1, 256),
+                                         (256, (1 << 16) + 37, 4, 2048)])
+def test_cuda_weighted_histogram_matches_plain(cuda, R, n, d, nbins):
+    rng = np.random.default_rng(R + n)
+    x = rng.normal(0.0, 1.5, size=(n, d)).astype(np.float32)
+    x[:6, 0] = [np.nan, np.inf, -np.inf, LO, HI, 10 * HI]
+    xc, xt = torch.from_numpy(x).to(cuda), torch.from_numpy(x)
+    w = rng.poisson(1.0, size=(R, n)).astype(np.float32)
+    wc, wt = torch.from_numpy(w).to(cuda), torch.from_numpy(w)
+    got = twh.weighted_histogram(xc, wc, LO, HI, nbins)
+    assert got.shape == (R, d, nbins)
+    assert torch.equal(got.cpu(), twh.weighted_histogram(xt, wt, LO, HI,
+                                                         nbins))
+    for r in (0, R - 1):
+        assert torch.equal(got[r], twh.weighted_histogram(xc, wc[r], LO, HI,
+                                                          nbins))
+    ones = twh.weighted_histogram(xc, None, LO, HI, nbins)
+    assert torch.equal(ones.cpu(), twh.weighted_histogram(xt, None, LO, HI,
+                                                          nbins))
+    frac = rng.random((R, n)).astype(np.float32)
+    got = twh.weighted_histogram(xc, torch.from_numpy(frac).to(cuda), LO, HI,
+                                 nbins)
+    want = twh.weighted_histogram(xt, torch.from_numpy(frac), LO, HI, nbins)
+    bound = 1e-6 * torch.from_numpy(frac).double().sum(1)[:, None, None]
+    assert bool(((got.cpu().double() - want.double()).abs() <= bound).all())

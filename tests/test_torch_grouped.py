@@ -426,7 +426,8 @@ def test_ssabe_gates_on_the_worst_key():
     want = j_ssabe(jnp.asarray(data), JGrouped(JMean(), G), 0.05, 0.01,
                    jax.random.PRNGKey(3), N=100_000, backend="fused_rng")
     got = ssabe(torch.from_numpy(data), GroupedStatistic(Mean(), G), 0.05,
-                0.01, trandom.PRNGKey(3), N=100_000, device="cpu")
+                0.01, trandom.PRNGKey(3), N=100_000, backend="fused_rng",
+                device="cpu")
     assert (got.B, got.n) == (want.B, want.n)
     assert [b for b, _ in got.cv_history_B] == \
         [b for b, _ in want.cv_history_B]
@@ -439,7 +440,7 @@ def test_delta_result_corrects_per_key(keyed):
     vals, _, _ = keyed
     stat = GroupedStatistic(Sum(), G)
     pd = poisson_delta_init(stat, B, D + 1, trandom.PRNGKey(SEED),
-                            device="cpu")
+                            backend="fused_rng", device="cpu")
     pd = poisson_delta_extend(pd, _t(vals))
     p_keys = [0.5, 0.25, 1.0, 0.8]
     res = poisson_delta_result(pd, p_keys=p_keys)
@@ -457,7 +458,8 @@ def test_delta_result_corrects_per_key(keyed):
                                rtol=EST_RTOL, atol=1e-4)
     np.testing.assert_allclose(res.report.cvs, want.report.cvs,
                                rtol=CV_RTOL)
-    plain = poisson_delta_init(Sum(), B, 2, trandom.PRNGKey(0), device="cpu")
+    plain = poisson_delta_init(Sum(), B, 2, trandom.PRNGKey(0),
+                               backend="fused_rng", device="cpu")
     with pytest.raises(ValueError, match="keyed"):
         poisson_delta_result(poisson_delta_extend(plain, torch.ones(16, 2)),
                              p_keys=[0.5])
@@ -468,7 +470,7 @@ def test_bootstrap_gives_a_keyed_report(keyed):
     want = j_bootstrap(jnp.asarray(vals), JGrouped(JMean(), G), B,
                        jax.random.PRNGKey(7), backend="fused_rng")
     got = bootstrap(_t(vals), GroupedStatistic(Mean(), G), B,
-                    trandom.PRNGKey(7), device="cpu")
+                    trandom.PRNGKey(7), backend="fused_rng", device="cpu")
     assert isinstance(got.report, KeyedAccuracyReport)
     assert got.thetas.shape == (B, G, D)
     assert got.report.worst_key == want.report.worst_key
@@ -495,7 +497,7 @@ def test_keyed_session_matches_jax(kind):
                         backend="fused_rng")
     tsession = EarlSession(StratifiedSampler(
         ShardedStore.from_array(data, 4096), G, seed=1, device="cpu"),
-        tstat, sigma=0.05, device="cpu")
+        tstat, sigma=0.05, backend="fused_rng", device="cpu")
     want = jsession.run(jax.random.PRNGKey(0))
     got = tsession.run(trandom.PRNGKey(0))
     assert (got.B, got.n_used, got.iterations, got.fell_back) == \
@@ -521,6 +523,7 @@ def test_keyed_session_full_job_reports_every_key():
     got = EarlSession(StratifiedSampler(ShardedStore.from_array(data, 128),
                                         G, seed=1, device="cpu"),
                       GroupedStatistic(Mean(), G), sigma=0.001,
+                      backend="fused_rng",
                       device="cpu").run(trandom.PRNGKey(0))
     assert got.fell_back and len(got.reports) == G
     for g, r in enumerate(got.reports):
@@ -540,7 +543,7 @@ def test_keyed_delta_run_continues_in_the_port():
         numpy = jax.tree_util.tree_map(np.asarray, (pd.states, pd.est_state))
         tpd = interop.poisson_delta_from_numpy(
             ts, pd.B, numpy[0], numpy[1], np.asarray(pd.key), pd.n, pd.step,
-            device="cpu")
+            backend="fused_rng", device="cpu")
         pd = j_extend(pd, jnp.asarray(parts[2]))
         tpd = poisson_delta_extend(tpd, torch.from_numpy(parts[2]))
         assert (tpd.n, tpd.step) == (pd.n, pd.step)

@@ -41,7 +41,8 @@ def test_delta_run_continues_in_the_port():
 
     tpd = interop.poisson_delta_from_numpy(
         tstat, pd.B, _numpy(pd.states), _numpy(pd.est_state),
-        np.asarray(pd.key), pd.n, pd.step, device="cpu")
+        np.asarray(pd.key), pd.n, pd.step, backend="fused_rng",
+        device="cpu")
     pd = j_extend(pd, parts[2])
     tpd = poisson_delta_extend(tpd, torch.from_numpy(parts[2]))
     assert (tpd.n, tpd.step) == (pd.n, pd.step)

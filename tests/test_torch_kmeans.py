@@ -291,7 +291,7 @@ def test_example_bootstrap_matches_jax():
     want = j_bootstrap(jxs, JKMeansStep(jnp.asarray(tc.numpy())), B=B,
                        key=jax.random.PRNGKey(0), backend="fused_rng")
     got = bootstrap(txs, KMeansStep(tc), B, trandom.PRNGKey(0),
-                    device="cpu")
+                    backend="fused_rng", device="cpu")
     assert not _ambiguous(txs.numpy(), tc.numpy()).any()
     assert got.thetas.shape == (B, K, 2)
     np.testing.assert_allclose(got.thetas.numpy(), np.asarray(want.thetas),
@@ -311,14 +311,16 @@ def test_delta_run_matches_and_continues_from_jax():
     jstat, tstat = JKMeansStep(jnp.asarray(cent)), KMeansStep(
         torch.from_numpy(cent))
     jpd = j_init(jstat, 16, 2, jax.random.PRNGKey(4), backend="fused_rng")
-    tpd = poisson_delta_init(tstat, 16, 2, trandom.PRNGKey(4), device="cpu")
+    tpd = poisson_delta_init(tstat, 16, 2, trandom.PRNGKey(4),
+                             backend="fused_rng", device="cpu")
     for p in parts[:2]:
         jpd = j_extend(jpd, p)
         tpd = poisson_delta_extend(tpd, torch.from_numpy(p))
     # the JAX run's state crosses into the port and both extend once more
     cpd = interop.poisson_delta_from_numpy(
         tstat, jpd.B, _numpy(jpd.states), _numpy(jpd.est_state),
-        np.asarray(jpd.key), jpd.n, jpd.step, device="cpu")
+        np.asarray(jpd.key), jpd.n, jpd.step, backend="fused_rng",
+        device="cpu")
     jpd = j_extend(jpd, parts[2])
     tpd = poisson_delta_extend(tpd, torch.from_numpy(parts[2]))
     cpd = poisson_delta_extend(cpd, torch.from_numpy(parts[2]))

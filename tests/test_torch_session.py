@@ -71,7 +71,8 @@ def test_session_matches_jax(kind):
     want = JSession(JPreMap(jstore, seed=1), jstat, sigma=0.05,
                     backend="fused_rng").run(jax.random.PRNGKey(0))
     got = EarlSession(PreMapSampler(tstore, seed=1, device="cpu"), tstat,
-                      sigma=0.05, device="cpu").run(trandom.PRNGKey(0))
+                      sigma=0.05, backend="fused_rng",
+                      device="cpu").run(trandom.PRNGKey(0))
 
     assert (got.B, got.n_used, got.iterations, got.fell_back) == \
         (want.B, want.n_used, want.iterations, want.fell_back)
@@ -111,7 +112,8 @@ def test_one_shot_bootstrap_matches_jax():
     x = synthetic_numeric(5000, seed=4)
     want = j_bootstrap(x, _j_group(), 40, jax.random.PRNGKey(9),
                        backend="fused_rng")
-    got = bootstrap(x, _t_group(), 40, trandom.PRNGKey(9), device="cpu")
+    got = bootstrap(x, _t_group(), 40, trandom.PRNGKey(9),
+                    backend="fused_rng", device="cpu")
     assert (got.B, got.n) == (want.B, want.n)
     jt, tt = want.thetas, got.thetas
     np.testing.assert_array_equal(np.asarray(jt[1]), tt[1].numpy())
@@ -178,7 +180,7 @@ def test_exact_job_fallback_matches_jax():
                     max_fraction=0.01,
                     backend="fused_rng").run(jax.random.PRNGKey(1))
     got = EarlSession(PreMapSampler(tstore, seed=3, device="cpu"), Mean(),
-                      sigma=0.05, max_fraction=0.01,
+                      sigma=0.05, max_fraction=0.01, backend="fused_rng",
                       device="cpu").run(trandom.PRNGKey(1))
     assert want.fell_back and got.fell_back
     assert (got.n_used, got.B, got.iterations, got.cv) == \
