@@ -7,11 +7,12 @@ Needs one CUDA card, nvcc and this checkout; it imports nothing of JAX or
 of the JAX package.  Phases, each of which raises (exit code 1) on
 failure:
 
-1. build the ten CUDA kernels from kernels/csrc (poisson_counts.cu,
+1. build the twelve CUDA kernels from kernels/csrc (poisson_counts.cu,
    fused_pass.cu, which holds the three fused ones, kmeans_assign.cu,
    fused_kmeans.cu, fused_grouped.cu, which holds the two GROUP BY ones,
-   weighted_moments.cu and weighted_hist.cu; one nvcc per source, all at
-   once) and print the build seconds;
+   weighted_moments.cu, weighted_hist.cu, fused_stream.cu and
+   fused_binblocked.cu; one nvcc per source, all at once) and print the
+   build seconds and ptxas's registers and spills;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at B=256, n=2^20+37, with and without a
@@ -28,7 +29,15 @@ failure:
    {1, 1000, 2^20+37}, d in {1, 3, 8}; weighted_histogram at R in
    {1, 256}, d in {1, 4}, nbins in {256, 2048}, with NaN, +-inf, values
    past the edges and zero weights) under whole-number and fractional
-   weights, and R = 256 rows bitwise 256 one-row launches;
+   weights, and R = 256 rows bitwise 256 one-row launches; the
+   output-tiled histogram (kernel 7, block_bins in {128, 512, 2048}, d in
+   {1, 4, 64} at nbins = 2048, ragged n, NaN, +-inf and values past the
+   edges, with and without a mask) bitwise equal to the plain version and
+   to the one-window kernel where that fits, and keyed at G = 8, d = 4
+   (65,536 bins a row, past the keyed histogram's limit); the streamed
+   moments (kernel 5, B in {8, 256}, n in {300, 65,536, 2^20+37}, d in
+   {1, 3, 64}, aligned and misaligned x, with and without a mask) bitwise
+   equal to kernel 2 and within 1e-5·Σw|x| of the plain version;
 4. the quickstart path, with every launch count set to 0 first and the
    geometry of every launch logged: the quickstart session
    (N = 2,000,000, StatisticGroup(Mean, Quantile(0.5), Std)), a Mean()
@@ -49,7 +58,8 @@ failure:
    with frequency ∝ 2^-g), each run again on the CPU, which must agree,
    and a keyed Mean bootstrap at B=256, n=2^24-1000 whose peak memory
    must stay below an (n, G) f32 tensor; the earlier kernels' launches
-   on phases 4 to 6 must equal EARLIER_LAUNCHES;
+   on phases 4 to 6 must equal EARLIER_LAUNCHES (and kernel 10's, and
+   those of kernels 5 and 7, EARLIER_LATER_LAUNCHES);
 7. the materialized path (the JAX package's default backend=None), from
    zeroed counts with its geometries logged: the quickstart group's
    session with no backend, on the card and the CPU, which must agree;
@@ -60,14 +70,29 @@ failure:
    (B=16, 30,000 + 30,000 rows; the same resamples and counts on the
    CPU); fig3's shared-base bootstrap (B=64, 4,000 rows); the chunked
    bootstrap with both backends at n=2^22;
-8. replay every distinct launch geometry that phases 4 to 7 logged on
-   fresh data and hold it against the plain version as in phase 3;
+10. (run after phase 7) the streaming path, from zeroed counts with its
+   geometries logged: examples/fault_tolerance.py parts 1 to 3 on the card
+   (100,000 x 4 rows, B = 64, chunk 8,192: a kill after checkpoint 6 and
+   its resume, transient faults under a RetryPolicy, a split lost for good
+   under FailurePolicy(on_exhausted="degrade"), each bitwise its oracle),
+   the same walk's Mean and Count on the CPU (w_tot bitwise, Mean within
+   1e-5·Σw|x|/Σw); then a host store of 2^22 x 64 f32 rows (1 GiB, B =
+   256, chunk 65,536): a streamed Mean (kernel 2 each chunk) and
+   Quantile(block_bins=2048) (kernel 7 each chunk), each bitwise
+   bootstrap_chunked over store.read_all() on the card, a kill and resume
+   of the Quantile at checkpoint_every=8, kernel 5's entry point over the
+   same chunks (bitwise the streamed Mean's state), and both runs again
+   at 2^20 rows: the peak device memory above the resident state must not
+   grow with n;
+8. replay every distinct launch geometry that phases 4 to 7 and 10 logged
+   on fresh data and hold it against the plain version as in phase 3;
 9. time each kernel (CUDA events) beside its plain version, its bound
    and, for the explicit-weight kernels, one PyTorch call computing the
    same function; the sessions' wall times and the example's walls over a
    few warm runs, and the grouped moments kernel against G masked
-   moments launches; then print the kernels line, then the contract's
-   last line.
+   moments launches; kernel 5 beside kernel 2 and kernel 7 at the streamed
+   Quantile's chunk shape; then print the kernels line, then the
+   contract's last line.
 
 Every plain version that a kernel is held against or timed beside runs
 under a check that it launches no kernel.
@@ -105,6 +130,10 @@ REPLACES = {
     "fused_poisson_hist_grouped": "src/repro/kernels/weighted_hist/ops.py:107",
     "weighted_moments": "src/repro/kernels/weighted_stats/kernel.py:67",
     "weighted_histogram": "src/repro/kernels/weighted_hist/kernel.py:73",
+    "fused_poisson_moments_stream":
+        "src/repro/kernels/weighted_stats/kernel.py:406",
+    "fused_poisson_hist_binblocked":
+        "src/repro/kernels/weighted_hist/kernel.py:195",
 }
 SOURCES = {
     "poisson_counts": "src/repro_torch/kernels/csrc/poisson_counts.cu",
@@ -119,6 +148,10 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/fused_grouped.cu",
     "weighted_moments": "src/repro_torch/kernels/csrc/weighted_moments.cu",
     "weighted_histogram": "src/repro_torch/kernels/csrc/weighted_hist.cu",
+    "fused_poisson_moments_stream":
+        "src/repro_torch/kernels/csrc/fused_stream.cu",
+    "fused_poisson_hist_binblocked":
+        "src/repro_torch/kernels/csrc/fused_binblocked.cu",
 }
 #: the kernels each main path must launch
 QUICKSTART_KERNELS = ("poisson_counts", "fused_poisson_moments",
@@ -127,6 +160,8 @@ KMEANS_KERNELS = ("kmeans_assign", "fused_poisson_kmeans")
 GROUPBY_KERNELS = ("fused_poisson_moments_grouped",
                    "fused_poisson_hist_grouped")
 MATERIALIZED_KERNELS = ("weighted_moments", "weighted_histogram")
+STREAM_KERNELS = ("fused_poisson_moments", "fused_poisson_hist_binblocked",
+                  "fused_poisson_moments_stream", "weighted_histogram")
 #: launches of the earlier kernels on the quickstart, k-means and GROUP BY
 #: paths together in the run that ported the GROUP BY slice: a call that
 #: lost its explicit backend="fused_rng" would change them
@@ -135,6 +170,13 @@ EARLIER_LAUNCHES = {"poisson_counts": 1, "fused_poisson_moments": 7,
                     "kmeans_assign": 18, "fused_poisson_kmeans": 2,
                     "fused_poisson_moments_grouped": 8,
                     "fused_poisson_hist_grouped": 7}
+#: the other kernels' launches on those three paths, and the materialized
+#: path's launches, in the run that ported the materialized engines
+EARLIER_LATER_LAUNCHES = {"weighted_moments": 0, "weighted_histogram": 111,
+                          "fused_poisson_moments_stream": 0,
+                          "fused_poisson_hist_binblocked": 0}
+MATERIALIZED_LAUNCHES = {"fused_poisson_multi": 64, "weighted_moments": 1,
+                         "weighted_histogram": 295}
 NBINS, LO, HI = 2048, 0.0, 25.0
 QUICKSTART_N = 2_000_000
 BIG_B, BIG_N = 256, (1 << 20) + 37
@@ -160,6 +202,18 @@ FIG10_B, FIG10_N = 32, 1_600_000
 MDB_B, MDB_ROWS = 16, 30_000
 SB_B, SB_N = 64, 4_000
 CHUNK_B, CHUNK_N, CHUNK = 64, 1 << 22, 65_536
+# the streaming path: examples/fault_tolerance.py's store (100,000 x 4
+# rows, splits of 4,096, B = 64, chunks of 8,192), then the README's
+# 64-column store at 2^22 rows (1 GiB of f32 on the host) and at 2^20, B =
+# 256, chunks of 65,536, a median of each column over 2,048 bins in
+# windows of 2,048 (kernel 7)
+FT_N, FT_D, FT_SPLIT, FT_B, FT_CHUNK = 100_000, 4, 4096, 64, 8192
+ST_NS, ST_D, ST_SPLIT, ST_B, ST_CHUNK = (1 << 22, 1 << 20), 64, 65_536, \
+    256, 65_536
+ST_LO, ST_HI, ST_CKPT_EVERY, ST_KILL_AFTER = -6.0, 6.0, 8, 3
+# kernel 7's parity: n for d = 64 (the others run at BIG_N) and the keyed
+# case's G, d (65,536 bins a row)
+K7_WIDE_N, K7_G, K7_GD = (1 << 16) + 37, 8, 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -215,17 +269,20 @@ class Parity:
 
 def wrappers():
     """Each kernel's name and the function that counts its launches in
-    ``launches``: the wrapper, or for the GROUP BY kernels the card path
-    of the wrapper's keyed call."""
+    ``launches``: the wrapper, or for the GROUP BY kernels and kernels 5
+    and 7 the card path of the wrapper's keyed, streamed or block_bins
+    call."""
     from repro_torch.kernels.fused_multi.ops import fused_poisson_multi
     from repro_torch.kernels.kmeans_assign.ops import (fused_poisson_kmeans,
                                                        kmeans_assign)
     from repro_torch.kernels.poisson_counts.ops import poisson_counts
-    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+    from repro_torch.kernels.weighted_hist.ops import (binblocked_cuda,
+                                                       fused_poisson_hist,
                                                        grouped_hist_cuda,
                                                        weighted_histogram)
     from repro_torch.kernels.weighted_stats.ops import (
-        fused_poisson_moments, grouped_moments_cuda, weighted_moments)
+        fused_poisson_moments, grouped_moments_cuda, moments_stream_cuda,
+        weighted_moments)
     return {"poisson_counts": poisson_counts,
             "fused_poisson_moments": fused_poisson_moments,
             "fused_poisson_hist": fused_poisson_hist,
@@ -235,7 +292,9 @@ def wrappers():
             "fused_poisson_moments_grouped": grouped_moments_cuda,
             "fused_poisson_hist_grouped": grouped_hist_cuda,
             "weighted_moments": weighted_moments,
-            "weighted_histogram": weighted_histogram}
+            "weighted_histogram": weighted_histogram,
+            "fused_poisson_moments_stream": moments_stream_cuda,
+            "fused_poisson_hist_binblocked": binblocked_cuda}
 
 
 def zero_counts() -> None:
@@ -262,9 +321,22 @@ def geometry(lib: str, args: tuple) -> tuple:
         B, n, d, _, _, rows, cols, ranges = args[:8]
         fields = dict(B=B, n=n, d=d, rows=rows, cols=cols, ranges=ranges)
     elif lib == "weighted_hist":
-        R, n, d, nbins, _, w, _, _, rows, cols, ranges, _, _ = args
-        fields = dict(R=R, n=n, d=d, nbins=nbins, unit=w is None, rows=rows,
-                      cols=cols, ranges=ranges)
+        R, n, d, nbins, _, w, _, _, dc, rows, cols, ranges, _, _ = args
+        fields = dict(R=R, n=n, d=d, nbins=nbins, unit=w is None, dc=dc,
+                      rows=rows, cols=cols, ranges=ranges)
+    elif lib == "fused_stream":
+        (_, n_valid, Bp, np_, bb, bn, d, _, mask, rows, tpc, ranges,
+         *_) = args
+        fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
+                      masked=mask is not None, rows=rows, tpc=tpc,
+                      ranges=ranges)
+    elif lib == "fused_binblocked":
+        (_, n_valid, Bp, np_, bb, bn, d, G, _, mask, keys, nbins, _, _,
+         width, rows, tpc, ranges, _, _) = args
+        fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
+                      G=G, masked=mask is not None, keyed=keys is not None,
+                      nbins=nbins, width=width, rows=rows, tpc=tpc,
+                      ranges=ranges)
     elif lib == "fused_grouped":
         (_, n_valid, Bp, np_, bb, bn, d, G, _, mask, _, dc, kg, rows, tpc,
          ranges, part_w, _, _, _, _, _, nbins, _, _, _, _) = args
@@ -1100,6 +1172,391 @@ def phase_parity_materialized(torch, parity: Parity) -> None:
           f"True, fractional {frac_repeat}")
 
 
+def phase_parity_stream(torch, parity: Parity) -> None:
+    """Kernel 7 (block_bins) against hist_plain and, where its one window
+    fits, against kernel 3, at d in {1, 4, 64}, nbins = 2048 and
+    block_bins in {128, 512, 2048}, with the binning's edge values; keyed
+    at G = 8, d = 4 against the plain keyed version.  Kernel 5
+    (stream=True) against kernel 2, bitwise, and the plain version."""
+    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+                                                       grouped_hist_plain,
+                                                       hist_plain)
+    from repro_torch.kernels.weighted_stats.ops import (
+        fused_poisson_moments, moments_plain, prepare)
+
+    name = "fused_poisson_hist_binblocked"
+    gen = torch.Generator().manual_seed(29)
+    for d, n in ((1, BIG_N), (4, BIG_N), (64, K7_WIDE_N)):
+        x = torch.randn(n, d, generator=gen) * 6.0 + 12.0
+        x[:6, 0] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                 HI, 10 * HI, -HI])
+        x = x.cuda()
+        lo = torch.full((d,), LO, device="cuda")
+        hi = torch.full((d,), HI, device="cuda")
+        for masked in (False, True):
+            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+            mask = ((torch.rand(n, generator=gen) > 0.3).float().cuda()
+                    if masked else None)
+            want = plain(hist_plain, prepare(x, BIG_B, valid_mask=mask),
+                         seed, lo, hi, NBINS)[:BIG_B]
+            one = (fused_poisson_hist(seed, x, LO, HI, NBINS, BIG_B,
+                                      valid_mask=mask) if d <= 4 else None)
+            for bb in (128, 512, NBINS):
+                what = (f"counts d={d} n={n} block_bins={bb}"
+                        f"{' masked' if masked else ''}")
+                got = fused_poisson_hist(seed, x, LO, HI, NBINS, BIG_B,
+                                         valid_mask=mask, block_bins=bb)
+                parity.bitwise(name, got, want, what)
+                check(one is None or torch.equal(got, one),
+                      f"kernel 7 differs from kernel 3, {what}")
+    # keyed: G·d·nbins = 65,536 bins a row, past the keyed histogram's
+    # shared memory (it raises there and names block_bins)
+    xk = torch.from_numpy(keyed_rows(K7_WIDE_N, K7_GD, K7_G, seed=3)).cuda()
+    x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
+    kw = dict(group_ids=keys, num_groups=K7_G)
+    try:
+        fused_poisson_hist(1, x, LO, HI, NBINS, BIG_B, **kw)
+        check(False, "the keyed histogram ran past its shared memory")
+    except NotImplementedError:
+        pass
+    lo = torch.full((K7_GD,), LO, device="cuda")
+    hi = torch.full((K7_GD,), HI, device="cuda")
+    for masked in (False, True):
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+        mask = ((torch.rand(K7_WIDE_N, generator=gen) > 0.3).float().cuda()
+                if masked else None)
+        got = fused_poisson_hist(seed, x, LO, HI, NBINS, BIG_B,
+                                 valid_mask=mask, block_bins=NBINS, **kw)
+        want = plain(grouped_hist_plain, prepare(x, BIG_B, valid_mask=mask,
+                                                 **kw), seed, lo, hi, NBINS)
+        parity.bitwise(name, got, want[:BIG_B],
+                       f"keyed G={K7_G} d={K7_GD}"
+                       f"{' masked' if masked else ''}")
+
+    name = "fused_poisson_moments_stream"
+    for B in (8, BIG_B):
+        for n in (300, 65_536, BIG_N):
+            for d in (1, 3, 64):
+                xfull = (torch.randn(n + 1, d, generator=gen) * 2.0
+                         + 3.0).cuda()
+                for masked in (False, True):
+                    # masked runs read x at a 4-byte offset: tiles that do
+                    # not start on a 16-byte boundary
+                    x = xfull[1:] if masked else xfull[:n]
+                    seed = int(torch.randint(0, 2 ** 31 - 1, (),
+                                             generator=gen))
+                    mask = ((torch.rand(n, generator=gen) > 0.3).float()
+                            .cuda() if masked else None)
+                    what = (f"B={B} n={n} d={d}"
+                            f"{' masked, misaligned' if masked else ''}")
+                    k2 = fused_poisson_moments(seed, x, B, valid_mask=mask)
+                    k5 = fused_poisson_moments(seed, x, B, valid_mask=mask,
+                                               stream=True)
+                    for a, b, f in zip(k5, k2, ("w_tot", "s1", "s2")):
+                        check(torch.equal(a, b), f"kernel 5 {f} differs "
+                              f"from kernel 2, {what}")
+                    want = [t[:B] for t in plain(
+                        moments_plain, prepare(x, B, valid_mask=mask), seed)]
+                    bound = plain(moments_plain, prepare(
+                        x.abs(), B, valid_mask=mask), seed)[1][:B]
+                    parity.moments(name, k5, want, bound, want[2], what)
+    torch.cuda.synchronize()
+    print(f"parity (streaming slice): kernel 7 matches the plain version "
+          f"(and kernel 3 where one window fits), keyed too; kernel 5 is "
+          f"bitwise kernel 2; max |err| kernel 5 "
+          f"{parity.err['fused_poisson_moments_stream']}")
+
+
+class _Die(Exception):
+    """The fault-tolerance walk's simulated crash."""
+
+
+def dying_manager(root: str, after: int):
+    """A CheckpointManager that raises _Die right after its ``after``-th
+    committed save (examples/fault_tolerance.py's _DyingManager)."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Dying(CheckpointManager):
+        saves = 0
+
+        def save(self, *a, **kw):
+            super().save(*a, **kw)
+            self.saves += 1
+            if self.saves >= after:
+                raise _Die
+
+    return Dying(root, async_save=False)
+
+
+def masked_fold(torch, data, lost, stat, B, key, chunk, device):
+    """The degraded run's oracle: bootstrap_chunked's chunk update over
+    ``data`` with the ``lost`` row ranges zeroed and masked out; returns
+    (thetas, estimate, valid rows)."""
+    import numpy as np
+    from repro_torch.core.bootstrap import (fused_resample_states,
+                                            offset_seed, seed_from_key)
+    data = np.array(data, np.float32)
+    for lo, hi in lost:
+        data[lo:hi] = 0.0
+    n, d = data.shape
+    states, est = stat.init_batch(d, B, device), stat.init_state(d, device)
+    base, valid = seed_from_key(key), 0
+    for i in range(-(-n // chunk)):
+        rows = data[i * chunk:(i + 1) * chunk]
+        xb = np.zeros((chunk, d), np.float32)
+        xb[:len(rows)] = rows
+        mask = np.zeros(chunk, np.float32)
+        mask[:len(rows)] = 1.0
+        for lo, hi in lost:
+            mask[max(lo - i * chunk, 0):max(min(hi, i * chunk + len(rows))
+                                            - i * chunk, 0)] = 0.0
+        valid += int(mask.sum())
+        x = torch.from_numpy(xb).to(device)
+        m = torch.from_numpy(mask).to(device)
+        est = stat.update(est, x, m)
+        states = stat.merge(states, fused_resample_states(
+            stat, offset_seed(base, i), x, B, valid_mask=m))
+    p_eff = valid / n
+    return (stat.correct(stat.finalize_batch(states), p_eff),
+            stat.correct(stat.finalize(est), p_eff), valid)
+
+
+def report_dict(sr) -> dict:
+    """A StreamReport's fields, JSON-ready."""
+    out = {k: v for k, v in vars(sr).items() if k != "faults"}
+    out["lost_splits"] = list(sr.lost_splits)
+    if sr.faults is not None:
+        out["faults"] = dict(vars(sr.faults))
+    return out
+
+
+def counted(fn):
+    """(fn(), the launches it made per kernel)."""
+    before = LaunchLog.counts()
+    out = fn()
+    after = LaunchLog.counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def fault_tolerance_walk(torch):
+    """examples/fault_tolerance.py parts 1 to 3 on the card, each held
+    bitwise against its oracle, then the walk's Mean and Count on the
+    CPU."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch import random as trandom
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import (Count, Mean, StatisticGroup,
+                                  bootstrap_streaming)
+    from repro_torch.data import ShardedStore
+    from repro_torch.ft import FailurePolicy, Fault, FaultyStore, RetryPolicy
+
+    key = trandom.PRNGKey(0)
+    data = np.random.default_rng(1).normal(10.0, 2.0, size=(FT_N, FT_D))
+    store = ShardedStore.from_array(data, split_size=FT_SPLIT,
+                                    interleave=False)
+
+    def run(s, stat=None, device=None, **kw):
+        return bootstrap_streaming(s, stat or Mean(), FT_B, key,
+                                   chunk=FT_CHUNK, device=device, **kw)
+
+    def same(a, b, what):
+        check(torch.equal(a.thetas, b.thetas)
+              and torch.equal(a.estimate, b.estimate),
+              f"fault-tolerance walk: {what} not bitwise its oracle")
+
+    reference = run(store)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            run(store, checkpoint=dying_manager(tmp, 6), checkpoint_every=1)
+            check(False, "the dying checkpoint manager did not die")
+        except _Die:
+            pass
+        resumed = run(store, resume=True, checkpoint=CheckpointManager(tmp))
+    check(resumed.stream.resumed_from_chunk == 6, "resume did not pick up "
+          f"at chunk 6: {resumed.stream.resumed_from_chunk}")
+    same(resumed, reference, "the resumed run")
+    flaky = FaultyStore(store, [
+        Fault(split=1, kind="io", attempts=2),
+        Fault(split=4, kind="corrupt", attempts=1),
+        Fault(split=7, kind="latency", attempts=1, latency_s=0.2)])
+    transient = run(flaky, retry=RetryPolicy(max_attempts=4,
+                                             base_delay=0.01, timeout=0.05))
+    same(transient, reference, "the transient-fault run")
+    f = transient.stream.faults
+    check((f.io_errors, f.checksum_failures) == (2, 1)
+          and f.deadline_misses >= 1, f"fault counters {vars(f)}")
+    dead = FaultyStore(store, [Fault(split=3, kind="io", permanent=True)])
+    degraded = run(dead, policy=FailurePolicy(
+        retry=RetryPolicy(max_attempts=3, base_delay=0.0),
+        on_exhausted="degrade"))
+    lost = [(int(store.offsets[3]), int(store.offsets[4]))]
+    thetas, est, valid = masked_fold(torch, store.read_all(), lost, Mean(),
+                                     FT_B, key, FT_CHUNK, "cuda")
+    check(degraded.stream.lost_splits == (3,)
+          and degraded.stream.valid_rows == valid == FT_N - FT_SPLIT,
+          f"degraded run lost {degraded.stream.lost_splits}, "
+          f"{degraded.stream.valid_rows} valid rows")
+    check(torch.equal(degraded.thetas, thetas)
+          and torch.equal(degraded.estimate, est),
+          "the degraded run is not bitwise its masked oracle")
+    p_eff = degraded.stream.valid_rows / FT_N
+    # the walk's Mean and Count (w_tot) on the card and the CPU
+    group = StatisticGroup((Mean(), Count()))
+    card, cpu = run(store, group), run(store, group, device="cpu")
+    bound = 1e-5 * run(ShardedStore.from_array(np.abs(data), FT_SPLIT,
+                                               interleave=False),
+                       device="cpu").thetas
+    check(torch.equal(card.thetas[0], reference.thetas),
+          "the group's Mean member differs from the dedicated run")
+    check(torch.equal(card.thetas[1].cpu(), cpu.thetas[1]),
+          "w_tot of the walk differs between the card and the CPU")
+    diff = (card.thetas[0].cpu() - cpu.thetas[0]).abs()
+    check(bool((diff <= bound).all()), f"Mean thetas card vs CPU differ by "
+          f"{float(diff.max())}")
+    summary = dict(
+        rows=FT_N, d=FT_D, B=FT_B, chunk=FT_CHUNK,
+        estimate=float(reference.estimate.reshape(-1)[0]),
+        kill_resume=dict(resumed_from_chunk=resumed.stream.resumed_from_chunk,
+                         bitwise=True),
+        transient=dict(faults=dict(vars(f)), bitwise=True),
+        degraded=dict(lost_splits=list(degraded.stream.lost_splits),
+                      valid_rows=degraded.stream.valid_rows, p_eff=p_eff,
+                      cv=degraded.report.cv, cv_full=reference.report.cv,
+                      bitwise_masked_oracle=True),
+        cpu=dict(w_tot_bitwise=True, mean_max_abs_diff=float(diff.max())))
+    print("fault-tolerance walk (cuda, cpu): " + json.dumps(summary))
+
+
+def state_bytes(stat, dim: int, B: int) -> int:
+    """Bytes of B resample states and the estimate of ``stat``."""
+    from repro_torch.checkpoint.manager import _leaves
+    return sum(t.numel() * t.element_size() for _, t in _leaves(
+        (stat.init_batch(dim, B, "cpu"), stat.init_state(dim, "cpu"))))
+
+
+def stream_real_size(torch):
+    """The README's 64-column streaming store at 2^22 rows (1 GiB) and
+    2^20: a streamed Mean (kernel 2 each chunk) and Quantile(block_bins)
+    (kernel 7 each chunk), bitwise bootstrap_chunked over store.read_all()
+    on the card, a kill and resume of the Quantile at 2^22, kernel 5 over
+    the Mean's chunks, and the peak device memory above the resident
+    state at both sizes."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch import random as trandom
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import (Mean, Quantile, bootstrap_chunked,
+                                  bootstrap_streaming, offset_seed,
+                                  seed_from_key)
+    from repro_torch.data import ShardedStore
+    from repro_torch.kernels.weighted_stats.ops import fused_poisson_moments
+
+    data = np.random.default_rng(42).standard_normal(
+        (max(ST_NS), ST_D), dtype=np.float32)
+    key = trandom.PRNGKey(7)
+    stats = {"Mean": (Mean(), "fused_poisson_moments"),
+             "Quantile": (Quantile(0.5, NBINS, ST_LO, ST_HI,
+                                   block_bins=NBINS),
+                          "fused_poisson_hist_binblocked")}
+    peaks = {}
+    for n in ST_NS:
+        store = ShardedStore.from_array(data[:n], split_size=ST_SPLIT,
+                                        interleave=False)
+        xdev = torch.from_numpy(store.read_all()).cuda()
+        for name, (stat, kernel) in stats.items():
+            def stream(**kw):
+                return bootstrap_streaming(store, stat, ST_B, key,
+                                           chunk=ST_CHUNK, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            res, launches = counted(stream)
+            peak = torch.cuda.max_memory_allocated() - base
+            resident = state_bytes(stat, ST_D, ST_B)
+            peaks[(name, n)] = peak - resident
+            n_chunks = res.stream.n_chunks
+            check(launches.get(kernel) == n_chunks, f"streamed {name} at "
+                  f"n={n} launched {launches}, not {kernel} once per chunk "
+                  f"({n_chunks})")
+            want = bootstrap_chunked(xdev, stat, ST_B, key, chunk=ST_CHUNK,
+                                     backend="fused_rng")
+            check(torch.equal(res.thetas, want.thetas)
+                  and torch.equal(res.estimate, want.estimate),
+                  f"streamed {name} at n={n} is not bitwise "
+                  f"bootstrap_chunked")
+            check(bool(torch.isfinite(res.thetas).all())
+                  and res.thetas.shape == (ST_B, ST_D),
+                  f"streamed {name} thetas")
+            rec = dict(name=name, n=n, d=ST_D, B=ST_B, chunk=ST_CHUNK,
+                       report=report_dict(res.stream), launches=launches,
+                       peak_above_state_bytes=peak - resident,
+                       state_bytes=resident, nd_bytes=n * ST_D * 4,
+                       cv=res.report.cv, bitwise_chunked=True)
+            if name == "Mean":
+                # kernel 5's entry point over the same chunks: its folded
+                # moments are the streamed Mean's state, so its thetas
+                seed = seed_from_key(key)
+                ones = torch.ones(ST_CHUNK, device="cuda")
+                acc = [torch.zeros(ST_B, device="cuda"),
+                       torch.zeros(ST_B, ST_D, device="cuda"),
+                       torch.zeros(ST_B, ST_D, device="cuda")]
+                for i in range(n // ST_CHUNK):
+                    part = fused_poisson_moments(
+                        offset_seed(seed, i),
+                        xdev[i * ST_CHUNK:(i + 1) * ST_CHUNK], ST_B,
+                        valid_mask=ones, stream=True)
+                    acc = [a + b for a, b in zip(acc, part)]
+                check(torch.equal(stat.finalize_batch(stat.from_moments(
+                    *acc)), res.thetas), "kernel 5 over the chunks is not "
+                    "the streamed Mean")
+            if name == "Quantile" and n == max(ST_NS):
+                with tempfile.TemporaryDirectory() as tmp:
+                    try:
+                        stream(checkpoint=dying_manager(tmp, ST_KILL_AFTER),
+                               checkpoint_every=ST_CKPT_EVERY)
+                        check(False, "the dying manager did not die")
+                    except _Die:
+                        pass
+                    resumed = stream(resume=True,
+                                     checkpoint_every=ST_CKPT_EVERY,
+                                     checkpoint=CheckpointManager(tmp))
+                check(resumed.stream.resumed_from_chunk
+                      == ST_KILL_AFTER * ST_CKPT_EVERY
+                      and torch.equal(resumed.thetas, res.thetas)
+                      and torch.equal(resumed.estimate, res.estimate),
+                      "the resumed Quantile stream is not bitwise the "
+                      "uninterrupted one")
+                rec["kill_resume"] = report_dict(resumed.stream)
+            print("streamed bootstrap (cuda): " + json.dumps(rec))
+        del xdev, store
+    for name in stats:
+        big, small = (peaks[(name, n)] for n in ST_NS)
+        check(abs(big - small) <= 0.05 * max(big, small),
+              f"streamed {name}: peak above the state {big} B at "
+              f"n={ST_NS[0]} vs {small} B at n={ST_NS[1]}")
+        check(big < ST_NS[0] * ST_D * 4 / 2, f"streamed {name}: peak "
+              f"{big} B is not far below the store ({ST_NS[0] * ST_D * 4})")
+
+
+def phase_stream_path(torch):
+    """The streaming path from zeroed launch counts with its geometries
+    logged; returns the counts and the geometries."""
+    torch.cuda.synchronize()
+    zero_counts()
+    with LaunchLog() as log:
+        fault_tolerance_walk(torch)
+        stream_real_size(torch)
+    launches = log.counts()
+    print(f"streaming path launches: {json.dumps(launches)}")
+    check(all(launches[k] > 0 for k in STREAM_KERNELS),
+          f"a kernel of the streaming path was not launched: {launches}")
+    return launches, log.geometries
+
+
 def materialized_session(data, device):
     """The quickstart group's EarlSession with the JAX package's default
     backend (None: materialized Poisson weights) on ``device``."""
@@ -1370,6 +1827,11 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                                                 g["n"]))
             replay_materialized(torch, parity, gen, name, fields, what)
             continue
+        if name in ("fused_poisson_moments_stream",
+                    "fused_poisson_hist_binblocked"):
+            shapes.setdefault(name, []).append((Bp, np_))
+            replay_stream(torch, parity, gen, name, fields, what)
+            continue
         shapes.setdefault(name, []).append(
             (g["n"], g["k"], g["d"]) if name == "kmeans_assign"
             else (Bp, np_))
@@ -1487,6 +1949,113 @@ def replay_grouped(torch, parity, gen, seed, name, fields, what) -> None:
         hi = torch.full((d,), HI, device="cuda")
         parity.bitwise(name, got, plain(grouped_hist_plain, pr, seed, lo,
                                         hi, g["nbins"]), what)
+
+
+def replay_stream(torch, parity, gen, name, fields, what) -> None:
+    """One launch geometry of kernel 5 or 7 on fresh data (x uniform on
+    [LO, HI), so the plain s1 is Σw|x|) against the plain version."""
+    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+                                                       grouped_hist_plain,
+                                                       hist_plain)
+    from repro_torch.kernels.weighted_stats.ops import (
+        fused_poisson_moments, moments_plain, prepare)
+    g = dict(fields)
+    Bp, np_, d = g["Bp"], g["np_"], g["d"]
+    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+    x = (torch.rand(np_, d, generator=gen) * (HI - LO) + LO).cuda()
+    mask = None
+    if g["masked"]:
+        mask = (torch.rand(np_, generator=gen) > 0.3).float().cuda()
+    kw = dict(n_valid=g["n_valid"], valid_mask=mask)
+    if g.get("keyed"):
+        kw.update(group_ids=torch.randint(0, g["G"], (np_,), generator=gen)
+                  .float().cuda(), num_groups=g["G"])
+    pr = prepare(x, Bp, **kw)
+    with LaunchLog() as log:
+        if name == "fused_poisson_moments_stream":
+            got = fused_poisson_moments(seed, x, Bp, stream=True, **kw)
+        else:
+            got = fused_poisson_hist(seed, x, LO, HI, g["nbins"], Bp,
+                                     block_bins=g["width"], **kw)
+    check((name, fields) in log.geometries, f"{what}: launched "
+          f"{list(log.geometries)}")
+    if name == "fused_poisson_moments_stream":
+        want = plain(moments_plain, pr, seed)
+        parity.moments(name, got, want, want[1], want[2], what)
+    else:
+        lo = torch.full((d,), LO, device="cuda")
+        hi = torch.full((d,), HI, device="cuda")
+        run = grouped_hist_plain if g.get("keyed") else hist_plain
+        parity.bitwise(name, got, plain(run, pr, seed, lo, hi, g["nbins"]),
+                       what)
+
+
+def stream_rows(torch, launches, parity: Parity):
+    """Kernel rows of kernels 5 and 7: kernel 5 beside kernel 2 at B = 256,
+    n = 2^20 + 37, d = 1; kernel 7 at the streamed Quantile's chunk (B =
+    256, n = 65,536, d = 64, nbins = block_bins = 2048).  Both are bound by
+    the hash, one a weight; kernel 7 draws each weight once per window its
+    column lands in (64 here)."""
+    import numpy as np
+    from repro_torch.kernels._pass import binblocked_geometry
+    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+                                                       hist_plain)
+    from repro_torch.kernels.weighted_stats.ops import (
+        fused_poisson_moments, moments_plain, prepare)
+
+    B, n, seed = BIG_B, BIG_N, 2027
+    x = (torch.randn(n, 1, generator=torch.Generator().manual_seed(3))
+         * 2.0 + 10.0).cuda()
+    pr = prepare(x, B)
+    xq = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (ST_CHUNK, ST_D), dtype=np.float32)).cuda()
+    prq = prepare(xq, B)
+    lo = torch.full((ST_D,), ST_LO, device="cuda")
+    hi = torch.full((ST_D,), ST_HI, device="cuda")
+    width = binblocked_geometry(prq.Bp, prq.np_, prq.bn, ST_D * NBINS,
+                                NBINS)[0]
+    windows = -(-ST_D * NBINS // width)
+    runs = {
+        "fused_poisson_moments_stream": (
+            lambda: fused_poisson_moments(seed, x, B, stream=True),
+            lambda: plain(moments_plain, pr, seed), n * 4 + 3 * B * 4,
+            B * n, dict(B=B, n=n, d=1)),
+        "fused_poisson_hist_binblocked": (
+            lambda: fused_poisson_hist(seed, xq, ST_LO, ST_HI, NBINS, B,
+                                       block_bins=NBINS),
+            lambda: plain(hist_plain, prq, seed, lo, hi, NBINS),
+            ST_CHUNK * ST_D * 4 + B * ST_D * NBINS * 4, B * ST_CHUNK,
+            dict(B=B, n=ST_CHUNK, d=ST_D, nbins=NBINS, block_bins=NBINS,
+                 windows=windows)),
+    }
+    rows = []
+    for name, (kernel, plain_fn, nbytes, weights, shape) in runs.items():
+        ms = time_ms(torch, kernel, 5)
+        plain_ms = time_ms(torch, plain_fn, 1)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = weights * OPS_PER_WEIGHT / INT32_OPS_PER_S * 1e3
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, shape=shape))
+        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms by {rows[-1]['bound_by']}) at "
+              f"{shape}")
+    # kernel 2 beside kernel 5, in turns, in this call
+    turns = [time_ms(torch, lambda s=s: fused_poisson_moments(
+        seed, x, B, stream=s), 5) for s in (False, True, True, False)]
+    print(f"timing kernel 2 vs kernel 5 (B={B}, n={n}, d=1), in turns "
+          f"k2, k5, k5, k2 (ms): {json.dumps(turns)}")
+    ms2 = time_ms(torch, lambda: fused_poisson_moments(seed, xq, B), 5)
+    ms5 = time_ms(torch, lambda: fused_poisson_moments(seed, xq, B,
+                                                       stream=True), 5)
+    print(f"timing at the streamed chunk (B={B}, n={ST_CHUNK}, d={ST_D}): "
+          f"kernel 2 {ms2:.4f} ms, kernel 5 {ms5:.4f} ms; kernel 7's "
+          f"{windows} windows draw each weight {windows} times")
+    return rows
 
 
 def kmeans_rows(torch, launches, parity: Parity):
@@ -1806,6 +2375,7 @@ def main() -> int:
     phase_parity_kmeans(torch, parity)
     phase_parity_grouped(torch, parity)
     phase_parity_materialized(torch, parity)
+    phase_parity_stream(torch, parity)
     lap("3 (parity)")
     launches, geometries, quickstart = phase_main_path(torch)
     lap("4 (quickstart path)")
@@ -1818,17 +2388,27 @@ def main() -> int:
     check(all(earlier[k] == v for k, v in EARLIER_LAUNCHES.items()),
           f"the earlier paths launched {earlier}, expected "
           f"{EARLIER_LAUNCHES}")
+    check(all(earlier[k] == v for k, v in EARLIER_LATER_LAUNCHES.items()),
+          f"the earlier paths launched {earlier}, expected "
+          f"{EARLIER_LATER_LAUNCHES} of kernels 10, 11, 5 and 7")
     mat_launches, mat_geometries = phase_materialized_path(torch)
     lap("7 (materialized path)")
-    launches = {k: earlier[k] + mat_launches[k] for k in launches}
+    check(all(mat_launches[k] == MATERIALIZED_LAUNCHES.get(k, 0)
+              for k in mat_launches), f"the materialized path launched "
+          f"{mat_launches}, expected {MATERIALIZED_LAUNCHES}")
+    st_launches, st_geometries = phase_stream_path(torch)
+    lap("10 (streaming path)")
+    launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
+                for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"four: {json.dumps(launches)}")
+          f"five: {json.dumps(launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
-                         **mat_geometries}, parity)
+                         **mat_geometries, **st_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)
     rows += materialized_rows(torch, launches, parity)
+    rows += stream_rows(torch, launches, parity)
     lap("9 (timing)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

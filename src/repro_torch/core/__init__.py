@@ -1,6 +1,6 @@
 """EARL core in PyTorch: statistics, accuracy, the bootstrap engines
-(materialized and matrix-free), delta maintenance, SSABE and the session
-driver."""
+(materialized and matrix-free), delta maintenance, SSABE, the session
+driver and the crash-safe streaming bootstrap."""
 from repro_torch.core.accuracy import (AccuracyReport, GroupAccuracyReport,
                                        KeyedAccuracyReport,
                                        coefficient_of_variation,
@@ -27,6 +27,8 @@ from repro_torch.core.reduce_api import (Count, GroupedStatistic,
                                          kmeans_fit)
 from repro_torch.core.session import EarlSession, EarlyResult
 from repro_torch.core.ssabe import SSABEResult, ssabe
+from repro_torch.core.streaming import (StreamingBootstrapResult,
+                                        StreamReport, bootstrap_streaming)
 
 __all__ = [
     "AccuracyReport", "GroupAccuracyReport", "KeyedAccuracyReport",
@@ -43,4 +45,5 @@ __all__ = [
     "KMeansStep", "Mean", "Median", "MomentState", "Quantile", "Statistic",
     "StatisticGroup", "Std", "Sum", "Var", "kmeans_fit",
     "EarlSession", "EarlyResult", "SSABEResult", "ssabe",
+    "StreamingBootstrapResult", "StreamReport", "bootstrap_streaming",
 ]

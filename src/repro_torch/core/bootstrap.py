@@ -48,8 +48,9 @@ class BootstrapResult:
 
 
 def seed_from_key(key) -> int:
-    """The int32 stream seed of ``key``: ``randint(key, (), 0, 2^31 - 1)``."""
-    return int(trandom.randint(key, (), 0, _SEED_MOD))
+    """The int32 stream seed of ``key``: ``randint(key, (), 0, 2^31 - 1)``,
+    drawn on the host (a seed is control state)."""
+    return int(trandom.randint(key, (), 0, _SEED_MOD, device="cpu"))
 
 
 def offset_seed(base_seed: int, i: int) -> int:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import check_ieee_matmul
@@ -57,6 +58,33 @@ def _w(values: torch.Tensor, weights: Optional[torch.Tensor]
                                        dtype=torch.float32)
 
 
+def split_params(stat: "Statistic") -> Tuple[tuple, dict]:
+    """(spec, params) of a statistic, what a resume fingerprint binds: the
+    spec is a nested tuple of plain Python values (class name, scalar
+    attributes, member and inner statistics) with every tensor or array
+    attribute replaced by a ("tensor", shape, dtype) marker; params maps
+    the path of each such attribute (e.g. ".centroids") to its tensor.
+    Attributes of other types bind by their type's name only."""
+    params = {}
+
+    def walk(obj, path):
+        if isinstance(obj, Statistic):
+            return (type(obj).__qualname__,
+                    tuple((k, walk(v, f"{path}.{k}"))
+                          for k, v in sorted(vars(obj).items())))
+        if isinstance(obj, (torch.Tensor, np.ndarray)):
+            t = torch.as_tensor(obj)
+            params[path] = t
+            return ("tensor", tuple(t.shape), str(t.dtype))
+        if isinstance(obj, (tuple, list)):
+            return tuple(walk(v, f"{path}[{i}]") for i, v in enumerate(obj))
+        if isinstance(obj, (int, float, str, bool, type(None))):
+            return obj
+        return ("object", type(obj).__qualname__)
+
+    return walk(stat, ""), params
+
+
 def _rows_of_update(stat, states, values: torch.Tensor,
                     weights: torch.Tensor):
     """B-leading ``states`` advanced by ``stat.update`` once per row of
@@ -73,6 +101,12 @@ class Statistic:
     #: which ``bootstrap_thetas(use_kernel=True)`` contracts in one
     #: weighted_moments pass; None otherwise.
     moment_powers: Optional[Tuple[int, ...]] = None
+
+    #: whether ``merge`` is an associative combine of this statistic's
+    #: states.  Every built-in is; a custom statistic whose state depends
+    #: on arrival order sets False, and the streaming driver, which folds
+    #: per-chunk states with ``merge``, rejects it before reading a row.
+    mergeable: bool = True
 
     # Structural hash/eq: Mean() == Mean(); configured statistics compare
     # by their scalar attributes.
@@ -261,14 +295,30 @@ class Quantile(Statistic):
     """Mergeable weighted quantile from a fixed-range histogram sketch.
 
     The bin range must cover the data (values are clipped into the edge
-    bins); accuracy is about (hi - lo) / nbins."""
+    bins); accuracy is about (hi - lo) / nbins.
+
+    ``block_bins`` is a lowering knob of the matrix-free sketch, not part
+    of the accumulator: on the card ``fused_poisson_states`` (and a
+    ``GroupedStatistic`` over this quantile) runs the output-tiled kernel 7
+    with windows of at most ``block_bins`` bins, the escape hatch for a
+    d·nbins row too wide for one SM's shared memory; the counts are the
+    same.  Inside a ``StatisticGroup`` the fused multi pass ignores it, as
+    the JAX package's does."""
 
     def __init__(self, q: float, nbins: int = 2048, lo: float = 0.0,
-                 hi: float = 1.0):
+                 hi: float = 1.0, block_bins: Optional[int] = None):
         self.q = float(q)
         self.nbins = int(nbins)
         self.lo = float(lo)
         self.hi = float(hi)
+        self.block_bins = None if block_bins is None else int(block_bins)
+
+    def with_range(self, lo: float, hi: float) -> "Quantile":
+        """Re-ranged copy with a 1% margin each side; keeps ``nbins`` and
+        ``block_bins``."""
+        span = max(hi - lo, _EPS)
+        return Quantile(self.q, self.nbins, lo - 0.01 * span,
+                        hi + 0.01 * span, block_bins=self.block_bins)
 
     def init_state(self, dim: int, device="cpu") -> HistogramState:
         return HistogramState(
@@ -307,7 +357,8 @@ class Quantile(Statistic):
         d = values.shape[1]
         counts = wh_ops.fused_poisson_hist(seed, values, self.lo, self.hi,
                                            self.nbins, B, n_valid=n_valid,
-                                           valid_mask=valid_mask)
+                                           valid_mask=valid_mask,
+                                           block_bins=self.block_bins)
         return HistogramState(
             counts=counts,
             lo=torch.full((B, d), self.lo, device=values.device),
@@ -350,8 +401,9 @@ class Quantile(Statistic):
         return out[:, 0] if out.shape[1:] == (1,) else out
 
 
-def Median(nbins: int = 2048, lo: float = 0.0, hi: float = 1.0) -> Quantile:
-    return Quantile(0.5, nbins=nbins, lo=lo, hi=hi)
+def Median(nbins: int = 2048, lo: float = 0.0, hi: float = 1.0,
+           block_bins: Optional[int] = None) -> Quantile:
+    return Quantile(0.5, nbins=nbins, lo=lo, hi=hi, block_bins=block_bins)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -438,7 +490,7 @@ def kmeans_fit(values, k: int, iters: int, key, weights=None, init=None,
     from repro_torch.random import permutation
     x = _as_2d(as_tensor(values, resolve_device(device)))
     if init is None:
-        init = x[permutation(key, x.shape[0])[:k].to(x.device)]
+        init = x[permutation(key, x.shape[0], device=x.device)[:k]]
     elif init.shape[0] != k:
         raise ValueError(f"init has {init.shape[0]} centroids, expected "
                          f"k={k}")
@@ -470,6 +522,7 @@ class StatisticGroup(Statistic):
             if not isinstance(m, Statistic):
                 raise TypeError(f"group member {m!r} is not a Statistic")
         self.members = members
+        self.mergeable = all(m.mergeable for m in members)
         slots, keys, member_slot = [], {}, []
         for m in members:
             k = m.accumulator_key()
@@ -581,6 +634,7 @@ class GroupedStatistic(Statistic):
             raise ValueError(f"num_groups must be >= 1, got {num_groups}")
         self.inner = inner
         self.num_groups = num_groups
+        self.mergeable = bool(inner.mergeable)
 
     @staticmethod
     def _split_key(values) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -675,7 +729,9 @@ class GroupedStatistic(Statistic):
         if isinstance(inner, Quantile):
             from repro_torch.kernels.weighted_hist import ops as wh_ops
             counts = wh_ops.fused_poisson_hist(seed, x, inner.lo, inner.hi,
-                                               inner.nbins, B, **kw)
+                                               inner.nbins, B,
+                                               block_bins=inner.block_bins,
+                                               **kw)
             d = x.shape[1]
             return HistogramState(
                 counts=counts,

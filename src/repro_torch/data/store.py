@@ -1,9 +1,9 @@
 """ShardedStore — the HDFS-splits analogue (paper §3.3).
 
 The port's own copy of ``repro/data/store.py`` (numpy only): importing it
-from the JAX package would import jax through ``repro.data``.  Mentions of
-streaming and fault injection below describe the JAX package's users of
-the same interface.
+from the JAX package would import jax through ``repro.data``.  Its users
+here are the samplers, the streaming bootstrap (core/streaming.py) and
+the fault-injection wrappers (ft/inject.py).
 
 A dataset is a set of fixed-size *splits* (shards).  Reads are split-
 granular and counted, so the benchmarks can report load cost exactly the

@@ -38,7 +38,9 @@ INT = ctypes.c_int
 #: C signature of each library's entry point (all return cudaError_t).
 #: fused_pass serves fused_poisson_moments, _hist and _multi alike;
 #: fused_grouped their keyed (GROUP BY) moments and histogram;
-#: weighted_moments and weighted_hist take an explicit weight matrix.
+#: weighted_moments and weighted_hist take an explicit weight matrix;
+#: fused_stream is the moments pass with x double-buffered through shared
+#: memory, fused_binblocked the output-tiled (block_bins) histogram.
 SIGNATURES: Dict[str, tuple] = {
     "poisson_counts": (INT, INT, INT, INT, INT, VOID_P, VOID_P),
     "fused_pass": (INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P, INT,
@@ -56,7 +58,13 @@ SIGNATURES: Dict[str, tuple] = {
                          VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
                          VOID_P),
     "weighted_hist": (INT, INT, INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, INT,
-                      INT, INT, VOID_P, VOID_P),
+                      INT, INT, INT, VOID_P, VOID_P),
+    "fused_stream": (INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P, INT,
+                     INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
+                     VOID_P),
+    "fused_binblocked": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P,
+                         VOID_P, VOID_P, INT, VOID_P, VOID_P, INT, INT, INT,
+                         INT, VOID_P, VOID_P),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -59,9 +59,31 @@ def hist_rows(hist_total: int, tiles_per_cta: int) -> int:
         raise NotImplementedError(
             f"a histogram pass needs {hist_total} floats (d·nbins, times G "
             "when keyed) of shared memory per row of W, more than a Hopper "
-            "SM holds; the output-tiled (block_bins) kernel is not ported "
-            "yet")
+            "SM holds; pass block_bins= (a Quantile's or "
+            "fused_poisson_hist's) to run the output-tiled kernel")
     return int(rows)
+
+
+def binblocked_geometry(Bp: int, np_: int, bn: int, total: int,
+                        block_bins: int) -> Tuple[int, int, int, int]:
+    """(width, rows, tiles_per_cta, ranges) of an output-tiled histogram
+    pass (csrc/fused_binblocked.cu) over ``total`` bins a row.
+
+    A window is ``block_bins`` bins wide, cut to the row and to what one
+    row of W fits in shared memory beside the largest key table; a CTA
+    keeps up to MAX_ROWS rows of it.  The ranges aim for TARGET_CTAS CTAs
+    over rows and windows together, and every weight is hashed once per
+    window its column has a value in, whatever the ranges."""
+    free = SMEM_BYTES - 16 * MAX_TILES_PER_CTA - 64
+    width = max(1, min(int(block_bins), total, free // 4))
+    rows = min(MAX_ROWS, free // (4 * width))
+    windows = -(-total // width)
+    nt = np_ // bn
+    blocks = -(-Bp // rows) * windows
+    ranges = min(nt, max(-(-TARGET_CTAS // blocks),
+                         -(-nt // MAX_TILES_PER_CTA)))
+    tpc = -(-nt // ranges)
+    return width, rows, tpc, -(-nt // tpc)
 
 
 def _pow2_at_least(v: int) -> int:

@@ -81,25 +81,6 @@ struct GroupedShape {
                                    : kMaxRows;
 };
 
-// The CTA's tile keys into shared memory, and each row's b-tile (0 or 1
-// past i_first) and row within it, as fused_pass.cu derives them.
-template <int R>
-__device__ __forceinline__ void load_tile_keys(const GroupedParams& p,
-                                               TileKey* keys, int t0, int t1,
-                                               int r0, int* tsel, int* trow) {
-  const int i_first = r0 / p.bb;
-  for (int q = threadIdx.x; q < 2 * (t1 - t0); q += blockDim.x) {
-    keys[q] = tile_key(p.seed, static_cast<uint32_t>(i_first + (q & 1)),
-                       static_cast<uint32_t>(t0 + (q >> 1)));
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int b = r0 + r;
-    tsel[r] = b / p.bb - i_first;
-    trow[r] = b - (b / p.bb) * p.bb;
-  }
-}
-
 template <int DC, int KG>
 __global__ void __launch_bounds__(kThreads)
 grouped_moments_kernel(GroupedParams p) {
@@ -121,7 +102,7 @@ grouped_moments_kernel(GroupedParams p) {
   const int nrows = min(R, p.Bp - r0);
 
   int tsel[R], trow[R];
-  load_tile_keys<R>(p, keys, t0, t1, r0, tsel, trow);
+  cta_tile_keys<R>(p.seed, p.bb, r0, t0, t1, keys, tsel, trow);
   __syncthreads();
 
   float acc_w[R][KG], acc_s1[R][KG][DC], acc_s2[R][KG][DC];
@@ -230,7 +211,7 @@ grouped_hist_kernel(GroupedParams p) {
   const int nrows = min(p.rows, p.Bp - r0);
 
   int tsel[kMaxRows], trow[kMaxRows];
-  load_tile_keys<kMaxRows>(p, keys, t0, t1, r0, tsel, trow);
+  cta_tile_keys<kMaxRows>(p.seed, p.bb, r0, t0, t1, keys, tsel, trow);
   for (int e = threadIdx.x; e < nrows * total; e += blockDim.x) bins[e] = 0.f;
   __syncthreads();
 
@@ -288,13 +269,8 @@ int launch_moments(const GroupedParams& p, float* w_tot, float* s1,
   const int zdim = ((p.d + DC - 1) / DC) * ((p.G + KG - 1) / KG);
   dim3 grid(p.ranges, (p.Bp + p.rows - 1) / p.rows, zdim);
   kernel<<<grid, kThreads, smem, stream>>>(p);
-  const int t = 256, nw = p.Bp * p.G, nd = nw * p.d;
-  sum_partials<double><<<(nw + t - 1) / t, t, 0, stream>>>(
-      p.part_w, w_tot, p.Bp, p.ranges, p.G);
-  sum_partials<float><<<(nd + t - 1) / t, t, 0, stream>>>(
-      p.part_s1, s1, p.Bp, p.ranges, p.G * p.d);
-  sum_partials<float><<<(nd + t - 1) / t, t, 0, stream>>>(
-      p.part_s2, s2, p.Bp, p.ranges, p.G * p.d);
+  sum_fused_partials(p.part_w, p.part_s1, p.part_s2, w_tot, s1, s2, p.Bp,
+                     p.ranges, p.G, p.G * p.d, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -80,12 +80,9 @@ fused_kmeans_kernel(KMeansParams p) {
   const int t0 = range * p.tiles_per_cta;
   const int t1 = min(t0 + p.tiles_per_cta, nt);
   const int nrows = min(kMaxRows, p.Bp - r0);
-  const int i_first = r0 / p.bb;
 
-  for (int q = threadIdx.x; q < 2 * (t1 - t0); q += blockDim.x) {
-    keys[q] = tile_key(p.seed, static_cast<uint32_t>(i_first + (q & 1)),
-                       static_cast<uint32_t>(t0 + (q >> 1)));
-  }
+  int tsel[kMaxRows], trow[kMaxRows];
+  cta_tile_keys<kMaxRows>(p.seed, p.bb, r0, t0, t1, keys, tsel, trow);
   for (int e = threadIdx.x; e < p.k * p.d; e += blockDim.x) {
     c_s[e] = p.cent[e];
   }
@@ -100,13 +97,6 @@ fused_kmeans_kernel(KMeansParams p) {
       en = make_int2(0, kInertia);
     }
     ent[threadIdx.x] = en;
-  }
-  int tsel[kMaxRows], trow[kMaxRows];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    const int b = r0 + r;
-    tsel[r] = b / p.bb - i_first;
-    trow[r] = b - (b / p.bb) * p.bb;
   }
   __syncthreads();
   for (int j = threadIdx.x; j < p.k; j += blockDim.x) {

@@ -83,24 +83,13 @@ fused_pass_kernel(PassParams p) {
   const int t0 = range * p.tiles_per_cta;
   const int t1 = min(t0 + p.tiles_per_cta, nt);
   const int nrows = min(p.rows, p.Bp - r0);
-  const int i_first = r0 / p.bb;
 
-  for (int q = threadIdx.x; q < 2 * (t1 - t0); q += blockDim.x) {
-    keys[q] = tile_key(p.seed, static_cast<uint32_t>(i_first + (q & 1)),
-                       static_cast<uint32_t>(t0 + (q >> 1)));
-  }
+  int tsel[kMaxRows], trow[kMaxRows];
+  cta_tile_keys<kMaxRows>(p.seed, p.bb, r0, t0, t1, keys, tsel, trow);
   if (HIST && lead) {
     for (int e = threadIdx.x; e < nrows * p.hist_total; e += blockDim.x) {
       bins[e] = 0.f;
     }
-  }
-  // Row r's b-tile (0 or 1 past i_first) and its row within the tile.
-  int tsel[kMaxRows], trow[kMaxRows];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    const int b = r0 + r;
-    tsel[r] = b / p.bb - i_first;
-    trow[r] = b - (b / p.bb) * p.bb;
   }
   __syncthreads();
 
@@ -165,29 +154,9 @@ fused_pass_kernel(PassParams p) {
   }
 
   if (MOM) {
-    // Fully unrolled so the accumulators stay in registers; the guards are
-    // uniform over the CTA, so every thread reaches every __syncthreads.
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < nrows) {
-        const int64_t slot = static_cast<int64_t>(r0 + r) * p.ranges + range;
-        if (lead) {
-          const float tw = block_sum(acc_w[r], red);
-          if (threadIdx.x == 0) p.part_w[slot] = tw;
-        }
-#pragma unroll
-        for (int q = 0; q < kDimChunk; ++q) {
-          if (dz + q < p.d) {
-            const float t1v = block_sum(acc_s1[r][q], red);
-            const float t2v = block_sum(acc_s2[r][q], red);
-            if (threadIdx.x == 0) {
-              p.part_s1[slot * p.d + dz + q] = t1v;
-              p.part_s2[slot * p.d + dz + q] = t2v;
-            }
-          }
-        }
-      }
-    }
+    write_moment_partials(acc_w, acc_s1, acc_s2, nrows, r0, range, p.ranges,
+                          dz, p.d, lead, red, p.part_w, p.part_s1,
+                          p.part_s2);
   }
   if (HIST && lead) {
     __syncthreads();
@@ -216,14 +185,8 @@ int launch_pass(const PassParams& p, float* w_tot, float* s1, float* s2,
   dim3 grid(p.ranges, (p.Bp + p.rows - 1) / p.rows, zdim);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   if (MOM) {
-    const int t = 256;
-    sum_partials<double><<<(p.Bp + t - 1) / t, t, 0, stream>>>(
-        p.part_w, w_tot, p.Bp, p.ranges, 1);
-    const int nd = p.Bp * p.d;
-    sum_partials<float><<<(nd + t - 1) / t, t, 0, stream>>>(
-        p.part_s1, s1, p.Bp, p.ranges, p.d);
-    sum_partials<float><<<(nd + t - 1) / t, t, 0, stream>>>(
-        p.part_s2, s2, p.Bp, p.ranges, p.d);
+    sum_fused_partials(p.part_w, p.part_s1, p.part_s2, w_tot, s1, s2, p.Bp,
+                       p.ranges, 1, p.d, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,7 @@
 // against the dedicated moments kernel, are bitwise equal.
 #pragma once
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace earl {
@@ -41,6 +42,41 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
+// A CTA's partials of rows r0 .. r0+nrows-1 over its column range: the
+// block sums of acc_w (only when `lead`, the CTA of z chunk 0) and of the
+// chunk's columns dz + q < d of acc_s1 and acc_s2, written by thread 0 at
+// (row, range).  Fully unrolled so the accumulators stay in registers;
+// the guards are uniform over the CTA, so every thread reaches every
+// __syncthreads.  `red` is kWarps floats of shared memory.
+__device__ __forceinline__ void write_moment_partials(
+    const float (&acc_w)[kMaxRows],
+    const float (&acc_s1)[kMaxRows][kDimChunk],
+    const float (&acc_s2)[kMaxRows][kDimChunk], int nrows, int r0, int range,
+    int ranges, int dz, int d, bool lead, float* red, float* part_w,
+    float* part_s1, float* part_s2) {
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    if (r < nrows) {
+      const int64_t slot = static_cast<int64_t>(r0 + r) * ranges + range;
+      if (lead) {
+        const float tw = block_sum(acc_w[r], red);
+        if (threadIdx.x == 0) part_w[slot] = tw;
+      }
+#pragma unroll
+      for (int q = 0; q < kDimChunk; ++q) {
+        if (dz + q < d) {
+          const float t1v = block_sum(acc_s1[r][q], red);
+          const float t2v = block_sum(acc_s2[r][q], red);
+          if (threadIdx.x == 0) {
+            part_s1[slot * d + dz + q] = t1v;
+            part_s2[slot * d + dz + q] = t2v;
+          }
+        }
+      }
+    }
+  }
+}
+
 // partial[b, range, q] for b < Bp, summed over ranges in order in Acc and
 // rounded to f32 once.  The total weight w_tot uses Acc = double: its
 // partials are whole numbers below 2^24 (a CTA covers at most 1024 * 512
@@ -59,6 +95,23 @@ __global__ void sum_partials(const float* __restrict__ part,
     s += part[(static_cast<int64_t>(b) * ranges + r) * inner + q];
   }
   out[idx] = static_cast<float>(s);
+}
+
+// Launches the in-order sums of a fused moments pass's partials over its
+// ranges, the order every fused moments kernel shares: w_tot in double
+// (exact, rounded once), s1 and s2 in f32.  A row has `wn` entries of
+// w_tot (the keys, or 1) and `sn` of s1 and of s2.
+inline void sum_fused_partials(const float* part_w, const float* part_s1,
+                               const float* part_s2, float* w_tot, float* s1,
+                               float* s2, int rows, int ranges, int wn,
+                               int sn, cudaStream_t stream) {
+  const int t = 256, nw = rows * wn, ns = rows * sn;
+  sum_partials<double><<<(nw + t - 1) / t, t, 0, stream>>>(
+      part_w, w_tot, rows, ranges, wn);
+  sum_partials<float><<<(ns + t - 1) / t, t, 0, stream>>>(
+      part_s1, s1, rows, ranges, sn);
+  sum_partials<float><<<(ns + t - 1) / t, t, 0, stream>>>(
+      part_s2, s2, rows, ranges, sn);
 }
 
 }  // namespace earl

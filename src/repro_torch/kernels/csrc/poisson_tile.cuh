@@ -100,6 +100,27 @@ __device__ __forceinline__ float poisson_from_bits(uint32_t bits) {
   return count;
 }
 
+// The keys of every RNG tile a CTA touches, into shared memory: n-tiles
+// [t0, t1) of the (at most two) b-tiles that its rows r0.. span, two keys
+// an n-tile; and each of its R rows' b-tile (0 or 1 past r0 / bb) and row
+// within that tile.  The caller synchronizes before reading the keys.
+template <int R>
+__device__ __forceinline__ void cta_tile_keys(int32_t seed, int bb, int r0,
+                                              int t0, int t1, TileKey* keys,
+                                              int* tsel, int* trow) {
+  const int i_first = r0 / bb;
+  for (int q = threadIdx.x; q < 2 * (t1 - t0); q += blockDim.x) {
+    keys[q] = tile_key(seed, static_cast<uint32_t>(i_first + (q & 1)),
+                       static_cast<uint32_t>(t0 + (q >> 1)));
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int b = r0 + r;
+    tsel[r] = b / bb - i_first;
+    trow[r] = b - (b / bb) * bb;
+  }
+}
+
 // Poisson(1) weight of element `ctr` (flat index within its tile) of the
 // tile keyed by `key`, at global column `col`: 0 past n_valid, then times
 // the exact 0/1 mask when there is one (the order of the TPU kernels).

@@ -3,9 +3,10 @@
 ``weighted_histogram`` gives the (d, nbins) sketch of values under one
 weight vector (``Quantile.update``), or (R, d, nbins) under R rows of an
 explicit weight matrix (the materialized engines).  A CUDA tensor launches
-the hand-written kernel (csrc/weighted_hist.cu, replacing the TPU kernel
-repro/kernels/weighted_hist/kernel.py: weighted_hist_kernel) or raises; a
-CPU tensor runs the plain version, a batched ``weighted_hist_scatter_ref``.
+the hand-written kernel 10 (csrc/weighted_hist.cu, replacing the TPU
+kernel repro/kernels/weighted_hist/kernel.py: weighted_hist_kernel) or
+raises; a CPU tensor runs the plain version, a batched
+``weighted_hist_scatter_ref``.
 
 ``fused_poisson_hist`` gives B per-resample (d, nbins) histograms under
 the shared implicit Poisson(1) weights, and with ``group_ids`` (GROUP BY)
@@ -13,9 +14,11 @@ one per key, (B, G, d, nbins).  A CUDA tensor launches the hand-written
 kernel (csrc/fused_pass.cu without moments, replacing the TPU kernel
 repro/kernels/weighted_hist/kernel.py: fused_poisson_hist_kernel; keyed,
 the histogram pass of csrc/fused_grouped.cu, for which the reference has
-no TPU kernel) or raises; a CPU tensor runs the plain version, the JAX
-package's scatter scan tile by tile.  Counts are sums of small integer
-weights, exact in f32, so the two agree bit for bit.
+no TPU kernel; with ``block_bins``, keyed or not, the output-tiled kernel 7
+of csrc/fused_binblocked.cu, replacing fused_poisson_hist_binblocked_kernel)
+or raises; a CPU tensor runs the plain version, the JAX package's scatter
+scan tile by tile.  Counts are sums of small integer weights, exact in
+f32, so the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from typing import Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._pass import (MAX_ROWS, check_cuda_f32,
+from repro_torch.kernels._pass import (MAX_ROWS, SMEM_BYTES,
+                                       binblocked_geometry, check_cuda_f32,
                                        explicit_geometry, hist_rows,
                                        pass_geometry, stream_ptr)
 from repro_torch.kernels.weighted_hist.ref import (_bin_indices,
@@ -74,6 +78,17 @@ def weighted_hist_plain(x: torch.Tensor, w, lo: torch.Tensor,
     return counts.reshape(w.shape[0], d, nbins)
 
 
+def hist_dims(R: int, d: int, nbins: int) -> int:
+    """Dimensions a CTA of kernel 10 bins: all d while one row's d·nbins
+    bins fit in shared memory, else as many as fit beside min(8, R) rows
+    (grid z covers the rest)."""
+    row = (SMEM_BYTES - 64) // 4
+    if d * nbins <= row:
+        return d
+    hist_rows(nbins, 0)       # raises when one dimension's bins do not fit
+    return max(1, min(d, row // (nbins * min(MAX_ROWS, max(R, 1)))))
+
+
 def weighted_hist_cuda(x: torch.Tensor, w, lo: torch.Tensor,
                        hi: torch.Tensor, nbins: int) -> torch.Tensor:
     """Kernel 10 (csrc/weighted_hist.cu) on the card: (R, d, nbins)."""
@@ -82,9 +97,9 @@ def weighted_hist_cuda(x: torch.Tensor, w, lo: torch.Tensor,
         check_cuda_f32("weights", w)
     n, d = x.shape
     R = 1 if w is None else w.shape[0]
-    total = d * nbins
-    rows = min(hist_rows(total, 0), MAX_ROWS, max(R, 1))
-    out = torch.zeros(R, total, dtype=torch.float32, device=x.device)
+    dc = hist_dims(R, d, nbins)
+    rows = min(hist_rows(dc * nbins, 0), MAX_ROWS, max(R, 1))
+    out = torch.zeros(R, d * nbins, dtype=torch.float32, device=x.device)
     if R == 0 or n == 0:
         return out.reshape(R, d, nbins)
     cols, ranges = explicit_geometry(R, n, rows)
@@ -92,7 +107,7 @@ def weighted_hist_cuda(x: torch.Tensor, w, lo: torch.Tensor,
     weighted_histogram.launches += 1
     _build.launch("weighted_hist", R, n, d, nbins, x.data_ptr(),
                   None if w is None else w.data_ptr(), lo_t.data_ptr(),
-                  hi_t.data_ptr(), rows, cols, ranges, out.data_ptr(),
+                  hi_t.data_ptr(), dc, rows, cols, ranges, out.data_ptr(),
                   stream_ptr(x.device))
     return out.reshape(R, d, nbins)
 
@@ -221,6 +236,36 @@ def grouped_hist_cuda(pr: Prepared, seed: int, lo: torch.Tensor,
 grouped_hist_cuda.launches = 0
 
 
+def binblocked_cuda(pr: Prepared, seed: int, lo: torch.Tensor,
+                    hi: torch.Tensor, nbins: int,
+                    block_bins: int) -> torch.Tensor:
+    """Kernel 7 (csrc/fused_binblocked.cu) over a prepared call, keyed or
+    not: (Bp, d, nbins), or (Bp, G, d, nbins) with keys, on the card."""
+    check_cuda_f32("values", pr.xp)
+    G = 1 if pr.gp is None else pr.G
+    if pr.gp is not None:
+        check_cuda_f32("group_ids", pr.gp)
+    total = G * pr.d * nbins
+    width, rows, tpc, ranges = binblocked_geometry(pr.Bp, pr.np_, pr.bn,
+                                                   total, block_bins)
+    # one dimension a row, so a window's values are read coalesced
+    xt = pr.xp.t().contiguous()
+    lo_t, hi_t = to_card(lo, pr.device), to_card(hi, pr.device)
+    out = torch.zeros(pr.Bp, total, dtype=torch.float32, device=pr.device)
+    binblocked_cuda.launches += 1
+    _build.launch("fused_binblocked", int(seed), pr.n_valid, pr.Bp, pr.np_,
+                  pr.bb, pr.bn, pr.d, G, xt.data_ptr(), mask_ptr(pr),
+                  None if pr.gp is None else pr.gp.data_ptr(), nbins,
+                  lo_t.data_ptr(), hi_t.data_ptr(), width, rows, tpc, ranges,
+                  out.data_ptr(), stream_ptr(pr.device))
+    shape = (pr.Bp, pr.d, nbins) if pr.gp is None else (pr.Bp, G, pr.d,
+                                                         nbins)
+    return out.reshape(shape)
+
+
+binblocked_cuda.launches = 0
+
+
 def range_vector(v, d: int) -> torch.Tensor:
     """A scalar or (d,) bin edge as a (d,) f32 tensor, on the device of
     ``v`` when it is a tensor, else on the host."""
@@ -234,14 +279,21 @@ def fused_poisson_hist(seed: int, values: torch.Tensor, lo, hi, nbins: int,
 
     ``n_valid``, ``valid_mask`` and ``group_ids`` act as in
     ``fused_poisson_moments``; keyed counts are (B, G, d, nbins), slot g
-    bitwise the call under ``valid_mask = valid · (group_ids == g)``."""
-    if block_bins is not None:
-        raise NotImplementedError("fused_poisson_hist(block_bins=) (the "
-                                  "output-tiled kernel) is not ported yet")
+    bitwise the call under ``valid_mask = valid · (group_ids == g)``.
+
+    ``block_bins`` tiles the flat bin axis of a row ((G·)d·nbins) into
+    windows of at most that many bins: on the card it runs the
+    output-tiled kernel 7, which keeps one window of a block of rows in
+    shared memory and draws the weights again for each window, the knob
+    for a sketch whose row does not fit in an SM.  It changes no count.
+    As in the JAX package's scan lowering, a CPU tensor ignores it."""
     pr = prepare(values, B, n_valid, valid_mask, group_ids, num_groups)
     lo_v, hi_v = range_vector(lo, pr.d), range_vector(hi, pr.d)
     nbins = int(nbins)
-    if pr.device.type == "cuda":
+    if pr.device.type == "cuda" and block_bins is not None:
+        counts = binblocked_cuda(pr, seed, lo_v, hi_v, nbins,
+                                 int(block_bins))
+    elif pr.device.type == "cuda":
         run = grouped_hist_cuda if pr.gp is not None else hist_cuda
         counts = run(pr, seed, lo_v, hi_v, nbins)
     else:

@@ -14,9 +14,10 @@ Dispatch is on the device of ``values``: a CUDA tensor launches the
 hand-written kernel (csrc/fused_pass.cu without histograms, replacing
 the TPU kernel repro/kernels/weighted_stats/kernel.py:
 fused_poisson_moments_kernel; keyed, csrc/fused_grouped.cu, replacing
-fused_poisson_moments_grouped_kernel) or raises; a CPU tensor runs the
-plain version, the JAX package's scan lowering tile by tile in the same
-tile order.
+fused_poisson_moments_grouped_kernel; with ``stream=True``,
+csrc/fused_stream.cu, replacing fused_poisson_moments_stream_kernel) or
+raises; a CPU tensor runs the plain version, the JAX package's scan
+lowering tile by tile in the same tile order.
 """
 from __future__ import annotations
 
@@ -256,6 +257,24 @@ def moments_cuda(pr: Prepared, seed: int):
     return bufs[3], bufs[4], bufs[5]
 
 
+def moments_stream_cuda(pr: Prepared, seed: int):
+    """Kernel 5 (csrc/fused_stream.cu) over a prepared call: kernel 2's
+    outputs, bitwise, with x and the mask double-buffered through shared
+    memory by cp.async."""
+    check_cuda_f32("values", pr.xp)
+    tpc, ranges = pass_geometry(pr.Bp, pr.np_, pr.bn)
+    bufs = moment_buffers(pr, ranges)
+    moments_stream_cuda.launches += 1
+    _build.launch("fused_stream", int(seed), pr.n_valid, pr.Bp, pr.np_,
+                  pr.bb, pr.bn, pr.d, pr.xp.data_ptr(), mask_ptr(pr),
+                  MAX_ROWS, tpc, ranges, *[b.data_ptr() for b in bufs],
+                  stream_ptr(pr.device))
+    return bufs[3], bufs[4], bufs[5]
+
+
+moments_stream_cuda.launches = 0
+
+
 def grouped_moments_cuda(pr: Prepared, seed: int):
     """Kernel 6 (csrc/fused_grouped.cu) over a prepared keyed call:
     (w_tot (Bp, G), s1 (Bp, G, d), s2 (Bp, G, d)) on the card."""
@@ -296,22 +315,24 @@ def fused_poisson_moments(seed: int, values: torch.Tensor, B: int,
     s2 (B, G, d)), slot g bitwise the call under
     ``valid_mask = valid · (group_ids == g)``.
 
-    ``stream=True`` (the double-buffered kernel 5) is not ported."""
+    ``stream=True`` runs the double-buffered kernel 5 on the card (x and
+    the mask copied into shared memory a tile ahead of the hash), with
+    outputs bitwise those of the default kernel 2; the plain version is
+    the same for both."""
     pr = prepare(values, B, n_valid, valid_mask, group_ids, num_groups)
-    if stream:
-        if pr.gp is not None:
-            raise ValueError("stream=True is not supported with group_ids "
-                             "(the grouped kernel keeps its G·d "
-                             "accumulators resident instead)")
-        raise NotImplementedError("fused_poisson_moments(stream=True) (the "
-                                  "double-buffered kernel) is not ported "
-                                  "yet")
+    if stream and pr.gp is not None:
+        raise ValueError("stream=True is not supported with group_ids "
+                         "(the grouped kernel keeps its G·d accumulators "
+                         "resident instead)")
     cuda = pr.device.type == "cuda"
     if pr.gp is not None:
         out = grouped_moments_cuda(pr, seed) if cuda else \
             grouped_moments_plain(pr, seed)
+    elif cuda:
+        out = moments_stream_cuda(pr, seed) if stream else \
+            moments_cuda(pr, seed)
     else:
-        out = moments_cuda(pr, seed) if cuda else moments_plain(pr, seed)
+        out = moments_plain(pr, seed)
     return tuple(t[:pr.B] for t in out)
 
 

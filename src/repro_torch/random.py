@@ -22,6 +22,10 @@ Bitwise equal to ``jax.random`` with ``jax_threefry_partitionable=True``
 
 A key is an int64 tensor of shape (2,) holding two uint32 words, kept on
 the CPU: keys are host-side control state, only bit tensors are large.
+The draws (``bits``, ``uniform``, ``poisson``, ``randint``,
+``permutation``) land where ``jax.random`` puts them, on the default
+device: ``device=None`` means the card, and the host takes
+``device="cpu"``.
 Every uint32 quantity here lives in an int64 tensor masked to 32 bits,
 because torch's shifts and adds are not defined on its uint32 dtype.
 """
@@ -32,6 +36,8 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 MASK32 = 0xFFFFFFFF
 #: Elements hashed at once by ``poisson`` and ``randint``: bounds their
@@ -114,10 +120,11 @@ def bits_at(key, counters: torch.Tensor) -> torch.Tensor:
     return o0 ^ o1
 
 
-def bits(key, shape: Sequence[int], device="cpu") -> torch.Tensor:
+def bits(key, shape: Sequence[int], device=None) -> torch.Tensor:
     """uint32 random bits (as int64) of ``shape``: element with flat index
     c hashes (c >> 32, c & 0xFFFFFFFF) and returns bits1 ^ bits2."""
-    c = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    c = torch.arange(math.prod(shape), dtype=torch.int64,
+                     device=resolve_device(device))
     return bits_at(key, c).reshape(tuple(shape))
 
 
@@ -129,8 +136,9 @@ def _unit_floats(b: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0, device="cpu") -> torch.Tensor:
+            maxval: float = 1.0, device=None) -> torch.Tensor:
     """f32 uniform on [minval, maxval), bitwise ``jax.random.uniform``."""
+    device = resolve_device(device)
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
     f = _unit_floats(bits(key, shape, device))
@@ -138,7 +146,7 @@ def uniform(key, shape: Sequence[int], minval: float = 0.0,
 
 
 def poisson(key, lam: float, shape: Sequence[int], dtype=torch.int32,
-            device="cpu") -> torch.Tensor:
+            device=None) -> torch.Tensor:
     """Poisson(``lam``) draws of ``shape``, ``jax.random.poisson``'s
     Knuth ladder for 0 <= lam < 10 (module docstring).
 
@@ -153,6 +161,7 @@ def poisson(key, lam: float, shape: Sequence[int], dtype=torch.int32,
     if not 0.0 <= lam < 10.0:
         raise NotImplementedError("poisson for lam >= 10 (JAX's rejection "
                                   "sampler) is not ported")
+    device = resolve_device(device)
     size = math.prod(shape)
     out = torch.zeros(size, dtype=dtype, device=device)
     if lam == 0.0:
@@ -179,23 +188,25 @@ def poisson(key, lam: float, shape: Sequence[int], dtype=torch.int32,
     return out.reshape(tuple(shape))
 
 
-def permutation(key, n: int) -> torch.Tensor:
+def permutation(key, n: int, device=None) -> torch.Tensor:
     """A random permutation of [0, n), bitwise ``jax.random.permutation``:
     ceil(3·ln n / ln(2^32 − 1)) rounds, each splitting the key and stably
     sorting by fresh 32-bit bits of the subkey."""
-    x = torch.arange(int(n), dtype=torch.int64)
+    device = resolve_device(device)
+    x = torch.arange(int(n), dtype=torch.int64, device=device)
     rounds = int(np.ceil(3 * np.log(max(1, int(n)))
                          / np.log(np.iinfo(np.uint32).max)))
     k = key_data(key)
     for _ in range(rounds):
         k, sub = split(k)
-        order = torch.sort(bits(sub, (int(n),)), stable=True).indices
+        order = torch.sort(bits(sub, (int(n),), device),
+                           stable=True).indices
         x = x[order]
     return x
 
 
 def randint(key, shape: Sequence[int], minval: int, maxval: int,
-            device="cpu") -> torch.Tensor:
+            device=None) -> torch.Tensor:
     """int32 values in [minval, maxval), bitwise ``jax.random.randint``
     (int32 dtype): two bit draws from ``split(key)`` combined modulo the
     span with JAX's uint32 wrap-around arithmetic; hashed in blocks of
@@ -211,6 +222,7 @@ def randint(key, shape: Sequence[int], minval: int, maxval: int,
     if out_of_range and hi_v > lo_v:
         span = (span + 1) & MASK32
     size = math.prod(shape)
+    device = resolve_device(device)
     out = torch.empty(size, dtype=torch.int32, device=device)
     for start in range(0, size, BLOCK):
         c = torch.arange(start, min(size, start + BLOCK), dtype=torch.int64,

@@ -15,7 +15,11 @@ bitwise equal to the dedicated kernels masked to their key.  The explicit-
 weight kernels: weighted_moments' w_tot bitwise and s1/s2 within
 1e-5·Σw|x| (and Σw·x²); weighted_histogram's counts of whole-number
 weights bitwise, an (R, n) call bitwise R one-row calls, and fractional
-weights within 1e-6·Σ|w| of the row a bin.
+weights within 1e-6·Σ|w| of the row a bin.  The streaming slice: the
+output-tiled histogram (block_bins, kernel 7) bitwise the plain version,
+keyed too; the double-buffered moments (stream=True, kernel 5) bitwise
+kernel 2 on aligned and misaligned x; a streamed bootstrap on the card
+bitwise bootstrap_chunked.
 """
 import numpy as np
 import pytest
@@ -283,3 +287,96 @@ def test_cuda_weighted_histogram_matches_plain(cuda, R, n, d, nbins):
     want = twh.weighted_histogram(xt, torch.from_numpy(frac), LO, HI, nbins)
     bound = 1e-6 * torch.from_numpy(frac).double().sum(1)[:, None, None]
     assert bool(((got.cpu().double() - want.double()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d,G,nbins,block_bins", [
+    (100, 1000, 1, None, NBINS, 16), (256, (1 << 16) + 37, 4, None, 2048,
+                                      512),
+    (64, 20_000, 4, 8, 2048, 2048)])
+def test_cuda_binblocked_hist_matches_plain(cuda, B, n, d, G, nbins,
+                                            block_bins):
+    """Kernel 7 (block_bins): counts bitwise the plain version, keyed past
+    the keyed histogram's shared-memory limit too."""
+    rng = np.random.default_rng(B + n + d)
+    x = rng.normal(0.0, 1.5, size=(n, d)).astype(np.float32)
+    x[:4, 0] = [np.nan, np.inf, -np.inf, 10 * HI]
+    mask = (rng.random(n) > 0.3).astype(np.float32)
+    kw = {}
+    if G is not None:
+        kw = dict(group_ids=torch.from_numpy(
+            rng.integers(0, G, size=n).astype(np.float32)), num_groups=G)
+    for m in (None, torch.from_numpy(mask)):
+        got = twh.fused_poisson_hist(
+            11, torch.from_numpy(x).to(cuda), LO, HI, nbins, B,
+            valid_mask=None if m is None else m.to(cuda),
+            block_bins=block_bins,
+            **{k: v.to(cuda) if torch.is_tensor(v) else v
+               for k, v in kw.items()})
+        want = twh.fused_poisson_hist(11, torch.from_numpy(x), LO, HI, nbins,
+                                      B, valid_mask=m, **kw)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d", [(8, 300, 1), (256, (1 << 16) + 37, 3),
+                                   (64, 5000, 64)])
+def test_cuda_stream_moments_equal_kernel_2(cuda, B, n, d):
+    """Kernel 5 (stream=True) is bitwise kernel 2, on an aligned and on a
+    misaligned view of x, with and without a mask."""
+    rng = np.random.default_rng(B + n + d)
+    x = torch.from_numpy(rng.normal(3.0, 2.0, size=(n + 1, d)).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy((rng.random(n) > 0.3).astype(np.float32)).to(
+        cuda)
+    for view in (x[:n], x[1:]):
+        for m in (None, mask):
+            a = tws.fused_poisson_moments(5, view, B, valid_mask=m)
+            b = tws.fused_poisson_moments(5, view, B, valid_mask=m,
+                                          stream=True)
+            for u, v in zip(a, b):
+                assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_equals_chunked(cuda):
+    from repro_torch import random as trandom
+    from repro_torch.core import bootstrap_chunked, bootstrap_streaming
+    from repro_torch.data import ShardedStore
+    x = np.random.default_rng(1).normal(0.0, 1.5, size=(20_000, 4)).astype(
+        np.float32)
+    store = ShardedStore.from_array(x, 1234, interleave=False)
+    for stat in (Mean(), Quantile(0.5, nbins=2048, lo=LO, hi=HI,
+                                  block_bins=2048)):
+        got = bootstrap_streaming(store, stat, 64, trandom.PRNGKey(0),
+                                  chunk=4096)
+        want = bootstrap_chunked(store.read_all(), stat, 64,
+                                 trandom.PRNGKey(0), chunk=4096,
+                                 backend="fused_rng")
+        assert got.thetas.is_cuda
+        assert torch.equal(got.thetas, want.thetas)
+        assert torch.equal(got.estimate, want.estimate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("queue_depth", [1, 2])
+def test_cuda_streaming_reuses_chunk_buffers_safely(cuda, queue_depth):
+    """A wide Quantile's chunks are slower to fold than to stage, so the
+    prefetch thread refills every chunk buffer while the card still
+    queues work; kernel 7's transposed copy of a chunk is a chunk's size,
+    the block a careless allocation would hand back too early."""
+    from repro_torch import random as trandom
+    from repro_torch.core import bootstrap_chunked, bootstrap_streaming
+    from repro_torch.data import ShardedStore
+    x = np.random.default_rng(2).standard_normal((1 << 18, 64),
+                                                 dtype=np.float32)
+    store = ShardedStore.from_array(x, 8192, interleave=False)
+    stat = Quantile(0.5, nbins=2048, lo=-6.0, hi=6.0, block_bins=2048)
+    want = bootstrap_chunked(torch.from_numpy(x).to(cuda), stat, 256,
+                             trandom.PRNGKey(3), chunk=8192,
+                             backend="fused_rng")
+    for _ in range(3):
+        got = bootstrap_streaming(store, stat, 256, trandom.PRNGKey(3),
+                                  chunk=8192, queue_depth=queue_depth)
+        assert torch.equal(got.thetas, want.thetas)
+        assert torch.equal(got.estimate, want.estimate)

@@ -212,9 +212,15 @@ def test_grouped_op_argument_checks(keyed):
     with pytest.raises(ValueError, match="stream"):
         tws.fused_poisson_moments(SEED, _t(x), B, stream=True,
                                   group_ids=_t(gid), num_groups=G)
-    with pytest.raises(NotImplementedError, match="block_bins"):
-        twh.fused_poisson_hist(SEED, _t(x), LO, HI, NBINS, B, block_bins=128,
-                               group_ids=_t(gid), num_groups=G)
+    # keyed block_bins (kernel 7 on the card): the same counts as the
+    # JAX package's keyed scan, which ignores the knob
+    got = twh.fused_poisson_hist(SEED, _t(x), LO, HI, NBINS, B,
+                                 block_bins=128, group_ids=_t(gid),
+                                 num_groups=G)
+    want = jwh.fused_poisson_hist(SEED, x, LO, HI, NBINS, B, backend="scan",
+                                  block_bins=128, group_ids=gid,
+                                  num_groups=G)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -258,10 +258,74 @@ def test_materialized_fallback_matches_jax():
 
 
 def test_unported_options_raise():
-    x = torch.zeros(10, 1)
-    with pytest.raises(NotImplementedError):
-        twh.fused_poisson_hist(1, x, 0.0, 1.0, 8, 4, block_bins=128)
-    with pytest.raises(NotImplementedError):
-        tws.fused_poisson_moments(1, x, 4, stream=True)
+    """``block_bins`` (kernel 7) and ``stream=True`` (kernel 5) are ported:
+    on the CPU both run the plain version and equal the calls without the
+    knob.  A non-tensor argument still raises TypeError."""
+    seed, x, n_valid, mask = _case(8, 300, 2, "holes")
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    np.testing.assert_array_equal(
+        twh.fused_poisson_hist(seed, xt, LO, HI, NBINS, 8, valid_mask=mt,
+                               block_bins=128).numpy(),
+        twh.fused_poisson_hist(seed, xt, LO, HI, NBINS, 8,
+                               valid_mask=mt).numpy())
+    for a, b in zip(tws.fused_poisson_moments(seed, xt, 8, valid_mask=mt,
+                                              stream=True),
+                    tws.fused_poisson_moments(seed, xt, 8, valid_mask=mt)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     with pytest.raises(TypeError):
         tws.fused_poisson_moments(1, np.zeros((10, 1), np.float32), 4)
+
+
+@pytest.mark.parametrize("block_bins", [1, 16, 128, 1 << 20])
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("B,n,d", [(8, 300, 2), (130, 700, 3)])
+def test_fused_hist_block_bins_matches_jax_bitwise(B, n, d, mask_kind,
+                                                   block_bins):
+    """Kernel 7's entry point: ``block_bins`` changes no count."""
+    seed, x, n_valid, mask = _case(B, n, d, mask_kind, special=True)
+    want = jwh.fused_poisson_hist(seed, x, LO, HI, NBINS, B, backend="scan",
+                                  n_valid=n_valid, valid_mask=mask,
+                                  block_bins=block_bins)
+    got = twh.fused_poisson_hist(
+        seed, torch.from_numpy(x), LO, HI, NBINS, B, n_valid=n_valid,
+        valid_mask=None if mask is None else torch.from_numpy(mask),
+        block_bins=block_bins)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("B,n,d", SHAPES)
+def test_fused_moments_stream_matches_jax(B, n, d, mask_kind):
+    """Kernel 5's entry point: ``stream=True`` is bitwise the default and
+    within the dot-error bound of the JAX package's scan lowering."""
+    seed, x, n_valid, mask = _case(B, n, d, mask_kind)
+    m = None if mask is None else torch.from_numpy(mask)
+    got = tws.fused_poisson_moments(seed, torch.from_numpy(x), B,
+                                    n_valid=n_valid, valid_mask=m,
+                                    stream=True)
+    for a, b in zip(got, tws.fused_poisson_moments(
+            seed, torch.from_numpy(x), B, n_valid=n_valid, valid_mask=m)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    want = jws.fused_poisson_moments(seed, x, B, backend="scan",
+                                     n_valid=n_valid, valid_mask=mask,
+                                     stream=True)
+    _assert_moments(got, want, x, _explicit_weights(seed, B, n, n_valid,
+                                                    mask))
+
+
+@pytest.mark.parametrize("Bp,np_,total,block_bins", [
+    (256, 65536, 64 * 2048, 2048), (256, (1 << 20) + 475, 2048, 128),
+    (8, 512, 8 * 4 * 2048, 1 << 20), (16, 128, 7, 3)])
+def test_binblocked_geometry(Bp, np_, total, block_bins):
+    """Kernel 7's windows: at most block_bins wide, whole RNG tiles a
+    range, and a CTA's window and key table within an SM's shared
+    memory."""
+    from repro_torch.kernels._pass import (MAX_ROWS, MAX_TILES_PER_CTA,
+                                           SMEM_BYTES, binblocked_geometry)
+    bn = 512 if np_ >= 512 else np_
+    width, rows, tpc, ranges = binblocked_geometry(Bp, np_, bn, total,
+                                                   block_bins)
+    assert 1 <= width <= min(block_bins, total) and 1 <= rows <= MAX_ROWS
+    assert 16 * tpc + 4 * rows * width <= SMEM_BYTES
+    assert tpc <= MAX_TILES_PER_CTA and (ranges - 1) * tpc < np_ // bn
+    assert ranges * tpc >= np_ // bn

@@ -120,7 +120,7 @@ def test_synthetic_clusters_are_the_reference_data():
 def test_default_init_draws_the_reference_rows(n, k):
     key = jax.random.PRNGKey(n)
     want = np.asarray(jax.random.choice(key, n, (k,), replace=False))
-    got = trandom.permutation(trandom.PRNGKey(n), n)[:k].numpy()
+    got = trandom.permutation(trandom.PRNGKey(n), n, device="cpu")[:k].numpy()
     np.testing.assert_array_equal(want, got)
 
 

@@ -93,7 +93,7 @@ def _same_result(got, want, kind):
 @pytest.mark.parametrize("shape,seed", [((64, 4096), 0), ((3, 5, 7), 11)])
 def test_uniform_is_bitwise_jax(shape, seed):
     want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape))
-    got = trandom.uniform(trandom.PRNGKey(seed), shape).numpy()
+    got = trandom.uniform(trandom.PRNGKey(seed), shape, device="cpu").numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -102,27 +102,33 @@ def test_poisson_matches_jax(seed, record_property):
     shape = (64, 4096)
     want = np.asarray(jax.random.poisson(jax.random.PRNGKey(seed), 1.0,
                                          shape))
-    got = trandom.poisson(trandom.PRNGKey(seed), 1.0, shape).numpy()
+    got = trandom.poisson(trandom.PRNGKey(seed), 1.0, shape,
+                          device="cpu").numpy()
     unequal = int((got != want).sum())
     record_property("unequal_entries", unequal)
     assert got.dtype == np.int32
     assert unequal <= 1e-4 * got.size, f"{unequal} unequal entries"
     assert abs(got.mean() - 1.0) < 0.01 and abs(got.var() - 1.0) < 0.01
     # the block and the live-entry compaction give the draw of one block
-    small = trandom.poisson(trandom.PRNGKey(seed), 1.0, (64, 64))
+    small = trandom.poisson(trandom.PRNGKey(seed), 1.0, (64, 64),
+                            device="cpu")
     np.testing.assert_array_equal(small.numpy(), np.asarray(
         jax.random.poisson(jax.random.PRNGKey(seed), 1.0, (64, 64))))
-    assert not trandom.poisson(trandom.PRNGKey(seed), 0.0, (4, 4)).any()
+    assert not trandom.poisson(trandom.PRNGKey(seed), 0.0, (4, 4),
+                              device="cpu").any()
 
 
 def test_poisson_in_blocks_equals_one_block(monkeypatch):
-    whole = trandom.poisson(trandom.PRNGKey(3), 1.0, (16, 1000))
+    whole = trandom.poisson(trandom.PRNGKey(3), 1.0, (16, 1000),
+                            device="cpu")
     monkeypatch.setattr(trandom, "BLOCK", 777)
     torch.testing.assert_close(
         trandom.poisson(trandom.PRNGKey(3), 1.0, (16, 1000),
-                        dtype=torch.float32), whole.float(), rtol=0, atol=0)
+                        dtype=torch.float32, device="cpu"),
+        whole.float(), rtol=0, atol=0)
     np.testing.assert_array_equal(
-        trandom.randint(trandom.PRNGKey(3), (16, 1000), 0, 97).numpy(),
+        trandom.randint(trandom.PRNGKey(3), (16, 1000), 0, 97,
+                        device="cpu").numpy(),
         np.asarray(jax.random.randint(jax.random.PRNGKey(3), (16, 1000), 0,
                                       97)))
 

@@ -44,7 +44,7 @@ def test_key_ops_bitwise(seed):
         np.testing.assert_array_equal(
             np.asarray(jax.random.bits(kj, shape, jnp.uint32)).astype(
                 np.int64),
-            trandom.bits(kt, shape).numpy())
+            trandom.bits(kt, shape, device="cpu").numpy())
 
 
 @pytest.mark.parametrize("seed", SEEDS[::2])
@@ -56,7 +56,7 @@ def test_randint_bitwise(seed, lo, hi):
     for shape in ((), (4, 3)):
         want = np.asarray(jax.random.randint(kj, shape, lo, hi,
                                              dtype=jnp.int32))
-        got = trandom.randint(kt, shape, lo, hi)
+        got = trandom.randint(kt, shape, lo, hi, device="cpu")
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(want, got.numpy())
 
@@ -83,3 +83,23 @@ def test_key_data_rejects_bad_shapes():
         trandom.key_data(np.zeros(3, np.uint32))
     with pytest.raises(ValueError):
         trandom.PRNGKey(2 ** 31)
+
+
+@pytest.mark.parametrize("draw", [
+    lambda k, **kw: trandom.bits(k, (4,), **kw),
+    lambda k, **kw: trandom.uniform(k, (4,), **kw),
+    lambda k, **kw: trandom.poisson(k, 1.0, (4,), **kw),
+    lambda k, **kw: trandom.randint(k, (4,), 0, 9, **kw),
+    lambda k, **kw: trandom.permutation(k, 4, **kw),
+], ids=["bits", "uniform", "poisson", "randint", "permutation"])
+def test_draws_default_to_the_card(draw):
+    """As ``jax.random`` draws on the default device, a draw without
+    ``device=`` lands on the card; with no card it raises instead of
+    running on the host."""
+    key = trandom.PRNGKey(5)
+    assert draw(key, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert draw(key).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            draw(key)
