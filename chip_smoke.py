@@ -7,12 +7,12 @@ Needs one CUDA card, nvcc and this checkout; it imports nothing of JAX or
 of the JAX package.  Phases, each of which raises (exit code 1) on
 failure:
 
-1. build the twelve CUDA kernels from kernels/csrc (poisson_counts.cu,
+1. build the thirteen CUDA kernels from kernels/csrc (poisson_counts.cu,
    fused_pass.cu, which holds the three fused ones, kmeans_assign.cu,
    fused_kmeans.cu, fused_grouped.cu, which holds the two GROUP BY ones,
-   weighted_moments.cu, weighted_hist.cu, fused_stream.cu and
-   fused_binblocked.cu; one nvcc per source, all at once) and print the
-   build seconds and ptxas's registers and spills;
+   weighted_moments.cu, weighted_hist.cu, fused_stream.cu,
+   fused_binblocked.cu and flash_attention.cu; one nvcc per source, all at
+   once) and print the build seconds and ptxas's registers and spills;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at B=256, n=2^20+37, with and without a
@@ -37,7 +37,13 @@ failure:
    (65,536 bins a row, past the keyed histogram's limit); the streamed
    moments (kernel 5, B in {8, 256}, n in {300, 65,536, 2^20+37}, d in
    {1, 3, 64}, aligned and misaligned x, with and without a mask) bitwise
-   equal to kernel 2 and within 1e-5·Σw|x| of the plain version;
+   equal to kernel 2 and within 1e-5·Σw|x| of the plain version; flash
+   attention (kernel 12) at tests/test_kernels.py's sweep, the unaligned
+   Sq = 67 at head_dim 120 and GQA 4 and a decode-offset case
+   (kv_offset = 4096, window 4096), each in f32 (atol 2e-5, rtol 1e-4)
+   and bf16 (one bf16 rounding, 1e-3 + 2^-7·|want|), and at the
+   full-width prefill shape (4 x 32 query heads on 8 KV heads, 8192
+   tokens, head_dim 120, window 4096) in bf16 and in f32;
 4. the quickstart path, with every launch count set to 0 first and the
    geometry of every launch logged: the quickstart session
    (N = 2,000,000, StatisticGroup(Mean, Quantile(0.5), Std)), a Mean()
@@ -84,15 +90,44 @@ failure:
    same chunks (bitwise the streamed Mean's state), and both runs again
    at 2^20 rows: the peak device memory above the resident state must not
    grow with n;
-8. replay every distinct launch geometry that phases 4 to 7 and 10 logged
-   on fresh data and hold it against the plain version as in phase 3;
+11. (run after phase 10) the serving path, from zeroed counts with its
+   geometries logged: h2o-danube-3-4b at full width (24 layers, d_model
+   3840, 32/8 heads of 120, d_ff 10240, vocab 32000 padded to 32768,
+   window 4096; 3.84e9 f32 parameters from a seeded generator) serves 4
+   requests of 8192-token synthetic_tokens prompts: prefill with room for
+   32 greedy decode steps (kernel 12 exactly 24 times a prefill, never in
+   decode), the prefill wall and decode tokens/s, a peak below one layer's
+   (4, 32, 8192, 8192) f32 score tensor above the params; a few more
+   decode steps on the host's clock and one under torch.profiler (the
+   card's busy time and the casts' share) and the weight casts a step
+   makes timed alone; decode equals
+   teacher forcing (one forward over the prompts and decoded tokens)
+   within 2e-2 of the largest logit; the model cut to one layer on the
+   card and the CPU (1 x 256 tokens, 8 steps) gives logits within that
+   tolerance and the same greedy tokens; EarlEval over 20,000 documents
+   of 513 tokens (eval_batch 32, sigma 0.01) certifies from under half
+   of them, and again at sigma 1.5e-4, below the pilot's cv, where it must
+   grow the sample past its pilot, still certify from under half, give
+   the plain mean of the losses its forwards returned, and take the B,
+   rows and iterations of an EarlSession on the CPU fed those losses;
+   then the repaired routing: a group (Mean,
+   GroupedStatistic(Mean, 8), a custom statistic) at B = 256, n = 2^20 is
+   bitwise its members' dedicated runs (the custom member's tiled scan
+   also against its CPU run), and a keyed custom statistic at B = 256,
+   n = 2^24 - 1000 peaks below one (B, n) f32 matrix;
+8. replay every distinct launch geometry that phases 4 to 7, 10 and 11
+   logged on fresh data and hold it against the plain version as in
+   phase 3;
 9. time each kernel (CUDA events) beside its plain version, its bound
    and, for the explicit-weight kernels, one PyTorch call computing the
    same function; the sessions' wall times and the example's walls over a
    few warm runs, and the grouped moments kernel against G masked
    moments launches; kernel 5 beside kernel 2 and kernel 7 at the streamed
-   Quantile's chunk shape; then print the kernels line, then the
-   contract's last line.
+   Quantile's chunk shape; kernel 12 at the serving prefill's shape beside
+   its plain version, its bound (4·D operations a visible query-key pair
+   at the bf16 tensor-core rate, or q, k, v and o once over the memory
+   rate) and scaled_dot_product_attention with the boolean causal-window
+   mask; then print the kernels line, then the contract's last line.
 
 Every plain version that a kernel is held against or timed beside runs
 under a check that it launches no kernel.
@@ -134,6 +169,7 @@ REPLACES = {
         "src/repro/kernels/weighted_stats/kernel.py:406",
     "fused_poisson_hist_binblocked":
         "src/repro/kernels/weighted_hist/kernel.py:195",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
 }
 SOURCES = {
     "poisson_counts": "src/repro_torch/kernels/csrc/poisson_counts.cu",
@@ -152,6 +188,7 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/fused_stream.cu",
     "fused_poisson_hist_binblocked":
         "src/repro_torch/kernels/csrc/fused_binblocked.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 #: the kernels each main path must launch
 QUICKSTART_KERNELS = ("poisson_counts", "fused_poisson_moments",
@@ -162,6 +199,11 @@ GROUPBY_KERNELS = ("fused_poisson_moments_grouped",
 MATERIALIZED_KERNELS = ("weighted_moments", "weighted_histogram")
 STREAM_KERNELS = ("fused_poisson_moments", "fused_poisson_hist_binblocked",
                   "fused_poisson_moments_stream", "weighted_histogram")
+#: the serving path's kernel, and the repaired routing's (a group with a
+#: keyed and a custom member; a keyed custom statistic's tiled scan)
+SERVE_KERNELS = ("flash_attention",)
+ROUTING_KERNELS = ("poisson_counts", "fused_poisson_multi",
+                   "fused_poisson_moments_grouped")
 #: launches of the earlier kernels on the quickstart, k-means and GROUP BY
 #: paths together in the run that ported the GROUP BY slice: a call that
 #: lost its explicit backend="fused_rng" would change them
@@ -214,6 +256,27 @@ ST_LO, ST_HI, ST_CKPT_EVERY, ST_KILL_AFTER = -6.0, 6.0, 8, 3
 # kernel 7's parity: n for d = 64 (the others run at BIG_N) and the keyed
 # case's G, d (65,536 bins a row)
 K7_WIDE_N, K7_G, K7_GD = (1 << 16) + 37, 8, 4
+# the serving path (phase 11): h2o-danube-3-4b at full width, 4 requests
+# of 8192-token prompts (two windows) and 32 greedy decode steps; card ==
+# CPU on the model cut to one layer (1 x 256 tokens, 8 steps); EarlEval
+# over 20,000 documents of 513 tokens in batches of 32 at sigma 0.01
+SERVE_ARCH, SERVE_SEED = "h2o-danube-3-4b", 16
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 8192, 32
+CPU_PROMPT, CPU_GEN = 256, 8
+EVAL_DOCS, EVAL_DOC_LEN, EVAL_BATCH, EVAL_SIGMA, EVAL_TAU = \
+    20_000, 513, 32, 0.01, 0.05
+# a second EarlEval below the pilot's cv (about 4.7e-4 at these random
+# weights), so the session grows the sample past its pilot
+EVAL_SIGMA_GROW = 1.5e-4
+# decode steps timed on the host's clock before the profiled one
+PROFILE_STEPS = 4
+# kernel 12's timing shape: the serving prefill's (B·Hq, S, D), Hkv, W
+FA_B, FA_HQ, FA_HKV, FA_S, FA_D, FA_W = 4, 32, 8, 8192, 120, 4096
+# dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet, 700 W)
+BF16_FLOPS_PER_S = 989e12
+# the repaired routing: a keyed custom statistic's tiled scan at the
+# one-shot bootstrap's size, and a group with keyed and custom members
+ROUTE_G, ROUTE_GROUP_N = 8, 1 << 20
 
 
 def check(ok: bool, what: str) -> None:
@@ -259,6 +322,20 @@ class Parity:
               f"{name} {what}: max |err| {float(diff.max())} over its "
               f"1e-5 bound")
 
+    def attention(self, got, want, what):
+        """Kernel 12 against its plain version: f32 within atol 2e-5 and
+        rtol 1e-4 (tests/test_kernels.py's tolerance); bf16, compared in
+        f32, within one bf16 rounding, 1e-3 + 2^-7·|want| (both sides
+        accumulate in f32 and round once to bf16)."""
+        diff = (got.float() - want.float()).abs()
+        self.err["flash_attention"] = max(self.err["flash_attention"],
+                                          float(diff.max()))
+        rtol = 1e-4 if want.element_size() == 4 else 2.0 ** -7
+        atol = 2e-5 if want.element_size() == 4 else 1e-3
+        tol = atol + rtol * want.float().abs()
+        check(got.dtype == want.dtype and bool((diff <= tol).all()),
+              f"flash_attention {what}: max |err| {float(diff.max())}")
+
     def kmeans(self, name, got, want, bound_sums, what):
         """got/want = (sums, counts, inertia); bound_sums = Σw|x| per dim
         (broadcast over clusters); inertia is held to 1e-5 of itself."""
@@ -272,6 +349,7 @@ def wrappers():
     ``launches``: the wrapper, or for the GROUP BY kernels and kernels 5
     and 7 the card path of the wrapper's keyed, streamed or block_bins
     call."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.fused_multi.ops import fused_poisson_multi
     from repro_torch.kernels.kmeans_assign.ops import (fused_poisson_kmeans,
                                                        kmeans_assign)
@@ -294,7 +372,8 @@ def wrappers():
             "weighted_moments": weighted_moments,
             "weighted_histogram": weighted_histogram,
             "fused_poisson_moments_stream": moments_stream_cuda,
-            "fused_poisson_hist_binblocked": binblocked_cuda}
+            "fused_poisson_hist_binblocked": binblocked_cuda,
+            "flash_attention": flash_attention}
 
 
 def zero_counts() -> None:
@@ -306,8 +385,13 @@ def geometry(lib: str, args: tuple) -> tuple:
     """What a launch's result depends on besides its data, as sorted
     (field, value) pairs, from the arguments of ``earl_<lib>``."""
     if lib == "poisson_counts":
-        _, Bp, np_, bb, bn, _, _ = args
-        fields = dict(Bp=Bp, np_=np_, bb=bb, bn=bn)
+        _, Bp, np_, bb, bn, t0, _, _ = args
+        fields = dict(Bp=Bp, np_=np_, bb=bb, bn=bn, offset=t0 > 0)
+    elif lib == "flash_attention":
+        (dtype, BHq, Hq, Hkv, Sq, Skv, D, _, causal, window, kv_offset,
+         *_) = args
+        fields = dict(dtype=dtype, BHq=BHq, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
+                      D=D, causal=causal, window=window, kv_offset=kv_offset)
     elif lib == "kmeans_assign":
         n, d, k, _, _, _, cols, ranges, threads, _, _, _ = args
         fields = dict(n=n, d=d, k=k, cols=cols, ranges=ranges,
@@ -1807,14 +1891,17 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                                              StatisticGroup, Std)
     from repro_torch.kernels.fused_multi.ops import (_multi_scan,
                                                      fused_poisson_multi)
-    from repro_torch.kernels.poisson_counts.ops import poisson_counts
-    from repro_torch.kernels.poisson_counts.ref import poisson_weights_plain
+    from repro_torch.kernels.poisson_counts.ops import (poisson_counts,
+                                                        poisson_tiles)
+    from repro_torch.kernels.poisson_counts.ref import (poisson_weights_plain,
+                                                        weight_block)
     from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
                                                        hist_plain)
     from repro_torch.kernels.weighted_stats.ops import (
         fused_poisson_moments, moments_plain, prepare)
 
     gen = torch.Generator().manual_seed(13)
+    gen_cuda = torch.Generator(device="cuda").manual_seed(13)
     lo = torch.full((1,), LO, device="cuda")
     hi = torch.full((1,), HI, device="cuda")
     shapes = {}
@@ -1826,6 +1913,11 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
             shapes.setdefault(name, []).append((g.get("B", g.get("R")),
                                                 g["n"]))
             replay_materialized(torch, parity, gen, name, fields, what)
+            continue
+        if name == "flash_attention":
+            shapes.setdefault(name, []).append((g["BHq"], g["Sq"], g["Skv"],
+                                                g["D"]))
+            replay_attention(torch, parity, gen_cuda, fields, what)
             continue
         if name in ("fused_poisson_moments_stream",
                     "fused_poisson_hist_binblocked"):
@@ -1857,6 +1949,18 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                                       n_valid=g["n_valid"], valid_mask=mask)
             check((name, fields) in log.geometries, f"{what}: launched "
                   f"{list(log.geometries)}")
+            continue
+        if name == "poisson_counts" and g["offset"]:
+            # a chunk of the tiled scan: n-tiles from an offset
+            t0, t1 = 5, 5 + np_ // g["bn"]
+            with LaunchLog() as log:
+                w_k = poisson_tiles(seed, np_ * 4, Bp, g["bb"], g["bn"], t0,
+                                    t1, device="cuda")
+            check((name, fields) in log.geometries, f"{what}: launched "
+                  f"{list(log.geometries)}")
+            parity.bitwise(name, w_k, plain(
+                weight_block, seed, np_ * 4, Bp, g["bb"], g["bn"], t0, t1,
+                device="cuda"), what)
             continue
         if name == "poisson_counts":
             with LaunchLog() as log:
@@ -1913,8 +2017,9 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
     torch.cuda.synchronize()
     print(f"replay: {sum(len(v) for v in shapes.values())} main-path launch "
           f"geometries match their plain versions; (Bp, np), (n, k, d) "
-          f"for kmeans_assign, or (rows, n) for the explicit-weight "
-          f"kernels, per kernel {json.dumps(shapes)}")
+          f"for kmeans_assign, (rows, n) for the explicit-weight kernels, "
+          f"or (B·Hq, Sq, Skv, D) for flash_attention, per kernel "
+          f"{json.dumps(shapes)}")
 
 
 def replay_grouped(torch, parity, gen, seed, name, fields, what) -> None:
@@ -2337,6 +2442,572 @@ def phase_timing(torch, launches, parity: Parity, quickstart):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the serving path: kernel 12 and the model stack (phase 11)
+# ---------------------------------------------------------------------------
+#: (b, hq, hkv, sq, skv, d), kwargs: tests/test_kernels.py's sweep, the
+#: unaligned Sq = 67 at head_dim 120 and GQA 4, and a decode-offset case
+FA_CASES = [
+    ((2, 4, 2, 64, 64, 32), dict(causal=True)),
+    ((1, 4, 4, 128, 128, 32), dict(causal=True, window=32)),
+    ((2, 8, 2, 96, 96, 16), dict(causal=False)),
+    ((1, 2, 1, 64, 192, 32), dict(causal=True, kv_offset=128)),
+    ((1, 8, 1, 80, 80, 64), dict(causal=True)),
+    ((1, 32, 8, 67, 67, 120), dict(causal=True)),
+    ((4, 32, 8, 64, 4160, 120), dict(causal=True, window=4096,
+                                     kv_offset=4096)),
+]
+
+
+def fa_inputs(torch, shape, dtype, gen):
+    b, hq, hkv, sq, skv, d = shape
+    return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
+                 for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                           (b, hkv, skv, d)))
+
+
+def phase_parity_attention(torch, parity: Parity) -> None:
+    """Kernel 12 against its plain version at the sweep (f32 and bf16)
+    and at the full-width prefill shape (bf16, and f32 to hold the window's
+    tile skip tightly where Sq passes the window)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = [(s, kw, dt) for s, kw in FA_CASES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [((FA_B, FA_HQ, FA_HKV, FA_S, FA_S, FA_D),
+               dict(causal=True, window=FA_W), dt)
+              for dt in (torch.bfloat16, torch.float32)]
+    for shape, kw, dt in cases:
+        q, k, v = fa_inputs(torch, shape, dt, gen)
+        parity.attention(flash_attention(q, k, v, **kw),
+                         plain(flash_attention_plain, q, k, v, **kw),
+                         f"{shape} {kw} {dt}")
+    torch.cuda.synchronize()
+    print(f"parity: flash_attention matches its plain version at "
+          f"{len(cases)} cases; max |err| "
+          f"{parity.err['flash_attention']}")
+
+
+def logits_tolerance(want) -> float:
+    """bf16 tolerance of a logit: 2e-2 of the largest |logit| (bf16 keeps
+    8 bits; roundings in another order move a logit by a few of them)."""
+    return 2e-2 * float(want.abs().max())
+
+
+def serve(torch, cfg, params, prompts, gen_steps, cache_len):
+    """prefill (with room for the decode steps) and greedy decode steps;
+    returns (logits per step, decoded tokens, prefill seconds, decode
+    seconds, flash_attention launches of the prefill and of the decode,
+    the cache after the last step)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import prefill
+    from repro_torch.train import make_decode_step
+    decode_step = make_decode_step(cfg)
+
+    def sync():
+        if prompts.is_cuda:
+            torch.cuda.synchronize()
+    sync()
+    n0 = flash_attention.launches
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, prompts, cache_len=cache_len)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    n_prefill = flash_attention.launches - n0
+    steps, toks = [logits], []
+    t0 = time.perf_counter()
+    for t in range(gen_steps):
+        tok = torch.argmax(logits, -1)[:, None]
+        toks.append(tok)
+        logits, cache = decode_step(params, cache, tok,
+                                    prompts.shape[1] + t)
+        steps.append(logits)
+    sync()
+    t_decode = time.perf_counter() - t0
+    return (steps, torch.cat(toks, dim=1), t_prefill, t_decode, n_prefill,
+            flash_attention.launches - n0 - n_prefill, cache)
+
+
+def _weight_leaves(tree, name=""):
+    """The parameter tensors a forward casts to the compute dtype: every
+    one but the norm scales (which the norms read in f32)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _weight_leaves(v, k)
+    elif not name.endswith("norm"):
+        yield tree
+
+
+def profile_decode(torch, cfg, params, cache, tok, pos) -> dict:
+    """Where a decode step's time goes: PROFILE_STEPS steps on the host's
+    clock (when the host returned from each, and when the card was done),
+    one step under torch.profiler (the card's busy time, the union of its
+    kernels' intervals, and the device time of the casts,
+    aten::_to_copy), and the casts of the f32 weights to the compute
+    dtype that a step makes, timed alone with CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.train import make_decode_step
+    step = make_decode_step(cfg)
+    host, wall = [], []
+    for i in range(PROFILE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, cache, tok, pos + i)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, cache, tok, pos + PROFILE_STEPS)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    cast_us = sum(r.device_time_total for r in prof.key_averages()
+                  if r.key == "aten::_to_copy")
+    # the host's calls into the CUDA runtime: launches, and any wait on
+    # the card inside the step (the profiled step ends in one
+    # cudaDeviceSynchronize of its own)
+    calls = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("cu")):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    leaves = list(_weight_leaves(params))
+    cd = dtype_of(cfg.compute_dtype)
+
+    def cast_all():
+        for t in leaves:
+            t.to(cd)
+    cast_ms = time_ms(torch, cast_all, 3)
+    cast_bytes = sum(t.numel() * (t.element_size() + cd.itemsize)
+                     for t in leaves)
+    out = dict(decode_step_host_return_s=host, decode_step_wall_s=wall,
+               profiled_step_wall_s=prof_wall,
+               profiled_device_kernels=len(spans),
+               profiled_device_busy_s=(busy_us * 1e-6 if spans else None),
+               profiled_cast_device_s=(cast_us * 1e-6 if spans else None),
+               weight_cast_ms=cast_ms, weight_cast_bytes=cast_bytes,
+               profiled_runtime_calls=calls)
+    busy = ("not measured (the profiler saw no device kernel)" if not spans
+            else f"{busy_us * 1e-3:.3f} ms busy on the card in "
+                 f"{len(spans)} kernels and copies, casts "
+                 f"{cast_us * 1e-3:.3f} ms of it")
+    print(f"decode step (cuda): host returned after {host} s, card done "
+          f"after {wall} s ({PROFILE_STEPS} steps); one step profiled: wall "
+          f"{prof_wall * 1e3:.3f} ms, {busy}; the weight casts alone "
+          f"{cast_ms:.3f} ms for {cast_bytes} bytes; runtime calls "
+          f"{json.dumps(calls)}")
+    return out
+
+
+def routing_on_the_card(torch):
+    """The repaired routing: a group with a keyed and a custom member,
+    each bitwise its dedicated run, and a keyed custom statistic over
+    B = 256, n = 2^24 - 1000 rows whose peak stays below one (B, n) f32
+    weight matrix."""
+    from repro_torch.core import (GroupedStatistic, Mean, MomentState,
+                                  Statistic, StatisticGroup)
+    from repro_torch.core.bootstrap import fused_resample_states
+    from repro_torch.kernels.fused_multi.ops import (fused_poisson_multi,
+                                                     fused_poisson_tiled)
+    from repro_torch.kernels.weighted_stats.ops import fused_poisson_moments
+
+    class AbsSum(Statistic):
+        """A user statistic with its own tile math: Σw and Σw|x|."""
+
+        def init_state(self, dim, device="cpu"):
+            z = torch.zeros(dim, device=device)
+            return MomentState(w=torch.zeros((), device=device), s1=z, s2=z)
+
+        def update(self, state, values, weights=None):
+            x = values.to(torch.float32)
+            w = (torch.ones(x.shape[0], device=x.device) if weights is None
+                 else weights)
+            return MomentState(w=state.w + w.sum(), s1=state.s1 + w @ x.abs(),
+                               s2=state.s2)
+
+        def tile_update(self, states, x_tile, w_tile):
+            return MomentState(w=states.w + w_tile.sum(dim=1),
+                               s1=states.s1 + w_tile @ x_tile.abs(),
+                               s2=states.s2)
+
+        def finalize(self, state):
+            return state.s1 / torch.clamp_min(state.w.unsqueeze(-1), 1.0)
+
+    def keyed_rows(n, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(n, 1, generator=gen, device="cuda") * 2.0 + 10.0
+        keys = torch.randint(0, ROUTE_G, (n, 1), generator=gen,
+                             device="cuda").float()
+        return torch.cat([x, keys], dim=1)
+
+    vals = keyed_rows(ROUTE_GROUP_N, 1)
+    keyed, custom = GroupedStatistic(Mean(), ROUTE_G), AbsSum()
+    got = fused_poisson_multi(StatisticGroup((Mean(), keyed, custom)), 77,
+                              vals, BIG_B)
+    want = (fused_poisson_moments(77, vals, BIG_B),
+            keyed.fused_poisson_states(77, vals, BIG_B),
+            fused_poisson_tiled(custom, 77, vals, BIG_B))
+    pairs = [(got[0].w, want[0][0]), (got[0].s1, want[0][1]),
+             (got[0].s2, want[0][2]), (got[1].w, want[1].w),
+             (got[1].s1, want[1].s1), (got[1].s2, want[1].s2),
+             (got[2].w, want[2].w), (got[2].s1, want[2].s1)]
+    check(all(bool((a == b).all()) for a, b in pairs),
+          "a group member differs from its dedicated run")
+    # the CPU's tiled scan (on the first 2^16 rows: the plain draw is
+    # slow): weights bitwise, so w_tot; Σw|x| within 1e-5 of itself
+    head = vals[:1 << 16]
+    card = fused_poisson_tiled(custom, 77, head, BIG_B)
+    cpu = fused_poisson_tiled(custom, 77, head.cpu(), BIG_B)
+    check(bool((cpu.w == card.w.cpu()).all()),
+          "the tiled scan's w_tot differs from its CPU run")
+    check(bool(((cpu.s1 - card.s1.cpu()).abs() <= 1e-5 * cpu.s1).all()),
+          "the tiled scan's Σw|x| is off its CPU run by more than 1e-5")
+    del vals, got, want, head, card, cpu
+    vals = keyed_rows(BOOT_N, 2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = fused_resample_states(GroupedStatistic(AbsSum(), ROUTE_G), 99, vals,
+                               BIG_B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    bn_bytes = BIG_B * BOOT_N * 4
+    check(st.w.shape == (BIG_B, ROUTE_G) and peak < bn_bytes,
+          f"keyed custom statistic: peak {peak} B against a (B, n) matrix "
+          f"of {bn_bytes} B")
+    print(f"routing (cuda): a group (Mean, GroupedStatistic(Mean, "
+          f"{ROUTE_G}), custom) at B={BIG_B}, n={ROUTE_GROUP_N} is bitwise "
+          f"its members' dedicated runs; a keyed custom statistic at "
+          f"B={BIG_B}, n={BOOT_N}: {wall:.3f} s, peak {peak} B above the "
+          f"data (a (B, n) f32 matrix is {bn_bytes} B)")
+    return dict(keyed_custom_s=wall, keyed_custom_peak_bytes=peak)
+
+
+def phase_serve_path(torch):
+    """Phase 11: h2o-danube-3-4b at full width on the card, from zeroed
+    launch counts with its geometries logged."""
+    import dataclasses
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.data.pipeline import EvalSamplePipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import (forward_hidden, init_params,
+                                    logits_from_hidden, num_params)
+    from repro_torch.train import EarlEval, make_eval_step
+
+    cfg = get_config(SERVE_ARCH)
+    zero_counts()
+    info = {}
+    with LaunchLog() as log:
+        torch.cuda.synchronize()
+        free0 = torch.cuda.memory_allocated()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SERVE_SEED), device="cuda")
+        torch.cuda.synchronize()
+        count, nbytes = num_params(params)
+        check(count == cfg.num_params(), f"params {count} != the config's "
+              f"{cfg.num_params()}")
+        param_bytes = torch.cuda.memory_allocated() - free0
+        print(f"serve: {cfg.name}: {count} parameters, {nbytes} bytes in "
+              f"{cfg.param_dtype}; {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+              f"(padded {cfg.padded_vocab}), window {cfg.window}")
+        docs = synthetic_tokens(SERVE_B, SERVE_PROMPT, cfg.vocab,
+                                seed=SERVE_SEED)
+        prompts = torch.from_numpy(docs).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        steps, toks, t_pre, t_dec, n_pre, n_dec, cache = serve(
+            torch, cfg, params, prompts, SERVE_GEN, SERVE_PROMPT + SERVE_GEN)
+        peak = torch.cuda.max_memory_allocated() - param_bytes - free0
+        scores = SERVE_B * cfg.n_heads * SERVE_PROMPT * SERVE_PROMPT * 4
+        check(n_pre == cfg.n_layers and n_dec == 0,
+              f"flash_attention launched {n_pre} times in the prefill and "
+              f"{n_dec} in decode, expected {cfg.n_layers} and 0")
+        check(peak < scores, f"serve peak {peak} B above the params, not "
+              f"below one layer's score tensor ({scores} B)")
+        check(all(bool(torch.isfinite(s[:, :cfg.vocab]).all())
+                  for s in steps), "serve logits are not finite")
+        info.update(prefill_s=t_pre, decode_s=t_dec,
+                    decode_tokens_per_s=SERVE_B * SERVE_GEN / t_dec,
+                    peak_above_params_bytes=peak, param_bytes=param_bytes)
+        print(f"serve (cuda): {SERVE_B} x {SERVE_PROMPT} prompt tokens "
+              f"prefilled in {t_pre:.3f} s ({n_pre} flash_attention "
+              f"launches), {SERVE_GEN} greedy steps in {t_dec:.3f} s = "
+              f"{SERVE_B * SERVE_GEN / t_dec:.1f} tokens/s; peak {peak} B "
+              f"above the params (one layer's f32 scores: {scores} B)")
+        info.update(profile_decode(torch, cfg, params, cache, toks[:, -1:],
+                                   SERVE_PROMPT + SERVE_GEN))
+        del cache
+
+        # decode == teacher forcing: the prompt extended by the decoded
+        # tokens, in one forward
+        full = torch.cat([prompts, toks], dim=1)
+        with torch.no_grad():
+            h, _ = forward_hidden(cfg, params, full, mode="train")
+            tf = logits_from_hidden(cfg, params,
+                                    h[:, SERVE_PROMPT - 1:])[..., :cfg.vocab]
+        del h
+        dec = torch.stack([s[:, :cfg.vocab] for s in steps], dim=1)
+        err = float((dec - tf).abs().max())
+        tol = logits_tolerance(tf)
+        check(err <= tol, f"decode vs teacher forcing: max |err| {err} over "
+              f"{tol}")
+        agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
+        info.update(teacher_forcing_max_err=err, teacher_forcing_tol=tol,
+                    teacher_forcing_argmax_agreement=agree)
+        print(f"serve: decode == teacher forcing over {SERVE_GEN + 1} "
+              f"positions: max |logit err| {err} (tolerance {tol}); "
+              f"argmax agreement {agree}")
+        del full, tf, dec, steps
+
+        # card == CPU on the model cut to one layer
+        one = dataclasses.replace(cfg, n_layers=1)
+        p1 = {"embedding": params["embedding"],
+              "final_norm": params["final_norm"],
+              "groups": {"0": _tree_slice(params["groups"]["0"])}}
+        p1_cpu = _tree_to(p1, "cpu")
+        prompt1 = prompts[:1, :CPU_PROMPT]
+        c_steps, c_toks, *_ = serve(torch, one, p1, prompt1, CPU_GEN,
+                                    CPU_PROMPT + CPU_GEN)
+        h_steps, h_toks, t_cpu, *_ = serve(
+            torch, one, p1_cpu, prompt1.cpu(), CPU_GEN, CPU_PROMPT + CPU_GEN)
+        c = torch.stack(c_steps).cpu()[..., :cfg.vocab]
+        hh = torch.stack(h_steps)[..., :cfg.vocab]
+        err = float((c - hh).abs().max())
+        tol = logits_tolerance(hh)
+        check(err <= tol, f"card vs CPU at one layer: max |err| {err} over "
+              f"{tol}")
+        check(torch.equal(c_toks.cpu(), h_toks), f"card vs CPU greedy "
+              f"tokens differ: {c_toks.tolist()} vs {h_toks.tolist()}")
+        info.update(card_vs_cpu_max_err=err, card_vs_cpu_tol=tol)
+        print(f"serve: card == CPU at one layer (1 x {CPU_PROMPT} tokens, "
+              f"{CPU_GEN} steps): max |logit err| {err} (tolerance {tol}), "
+              f"greedy tokens equal {c_toks.tolist()}; CPU prefill "
+              f"{t_cpu:.2f} s")
+        del p1, p1_cpu
+
+        # EarlEval at full width
+        corpus = synthetic_tokens(EVAL_DOCS, EVAL_DOC_LEN, cfg.vocab,
+                                  seed=SERVE_SEED + 1)
+        pipe = EvalSamplePipeline(corpus, seq_len=EVAL_DOC_LEN - 1)
+        n0 = flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = EarlEval(make_eval_step(cfg), params, pipe, sigma=EVAL_SIGMA,
+                       tau=EVAL_TAU, eval_batch=EVAL_BATCH).run(
+            trandom.PRNGKey(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = res.history[-1]
+        batches = -(-ev["model_forwards"] // EVAL_BATCH)
+        check(ev["model_forwards"] < 0.5 * ev["full_pass_forwards"]
+              and res.cv <= EVAL_SIGMA,
+              f"EarlEval did not certify from under half the corpus: {ev}, "
+              f"cv {res.cv}")
+        check(flash_attention.launches - n0 == batches * cfg.n_layers,
+              f"EarlEval launched flash_attention "
+              f"{flash_attention.launches - n0} times for {batches} batches")
+        est = float(torch.as_tensor(res.result).reshape(-1)[0])
+        info.update(eval_forwards=ev["model_forwards"],
+                    eval_full_pass=ev["full_pass_forwards"], eval_cv=res.cv,
+                    eval_wall_s=wall, eval_estimate=est, eval_B=res.B,
+                    eval_iterations=res.iterations)
+        print(f"EarlEval (cuda): model_forwards={ev['model_forwards']} of "
+              f"full_pass_forwards={ev['full_pass_forwards']}, B={res.B}, "
+              f"iterations={res.iterations}, loss {est}, cv={res.cv}, wall "
+              f"{wall:.2f} s")
+        info.update(earl_eval_grows(torch, cfg, params, pipe, res.n_used))
+        del params, pipe, res
+        torch.cuda.empty_cache()
+
+        info.update(routing_on_the_card(torch))
+    launches = log.counts()
+    for k in SERVE_KERNELS + ROUTING_KERNELS:
+        check(launches[k] > 0, f"phase 11 launched no {k}")
+    print(f"launches, the serving path: {json.dumps(launches)}")
+    print("serve summary: " + json.dumps(info))
+    return launches, log.geometries, info
+
+
+class _LossRows:
+    """A sampler over a vector of per-document losses: an EarlSession on
+    the CPU fed the losses that the card's EarlEval computed."""
+
+    def __init__(self, losses, N: int):
+        self.losses, self.N = losses, N
+
+    def take(self, start: int, stop: int):
+        check(stop <= len(self.losses), f"the CPU session took rows up to "
+              f"{stop}, past the {len(self.losses)} the card computed")
+        return self.losses[start:stop]
+
+
+def earl_eval_grows(torch, cfg, params, pipe, n_before: int) -> dict:
+    """EarlEval at sigma EVAL_SIGMA_GROW, below the pilot's cv: the
+    session must grow the sample past the n_before rows that the run at
+    EVAL_SIGMA used (its pilot) and certify
+    from under half the corpus; its estimate is held against the plain
+    mean of the losses its forwards returned, and its B, rows, iterations
+    and estimate against an EarlSession on the CPU fed those losses."""
+    from repro_torch import random as trandom
+    from repro_torch.core import EarlSession, Mean
+    from repro_torch.train import EarlEval, make_eval_step
+    eval_step = make_eval_step(cfg)
+    recorded = []
+
+    def recording_step(p, batch):
+        out = eval_step(p, batch)
+        recorded.append(out.to(torch.float32).cpu())
+        return out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = EarlEval(recording_step, params, pipe, sigma=EVAL_SIGMA_GROW,
+                   tau=EVAL_TAU, eval_batch=EVAL_BATCH).run(
+        trandom.PRNGKey(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev = res.history[-1]
+    losses = torch.cat(recorded)
+    est = float(torch.as_tensor(res.result).reshape(-1)[0])
+    check(not res.fell_back and res.n_used > n_before
+          and res.cv <= EVAL_SIGMA_GROW
+          and ev["model_forwards"] < 0.5 * ev["full_pass_forwards"],
+          f"EarlEval at sigma {EVAL_SIGMA_GROW} did not grow past "
+          f"{n_before} rows and certify from under half the "
+          f"corpus: n_used {res.n_used}, {ev}, cv {res.cv}, fell back "
+          f"{res.fell_back}")
+    check(len(losses) == ev["model_forwards"] >= res.n_used,
+          f"{len(losses)} losses recorded for {ev['model_forwards']} "
+          f"forwards and {res.n_used} rows")
+    x = losses[:res.n_used].double()
+    plain = float(x.mean())
+    tol = 1e-5 * float(x.abs().mean())
+    check(abs(est - plain) <= tol, f"EarlEval's estimate {est} is not the "
+          f"plain mean {plain} of its {res.n_used} losses (tolerance {tol})")
+    cpu = EarlSession(_LossRows(losses, pipe.N), Mean(),
+                      sigma=EVAL_SIGMA_GROW, tau=EVAL_TAU,
+                      device="cpu").run(trandom.PRNGKey(0))
+    cpu_est = float(torch.as_tensor(cpu.result).reshape(-1)[0])
+    check((cpu.B, cpu.n_used, cpu.iterations, cpu.fell_back)
+          == (res.B, res.n_used, res.iterations, res.fell_back)
+          and abs(cpu_est - est) <= tol,
+          f"the CPU session on the card's losses took B {cpu.B}, rows "
+          f"{cpu.n_used}, {cpu.iterations} iterations, estimate {cpu_est}; "
+          f"the card's EarlEval B {res.B}, rows {res.n_used}, "
+          f"{res.iterations} iterations, estimate {est}")
+    print(f"EarlEval (cuda, sigma {EVAL_SIGMA_GROW}): model_forwards="
+          f"{ev['model_forwards']} of {ev['full_pass_forwards']}, B={res.B}, "
+          f"n_used={res.n_used}, iterations={res.iterations}, loss {est} "
+          f"(plain mean of its losses {plain}), cv={res.cv}, wall "
+          f"{wall:.2f} s; the CPU session on the same losses agrees (B "
+          f"{cpu.B}, n_used {cpu.n_used}, iterations {cpu.iterations}, "
+          f"loss {cpu_est}, cv {cpu.cv})")
+    return dict(grow_sigma=EVAL_SIGMA_GROW,
+                grow_forwards=ev["model_forwards"], grow_n_used=res.n_used,
+                grow_B=res.B, grow_iterations=res.iterations,
+                grow_cv=res.cv, grow_estimate=est, grow_plain_mean=plain,
+                grow_wall_s=wall, grow_history=res.history[:-1],
+                grow_cpu_cv=cpu.cv)
+
+
+def _tree_slice(tree):
+    """Layer 0 of a stacked group of blocks, keeping the stacking axis."""
+    if isinstance(tree, dict):
+        return {k: _tree_slice(v) for k, v in tree.items()}
+    return tree[:1]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def replay_attention(torch, parity, gen, fields, what) -> None:
+    """One kernel 12 launch geometry on fresh data against the plain
+    version."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    g = dict(fields)
+    b = g["BHq"] // g["Hq"]
+    dt = torch.float32 if g["dtype"] == 0 else torch.bfloat16
+    q, k, v = fa_inputs(torch, (b, g["Hq"], g["Hkv"], g["Sq"], g["Skv"],
+                                g["D"]), dt, gen)
+    kw = dict(causal=bool(g["causal"]), window=g["window"] or None,
+              kv_offset=g["kv_offset"], scale=1.0)
+    with LaunchLog() as log:
+        got = flash_attention(q, k, v, **kw)
+    check(("flash_attention", fields) in log.geometries,
+          f"{what}: launched {list(log.geometries)}")
+    parity.attention(got, plain(flash_attention_plain, q, k, v, **kw), what)
+
+
+def attention_pairs(S: int, W: int) -> int:
+    """Visible (query, key) pairs of one head under the causal window."""
+    W = min(W, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def serve_rows(torch, launches, parity: Parity):
+    """Kernel 12 at the serving prefill's shape: 4 x 32 query heads on 8
+    KV heads, 8192 tokens, head_dim 120, window 4096, bf16."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    q, k, v = fa_inputs(torch, (FA_B, FA_HQ, FA_HKV, FA_S, FA_S, FA_D),
+                        torch.bfloat16, gen)
+    i = torch.arange(FA_S, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - FA_W)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(causal=True, window=FA_W, scale=FA_D ** -0.5)
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, **kw), 5)
+    plain_ms = time_ms(torch, lambda: plain(flash_attention_plain, q, k, v,
+                                            **kw), 2)
+    library_ms = time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask,
+                                             scale=FA_D ** -0.5,
+                                             enable_gqa=True), 5)
+    pairs = attention_pairs(FA_S, FA_W)
+    # operations: QK^T and PV, 2·D each a visible pair; bytes: q, k, v and
+    # o once each, in bf16
+    flops = 4 * FA_D * pairs * FA_B * FA_HQ
+    nbytes = 2 * (2 * FA_B * FA_HQ + 2 * FA_B * FA_HKV) * FA_S * FA_D
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    row = dict(name="flash_attention", route="cuda",
+               source=SOURCES["flash_attention"],
+               replaces=REPLACES["flash_attention"],
+               launches=launches["flash_attention"],
+               max_abs_err=parity.err["flash_attention"], ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=library_ms,
+               shape=dict(B=FA_B, Hq=FA_HQ, Hkv=FA_HKV, S=FA_S, D=FA_D,
+                          window=FA_W, dtype="bfloat16", pairs_per_head=pairs,
+                          flops=flops, bytes=nbytes))
+    print(f"timing flash_attention: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}: {pairs} visible "
+          f"pairs a head, {flops} flops, {nbytes} bytes)")
+    return [row]
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2376,6 +3047,7 @@ def main() -> int:
     phase_parity_grouped(torch, parity)
     phase_parity_materialized(torch, parity)
     phase_parity_stream(torch, parity)
+    phase_parity_attention(torch, parity)
     lap("3 (parity)")
     launches, geometries, quickstart = phase_main_path(torch)
     lap("4 (quickstart path)")
@@ -2398,17 +3070,21 @@ def main() -> int:
           f"{mat_launches}, expected {MATERIALIZED_LAUNCHES}")
     st_launches, st_geometries = phase_stream_path(torch)
     lap("10 (streaming path)")
+    sv_launches, sv_geometries, _ = phase_serve_path(torch)
+    lap("11 (serving path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
-                for k in launches}
+                + sv_launches[k] for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"five: {json.dumps(launches)}")
+          f"six: {json.dumps(launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
-                         **mat_geometries, **st_geometries}, parity)
+                         **mat_geometries, **st_geometries,
+                         **sv_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)
     rows += materialized_rows(torch, launches, parity)
     rows += stream_rows(torch, launches, parity)
+    rows += serve_rows(torch, launches, parity)
     lap("9 (timing)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

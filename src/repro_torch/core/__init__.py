@@ -21,7 +21,7 @@ from repro_torch.core.delta import (MultinomialDeltaBootstrap, PoissonDelta,
                                     shared_base_bootstrap, work_saved)
 from repro_torch.core.reduce_api import (Count, GroupedStatistic,
                                          HistogramState, KMeansState,
-                                         KMeansStep, Mean, Median,
+                                         KMeansStep, Mean, MeanLoss, Median,
                                          MomentState, Quantile, Statistic,
                                          StatisticGroup, Std, Sum, Var,
                                          kmeans_fit)
@@ -42,8 +42,8 @@ __all__ = [
     "p_shared", "poisson_delta_extend", "poisson_delta_init",
     "poisson_delta_result", "shared_base_bootstrap", "work_saved",
     "Count", "GroupedStatistic", "HistogramState", "KMeansState",
-    "KMeansStep", "Mean", "Median", "MomentState", "Quantile", "Statistic",
-    "StatisticGroup", "Std", "Sum", "Var", "kmeans_fit",
+    "KMeansStep", "Mean", "MeanLoss", "Median", "MomentState", "Quantile",
+    "Statistic", "StatisticGroup", "Std", "Sum", "Var", "kmeans_fit",
     "EarlSession", "EarlyResult", "SSABEResult", "ssabe",
     "StreamingBootstrapResult", "StreamReport", "bootstrap_streaming",
 ]

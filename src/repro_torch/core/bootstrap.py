@@ -97,10 +97,11 @@ def multinomial_counts(key, B: int, n: int,
     return counts.scatter_add_(1, idx.long(), torch.ones_like(idx))
 
 
-def poisson_weights(key, B: int, n: int, device=None) -> torch.Tensor:
-    """Poisson(1) bootstrap weights, (B, n) f32; ``device=None`` draws on
-    the card."""
-    return trandom.poisson(key, 1.0, (B, n), dtype=torch.float32,
+def poisson_weights(key, B: int, n: int, dtype=torch.float32,
+                    device=None) -> torch.Tensor:
+    """Poisson(1) bootstrap weights, (B, n) of ``dtype``; ``device=None``
+    draws on the card."""
+    return trandom.poisson(key, 1.0, (B, n), dtype=dtype,
                            device=resolve_device(device))
 
 
@@ -133,21 +134,23 @@ def bootstrap_thetas(values, stat: Statistic, weights: torch.Tensor,
 
 
 def check_backend(backend, engine, mesh) -> None:
-    """The backend rules the JAX package's entry points share; a mesh is
-    not ported."""
+    """The backend rules the JAX package's entry points share.  ``mesh``
+    (and the ``data_axis`` that names one of its axes) is accepted in the
+    JAX package's place and raises: the mesh path is not ported yet."""
     if backend not in (None, "fused_rng"):
         raise ValueError(f"unknown bootstrap backend: {backend!r}")
     if backend == "fused_rng" and engine != "poisson":
         raise ValueError("backend='fused_rng' requires the poisson engine "
                          "(in-kernel RNG draws iid Poisson(1) weights)")
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP.md "
+                                  "§1 item 4, the mesh path)")
 
 
 def bootstrap(values, stat: Statistic, B: int, key, engine: str = "poisson",
               p: float = 1.0, use_kernel: bool = False, alpha: float = 0.05,
               backend: Optional[str] = None, mesh=None,
-              device=None) -> BootstrapResult:
+              data_axis: str = "data", device=None) -> BootstrapResult:
     """One bootstrap pass: B resamples, their result distribution and its
     accuracy.  ``p`` (the sampled fraction) goes to ``stat.correct``.
 
@@ -179,7 +182,8 @@ def bootstrap(values, stat: Statistic, B: int, key, engine: str = "poisson",
 def bootstrap_chunked(values, stat: Statistic, B: int, key,
                       chunk: int = 65536, engine: str = "poisson",
                       p: float = 1.0, backend: Optional[str] = None,
-                      mesh=None, device=None) -> BootstrapResult:
+                      mesh=None, data_axis: str = "data",
+                      device=None) -> BootstrapResult:
     """The sample in chunks of ``chunk`` rows, merging per-resample states,
     so no (B, n) matrix exists: (B, chunk) at most with ``backend=None``,
     whose chunk i draws ``poisson_weights(fold_in(key, i), B, chunk)``;

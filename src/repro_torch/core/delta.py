@@ -49,20 +49,28 @@ class PoissonDelta:
     B: int
     n: int
     step: int            # one per extend
-    device: torch.device = torch.device("cpu")
     backend: Optional[str] = None   # None: materialized Poisson weights;
     #                                 "fused_rng": matrix-free
+    mesh: Any = None                # accepted in the JAX package's place;
+    data_axis: str = "data"         # a mesh raises (not ported yet)
+    device: Optional[torch.device] = None   # None: the card
+
+    def __post_init__(self):
+        check_backend(self.backend, "poisson", self.mesh)
+        self.device = resolve_device(self.device)
 
 
 def poisson_delta_init(stat: Statistic, B: int, dim: int, key,
                        backend: Optional[str] = None, mesh=None,
+                       data_axis: str = "data",
                        device=None) -> PoissonDelta:
     check_backend(backend, "poisson", mesh)
     dev = resolve_device(device)
     return PoissonDelta(stat=stat, key=key_data(key),
                         states=stat.init_batch(dim, B, dev),
                         est_state=stat.init_state(dim, dev), B=int(B), n=0,
-                        step=0, device=dev, backend=backend)
+                        step=0, backend=backend, mesh=mesh,
+                        data_axis=data_axis, device=dev)
 
 
 def poisson_delta_extend(pd: PoissonDelta, new_values) -> PoissonDelta:

@@ -607,9 +607,11 @@ class GroupedStatistic(Statistic):
     ``valid_mask = (key == g)`` under the same seed: each implicit weight
     is drawn once and routed to its key's slot by an exact 0/1 mask.
     ``fused_poisson_states`` takes the keyed kernels for moment, Quantile
-    and KMeansStep inners; a custom inner gets the materialized weights of
-    ``fused_resample_states``, like an ungrouped custom statistic.  The
-    device of the values picks the kernel, so the only ``backend`` is None.
+    and KMeansStep inners; a custom inner takes the tiled scan
+    (``fused_multi.ops.fused_poisson_tiled``), whose ``tile_update`` here
+    key-masks each block of the shared weights, so no (B, n) weight
+    matrix exists.  The device of the values picks the kernel, so the
+    only ``backend`` is None.
     """
 
     _BACKENDS = (None,)
@@ -716,8 +718,8 @@ class GroupedStatistic(Statistic):
                              valid_mask=None):
         """(B, G, ...) states under one implicit Poisson(1) stream,
         segment-reduced per key in the kernels: no (B, n) weight matrix
-        and no (n, G) one-hot.  None for a custom inner (the caller then
-        materializes the same weights)."""
+        and no (n, G) one-hot.  A custom inner takes the tiled scan over
+        the same stream."""
         x, gid = self._split_key(values)
         G, inner = self.num_groups, self.inner
         kw = dict(n_valid=n_valid, valid_mask=valid_mask, group_ids=gid,
@@ -741,4 +743,11 @@ class GroupedStatistic(Statistic):
             from repro_torch.kernels.kmeans_assign import ops as ka_ops
             return KMeansState(*ka_ops.fused_poisson_kmeans(
                 seed, x, inner.centroids, B, **kw))
-        return None
+        from repro_torch.kernels.fused_multi import ops as fm_ops
+        return fm_ops.fused_poisson_tiled(self, seed, values, B,
+                                          n_valid=n_valid,
+                                          valid_mask=valid_mask)
+
+
+class MeanLoss(Mean):
+    """Alias used by train/earl_eval: the statistic is the per-example loss."""

@@ -54,6 +54,9 @@ class EarlSession:
     prefix extension.  ``device=None`` runs on the card.  ``backend=None``
     materializes Poisson weights for SSABE and the delta-maintained main
     loop (the paper's engine); ``"fused_rng"`` runs both matrix-free.
+    ``mesh``, ``data_axis``, ``checkpoint`` and ``checkpoint_every`` stand
+    in the JAX package's places; a mesh or a checkpoint raises (not
+    ported yet).
     """
 
     def __init__(self, sampler, stat: Statistic, sigma: float = 0.05,
@@ -61,11 +64,13 @@ class EarlSession:
                  growth: float = 2.0, max_fraction: float = 1.0,
                  min_pilot: int = 64, max_pilot: int = 8192, l: int = 5,
                  backend: Optional[str] = None, mesh=None,
-                 checkpoint=None, device=None):
+                 data_axis: str = "data", checkpoint=None,
+                 checkpoint_every: int = 1, device=None):
         check_backend(backend, "poisson", mesh)
         if checkpoint is not None:
             raise NotImplementedError(
-                "EarlSession(checkpoint=) is not ported yet")
+                "EarlSession(checkpoint=) is not ported yet (ROADMAP.md §1 "
+                "item 1)")
         self.device = resolve_device(device)
         self.sampler = sampler
         self.stat = stat

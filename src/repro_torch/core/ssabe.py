@@ -57,7 +57,8 @@ class SSABEResult:
 def estimate_B(values, stat: Statistic, tau: float, key,
                engine: str = "poisson", B_min: int = 2,
                B_max: int | None = None, backend: str | None = None,
-               mesh=None, device=None) -> Tuple[int, List[Tuple[int, float]]]:
+               mesh=None, data_axis: str = "data",
+               device=None) -> Tuple[int, List[Tuple[int, float]]]:
     """Phase A.  The thetas of B_max resamples come from one pass, and
     prefixes of them are nested resample sets (common random numbers):
     rows of one (B_max, n) weight matrix of ``engine``, or with
@@ -119,7 +120,8 @@ def invert_cv_curve(a: float, c: float, sigma: float, n_cap: int) -> int:
 
 def estimate_n(values, stat: Statistic, sigma: float, B: int, key,
                l: int = 5, n_cap: int | None = None,
-               backend: str | None = None, mesh=None, device=None
+               backend: str | None = None, mesh=None,
+               data_axis: str = "data", device=None
                ) -> Tuple[int, List[Tuple[int, float]], float, float]:
     """Phase B: nested prefixes extend one delta-maintained run."""
     dev = resolve_device(device)
@@ -146,7 +148,7 @@ def estimate_n(values, stat: Statistic, sigma: float, B: int, key,
 def ssabe(pilot_values, stat: Statistic, sigma: float, tau: float, key,
           l: int = 5, N: int | None = None, engine: str = "poisson",
           backend: str | None = None, mesh=None,
-          device=None) -> SSABEResult:
+          data_axis: str = "data", device=None) -> SSABEResult:
     """Both SSABE phases on a pilot sample; ``engine`` draws phase A's
     materialized weights."""
     check_backend(backend, engine, mesh)

@@ -1,9 +1,11 @@
-"""Data substrate: sharded store, samplers, synthetic data."""
+"""Data substrate: sharded store, samplers, synthetic data, and the
+earl_eval pipeline."""
 from repro_torch.data.sampler import (PermutationSampler, PreMapSampler,
                                       StratifiedSampler)
 from repro_torch.data.store import ReadStats, ShardedStore
-from repro_torch.data.synthetic import synthetic_clusters, synthetic_numeric
+from repro_torch.data.synthetic import (synthetic_clusters,
+                                        synthetic_numeric, synthetic_tokens)
 
 __all__ = ["PermutationSampler", "PreMapSampler", "ReadStats",
            "ShardedStore", "StratifiedSampler", "synthetic_clusters",
-           "synthetic_numeric"]
+           "synthetic_numeric", "synthetic_tokens"]

@@ -32,3 +32,12 @@ def synthetic_clusters(n: int, k: int = 5, dim: int = 2, spread: float = 0.4,
     assign = rng.integers(0, k, size=n)
     x = centers[assign] + rng.normal(0, spread, size=(n, dim))
     return x.astype(np.float32), centers
+
+
+def synthetic_tokens(n_docs: int, doc_len: int, vocab: int,
+                     seed: int = 0) -> np.ndarray:
+    """Zipf-ish token documents for the LM pipeline / earl_eval."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+    return rng.choice(vocab, size=(n_docs, doc_len), p=probs).astype(np.int32)

@@ -11,7 +11,9 @@ imports jax or the JAX package.  What crosses:
   states cross the same way, with the key axis G on every leaf;
 * a Poisson delta run: its states, point-estimate state, key, n, step
   and backend;
-* a sharded store: its splits.
+* a sharded store: its splits;
+* a model's params (or serve caches): the nested dict of arrays, in the
+  JAX package's layout, which the port keeps.
 
 This is the system's counterpart of carrying weights across: a run begun
 in one package continues in the other from the same RNG stream.
@@ -74,3 +76,24 @@ def poisson_delta_from_numpy(stat: Statistic, B: int, states, est_state,
 def store_from_splits(splits: Iterable[np.ndarray]) -> ShardedStore:
     """A port store over copies of another store's splits."""
     return ShardedStore([np.array(s, copy=True) for s in splits])
+
+
+def _tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same type.  A bf16 leaf arrives as an
+    ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects: its
+    bits cross through a uint16 view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a, copy=True).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device=None):
+    """A JAX parameter (or cache) tree, ``jax.tree_util.tree_map(np.asarray,
+    params)``, as the port's nested dict of tensors on ``device`` (the
+    card unless ``device="cpu"``), every leaf in its own type."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return _tensor_from_numpy(tree, dev)

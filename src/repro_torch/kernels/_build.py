@@ -35,14 +35,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 VOID_P = ctypes.c_void_p
 INT = ctypes.c_int
+FLOAT = ctypes.c_float
 #: C signature of each library's entry point (all return cudaError_t).
 #: fused_pass serves fused_poisson_moments, _hist and _multi alike;
 #: fused_grouped their keyed (GROUP BY) moments and histogram;
 #: weighted_moments and weighted_hist take an explicit weight matrix;
 #: fused_stream is the moments pass with x double-buffered through shared
-#: memory, fused_binblocked the output-tiled (block_bins) histogram.
+#: memory, fused_binblocked the output-tiled (block_bins) histogram;
+#: flash_attention is the attention of the model stack (kernel 12).
 SIGNATURES: Dict[str, tuple] = {
-    "poisson_counts": (INT, INT, INT, INT, INT, VOID_P, VOID_P),
+    "poisson_counts": (INT, INT, INT, INT, INT, INT, VOID_P, VOID_P),
     "fused_pass": (INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P, INT,
                    INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
                    INT, VOID_P, VOID_P, VOID_P, INT, VOID_P, VOID_P),
@@ -65,6 +67,8 @@ SIGNATURES: Dict[str, tuple] = {
     "fused_binblocked": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P,
                          VOID_P, VOID_P, INT, VOID_P, VOID_P, INT, INT, INT,
                          INT, VOID_P, VOID_P),
+    "flash_attention": (INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, INT,
+                        INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

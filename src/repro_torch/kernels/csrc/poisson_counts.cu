@@ -2,7 +2,10 @@
 //
 // Replaces repro/kernels/poisson_counts/kernel.py: poisson_counts_kernel
 // (_pc_kernel), the bitwise probe of the RNG tile and the materialized
-// fallback for statistics without a fused path.
+// fallback for statistics without a fused path.  ``t0`` is the first
+// n-tile: a launch draws n-tiles [t0, t0 + np / bn) at their own
+// (seed, b-tile, n-tile) keys, so a tiled scan (fused_poisson_tiled) draws
+// a bounded chunk of the stream at a time.
 //
 // Bound: one threefry2x32 per weight (integer ALU; the count is in
 // poisson_tile.cuh); the output write of 4 bytes per weight takes less
@@ -14,11 +17,11 @@
 namespace {
 
 __global__ void __launch_bounds__(256)
-poisson_counts_kernel(int32_t seed, int np, int bb, int bn,
+poisson_counts_kernel(int32_t seed, int np, int bb, int bn, int t0,
                       float* __restrict__ out) {
   __shared__ earl::TileKey key;
   const int k = blockIdx.x, i = blockIdx.y;
-  if (threadIdx.x == 0) key = earl::tile_key(seed, i, k);
+  if (threadIdx.x == 0) key = earl::tile_key(seed, i, t0 + k);
   __syncthreads();
   const earl::TileKey tk = key;
   for (int e = threadIdx.x; e < bb * bn; e += blockDim.x) {
@@ -33,9 +36,9 @@ poisson_counts_kernel(int32_t seed, int np, int bb, int bn,
 }  // namespace
 
 extern "C" int earl_poisson_counts(int32_t seed, int Bp, int np, int bb,
-                                   int bn, void* out, void* stream) {
+                                   int bn, int t0, void* out, void* stream) {
   dim3 grid(np / bn, Bp / bb);
   poisson_counts_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      seed, np, bb, bn, static_cast<float*>(out));
+      seed, np, bb, bn, t0, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

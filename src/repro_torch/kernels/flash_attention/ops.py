@@ -1,0 +1,208 @@
+"""Blockwise (flash) attention with causal and sliding-window masks and GQA.
+
+``flash_attention`` takes q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D); the
+Hq query heads share the Hkv key/value heads in groups of Hq / Hkv.  A
+CUDA tensor launches the hand-written kernel (csrc/flash_attention.cu,
+replacing the TPU kernel repro/kernels/flash_attention/kernel.py:
+flash_attention_kernel) or raises; a CPU tensor runs the plain version,
+``flash_attention_plain``: the JAX package's ``"blockwise"`` recurrence in
+the same block order, with the same masks.  ``flash_attention_windowed``
+is the JAX package's ``"windowed"`` path (causal, small windows), a second
+plain version that no path of the port calls: it stays as the parity
+oracle of the JAX package's ``"windowed"`` backend (its ``auto`` choice
+for small windows).  ``ref.mha_reference`` is the direct oracle.
+
+The JAX package's ``backend=`` is dropped: the device decides.  The
+kernel picks its own tiles, so ``block_q``/``block_k`` shape the plain
+versions only; the results agree within f32 rounding (the running
+maximum and sum see the keys in other groupings).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._pass import stream_ptr
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+
+#: Largest head dimension the kernel takes (two threads a query row, each
+#: holding half of a 128-wide row in registers).
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _pad_axis(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, "
+                         f"D), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if (k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]
+            or q.shape[1] % k.shape[1]):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"match: batch and D must agree and Hkv divide Hq")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None, kv_offset: int = 0,
+                          block_q: int = 512, block_k: int = 512
+                          ) -> torch.Tensor:
+    """The JAX package's ``_blockwise``: for each (bq)-row query block, the
+    running (m, l, acc) in f32 over every (bk)-key block in order."""
+    _check_shapes(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    bq = min(block_q, max(sq, 1))
+    bk = min(block_k, max(skv, 1))
+    qp = _pad_axis(q, bq, 2)
+    kp = _pad_axis(k, bk, 2)
+    vp = _pad_axis(v, bk, 2)
+    nq, nk = qp.shape[2] // bq, kp.shape[2] // bk
+    qb = qp.reshape(b, hkv, group, nq, bq, d).to(torch.float32)
+    kb = kp.reshape(b, hkv, nk, bk, d).to(torch.float32)
+    vb = vp.reshape(b, hkv, nk, bk, d).to(torch.float32)
+    dev = q.device
+    out = torch.empty((b, hkv, group, nq, bq, d), dtype=torch.float32,
+                      device=dev)
+    for qi in range(nq):
+        qblk = qb[:, :, :, qi]
+        rows = qi * bq + torch.arange(bq, device=dev)[:, None] + kv_offset
+        m = torch.full((b, hkv, group, bq), NEG_INF, device=dev)
+        l = torch.zeros((b, hkv, group, bq), device=dev)
+        acc = torch.zeros((b, hkv, group, bq, d), device=dev)
+        for kj in range(nk):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kb[:, :, kj]) * scale
+            cols = kj * bk + torch.arange(bk, device=dev)[None, :]
+            mask = (cols < skv) & (rows < sq + kv_offset)
+            if causal:
+                mask = mask & (cols <= rows)
+            if window is not None:
+                mask = mask & (cols > rows - window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            p = torch.where(mask, p, 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vb[:, :, kj])
+            m = m_new
+        out[:, :, :, qi] = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.reshape(b, hq, nq * bq, d)[:, :, :sq]
+    return out.to(q.dtype)
+
+
+def flash_attention_windowed(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int,
+                             scale: Optional[float] = None,
+                             kv_offset: int = 0, block_q: int = 512
+                             ) -> torch.Tensor:
+    """The JAX package's ``_windowed`` (causal sliding window): query block
+    i gathers only the ceil(W / bq) + 1 key blocks it can see and takes
+    one masked softmax over them."""
+    _check_shapes(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    bq = min(block_q, max(sq, 1))
+    nrel = -(-window // bq) + 1
+    qp = _pad_axis(q, bq, 2)
+    kp = _pad_axis(k, bq, 2)
+    vp = _pad_axis(v, bq, 2)
+    nq, nk = qp.shape[2] // bq, kp.shape[2] // bq
+    qb = qp.reshape(b, hkv, group, nq, bq, d).to(torch.float32)
+    kb = kp.reshape(b, hkv, nk, bq, d).to(torch.float32)
+    vb = vp.reshape(b, hkv, nk, bq, d).to(torch.float32)
+    dev = q.device
+    ar = torch.arange(bq, device=dev)
+    out = torch.empty((b, hkv, group, nq, bq, d), dtype=torch.float32,
+                      device=dev)
+    for qi in range(nq):
+        rel = qi - torch.arange(nrel, device=dev).flip(0)
+        relc = rel.clamp(0, nk - 1)
+        kctx = kb[:, :, relc].reshape(b, hkv, nrel * bq, d)
+        vctx = vb[:, :, relc].reshape(b, hkv, nrel * bq, d)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qb[:, :, :, qi], kctx) * scale
+        rows = qi * bq + ar[:, None] + kv_offset
+        cols = (rel.repeat_interleave(bq) * bq + ar.repeat(nrel))[None, :]
+        mask = ((rel >= 0).repeat_interleave(bq)[None, :]
+                & (cols <= rows) & (cols > rows - window)
+                & (cols < skv) & (rows < sq + kv_offset))
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+        out[:, :, :, qi] = torch.einsum("bhgqk,bhkd->bhgqd", p, vctx)
+    out = out.reshape(b, hq, nq * bq, d)[:, :, :sq]
+    return out.to(q.dtype)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window: Optional[int],
+                         scale: float, kv_offset: int) -> torch.Tensor:
+    """Kernel 12 (csrc/flash_attention.cu) on the card."""
+    _check_shapes(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("q, k and v must lie on one CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the kernel takes float32 or bfloat16 q, k and v "
+                         f"of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dimension {d} is past the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if b * hq >= 65536:
+        raise ValueError(f"B·Hq = {b * hq} is past the grid's 65,535")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    q3 = q.contiguous()
+    k3 = k.contiguous()
+    v3 = v.contiguous()
+    out = torch.empty_like(q3)
+    if out.numel() == 0:
+        return out
+    flash_attention.launches += 1
+    _build.launch("flash_attention", _DTYPES[q.dtype], b * hq, hq, hkv, sq,
+                  skv, d, float(scale), int(causal),
+                  0 if window is None else int(window), int(kv_offset),
+                  q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                  out.data_ptr(), stream_ptr(q.device))
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, kv_offset: int = 0,
+                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); GQA by head grouping.
+    Output (B, Hq, Sq, D) in q's dtype; f32 accumulation throughout.
+    ``block_q``/``block_k`` tile the plain version on the CPU only; the
+    kernel on the card picks its own tiles."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    scale=float(scale), kv_offset=kv_offset)
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 scale=scale, kv_offset=kv_offset,
+                                 block_q=block_q, block_k=block_k)
+
+
+flash_attention.launches = 0

@@ -1,16 +1,27 @@
-"""The fused multi-statistic bootstrap pass (the StatisticGroup hot path).
+"""The fused multi-statistic bootstrap pass (the StatisticGroup hot path),
+and the generic tiled scan.
 
 ``fused_poisson_multi`` gives, for every slot accumulator of a
 ``StatisticGroup``, the B per-resample states under ONE implicit Poisson(1)
-weight stream and one pass over x.  A CUDA tensor launches the
+weight stream.  A CUDA tensor routes each slot to its kernel with the
+group's seed, so every member is bitwise its dedicated run: the moment
+slot (at most one) and the histogram slots share one launch of the
 hand-written kernel (csrc/fused_pass.cu, replacing the TPU kernel
-repro/kernels/fused_multi/kernel.py: fused_poisson_multi_kernel), which
-takes at most one moments slot and any number of histogram slots, or
-raises; each KMeansStep slot runs the k-means kernel
-(``fused_poisson_kmeans``) with the same seed, so it is bitwise its
-dedicated run and pays the hash once more.  A CPU tensor runs the plain
-version, the JAX package's ``_multi_scan``: each weight tile is drawn once
-and handed to every slot's ``tile_update``.
+repro/kernels/fused_multi/kernel.py: fused_poisson_multi_kernel); a
+KMeansStep slot runs the k-means kernel (``fused_poisson_kmeans``) and a
+GroupedStatistic slot its keyed kernels (``fused_poisson_states``), each
+paying the hash once more; a custom slot runs ``fused_poisson_tiled``.  A
+CPU tensor runs the plain version, the JAX package's ``_multi_scan``: each
+weight tile is drawn once and handed to every slot's ``tile_update``.
+
+``fused_poisson_tiled`` is the JAX package's generic matrix-free scan for
+one statistic: the implicit weights a bounded block of tiles at a time,
+each block fed to the statistic's plain ``tile_update``, so no (B, n)
+weight matrix exists.  On the card kernel 1 (csrc/poisson_counts.cu, from
+its n-tile offset) draws a chunk of tiles and the chunk is one
+``tile_update``; on the CPU the plain scan feeds one tile at a time, in
+the JAX package's order.  Weights, and so integer outputs, are bitwise
+the same; float sums differ by their order only.
 """
 from __future__ import annotations
 
@@ -22,6 +33,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._pass import (MAX_ROWS, check_cuda_f32, hist_rows,
                                        pass_geometry, stream_ptr)
 from repro_torch.kernels.kmeans_assign.ops import centroids_on, kmeans_cuda
+from repro_torch.kernels.poisson_counts.ops import poisson_tiles
+from repro_torch.kernels.poisson_counts.ref import tiles_per_chunk
 from repro_torch.kernels.weighted_hist.ops import (hist_slots_args,
                                                    range_vector)
 from repro_torch.kernels.weighted_stats.ops import (Prepared, mask_ptr,
@@ -53,28 +66,28 @@ def _multi_scan(slots, seed: int, pr: Prepared) -> Tuple:
     return tuple(sums_as(st, torch.float32) for st in states)
 
 
-def _multi_cuda(slots, seed: int, pr: Prepared) -> Tuple:
-    from repro_torch.core.reduce_api import (GroupedStatistic,
-                                             HistogramState, KMeansState,
-                                             KMeansStep, MomentState,
+def slot_route(slot) -> str:
+    """Where a group's slot goes on the card: "moments" and "hist" share
+    the fused_pass launch, "kmeans" the k-means kernel, "keyed" the
+    GroupedStatistic's own keyed kernels, "custom" the tiled scan."""
+    from repro_torch.core.reduce_api import (GroupedStatistic, KMeansStep,
                                              Quantile, _MomentStatistic)
-    kinds = []
-    for s in slots:
-        if isinstance(s, GroupedStatistic):
-            raise NotImplementedError(
-                "a GroupedStatistic member of a StatisticGroup has no CUDA "
-                "kernel yet; run the keyed statistics as separate "
-                "GroupedStatistic sessions")
-        if isinstance(s, _MomentStatistic):
-            kinds.append("moments")
-        elif isinstance(s, Quantile):
-            kinds.append("hist")
-        elif isinstance(s, KMeansStep):
-            kinds.append("kmeans")
-        else:
-            raise ValueError(
-                f"the fused_multi CUDA kernels take moment, histogram and "
-                f"KMeansStep slots only, not {type(s).__name__}")
+    if isinstance(slot, GroupedStatistic):
+        return "keyed"
+    if isinstance(slot, _MomentStatistic):
+        return "moments"
+    if isinstance(slot, Quantile):
+        return "hist"
+    if isinstance(slot, KMeansStep):
+        return "kmeans"
+    return "custom"
+
+
+def _multi_cuda(slots, seed: int, pr: Prepared, values: torch.Tensor,
+                n_valid, valid_mask) -> Tuple:
+    from repro_torch.core.reduce_api import (HistogramState, KMeansState,
+                                             MomentState)
+    kinds = [slot_route(s) for s in slots]
     if kinds.count("moments") > 1:
         raise ValueError("a group holds at most one moments slot")
     check_cuda_f32("values", pr.xp)
@@ -107,6 +120,13 @@ def _multi_cuda(slots, seed: int, pr: Prepared) -> Tuple:
         elif kind == "kmeans":
             states.append(KMeansState(*kmeans_cuda(
                 pr, seed, centroids_on(s.centroids, pr.device, pr.d))))
+        elif kind == "keyed":
+            states.append(s.fused_poisson_states(
+                seed, values, pr.B, n_valid=n_valid, valid_mask=valid_mask))
+        elif kind == "custom":
+            states.append(fused_poisson_tiled(
+                s, seed, values, pr.B, n_valid=n_valid,
+                valid_mask=valid_mask))
         else:
             width = pr.d * s.nbins
             counts = out[:, off:off + width].reshape(pr.Bp, pr.d, s.nbins)
@@ -118,6 +138,34 @@ def _multi_cuda(slots, seed: int, pr: Prepared) -> Tuple:
     return tuple(states)
 
 
+def fused_poisson_tiled(stat, seed: int, values: torch.Tensor, B: int,
+                        n_valid=None, valid_mask=None):
+    """B-leading per-resample states of ``stat`` under the implicit
+    Poisson(1) weights, fed to ``stat.tile_update`` a block of weight
+    tiles at a time (module docstring): the fused path of a statistic that
+    segments or transforms the tile itself, e.g. a GroupedStatistic over a
+    custom inner, whose ``tile_update`` key-masks the shared weights."""
+    from repro_torch.core.reduce_api import tree_map
+    pr = prepare(values, B, n_valid, valid_mask)
+    states = stat.init_batch(pr.d, pr.Bp, pr.device)
+    if pr.device.type == "cpu":
+        def consume(w, xt):
+            nonlocal states
+            states = stat.tile_update(states, xt, w)
+        tile_scan(pr, seed, consume)
+    else:
+        nt = pr.np_ // pr.bn
+        step = tiles_per_chunk(pr.Bp, pr.bn)
+        for c0 in range(0, nt, step):
+            c1 = min(nt, c0 + step)
+            cols = slice(c0 * pr.bn, c1 * pr.bn)
+            w = poisson_tiles(seed, pr.n_valid, pr.Bp, pr.bb, pr.bn, c0, c1,
+                              valid=None if pr.mp is None else pr.mp[cols],
+                              device=pr.device)
+            states = stat.tile_update(states, pr.xp[cols], w)
+    return tree_map(lambda a: a[:pr.B], states)
+
+
 def fused_poisson_multi(group, seed: int, values: torch.Tensor, B: int,
                         n_valid=None, valid_mask=None) -> Tuple:
     """Slot-ordered tuple of B-leading per-resample states of ``group``
@@ -125,7 +173,8 @@ def fused_poisson_multi(group, seed: int, values: torch.Tensor, B: int,
     from repro_torch.core.reduce_api import tree_map
     pr = prepare(values, B, n_valid, valid_mask)
     if pr.device.type == "cuda":
-        states = _multi_cuda(group.slots, seed, pr)
+        states = _multi_cuda(group.slots, seed, pr, values, n_valid,
+                             valid_mask)
     else:
         states = _multi_scan(group.slots, seed, pr)
     return tree_map(lambda a: a[:pr.B], states)

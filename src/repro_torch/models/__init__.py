@@ -1,0 +1,27 @@
+"""The model stack of the JAX package's ``repro.models`` for the dense
+attention configs: config, layers, blocks and the decoder's forward,
+losses and serving paths.  ``partitioning`` and ``act_shard`` wait with
+the mesh path (ROADMAP.md §1); ``hint`` is the identity here."""
+from repro_torch.models.config import (SHAPES, SMOKE_SHAPES, ModelConfig,
+                                       ShapeConfig, shape_is_supported)
+from repro_torch.models.decoder import (decode_step, embed, forward_hidden,
+                                        init_params, init_serve_cache,
+                                        logits_from_hidden, loss_fn,
+                                        num_params, per_example_loss,
+                                        prefill)
+
+
+def hint(x, axes=None):
+    """The JAX package's activation-sharding hint: the identity without a
+    mesh."""
+    del axes
+    return x
+
+
+__all__ = [
+    "SHAPES", "SMOKE_SHAPES", "ModelConfig", "ShapeConfig",
+    "shape_is_supported",
+    "decode_step", "embed", "forward_hidden", "hint", "init_params",
+    "init_serve_cache", "logits_from_hidden", "loss_fn", "num_params",
+    "per_example_loss", "prefill",
+]

@@ -1,0 +1,268 @@
+"""The language model: embeddings + block groups + chunked CE loss, with the
+prefill/decode serving paths (ring KV caches), as in the JAX package's
+``repro/models/decoder.py``.
+
+Params keep the JAX package's layout: ``groups`` holds each block of the
+cyclic layer pattern with its tensors stacked on a leading ``n_groups``
+axis, and ``rem`` the remainder layers unstacked.  A loop over the groups,
+each reading its views ``t[g]``, takes the place of ``lax.scan``; caches
+are stacked the same way.  Entry points run on the card unless the caller
+passes ``device="cpu"`` (init) or CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import (apply_block, init_block,
+                                       init_block_cache)
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def tree_map(fn, *trees):
+    """Map ``fn`` over the tensors of matching nested dicts (params and
+    caches); None leaves stay None."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    return fn(*trees)
+
+
+def _check_decoder_only(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError("encoder-decoder models are not ported "
+                                  "yet (ROADMAP.md §1 item 5)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _init_group(cfg: ModelConfig, pattern, generator, device,
+                lead=()) -> Params:
+    return {str(i): init_block(cfg, kind, generator, device, lead)
+            for i, kind in enumerate(pattern)}
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> Params:
+    """Random params by the JAX package's init law: dense weights normal ·
+    fan_in^-0.5, norm scales 0, the embedding normal · d^-0.5 with the
+    padding rows zeroed, all in ``param_dtype``.  The draws come from
+    ``generator`` (default: seed 0 on ``device``) and are not the JAX
+    package's (carry its params across with ``interop.params_from_numpy``
+    for parity)."""
+    _check_decoder_only(cfg)
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    pd = L._pdtype(cfg)
+    d, vp = cfg.d_model, cfg.padded_vocab
+    emb = torch.randn((vp, d), generator=gen, device=dev).mul_(d ** -0.5)
+    emb[cfg.vocab:] = 0.0          # padded ids are inert
+    params: Params = {"embedding": emb.to(pd),
+                      "final_norm": torch.zeros((d,), dtype=pd, device=dev)}
+    del emb
+    if not cfg.tie_embeddings:
+        params["out_proj"] = L.dense_init((d, vp), d, pd, gen, dev)
+    if cfg.n_groups > 0:
+        params["groups"] = _init_group(cfg, cfg.layer_pattern, gen, dev,
+                                       lead=(cfg.n_groups,))
+    if cfg.rem_pattern:
+        params["rem"] = _init_group(cfg, cfg.rem_pattern, gen, dev)
+    return params
+
+
+def init_serve_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                     device=None) -> Params:
+    """Cache tree matching the prefill output / decode input."""
+    _check_decoder_only(cfg)
+    dev = resolve_device(device)
+
+    def group_cache(pattern):
+        return {str(i): init_block_cache(cfg, kind, batch, cache_len, dev)
+                for i, kind in enumerate(pattern)}
+
+    cache: Params = {}
+    if cfg.n_groups > 0:
+        gc = group_cache(cfg.layer_pattern)
+        cache["groups"] = tree_map(
+            lambda x: x.unsqueeze(0).repeat((cfg.n_groups,) + (1,) * x.ndim),
+            gc)
+    if cfg.rem_pattern:
+        cache["rem"] = group_cache(cfg.rem_pattern)
+    return cache
+
+
+def num_params(params: Params) -> Tuple[int, int]:
+    """(parameter count, bytes) of a params tree."""
+    leaves = []
+    tree_map(leaves.append, params)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def _group_fn(cfg, pattern, gp, x, *, positions, gcache, mode,
+              cache_len=None):
+    ncs = {}
+    for i, kind in enumerate(pattern):
+        x, nc = apply_block(
+            cfg, kind, gp[str(i)], x, positions=positions,
+            cache=None if gcache is None else gcache[str(i)], mode=mode,
+            cache_len=cache_len)
+        ncs[str(i)] = nc
+    return x, ncs
+
+
+def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+               positions, caches, mode: str,
+               cache_len: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Optional[Params]]:
+    pattern = cfg.layer_pattern
+    new_caches: Params = {}
+    if cfg.n_groups > 0:
+        gcs = []
+        for g in range(cfg.n_groups):
+            gp = tree_map(lambda t: t[g], params["groups"])
+            gc_in = (None if mode != "decode" else
+                     tree_map(lambda t: t[g], caches["groups"]))
+            x, gc = _group_fn(cfg, pattern, gp, x, positions=positions,
+                              gcache=gc_in, mode=mode, cache_len=cache_len)
+            gcs.append(gc)
+        if mode == "prefill":
+            new_caches["groups"] = tree_map(lambda *ts: torch.stack(ts),
+                                            *gcs)
+        elif mode == "decode":      # written in place through the views
+            new_caches["groups"] = caches["groups"]
+    if cfg.rem_pattern:
+        x, rc = _group_fn(
+            cfg, cfg.rem_pattern, params["rem"], x, positions=positions,
+            gcache=None if mode != "decode" else caches["rem"], mode=mode,
+            cache_len=cache_len)
+        if mode != "train":
+            new_caches["rem"] = rc
+    return x, (new_caches if mode != "train" else None)
+
+
+def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+          ) -> torch.Tensor:
+    emb = params["embedding"]
+    return emb[tokens.to(device=emb.device, dtype=torch.int64)].to(
+        L._cdtype(cfg))
+
+
+def logits_from_hidden(cfg: ModelConfig, params: Params, h: torch.Tensor
+                       ) -> torch.Tensor:
+    """(…, d) -> (…, padded_vocab) f32, padding columns at -1e30."""
+    w = (params["embedding"] if cfg.tie_embeddings
+         else params["out_proj"].T)
+    cd = L._cdtype(cfg)
+    logits = L.project(h.to(cd), w.to(cd).T, torch.float32)
+    pad_mask = torch.where(
+        torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab, 0.0,
+        -1e30)
+    return logits + pad_mask
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   *, aux=None, mode: str = "train",
+                   caches: Optional[Params] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   cache_len: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, Optional[Params]]:
+    _check_decoder_only(cfg)
+    if aux is not None:
+        raise NotImplementedError("aux inputs (VLM, encoder-decoder) are not "
+                                  "ported yet (ROADMAP.md §1 item 5)")
+    x = embed(cfg, params, tokens)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=x.device)
+    x, new_caches = _run_stack(cfg, params, x, positions=positions,
+                               caches=caches, mode=mode, cache_len=cache_len)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, new_caches
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor,
+                labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token CE with the vocab-logit working set capped at
+    (B, loss_chunk, padded_vocab).  Returns (ce (B,S), valid (B,S))."""
+    b, s, _ = h.shape
+    c = cfg.loss_chunk if cfg.loss_chunk else s
+    c = min(c, s)
+    labels = labels.to(device=h.device, dtype=torch.int64)
+    ces, valids = [], []
+    for c0 in range(0, s, c):
+        logits = logits_from_hidden(cfg, params, h[:, c0:c0 + c])
+        li = labels[:, c0:c0 + c]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li.clamp_min(0)[..., None])[..., 0]
+        valid = (li >= 0).to(torch.float32)
+        ces.append((logz - gold) * valid)
+        valids.append(valid)
+    return torch.cat(ces, dim=1), torch.cat(valids, dim=1)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    h, _ = forward_hidden(cfg, params, batch["tokens"],
+                          aux=batch.get("aux"), mode="train")
+    ce, valid = _chunked_ce(cfg, params, h, batch["labels"])
+    count = torch.clamp_min(valid.sum(), 1.0)
+    loss = ce.sum() / count
+    return loss, {"loss": loss, "tokens": count}
+
+
+def per_example_loss(cfg: ModelConfig, params: Params,
+                     batch: Dict[str, Any]) -> torch.Tensor:
+    """(B,) mean loss per example — the earl_eval statistic."""
+    h, _ = forward_hidden(cfg, params, batch["tokens"],
+                          aux=batch.get("aux"), mode="train")
+    ce, valid = _chunked_ce(cfg, params, h, batch["labels"])
+    return ce.sum(dim=-1) / torch.clamp_min(valid.sum(dim=-1), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            aux=None, cache_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Params]:
+    """Returns (last-token logits (B, Vp), cache).  ``cache_len`` reserves
+    extra KV-cache capacity for subsequent decode steps."""
+    h, caches = forward_hidden(cfg, params, tokens, aux=aux, mode="prefill",
+                               cache_len=cache_len)
+    logits = logits_from_hidden(cfg, params, h[:, -1])
+    return logits, caches
+
+
+def decode_step(cfg: ModelConfig, params: Params, caches: Params,
+                token: torch.Tensor, pos) -> Tuple[torch.Tensor, Params]:
+    """token: (B, 1) ints; pos: the absolute position (an int or a
+    one-element tensor).
+
+    Returns (logits (B, Vp), updated caches).  The caches are updated in
+    place and returned (the JAX package returns new ones): the old caches
+    are the new."""
+    dev = params["embedding"].device
+    if isinstance(pos, torch.Tensor):
+        positions = pos.reshape(1).to(device=dev, dtype=torch.int64)
+    else:
+        positions = torch.full((1,), int(pos), dtype=torch.int64, device=dev)
+    h, new_caches = forward_hidden(cfg, params, token, mode="decode",
+                                   caches=caches, positions=positions)
+    logits = logits_from_hidden(cfg, params, h[:, 0])
+    return logits, new_caches

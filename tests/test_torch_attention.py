@@ -1,0 +1,166 @@
+"""The port's attention (kernels/flash_attention) against the JAX package on
+the CPU.
+
+Inputs are made with numpy from a seed and go through both packages.  The
+port's plain version (``flash_attention_plain``, what a CPU tensor runs)
+and its second plain version (``flash_attention_windowed``) are held
+against the JAX package's ``"blockwise"``, ``"windowed"`` and
+``"pallas_interpret"`` backends and against ``mha_reference``, over the
+sweep of tests/test_kernels.py plus head_dim 120 and GQA 4: f32 within
+atol 2e-5 and rtol 1e-4, bf16 within 3e-2 (compared in f32).  The CUDA
+kernel is held against the plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa
+from repro.kernels.flash_attention.ref import attention_mask as j_mask
+from repro.kernels.flash_attention.ref import mha_reference as j_mha
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                     mha_reference)
+
+torch.set_num_threads(1)
+
+# (b, hq, hkv, sq, skv, d), kwargs: tests/test_kernels.py's sweep, then
+# head_dim 120 with GQA 4 (h2o-danube-3-4b's heads), unaligned and windowed
+SWEEP = [
+    ((2, 4, 2, 64, 64, 32), dict(causal=True)),
+    ((1, 4, 4, 128, 128, 32), dict(causal=True, window=32)),
+    ((2, 8, 2, 96, 96, 16), dict(causal=False)),
+    ((1, 2, 1, 64, 192, 32), dict(causal=True, kv_offset=128)),
+    ((1, 8, 1, 80, 80, 64), dict(causal=True)),
+    ((1, 8, 2, 67, 67, 120), dict(causal=True)),
+    ((2, 8, 2, 96, 96, 120), dict(causal=True, window=40)),
+]
+
+
+def _qkv(shape, dtype=np.float32, seed=0):
+    b, hq, hkv, sq, skv, d = shape
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, skv, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, skv, d)).astype(np.float32)
+    return q, k, v
+
+
+def _close(got, want, bf16=False):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    if bf16:
+        np.testing.assert_allclose(got, want, atol=3e-2, rtol=3e-2)
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,kw", SWEEP, ids=[str(s) for s, _ in SWEEP])
+@pytest.mark.parametrize("backend", ["blockwise", "direct"])
+def test_plain_matches_jax(shape, kw, backend):
+    q, k, v = _qkv(shape)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), backend=backend, block_q=32,
+                               block_k=32, **kw)
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), block_q=32, block_k=32,
+                              **kw)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape,kw", SWEEP, ids=[str(s) for s, _ in SWEEP])
+def test_reference_matches_jax(shape, kw):
+    q, k, v = _qkv(shape, seed=1)
+    want = j_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    got = mha_reference(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), **kw)
+    _close(got.numpy(), want)
+    b, hq, hkv, sq, skv, d = shape
+    np.testing.assert_array_equal(
+        attention_mask(sq, skv, kw.get("causal", True), kw.get("window"),
+                       kw.get("kv_offset", 0)).numpy(),
+        np.asarray(j_mask(sq, skv, kw.get("causal", True), kw.get("window"),
+                          kw.get("kv_offset", 0))))
+
+
+@pytest.mark.parametrize("shape,window", [((2, 4, 2, 128, 128, 32), 48),
+                                          ((1, 8, 2, 100, 100, 120), 40)])
+def test_windowed_matches_jax(shape, window):
+    q, k, v = _qkv(shape, seed=2)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), backend="windowed",
+                               causal=True, window=window, block_q=32)
+    got = tfa.flash_attention_windowed(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        window=window, block_q=32)
+    _close(got.numpy(), want)
+    plain = tfa.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, window=window, block_q=32, block_k=32)
+    _close(got.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize("shape,kw", [SWEEP[0], SWEEP[5]],
+                         ids=["gqa2_d32", "gqa4_d120"])
+def test_plain_matches_the_pallas_kernel_interpreted(shape, kw):
+    q, k, v = _qkv(shape, seed=3)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), backend="pallas_interpret",
+                               block_q=32, block_k=128, **kw)
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), block_q=32, block_k=128,
+                              **kw)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape,kw", [SWEEP[0], SWEEP[6]],
+                         ids=["causal", "window"])
+def test_bf16_matches_jax(shape, kw):
+    q, k, v = _qkv(shape, seed=4)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = jfa.flash_attention(jq, jk, jv, backend="blockwise", block_q=32,
+                               block_k=32, **kw)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = tfa.flash_attention(tq, tk, tv, block_q=32, block_k=32, **kw)
+    assert got.dtype == torch.bfloat16
+    _close(got.to(torch.float32).numpy(), np.asarray(want, np.float32),
+           bf16=True)
+
+
+def test_rows_with_no_visible_key_are_zero():
+    """A query offset before the first key leaves the first rows with no
+    visible key: 0, as the reference's acc / max(l, 1e-30) gives."""
+    q, k, v = _qkv((1, 4, 2, 40, 40, 16), seed=5)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), backend="blockwise",
+                               causal=True, kv_offset=-8, block_q=16,
+                               block_k=16)
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True, kv_offset=-8,
+                              block_q=16, block_k=16)
+    assert torch.all(got[:, :, :8] == 0.0)
+    assert torch.isfinite(got).all()
+    _close(got.numpy(), want)
+
+
+def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(SWEEP[1][0], seed=6))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=True, window=32, block_q=32,
+                              block_k=32)
+    assert tfa.flash_attention.launches == before
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=32,
+                                     block_q=32, block_k=32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("make,error", [
+    (lambda q, k, v: tfa.flash_attention(q, k[:, :, :, :8], v), ValueError),
+    (lambda q, k, v: tfa.flash_attention(q[:, :3], k, v), ValueError),
+    (lambda q, k, v: tfa.flash_attention(q[0], k[0], v[0]), ValueError),
+])
+def test_bad_shapes_raise(make, error):
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 4, 2, 8, 8, 16)))
+    with pytest.raises(error):
+        make(q, k, v)

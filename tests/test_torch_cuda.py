@@ -19,7 +19,14 @@ weights within 1e-6·Σ|w| of the row a bin.  The streaming slice: the
 output-tiled histogram (block_bins, kernel 7) bitwise the plain version,
 keyed too; the double-buffered moments (stream=True, kernel 5) bitwise
 kernel 2 on aligned and misaligned x; a streamed bootstrap on the card
-bitwise bootstrap_chunked.
+bitwise bootstrap_chunked.  The serving slice: flash attention (kernel
+12) against its plain version, f32 within atol 2e-5 and rtol 1e-4, bf16
+within one bf16 rounding (1e-3 + 2^-7·|want|), at the full-width prefill
+shape in both; one prefill launches it once a layer and decode never, and
+decode equals teacher forcing.  The tiled scan (kernel 1 from an n-tile
+offset) gives the CPU run's weights and w_tot bitwise, its dots within
+1e-5·Σw|x|, and a group with keyed and custom members is bitwise their
+dedicated runs.
 """
 import numpy as np
 import pytest
@@ -380,3 +387,216 @@ def test_cuda_streaming_reuses_chunk_buffers_safely(cuda, queue_depth):
                                   chunk=8192, queue_depth=queue_depth)
         assert torch.equal(got.thetas, want.thetas)
         assert torch.equal(got.estimate, want.estimate)
+
+
+# ---------------------------------------------------------------------------
+# the serving slice: kernel 12, the model on the card, the tiled scan
+# ---------------------------------------------------------------------------
+FA_CASES = [
+    ((2, 4, 2, 64, 64, 32), dict(causal=True)),
+    ((1, 4, 4, 128, 128, 32), dict(causal=True, window=32)),
+    ((2, 8, 2, 96, 96, 16), dict(causal=False)),
+    ((1, 2, 1, 64, 192, 32), dict(causal=True, kv_offset=128)),
+    ((1, 8, 1, 80, 80, 64), dict(causal=True)),
+    ((1, 8, 2, 67, 67, 120), dict(causal=True)),
+    ((1, 32, 8, 64, 4160, 120), dict(causal=True, window=4096,
+                                     kv_offset=4096)),
+]
+
+
+def _fa_close(got, want, dtype):
+    """f32 within atol 2e-5 and rtol 1e-4; bf16 within one bf16 rounding
+    (both sides accumulate in f32 and round once)."""
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return bool((diff <= 2e-5 + 1e-4 * want.float().abs()).all())
+    return bool((diff <= 1e-3 + 2.0 ** -7 * want.float().abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,kw", FA_CASES,
+                         ids=[str(s) for s, _ in FA_CASES])
+def test_cuda_flash_attention_matches_plain(cuda, shape, kw, dtype):
+    from repro_torch.kernels.flash_attention import ops as tfa
+    b, hq, hkv, sq, skv, d = shape
+    g = torch.Generator().manual_seed(sq + d)
+    q, k, v = (torch.randn(s, generator=g).to(dtype).to(cuda)
+               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, **kw)
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dtype and _fa_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_at_the_full_width_prefill_shape(cuda):
+    """h2o-danube-3-4b's prefill of 4 x 8192 tokens: 32 query heads on 8
+    KV heads, head_dim 120, window 4096, bf16."""
+    from repro_torch.kernels.flash_attention import ops as tfa
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((4, 32, 8192, 120), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    k, v = (torch.randn((4, 8, 8192, 120), generator=g, device=cuda
+                        ).to(torch.bfloat16) for _ in range(2))
+    got = tfa.flash_attention(q, k, v, causal=True, window=4096)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=4096)
+    assert _fa_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_f32_at_the_full_width_prefill_shape(cuda):
+    """The same shape in f32, at f32's tolerance: past the window (Sq >
+    4096) the kernel skips the key tiles older than the window, and an
+    off-by-one tile there moves an output by about 1e-3."""
+    from repro_torch.kernels.flash_attention import ops as tfa
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((4, 32, 8192, 120), generator=g, device=cuda)
+    k, v = (torch.randn((4, 8, 8192, 120), generator=g, device=cuda)
+            for _ in range(2))
+    got = tfa.flash_attention(q, k, v, causal=True, window=4096)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=4096)
+    assert _fa_close(got, want, torch.float32)
+
+
+def _smoke_model(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("h2o-danube-3-4b", smoke=True)
+    return cfg, init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_launches_the_kernel_once_a_layer(cuda):
+    from repro_torch.kernels.flash_attention import ops as tfa
+    from repro_torch.models import decode_step, prefill
+    cfg, params = _smoke_model(cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda)
+    before = tfa.flash_attention.launches
+    logits, cache = prefill(cfg, params, toks, cache_len=48)
+    assert tfa.flash_attention.launches == before + cfg.n_layers
+    for t in range(4):
+        logits, cache = decode_step(cfg, params, cache,
+                                    torch.argmax(logits, -1)[:, None],
+                                    40 + t)
+    assert tfa.flash_attention.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+
+
+@pytest.mark.cuda
+def test_cuda_decode_matches_teacher_forcing(cuda):
+    from repro_torch.models import (decode_step, forward_hidden,
+                                    logits_from_hidden, prefill)
+    cfg, params = _smoke_model(cuda)
+    B, S = 2, 32
+    toks = torch.randint(0, cfg.vocab, (B, S + 3), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    h, _ = forward_hidden(cfg, params, toks, mode="train")
+    full = logits_from_hidden(cfg, params, h)
+    lg, cache = prefill(cfg, params, toks[:, :S], cache_len=S + 3)
+    torch.testing.assert_close(lg, full[:, S - 1], atol=2e-4, rtol=1e-3)
+    for t in range(3):
+        lg, cache = decode_step(cfg, params, cache, toks[:, S + t:S + t + 1],
+                                S + t)
+        torch.testing.assert_close(lg, full[:, S + t], atol=2e-4, rtol=1e-3)
+
+
+class _AbsSum:
+    """A user statistic with its own vectorized tile math: Σw and Σw|x|."""
+
+    @staticmethod
+    def make():
+        from repro_torch.core import MomentState, Statistic
+
+        class AbsSum(Statistic):
+            def init_state(self, dim, device="cpu"):
+                z = torch.zeros(dim, device=device)
+                return MomentState(w=torch.zeros((), device=device), s1=z,
+                                   s2=z)
+
+            def update(self, state, values, weights=None):
+                x = values.to(torch.float32)
+                w = torch.ones(x.shape[0], device=x.device) \
+                    if weights is None else weights
+                return MomentState(w=state.w + w.sum(),
+                                   s1=state.s1 + w @ x.abs(), s2=state.s2)
+
+            def tile_update(self, states, x_tile, w_tile):
+                return MomentState(w=states.w + w_tile.sum(dim=1),
+                                   s1=states.s1 + w_tile @ x_tile.abs(),
+                                   s2=states.s2)
+
+            def finalize(self, state):
+                return state.s1 / torch.clamp_min(state.w.unsqueeze(-1),
+                                                  1.0)
+        return AbsSum()
+
+
+def _keyed_rows(n, G, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 1)).astype(np.float32)
+    keys = rng.integers(0, G, size=(n, 1)).astype(np.float32)
+    return torch.from_numpy(np.concatenate([x, keys], axis=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(8, 300), (256, (1 << 16) + 37)])
+def test_cuda_tiled_scan_matches_its_cpu_run(cuda, B, n):
+    from repro_torch.core import GroupedStatistic
+    from repro_torch.kernels.fused_multi.ops import fused_poisson_tiled
+    G = 4
+    vals = _keyed_rows(n, G)
+    stat = GroupedStatistic(_AbsSum.make(), G)
+    got = fused_poisson_tiled(stat, 21, vals.to(cuda), B, n_valid=n - 5)
+    want = fused_poisson_tiled(stat, 21, vals, B, n_valid=n - 5)
+    assert torch.equal(got.w.cpu(), want.w)
+    w = tpc.poisson_counts(21, B, n, device="cpu").double()
+    w[:, n - 5:] = 0.0
+    keys = vals[:, 1].long()
+    bound = torch.stack([w[:, keys == g] @ vals[keys == g, :1].abs().double()
+                         for g in range(G)], dim=1)
+    assert bool(((got.s1.cpu().double() - want.s1.double()).abs()
+                 <= 1e-5 * bound).all())
+
+
+@pytest.mark.cuda
+def test_cuda_group_with_keyed_and_custom_members(cuda):
+    """Each member of the group is bitwise its dedicated run on the card:
+    the keyed member its keyed kernels, the custom member its tiled scan,
+    the moments slot kernel 2's."""
+    from repro_torch.core import GroupedStatistic, Mean, StatisticGroup
+    from repro_torch.kernels.fused_multi.ops import fused_poisson_tiled
+    G, B, n = 4, 64, 50_000
+    vals = _keyed_rows(n, G).to(cuda)
+    custom = _AbsSum.make()
+    keyed = GroupedStatistic(Mean(), G)
+    group = StatisticGroup((Mean(), keyed, custom))
+    mom, kst, cst = tfm.fused_poisson_multi(group, 5, vals, B)
+    dedicated = (tws.fused_poisson_moments(5, vals, B),
+                 keyed.fused_poisson_states(5, vals, B),
+                 fused_poisson_tiled(custom, 5, vals, B))
+    for a, b in zip((mom.w, mom.s1, mom.s2), dedicated[0]):
+        assert torch.equal(a, b)
+    for a, b in ((kst.w, dedicated[1].w), (kst.s1, dedicated[1].s1),
+                 (cst.w, dedicated[2].w), (cst.s1, dedicated[2].s1)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_keyed_custom_statistic_stays_below_the_weight_matrix(cuda):
+    from repro_torch.core import GroupedStatistic
+    from repro_torch.core.bootstrap import fused_resample_states
+    G, B, n = 4, 256, 1 << 22
+    vals = _keyed_rows(n, G).to(cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = fused_resample_states(GroupedStatistic(_AbsSum.make(), G), 8, vals,
+                               B)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert st.w.shape == (B, G)
+    assert peak < B * n * 4 // 8

@@ -20,7 +20,10 @@ from repro.core import EarlSession as JSession
 from repro.core import GroupedStatistic as JGrouped
 from repro.core import KMeansStep as JKMeans
 from repro.core import Mean as JMean
+from repro.core import MomentState as JMomentState
 from repro.core import Quantile as JQuantile
+from repro.core import Statistic as JStatistic
+from repro.core import StatisticGroup as JGroup
 from repro.core import Sum as JSum
 from repro.core import bootstrap as j_bootstrap
 from repro.core.accuracy import report_for as j_report_for
@@ -30,6 +33,7 @@ from repro.core.delta import poisson_delta_result as j_result
 from repro.core.ssabe import ssabe as j_ssabe
 from repro.data import StratifiedSampler as JStratified
 from repro.data.store import ShardedStore as JStore
+from repro.kernels.fused_multi import ops as jfm
 from repro.kernels.kmeans_assign import ops as jka
 from repro.kernels.weighted_hist import ops as jwh
 from repro.kernels.weighted_stats import ops as jws
@@ -44,7 +48,9 @@ from repro_torch.core import (AccuracyReport, Count, EarlSession,
                               poisson_delta_result, report_for)
 from repro_torch.core.ssabe import _cv_of, ssabe
 from repro_torch.data import ShardedStore, StratifiedSampler
-from repro_torch.kernels.fused_multi.ops import _multi_cuda
+from repro_torch.kernels.fused_multi.ops import (fused_poisson_multi,
+                                                 fused_poisson_tiled,
+                                                 slot_route)
 from repro_torch.kernels.kmeans_assign import ops as tka
 from repro_torch.kernels.poisson_counts.ops import poisson_counts
 from repro_torch.kernels.weighted_hist import ops as twh
@@ -227,7 +233,8 @@ def test_grouped_op_argument_checks(keyed):
 # GroupedStatistic
 # ---------------------------------------------------------------------------
 class _CustomInner(Statistic):
-    """A statistic with no fused path: the materialized route."""
+    """A statistic with no fused path: the materialized route alone, the
+    tiled scan (fused_poisson_tiled) as a keyed inner or a group member."""
 
     def init_state(self, dim, device="cpu"):
         return MomentState(w=torch.zeros((), device=device),
@@ -242,6 +249,24 @@ class _CustomInner(Statistic):
 
     def finalize(self, state):
         return state.s1 / torch.clamp_min(state.w.unsqueeze(-1), 1.0)
+
+
+class _JCustomInner(JStatistic):
+    """``_CustomInner`` in the JAX package."""
+
+    def init_state(self, dim):
+        return JMomentState(w=jnp.zeros((), jnp.float32),
+                            s1=jnp.zeros((dim,), jnp.float32),
+                            s2=jnp.zeros((dim,), jnp.float32))
+
+    def update(self, state, values, weights=None):
+        x = jnp.asarray(values, jnp.float32)
+        w = jnp.ones(x.shape[0]) if weights is None else weights
+        return JMomentState(w=state.w + jnp.sum(w), s1=state.s1 + w @ x,
+                            s2=state.s2)
+
+    def finalize(self, state):
+        return state.s1 / jnp.maximum(state.w[..., None], 1.0)
 
 
 @pytest.mark.parametrize("make,error,match", [
@@ -298,8 +323,12 @@ def test_keyed_thetas_are_the_masked_inner_runs(keyed, pair):
     assert lead.shape[:2] == (B, G)
     for g in range(G):
         mask = _t((gid == g).astype(np.float32))
-        ref = inner.finalize_batch(fused_resample_states(
-            inner, SEED, _t(x), B, valid_mask=mask))
+        # a custom inner's keyed run is the tiled scan, so its key-g run is
+        # the tiled scan masked to key g
+        states = (fused_poisson_tiled if isinstance(inner, _CustomInner)
+                  else fused_resample_states)(inner, SEED, _t(x), B,
+                                              valid_mask=mask)
+        ref = inner.finalize_batch(states)
         assert torch.equal(thetas[:, g], ref)
     if j_inner is not None:
         from repro.core.bootstrap import fused_resample_states as j_states
@@ -347,10 +376,30 @@ def test_correct_per_key_matches_the_masked_inner(keyed):
 
 
 def test_a_grouped_member_raises_on_the_card_path(keyed):
-    vals, _, _ = keyed
-    group = StatisticGroup((Mean(), GroupedStatistic(Mean(), G)))
-    with pytest.raises(NotImplementedError, match="GroupedStatistic"):
-        _multi_cuda(group.slots, SEED, tws.prepare(_t(vals), B))
+    """No member raises any more.  On the card a group routes each slot
+    (``slot_route``): the moments slot to fused_pass, a GroupedStatistic
+    to its keyed kernels, a custom member to the tiled scan, each with the
+    group's seed.  On the CPU the group is the JAX package's ``"scan"``
+    group: w_tot bitwise, s1 within 1e-5·Σw|x| per entry."""
+    vals, x, gid = keyed
+    group = StatisticGroup((Mean(), GroupedStatistic(Mean(), G),
+                            _CustomInner()))
+    assert [slot_route(s) for s in group.slots] == ["moments", "keyed",
+                                                   "custom"]
+    got = fused_poisson_multi(group, SEED, _t(vals), B)
+    jgroup = JGroup((JMean(), JGrouped(JMean(), G, backend="scan"),
+                     _JCustomInner()))
+    want = jfm.fused_poisson_multi(jgroup, SEED, jnp.asarray(vals), B,
+                                   backend="scan")
+    w = np.asarray(jws.implicit_weights(SEED, B, N), np.float64)
+    absx = np.abs(vals.astype(np.float64))
+    keys = (gid[None, :] == np.arange(G)[:, None]).astype(np.float64)
+    bounds = (w @ absx, np.einsum("bn,gn,nd->bgd", w, keys, absx[:, :-1]),
+              w @ absx)
+    for g_st, j_st, bound in zip(got, want, bounds):
+        np.testing.assert_array_equal(g_st.w.numpy(), np.asarray(j_st.w))
+        assert np.all(np.abs(g_st.s1.numpy() - np.asarray(j_st.s1))
+                      <= 1e-5 * bound)
 
 
 # ---------------------------------------------------------------------------

@@ -448,10 +448,11 @@ def test_backend_defaults_match_jax(name):
 @pytest.mark.parametrize("name", ["bootstrap", "bootstrap_chunked",
                                   "bootstrap_thetas"])
 def test_bootstrap_parameter_order_matches_jax(name):
-    """The JAX order, with ``data_axis`` (no mesh is ported) dropped and
-    ``device`` last: a positional argument lands in the same slot."""
+    """The JAX order, ``data_axis`` included (accepted in its place; a
+    mesh raises), and ``device`` last: a positional argument lands in the
+    same slot."""
     jp, tp = _params(getattr(jboot, name)), _params(getattr(tboot, name))
-    want = [p for p in jp if p != "data_axis"]
+    want = list(jp)
     got = list(tp)
     if "device" in got:
         assert got[-1] == "device"

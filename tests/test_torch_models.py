@@ -1,0 +1,233 @@
+"""The port's model stack (models/, configs/, interop.params_from_numpy)
+against the JAX package on the CPU.
+
+The JAX package's own parameters are carried across with
+``params_from_numpy``, so both packages run the same model on the same
+tokens (numpy, from a seed).  For the smoke configs of h2o-danube-3-4b,
+granite-3-2b and stablelm-3b: prefill and 16 greedy decode steps give
+logits within 1e-4 of max|logit|, the same greedy tokens, ``slot_pos``
+bitwise and k/v within 1e-5; ``per_example_loss`` within 1e-5 relative;
+the configs equal field for field, apart from the documented drop
+``attention_backend``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.models import decode_step as j_decode
+from repro.models import init_params as j_init
+from repro.models import per_example_loss as j_pel
+from repro.models import prefill as j_prefill
+from repro_torch.configs import ARCH_IDS, PORTED_ARCH_IDS, get_config
+from repro_torch.interop import params_from_numpy
+from repro_torch.models import (decode_step, forward_hidden, init_params,
+                                init_serve_cache, logits_from_hidden,
+                                num_params, per_example_loss, prefill)
+from repro_torch.train import (make_decode_step, make_eval_step,
+                               make_prefill_step)
+
+torch.set_num_threads(1)
+
+PROMPT, GEN = 24, 16
+
+
+def _models(arch, **overrides):
+    jcfg = dataclasses.replace(j_get_config(arch, smoke=True), **overrides)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **overrides)
+    jparams = j_init(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               device="cpu")
+    return jcfg, jparams, cfg, params
+
+
+def _tokens(cfg, b, s, seed=1):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(b, s)).astype(np.int32)
+
+
+def _logits_close(got, want, vocab, rel=1e-4):
+    got = got.numpy()[:, :vocab]
+    want = np.asarray(want)[:, :vocab]
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= rel * scale
+
+
+def _caches_close(tc, jc):
+    for name in tc:
+        for i in tc[name]:
+            t, j = tc[name][i]["attn"], jc[name][i]["attn"]
+            np.testing.assert_array_equal(t["slot_pos"].numpy(),
+                                          np.asarray(j["slot_pos"]))
+            for kv in ("k", "v"):
+                np.testing.assert_allclose(t[kv].numpy(), np.asarray(j[kv]),
+                                           atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+def test_prefill_and_greedy_decode_match_jax(arch):
+    jcfg, jparams, cfg, params = _models(arch)
+    toks = _tokens(cfg, 2, PROMPT)
+    jl, jc = j_prefill(jcfg, jparams, jnp.asarray(toks),
+                       cache_len=PROMPT + GEN)
+    tl, tc = make_prefill_step(cfg)(params, {"tokens": torch.from_numpy(
+        toks)})
+    tl, tc = prefill(cfg, params, torch.from_numpy(toks),
+                     cache_len=PROMPT + GEN)
+    _logits_close(tl, jl, cfg.vocab)
+    assert (tl[:, cfg.vocab:] <= -1e29).all()
+    _caches_close(tc, jc)
+    step = make_decode_step(cfg)
+    for t in range(GEN):
+        jtok = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
+        ttok = torch.argmax(tl, -1)[:, None]
+        np.testing.assert_array_equal(ttok.numpy(), jtok)
+        jl, jc = j_decode(jcfg, jparams, jc, jnp.asarray(jtok),
+                          jnp.int32(PROMPT + t))
+        tl, tc = step(params, tc, ttok, PROMPT + t)
+        _logits_close(tl, jl, cfg.vocab)
+    _caches_close(tc, jc)
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+def test_per_example_loss_matches_jax(arch):
+    jcfg, jparams, cfg, params = _models(arch)
+    docs = _tokens(cfg, 3, 41, seed=2)
+    docs[1, 30:] = -1 + 0 * docs[1, 30:]      # padded labels are skipped
+    tokens, labels = np.maximum(docs[:, :40], 0), docs[:, 1:]
+    want = np.asarray(j_pel(jcfg, jparams, {"tokens": jnp.asarray(tokens),
+                                            "labels": jnp.asarray(labels)}))
+    got = make_eval_step(cfg)(params, {"tokens": torch.from_numpy(tokens),
+                                       "labels": torch.from_numpy(labels)})
+    got2 = per_example_loss(cfg, params, {"tokens": torch.from_numpy(tokens),
+                                          "labels": torch.from_numpy(labels)})
+    assert torch.equal(got, got2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+def test_configs_are_the_jax_configs(arch):
+    for smoke in (False, True):
+        want = dataclasses.asdict(j_get_config(arch, smoke=smoke))
+        got = dataclasses.asdict(get_config(arch, smoke=smoke))
+        assert want.pop("attention_backend") == "blockwise"
+        assert got == want
+        assert (get_config(arch, smoke=smoke).num_params()
+                == j_get_config(arch, smoke=smoke).num_params())
+
+
+def test_unported_architectures_raise_naming_the_roadmap():
+    for arch in set(ARCH_IDS) - set(PORTED_ARCH_IDS):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+def test_decode_matches_teacher_forcing():
+    """tests/test_models.py's check in the port: decode step t's logits
+    equal the full forward's at position S + t, across the ring wrap (the
+    smoke window is 16, the context 35)."""
+    _, _, cfg, params = _models("h2o-danube-3-4b")
+    B, S = 2, 32
+    toks = torch.from_numpy(_tokens(cfg, B, S + 3, seed=3))
+    h, _ = forward_hidden(cfg, params, toks, mode="train")
+    full = logits_from_hidden(cfg, params, h)
+    lg, cache = prefill(cfg, params, toks[:, :S], cache_len=S + 3)
+    np.testing.assert_allclose(lg.numpy(), full[:, S - 1].numpy(),
+                               atol=2e-4, rtol=1e-3)
+    for t in range(3):
+        lg, cache = decode_step(cfg, params, cache, toks[:, S + t:S + t + 1],
+                                S + t)
+        np.testing.assert_allclose(lg.numpy(), full[:, S + t].numpy(),
+                                   atol=2e-4, rtol=1e-3)
+
+
+def test_decode_step_writes_the_cache_in_place():
+    """decode_step writes the new slot into the caches it is given and
+    returns them (no copy of a layer's cache a step); a one-element
+    position tensor gives the step of the int position."""
+    _, _, cfg, params = _models("h2o-danube-3-4b")
+    S = 20
+    toks = torch.from_numpy(_tokens(cfg, 2, S + 1, seed=5))
+    _, cache = prefill(cfg, params, toks[:, :S], cache_len=S + 1)
+    _, twin = prefill(cfg, params, toks[:, :S], cache_len=S + 1)
+    attn = cache["groups"]["0"]["attn"]
+    k, v, slot_pos = attn["k"], attn["v"], attn["slot_pos"]
+    L = k.shape[-2]
+    lg, new = decode_step(cfg, params, cache, toks[:, S:], S)
+    lg2, _ = decode_step(cfg, params, twin, toks[:, S:], torch.tensor([S]))
+    got = new["groups"]["0"]["attn"]
+    assert got["k"] is k and got["v"] is v and got["slot_pos"] is slot_pos
+    assert bool((slot_pos[:, S % L] == S).all())
+    assert torch.equal(lg, lg2)
+    for name in ("k", "v"):
+        assert torch.equal(got[name],
+                           twin["groups"]["0"]["attn"][name])
+
+
+def test_init_params_follows_the_jax_layout_and_law():
+    jcfg, jparams, cfg, _ = _models("granite-3-2b")
+    params = init_params(cfg, torch.Generator().manual_seed(5),
+                         device="cpu")
+    shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jparams)
+
+    def walk(t, j):
+        if isinstance(t, dict):
+            assert set(t) == set(j)
+            for k in t:
+                walk(t[k], j[k])
+        else:
+            assert tuple(t.shape) == j and t.dtype == torch.float32
+    walk(params, shapes)
+    emb = params["embedding"]
+    assert torch.all(emb[cfg.vocab:] == 0.0)
+    assert abs(float(emb[:cfg.vocab].std()) * cfg.d_model ** 0.5 - 1) < 0.05
+    wq = params["groups"]["0"]["attn"]["wq"]
+    assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1) < 0.05
+    assert torch.all(params["groups"]["0"]["attn_norm"] == 0.0)
+    assert num_params(params)[0] == cfg.num_params()
+    cache = init_serve_cache(cfg, 2, 40, device="cpu")
+    assert cache["groups"]["0"]["attn"]["k"].shape == (
+        cfg.n_groups, 2, cfg.n_kv_heads, 40, cfg.head_dim_)
+    assert torch.all(cache["groups"]["0"]["attn"]["slot_pos"] == -1)
+
+
+def test_params_from_numpy_carries_bf16_bitwise():
+    """np.asarray of a bf16 JAX array is an ml_dtypes array that
+    torch.from_numpy rejects; it crosses through a uint16 view."""
+    jcfg, jparams, cfg, params = _models("h2o-danube-3-4b",
+                                         param_dtype="bfloat16")
+    wq = jparams["groups"]["0"]["attn"]["wq"]
+    got = params["groups"]["0"]["attn"]["wq"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        got.view(torch.int16).numpy().view(np.uint16),
+        np.asarray(wq).view(np.uint16))
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                  np.asarray(wq, np.float32))
+    f32 = params_from_numpy({"a": np.arange(3, dtype=np.float32),
+                             "b": {"c": np.arange(2, dtype=np.int32)}},
+                            device="cpu")
+    assert f32["a"].dtype == torch.float32
+    assert f32["b"]["c"].dtype == torch.int32
+
+
+def test_bf16_compute_matches_jax():
+    """compute_dtype bf16 with f32 projection outputs (matmul_out_dtype):
+    the port's f32 product of bf16-valued operands against the JAX
+    package's preferred_element_type=f32, within bf16 rounding."""
+    jcfg, jparams, cfg, params = _models("h2o-danube-3-4b",
+                                         compute_dtype="bfloat16",
+                                         param_dtype="bfloat16")
+    toks = _tokens(cfg, 2, PROMPT, seed=4)
+    jl, jc = j_prefill(jcfg, jparams, jnp.asarray(toks), cache_len=PROMPT)
+    tl, tc = prefill(cfg, params, torch.from_numpy(toks), cache_len=PROMPT)
+    _logits_close(tl, jl, cfg.vocab, rel=2e-2)
+    np.testing.assert_array_equal(
+        tc["groups"]["0"]["attn"]["slot_pos"].numpy(),
+        np.asarray(jc["groups"]["0"]["attn"]["slot_pos"]))
