@@ -27,8 +27,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._pass import stream_ptr
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 
-#: Largest head dimension the kernel takes (two threads a query row, each
-#: holding half of a 128-wide row in registers).
+#: Largest head dimension the kernel takes (the bf16 route pads D to 128,
+#: two 64-column TMA boxes; the f32 route holds half of a 128-wide row in
+#: each of a row's two threads).
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -152,10 +153,18 @@ def flash_attention_windowed(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """x with rows TMA can read: D zero-padded to a multiple of 8 (16
+    bytes of bf16) and a 16-byte aligned base."""
+    x = _pad_axis(x.contiguous(), 8, 3)
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: Optional[int],
                          scale: float, kv_offset: int) -> torch.Tensor:
-    """Kernel 12 (csrc/flash_attention.cu) on the card."""
+    """Kernel 12 (csrc/flash_attention.cu) on the card: bf16 on the tensor
+    cores (wgmma fed by TMA), f32 on the CUDA cores in IEEE f32."""
     _check_shapes(q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -168,23 +177,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dimension {d} is past the kernel's "
                          f"{MAX_HEAD_DIM}")
-    if b * hq >= 65536:
-        raise ValueError(f"B·Hq = {b * hq} is past the grid's 65,535")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    q3 = q.contiguous()
-    k3 = k.contiguous()
-    v3 = v.contiguous()
+    if q.dtype == torch.bfloat16:
+        q3, k3, v3 = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    else:
+        q3, k3, v3 = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q3)
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     flash_attention.launches += 1
     _build.launch("flash_attention", _DTYPES[q.dtype], b * hq, hq, hkv, sq,
-                  skv, d, float(scale), int(causal),
+                  skv, q3.shape[3], float(scale), int(causal),
                   0 if window is None else int(window), int(kv_offset),
                   q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
                   out.data_ptr(), stream_ptr(q.device))
-    return out
+    return out if out.shape[3] == d else out[..., :d].contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -9,7 +9,10 @@ against the JAX package's ``"blockwise"``, ``"windowed"`` and
 sweep of tests/test_kernels.py plus head_dim 120 and GQA 4: f32 within
 atol 2e-5 and rtol 1e-4, bf16 within 3e-2 (compared in f32).  The CUDA
 kernel is held against the plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+(tests/test_torch_cuda.py, chip_smoke.py); its bf16 route rounds P to
+bf16 before P·V, and the last test here emulates that rounding to show
+that the card's bf16 bound, one bf16 rounding plus 2^-8·(Σ p·|v|)/l,
+holds where a bound without the P term fails.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -164,3 +167,84 @@ def test_bad_shapes_raise(make, error):
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 4, 2, 8, 8, 16)))
     with pytest.raises(error):
         make(q, k, v)
+
+
+def _kernel_rounding(q, k, v, *, causal=True, window=None, kv_offset=0,
+                     block_k=128):
+    """The plain recurrence rounded as the card's bf16 kernel rounds it:
+    scores, m, l and the accumulator in f32 over key tiles of 128, P
+    rounded to bf16 before P·V (l sums the unrounded P), the output
+    rounded to bf16 once."""
+    q, k, v = (x.to(torch.float32) for x in (q, k, v))
+    sq, skv, d = q.shape[2], k.shape[2], q.shape[3]
+    group = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    rows = torch.arange(sq)[:, None] + kv_offset
+    m = torch.full(q.shape[:3], -1e30)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape)
+    for t0 in range(0, skv, block_k):
+        cols = torch.arange(t0, min(t0 + block_k, skv))[None, :]
+        mask = torch.ones((sq, cols.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= cols <= rows
+        if window is not None:
+            mask &= cols > rows - window
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, t0:t0 + block_k])
+        s = torch.where(mask, s * d ** -0.5, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).to(torch.float32),
+            v[:, :, t0:t0 + block_k])
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
+
+
+def _adversarial(case):
+    """bf16 q, k, v and kwargs: v of cancelling signs (|want| near 0),
+    one dominant key, and a query offset that leaves rows with no key."""
+    rng = np.random.default_rng(7)
+    b, hq, hkv, sq, skv, d = 1, 4, 2, 96, 200, 64
+    q = rng.normal(size=(b, hq, sq, d)) * 2.0
+    k = rng.normal(size=(b, hkv, skv, d))
+    v = rng.normal(size=(b, hkv, skv, d))
+    kw = dict(causal=False)
+    if case == "cancelling":
+        # key pairs a hair apart with v and -v: P·V nearly cancels, while
+        # the pair's two probabilities round to bf16 differently
+        k[:, :, 1::2] = k[:, :, 0::2] + 0.05 * rng.normal(
+            size=(b, hkv, skv // 2, d))
+        v = 64.0 * np.sign(rng.normal(size=(b, hkv, skv // 2, d)))
+        v = np.stack([v, -v], axis=3).reshape(b, hkv, skv, d)
+    elif case == "dominant":
+        k[:, :, 37] = 6.0 * q[:, ::2].mean(axis=2)  # one key wins each row
+    else:
+        kw = dict(causal=True, kv_offset=-40, window=30)
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+                 for x in (q, k, v)), kw
+
+
+@pytest.mark.parametrize("case", ["cancelling", "dominant", "no_key"])
+def test_bf16_p_rounding_term_bounds_the_kernels_error(case):
+    """The bf16 bound of tests/test_torch_cuda.py and chip_smoke.py: one
+    bf16 rounding of the output (1e-3 + 2^-7·|want|) plus the rounding of
+    P to bf16 before P·V, 2^-8·(Σ p·|v|)/l, computed as the plain version
+    on |v|.  The kernel's rounding, emulated here, meets it on inputs
+    built to break a bound without the P term."""
+    (q, k, v), kw = _adversarial(case)
+    want = tfa.flash_attention_plain(q, k, v, block_q=32, block_k=32, **kw)
+    got = _kernel_rounding(q, k, v, **kw)
+    pv_abs = tfa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                       block_q=32, block_k=32, **kw)
+    diff = (got.float() - want.float()).abs()
+    one_rounding = 1e-3 + 2.0 ** -7 * want.float().abs()
+    assert bool((diff <= one_rounding + 2.0 ** -8 * pv_abs).all())
+    if case == "cancelling":
+        assert bool((diff > one_rounding).any())  # the P term is needed
+    if case == "no_key":
+        assert torch.all(got[:, :, :40] == 0) and torch.all(
+            want[:, :, :40] == 0)

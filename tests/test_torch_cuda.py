@@ -21,9 +21,11 @@ keyed too; the double-buffered moments (stream=True, kernel 5) bitwise
 kernel 2 on aligned and misaligned x; a streamed bootstrap on the card
 bitwise bootstrap_chunked.  The serving slice: flash attention (kernel
 12) against its plain version, f32 within atol 2e-5 and rtol 1e-4, bf16
-within one bf16 rounding (1e-3 + 2^-7·|want|), at the full-width prefill
-shape in both; one prefill launches it once a layer and decode never, and
-decode equals teacher forcing.  The tiled scan (kernel 1 from an n-tile
+within one bf16 rounding (1e-3 + 2^-7·|want|) plus the rounding of P to
+bf16 before P·V (2^-8·(Σ p·|v|)/l), at the full-width prefill shape in
+both; f32 takes the CUDA-core route, bf16 is bitwise repeatable and
+takes more than 65,535 heads; one prefill launches it once a layer and
+decode never, and decode equals teacher forcing.  The tiled scan (kernel 1 from an n-tile
 offset) gives the CPU run's weights and w_tot bitwise, its dots within
 1e-5·Σw|x|, and a group with keyed and custom members is bitwise their
 dedicated runs.
@@ -392,6 +394,10 @@ def test_cuda_streaming_reuses_chunk_buffers_safely(cuda, queue_depth):
 # ---------------------------------------------------------------------------
 # the serving slice: kernel 12, the model on the card, the tiled scan
 # ---------------------------------------------------------------------------
+#: (b, hq, hkv, sq, skv, d), kwargs: tests/test_kernels.py's sweep, head
+#: dims 16, 20 (padded to 24 for TMA), 64, 120 and 128, Sq and Skv off the
+#: 128-row tiles (67, 200, 513), Hq / Hkv in {1, 2, 4, 8}, a query block
+#: that sees no key at all, causal=False and the decode offset
 FA_CASES = [
     ((2, 4, 2, 64, 64, 32), dict(causal=True)),
     ((1, 4, 4, 128, 128, 32), dict(causal=True, window=32)),
@@ -401,16 +407,37 @@ FA_CASES = [
     ((1, 8, 2, 67, 67, 120), dict(causal=True)),
     ((1, 32, 8, 64, 4160, 120), dict(causal=True, window=4096,
                                      kv_offset=4096)),
+    ((2, 4, 1, 200, 200, 20), dict(causal=True, window=50)),
+    ((1, 8, 1, 513, 513, 128), dict(causal=True)),
+    ((1, 4, 4, 200, 513, 64), dict(causal=False)),
+    ((1, 8, 8, 513, 200, 120), dict(causal=True, kv_offset=-100,
+                                    window=300)),
+    ((1, 2, 1, 64, 32, 16), dict(causal=True, window=16, kv_offset=100)),
 ]
 
 
-def _fa_close(got, want, dtype):
-    """f32 within atol 2e-5 and rtol 1e-4; bf16 within one bf16 rounding
-    (both sides accumulate in f32 and round once)."""
+def _fa_inputs(shape, dtype, device, seed):
+    b, hq, hkv, sq, skv, d = shape
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(s, generator=g).to(dtype).to(device)
+                 for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                           (b, hkv, skv, d)))
+
+
+def _fa_close(got, want, dtype, q=None, k=None, v=None, **kw):
+    """f32 within atol 2e-5 and rtol 1e-4.  bf16 within one bf16 rounding
+    of the output (1e-3 + 2^-7·|want|) plus the kernel's rounding of P to
+    bf16 before P·V: at most 2^-8·(Σ p·|v|)/l an output, which the plain
+    version gives when run on |v| with the same q, k and masks
+    (tests/test_torch_attention.py shows the term is needed and enough)."""
     diff = (got.float() - want.float()).abs()
     if dtype == torch.float32:
         return bool((diff <= 2e-5 + 1e-4 * want.float().abs()).all())
-    return bool((diff <= 1e-3 + 2.0 ** -7 * want.float().abs()).all())
+    from repro_torch.kernels.flash_attention import ops as tfa
+    pv_abs = tfa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                       **kw)
+    return bool((diff <= 1e-3 + 2.0 ** -7 * want.float().abs()
+                 + 2.0 ** -8 * pv_abs).all())
 
 
 @pytest.mark.cuda
@@ -421,14 +448,15 @@ def _fa_close(got, want, dtype):
 def test_cuda_flash_attention_matches_plain(cuda, shape, kw, dtype):
     from repro_torch.kernels.flash_attention import ops as tfa
     b, hq, hkv, sq, skv, d = shape
-    g = torch.Generator().manual_seed(sq + d)
-    q, k, v = (torch.randn(s, generator=g).to(dtype).to(cuda)
-               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    q, k, v = _fa_inputs(shape, dtype, cuda, sq + d)
     before = tfa.flash_attention.launches
     got = tfa.flash_attention(q, k, v, **kw)
     assert tfa.flash_attention.launches == before + 1
     want = tfa.flash_attention_plain(q, k, v, **kw)
-    assert got.dtype == dtype and _fa_close(got, want, dtype)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _fa_close(got, want, dtype, q, k, v, **kw)
+    if kw.get("kv_offset") == 100:  # the window ends before the first key
+        assert bool((got == 0).all())
 
 
 @pytest.mark.cuda
@@ -441,24 +469,70 @@ def test_cuda_flash_attention_at_the_full_width_prefill_shape(cuda):
                     ).to(torch.bfloat16)
     k, v = (torch.randn((4, 8, 8192, 120), generator=g, device=cuda
                         ).to(torch.bfloat16) for _ in range(2))
-    got = tfa.flash_attention(q, k, v, causal=True, window=4096)
-    want = tfa.flash_attention_plain(q, k, v, causal=True, window=4096)
-    assert _fa_close(got, want, torch.bfloat16)
+    kw = dict(causal=True, window=4096)
+    got = tfa.flash_attention(q, k, v, **kw)
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert _fa_close(got, want, torch.bfloat16, q, k, v, **kw)
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_f32_at_the_full_width_prefill_shape(cuda):
-    """The same shape in f32, at f32's tolerance: past the window (Sq >
-    4096) the kernel skips the key tiles older than the window, and an
-    off-by-one tile there moves an output by about 1e-3."""
+def test_cuda_flash_attention_f32_at_the_full_width_prefill_shape(
+        cuda, monkeypatch):
+    """The same shape in f32, at f32's tolerance, which only the CUDA-core
+    route (IEEE f32 products) meets: the call launches with dtype code 0.
+    Past the window (Sq > 4096) the kernel skips the key tiles older than
+    the window, and an off-by-one tile there moves an output by about
+    1e-3."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as tfa
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn((4, 32, 8192, 120), generator=g, device=cuda)
     k, v = (torch.randn((4, 8, 8192, 120), generator=g, device=cuda)
             for _ in range(2))
+    codes, launch = [], _build.launch
+    monkeypatch.setattr(_build, "launch", lambda name, *a: (
+        codes.append(a[0]), launch(name, *a))[1])
     got = tfa.flash_attention(q, k, v, causal=True, window=4096)
+    assert codes == [0]
     want = tfa.flash_attention_plain(q, k, v, causal=True, window=4096)
     assert _fa_close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [
+    ((4, 32, 8, 1024, 1024, 120), dict(causal=True, window=512)),
+    ((1, 8, 2, 67, 200, 20), dict(causal=False)),
+], ids=["d120", "d20"])
+def test_cuda_flash_attention_bf16_is_bitwise_repeatable(cuda, shape, kw):
+    """A fixed accumulation order and no atomics: two launches on the
+    same bf16 inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import ops as tfa
+    q, k, v = _fa_inputs(shape, torch.bfloat16, cuda, 5)
+    assert torch.equal(tfa.flash_attention(q, k, v, **kw),
+                       tfa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_head_dim_past_128_raises(cuda):
+    from repro_torch.kernels.flash_attention import ops as tfa
+    q, k, v = _fa_inputs((1, 2, 1, 16, 16, 136), torch.bfloat16, cuda, 6)
+    before = tfa.flash_attention.launches
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_past_65535_heads(cuda, dtype):
+    """B·Hq = 70,000 query heads: (b·h, query block) is flattened on
+    gridDim.x, so there is no 65,535 cap on heads."""
+    from repro_torch.kernels.flash_attention import ops as tfa
+    q, k, v = _fa_inputs((70_000, 1, 1, 8, 8, 16), dtype, cuda, 7)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    assert _fa_close(got, want, dtype, q, k, v, causal=True)
 
 
 def _smoke_model(cuda):
