@@ -13,7 +13,8 @@ failure:
    weighted_moments.cu, weighted_hist.cu, fused_stream.cu,
    fused_binblocked.cu and flash_attention.cu; one nvcc per source, all at
    once) and print the build seconds and ptxas's registers and spills;
-   kernel 12's tensor-core instances must spill 0 bytes;
+   kernel 12's tensor-core instances and kernels 7 and 10 must spill 0
+   bytes;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at B=256, n=2^20+37, with and without a
@@ -30,12 +31,16 @@ failure:
    {1, 1000, 2^20+37}, d in {1, 3, 8}; weighted_histogram at R in
    {1, 256}, d in {1, 4}, nbins in {256, 2048}, with NaN, +-inf, values
    past the edges and zero weights) under whole-number and fractional
-   weights, and R = 256 rows bitwise 256 one-row launches; the
-   output-tiled histogram (kernel 7, block_bins in {128, 512, 2048}, d in
-   {1, 4, 64} at nbins = 2048, ragged n, NaN, +-inf and values past the
-   edges, with and without a mask) bitwise equal to the plain version and
-   to the one-window kernel where that fits, and keyed at G = 8, d = 4
-   (65,536 bins a row, past the keyed histogram's limit); the streamed
+   weights, R = 256 rows bitwise 256 one-row launches, every value in one
+   bin (R in {1, 256}, and unit weights), n = 1, 2, 3 (mod 4) with W a
+   row slice 0, 4 or 12 bytes off a 16-byte boundary, and repeat launches
+   of whole-number weights bitwise; the output-tiled histogram (kernel
+   7, block_bins in {128, 512, 2048}, d in {1, 4, 64} at nbins = 2048,
+   ragged n, NaN, +-inf and values past the edges, with and without a
+   mask) bitwise equal to the plain version and to the one-window kernel
+   where that fits, keyed at G = 8, d = 4 (65,536 bins a row, past the
+   keyed histogram's limit), over several column ranges (n = 2^20+37, d
+   = 64) and one, with n_valid, and at B = 100; the streamed
    moments (kernel 5, B in {8, 256}, n in {300, 65,536, 2^20+37}, d in
    {1, 3, 64}, aligned and misaligned x, with and without a mask) bitwise
    equal to kernel 2 and within 1e-5·Σw|x| of the plain version; flash
@@ -91,7 +96,9 @@ failure:
    256, chunk 65,536): a streamed Mean (kernel 2 each chunk) and
    Quantile(block_bins=2048) (kernel 7 each chunk), each bitwise
    bootstrap_chunked over store.read_all() on the card, a kill and resume
-   of the Quantile at checkpoint_every=8, kernel 5's entry point over the
+   of the Quantile at checkpoint_every=8, one more Quantile run under
+   torch.profiler (kernel 7's summed card time beside the wall and the
+   stage: which sets the pace), kernel 5's entry point over the
    same chunks (bitwise the streamed Mean's state), and both runs again
    at 2^20 rows: the peak device memory above the resident state must not
    grow with n;
@@ -128,12 +135,16 @@ failure:
    same function; the sessions' wall times and the example's walls over a
    few warm runs, and the grouped moments kernel against G masked
    moments launches; kernel 5 beside kernel 2 and kernel 7 at the streamed
-   Quantile's chunk shape; kernel 12 at the serving prefill's shape beside
-   its plain version, its bound (4·D operations a visible query-key pair
-   at the bf16 tensor-core rate, or q, k, v and o once over the memory
-   rate), scaled_dot_product_attention with the boolean causal-window
-   mask and its own f32 route; then print the kernels line, then the
-   contract's last line.
+   Quantile's chunk shape, with kernel 7's cost terms (weights hashed and
+   draws a weight, shared adds, bin_index evaluations, flush operations,
+   bytes of x, of counts and of distributed shared memory); kernels 5, 7,
+   10 and 11 also alone (launches back to back inside one wrapper call),
+   and kernel 10 at the point estimate (R = 1, unit weights); kernel 12 at the serving prefill's shape
+   beside its plain version, its bound (4·D operations a visible
+   query-key pair at the bf16 tensor-core rate, or q, k, v and o once
+   over the memory rate), scaled_dot_product_attention with the boolean
+   causal-window mask and its own f32 route; then print the kernels line,
+   then the contract's last line.
 
 Every plain version that a kernel is held against or timed beside runs
 under a check that it launches no kernel.
@@ -420,9 +431,11 @@ def geometry(lib: str, args: tuple) -> tuple:
         B, n, d, _, _, rows, cols, ranges = args[:8]
         fields = dict(B=B, n=n, d=d, rows=rows, cols=cols, ranges=ranges)
     elif lib == "weighted_hist":
-        R, n, d, nbins, _, w, _, _, dc, rows, cols, ranges, _, _ = args
+        (R, n, d, nbins, _, w, _, _, dc, rows, groups, ranges, copies,
+         whole, _, _) = args
         fields = dict(R=R, n=n, d=d, nbins=nbins, unit=w is None, dc=dc,
-                      rows=rows, cols=cols, ranges=ranges)
+                      rows=rows, groups=groups, ranges=ranges, copies=copies,
+                      whole=whole)
     elif lib == "fused_stream":
         (_, n_valid, Bp, np_, bb, bn, d, _, mask, rows, tpc, ranges,
          *_) = args
@@ -431,11 +444,11 @@ def geometry(lib: str, args: tuple) -> tuple:
                       ranges=ranges)
     elif lib == "fused_binblocked":
         (_, n_valid, Bp, np_, bb, bn, d, G, _, mask, keys, nbins, _, _,
-         width, rows, tpc, ranges, _, _) = args
+         width, rows, tpc, cluster, ranges, _, _) = args
         fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
                       G=G, masked=mask is not None, keyed=keys is not None,
                       nbins=nbins, width=width, rows=rows, tpc=tpc,
-                      ranges=ranges)
+                      cluster=cluster, ranges=ranges)
     elif lib == "fused_grouped":
         (_, n_valid, Bp, np_, bb, bn, d, G, _, mask, _, dc, kg, rows, tpc,
          ranges, part_w, _, _, _, _, _, nbins, _, _, _, _) = args
@@ -1213,7 +1226,9 @@ def phase_parity_materialized(torch, parity: Parity) -> None:
     n in {1, 1000, 2^20+37}, d in {1, 3, 8} for kernel 11, and R in
     {1, 256}, d in {1, 4}, nbins in {256, 2048} for kernel 10, with
     whole-number and fractional weights; R = 256 also against 256 one-row
-    launches."""
+    launches; kernel 10 also with every value in one bin (R in {1, 256}
+    and unit weights), at n = 1, 2, 3 (mod 4) and with W a row slice off a
+    16-byte boundary, repeat launches bitwise."""
     from repro_torch.kernels.weighted_hist.ops import weighted_histogram
     from repro_torch.kernels.weighted_stats.ops import weighted_moments
 
@@ -1262,6 +1277,31 @@ def phase_parity_materialized(torch, parity: Parity) -> None:
                     check(torch.equal(rows, weighted_histogram(
                         x, w, LO, HI, nbins)), f"R={R} is not {R} one-row "
                         f"launches, {what}")
+    # every value in one bin (the most contended adds), n = 1, 2, 3 (mod
+    # 4), and W a row slice whose base is off a 16-byte boundary
+    whole_repeat = []
+    for R in (1, BIG_B):
+        x = torch.full((BIG_N, 1), 0.5 * (LO + HI), device="cuda")
+        w = torch.randint(0, 5, (R, BIG_N), device="cuda",
+                          generator=gen).float()
+        hold_weighted_hist(torch, parity, x, w, NBINS,
+                           f"R={R} every value in one bin")
+        hold_weighted_hist(torch, parity, x, None, NBINS,
+                           "unit weights, every value in one bin")
+    for n in (BIG_N, BIG_N + 1, BIG_N + 2):
+        x = torch.randn(n, 1, device="cuda", generator=gen) * 6 + 12
+        big = torch.randint(0, 5, (BIG_B * n + 3,), device="cuda",
+                            generator=gen).float()
+        for off in (0, 1, 3):
+            w = big[off:off + BIG_B * n].reshape(BIG_B, n)
+            what = (f"R={BIG_B} n={n} (n mod 4 = {n % 4}), W base "
+                    f"{w.data_ptr() % 16} bytes off 16")
+            hold_weighted_hist(torch, parity, x, w, NBINS, what)
+            whole_repeat.append(torch.equal(
+                weighted_histogram(x, w, LO, HI, NBINS),
+                weighted_histogram(x, w, LO, HI, NBINS)))
+    check(all(whole_repeat), "kernel 10 repeat launches of whole-number "
+          "weights differ")
     torch.cuda.synchronize()
     print(f"parity (materialized): both kernels match their plain versions; "
           f"max |err| weighted_moments {parity.err['weighted_moments']}, "
@@ -1275,7 +1315,8 @@ def phase_parity_stream(torch, parity: Parity) -> None:
     """Kernel 7 (block_bins) against hist_plain and, where its one window
     fits, against kernel 3, at d in {1, 4, 64}, nbins = 2048 and
     block_bins in {128, 512, 2048}, with the binning's edge values; keyed
-    at G = 8, d = 4 against the plain keyed version.  Kernel 5
+    at G = 8, d = 4 against the plain keyed version; at n = 2^20 + 37, d =
+    64 (several column ranges), with n_valid, and at B = 100.  Kernel 5
     (stream=True) against kernel 2, bitwise, and the plain version."""
     from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
                                                        grouped_hist_plain,
@@ -1332,6 +1373,30 @@ def phase_parity_stream(torch, parity: Parity) -> None:
                        f"keyed G={K7_G} d={K7_GD}"
                        f"{' masked' if masked else ''}")
 
+    # several column ranges (global-atomic flush) beside one range (plain
+    # stores), n_valid, and B = 100 (a row block past the last whole 4)
+    from repro_torch.kernels._pass import binblocked_geometry
+    ranges_seen = set()
+    for B, d, n, n_valid in ((BIG_B, 64, BIG_N, None),
+                             (BIG_B, 64, K7_WIDE_N, None),
+                             (BIG_B, 4, BIG_N, BIG_N - 1000),
+                             (100, 4, 20_000, None)):
+        x = (torch.randn(n, d, generator=gen) * 6.0 + 12.0).cuda()
+        lo = torch.full((d,), LO, device="cuda")
+        hi = torch.full((d,), HI, device="cuda")
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+        pr = prepare(x, B, n_valid=n_valid)
+        geo = binblocked_geometry(pr.Bp, pr.np_, pr.bn, d * NBINS, NBINS)
+        ranges_seen.add(geo.ranges > 1)
+        got = fused_poisson_hist(seed, x, LO, HI, NBINS, B, n_valid=n_valid,
+                                 block_bins=NBINS)
+        parity.bitwise(name, got, plain(hist_plain, pr, seed, lo, hi,
+                                        NBINS)[:B],
+                       f"counts B={B} d={d} n={n} n_valid={n_valid} "
+                       f"({geo.ranges} ranges, cluster {geo.cluster})")
+    check(ranges_seen == {False, True}, "kernel 7's parity did not cover "
+          "one column range and several")
+
     name = "fused_poisson_moments_stream"
     for B in (8, BIG_B):
         for n in (300, 65_536, BIG_N):
@@ -1361,7 +1426,8 @@ def phase_parity_stream(torch, parity: Parity) -> None:
                     parity.moments(name, k5, want, bound, want[2], what)
     torch.cuda.synchronize()
     print(f"parity (streaming slice): kernel 7 matches the plain version "
-          f"(and kernel 3 where one window fits), keyed too; kernel 5 is "
+          f"(and kernel 3 where one window fits), keyed too, over one and "
+          f"several column ranges, with n_valid and B = 100; kernel 5 is "
           f"bitwise kernel 2; max |err| kernel 5 "
           f"{parity.err['fused_poisson_moments_stream']}")
 
@@ -1540,9 +1606,10 @@ def stream_real_size(torch):
     """The README's 64-column streaming store at 2^22 rows (1 GiB) and
     2^20: a streamed Mean (kernel 2 each chunk) and Quantile(block_bins)
     (kernel 7 each chunk), bitwise bootstrap_chunked over store.read_all()
-    on the card, a kill and resume of the Quantile at 2^22, kernel 5 over
-    the Mean's chunks, and the peak device memory above the resident
-    state at both sizes."""
+    on the card, a kill and resume of the Quantile at 2^22 and a rerun of
+    it under torch.profiler (kernel 7's summed card time beside the wall
+    and the stage), kernel 5 over the Mean's chunks, and the peak device
+    memory above the resident state at both sizes."""
     import tempfile
 
     import numpy as np
@@ -1630,6 +1697,7 @@ def stream_real_size(torch):
                       "the resumed Quantile stream is not bitwise the "
                       "uninterrupted one")
                 rec["kill_resume"] = report_dict(resumed.stream)
+                rec["pace"] = stream_pace(torch, stream, res.stream)
             print("streamed bootstrap (cuda): " + json.dumps(rec))
         del xdev, store
     for name in stats:
@@ -1639,6 +1707,49 @@ def stream_real_size(torch):
               f"n={ST_NS[0]} vs {small} B at n={ST_NS[1]}")
         check(big < ST_NS[0] * ST_D * 4 / 2, f"streamed {name}: peak "
               f"{big} B is not far below the store ({ST_NS[0] * ST_D * 4})")
+
+
+def stream_pace(torch, stream, measured) -> dict:
+    """What sets the streamed Quantile's pace: the summed card time of
+    kernel 7 over its chunks (and of every kernel and copy, their union)
+    in one more streamed run under torch.profiler, beside the wall and the
+    stage (the pinned host copies) of that run and of the measured one."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = stream()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    k7 = [b - a for a, b, name in spans if "binblocked_kernel" in name]
+    busy_us, end = 0.0, -math.inf
+    for a, b, _ in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    # the profiler may drop kernel records: scale its mean launch to the
+    # chunks, and say how many it saw
+    check(len(k7) > 0, "the profiler saw no launch of kernel 7")
+    out = dict(kernel7_launches_seen=len(k7),
+               kernel7_card_s=sum(k7) / len(k7) * res.stream.n_chunks * 1e-6,
+               card_busy_s=busy_us * 1e-6,
+               profiled_wall_s=res.stream.wall_s,
+               profiled_stage_s=res.stream.stage_s,
+               measured_wall_s=measured.wall_s,
+               measured_stage_s=measured.stage_s)
+    lead = max(("kernel 7", out["kernel7_card_s"]),
+               ("the card", out["card_busy_s"]),
+               ("the staging", out["measured_stage_s"]), key=lambda t: t[1])
+    print(f"streamed Quantile's pace: kernel 7 {out['kernel7_card_s']:.4f} s "
+          f"of card time over {res.stream.n_chunks} chunks ({len(k7)} "
+          f"launches seen by the profiler), the card busy "
+          f"{out['card_busy_s']:.4f} s; wall {measured.wall_s:.4f} s and "
+          f"stage {measured.stage_s:.4f} s (profiled run: "
+          f"{res.stream.wall_s:.4f} s, {res.stream.stage_s:.4f} s): "
+          f"{lead[0]} sets the pace")
+    return out
 
 
 def phase_stream_path(torch):
@@ -2114,8 +2225,9 @@ def stream_rows(torch, launches, parity: Parity):
     """Kernel rows of kernels 5 and 7: kernel 5 beside kernel 2 at B = 256,
     n = 2^20 + 37, d = 1; kernel 7 at the streamed Quantile's chunk (B =
     256, n = 65,536, d = 64, nbins = block_bins = 2048).  Both are bound by
-    the hash, one a weight; kernel 7 draws each weight once per window its
-    column lands in (64 here)."""
+    the hash, one a weight; kernel 7 draws each weight once (the design
+    before drew it once per window its column lands in, 64 here), and its
+    cost terms beside the hash are printed."""
     import numpy as np
     from repro_torch.kernels._pass import binblocked_geometry
     from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
@@ -2132,9 +2244,23 @@ def stream_rows(torch, launches, parity: Parity):
     prq = prepare(xq, B)
     lo = torch.full((ST_D,), ST_LO, device="cuda")
     hi = torch.full((ST_D,), ST_HI, device="cuda")
-    width = binblocked_geometry(prq.Bp, prq.np_, prq.bn, ST_D * NBINS,
-                                NBINS)[0]
-    windows = -(-ST_D * NBINS // width)
+    geo = binblocked_geometry(prq.Bp, prq.np_, prq.bn, ST_D * NBINS, NBINS)
+    windows = geo.windows
+    rowblocks = -(-prq.Bp // geo.rows)
+    terms = dict(
+        geometry=geo._asdict(), ctas=rowblocks * geo.ranges * geo.cluster,
+        smem_bytes=geo.smem_bytes(prq.bn), weights_hashed=B * ST_CHUNK,
+        draws_a_weight=1, draws_a_weight_before=windows,
+        shared_adds_expected=round((1 - math.exp(-1)) * B * ST_CHUNK * ST_D),
+        bin_index_evaluations=rowblocks * geo.ranges * ST_CHUNK * ST_D,
+        flush_operations=geo.ranges * prq.Bp * ST_D * NBINS,
+        flush="plain stores" if geo.ranges == 1 else "global atomics",
+        x_bytes_read=ST_CHUNK * ST_D * 4,
+        counts_bytes_written=prq.Bp * ST_D * NBINS * 4,
+        dsmem_bytes_read=rowblocks * geo.ranges * geo.cluster * len(
+            geo.windows_of(0)) * (geo.cluster - 1) * 16 * -(
+                -geo.tiles_per_cta * prq.bn // 4))
+    print(f"kernel 7 cost terms at the streamed chunk: {json.dumps(terms)}")
     runs = {
         "fused_poisson_moments_stream": (
             lambda: fused_poisson_moments(seed, x, B, stream=True),
@@ -2146,11 +2272,14 @@ def stream_rows(torch, launches, parity: Parity):
             lambda: plain(hist_plain, prq, seed, lo, hi, NBINS),
             ST_CHUNK * ST_D * 4 + B * ST_D * NBINS * 4, B * ST_CHUNK,
             dict(B=B, n=ST_CHUNK, d=ST_D, nbins=NBINS, block_bins=NBINS,
-                 windows=windows)),
+                 windows=windows, draws_a_weight=1)),
     }
     rows = []
+    libs = {"fused_poisson_moments_stream": "fused_stream",
+            "fused_poisson_hist_binblocked": "fused_binblocked"}
     for name, (kernel, plain_fn, nbytes, weights, shape) in runs.items():
         ms = time_ms(torch, kernel, 5)
+        alone_ms = launch_ms(torch, kernel, libs[name], 5)
         plain_ms = time_ms(torch, plain_fn, 1)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = weights * OPS_PER_WEIGHT / INT32_OPS_PER_S * 1e3
@@ -2160,8 +2289,9 @@ def stream_rows(torch, launches, parity: Parity):
             max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None, shape=shape))
-        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+            library_ms=None, launch_ms=alone_ms, shape=shape))
+        print(f"timing {name}: {ms:.4f} ms (the kernel alone {alone_ms:.4f} "
+              f"ms; plain {plain_ms:.2f} ms, bound "
               f"{max(t_bytes, t_ops):.4f} ms by {rows[-1]['bound_by']}) at "
               f"{shape}")
     # kernel 2 beside kernel 5, in turns, in this call
@@ -2173,8 +2303,9 @@ def stream_rows(torch, launches, parity: Parity):
     ms5 = time_ms(torch, lambda: fused_poisson_moments(seed, xq, B,
                                                        stream=True), 5)
     print(f"timing at the streamed chunk (B={B}, n={ST_CHUNK}, d={ST_D}): "
-          f"kernel 2 {ms2:.4f} ms, kernel 5 {ms5:.4f} ms; kernel 7's "
-          f"{windows} windows draw each weight {windows} times")
+          f"kernel 2 {ms2:.4f} ms, kernel 5 {ms5:.4f} ms; kernel 7 walks "
+          f"{windows} windows over one draw of each weight (the design "
+          f"before drew it {windows} times)")
     return rows
 
 
@@ -2356,8 +2487,11 @@ def materialized_rows(torch, launches, parity: Parity):
             w_bytes + x_bytes + B * d * NBINS * 4, B * n),
     }
     rows = []
+    libs = {"weighted_moments": "weighted_moments",
+            "weighted_histogram": "weighted_hist"}
     for name, (kernel, plain_fn, library, nbytes, flops) in runs.items():
         ms = time_ms(torch, kernel, 10)
+        alone_ms = launch_ms(torch, kernel, libs[name], 10)
         plain_ms = time_ms(torch, plain_fn, 2)
         library_ms = time_ms(torch, library, 5)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
@@ -2367,22 +2501,60 @@ def materialized_rows(torch, launches, parity: Parity):
             max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=library_ms,
+            library_ms=library_ms, launch_ms=alone_ms,
             shape=dict(B=B, n=n, d=d,
                        nbins=NBINS if "hist" in name else None)))
-        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, library "
+        print(f"timing {name}: {ms:.4f} ms (the kernel alone {alone_ms:.4f} "
+              f"ms; plain {plain_ms:.2f} ms, library "
               f"{library_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms by "
               f"{rows[-1]['bound_by']})")
     del w, flat
     xb = torch.from_numpy(synthetic_numeric(BOOT_N, seed=7)).cuda().reshape(
         BOOT_N, 1)
-    ms = time_ms(torch, lambda: weighted_histogram(xb, None, LO, HI, NBINS),
-                 20)
+    def point():
+        return weighted_histogram(xb, None, LO, HI, NBINS)
+    ms = time_ms(torch, point, 20)
+    alone_ms = launch_ms(torch, point, "weighted_hist", 20)
     bound = (BOOT_N * 4 + NBINS * 4) / HBM_BYTES_PER_S * 1e3
+    rows[-1]["point_estimate"] = dict(n=BOOT_N, ms=ms, launch_ms=alone_ms,
+                                      bound_ms=bound)
     print(f"timing weighted_histogram at the point estimate (unit weights, "
-          f"n={BOOT_N}, nbins={NBINS}): {ms:.4f} ms (bound {bound:.4f} ms by "
-          f"bytes)")
+          f"n={BOOT_N}, nbins={NBINS}): {ms:.4f} ms a call on CUDA events, "
+          f"the kernel alone {alone_ms:.4f} ms (launches back to back; the "
+          f"rest is the wrapper's host time between calls) (bound "
+          f"{bound:.4f} ms by bytes)")
     return rows
+
+
+def launch_ms(torch, fn, lib: str, reps: int) -> float:
+    """Mean ms of one launch of ``earl_<lib>``, alone: ``fn`` runs once,
+    and inside its own launch (its temporaries alive) the kernel is
+    launched ``reps`` more times back to back between CUDA events, after
+    one warm-up.  No wrapper work runs between them, and the extra
+    launches add nothing to any count."""
+    from repro_torch.kernels import _build
+    orig, times = _build.launch, []
+
+    def launch(name, *args):
+        orig(name, *args)
+        if name != lib:
+            return
+        orig(name, *args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            orig(name, *args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    _build.launch = launch
+    try:
+        fn()
+    finally:
+        _build.launch = orig
+    check(len(times) == 1, f"{lib} launched {len(times)} times in one call")
+    return times[0]
 
 
 def phase_timing(torch, launches, parity: Parity, quickstart):
@@ -3109,6 +3281,8 @@ def main() -> int:
                                        "spill", "wgmma")):
                 print(f"ptxas {lib}: {line.split(':', 1)[-1].strip()}")
     check_no_spills(logs.get("flash_attention", ""), "attention_tc")
+    check_no_spills(logs.get("fused_binblocked", ""), "binblocked_kernel")
+    check_no_spills(logs.get("weighted_hist", ""), "hist_kernel")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

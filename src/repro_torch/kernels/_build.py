@@ -60,13 +60,13 @@ SIGNATURES: Dict[str, tuple] = {
                          VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
                          VOID_P),
     "weighted_hist": (INT, INT, INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, INT,
-                      INT, INT, INT, VOID_P, VOID_P),
+                      INT, INT, INT, INT, INT, VOID_P, VOID_P),
     "fused_stream": (INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P, INT,
                      INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
                      VOID_P),
     "fused_binblocked": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P,
                          VOID_P, VOID_P, INT, VOID_P, VOID_P, INT, INT, INT,
-                         INT, VOID_P, VOID_P),
+                         INT, INT, VOID_P, VOID_P),
     "flash_attention": (INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, INT,
                         INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P),
 }

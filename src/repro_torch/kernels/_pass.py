@@ -7,7 +7,7 @@ runs are bitwise equal.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -64,26 +64,88 @@ def hist_rows(hist_total: int, tiles_per_cta: int) -> int:
     return int(rows)
 
 
-def binblocked_geometry(Bp: int, np_: int, bn: int, total: int,
-                        block_bins: int) -> Tuple[int, int, int, int]:
-    """(width, rows, tiles_per_cta, ranges) of an output-tiled histogram
-    pass (csrc/fused_binblocked.cu) over ``total`` bins a row.
+#: Rows of W a kernel 7 CTA keeps (kCacheRows in csrc/fused_binblocked.cu):
+#: a 4-column group of them is one 16-byte word of its weight cache.
+BINBLOCKED_ROWS = 4
+#: Largest thread block cluster of kernel 7: an H100 keeps 66 clusters of
+#: 2 CTAs (one an SM) resident, but only 30 of 4.
+MAX_CLUSTER = 2
+#: CTAs kernel 7 aims for: one an SM of a 132-SM H100, as its weight cache
+#: fills an SM's shared memory at the streamed Quantile's shape.
+BINBLOCKED_CTAS = 132
+#: Static shared memory of a kernel 7 CTA (its cluster's mask flag, as
+#: ptxas reports it), beside the dynamic part ``BinBlocked.smem_bytes``.
+BINBLOCKED_STATIC_SMEM = 16
 
-    A window is ``block_bins`` bins wide, cut to the row and to what one
-    row of W fits in shared memory beside the largest key table; a CTA
-    keeps up to MAX_ROWS rows of it.  The ranges aim for TARGET_CTAS CTAs
-    over rows and windows together, and every weight is hashed once per
-    window its column has a value in, whatever the ranges."""
-    free = SMEM_BYTES - 16 * MAX_TILES_PER_CTA - 64
-    width = max(1, min(int(block_bins), total, free // 4))
-    rows = min(MAX_ROWS, free // (4 * width))
-    windows = -(-total // width)
+
+def _align16(v: int) -> int:
+    return v + (-v) % 16
+
+
+class BinBlocked(NamedTuple):
+    """Launch geometry of kernel 7 (csrc/fused_binblocked.cu).
+
+    Grid: x = ranges · cluster CTAs (a cluster of ``cluster`` CTAs for
+    each column range), y = blocks of ``rows`` rows of W.  CTA ``rank`` of
+    the cluster of range ``i`` draws the weights of its rows on RNG
+    n-tiles ``tiles(i, rank, nt)`` once, into its shared weight cache;
+    after a cluster barrier it walks windows ``windows_of(rank)`` over the
+    cluster's columns, reading its peer's cache through distributed
+    shared memory."""
+    width: int           # bins a window
+    rows: int            # rows of W a CTA
+    tiles_per_cta: int   # RNG n-tiles whose weights a CTA caches
+    cluster: int         # CTAs a cluster
+    ranges: int          # column ranges, one cluster each
+    windows: int         # windows a row
+
+    def tiles(self, i: int, rank: int, nt: int) -> Tuple[int, int]:
+        t0 = min((i * self.cluster + rank) * self.tiles_per_cta, nt)
+        return t0, min(t0 + self.tiles_per_cta, nt)
+
+    def windows_of(self, rank: int) -> range:
+        return range(rank, self.windows, self.cluster)
+
+    def smem_bytes(self, bn: int) -> int:
+        """Bins, then the weight cache (a 16-byte word of 4 rows for every
+        4 columns), then two tile keys an n-tile."""
+        return (_align16(4 * self.rows * self.width)
+                + 16 * -(-self.tiles_per_cta * bn // 4)
+                + 16 * self.tiles_per_cta)
+
+
+def binblocked_geometry(Bp: int, np_: int, bn: int, total: int,
+                        block_bins: int) -> BinBlocked:
+    """Geometry of an output-tiled histogram pass (kernel 7) over ``total``
+    bins a row, for a (Bp, np_) implicit W cut into RNG tiles bn columns
+    wide.
+
+    A window is ``block_bins`` bins wide, cut to the row and to what fits
+    beside one n-tile's cache; a CTA keeps up to BINBLOCKED_ROWS rows of
+    it.  Each weight is drawn once, by the one CTA whose cache holds its
+    column; the cache limits the columns a cluster covers, so the ranges
+    are the fewest the largest cluster allows, and the cluster the
+    smallest that reaches them.  Only a grid below one CTA an SM takes
+    more ranges.  Every range adds one flush of the row's bins into the
+    output."""
     nt = np_ // bn
-    blocks = -(-Bp // rows) * windows
-    ranges = min(nt, max(-(-TARGET_CTAS // blocks),
-                         -(-nt // MAX_TILES_PER_CTA)))
-    tpc = -(-nt // ranges)
-    return width, rows, tpc, -(-nt // tpc)
+    tile = 16 + 16 * -(-bn // 4)
+    free = SMEM_BYTES - BINBLOCKED_STATIC_SMEM
+    room = free - 16 - tile
+    width = max(1, min(int(block_bins), total, room // 4))
+    rows = min(BINBLOCKED_ROWS, room // (4 * width))
+    tpc_max = (free - _align16(4 * rows * width)) // tile
+    windows = -(-total // width)
+    sizes = [c for c in range(1, MAX_CLUSTER + 1)
+             if c == 1 or c <= min(windows, nt)]
+    fewest = -(-nt // (sizes[-1] * tpc_max))
+    cluster = next(c for c in sizes if -(-nt // (c * tpc_max)) == fewest)
+    rowblocks = -(-Bp // rows)
+    ranges = max(fewest, min(nt // cluster,
+                             BINBLOCKED_CTAS // (rowblocks * cluster)))
+    tpc = -(-nt // (ranges * cluster))
+    return BinBlocked(width, rows, tpc, cluster,
+                      -(-nt // (cluster * tpc)), windows)
 
 
 def _pow2_at_least(v: int) -> int:

@@ -28,28 +28,16 @@ __device__ __forceinline__ int bin_index(float x, float lo, float hi,
   return min(max(i, 0), nbins - 1);
 }
 
-// Adds a CTA's window of bins (rows x len floats in shared memory) into
-// the output at rows r0.., columns col0.. of a row `stride` floats long;
-// empty bins are skipped.
-__device__ __forceinline__ void flush_window(const float* bins, int rows,
-                                             int len, float* out, int stride,
-                                             int r0, int col0) {
-  for (int e = threadIdx.x; e < rows * len; e += blockDim.x) {
-    const float v = bins[e];
-    if (v != 0.f) {
-      const int r = e / len;
-      atomicAdd(out + static_cast<int64_t>(r0 + r) * stride + col0 +
-                    (e - r * len),
-                v);
-    }
-  }
-}
-
 // Adds a CTA's bins (rows x total floats in shared memory) into the
 // output rows starting at row r0; empty bins are skipped.
 __device__ __forceinline__ void flush_bins(const float* bins, int rows,
                                            int total, float* out, int r0) {
-  flush_window(bins, rows, total, out, total, r0, 0);
+  for (int e = threadIdx.x; e < rows * total; e += blockDim.x) {
+    const float v = bins[e];
+    if (v != 0.f) {
+      atomicAdd(out + static_cast<int64_t>(r0) * total + e, v);
+    }
+  }
 }
 
 }  // namespace earl

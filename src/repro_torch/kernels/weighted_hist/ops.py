@@ -4,9 +4,10 @@
 weight vector (``Quantile.update``), or (R, d, nbins) under R rows of an
 explicit weight matrix (the materialized engines).  A CUDA tensor launches
 the hand-written kernel 10 (csrc/weighted_hist.cu, replacing the TPU
-kernel repro/kernels/weighted_hist/kernel.py: weighted_hist_kernel) or
-raises; a CPU tensor runs the plain version, a batched
-``weighted_hist_scatter_ref``.
+kernel repro/kernels/weighted_hist/kernel.py: weighted_hist_kernel), which
+streams W with 16-byte loads around each row's scalar head and tail and
+adds whole-number weights with u32 shared atomics, or raises; a CPU tensor
+runs the plain version, a batched ``weighted_hist_scatter_ref``.
 
 ``fused_poisson_hist`` gives B per-resample (d, nbins) histograms under
 the shared implicit Poisson(1) weights, and with ``group_ids`` (GROUP BY)
@@ -15,21 +16,21 @@ kernel (csrc/fused_pass.cu without moments, replacing the TPU kernel
 repro/kernels/weighted_hist/kernel.py: fused_poisson_hist_kernel; keyed,
 the histogram pass of csrc/fused_grouped.cu, for which the reference has
 no TPU kernel; with ``block_bins``, keyed or not, the output-tiled kernel 7
-of csrc/fused_binblocked.cu, replacing fused_poisson_hist_binblocked_kernel)
-or raises; a CPU tensor runs the plain version, the JAX package's scatter
-scan tile by tile.  Counts are sums of small integer weights, exact in
-f32, so the two agree bit for bit.
+of csrc/fused_binblocked.cu, replacing fused_poisson_hist_binblocked_kernel,
+which draws each weight once into a shared cache and walks the bin windows
+over it) or raises; a CPU tensor runs the plain version, the JAX package's
+scatter scan tile by tile.  Counts are sums of small integer weights,
+exact in f32, so the two agree bit for bit.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._pass import (MAX_ROWS, SMEM_BYTES,
-                                       binblocked_geometry, check_cuda_f32,
-                                       explicit_geometry, hist_rows,
+from repro_torch.kernels._pass import (SMEM_BYTES, binblocked_geometry,
+                                       check_cuda_f32, hist_rows,
                                        pass_geometry, stream_ptr)
 from repro_torch.kernels.weighted_hist.ref import (_bin_indices,
                                                    finite_mass_mask)
@@ -78,15 +79,76 @@ def weighted_hist_plain(x: torch.Tensor, w, lo: torch.Tensor,
     return counts.reshape(w.shape[0], d, nbins)
 
 
+#: Threads of a kernel 10 CTA with W (csrc/weighted_hist.cu), each with a
+#: shared slot of 9 u32 bin indices for the 7 columns its 4-column group
+#: of each row can reach.
+HIST_THREADS = 512
+HIST_SLOT_BYTES = 4 * 9 * HIST_THREADS
+#: Rows of W a kernel 10 CTA takes at most (kHistRows).
+HIST_ROWS = 4
+#: CTAs kernel 10 aims for on a 132-SM H100: two an SM with W; four an SM
+#: for unit weights, each warp of 8 adding into one of 4 private copies
+#: of the bins (measured faster than 8 copies at two an SM).
+HIST_CTAS, UNIT_CTAS, HIST_COPIES = 264, 528, 4
+
+
 def hist_dims(R: int, d: int, nbins: int) -> int:
     """Dimensions a CTA of kernel 10 bins: all d while one row's d·nbins
-    bins fit in shared memory, else as many as fit beside min(8, R) rows
-    (grid z covers the rest)."""
-    row = (SMEM_BYTES - 64) // 4
-    if d * nbins <= row:
+    f32 bins fit in shared memory beside the threads' bin slots, else as
+    many as fit beside min(HIST_ROWS, R) rows (grid z covers the rest)."""
+    room = SMEM_BYTES - 64 - HIST_SLOT_BYTES
+    if d * 4 * nbins <= room:
         return d
-    hist_rows(nbins, 0)       # raises when one dimension's bins do not fit
-    return max(1, min(d, row // (nbins * min(MAX_ROWS, max(R, 1)))))
+    # raises when one dimension's bins do not fit
+    hist_rows(nbins + HIST_SLOT_BYTES // 4, 0)
+    return max(1, min(d, room // (4 * nbins * min(HIST_ROWS, max(R, 1)))))
+
+
+def aligned_split(length: int, phase: int) -> Tuple[int, int]:
+    """(head, groups) of a row of ``length`` floats whose first lies
+    ``phase`` floats past a 16-byte boundary: ``head`` floats read one at
+    a time, then ``groups`` 16-byte groups of 4; the tail is the rest."""
+    head = min((4 - phase) % 4, length)
+    return head, (length - head) // 4
+
+
+class HistGeometry(NamedTuple):
+    """Launch geometry of kernel 10.  Grid: x = ``ranges`` ranges of
+    ``groups`` 4-column groups (range i: groups [i·groups, (i+1)·groups) of
+    each row; the first range also takes every row's head, the last its
+    tail), y = blocks of ``rows`` rows of W, z = chunks of ``dc``
+    dimensions.  With W, ``whole_bins`` keeps u32 bins for whole-number
+    weights beside the f32 ones where both fit.  Unit weights stream the
+    flat n·d values of x the same way, one row, into ``copies`` private
+    histograms."""
+    dc: int
+    rows: int
+    groups: int
+    ranges: int
+    copies: int
+    whole_bins: bool
+
+
+def hist_geometry(R: int, n: int, d: int, nbins: int,
+                  unit: bool) -> HistGeometry:
+    dc = hist_dims(R, d, nbins)
+    room = SMEM_BYTES - 64
+    if unit:
+        rows, copies, whole, target = 1, min(
+            HIST_COPIES, room // (4 * dc * nbins)), False, UNIT_CTAS
+        groups = n * d // 4
+    else:
+        def fit(sets):
+            return (room - HIST_SLOT_BYTES) // (4 * sets * dc * nbins)
+        whole = fit(2) >= 1
+        rows = min(HIST_ROWS, max(R, 1), fit(2 if whole else 1))
+        copies, target, groups = 1, HIST_CTAS, n // 4
+    blocks = -(-max(R, 1) // rows) * -(-d // dc)
+    ranges = max(1, min(-(-groups // HIST_THREADS), target // blocks))
+    per = -(-groups // ranges)
+    per = max(HIST_THREADS, per + (-per) % HIST_THREADS)
+    return HistGeometry(dc, rows, per, max(1, -(-groups // per)), copies,
+                        whole)
 
 
 def weighted_hist_cuda(x: torch.Tensor, w, lo: torch.Tensor,
@@ -97,17 +159,16 @@ def weighted_hist_cuda(x: torch.Tensor, w, lo: torch.Tensor,
         check_cuda_f32("weights", w)
     n, d = x.shape
     R = 1 if w is None else w.shape[0]
-    dc = hist_dims(R, d, nbins)
-    rows = min(hist_rows(dc * nbins, 0), MAX_ROWS, max(R, 1))
     out = torch.zeros(R, d * nbins, dtype=torch.float32, device=x.device)
     if R == 0 or n == 0:
         return out.reshape(R, d, nbins)
-    cols, ranges = explicit_geometry(R, n, rows)
+    geo = hist_geometry(R, n, d, nbins, w is None)
     lo_t, hi_t = to_card(lo, x.device), to_card(hi, x.device)
     weighted_histogram.launches += 1
     _build.launch("weighted_hist", R, n, d, nbins, x.data_ptr(),
                   None if w is None else w.data_ptr(), lo_t.data_ptr(),
-                  hi_t.data_ptr(), dc, rows, cols, ranges, out.data_ptr(),
+                  hi_t.data_ptr(), geo.dc, geo.rows, geo.groups, geo.ranges,
+                  geo.copies, int(geo.whole_bins), out.data_ptr(),
                   stream_ptr(x.device))
     return out.reshape(R, d, nbins)
 
@@ -137,7 +198,8 @@ def weighted_histogram(values: torch.Tensor, weights, lo, hi,
                              f"values {tuple(x.shape)}: expected (n,) or "
                              "(R, n)")
         w = (w[None] if w.ndim == 1 else w).contiguous()
-    lo_v, hi_v = range_vector(lo, d), range_vector(hi, d)
+    card = x.device if x.device.type == "cuda" else None
+    lo_v, hi_v = range_vector(lo, d, card), range_vector(hi, d, card)
     if x.device.type == "cuda":
         counts = weighted_hist_cuda(x, w, lo_v, hi_v, int(nbins))
     else:
@@ -246,17 +308,22 @@ def binblocked_cuda(pr: Prepared, seed: int, lo: torch.Tensor,
     if pr.gp is not None:
         check_cuda_f32("group_ids", pr.gp)
     total = G * pr.d * nbins
-    width, rows, tpc, ranges = binblocked_geometry(pr.Bp, pr.np_, pr.bn,
-                                                   total, block_bins)
-    # one dimension a row, so a window's values are read coalesced
+    geo = binblocked_geometry(pr.Bp, pr.np_, pr.bn, total, block_bins)
+    # one dimension a row, so a window's values are read coalesced, on a
+    # 16-byte boundary for the kernel's 16-byte loads
     xt = pr.xp.t().contiguous()
+    if xt.data_ptr() % 16:
+        xt = xt.clone()
     lo_t, hi_t = to_card(lo, pr.device), to_card(hi, pr.device)
-    out = torch.zeros(pr.Bp, total, dtype=torch.float32, device=pr.device)
+    # one range stores every bin; more ranges add into zeros
+    make = torch.empty if geo.ranges == 1 else torch.zeros
+    out = make(pr.Bp, total, dtype=torch.float32, device=pr.device)
     binblocked_cuda.launches += 1
     _build.launch("fused_binblocked", int(seed), pr.n_valid, pr.Bp, pr.np_,
                   pr.bb, pr.bn, pr.d, G, xt.data_ptr(), mask_ptr(pr),
                   None if pr.gp is None else pr.gp.data_ptr(), nbins,
-                  lo_t.data_ptr(), hi_t.data_ptr(), width, rows, tpc, ranges,
+                  lo_t.data_ptr(), hi_t.data_ptr(), geo.width, geo.rows,
+                  geo.tiles_per_cta, geo.cluster, geo.ranges,
                   out.data_ptr(), stream_ptr(pr.device))
     shape = (pr.Bp, pr.d, nbins) if pr.gp is None else (pr.Bp, G, pr.d,
                                                          nbins)
@@ -266,10 +333,14 @@ def binblocked_cuda(pr: Prepared, seed: int, lo: torch.Tensor,
 binblocked_cuda.launches = 0
 
 
-def range_vector(v, d: int) -> torch.Tensor:
+def range_vector(v, d: int, device=None) -> torch.Tensor:
     """A scalar or (d,) bin edge as a (d,) f32 tensor, on the device of
-    ``v`` when it is a tensor, else on the host."""
-    return torch.as_tensor(v, dtype=torch.float32).expand(d).contiguous()
+    ``v`` when it is a tensor; a Python scalar is filled in on ``device``
+    (no host copy to wait for), else on the host."""
+    t = torch.as_tensor(v, dtype=torch.float32)
+    if device is not None and not isinstance(v, torch.Tensor) and t.ndim == 0:
+        return torch.full((d,), float(t), dtype=torch.float32, device=device)
+    return t.expand(d).contiguous()
 
 
 def fused_poisson_hist(seed: int, values: torch.Tensor, lo, hi, nbins: int,
@@ -283,12 +354,14 @@ def fused_poisson_hist(seed: int, values: torch.Tensor, lo, hi, nbins: int,
 
     ``block_bins`` tiles the flat bin axis of a row ((G·)d·nbins) into
     windows of at most that many bins: on the card it runs the
-    output-tiled kernel 7, which keeps one window of a block of rows in
-    shared memory and draws the weights again for each window, the knob
-    for a sketch whose row does not fit in an SM.  It changes no count.
-    As in the JAX package's scan lowering, a CPU tensor ignores it."""
+    output-tiled kernel 7, which draws each weight of a block of rows once
+    into shared memory and then keeps one window of their bins there at a
+    time, the knob for a sketch whose row does not fit in an SM.  It
+    changes no count.  As in the JAX package's scan lowering, a CPU tensor
+    ignores it."""
     pr = prepare(values, B, n_valid, valid_mask, group_ids, num_groups)
-    lo_v, hi_v = range_vector(lo, pr.d), range_vector(hi, pr.d)
+    card = pr.device if pr.device.type == "cuda" else None
+    lo_v, hi_v = range_vector(lo, pr.d, card), range_vector(hi, pr.d, card)
     nbins = int(nbins)
     if pr.device.type == "cuda" and block_bins is not None:
         counts = binblocked_cuda(pr, seed, lo_v, hi_v, nbins,

@@ -14,10 +14,13 @@ members bitwise equal to the dedicated kernels; keyed (GROUP BY) slots
 bitwise equal to the dedicated kernels masked to their key.  The explicit-
 weight kernels: weighted_moments' w_tot bitwise and s1/s2 within
 1e-5·Σw|x| (and Σw·x²); weighted_histogram's counts of whole-number
-weights bitwise, an (R, n) call bitwise R one-row calls, and fractional
-weights within 1e-6·Σ|w| of the row a bin.  The streaming slice: the
-output-tiled histogram (block_bins, kernel 7) bitwise the plain version,
-keyed too; the double-buffered moments (stream=True, kernel 5) bitwise
+weights bitwise (repeat launches too, all values in one bin, n off a
+multiple of 4, and W a row slice off a 16-byte boundary), an (R, n) call
+bitwise R one-row calls, and fractional weights within 1e-6·Σ|w| of the
+row a bin.  The streaming slice: the output-tiled histogram (block_bins,
+kernel 7) bitwise the plain version, keyed too, over one column range and
+several, with n_valid, and within 1e-6 of the row's mass under a mask
+value of 0.5; the double-buffered moments (stream=True, kernel 5) bitwise
 kernel 2 on aligned and misaligned x; a streamed bootstrap on the card
 bitwise bootstrap_chunked.  The serving slice: flash attention (kernel
 12) against its plain version, f32 within atol 2e-5 and rtol 1e-4, bf16
@@ -272,7 +275,12 @@ def test_cuda_weighted_moments_match_plain(cuda, B, n, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,n,d,nbins", [(1, 5000, 1, 256),
-                                         (256, (1 << 16) + 37, 4, 2048)])
+                                         (256, (1 << 16) + 37, 4, 2048),
+                                         # n = 1, 2, 3 (mod 4): rows of W
+                                         # start off 16-byte boundaries
+                                         (7, 4097, 1, 2048),
+                                         (256, 4098, 2, 256),
+                                         (3, 4099, 1, 2048)])
 def test_cuda_weighted_histogram_matches_plain(cuda, R, n, d, nbins):
     rng = np.random.default_rng(R + n)
     x = rng.normal(0.0, 1.5, size=(n, d)).astype(np.float32)
@@ -284,6 +292,8 @@ def test_cuda_weighted_histogram_matches_plain(cuda, R, n, d, nbins):
     assert got.shape == (R, d, nbins)
     assert torch.equal(got.cpu(), twh.weighted_histogram(xt, wt, LO, HI,
                                                          nbins))
+    # repeat launches give the same bits
+    assert torch.equal(got, twh.weighted_histogram(xc, wc, LO, HI, nbins))
     for r in (0, R - 1):
         assert torch.equal(got[r], twh.weighted_histogram(xc, wc[r], LO, HI,
                                                           nbins))
@@ -299,14 +309,56 @@ def test_cuda_weighted_histogram_matches_plain(cuda, R, n, d, nbins):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n,d,G,nbins,block_bins", [
-    (100, 1000, 1, None, NBINS, 16), (256, (1 << 16) + 37, 4, None, 2048,
-                                      512),
-    (64, 20_000, 4, 8, 2048, 2048)])
+@pytest.mark.parametrize("R", [1, 256])
+def test_cuda_weighted_histogram_all_in_one_bin(cuda, R):
+    """Every value in one bin: the most contended adds, bitwise."""
+    n = (1 << 18) + 3
+    x = torch.full((n, 1), 0.25, device=cuda)
+    w = torch.from_numpy(np.random.default_rng(R).poisson(
+        1.0, size=(R, n)).astype(np.float32)).to(cuda)
+    got = twh.weighted_histogram(x, w, LO, HI, 2048)
+    assert torch.equal(got.cpu(), twh.weighted_histogram(
+        x.cpu(), w.cpu(), LO, HI, 2048))
+    assert torch.equal(got.sum(dim=(1, 2)), w.sum(1))
+    ones = twh.weighted_histogram(x, None, LO, HI, 2048)
+    assert float(ones.sum()) == n and int((ones != 0).sum()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_weighted_histogram_misaligned_rows(cuda, offset):
+    """W a row slice whose base is not 16-byte aligned: handled, every
+    row read from its own offset, bitwise the plain version."""
+    R, n = 9, 10_001
+    rng = np.random.default_rng(offset)
+    x = torch.from_numpy(rng.normal(0.0, 1.5, size=(n, 1)).astype(
+        np.float32)).to(cuda)
+    big = torch.from_numpy(rng.poisson(1.0, size=R * n + 8).astype(
+        np.float32)).to(cuda)
+    w = big[offset:offset + R * n].reshape(R, n)
+    assert w.is_contiguous() and w.data_ptr() % 16 != 0
+    got = twh.weighted_histogram(x, w, LO, HI, 256)
+    assert torch.equal(got.cpu(), twh.weighted_histogram(
+        x.cpu(), w.cpu(), LO, HI, 256))
+    w1 = big[offset:offset + n]
+    assert torch.equal(twh.weighted_histogram(x, w1, LO, HI, 256).cpu(),
+                       twh.weighted_histogram(x.cpu(), w1.cpu(), LO, HI,
+                                              256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d,G,nbins,block_bins,n_valid", [
+    (100, 1000, 1, None, NBINS, 16, None), (256, (1 << 16) + 37, 4, None,
+                                            2048, 512, None),
+    (64, 20_000, 4, 8, 2048, 2048, None),
+    # several column ranges (the atomic flush), and n_valid
+    (256, (1 << 20) + 37, 64, None, 2048, 2048, None),
+    (100, 30_000, 2, None, 2048, 2048, 29_000)])
 def test_cuda_binblocked_hist_matches_plain(cuda, B, n, d, G, nbins,
-                                            block_bins):
+                                            block_bins, n_valid):
     """Kernel 7 (block_bins): counts bitwise the plain version, keyed past
-    the keyed histogram's shared-memory limit too."""
+    the keyed histogram's shared-memory limit too, with one column range
+    (plain stores) and several (global atomics)."""
     rng = np.random.default_rng(B + n + d)
     x = rng.normal(0.0, 1.5, size=(n, d)).astype(np.float32)
     x[:4, 0] = [np.nan, np.inf, -np.inf, 10 * HI]
@@ -315,16 +367,42 @@ def test_cuda_binblocked_hist_matches_plain(cuda, B, n, d, G, nbins,
     if G is not None:
         kw = dict(group_ids=torch.from_numpy(
             rng.integers(0, G, size=n).astype(np.float32)), num_groups=G)
+    kwc = {k: v.to(cuda) if torch.is_tensor(v) else v for k, v in kw.items()}
+    xc = torch.from_numpy(x).to(cuda)
     for m in (None, torch.from_numpy(mask)):
         got = twh.fused_poisson_hist(
-            11, torch.from_numpy(x).to(cuda), LO, HI, nbins, B,
+            11, xc, LO, HI, nbins, B, n_valid=n_valid,
             valid_mask=None if m is None else m.to(cuda),
-            block_bins=block_bins,
-            **{k: v.to(cuda) if torch.is_tensor(v) else v
-               for k, v in kw.items()})
-        want = twh.fused_poisson_hist(11, torch.from_numpy(x), LO, HI, nbins,
-                                      B, valid_mask=m, **kw)
-        assert torch.equal(got.cpu(), want)
+            block_bins=block_bins, **kwc)
+        # the plain version on the card: the CPU's takes minutes at 2^20
+        pr = tws.prepare(xc, B, n_valid=n_valid,
+                         valid_mask=None if m is None else m.to(cuda), **kwc)
+        lo = torch.full((d,), LO, device=cuda)
+        hi = torch.full((d,), HI, device=cuda)
+        run = twh.grouped_hist_plain if G is not None else twh.hist_plain
+        assert torch.equal(got, run(pr, 11, lo, hi, nbins)[:B])
+
+
+@pytest.mark.cuda
+def test_cuda_binblocked_hist_fractional_mask(cuda):
+    """A mask value other than 0 or 1 makes the weights fractional: kernel
+    7 then adds weight × mask as f32, within 1e-6 of the row's mass a bin
+    of the plain version."""
+    B, n, d = 64, 30_000, 2
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(0.0, 1.5, size=(n, d)).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.choice(
+        np.array([0.0, 1.0, 0.5], np.float32), size=n)).to(cuda)
+    got = twh.fused_poisson_hist(3, x, LO, HI, 2048, B, valid_mask=mask,
+                                 block_bins=2048)
+    lo = torch.full((d,), LO, device=cuda)
+    hi = torch.full((d,), HI, device=cuda)
+    want = twh.hist_plain(tws.prepare(x, B, valid_mask=mask), 3, lo, hi,
+                          2048)[:B]
+    bound = 1e-6 * want.double().sum(dim=(1, 2))[:, None, None]
+    assert bool(((got.double() - want.double()).abs() <= bound).all())
+    assert not torch.equal(got, got.round())
 
 
 @pytest.mark.cuda

@@ -314,18 +314,106 @@ def test_fused_moments_stream_matches_jax(B, n, d, mask_kind):
 
 
 @pytest.mark.parametrize("Bp,np_,total,block_bins", [
+    # the streamed Quantile's chunk: B = 256, n = 65,536, d = 64
     (256, 65536, 64 * 2048, 2048), (256, (1 << 20) + 475, 2048, 128),
-    (8, 512, 8 * 4 * 2048, 1 << 20), (16, 128, 7, 3)])
+    (8, 512, 8 * 4 * 2048, 1 << 20), (16, 128, 7, 3),
+    # n = 2^20 + 475 at d = 64 (several column ranges), keyed G = 8, d = 4,
+    # and B = 100 (a row block past the last whole 8)
+    (256, 2049 * 512, 64 * 2048, 2048), (256, 65536 + 512, 8 * 4 * 2048,
+                                         2048),
+    (100, 1024, 4 * 2048, 512)])
 def test_binblocked_geometry(Bp, np_, total, block_bins):
-    """Kernel 7's windows: at most block_bins wide, whole RNG tiles a
-    range, and a CTA's window and key table within an SM's shared
-    memory."""
-    from repro_torch.kernels._pass import (MAX_ROWS, MAX_TILES_PER_CTA,
-                                           SMEM_BYTES, binblocked_geometry)
+    """Kernel 7's geometry: each (row, column) weight is drawn by exactly
+    one CTA of one range; every window of every row block is walked once
+    per range, by one CTA of its cluster; a CTA's bins, weight cache and
+    keys fit in an SM's shared memory; a cluster has at most 8 CTAs."""
+    from repro_torch.kernels._pass import (BINBLOCKED_ROWS,
+                                           BINBLOCKED_STATIC_SMEM,
+                                           MAX_CLUSTER, SMEM_BYTES,
+                                           binblocked_geometry)
     bn = 512 if np_ >= 512 else np_
-    width, rows, tpc, ranges = binblocked_geometry(Bp, np_, bn, total,
-                                                   block_bins)
-    assert 1 <= width <= min(block_bins, total) and 1 <= rows <= MAX_ROWS
-    assert 16 * tpc + 4 * rows * width <= SMEM_BYTES
-    assert tpc <= MAX_TILES_PER_CTA and (ranges - 1) * tpc < np_ // bn
-    assert ranges * tpc >= np_ // bn
+    nt = np_ // bn
+    geo = binblocked_geometry(Bp, np_, bn, total, block_bins)
+    assert 1 <= geo.width <= min(block_bins, total)
+    assert 1 <= geo.rows <= BINBLOCKED_ROWS
+    assert geo.cluster in (1, 2, 4, 8) and geo.cluster <= MAX_CLUSTER <= 8
+    assert geo.windows == -(-total // geo.width)
+    assert geo.smem_bytes(bn) + BINBLOCKED_STATIC_SMEM <= SMEM_BYTES
+    # columns: the CTAs of all clusters cover every n-tile exactly once
+    drawn = np.zeros(nt, np.int64)
+    for i in range(geo.ranges):
+        for rank in range(geo.cluster):
+            t0, t1 = geo.tiles(i, rank, nt)
+            assert 0 <= t0 <= t1 <= nt and t1 - t0 <= geo.tiles_per_cta
+            drawn[t0:t1] += 1
+    assert (drawn == 1).all()
+    # rows: the row blocks cover every row exactly once (grid y)
+    rowblocks = -(-Bp // geo.rows)
+    assert (rowblocks - 1) * geo.rows < Bp <= rowblocks * geo.rows
+    # windows: the ranks of a cluster walk every window once
+    walked = np.zeros(geo.windows, np.int64)
+    for rank in range(geo.cluster):
+        walked[list(geo.windows_of(rank))] += 1
+    assert (walked == 1).all()
+    if (Bp, np_, total) == (256, 65536, 64 * 2048):
+        # the table's shape: one range of 64 row blocks x 2 CTAs, so each
+        # weight is hashed once where the earlier design hashed it 64 times
+        assert (geo.ranges, geo.cluster, rowblocks) == (1, 2, 64)
+
+
+def test_poisson_weight_fits_the_byte_cache():
+    """Kernel 7 caches a weight in one byte: the count of Poisson(1) rungs
+    below u is at most 10, which a byte (and a nibble) holds."""
+    assert len(POISSON_CDF_F32) == 10
+    assert len(POISSON_CDF_F32) <= 15 < 255
+    w = tws.implicit_weights(12345, 64, 4096, device="cpu")
+    assert float(w.max()) <= len(POISSON_CDF_F32)
+    assert bool((w == w.round()).all())
+
+
+@pytest.mark.parametrize("n", [4096, 4097, 4098, 4099, (1 << 20) + 37])
+@pytest.mark.parametrize("R", [1, 7, 256])
+def test_weighted_hist_aligned_split(n, R):
+    """Kernel 10 reads each row of W as a scalar head, 16-byte groups split
+    over the ranges, and a scalar tail: every column of every row is read
+    exactly once, whatever the row's offset from a 16-byte boundary (rows
+    start r·n floats apart; the base itself may be any float off)."""
+    geo = twh.hist_geometry(R, n, 1, 2048, unit=False)
+    assert geo.ranges * geo.groups >= n // 4
+    for base in range(4):
+        for r in range(min(R, 9)):
+            head, groups = twh.aligned_split(n, (base + r * n) % 4)
+            seen = np.zeros(n, np.int64)
+            seen[:head] += 1                          # first range
+            for i in range(geo.ranges):
+                lo = i * geo.groups
+                hi = min(lo + geo.groups, n // 4, groups)
+                for g in range(lo, max(lo, hi)):
+                    seen[head + 4 * g:head + 4 * g + 4] += 1
+            seen[head + 4 * groups:] += 1             # last range
+            assert (seen == 1).all(), (base, r)
+
+
+@pytest.mark.parametrize("R,n,d,nbins,unit", [
+    (256, (1 << 20) + 37, 1, 2048, False), (1, (1 << 24) - 1000, 1, 2048,
+                                            True),
+    (256, 5000, 4, 2048, False), (1, 5000, 4, 256, True),
+    (8, 1000, 3, 30000, False)])
+def test_weighted_hist_geometry_fits(R, n, d, nbins, unit):
+    """Kernel 10's shared memory (the bins of its rows, u32 and f32 where
+    both fit, and the threads' bin slots, or the unit path's private
+    histograms) within an SM's."""
+    from repro_torch.kernels._pass import MAX_ROWS, SMEM_BYTES
+    geo = twh.hist_geometry(R, n, d, nbins, unit)
+    if unit:
+        assert geo.rows == 1 and 1 <= geo.copies <= twh.HIST_COPIES
+        assert 4 * geo.copies * geo.dc * nbins <= SMEM_BYTES
+        assert geo.ranges * geo.groups >= n * d // 4
+    else:
+        assert 1 <= geo.rows <= min(MAX_ROWS, R)
+        sets = 2 if geo.whole_bins else 1
+        assert (4 * sets * geo.rows * geo.dc * nbins
+                + twh.HIST_SLOT_BYTES) <= SMEM_BYTES
+        assert geo.ranges * geo.groups >= n // 4
+    assert geo.groups % twh.HIST_THREADS == 0
+    assert (geo.ranges - 1) * geo.groups < max(1, (n * d if unit else n) // 4)
