@@ -9,12 +9,13 @@ failure:
 
 1. build the thirteen CUDA kernels from kernels/csrc (poisson_counts.cu,
    fused_pass.cu, which holds the three fused ones, kmeans_assign.cu,
-   fused_kmeans.cu, fused_grouped.cu, which holds the two GROUP BY ones,
-   weighted_moments.cu, weighted_hist.cu, fused_stream.cu,
-   fused_binblocked.cu and flash_attention.cu; one nvcc per source, all at
-   once) and print the build seconds and ptxas's registers and spills;
-   kernel 12's tensor-core instances and kernels 7 and 10 must spill 0
-   bytes;
+   fused_kmeans.cu, fused_grouped.cu, which holds the two GROUP BY ones
+   (the keyed histogram with its index pass), weighted_moments.cu,
+   weighted_hist.cu, fused_stream.cu, fused_binblocked.cu and
+   flash_attention.cu; one nvcc per source, all at once) and print the
+   build seconds and ptxas's registers and spills; kernel 12's
+   tensor-core instances, kernels 2, 3, 4, 7 and 10 and the keyed
+   histogram must spill 0 bytes;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at B=256, n=2^20+37, with and without a
@@ -26,7 +27,11 @@ failure:
    bitwise equal to the dedicated kernels, a KMeansStep member included;
    the GROUP BY kernels at G=8, d in {1, 4}, with a key that has no rows
    and at G·(2d+1) > 128, and every keyed slot (moments, histogram,
-   k-means) bitwise equal to the dedicated kernel masked to its key; the
+   k-means) bitwise equal to the dedicated kernel masked to its key,
+   also at G = 1 and at G = 32 with uniform and skewed keys; kernels 3
+   and 4 and the keyed histogram with every value in one bin (bitwise)
+   and under a mask of 0, 1, 0.5 (and 0.25), within 1e-6 of the row's
+   mass a bin; the
    explicit-weight kernels (weighted_moments at B in {1, 7, 256}, n in
    {1, 1000, 2^20+37}, d in {1, 3, 8}; weighted_histogram at R in
    {1, 256}, d in {1, 4}, nbins in {256, 2048}, with NaN, +-inf, values
@@ -38,8 +43,9 @@ failure:
    7, block_bins in {128, 512, 2048}, d in {1, 4, 64} at nbins = 2048,
    ragged n, NaN, +-inf and values past the edges, with and without a
    mask) bitwise equal to the plain version and to the one-window kernel
-   where that fits, keyed at G = 8, d = 4 (65,536 bins a row, past the
-   keyed histogram's limit), over several column ranges (n = 2^20+37, d
+   where that fits, keyed at G = 8, d = 4 (65,536 bins a row; bitwise the
+   keyed histogram too, which raises, naming block_bins, at d = 32, past
+   one key's row of an SM), over several column ranges (n = 2^20+37, d
    = 64) and one, with n_valid, and at B = 100; the streamed
    moments (kernel 5, B in {8, 256}, n in {300, 65,536, 2^20+37}, d in
    {1, 3, 64}, aligned and misaligned x, with and without a mask) bitwise
@@ -137,9 +143,14 @@ failure:
    moments launches; kernel 5 beside kernel 2 and kernel 7 at the streamed
    Quantile's chunk shape, with kernel 7's cost terms (weights hashed and
    draws a weight, shared adds, bin_index evaluations, flush operations,
-   bytes of x, of counts and of distributed shared memory); kernels 5, 7,
-   10 and 11 also alone (launches back to back inside one wrapper call),
-   and kernel 10 at the point estimate (R = 1, unit weights); kernel 12 at the serving prefill's shape
+   bytes of x, of counts and of distributed shared memory); kernels 1 to
+   7, 10 and 11 and the keyed histogram also alone (launches back to back
+   inside one wrapper call), with the cost terms of kernels 3 and 4 and
+   of the keyed histogram (weights hashed, which must be B·n, or B times
+   the keyed columns; shared adds, bin_index evaluations, flush reads
+   and global adds; keyed, the bytes of keys and index entries read),
+   and kernel 10 at the point estimate (R = 1, unit weights); kernel 12
+   at the serving prefill's shape
    beside its plain version, its bound (4·D operations a visible
    query-key pair at the bf16 tensor-core rate, or q, k, v and o once
    over the memory rate), scaled_dot_product_attention with the boolean
@@ -271,8 +282,9 @@ ST_NS, ST_D, ST_SPLIT, ST_B, ST_CHUNK = (1 << 22, 1 << 20), 64, 65_536, \
     256, 65_536
 ST_LO, ST_HI, ST_CKPT_EVERY, ST_KILL_AFTER = -6.0, 6.0, 8, 3
 # kernel 7's parity: n for d = 64 (the others run at BIG_N) and the keyed
-# case's G, d (65,536 bins a row)
-K7_WIDE_N, K7_G, K7_GD = (1 << 16) + 37, 8, 4
+# case's G, d (65,536 bins a row); a keyed d past the keyed histogram's
+# limit (32 · 2,048 bins a key's row)
+K7_WIDE_N, K7_G, K7_GD, K7_PAST_D = (1 << 16) + 37, 8, 4, 32
 # the serving path (phase 11): h2o-danube-3-4b at full width, 4 requests
 # of 8192-token prompts (two windows) and 32 greedy decode steps; card ==
 # CPU on the model cut to one layer (1 x 256 tokens, 8 steps); EarlEval
@@ -451,7 +463,7 @@ def geometry(lib: str, args: tuple) -> tuple:
                       cluster=cluster, ranges=ranges)
     elif lib == "fused_grouped":
         (_, n_valid, Bp, np_, bb, bn, d, G, _, mask, _, dc, kg, rows, tpc,
-         ranges, part_w, _, _, _, _, _, nbins, _, _, _, _) = args
+         ranges, part_w, _, _, _, _, _, nbins, _, _, _, _, _) = args
         fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
                       G=G, masked=mask is not None, dc=dc, kg=kg, rows=rows,
                       tpc=tpc, ranges=ranges, moments=part_w is not None,
@@ -603,9 +615,45 @@ def phase_parity(torch, parity: Parity) -> None:
                    fused_poisson_hist(seed, x, LO, HI, NBINS, 8),
                    plain(hist_plain, pr, seed, lo, hi, NBINS)[:8],
                    "edge values")
+    # every value in one bin (the most contended adds), kernels 3 and 4
+    x = torch.full((BIG_N, 1), 12.5, device="cuda")
+    want = plain(hist_plain, prepare(x, BIG_B), seed, lo, hi, NBINS)[:BIG_B]
+    parity.bitwise("fused_poisson_hist",
+                   fused_poisson_hist(seed, x, LO, HI, NBINS, BIG_B), want,
+                   "all values in one bin")
+    parity.bitwise("fused_poisson_multi", fused_poisson_multi(
+        group, seed, x, BIG_B)[1].counts, want, "all values in one bin")
+    # a mask of 0.5 and 0.25 in the first columns: those CTAs add in f32,
+    # the rest in u32, within 1e-6 of the row's mass a bin
+    x = (torch.randn(BIG_N, 1, generator=gen) * 2.0 + 10.0).cuda()
+    mask = (torch.rand(BIG_N, generator=gen) > 0.3).float()
+    mask[:300_000:7] = 0.5
+    mask[1:300_000:11] = 0.25
+    mask = mask.cuda()
+    want = plain(hist_plain, prepare(x, BIG_B, valid_mask=mask), seed, lo,
+                 hi, NBINS)[:BIG_B]
+    for name, got in (
+            ("fused_poisson_hist", fused_poisson_hist(
+                seed, x, LO, HI, NBINS, BIG_B, valid_mask=mask)),
+            ("fused_poisson_multi", fused_poisson_multi(
+                group, seed, x, BIG_B, valid_mask=mask)[1].counts)):
+        hold_fractional(parity, name, got, want, "a mask of 0, 1, 0.5, 0.25")
     torch.cuda.synchronize()
     print(f"parity: all kernels match their plain versions; max |err| "
           f"{json.dumps(parity.err)}")
+
+
+def hold_fractional(parity, name, got, want, what) -> None:
+    """Counts under a mask value other than 0/1 (f32 adds in any order)
+    against the plain version: within 1e-6 of the row's mass a bin."""
+    diff = (got.double() - want.double()).abs()
+    parity.err[name] = max(parity.err[name], float(diff.max()))
+    bound = 1e-6 * want.double().sum(dim=tuple(range(1, want.ndim)))
+    check(bool((diff <= bound.reshape(-1, *[1] * (want.ndim - 1))).all()),
+          f"{name} {what}: max |err| {float(diff.max())} over 1e-6 of the "
+          f"row's mass")
+    check(not bool((got == got.round()).all()), f"{name} {what}: whole "
+          "counts")
 
 
 def km_data(torch, n: int, k: int, d: int, seed: int):
@@ -706,13 +754,14 @@ def phase_parity_kmeans(torch, parity: Parity) -> None:
           f"fused_poisson_kmeans {parity.err['fused_poisson_kmeans']}")
 
 
-def keyed_rows(n: int, d: int = 1, G: int = 8, seed: int = 8, absent=None):
-    """Rows [x (d columns), key], numpy f32: key g with frequency ∝ 2^-g
-    (none for the key ``absent``; at n = 2,000,000 and G = 8 the rarest key
-    has about 7,800 rows), x Normal(10 + key, 2)."""
+def keyed_rows(n: int, d: int = 1, G: int = 8, seed: int = 8, absent=None,
+               uniform: bool = False):
+    """Rows [x (d columns), key], numpy f32: key g with frequency ∝ 2^-g,
+    or uniform (none for the key ``absent``; at n = 2,000,000 and G = 8
+    the rarest key has about 7,800 rows), x Normal(10 + key, 2)."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    p = 2.0 ** -np.arange(G)
+    p = np.ones(G) if uniform else 2.0 ** -np.arange(G)
     if absent is not None:
         p[absent] = 0.0
     keys = rng.choice(G, size=n, p=p / p.sum())
@@ -771,16 +820,22 @@ def phase_parity_grouped(torch, parity: Parity) -> None:
     from repro_torch.kernels._pass import grouped_geometry
 
     gen = torch.Generator().manual_seed(19)
-    # (B, n, d, G, nbins, absent key): the main shapes, a key with no rows,
-    # and G·(2d+1) = 144 > 128, which takes two z chunks of 8 keys
-    cases = [(BIG_B, BIG_N, 1, GB_G, NBINS, None),
-             (BIG_B, BIG_N, 4, GB_G, 256, None),
-             (100, 8192, 1, GB_G + 1, NBINS, GB_G),
-             (64, (1 << 16) + 37, 4, 16, 64, 15)]
+    # (B, n, d, G, nbins, absent key, uniform keys): the main shapes, a key
+    # with no rows, G·(2d+1) = 144 > 128, which takes two z chunks of 8
+    # keys, one key, and 32 keys uniform and skewed (the keyed histogram
+    # then holds several keys a CTA)
+    cases = [(BIG_B, BIG_N, 1, GB_G, NBINS, None, False),
+             (BIG_B, BIG_N, 4, GB_G, 256, None, False),
+             (100, 8192, 1, GB_G + 1, NBINS, GB_G, False),
+             (64, (1 << 16) + 37, 4, 16, 64, 15, False),
+             (BIG_B, BIG_N, 1, 1, NBINS, None, False),
+             (64, (1 << 16) + 37, 1, 32, 256, None, True),
+             (64, (1 << 16) + 37, 4, 32, 64, None, False)]
     check(grouped_geometry(16, 4)[3] == 2, "G=16, d=4 is not chunked")
-    for B, n, d, G, nbins, absent in cases:
+    for B, n, d, G, nbins, absent, uniform in cases:
         xk = torch.from_numpy(keyed_rows(n, d, G, seed=n + d + G,
-                                           absent=absent)).cuda()
+                                         absent=absent,
+                                         uniform=uniform)).cuda()
         x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
         for masked in (False, True):
             if absent is not None and masked:
@@ -790,6 +845,7 @@ def phase_parity_grouped(torch, parity: Parity) -> None:
             if masked:
                 mask = (torch.rand(n, generator=gen) > 0.3).float().cuda()
             what = (f"grouped B={B} n={n} d={d} G={G}"
+                    f"{' uniform' if uniform else ''}"
                     f"{' masked' if masked else ''}")
             hold_grouped(torch, parity, seed, x, keys, G, B, nbins, what,
                          mask=mask, kmeans_plain=n < BIG_N)
@@ -800,6 +856,30 @@ def phase_parity_grouped(torch, parity: Parity) -> None:
                                           num_groups=G)[0]
                 check(float(w[:, absent].abs().sum()) == 0.0,
                       f"the key without rows has weight, {what}")
+    # the keyed histogram with every value in one bin, and under a mask of
+    # 0, 1 and 0.5 (f32 adds in the ranges that hold 0.5)
+    from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
+                                                       grouped_hist_plain)
+    from repro_torch.kernels.weighted_stats.ops import prepare
+    xk = torch.from_numpy(keyed_rows(BIG_N, 1, GB_G, seed=21)).cuda()
+    keys = xk[:, -1].contiguous()
+    lo = torch.full((1,), LO, device="cuda")
+    hi = torch.full((1,), HI, device="cuda")
+    kw = dict(group_ids=keys, num_groups=GB_G)
+    x = torch.full((BIG_N, 1), 12.5, device="cuda")
+    parity.bitwise("fused_poisson_hist_grouped",
+                   fused_poisson_hist(5, x, LO, HI, NBINS, BIG_B, **kw),
+                   plain(grouped_hist_plain, prepare(x, BIG_B, **kw), 5, lo,
+                         hi, NBINS)[:BIG_B], "all values in one bin")
+    x = xk[:, :1].contiguous()
+    mask = (torch.rand(BIG_N, generator=gen) > 0.3).float()
+    mask[:300_000:7] = 0.5
+    mask = mask.cuda()
+    kw["valid_mask"] = mask
+    hold_fractional(parity, "fused_poisson_hist_grouped",
+                    fused_poisson_hist(5, x, LO, HI, NBINS, BIG_B, **kw),
+                    plain(grouped_hist_plain, prepare(x, BIG_B, **kw), 5,
+                          lo, hi, NBINS)[:BIG_B], "a mask of 0, 1, 0.5")
     torch.cuda.synchronize()
     print(f"parity (GROUP BY): both kernels match their plain versions and "
           f"every keyed slot its masked dedicated kernel; max |err| "
@@ -1315,9 +1395,10 @@ def phase_parity_stream(torch, parity: Parity) -> None:
     """Kernel 7 (block_bins) against hist_plain and, where its one window
     fits, against kernel 3, at d in {1, 4, 64}, nbins = 2048 and
     block_bins in {128, 512, 2048}, with the binning's edge values; keyed
-    at G = 8, d = 4 against the plain keyed version; at n = 2^20 + 37, d =
-    64 (several column ranges), with n_valid, and at B = 100.  Kernel 5
-    (stream=True) against kernel 2, bitwise, and the plain version."""
+    at G = 8, d = 4 against the plain keyed version and the keyed
+    histogram, which raises at d = 32; at n = 2^20 + 37, d = 64 (several
+    column ranges), with n_valid, and at B = 100.  Kernel 5 (stream=True)
+    against kernel 2, bitwise, and the plain version."""
     from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
                                                        grouped_hist_plain,
                                                        hist_plain)
@@ -1349,16 +1430,22 @@ def phase_parity_stream(torch, parity: Parity) -> None:
                 parity.bitwise(name, got, want, what)
                 check(one is None or torch.equal(got, one),
                       f"kernel 7 differs from kernel 3, {what}")
-    # keyed: G·d·nbins = 65,536 bins a row, past the keyed histogram's
-    # shared memory (it raises there and names block_bins)
+    # keyed: G·d·nbins = 65,536 bins a row.  The keyed histogram keeps one
+    # key's d·nbins = 8,192 a row, so it runs here too, bitwise kernel 7;
+    # past one key's row of an SM (d·nbins > about 57,800) it raises and
+    # names block_bins.
     xk = torch.from_numpy(keyed_rows(K7_WIDE_N, K7_GD, K7_G, seed=3)).cuda()
     x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
     kw = dict(group_ids=keys, num_groups=K7_G)
     try:
-        fused_poisson_hist(1, x, LO, HI, NBINS, BIG_B, **kw)
+        wide = torch.zeros(1000, K7_PAST_D, device="cuda")
+        fused_poisson_hist(1, wide, LO, HI, NBINS, BIG_B,
+                           group_ids=torch.zeros(1000, device="cuda"),
+                           num_groups=K7_G)
         check(False, "the keyed histogram ran past its shared memory")
-    except NotImplementedError:
-        pass
+    except NotImplementedError as e:
+        check("block_bins" in str(e), f"the keyed raise names no "
+              f"block_bins: {e}")
     lo = torch.full((K7_GD,), LO, device="cuda")
     hi = torch.full((K7_GD,), HI, device="cuda")
     for masked in (False, True):
@@ -1369,9 +1456,12 @@ def phase_parity_stream(torch, parity: Parity) -> None:
                                  valid_mask=mask, block_bins=NBINS, **kw)
         want = plain(grouped_hist_plain, prepare(x, BIG_B, valid_mask=mask,
                                                  **kw), seed, lo, hi, NBINS)
-        parity.bitwise(name, got, want[:BIG_B],
-                       f"keyed G={K7_G} d={K7_GD}"
-                       f"{' masked' if masked else ''}")
+        what = f"keyed G={K7_G} d={K7_GD}{' masked' if masked else ''}"
+        parity.bitwise(name, got, want[:BIG_B], what)
+        parity.bitwise("fused_poisson_hist_grouped",
+                       fused_poisson_hist(seed, x, LO, HI, NBINS, BIG_B,
+                                          valid_mask=mask, **kw),
+                       want[:BIG_B], what)
 
     # several column ranges (global-atomic flush) beside one range (plain
     # stores), n_valid, and B = 100 (a row block past the last whole 4)
@@ -2409,6 +2499,7 @@ def groupby_rows(torch, launches, parity: Parity, walls):
     rows = []
     for name, (kernel, plain_fn, nbytes, t_ops) in runs.items():
         ms = time_ms(torch, kernel, 5)
+        alone_ms = launch_ms(torch, kernel, "fused_grouped", 5)
         plain_ms = time_ms(torch, plain_fn, 1)
         t_bytes = nbytes / HBM_BYTES_PER_S
         bound = max(t_bytes, t_ops) * 1e3
@@ -2418,9 +2509,13 @@ def groupby_rows(torch, launches, parity: Parity, walls):
             max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None, shape=dict(B=B, n=n, d=d, G=G, nbins=NBINS)))
-        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-              f"{bound:.4f} ms by {rows[-1]['bound_by']})")
+            library_ms=None, launch_ms=alone_ms,
+            shape=dict(B=B, n=n, d=d, G=G, nbins=NBINS)))
+        print(f"timing {name}: {ms:.4f} ms (the kernel alone {alone_ms:.4f} "
+              f"ms; plain {plain_ms:.2f} ms, bound {bound:.4f} ms by "
+              f"{rows[-1]['bound_by']})")
+    print("keyed histogram cost terms: " + json.dumps(hist_cost_terms(
+        torch, x, B, seed, keys, G)))
 
     # the grouped kernel against G masked launches of the moments kernel
     sh = GB_RATIO_SHAPE
@@ -2526,6 +2621,63 @@ def materialized_rows(torch, launches, parity: Parity):
     return rows
 
 
+def hist_cost_terms(torch, x, B: int, seed: int, keys=None, G=None) -> dict:
+    """The histogram side's cost terms of kernels 3 and 4 (no keys) or of
+    the keyed histogram, for x (n, d) at nbins = NBINS: weights hashed,
+    shared adds (the nonzero weights of hashed columns, times d), bin_index
+    evaluations, flush reads of shared bins, global adds in the flush (the
+    nonzero bins of each range's CTAs, counted by running the kernel on
+    each range alone under a mask) and, keyed, the key and index bytes
+    read.  Each weight is hashed once: the count must equal B·n (keyed:
+    B times the columns with a key)."""
+    from repro_torch.kernels._pass import (keyed_hist_geometry,
+                                           pass_geometry, pass_hist_rows)
+    from repro_torch.kernels.poisson_counts.ops import poisson_counts
+    from repro_torch.kernels.weighted_hist.ops import fused_poisson_hist
+    from repro_torch.kernels.weighted_stats.ops import prepare
+    n, d = x.shape
+    kw = {} if keys is None else dict(group_ids=keys, num_groups=G)
+    pr = prepare(x, B, **kw)
+    tpc, ranges = pass_geometry(pr.Bp, pr.np_, pr.bn)
+    hashed = torch.ones(n, dtype=torch.bool, device="cuda")
+    if keys is not None:
+        hashed = (keys >= 0) & (keys < G) & (keys == keys.floor())
+        geo = keyed_hist_geometry(pr.Bp, pr.np_, pr.bn, G, d, NBINS)
+        rowblocks = -(-pr.Bp // geo.rows)
+        flush_reads = geo.ranges * pr.Bp * G * d * NBINS
+    else:
+        rows = pass_hist_rows(tpc, 1, d, d * NBINS)
+        rowblocks = -(-pr.Bp // rows)
+        flush_reads = ranges * pr.Bp * d * NBINS
+    w = poisson_counts(seed, B, n, device="cuda")
+    cols = int(hashed.sum())
+    nonzero = int(((w != 0) & hashed[None, :]).sum())
+    del w
+    global_adds = 0
+    for i in range(ranges):
+        m = torch.zeros(n, device="cuda")
+        m[i * tpc * pr.bn:(i + 1) * tpc * pr.bn] = 1.0
+        h = fused_poisson_hist(seed, x, LO, HI, NBINS, B, valid_mask=m, **kw)
+        global_adds += int((h != 0).sum())
+    terms = dict(
+        weights_hashed=B * cols, b_times_n=B * n, shared_adds=nonzero * d,
+        bin_index_evaluations=rowblocks * (cols if keys is not None
+                                           else pr.np_) * d,
+        flush_shared_reads=flush_reads, flush_global_adds=global_adds,
+        ctas=ranges * rowblocks * (1 if keys is None else geo.chunks))
+    check(terms["weights_hashed"] == B * (n if keys is None else cols),
+          f"a weight hashed more than once: {terms}")
+    if keys is not None:
+        terms.update(
+            geometry=geo._asdict(),
+            index_pass_key_bytes=2 * pr.np_ * 4,
+            entry_bytes_read=rowblocks * cols * 4,
+            x_bytes_read=rowblocks * cols * d * 4,
+            key_bytes_read_by_ballot_design=rowblocks * geo.chunks
+            * pr.np_ * 4)
+    return terms
+
+
 def launch_ms(torch, fn, lib: str, reps: int) -> float:
     """Mean ms of one launch of ``earl_<lib>``, alone: ``fn`` runs once,
     and inside its own launch (its temporaries alive) the kernel is
@@ -2598,6 +2750,8 @@ def phase_timing(torch, launches, parity: Parity, quickstart):
     rows = []
     for name, (kernel, plain_fn, out_bytes) in runs.items():
         ms = time_ms(torch, kernel, 5)
+        lib = "poisson_counts" if name == "poisson_counts" else "fused_pass"
+        alone_ms = launch_ms(torch, kernel, lib, 5)
         plain_ms = time_ms(torch, plain_fn, 1)
         t_bytes = out_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = weights * OPS_PER_WEIGHT / INT32_OPS_PER_S * 1e3
@@ -2607,9 +2761,13 @@ def phase_timing(torch, launches, parity: Parity, quickstart):
             max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None, shape=dict(B=B, n=n, d=1, nbins=NBINS)))
-        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+            library_ms=None, launch_ms=alone_ms,
+            shape=dict(B=B, n=n, d=1, nbins=NBINS)))
+        print(f"timing {name}: {ms:.4f} ms (the kernel alone {alone_ms:.4f} "
+              f"ms; plain {plain_ms:.2f} ms, bound "
               f"{max(t_bytes, t_ops):.4f} ms)")
+    print("kernels 3 and 4 cost terms (their histogram side): "
+          + json.dumps(hist_cost_terms(torch, x, B, seed)))
     # the session is host work around microsecond kernels: its wall time
     # varies run to run, so it is timed again, warm, a few times
     walls = []
@@ -3283,6 +3441,9 @@ def main() -> int:
     check_no_spills(logs.get("flash_attention", ""), "attention_tc")
     check_no_spills(logs.get("fused_binblocked", ""), "binblocked_kernel")
     check_no_spills(logs.get("weighted_hist", ""), "hist_kernel")
+    check_no_spills(logs.get("fused_pass", ""), "fused_pass_kernel")
+    check_no_spills(logs.get("fused_grouped", ""), "grouped_hist_kernel")
+    check_no_spills(logs.get("fused_grouped", ""), "keyed_index_kernel")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, tuple] = {
     "fused_grouped": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P,
                       VOID_P, INT, INT, INT, INT, INT, VOID_P, VOID_P,
                       VOID_P, VOID_P, VOID_P, VOID_P, INT, VOID_P, VOID_P,
-                      VOID_P, VOID_P),
+                      VOID_P, VOID_P, VOID_P),
     "weighted_moments": (INT, INT, INT, VOID_P, VOID_P, INT, INT, INT,
                          VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
                          VOID_P),

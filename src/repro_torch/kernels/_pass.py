@@ -51,17 +51,109 @@ def explicit_geometry(R: int, n: int, rows: int) -> Tuple[int, int]:
     return cols, -(-n // cols)
 
 
-def hist_rows(hist_total: int, tiles_per_cta: int) -> int:
-    """Rows of W per CTA whose bins fit in shared memory beside the keys."""
-    free = SMEM_BYTES - 16 * tiles_per_cta - 64
-    rows = min(MAX_ROWS, free // (4 * hist_total))
+#: Shared memory a pass kernel keeps beside its dynamic part (the static
+#: block-sum scratch of csrc/fused_pass.cu, with room to spare), in bytes.
+STATIC_SMEM = 64
+
+
+def _align16(v: int) -> int:
+    return v + (-v) % 16
+
+
+def hist_rows(row_bins: int, fixed_bytes: int) -> int:
+    """Rows of W a CTA takes (up to MAX_ROWS) whose ``row_bins`` 4-byte
+    bins a row fit in shared memory beside ``fixed_bytes`` of its other
+    shared memory; raises, naming block_bins, when not one row fits."""
+    free = SMEM_BYTES - STATIC_SMEM - fixed_bytes
+    rows = min(MAX_ROWS, free // (4 * row_bins))
     if rows < 1:
         raise NotImplementedError(
-            f"a histogram pass needs {hist_total} floats (d·nbins, times G "
-            "when keyed) of shared memory per row of W, more than a Hopper "
-            "SM holds; pass block_bins= (a Quantile's or "
-            "fused_poisson_hist's) to run the output-tiled kernel")
+            f"a histogram pass needs {row_bins} bins (d·nbins, summed over "
+            "the slots; one key's when keyed) of shared memory per row of "
+            "W, more than a Hopper SM holds; pass block_bins= (a "
+            "Quantile's or fused_poisson_hist's) to run the output-tiled "
+            "kernel")
     return int(rows)
+
+
+def pass_meta_bytes(tiles_per_cta: int, n_hist: int, d: int) -> int:
+    """Shared bytes of a fused pass before its bins (pass_meta_end in
+    csrc/fused_pass.cu): two tile keys an n-tile, the histogram slots'
+    (nbins, offset) pairs and their lo and hi, to a 16-byte boundary."""
+    return _align16(16 * tiles_per_cta + 8 * n_hist + 8 * n_hist * d)
+
+
+def pass_smem_bytes(tiles_per_cta: int, n_hist: int, d: int, rows: int,
+                    hist_total: int) -> int:
+    """Dynamic shared memory of a fused pass (pass_smem_bytes in
+    csrc/fused_pass.cu): the tile keys alone without histograms, else
+    the slots' table and ``rows`` rows of ``hist_total`` u32 bins too."""
+    if n_hist == 0:
+        return 16 * tiles_per_cta
+    return (pass_meta_bytes(tiles_per_cta, n_hist, d)
+            + 4 * rows * hist_total)
+
+
+def pass_hist_rows(tiles_per_cta: int, n_hist: int, d: int,
+                   hist_total: int) -> int:
+    """Rows of W a CTA of a fused pass with histograms (kernels 3 and 4)
+    takes: as many as the bins fit beside its keys and slot table."""
+    return hist_rows(hist_total, pass_meta_bytes(tiles_per_cta, n_hist, d))
+
+
+#: Largest key chunk of the keyed histogram (kMaxKeyChunk in
+#: csrc/fused_grouped.cu: an index entry holds the key within its chunk
+#: in 11 bits).
+KEYED_MAX_KG = 2048
+#: Bins a keyed histogram CTA aims to keep, in bytes: a key chunk grows to
+#: fill them, which leaves room for three CTAs an SM.
+KEYED_BIN_BYTES = 65536
+
+
+class KeyedHist(NamedTuple):
+    """Launch geometry of the keyed histogram (csrc/fused_grouped.cu).
+    First keyed_index_kernel, one CTA a range, sorts each range's columns
+    by key chunk into an index; then grouped_hist_kernel: grid x =
+    ``ranges`` column ranges of ``tiles_per_cta`` RNG n-tiles
+    (pass_geometry's) times ``chunks`` key chunks of ``kg`` keys, the
+    chunk fastest; y = blocks of ``rows`` rows of W.  A CTA keeps its
+    rows' bins of its chunk's keys, and draws the weights of the columns
+    whose key its chunk holds, once."""
+    rows: int
+    kg: int
+    chunks: int
+    tiles_per_cta: int
+    ranges: int
+
+    def keys_of(self, chunk: int, G: int) -> range:
+        return range(chunk * self.kg, min((chunk + 1) * self.kg, G))
+
+    def smem_bytes(self, d: int, nbins: int) -> int:
+        """Two tile keys an n-tile, then the bins."""
+        return 16 * self.tiles_per_cta + 4 * self.rows * self.kg * d * nbins
+
+    def index_ints(self, np_: int) -> int:
+        """The index pass's scratch: an entry a column, the end of each
+        (range, chunk) segment and a mask flag a range."""
+        return np_ + self.ranges * self.chunks + self.ranges
+
+
+def keyed_hist_geometry(Bp: int, np_: int, bn: int, G: int, d: int,
+                        nbins: int) -> KeyedHist:
+    """Geometry of a keyed histogram pass over a (Bp, np_) implicit W cut
+    into RNG tiles bn columns wide, G keys and d·nbins bins a key.
+
+    The ranges are pass_geometry's.  Rows are as many (up to MAX_ROWS) as
+    one key's bins a row fit beside the tile keys, so the pass raises and
+    names block_bins only once d·nbins alone is past an SM (about 57,800
+    bins), whatever G.  A chunk then takes as many keys as fit in
+    KEYED_BIN_BYTES (at least one), evened out over the chunks."""
+    tpc, ranges = pass_geometry(Bp, np_, bn)
+    row = d * nbins
+    rows = hist_rows(row, 16 * tpc)
+    kg = max(1, min(G, KEYED_MAX_KG, KEYED_BIN_BYTES // (4 * rows * row)))
+    chunks = -(-G // kg)
+    return KeyedHist(rows, -(-G // chunks), chunks, tpc, ranges)
 
 
 #: Rows of W a kernel 7 CTA keeps (kCacheRows in csrc/fused_binblocked.cu):
@@ -76,10 +168,6 @@ BINBLOCKED_CTAS = 132
 #: Static shared memory of a kernel 7 CTA (its cluster's mask flag, as
 #: ptxas reports it), beside the dynamic part ``BinBlocked.smem_bytes``.
 BINBLOCKED_STATIC_SMEM = 16
-
-
-def _align16(v: int) -> int:
-    return v + (-v) % 16
 
 
 class BinBlocked(NamedTuple):

@@ -90,16 +90,6 @@ struct BinBlockedParams {
   bool store;          // one range: plain stores of every bin
 };
 
-// The key of column j when it is a whole number in [0, G), else -1 (NaN
-// included: (key == g) holds for no g).
-__device__ __forceinline__ int column_key(const float* keys, int64_t j,
-                                          int G) {
-  const float kf = keys[j];
-  if (!(kf >= 0.f && kf < static_cast<float>(G))) return -1;
-  const int g = static_cast<int>(kf);
-  return static_cast<float>(g) == kf ? g : -1;
-}
-
 // Adds the cached weights of column c of a 4-column group (byte c of each
 // row's word) at the window-local bin `local`: whole counts into `ubins`,
 // or, with a fractional mask, weight × mask into the same bins as f32.
@@ -171,7 +161,7 @@ binblocked_kernel(BinBlockedParams p) {
             if (m == 0.f) continue;
             frac |= m != 1.f;
           }
-          if (p.keys != nullptr && column_key(p.keys, j, p.G) < 0) continue;
+          if (p.keys != nullptr && column_key(p.keys[j], p.G) < 0) continue;
           const int tl = k / p.bn;
           uint32_t x0 = 0u;
           uint32_t x1 = static_cast<uint32_t>(trow * p.bn + (k - tl * p.bn));
@@ -290,7 +280,7 @@ binblocked_kernel(BinBlockedParams p) {
           for (int c = 0; c < 4; ++c) {
             if (((any >> (8 * c)) & 0xffu) == 0u) continue;
             // a nonzero weight was drawn, so the key is valid
-            const int g = column_key(p.keys, j0 + c, p.G);
+            const int g = column_key(p.keys[j0 + c], p.G);
             const int s_a = max(s_lo, g * p.d);
             const int s_b = min(s_hi, g * p.d + p.d - 1);
             for (int s = s_a; s <= s_b; ++s) {

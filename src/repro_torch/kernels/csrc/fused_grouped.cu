@@ -9,10 +9,27 @@
 // another key's row poisons slot g as it poisons the masked run.
 //
 // grouped_hist_kernel is the keyed histogram sketch: counts (B, G, d, nbins).
-// The reference has no TPU kernel for it (its grouped sketch is scan-only);
-// this is the histogram instance of fused_pass.cu with a key column, each
-// nonzero weight added by a shared-memory atomic to bin
-// key·d·nbins + dd·nbins + bin of its row.
+// The reference has no TPU kernel for it (its grouped sketch is scan-only).
+// It is key-major: a CTA owns a column range, a block of up to 8 rows of
+// W and a chunk of KG keys, and keeps only those rows' KG·d·nbins bins in
+// shared memory (64 KB at 8 rows, KG = 1, d = 1, nbins = 2048), so the
+// bins no longer cap the rows and the limit that names block_bins is one
+// key's d·nbins a row.  First keyed_index_kernel, one CTA a range, sorts
+// the range's columns that carry a weight by key chunk into an index (a
+// count, a scan and a scatter, once a call); then a histogram CTA walks
+// its chunk's segment of it densely, one column a thread for all its
+// rows: it hashes the column's weights, bins x once and adds each nonzero
+// weight to bin (key - g0)·d·nbins + dd·nbins + bin of its row.  A
+// (row, column) weight is drawn exactly once, by the one CTA whose chunk
+// holds the column's key; columns past n_valid, with mask 0 or without a
+// key in [0, G) are never hashed (their weight adds nothing).  Bins are
+// u32, or f32 where the range's mask columns hold a value other than 0/1
+// (hist_tile.cuh; the index pass raises the flag).  The index is built
+// once a call because a scan of its range's keys in every CTA reads each
+// key (row blocks × chunks) times (256 at the table's shape) and cost more
+// than the hash it saved (PERF.md §6).  The geometry is
+// _pass.keyed_hist_geometry's; grid x = range · chunks + key chunk, y =
+// blocks of rows.
 //
 // Slot g of either kernel is bitwise the dedicated fused_pass launch with
 // valid_mask = valid · (key == g).  The moments kernel keeps fused_pass's
@@ -37,8 +54,8 @@
 // KG·(2·DC+1) > 128 does grid z cover DC columns and KG keys a chunk,
 // paying the hash once per chunk.
 //
-// Grid: x = column ranges (whole RNG n-tiles, `tiles_per_cta` each),
-// y = blocks of rows of W, z = (key chunk, column chunk) for moments.
+// Moments grid: x = column ranges (whole RNG n-tiles, `tiles_per_cta`
+// each), y = blocks of rows of W, z = (key chunk, column chunk).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -56,9 +73,10 @@ struct GroupedParams {
   int Bp, bb, bn, np;  // padded rows, RNG tile shape, padded columns
   int d, G;
   const float* x;      // (np, d)
-  const float* mask;   // (np) exact 0/1, or nullptr
+  const float* mask;   // (np), or nullptr
   const float* keys;   // (np) key of each column, as f32 (padding: 0)
   int rows;            // rows of W per CTA
+  int kg;              // keys a chunk (histogram)
   int tiles_per_cta;
   int ranges;
   // moments: partials (Bp, ranges, G) and (Bp, ranges, G, d)
@@ -70,6 +88,7 @@ struct GroupedParams {
   const float* lo;
   const float* hi;
   float* hist_out;
+  int* index;          // scratch of KeyedHist.index_ints ints
 };
 
 // Rows of W a CTA of the <DC, KG> moments instance takes.
@@ -196,58 +215,188 @@ grouped_moments_kernel(GroupedParams p) {
   }
 }
 
+// Largest key chunk: an index entry packs the column within its tile (10
+// bits, bn <= 512), the tile within the range (10 bits, at most 1024
+// tiles) and the key within the chunk (11 bits).
+constexpr int kMaxKeyChunk = 2048;
+
+// The keyed histogram's scratch (`index`, KeyedHist.index_ints ints): the
+// entries, np of them, range i's in [t0·bn, t1·bn) sorted by key chunk;
+// then `ends`, ranges x chunks, the end of each chunk's segment (its start
+// is the previous chunk's end, or t0·bn); then a flag a range, set when
+// its mask columns hold a value other than 0/1.
+struct KeyedIndex {
+  int* entries;
+  int* ends;
+  int* frac;
+};
+
+__device__ __forceinline__ KeyedIndex keyed_index(const GroupedParams& p,
+                                                  int chunks) {
+  int* ends = p.index + p.np;
+  return KeyedIndex{p.index, ends, ends + p.ranges * chunks};
+}
+
+// Key chunk of column j (-1: no weight to draw, as j is past n_valid, its
+// mask is 0 or its key is not a whole number in [0, G)), and its entry.
+__device__ __forceinline__ int column_chunk(const GroupedParams& p,
+                                            int64_t j, int64_t c0,
+                                            int* entry) {
+  if (j >= p.n_valid) return -1;
+  if (p.mask != nullptr && __ldg(p.mask + j) == 0.f) return -1;
+  const int g = column_key(__ldg(p.keys + j), p.G);
+  if (g < 0) return -1;
+  const int ch = g / p.kg;
+  const int rel = static_cast<int>(j - c0);
+  const int tt = rel / p.bn;
+  *entry = (rel - tt * p.bn) | tt << 10 | (g - ch * p.kg) << 20;
+  return ch;
+}
+
+// One CTA a range: sorts the range's columns that carry a weight by key
+// chunk into its segment of the entries (a count, a scan, a scatter; the
+// order within a chunk is free, as the counts are whole numbers), and
+// flags a mask value other than 0/1.  Atomics are aggregated over the
+// lanes of a warp that share a chunk.
+__global__ void __launch_bounds__(kThreads)
+keyed_index_kernel(GroupedParams p) {
+  __shared__ int tsum[kThreads];
+  const int chunks = (p.G + p.kg - 1) / p.kg;
+  const KeyedIndex ix = keyed_index(p, chunks);
+  const int range = blockIdx.x;
+  const int nt = p.np / p.bn;
+  const int t0 = range * p.tiles_per_cta;
+  const int t1 = min(t0 + p.tiles_per_cta, nt);
+  const int64_t c0 = static_cast<int64_t>(t0) * p.bn;
+  const int64_t c1 = static_cast<int64_t>(t1) * p.bn;
+  int* count = ix.ends + range * chunks;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+
+  for (int e = threadIdx.x; e < chunks; e += blockDim.x) count[e] = 0;
+  __syncthreads();
+  bool frac = false;
+  for (int64_t base = c0; base < c1; base += blockDim.x) {
+    const int64_t j = base + threadIdx.x;
+    int entry = 0, ch = -1;
+    if (j < c1) {
+      ch = column_chunk(p, j, c0, &entry);
+      if (p.mask != nullptr && j < p.n_valid) {
+        const float m = __ldg(p.mask + j);
+        frac |= m != 0.f && m != 1.f;
+      }
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, ch);
+    if (ch >= 0 && lane == __ffs(peers) - 1) {
+      atomicAdd(count + ch, __popc(peers));
+    }
+  }
+  const int any = __syncthreads_or(frac);
+  if (threadIdx.x == 0) ix.frac[range] = any;
+
+  // exclusive scan of the counts from c0: a thread's block of chunks,
+  // the blocks' sums scanned in shared memory
+  const int per = (chunks + kThreads - 1) / kThreads;
+  const int a = min(threadIdx.x * per, chunks);
+  const int b = min(a + per, chunks);
+  int sum = 0;
+  for (int ch = a; ch < b; ++ch) sum += count[ch];
+  tsum[threadIdx.x] = sum;
+  __syncthreads();
+  for (int o = 1; o < kThreads; o <<= 1) {
+    const int v = threadIdx.x >= o ? tsum[threadIdx.x - o] : 0;
+    __syncthreads();
+    tsum[threadIdx.x] += v;
+    __syncthreads();
+  }
+  int run = static_cast<int>(c0) + tsum[threadIdx.x] - sum;
+  for (int ch = a; ch < b; ++ch) {
+    const int v = count[ch];
+    count[ch] = run;  // the start, advanced to the end by the scatter
+    run += v;
+  }
+  __syncthreads();
+
+  for (int64_t base = c0; base < c1; base += blockDim.x) {
+    const int64_t j = base + threadIdx.x;
+    int entry = 0, ch = -1;
+    if (j < c1) ch = column_chunk(p, j, c0, &entry);
+    const unsigned peers = __match_any_sync(0xffffffffu, ch);
+    const int leader = __ffs(peers) - 1;
+    int pos = 0;
+    if (ch >= 0 && lane == leader) pos = atomicAdd(count + ch, __popc(peers));
+    pos = __shfl_sync(0xffffffffu, pos, leader);
+    if (ch >= 0) ix.entries[pos + __popc(peers & below)] = entry;
+  }
+}
+
+// Hashes the column of one index entry for the CTA's rows and adds its
+// weights.
+__device__ __forceinline__ void add_entry(
+    const GroupedParams& p, int entry, int t0, const TileKey* keys,
+    const int (&tsel)[kMaxRows], const int (&trow)[kMaxRows], int nrows,
+    uint32_t* bins, int stride, bool exact) {
+  const int c = entry & 1023;
+  const int tt = (entry >> 10) & 1023;
+  const int k = entry >> 20;
+  const int64_t j = static_cast<int64_t>(t0 + tt) * p.bn + c;
+  const TileKey* tk = keys + 2 * tt;
+  float w[kMaxRows];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    w[r] = r < nrows
+               ? implicit_weight(tk[tsel[r]],
+                                 static_cast<uint32_t>(trow[r] * p.bn + c),
+                                 j, p.n_valid, p.mask)
+               : 0.f;
+  }
+  for (int dd = 0; dd < p.d; ++dd) {
+    const float xv = __ldg(p.x + j * p.d + dd);
+    if (isnan(xv)) continue;  // NaN carries no mass
+    const int bin = bin_index(xv, __ldg(p.lo + dd), __ldg(p.hi + dd),
+                              p.nbins);
+    add_weights(bins, stride, (k * p.d + dd) * p.nbins + bin, w, exact);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 grouped_hist_kernel(GroupedParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TileKey* keys = reinterpret_cast<TileKey*>(smem_raw);
-  float* bins = reinterpret_cast<float*>(keys + 2 * p.tiles_per_cta);
-  const int total = p.G * p.d * p.nbins;  // a row's bins
+  uint32_t* bins = reinterpret_cast<uint32_t*>(keys + 2 * p.tiles_per_cta);
 
-  const int range = blockIdx.x;
+  const int chunks = (p.G + p.kg - 1) / p.kg;
+  const KeyedIndex ix = keyed_index(p, chunks);
+  const int range = blockIdx.x / chunks;
+  const int chunk = blockIdx.x - range * chunks;
+  const int g0 = chunk * p.kg;
+  const int kgv = min(p.kg, p.G - g0);  // keys of this chunk
+  const int slot = p.d * p.nbins;       // bins of a (row, key)
+  const int stride = p.kg * slot;       // bins of a row in shared memory
   const int r0 = blockIdx.y * p.rows;
   const int nt = p.np / p.bn;
   const int t0 = range * p.tiles_per_cta;
   const int t1 = min(t0 + p.tiles_per_cta, nt);
   const int nrows = min(p.rows, p.Bp - r0);
+  const int* ends = ix.ends + range * chunks;
+  const int e0 = chunk == 0 ? t0 * p.bn : ends[chunk - 1];
+  const int e1 = ends[chunk];
+  const bool exact = ix.frac[range] == 0;
 
   int tsel[kMaxRows], trow[kMaxRows];
   cta_tile_keys<kMaxRows>(p.seed, p.bb, r0, t0, t1, keys, tsel, trow);
-  for (int e = threadIdx.x; e < nrows * total; e += blockDim.x) bins[e] = 0.f;
+  zero_bins(bins, nrows * stride);
   __syncthreads();
-
-  for (int t = t0; t < t1; ++t) {
-    const TileKey* tk = keys + 2 * (t - t0);
-    for (int c = threadIdx.x; c < p.bn; c += blockDim.x) {
-      const int64_t j = static_cast<int64_t>(t) * p.bn + c;
-      // A key that is not a whole number in [0, G) (NaN included) is in
-      // no slot, as (key == g) holds for no g.
-      const float kf = p.keys[j];
-      if (!(kf >= 0.f && kf < static_cast<float>(p.G))) continue;
-      const int g = static_cast<int>(kf);
-      if (static_cast<float>(g) != kf) continue;
-      float w[kMaxRows];
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        w[r] = r < nrows
-                   ? implicit_weight(tk[tsel[r]],
-                                     static_cast<uint32_t>(trow[r] * p.bn + c),
-                                     j, p.n_valid, p.mask)
-                   : 0.f;
-      }
-      for (int dd = 0; dd < p.d; ++dd) {
-        const float xv = p.x[j * p.d + dd];
-        if (isnan(xv)) continue;  // NaN carries no mass
-        const int bin = bin_index(xv, p.lo[dd], p.hi[dd], p.nbins);
-        float* dst = bins + (g * p.d + dd) * p.nbins + bin;
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (w[r] != 0.f) atomicAdd(dst + r * total, w[r]);
-        }
-      }
-    }
+  for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+    add_entry(p, __ldg(ix.entries + e), t0, keys, tsel, trow, nrows, bins,
+              stride, exact);
   }
   __syncthreads();
-  flush_bins(bins, nrows, total, p.hist_out, r0);
+  const int64_t total = static_cast<int64_t>(p.G) * slot;  // a row's bins
+  flush_bins(bins, exact, nrows, kgv * slot, stride,
+             p.hist_out + static_cast<int64_t>(r0) * total +
+                 static_cast<int64_t>(g0) * slot,
+             total);
 }
 
 template <typename Kernel>
@@ -289,14 +438,21 @@ int grouped_moments(const GroupedParams& p, int dc, int kg, float* w_tot,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The keyed histogram at _pass.keyed_hist_geometry's (rows, kg, ranges,
+// tiles_per_cta): the index pass, then the histogram pass, whose shared
+// memory is KeyedHist.smem_bytes.
 int grouped_hist(const GroupedParams& p, cudaStream_t stream) {
-  if (p.rows < 1 || p.rows > kMaxRows || p.nbins < 1) {
+  if (p.rows < 1 || p.rows > kMaxRows || p.nbins < 1 || p.kg < 1 ||
+      p.kg > kMaxKeyChunk || p.bn > 2 * kThreads ||
+      p.tiles_per_cta > 1024 || p.index == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = sizeof(TileKey) * 2 * p.tiles_per_cta +
-                      sizeof(float) * p.rows * p.G * p.d * p.nbins;
+                      sizeof(uint32_t) * p.rows * p.kg * p.d * p.nbins;
   if (int e = set_smem(grouped_hist_kernel, smem)) return e;
-  dim3 grid(p.ranges, (p.Bp + p.rows - 1) / p.rows, 1);
+  const int chunks = (p.G + p.kg - 1) / p.kg;
+  keyed_index_kernel<<<p.ranges, kThreads, 0, stream>>>(p);
+  dim3 grid(p.ranges * chunks, (p.Bp + p.rows - 1) / p.rows, 1);
   grouped_hist_kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -304,13 +460,15 @@ int grouped_hist(const GroupedParams& p, cudaStream_t stream) {
 }  // namespace earl
 
 // Moments when part_w is not null (the <dc, kg> instance, `rows` its
-// constant), else the keyed histogram.  Returns cudaGetLastError().
+// constant), else the keyed histogram (kg keys a chunk, dc unused, its
+// scratch `index`).  Returns cudaGetLastError().
 extern "C" int earl_fused_grouped(
     int32_t seed, int32_t n_valid, int Bp, int np, int bb, int bn, int d,
     int G, const void* x, const void* mask, const void* keys, int dc, int kg,
     int rows, int tiles_per_cta, int ranges, void* part_w, void* part_s1,
     void* part_s2, void* w_tot, void* s1, void* s2, int nbins,
-    const void* lo, const void* hi, void* hist_out, void* stream) {
+    const void* lo, const void* hi, void* hist_out, void* index,
+    void* stream) {
   // A CTA's rows must span at most two RNG b-tiles (fused_pass.cu).
   if (bb < earl::kMaxRows || d < 1 || G < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -322,7 +480,8 @@ extern "C" int earl_fused_grouped(
   p.x = static_cast<const float*>(x);
   p.mask = static_cast<const float*>(mask);
   p.keys = static_cast<const float*>(keys);
-  p.rows = rows; p.tiles_per_cta = tiles_per_cta; p.ranges = ranges;
+  p.rows = rows; p.kg = kg; p.tiles_per_cta = tiles_per_cta;
+  p.ranges = ranges;
   p.part_w = static_cast<float*>(part_w);
   p.part_s1 = static_cast<float*>(part_s1);
   p.part_s2 = static_cast<float*>(part_s2);
@@ -330,6 +489,7 @@ extern "C" int earl_fused_grouped(
   p.lo = static_cast<const float*>(lo);
   p.hi = static_cast<const float*>(hi);
   p.hist_out = static_cast<float*>(hist_out);
+  p.index = static_cast<int*>(index);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (part_w != nullptr) {
     return earl::grouped_moments(p, dc, kg, static_cast<float*>(w_tot),

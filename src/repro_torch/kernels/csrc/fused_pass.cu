@@ -3,15 +3,17 @@
 //
 // Replaces three TPU kernels, each an instance of the template below,
 // picked in earl_fused_pass by which outputs the caller passes:
-//   fused_pass_kernel<true, false>  moments only: fused_poisson_moments_kernel
-//       (repro/kernels/weighted_stats/kernel.py, _fpm_kernel), ungrouped,
-//       f32, with n_valid and the validity mask;
-//   fused_pass_kernel<false, true>  histograms only: fused_poisson_hist_kernel
-//       (repro/kernels/weighted_hist/kernel.py, _fph_kernel), without its
-//       one-hot contraction (see hist_tile.cuh);
-//   fused_pass_kernel<true, true>   a StatisticGroup: fused_poisson_multi_kernel
-//       (repro/kernels/fused_multi/kernel.py, _fm_kernel), one weight for at
-//       most one moments slot and any number of histogram slots.
+//   fused_pass_kernel<true, false, DC>  moments only (kernel 2):
+//       fused_poisson_moments_kernel (repro/kernels/weighted_stats/
+//       kernel.py, _fpm_kernel), ungrouped, f32, with n_valid and the
+//       validity mask;
+//   fused_pass_kernel<false, true, 1>   histograms only (kernel 3):
+//       fused_poisson_hist_kernel (repro/kernels/weighted_hist/kernel.py,
+//       _fph_kernel), without its one-hot contraction (see hist_tile.cuh);
+//   fused_pass_kernel<true, true, DC>   a StatisticGroup (kernel 4):
+//       fused_poisson_multi_kernel (repro/kernels/fused_multi/kernel.py,
+//       _fm_kernel), one weight for at most one moments slot and any
+//       number of histogram slots.
 // A group member is bitwise equal to its dedicated kernel by construction:
 // the weights, the column order of every thread, the block reduction and
 // the column ranges are the same code and the same shapes.
@@ -22,12 +24,17 @@
 // and the shared-memory atomics one per nonzero weight.
 //
 // Grid: x = column ranges (whole RNG n-tiles, `tiles_per_cta` each),
-// y = blocks of `rows` rows of W, z = chunks of kDimChunk moment columns.
-// A CTA derives the keys of every RNG tile it touches into shared memory
-// once; its rows span at most two RNG b-tiles because rows <= 8 <= bb
-// (the wrappers' tile clamp gives bb >= 8).  Histogram bins of the CTA's
-// rows live in shared memory and are added to the output once at the end.
-// Only z == 0 does w_tot and the histograms.
+// y = blocks of `rows` rows of W, z = chunks of DC moment columns (DC =
+// dim_chunk(d): a thread keeps 8 rows x (1 + 2·DC) accumulators, so d = 1
+// carries no dead ones).  A CTA derives the keys of every RNG tile it
+// touches into shared memory once; its rows span at most two RNG b-tiles
+// because rows <= 8 <= bb (the wrappers' tile clamp gives bb >= 8).
+// Only z == 0 does w_tot and the histograms.  Its shared memory, in this
+// order (_pass.pass_smem_bytes mirrors it): the tile keys; the histogram
+// slots' (nbins, offset) pairs and their lo and hi, read once a CTA; the
+// bins of its rows, added to the output once at the end.  The bins hold
+// whole counts as u32, or, for a CTA whose mask columns hold a value other
+// than 0/1, f32 (hist_tile.cuh).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -43,7 +50,7 @@ struct PassParams {
   int Bp, bb, bn, np;  // padded rows, RNG tile shape, padded columns
   int d;
   const float* x;      // (np, d)
-  const float* mask;   // (np) exact 0/1, or nullptr
+  const float* mask;   // (np), or nullptr
   int rows;            // rows of W per CTA (<= kMaxRows)
   int tiles_per_cta;
   int ranges;
@@ -61,23 +68,50 @@ struct PassParams {
   float* hist_out;
 };
 
-inline size_t pass_smem_bytes(const PassParams& p, bool hist) {
-  size_t keys = sizeof(TileKey) * 2 * p.tiles_per_cta;
-  size_t bins = hist ? sizeof(float) * p.rows * p.hist_total : 0;
-  return keys + bins;
+// Bytes before the bins: the tile keys, the slots' meta, lo and hi.
+__host__ __device__ inline size_t pass_meta_end(const PassParams& p) {
+  const size_t end = sizeof(TileKey) * 2 * p.tiles_per_cta +
+                     sizeof(int) * 2 * p.n_hist +
+                     sizeof(float) * 2 * p.n_hist * p.d;
+  return (end + 15) / 16 * 16;
 }
 
-template <bool MOM, bool HIST>
+inline size_t pass_smem_bytes(const PassParams& p, bool hist) {
+  if (!hist) return sizeof(TileKey) * 2 * p.tiles_per_cta;
+  return pass_meta_end(p) + sizeof(uint32_t) * p.rows * p.hist_total;
+}
+
+// True, in every thread of the CTA, when mask columns [c0, c1) hold a
+// value other than 0 or 1 (NaN included): the CTA's weights are then not
+// whole numbers and it adds them as f32 (hist_tile.cuh).  No mask: false.
+// Every thread of the CTA must call it (it ends in __syncthreads_or).
+__device__ __forceinline__ bool cta_fractional_mask(const float* mask,
+                                                    int64_t c0, int64_t c1) {
+  bool frac = false;
+  if (mask != nullptr) {
+    for (int64_t j = c0 + threadIdx.x; j < c1; j += blockDim.x) {
+      const float m = __ldg(mask + j);
+      frac |= m != 0.f && m != 1.f;
+    }
+  }
+  return __syncthreads_or(frac) != 0;
+}
+
+template <bool MOM, bool HIST, int DC>
 __global__ void __launch_bounds__(kThreads)
 fused_pass_kernel(PassParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[kWarps];
   TileKey* keys = reinterpret_cast<TileKey*>(smem_raw);
-  float* bins = reinterpret_cast<float*>(keys + 2 * p.tiles_per_cta);
+  int* meta = reinterpret_cast<int*>(keys + 2 * p.tiles_per_cta);
+  float* slot_lo = reinterpret_cast<float*>(meta + 2 * p.n_hist);
+  float* slot_hi = slot_lo + p.n_hist * p.d;
+  uint32_t* bins = nullptr;
+  if (HIST) bins = reinterpret_cast<uint32_t*>(smem_raw + pass_meta_end(p));
 
   const int range = blockIdx.x;
   const int r0 = blockIdx.y * p.rows;
-  const int dz = blockIdx.z * kDimChunk;
+  const int dz = blockIdx.z * DC;
   const bool lead = blockIdx.z == 0;
   const int nt = p.np / p.bn;
   const int t0 = range * p.tiles_per_cta;
@@ -86,21 +120,31 @@ fused_pass_kernel(PassParams p) {
 
   int tsel[kMaxRows], trow[kMaxRows];
   cta_tile_keys<kMaxRows>(p.seed, p.bb, r0, t0, t1, keys, tsel, trow);
+  bool exact = true;
   if (HIST && lead) {
-    for (int e = threadIdx.x; e < nrows * p.hist_total; e += blockDim.x) {
-      bins[e] = 0.f;
+    zero_bins(bins, nrows * p.hist_total);
+    for (int e = threadIdx.x; e < 2 * p.n_hist; e += blockDim.x) {
+      meta[e] = p.hist_meta[e];
     }
+    for (int e = threadIdx.x; e < p.n_hist * p.d; e += blockDim.x) {
+      slot_lo[e] = p.hist_lo[e];
+      slot_hi[e] = p.hist_hi[e];
+    }
+    const int64_t c0 = static_cast<int64_t>(t0) * p.bn;
+    const int64_t c1 = min(static_cast<int64_t>(t1) * p.bn,
+                           static_cast<int64_t>(p.n_valid));
+    exact = !cta_fractional_mask(p.mask, c0, c1);
   }
   __syncthreads();
 
   float acc_w[kMaxRows];
-  float acc_s1[kMaxRows][kDimChunk];
-  float acc_s2[kMaxRows][kDimChunk];
+  float acc_s1[kMaxRows][DC];
+  float acc_s2[kMaxRows][DC];
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) {
     acc_w[r] = 0.f;
 #pragma unroll
-    for (int q = 0; q < kDimChunk; ++q) acc_s1[r][q] = acc_s2[r][q] = 0.f;
+    for (int q = 0; q < DC; ++q) acc_s1[r][q] = acc_s2[r][q] = 0.f;
   }
 
   for (int t = t0; t < t1; ++t) {
@@ -117,9 +161,9 @@ fused_pass_kernel(PassParams p) {
                    : 0.f;
       }
       if (MOM) {
-        float xv[kDimChunk], x2[kDimChunk];
+        float xv[DC], x2[DC];
 #pragma unroll
-        for (int q = 0; q < kDimChunk; ++q) {
+        for (int q = 0; q < DC; ++q) {
           xv[q] = dz + q < p.d ? p.x[j * p.d + dz + q] : 0.f;
           x2[q] = __fmul_rn(xv[q], xv[q]);
         }
@@ -127,7 +171,7 @@ fused_pass_kernel(PassParams p) {
         for (int r = 0; r < kMaxRows; ++r) {
           acc_w[r] = __fadd_rn(acc_w[r], w[r]);
 #pragma unroll
-          for (int q = 0; q < kDimChunk; ++q) {
+          for (int q = 0; q < DC; ++q) {
             acc_s1[r][q] = __fmaf_rn(w[r], xv[q], acc_s1[r][q]);
             acc_s2[r][q] = __fmaf_rn(w[r], x2[q], acc_s2[r][q]);
           }
@@ -135,18 +179,14 @@ fused_pass_kernel(PassParams p) {
       }
       if (HIST && lead) {
         for (int h = 0; h < p.n_hist; ++h) {
-          const int nb = p.hist_meta[2 * h];
-          const int off = p.hist_meta[2 * h + 1];
+          const int nb = meta[2 * h];
+          const int off = meta[2 * h + 1];
           for (int dd = 0; dd < p.d; ++dd) {
-            const float xv = p.x[j * p.d + dd];
+            const float xv = __ldg(p.x + j * p.d + dd);
             if (isnan(xv)) continue;  // NaN carries no mass
-            const int bin = bin_index(xv, p.hist_lo[h * p.d + dd],
-                                      p.hist_hi[h * p.d + dd], nb);
-            float* dst = bins + off + dd * nb + bin;
-#pragma unroll
-            for (int r = 0; r < kMaxRows; ++r) {
-              if (w[r] != 0.f) atomicAdd(dst + r * p.hist_total, w[r]);
-            }
+            const int bin = bin_index(xv, slot_lo[h * p.d + dd],
+                                      slot_hi[h * p.d + dd], nb);
+            add_weights(bins, p.hist_total, off + dd * nb + bin, w, exact);
           }
         }
       }
@@ -160,13 +200,15 @@ fused_pass_kernel(PassParams p) {
   }
   if (HIST && lead) {
     __syncthreads();
-    flush_bins(bins, nrows, p.hist_total, p.hist_out, r0);
+    flush_bins(bins, exact, nrows, p.hist_total, p.hist_total,
+               p.hist_out + static_cast<int64_t>(r0) * p.hist_total,
+               p.hist_total);
   }
 }
 
 // Launches the pass and, for moments, the in-order sum of the partials.
 // Returns cudaGetLastError() after the launches.
-template <bool MOM, bool HIST>
+template <bool MOM, bool HIST, int DC>
 int launch_pass(const PassParams& p, float* w_tot, float* s1, float* s2,
                 cudaStream_t stream) {
   // A CTA's rows must span at most two RNG b-tiles (see the top).
@@ -174,14 +216,14 @@ int launch_pass(const PassParams& p, float* w_tot, float* s1, float* s2,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = pass_smem_bytes(p, HIST);
-  auto kernel = fused_pass_kernel<MOM, HIST>;
+  auto kernel = fused_pass_kernel<MOM, HIST, DC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int zdim = MOM ? (p.d + kDimChunk - 1) / kDimChunk : 1;
+  const int zdim = MOM ? (p.d + DC - 1) / DC : 1;
   dim3 grid(p.ranges, (p.Bp + p.rows - 1) / p.rows, zdim);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   if (MOM) {
@@ -189,6 +231,18 @@ int launch_pass(const PassParams& p, float* w_tot, float* s1, float* s2,
                        p.ranges, 1, p.d, stream);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The moments instance of dim_chunk(d).
+template <bool HIST>
+int launch_moments_pass(const PassParams& p, float* w_tot, float* s1,
+                        float* s2, cudaStream_t stream) {
+  switch (dim_chunk(p.d)) {
+    case 1: return launch_pass<true, HIST, 1>(p, w_tot, s1, s2, stream);
+    case 2: return launch_pass<true, HIST, 2>(p, w_tot, s1, s2, stream);
+    default: return launch_pass<true, HIST, kDimChunk>(p, w_tot, s1, s2,
+                                                       stream);
+  }
 }
 
 }  // namespace earl
@@ -222,8 +276,11 @@ extern "C" int earl_fused_pass(int32_t seed, int32_t n_valid, int Bp, int np,
   float* wt = static_cast<float*>(w_tot);
   float* a1 = static_cast<float*>(s1);
   float* a2 = static_cast<float*>(s2);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool mom = part_w != nullptr;
-  if (mom && n_hist > 0) return earl::launch_pass<true, true>(p, wt, a1, a2, s);
-  if (mom) return earl::launch_pass<true, false>(p, wt, a1, a2, s);
-  return earl::launch_pass<false, true>(p, nullptr, nullptr, nullptr, s);
+  if (mom && n_hist > 0) {
+    return earl::launch_moments_pass<true>(p, wt, a1, a2, s);
+  }
+  if (mom) return earl::launch_moments_pass<false>(p, wt, a1, a2, s);
+  return earl::launch_pass<false, true, 1>(p, nullptr, nullptr, nullptr, s);
 }

@@ -22,6 +22,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 8;   // rows of W per CTA
 constexpr int kDimChunk = 4;  // columns of x per CTA (grid z covers the rest)
 
+// Columns of x a fused moments CTA sums, DC: 1, 2 or 4 (kDimChunk), the
+// least power of two that covers d up to 4 (_pass.grouped_geometry's dc).
+// DC < kDimChunk only where d <= 2, where one chunk of either covers all
+// d columns, so the grid z chunks, and every sum, are unchanged; a thread
+// only drops the accumulators of columns past d.
+inline int dim_chunk(int d) { return d <= 1 ? 1 : d <= 2 ? 2 : kDimChunk; }
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -44,14 +51,14 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 // A CTA's partials of rows r0 .. r0+nrows-1 over its column range: the
 // block sums of acc_w (only when `lead`, the CTA of z chunk 0) and of the
-// chunk's columns dz + q < d of acc_s1 and acc_s2, written by thread 0 at
-// (row, range).  Fully unrolled so the accumulators stay in registers;
+// chunk's DC columns dz + q < d of acc_s1 and acc_s2, written by thread 0
+// at (row, range).  Fully unrolled so the accumulators stay in registers;
 // the guards are uniform over the CTA, so every thread reaches every
 // __syncthreads.  `red` is kWarps floats of shared memory.
+template <int DC>
 __device__ __forceinline__ void write_moment_partials(
-    const float (&acc_w)[kMaxRows],
-    const float (&acc_s1)[kMaxRows][kDimChunk],
-    const float (&acc_s2)[kMaxRows][kDimChunk], int nrows, int r0, int range,
+    const float (&acc_w)[kMaxRows], const float (&acc_s1)[kMaxRows][DC],
+    const float (&acc_s2)[kMaxRows][DC], int nrows, int r0, int range,
     int ranges, int dz, int d, bool lead, float* red, float* part_w,
     float* part_s1, float* part_s2) {
 #pragma unroll
@@ -63,7 +70,7 @@ __device__ __forceinline__ void write_moment_partials(
         if (threadIdx.x == 0) part_w[slot] = tw;
       }
 #pragma unroll
-      for (int q = 0; q < kDimChunk; ++q) {
+      for (int q = 0; q < DC; ++q) {
         if (dz + q < d) {
           const float t1v = block_sum(acc_s1[r][q], red);
           const float t2v = block_sum(acc_s2[r][q], red);

@@ -30,8 +30,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._pass import (MAX_ROWS, check_cuda_f32, hist_rows,
-                                       pass_geometry, stream_ptr)
+from repro_torch.kernels._pass import (MAX_ROWS, check_cuda_f32,
+                                       pass_geometry, pass_hist_rows,
+                                       stream_ptr)
 from repro_torch.kernels.kmeans_assign.ops import centroids_on, kmeans_cuda
 from repro_torch.kernels.poisson_counts.ops import poisson_tiles
 from repro_torch.kernels.poisson_counts.ref import tiles_per_chunk
@@ -101,7 +102,7 @@ def _multi_cuda(slots, seed: int, pr: Prepared, values: torch.Tensor,
         meta, lo_t, hi_t, total = hist_slots_args(pr, [
             (s.nbins, range_vector(s.lo, pr.d), range_vector(s.hi, pr.d))
             for s in hists])
-        rows = hist_rows(total, tpc)
+        rows = pass_hist_rows(tpc, len(hists), pr.d, total)
         out = torch.zeros(pr.Bp, total, dtype=torch.float32,
                           device=pr.device)
         hist_args = (len(hists), meta.data_ptr(), lo_t.data_ptr(),

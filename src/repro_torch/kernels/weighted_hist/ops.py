@@ -14,12 +14,13 @@ the shared implicit Poisson(1) weights, and with ``group_ids`` (GROUP BY)
 one per key, (B, G, d, nbins).  A CUDA tensor launches the hand-written
 kernel (csrc/fused_pass.cu without moments, replacing the TPU kernel
 repro/kernels/weighted_hist/kernel.py: fused_poisson_hist_kernel; keyed,
-the histogram pass of csrc/fused_grouped.cu, for which the reference has
-no TPU kernel; with ``block_bins``, keyed or not, the output-tiled kernel 7
-of csrc/fused_binblocked.cu, replacing fused_poisson_hist_binblocked_kernel,
-which draws each weight once into a shared cache and walks the bin windows
-over it) or raises; a CPU tensor runs the plain version, the JAX package's
-scatter scan tile by tile.  Counts are sums of small integer weights,
+the key-major histogram of csrc/fused_grouped.cu, an index pass and then
+one chunk of keys a CTA, for which the reference has no TPU kernel; with
+``block_bins``, keyed or not, the output-tiled kernel 7 of
+csrc/fused_binblocked.cu, replacing fused_poisson_hist_binblocked_kernel,
+which draws each weight once into a shared cache and walks the bin
+windows over it) or raises; a CPU tensor runs the plain version, the JAX
+package's scatter scan tile by tile.  Counts are sums of small integer weights,
 exact in f32, so the two agree bit for bit.
 """
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._pass import (SMEM_BYTES, binblocked_geometry,
                                        check_cuda_f32, hist_rows,
-                                       pass_geometry, stream_ptr)
+                                       keyed_hist_geometry, pass_geometry,
+                                       pass_hist_rows, stream_ptr)
 from repro_torch.kernels.weighted_hist.ref import (_bin_indices,
                                                    finite_mass_mask)
 from repro_torch.kernels.weighted_stats.ops import (Prepared, key_masks,
@@ -100,7 +102,7 @@ def hist_dims(R: int, d: int, nbins: int) -> int:
     if d * 4 * nbins <= room:
         return d
     # raises when one dimension's bins do not fit
-    hist_rows(nbins + HIST_SLOT_BYTES // 4, 0)
+    hist_rows(nbins, HIST_SLOT_BYTES)
     return max(1, min(d, room // (4 * nbins * min(HIST_ROWS, max(R, 1)))))
 
 
@@ -264,7 +266,7 @@ def hist_cuda(pr: Prepared, seed: int, lo: torch.Tensor, hi: torch.Tensor,
     check_cuda_f32("values", pr.xp)
     meta, lo_t, hi_t, total = hist_slots_args(pr, [(nbins, lo, hi)])
     tpc, ranges = pass_geometry(pr.Bp, pr.np_, pr.bn)
-    rows = hist_rows(total, tpc)
+    rows = pass_hist_rows(tpc, 1, pr.d, total)
     out = torch.zeros(pr.Bp, total, dtype=torch.float32, device=pr.device)
     fused_poisson_hist.launches += 1
     _build.launch("fused_pass", int(seed), pr.n_valid, pr.Bp, pr.np_, pr.bb,
@@ -278,19 +280,23 @@ def hist_cuda(pr: Prepared, seed: int, lo: torch.Tensor, hi: torch.Tensor,
 def grouped_hist_cuda(pr: Prepared, seed: int, lo: torch.Tensor,
                       hi: torch.Tensor, nbins: int) -> torch.Tensor:
     """The keyed histogram pass (csrc/fused_grouped.cu) over a prepared
-    keyed call: (Bp, G, d, nbins) on the card."""
+    keyed call: (Bp, G, d, nbins) on the card, at keyed_hist_geometry's
+    geometry (it raises, naming block_bins, once one key's d·nbins bins a
+    row do not fit in an SM)."""
     check_cuda_f32("values", pr.xp)
     check_cuda_f32("group_ids", pr.gp)
+    geo = keyed_hist_geometry(pr.Bp, pr.np_, pr.bn, pr.G, pr.d, nbins)
     lo_t, hi_t = to_card(lo, pr.device), to_card(hi, pr.device)
-    tpc, ranges = pass_geometry(pr.Bp, pr.np_, pr.bn)
-    total = pr.G * pr.d * nbins
-    rows = hist_rows(total, tpc)
-    out = torch.zeros(pr.Bp, total, dtype=torch.float32, device=pr.device)
+    out = torch.zeros(pr.Bp, pr.G * pr.d * nbins, dtype=torch.float32,
+                      device=pr.device)
+    index = torch.empty(geo.index_ints(pr.np_), dtype=torch.int32,
+                        device=pr.device)
     grouped_hist_cuda.launches += 1
     _build.launch("fused_grouped", int(seed), pr.n_valid, pr.Bp, pr.np_,
                   pr.bb, pr.bn, pr.d, pr.G, pr.xp.data_ptr(), mask_ptr(pr),
-                  pr.gp.data_ptr(), 0, 0, rows, tpc, ranges, *(None,) * 6,
-                  nbins, lo_t.data_ptr(), hi_t.data_ptr(), out.data_ptr(),
+                  pr.gp.data_ptr(), 0, geo.kg, geo.rows, geo.tiles_per_cta,
+                  geo.ranges, *(None,) * 6, nbins, lo_t.data_ptr(),
+                  hi_t.data_ptr(), out.data_ptr(), index.data_ptr(),
                   stream_ptr(pr.device))
     return out.reshape(pr.Bp, pr.G, pr.d, nbins)
 

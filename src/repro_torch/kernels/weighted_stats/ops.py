@@ -293,7 +293,7 @@ def grouped_moments_cuda(pr: Prepared, seed: int):
                   pr.bb, pr.bn, pr.d, pr.G, pr.xp.data_ptr(), mask_ptr(pr),
                   pr.gp.data_ptr(), dc, kg, rows, tpc, ranges,
                   *[t.data_ptr() for t in parts + out], 0, None, None, None,
-                  stream_ptr(pr.device))
+                  None, stream_ptr(pr.device))
     return out
 
 

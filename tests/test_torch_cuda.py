@@ -17,7 +17,13 @@ weight kernels: weighted_moments' w_tot bitwise and s1/s2 within
 weights bitwise (repeat launches too, all values in one bin, n off a
 multiple of 4, and W a row slice off a 16-byte boundary), an (R, n) call
 bitwise R one-row calls, and fractional weights within 1e-6·Σ|w| of the
-row a bin.  The streaming slice: the output-tiled histogram (block_bins,
+row a bin.  Kernels 3 and 4 and the key-major keyed histogram (u32 bins
+for whole weights): bitwise the plain version (G in {1, 8, 32}, uniform
+and skewed keys, d in {1, 4}, every value in one bin), kernel 4's moments
+slot bitwise kernel 2, two launches bitwise equal, and within 1e-6 of
+the row's mass a bin under a mask of 0.5; the keyed histogram raises,
+naming block_bins, past one key's row of an SM.  The streaming slice:
+the output-tiled histogram (block_bins,
 kernel 7) bitwise the plain version, keyed too, over one column range and
 several, with n_valid, and within 1e-6 of the row's mass under a mask
 value of 0.5; the double-buffered moments (stream=True, kernel 5) bitwise
@@ -403,6 +409,149 @@ def test_cuda_binblocked_hist_fractional_mask(cuda):
     bound = 1e-6 * want.double().sum(dim=(1, 2))[:, None, None]
     assert bool(((got.double() - want.double()).abs() <= bound).all())
     assert not torch.equal(got, got.round())
+
+
+def _hist_inputs(n, d, seed, one_bin=False):
+    """x (n, d) on the card (NaN, inf and the edges among the values, or
+    every value in one bin) and a 0/1 mask."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 1.2, size=(n, d)).astype(np.float32)
+    x[:4, 0] = [np.nan, np.inf, -np.inf, HI]
+    if one_bin:
+        x[:] = 0.25
+    mask = (rng.random(n) > 0.3).astype(np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(mask).cuda()
+
+
+def _keys(n, G, skew, seed):
+    """f32 keys on the card: uniform over [0, G), or key g ∝ 2^-g."""
+    rng = np.random.default_rng(seed)
+    p = np.ones(G) if not skew else 2.0 ** -np.arange(G)
+    return torch.from_numpy(rng.choice(G, size=n, p=p / p.sum()).astype(
+        np.float32)).cuda()
+
+
+def _hist_run(kind, seed, x, B, nbins, **kw):
+    """Counts of kernel 3 ("k3"), of kernel 4's histogram slot ("k4", in a
+    group with Mean and Std) or of the keyed histogram ("keyed")."""
+    if kind == "k4":
+        group = StatisticGroup((Mean(), Quantile(0.5, nbins=nbins, lo=LO,
+                                                 hi=HI), Std()))
+        return tfm.fused_poisson_multi(group, seed, x, B, **kw)[1].counts
+    return twh.fused_poisson_hist(seed, x, LO, HI, nbins, B, **kw)
+
+
+def _hist_plain(seed, x, B, nbins, **kw):
+    """The plain version on the card (the CPU's takes long at 2^16 rows)."""
+    d = x.shape[1]
+    pr = tws.prepare(x, B, **kw)
+    lo = torch.full((d,), LO, device=x.device)
+    hi = torch.full((d,), HI, device=x.device)
+    run = twh.grouped_hist_plain if "group_ids" in kw else twh.hist_plain
+    return run(pr, seed, lo, hi, nbins)[:B]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [1, 4])
+def test_cuda_kernel_4_matches_plain_and_kernel_2(cuda, d, masked):
+    """Kernel 4 (u32 bins, the slot table read once a CTA, DC = 1 at
+    d = 1): its histogram slot bitwise the plain version and kernel 3, its
+    moments slot bitwise kernel 2, and two launches bitwise equal."""
+    n, B = (1 << 16) + 37, 256
+    x, mask = _hist_inputs(n, d, seed=d + 10 * masked)
+    x = torch.nan_to_num(x, posinf=HI, neginf=LO)
+    kw = dict(valid_mask=mask if masked else None)
+    group = StatisticGroup((Mean(), Quantile(0.5, nbins=2048, lo=LO, hi=HI),
+                            Std()))
+    g = tfm.fused_poisson_multi(group, 21, x, B, **kw)
+    assert torch.equal(g[1].counts, _hist_plain(21, x, B, 2048, **kw))
+    assert torch.equal(g[1].counts, _hist_run("k3", 21, x, B, 2048, **kw))
+    for a, b in zip((g[0].w, g[0].s1, g[0].s2),
+                    tws.fused_poisson_moments(21, x, B, **kw)):
+        assert torch.equal(a, b)
+    again = tfm.fused_poisson_multi(group, 21, x, B, **kw)
+    for a, b in zip((g[0].w, g[0].s1, g[0].s2, g[1].counts),
+                    (again[0].w, again[0].s1, again[0].s2, again[1].counts)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("G", [1, 8, 32])
+def test_cuda_keyed_hist_matches_plain_and_masked(cuda, G, d, skew):
+    """The key-major keyed histogram, with uniform and 2^-g-skewed keys:
+    bitwise the plain version with and without a mask, two launches
+    bitwise equal, and slot g bitwise kernel 3 masked to key g."""
+    n, B, nbins = (1 << 16) + 37, 256, 2048 if d == 1 else 256
+    x, mask = _hist_inputs(n, d, seed=G + d)
+    keys = _keys(n, G, skew, seed=G * d)
+    for m in (None, mask):
+        kw = dict(group_ids=keys, num_groups=G, valid_mask=m)
+        got = _hist_run("keyed", 31, x, B, nbins, **kw)
+        assert torch.equal(got, _hist_plain(31, x, B, nbins, **kw))
+        assert torch.equal(got, _hist_run("keyed", 31, x, B, nbins, **kw))
+        for g in sorted({0, 1 % G, G - 1}):
+            km = (keys == g).float() if m is None else m * (keys == g)
+            assert torch.equal(got[:, g], _hist_run("k3", 31, x, B, nbins,
+                                                    valid_mask=km))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["k3", "k4", "keyed"])
+def test_cuda_hist_all_in_one_bin(cuda, kind):
+    """Every value in one bin, the most contended shared adds: bitwise."""
+    n, B = (1 << 16) + 37, 256
+    x, _ = _hist_inputs(n, 1, seed=3, one_bin=True)
+    kw = {}
+    if kind == "keyed":
+        kw = dict(group_ids=_keys(n, 8, True, seed=4), num_groups=8)
+    got = _hist_run(kind, 41, x, B, 2048, **kw)
+    assert torch.equal(got, _hist_plain(41, x, B, 2048, **kw))
+    assert int((got.sum(dim=0) != 0).sum()) == (8 if kw else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["k3", "k4", "keyed"])
+def test_cuda_hist_fractional_mask(cuda, kind):
+    """A mask value other than 0/1 makes a CTA's weights fractional: the
+    CTAs whose columns hold one add weight × mask as f32, the others whole
+    counts as u32; counts within 1e-6 of the row's mass a bin of the plain
+    version."""
+    n, B = (1 << 16) + 37, 64
+    x, mask = _hist_inputs(n, 2, seed=5)
+    mask[:20_000:3] = 0.5
+    kw = dict(valid_mask=mask)
+    if kind == "keyed":
+        kw.update(group_ids=_keys(n, 8, True, seed=6), num_groups=8)
+    got = _hist_run(kind, 51, x, B, 2048, **kw)
+    want = _hist_plain(51, x, B, 2048, **kw)
+    dims = tuple(range(1, want.ndim))
+    bound = 1e-6 * want.double().sum(dim=dims)
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff <= bound.reshape(-1, *[1] * len(dims))).all())
+    assert not torch.equal(got, got.round())
+
+
+@pytest.mark.cuda
+def test_cuda_keyed_hist_limit(cuda):
+    """The keyed histogram keeps one key's d·nbins bins a row: at G = 8,
+    d = 4, nbins = 2048 (65,536 bins a row) it runs, bitwise kernel 7 and
+    the plain version; at d = 32 (65,536 bins a key's row) it raises
+    before any launch and names block_bins."""
+    n, B, G = 20_000, 64, 8
+    x, _ = _hist_inputs(n, 4, seed=7)
+    kw = dict(group_ids=_keys(n, G, True, seed=8), num_groups=G)
+    got = _hist_run("keyed", 61, x, B, 2048, **kw)
+    assert torch.equal(got, _hist_plain(61, x, B, 2048, **kw))
+    assert torch.equal(got, twh.fused_poisson_hist(61, x, LO, HI, 2048, B,
+                                                   block_bins=2048, **kw))
+    before = twh.grouped_hist_cuda.launches
+    with pytest.raises(NotImplementedError, match="block_bins"):
+        twh.fused_poisson_hist(61, torch.zeros(n, 32, device=cuda), LO, HI,
+                               2048, B, **kw)
+    assert twh.grouped_hist_cuda.launches == before
 
 
 @pytest.mark.cuda

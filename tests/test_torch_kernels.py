@@ -417,3 +417,246 @@ def test_weighted_hist_geometry_fits(R, n, d, nbins, unit):
         assert geo.ranges * geo.groups >= n // 4
     assert geo.groups % twh.HIST_THREADS == 0
     assert (geo.ranges - 1) * geo.groups < max(1, (n * d if unit else n) // 4)
+
+
+def test_whole_counts_fit_u32_and_f32():
+    """Kernels 3, 4 and the keyed histogram add whole counts into u32
+    bins and flush them as f32: a CTA covers at most MAX_TILES_PER_CTA
+    RNG tiles of BLOCK_N columns and a weight is at most the number of
+    CDF rungs, so a bin stays below 2^24, where u32 and f32 are exact."""
+    from repro_torch.kernels._pass import MAX_TILES_PER_CTA
+    from repro_torch.kernels.poisson_counts.ref import BLOCK_N
+    assert MAX_TILES_PER_CTA * BLOCK_N * len(POISSON_CDF_F32) < 2 ** 24
+
+
+@pytest.mark.parametrize("B,n", [(8, 300), (256, (1 << 20) + 37),
+                                 (256, (1 << 24) - 1000), (1000, 70_000)])
+@pytest.mark.parametrize("n_hist,d,nbins", [(1, 1, 2048), (2, 1, 2048),
+                                            (1, 4, 2048), (3, 8, 64),
+                                            (1, 1, 14_000)])
+def test_pass_hist_geometry_fits(B, n, n_hist, d, nbins):
+    """Kernels 3 and 4: the tile keys, the slot table (nbins, offset, lo,
+    hi, read once a CTA) and the rows' u32 bins fit in an SM's shared
+    memory, with as many rows (up to 8) as fit; the moments ranges are
+    pass_geometry's whatever the rows."""
+    from repro_torch.kernels._pass import (MAX_ROWS, SMEM_BYTES, STATIC_SMEM,
+                                           pass_geometry, pass_hist_rows,
+                                           pass_smem_bytes)
+    bb, bn = weight_tile_blocks(B, n)
+    Bp, np_ = B + (-B) % bb, n + (-n) % bn
+    tpc, ranges = pass_geometry(Bp, np_, bn)
+    total = n_hist * d * nbins
+    rows = pass_hist_rows(tpc, n_hist, d, total)
+    assert 1 <= rows <= MAX_ROWS
+    assert pass_smem_bytes(tpc, n_hist, d, rows, total) + STATIC_SMEM \
+        <= SMEM_BYTES
+    if rows < MAX_ROWS:
+        assert pass_smem_bytes(tpc, n_hist, d, rows + 1, total) \
+            + STATIC_SMEM > SMEM_BYTES
+    if (B, n, n_hist, d, nbins) == (256, (1 << 20) + 37, 1, 1, 2048):
+        # the table's shape: 8 rows, 64 KB of bins, 33 ranges x 32 blocks
+        assert (rows, tpc, ranges) == (8, 63, 33)
+        assert pass_smem_bytes(tpc, 1, 1, rows, total) == 1024 + 65536
+
+
+def _keyed_row_limit(Bp, np_, bn):
+    """The most bins one key's row (d·nbins) may hold in the keyed
+    histogram: a row of them beside the tile keys."""
+    from repro_torch.kernels._pass import (SMEM_BYTES, STATIC_SMEM,
+                                           pass_geometry)
+    tpc, _ = pass_geometry(Bp, np_, bn)
+    return (SMEM_BYTES - STATIC_SMEM - 16 * tpc) // 4
+
+
+@pytest.mark.parametrize("Bp,np_,G,d,nbins", [
+    (256, 2049 * 512, 8, 1, 2048), (256, 2049 * 512, 8, 4, 256),
+    (256, 2049 * 512, 32, 4, 2048), (16, 4 * 512, 6, 1, 512),
+    (128, 300, 1, 1, 64), (8, 129, 33, 3, 7), (256, 65536 + 512, 8, 4, 2048),
+    (1024, 16 * 512, 3000, 1, 1), (200, 20 * 512, 5, 2, 14_000)])
+def test_keyed_hist_geometry(Bp, np_, G, d, nbins):
+    """The keyed histogram's geometry: every key falls in exactly one key
+    chunk; every (row, column) weight is drawn by exactly one CTA (the
+    one of its column's range, its row's block and its key's chunk);
+    shared memory fits; the index entry's fields (column 10 bits, tile 10,
+    key 11) hold every value."""
+    from repro_torch.kernels._pass import (KEYED_MAX_KG, MAX_ROWS,
+                                           MAX_TILES_PER_CTA, SMEM_BYTES,
+                                           STATIC_SMEM, keyed_hist_geometry)
+    bn = min(512, np_)
+    nt = np_ // bn
+    geo = keyed_hist_geometry(Bp, np_, bn, G, d, nbins)
+    assert 1 <= geo.rows <= MAX_ROWS and 1 <= geo.kg <= KEYED_MAX_KG
+    assert geo.smem_bytes(d, nbins) + STATIC_SMEM <= SMEM_BYTES
+    assert bn < 1 << 10 and geo.tiles_per_cta <= MAX_TILES_PER_CTA <= 1 << 10
+    assert KEYED_MAX_KG <= 1 << 11
+    # keys: the chunks partition [0, G)
+    seen = np.zeros(G, np.int64)
+    for ch in range(geo.chunks):
+        keys = geo.keys_of(ch, G)
+        assert 1 <= len(keys) <= geo.kg
+        seen[list(keys)] += 1
+    assert (seen == 1).all()
+    # weights: a CTA (range i, row block, chunk) draws rows of its block on
+    # the columns of its range whose key its chunk holds
+    rowblocks = -(-Bp // geo.rows)
+    tiles = np.zeros(nt, np.int64)
+    for i in range(geo.ranges):
+        t0 = i * geo.tiles_per_cta
+        t1 = min(t0 + geo.tiles_per_cta, nt)
+        assert t0 < t1
+        tiles[t0:t1] += 1
+    rows = np.zeros(Bp, np.int64)
+    for b in range(rowblocks):
+        rows[b * geo.rows:min(Bp, (b + 1) * geo.rows)] += 1
+    assert (tiles == 1).all() and (rows == 1).all()
+    # one CTA a (row, column, key): the product of the three partitions
+    assert geo.ranges * rowblocks * geo.chunks == (
+        len(set(range(geo.ranges))) * rowblocks * geo.chunks)
+    if (Bp, np_, G, d, nbins) == (256, 2049 * 512, 8, 1, 2048):
+        # the table's shape: one key a chunk, 8 rows, 64 KB of bins
+        assert (geo.rows, geo.kg, geo.chunks, geo.ranges) == (8, 1, 8, 33)
+        assert geo.smem_bytes(d, nbins) == 63 * 16 + 65536
+
+
+@pytest.mark.parametrize("G", [1, 8, 500])
+def test_keyed_hist_raises_exactly_past_its_limit(G):
+    """The keyed histogram keeps one key's d·nbins bins a row: it runs up
+    to the last row that fits in an SM, whatever G, and raises one bin
+    past it, naming block_bins (the output-tiled kernel 7's knob)."""
+    from repro_torch.kernels._pass import keyed_hist_geometry
+    Bp, np_, bn = 256, 2049 * 512, 512
+    limit = _keyed_row_limit(Bp, np_, bn)
+    assert 57_000 < limit < 58_000
+    geo = keyed_hist_geometry(Bp, np_, bn, G, 1, limit)
+    assert (geo.rows, geo.kg) == (1, 1)
+    with pytest.raises(NotImplementedError, match="block_bins"):
+        keyed_hist_geometry(Bp, np_, bn, G, 1, limit + 1)
+    with pytest.raises(NotImplementedError, match="block_bins"):
+        keyed_hist_geometry(Bp, np_, bn, G, 4, limit // 4 + 1)
+    keyed_hist_geometry(Bp, np_, bn, G, 4, limit // 4)
+
+
+def _emulate_keyed_hist(pr, seed, lo, hi, nbins):
+    """numpy emulation of the keyed histogram (csrc/fused_grouped.cu) in
+    its scratch layout: the index pass sorts each range's columns that
+    carry a weight by key chunk into packed entries (column in its tile,
+    tile in the range, key in the chunk; a shuffle stands for the
+    scatter's atomics, as the order within a chunk is free), records each
+    segment's end and flags a mask value other than 0/1; each histogram
+    CTA of keyed_hist_geometry unpacks its chunk's segment, adds each
+    nonzero weight of its rows into u32 bins (f32 when its range is
+    flagged) and flushes them into the output.  Returns the counts and
+    how many times each (row, column) weight was drawn."""
+    from repro_torch.kernels._pass import keyed_hist_geometry
+    from repro_torch.kernels.poisson_counts.ref import weight_block
+    from repro_torch.kernels.weighted_hist.ref import _bin_indices
+    Bp, np_, bn, G, d = pr.Bp, pr.np_, pr.bn, pr.G, pr.d
+    geo = keyed_hist_geometry(Bp, np_, bn, G, d, nbins)
+    kg, nt = geo.kg, np_ // bn
+    W = weight_block(seed, pr.n_valid, Bp, pr.bb, bn, 0, nt,
+                     valid=pr.mp).numpy()
+    x = pr.xp.numpy()
+    bins_of = _bin_indices(pr.xp, lo[None, :], hi[None, :], nbins).numpy()
+    keys = pr.gp.numpy()
+    mask = None if pr.mp is None else pr.mp.numpy()
+    rng = np.random.default_rng(7)
+    index = np.full(geo.index_ints(np_), -1, np.int64)
+    entries = index[:np_]
+    ends = index[np_:np_ + geo.ranges * geo.chunks].reshape(geo.ranges,
+                                                           geo.chunks)
+    frac = index[np_ + geo.ranges * geo.chunks:]
+    assert len(frac) == geo.ranges
+    tiles = [(i * geo.tiles_per_cta,
+              min((i + 1) * geo.tiles_per_cta, nt)) for i in range(geo.ranges)]
+    for i, (t0, t1) in enumerate(tiles):      # keyed_index_kernel
+        js = np.arange(t0 * bn, t1 * bn)
+        ok = js < pr.n_valid
+        if mask is not None:
+            ok &= mask[js] != 0
+        kf = keys[js]
+        g = kf.astype(np.int64)
+        ok &= (kf >= 0) & (kf < G) & (g == kf)
+        ch = g // kg
+        rel = js - t0 * bn
+        entry = rel % bn | (rel // bn) << 10 | (g - ch * kg) << 20
+        sel = np.flatnonzero(ok)
+        sel = sel[rng.permutation(len(sel))]
+        sel = sel[np.argsort(ch[sel], kind="stable")]
+        entries[t0 * bn:t0 * bn + len(sel)] = entry[sel]
+        ends[i] = t0 * bn + np.cumsum(np.bincount(ch[sel],
+                                                  minlength=geo.chunks))
+        m = mask[js[js < pr.n_valid]] if mask is not None else np.zeros(0)
+        frac[i] = int(bool(((m != 0) & (m != 1)).any()))
+    slot = d * nbins
+    out = np.zeros((Bp, G * slot), np.float32)
+    drawn = np.zeros((Bp, np_), np.int64)
+    for i, (t0, t1) in enumerate(tiles):      # grouped_hist_kernel
+        for r0 in range(0, Bp, geo.rows):
+            nrows = min(geo.rows, Bp - r0)
+            for ch in range(geo.chunks):
+                g0 = ch * kg
+                kgv = min(kg, G - g0)
+                e0 = t0 * bn if ch == 0 else ends[i, ch - 1]
+                e = entries[e0:ends[i, ch]]
+                assert (e >= 0).all()
+                c, tt, k = e & 1023, (e >> 10) & 1023, e >> 20
+                assert (c < bn).all() and (tt < t1 - t0).all()
+                assert (k < kgv).all()
+                j = (t0 + tt) * bn + c
+                assert (keys[j] == g0 + k).all()
+                drawn[r0:r0 + nrows, j] += 1
+                exact = frac[i] == 0
+                bins = np.zeros((nrows, kg * slot),
+                                np.uint32 if exact else np.float32)
+                w = W[r0:r0 + nrows][:, j]
+                for dd in range(d):
+                    fin = ~np.isnan(x[j, dd])
+                    idx = (k * d + dd) * nbins + bins_of[j, dd]
+                    for r in range(nrows):
+                        nz = fin & (w[r] != 0)
+                        add = w[r, nz].astype(np.uint32 if exact
+                                              else np.float32)
+                        np.add.at(bins[r], idx[nz], add)
+                flat = bins[:, :kgv * slot].astype(np.float32)
+                out[r0:r0 + nrows, g0 * slot:(g0 + kgv) * slot] += flat
+    return out.reshape(Bp, G, d, nbins), drawn
+
+
+@pytest.mark.parametrize("G,d,nbins", [(5, 1, 2048), (6, 1, 512),
+                                       (4, 2, 64)])
+def test_keyed_hist_emulation_matches_plain_bitwise(G, d, nbins):
+    """The keyed kernel's index and its indexing, emulated in numpy, give
+    grouped_hist_plain's counts bitwise: keys skewed 2^-g with key 2
+    absent and a key outside [0, G), NaN and inf among the values, and a
+    mask of 0, 1 and 0.5 (a CTA whose columns hold 0.5 adds f32; halves
+    sum exactly) beside one of 0 and 1 only (u32).  Every (row, column)
+    weight with a key in [0, G), inside n_valid and not masked to 0 is
+    drawn exactly once; the rest are never drawn."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(G * 100 + d)
+    B, n, n_valid = 16, 1900, 1800
+    p = 2.0 ** -np.arange(G)
+    p[2] = 0.0
+    keys = rng.choice(G, size=n, p=p / p.sum()).astype(np.float32)
+    keys[7] = G + 0.5
+    x = rng.normal(0.0, 1.0, size=(n, d)).astype(np.float32)
+    x[3, 0], x[4, 0] = np.nan, np.inf
+    lo, hi = torch.full((d,), -2.0), torch.full((d,), 2.0)
+    mask = rng.choice(np.array([0.0, 1.0], np.float32), size=n)
+    # 0.5 in the first range's columns only: its CTAs add f32, the rest u32
+    mask[rng.integers(0, 400, size=20)] = 0.5
+    for m in (None, mask):
+        pr = tws.prepare(torch.from_numpy(x), B, n_valid=n_valid,
+                         valid_mask=None if m is None else torch.from_numpy(m),
+                         group_ids=torch.from_numpy(keys), num_groups=G)
+        got, drawn = _emulate_keyed_hist(pr, 99, lo, hi, nbins)
+        want = twh.grouped_hist_plain(pr, 99, lo, hi, nbins)
+        np.testing.assert_array_equal(got, want.numpy())
+        kp = pr.gp.numpy()
+        ok = (np.arange(pr.np_) < n_valid) & (kp == np.floor(kp)) & \
+            (kp >= 0) & (kp < G)
+        if m is not None:
+            ok &= pr.mp.numpy() != 0
+        np.testing.assert_array_equal(drawn, np.broadcast_to(
+            ok.astype(np.int64), drawn.shape))
+        assert want.numpy()[:, 2].sum() == 0.0
