@@ -14,8 +14,9 @@ failure:
    weighted_hist.cu, fused_stream.cu, fused_binblocked.cu and
    flash_attention.cu; one nvcc per source, all at once) and print the
    build seconds and ptxas's registers and spills; kernel 12's
-   tensor-core instances, kernels 2, 3, 4, 7 and 10 and the keyed
-   histogram must spill 0 bytes;
+   tensor-core instances, kernels 2, 3, 4, 6, 7, 8 (its assignment pass
+   too) and 10 and the keyed histogram must spill 0 bytes, and kernel 8's
+   instance of the B=256, n=2^22 bootstrap use at most 128 registers;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at B=256, n=2^20+37, with and without a
@@ -31,7 +32,11 @@ failure:
    also at G = 1 and at G = 32 with uniform and skewed keys; kernels 3
    and 4 and the keyed histogram with every value in one bin (bitwise)
    and under a mask of 0, 1, 0.5 (and 0.25), within 1e-6 of the row's
-   mass a bin; the
+   mass a bin; kernels 6 and 8 on values with +-inf in one key's rows and
+   NaN in another's (d in {1, 2}, with and without a mask): the plain
+   version's NaN and inf positions, the finite entries within the bounds
+   above, and every keyed slot the masked dedicated kernel's, bitwise
+   with NaN at the same places; the
    explicit-weight kernels (weighted_moments at B in {1, 7, 256}, n in
    {1, 1000, 2^20+37}, d in {1, 3, 8}; weighted_histogram at R in
    {1, 256}, d in {1, 4}, nbins in {256, 2048}, with NaN, +-inf, values
@@ -144,11 +149,15 @@ failure:
    Quantile's chunk shape, with kernel 7's cost terms (weights hashed and
    draws a weight, shared adds, bin_index evaluations, flush operations,
    bytes of x, of counts and of distributed shared memory); kernels 1 to
-   7, 10 and 11 and the keyed histogram also alone (launches back to back
-   inside one wrapper call), with the cost terms of kernels 3 and 4 and
-   of the keyed histogram (weights hashed, which must be B·n, or B times
-   the keyed columns; shared adds, bin_index evaluations, flush reads
-   and global adds; keyed, the bytes of keys and index entries read),
+   11 and the keyed histogram also alone (launches back to back inside
+   one wrapper call; kernel 8 also at the example's B = 24, n = 8,000),
+   with the cost terms of kernels 3 and 4 and of the keyed histogram
+   (weights hashed, which must be B·n, or B times the keyed columns;
+   shared adds, bin_index evaluations, flush reads and global adds;
+   keyed, the bytes of keys and index entries read) and of kernels 6 and
+   8 (weights hashed, from the columns each key or cluster chunk holds in
+   this run's data; shared read-add-writes; ptxas's registers and CTAs an
+   SM), printed beside their times and kept out of the kernels line,
    and kernel 10 at the point estimate (R = 1, unit weights); kernel 12
    at the serving prefill's shape
    beside its plain version, its bound (4·D operations a visible
@@ -435,10 +444,11 @@ def geometry(lib: str, args: tuple) -> tuple:
         fields = dict(n=n, d=d, k=k, cols=cols, ranges=ranges,
                       threads=threads)
     elif lib == "fused_kmeans":
-        (_, n_valid, Bp, np_, bb, bn, d, k, _, mask, _, tpc, ranges,
-         _, _, _) = args
+        (_, n_valid, Bp, np_, bb, bn, d, k, _, mask, _, rows, dc, kc, tpc,
+         ranges, asg, _, _, _) = args
         fields = dict(n_valid=n_valid, Bp=Bp, np_=np_, bb=bb, bn=bn, d=d,
-                      k=k, masked=mask is not None, tpc=tpc, ranges=ranges)
+                      k=k, masked=mask is not None, rows=rows, dc=dc, kc=kc,
+                      tpc=tpc, ranges=ranges, in_place=asg is None)
     elif lib == "weighted_moments":
         B, n, d, _, _, rows, cols, ranges = args[:8]
         fields = dict(B=B, n=n, d=d, rows=rows, cols=cols, ranges=ranges)
@@ -816,10 +826,109 @@ def hold_grouped(torch, parity, seed, x, keys, G, B, nbins, what,
                   f"differs from the masked kernel, {what}")
 
 
+def same_or_nan(a, b) -> bool:
+    """Bitwise equal with NaN at the same places (torch.equal is false on
+    NaN)."""
+    nan = a != a
+    return (bool((nan == (b != b)).all())
+            and bool((a[~nan] == b[~nan]).all()))
+
+
+def within_positions(parity, name, got, want, bound, what) -> None:
+    """NaN, +inf and -inf at the plain version's places, the finite
+    entries within 1e-5·bound."""
+    inf = float("inf")
+    for f in (lambda t: t != t, lambda t: t == inf, lambda t: t == -inf):
+        check(bool((f(got) == f(want)).all()), f"{name} {what}: NaN or inf "
+              "positions differ from the plain version")
+    fin = (want == want) & (want.abs() != inf)
+    if bool(fin.any()):
+        parity.within(name, got[fin], want[fin],
+                      bound.expand_as(want)[fin], what)
+
+
+def hold_nonfinite(torch, parity) -> None:
+    """Kernels 6 and 8 on values with +inf and -inf in rows of key 1 and
+    NaN in a row of key 2: the plain version's NaN and inf positions
+    (finite entries within its bounds, w_tot and counts bitwise), and
+    every keyed slot the dedicated kernel masked to its key, bitwise with
+    NaN at the same places (another key's non-finite value is 0·x = NaN
+    in the masked run)."""
+    from repro_torch.kernels.kmeans_assign.ops import (fused_kmeans_plain,
+                                                       fused_poisson_kmeans,
+                                                       grouped_kmeans_plain)
+    from repro_torch.kernels.weighted_stats.ops import (
+        fused_poisson_moments, grouped_moments_plain, prepare)
+    B, n, G = 64, (1 << 16) + 37, GB_G
+    gen = torch.Generator().manual_seed(23)
+    t0 = time.perf_counter()
+    for d in (1, 2):
+        xk = keyed_rows(n, d, G, seed=40 + d)
+        one = (xk[:, -1] == 1).nonzero()[0]
+        two = (xk[:, -1] == 2).nonzero()[0]
+        xk[one[3], 0], xk[two[5], d - 1], xk[one[9], d - 1] = (
+            float("inf"), float("nan"), -float("inf"))
+        xk = torch.from_numpy(xk).cuda()
+        x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
+        cent = x[:KM_K].clone()
+        cent[0, 0] = 0.0
+        for masked in (False, True):
+            mask = None
+            if masked:
+                mask = (torch.rand(n, generator=gen) > 0.3).float().cuda()
+            what = f"non-finite x, B={B} n={n} d={d}" + (
+                " masked" if masked else "")
+            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+            kw = dict(valid_mask=mask, group_ids=keys, num_groups=G)
+            pr = prepare(x, B, **kw)
+            bound = plain(grouped_moments_plain, prepare(
+                x.abs().nan_to_num(0, 0, 0), B, **kw), seed)[1][:B]
+            got = fused_poisson_moments(seed, x, B, **kw)
+            want = [t[:B] for t in plain(grouped_moments_plain, pr, seed)]
+            name = "fused_poisson_moments_grouped"
+            parity.bitwise(name, got[0], want[0], f"w_tot {what}")
+            within_positions(parity, name, got[1], want[1], bound,
+                             f"s1 {what}")
+            within_positions(parity, name, got[2], want[2], want[2].abs(),
+                             f"s2 {what}")
+            check(bool((want[1] != want[1]).any()), f"{what}: no NaN")
+            name = "fused_poisson_kmeans"
+            km = fused_poisson_kmeans(seed, x, cent, B, **kw)
+            for run, args, b in (
+                    (grouped_kmeans_plain, kw, bound[:, :, None, :]),
+                    (fused_kmeans_plain, dict(valid_mask=mask),
+                     bound.sum(1)[:, None, :])):
+                g = km if run is grouped_kmeans_plain else \
+                    fused_poisson_kmeans(seed, x, cent, B, valid_mask=mask)
+                wk = [t[:B] for t in plain(run, prepare(x, B, **args), seed,
+                                           cent)]
+                parity.bitwise(name, g[1], wk[1], f"counts {what}")
+                within_positions(parity, name, g[0], wk[0], b,
+                                 f"sums {what}")
+                within_positions(parity, name, g[2], wk[2], wk[2].abs(),
+                                 f"inertia {what}")
+            for g in range(G):
+                m = (keys == g).float() if mask is None else \
+                    mask * (keys == g)
+                for a, b in zip(got, fused_poisson_moments(seed, x, B,
+                                                           valid_mask=m)):
+                    check(same_or_nan(a[:, g], b), f"grouped moments slot "
+                          f"{g} differs from the masked kernel, {what}")
+                for a, b in zip(km, fused_poisson_kmeans(seed, x, cent, B,
+                                                         valid_mask=m)):
+                    check(same_or_nan(a[:, g], b), f"keyed k-means slot "
+                          f"{g} differs from the masked kernel, {what}")
+    torch.cuda.synchronize()
+    print("parity (non-finite x): kernels 6 and 8 give the plain versions' "
+          "NaN and inf positions, every keyed slot its masked kernel's "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_parity_grouped(torch, parity: Parity) -> None:
     from repro_torch.kernels._pass import grouped_geometry
 
     gen = torch.Generator().manual_seed(19)
+    hold_nonfinite(torch, parity)
     # (B, n, d, G, nbins, absent key, uniform keys): the main shapes, a key
     # with no rows, G·(2d+1) = 144 > 128, which takes two z chunks of 8
     # keys, one key, and 32 keys uniform and skewed (the keyed histogram
@@ -831,7 +940,8 @@ def phase_parity_grouped(torch, parity: Parity) -> None:
              (BIG_B, BIG_N, 1, 1, NBINS, None, False),
              (64, (1 << 16) + 37, 1, 32, 256, None, True),
              (64, (1 << 16) + 37, 4, 32, 64, None, False)]
-    check(grouped_geometry(16, 4)[3] == 2, "G=16, d=4 is not chunked")
+    check(grouped_geometry(64, (1 << 16) + 512, 512, 16, 4).chunks == 2,
+          "G=16, d=4 is not chunked")
     for B, n, d, G, nbins, absent, uniform in cases:
         xk = torch.from_numpy(keyed_rows(n, d, G, seed=n + d + G,
                                          absent=absent,
@@ -2404,6 +2514,7 @@ def kmeans_rows(torch, launches, parity: Parity):
     path gives them: kmeans_assign at the example's full fit (n = 400,000,
     k = 5, d = 2, unit weights), the fused kernel at the B = 256,
     n = 2^22 bootstrap."""
+    from repro_torch.kernels._pass import kmeans_geometry
     from repro_torch.kernels.kmeans_assign.ops import (assign_plain,
                                                        fused_kmeans_plain,
                                                        fused_poisson_kmeans,
@@ -2441,9 +2552,13 @@ def kmeans_rows(torch, launches, parity: Parity):
                 B * KM_BOOT_N * entries * 2 / F32_FLOPS_PER_S),
             dict(B=B, n=KM_BOOT_N, k=k, d=d)),
     }
+    libs = {"kmeans_assign": "kmeans_assign",
+            "fused_poisson_kmeans": "fused_kmeans"}
     rows = []
     for name, (kernel, plain_fn, t_bytes, t_ops, shape) in runs.items():
-        ms = time_ms(torch, kernel, 20 if name == "kmeans_assign" else 5)
+        reps = 20 if name == "kmeans_assign" else 5
+        ms = time_ms(torch, kernel, reps)
+        alone_ms = launch_ms(torch, kernel, libs[name], reps)
         plain_ms = time_ms(torch, plain_fn, 1)
         bound = max(t_bytes, t_ops) * 1e3
         rows.append(dict(
@@ -2452,14 +2567,30 @@ def kmeans_rows(torch, launches, parity: Parity):
             max_abs_err=parity.err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None, shape=shape))
-        print(f"timing {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-              f"{bound:.4f} ms by {rows[-1]['bound_by']}) at {shape}")
-    # the example's shapes of the fused kernel, for the record
+            library_ms=None, launch_ms=alone_ms, shape=shape))
+        print(f"timing {name}: {ms:.4f} ms (the kernel alone {alone_ms:.4f} "
+              f"ms; plain {plain_ms:.2f} ms, bound {bound:.4f} ms by "
+              f"{rows[-1]['bound_by']}) at {shape}")
+    # the columns each cluster chunk hashes: those whose nearest centroid
+    # it holds, from the plain assignment of the padded columns
+    geo = kmeans_geometry(pr.Bp, pr.np_, pr.bn, k, d)
+    jstar = torch.cat([((xc[:, None, :] - cb[None]) ** 2).sum(-1).argmin(1)
+                       for xc in pr.xp.split(1 << 20)])
+    per = torch.bincount(jstar, minlength=k)
+    cols = [int(per[c:c + geo.kc].sum()) for c in range(0, k, geo.kc)]
+    del jstar
+    terms = slot_cost_terms(geo, "fused_kmeans_kernel", pr, cols)
+    print(f"kernel 8 cost terms beside its {rows[-1]['launch_ms']:.4f} ms "
+          f"alone: {json.dumps(terms)}")
+    # the example's shapes of the fused kernel, a call and alone
     xs, cs = km_data(torch, KM_SAMPLE, k, d, seed=6)
-    ms = time_ms(torch, lambda: fused_poisson_kmeans(seed, xs, cs, KM_B), 20)
+    example = lambda: fused_poisson_kmeans(seed, xs, cs, KM_B)  # noqa: E731
+    ms = time_ms(torch, example, 20)
+    alone_ms = launch_ms(torch, example, "fused_kmeans", 20)
+    rows[-1]["example"] = dict(B=KM_B, n=KM_SAMPLE, ms=ms, launch_ms=alone_ms)
     print(f"timing fused_poisson_kmeans at the example's B={KM_B}, "
-          f"n={KM_SAMPLE}: {ms:.4f} ms")
+          f"n={KM_SAMPLE}: {ms:.4f} ms a call, the kernel alone "
+          f"{alone_ms:.4f} ms")
     return rows
 
 
@@ -2468,6 +2599,7 @@ def groupby_rows(torch, launches, parity: Parity, walls):
     G = 8, d = 1 (nbins = 2048), the sessions' warm walls, and the grouped
     kernel against G masked moments launches at the reference benchmark's
     shape."""
+    from repro_torch.kernels._pass import grouped_geometry
     from repro_torch.kernels.weighted_hist.ops import (fused_poisson_hist,
                                                        grouped_hist_plain)
     from repro_torch.kernels.weighted_stats.ops import (
@@ -2516,6 +2648,15 @@ def groupby_rows(torch, launches, parity: Parity, walls):
               f"{rows[-1]['bound_by']})")
     print("keyed histogram cost terms: " + json.dumps(hist_cost_terms(
         torch, x, B, seed, keys, G)))
+    # the columns each key chunk hashes: those with a key in it
+    geo = grouped_geometry(pr.Bp, pr.np_, pr.bn, G, d)
+    gp = pr.gp
+    keyed = (gp >= 0) & (gp < G) & (gp == gp.floor())
+    cols = [int((keyed & (gp >= g) & (gp < g + geo.kc)).sum())
+            for g in range(0, G, geo.kc)]
+    terms = slot_cost_terms(geo, "grouped_moments_kernel", pr, cols)
+    print(f"kernel 6 cost terms beside its {rows[0]['launch_ms']:.4f} ms "
+          f"alone: {json.dumps(terms)}")
 
     # the grouped kernel against G masked launches of the moments kernel
     sh = GB_RATIO_SHAPE
@@ -3399,6 +3540,63 @@ def serve_rows(torch, launches, parity: Parity):
 
 
 
+#: registers of every kernel instance ptxas reported in phase 1, by its
+#: mangled name
+PTXAS_REGISTERS = {}
+
+
+def ptxas_registers(log: str) -> dict:
+    """{mangled kernel name: registers} from a ptxas report."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            entry = line.rsplit(" ", 1)[-1]
+        elif "Used" in line and "registers" in line and entry:
+            regs[entry] = int(line.split("Used", 1)[1].split()[0])
+    return regs
+
+
+def slot_registers(kernel: str, rows: int, dc: int):
+    """Registers of the <rows, dc> instance of a slot kernel (None when
+    the library was built before this run, with no report)."""
+    tag = f"{kernel}ILi{rows}ELi{dc}E"
+    found = [r for name, r in PTXAS_REGISTERS.items() if tag in name]
+    return found[0] if found else None
+
+
+def ctas_per_sm(regs, smem: int) -> int:
+    """CTAs of 256 threads an H100 SM holds at ``regs`` registers a
+    thread (allocated 256 a warp) and ``smem`` dynamic shared bytes (1 KB
+    more a CTA reserved, 228 KB an SM), at most 8 (2,048 threads)."""
+    by_regs = 8 if regs is None else 65536 // (8 * (-(-regs * 32 // 256))
+                                              * 256)
+    return min(8, by_regs, 233472 // (smem + 1024))
+
+
+def slot_cost_terms(geo, kernel: str, pr, hashed_cols) -> dict:
+    """A slot pass's cost terms, printed beside its time: the weights
+    hashed, counted from this run's data (``hashed_cols``: for each chunk
+    of keys (clusters), the columns whose key (cluster) it holds, each
+    hashed once a row and chunk of DC columns of x), the shared
+    read-add-writes those weights make (a key's 2·DC+1 slots; for kernel 8
+    a cluster's DC sums, and its count in the first column chunk only),
+    the registers ptxas reported in this run (None when the library was
+    built before it) and the CTAs an SM they and the shared bytes allow."""
+    ndc = -(-pr.d // geo.dc)
+    cols = int(sum(hashed_cols))
+    hashed = pr.Bp * cols * ndc
+    if kernel == "grouped_moments_kernel":
+        rmw = hashed * geo.per_key
+    else:
+        rmw = hashed * geo.dc + pr.Bp * cols
+    regs = slot_registers(kernel, geo.rows, geo.dc)
+    return dict(geometry=geo._asdict(), hashed_columns_by_chunk=hashed_cols,
+                weights_hashed=hashed, rows_times_columns=pr.Bp * pr.np_,
+                shared_read_add_writes=rmw, registers=regs,
+                smem_bytes=geo.smem_bytes(),
+                ctas_per_sm=ctas_per_sm(regs, geo.smem_bytes()))
+
+
 def check_no_spills(log: str, kernel: str) -> None:
     """Every instance of ``kernel`` in a ptxas report spills 0 bytes (an
     empty report: the library was built before, nothing to read)."""
@@ -3444,6 +3642,15 @@ def main() -> int:
     check_no_spills(logs.get("fused_pass", ""), "fused_pass_kernel")
     check_no_spills(logs.get("fused_grouped", ""), "grouped_hist_kernel")
     check_no_spills(logs.get("fused_grouped", ""), "keyed_index_kernel")
+    check_no_spills(logs.get("fused_grouped", ""), "grouped_moments_kernel")
+    check_no_spills(logs.get("fused_kmeans", ""), "fused_kmeans")
+    for log in logs.values():
+        PTXAS_REGISTERS.update(ptxas_registers(log))
+    from repro_torch.kernels._pass import kmeans_geometry
+    geo = kmeans_geometry(BIG_B, KM_BOOT_N, 512, KM_K, 2)
+    km_regs = slot_registers("fused_kmeans_kernel", geo.rows, geo.dc)
+    check(km_regs is None or km_regs <= 128, f"fused_kmeans_kernel<"
+          f"{geo.rows}, {geo.dc}> uses {km_regs} registers, more than 128")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Times kernels 8 (fused_kmeans.cu) and 6 (grouped_moments_kernel in
+fused_grouped.cu) alone, in knock-outs and at other geometries, with
+kernel 2 beside them.
+
+    python3 probe_slots.py [--root CHECKOUT] [--label L] [--out FILE]
+
+Needs one CUDA card and nvcc, and chip_smoke.py beside this script, whose
+timers and data it uses.  ``--root`` is the checkout whose src/repro_torch
+is measured (default: this one), so one call can time two commits in
+turns.  Each variant's kernel sources are copied under
+``<root>/build/probe/`` and edited as the checkout's design in KNOCKOUTS
+says (every edit must match its source, or the run fails), built with the
+port's nvcc flags (ptxas's registers and spills are printed for every
+instance) and swapped into the wrapper, which runs unchanged but for the
+geometry knob KNOBS sets.  A knock-out's outputs are wrong by design and
+are never compared.
+
+Each time is chip_smoke.launch_ms (back-to-back launches inside one
+wrapper call; 200 where one takes under 0.1 ms); ``call`` is the
+wrapper's own time a call.  Then, with the base kernels: the B = 256,
+n = 2^22 k-means bootstrap, the keyed Mean bootstrap at B = 256,
+n = 2^24 - 1000, and the grouped kernel against G masked kernel-2
+launches at chip_smoke's GB_RATIO_SHAPE.  Prints one JSON object as its
+last line, and writes it to ``--out`` when given.
+"""
+import argparse
+import importlib
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import chip_smoke as cs
+
+#: (B, n, k, d) of kernel 8: the kernel table's bootstrap, the example's
+#: 2% sample, the wide case
+KMEANS_SHAPES = [(256, 1 << 22, 5, 2), (24, 8_000, 5, 2),
+                 (256, (1 << 20) + 37, 16, 8)]
+#: (B, n, G, d) of kernel 6: the kernel table's shape, one key, 32 keys,
+#: G·(2d+1) = 144 > 128, and the grouped-against-masked shape
+GROUPED_SHAPES = [(256, (1 << 20) + 37, 8, 1), (256, (1 << 20) + 37, 1, 1),
+                  (256, (1 << 20) + 37, 32, 1), (256, (1 << 20) + 37, 16, 4),
+                  (256, 65_536, 8, 4)]
+_SLOT_ACC_K6 = (
+    "#pragma unroll\n"
+    "      for (int r = 0; r < R; ++r) {\n"
+    "        float& aw = slot(r, ONE ? 0 : kk, 0);\n"
+    "        aw = __fadd_rn(aw, w[r]);\n"
+    "#pragma unroll\n"
+    "        for (int q = 0; q < DC; ++q) {\n"
+    "          float& a1 = slot(r, ONE ? 0 : kk, 1 + q);\n"
+    "          float& a2 = slot(r, ONE ? 0 : kk, 1 + DC + q);\n"
+    "          a1 = __fmaf_rn(w[r], xv[q], a1);\n"
+    "          a2 = __fmaf_rn(w[r], x2[q], a2);\n"
+    "        }\n"
+    "      }")
+_SLOT_ACC_K8 = (
+    "      float* s = slots + kk * S * kThreads + threadIdx.x;\n"
+    "#pragma unroll\n"
+    "      for (int r = 0; r < R; ++r) {\n"
+    "        float* sr = s + r * row_slots * kThreads;\n"
+    "#pragma unroll\n"
+    "        for (int q = 0; q < DC; ++q) {\n"
+    "          sr[q * kThreads] = __fmaf_rn(w[r], xv[q], sr[q * kThreads]);\n"
+    "        }\n"
+    "        if (lead) {\n"
+    "          float* cnt = sr + DC * kThreads;\n"
+    "          *cnt = __fadd_rn(*cnt, w[r]);\n"
+    "          inertia[r] = __fmaf_rn(w[r], best, inertia[r]);\n"
+    "        }\n"
+    "      }")
+_NOHASH = [("poisson_tile.cuh",
+            "  threefry2x32(key.k0, key.k1, x0, x1);\n"
+            "  float w = poisson_from_bits(x0 ^ x1);",
+            "  float w = 1.f;")]
+#: design -> variant -> [(file, old text, new text)].  "slots" is this
+#: design (csrc/slot_tile.cuh); "registers" is the one before it (commit
+#: ff78254), whose knock-outs PERF.md records as the parent's.
+#: nohash: every implicit weight is 1; noacc: the weights and values are
+#: formed but folded into one accumulator; nonearest: the assignment is
+#: column & 3 with min-d² = x_0; nonote: no notes of non-finite values;
+#: rangesx: column ranges on grid x, as in kernel 2; regs48: candidate (a)
+#: for kernel 6, 48 register accumulators and three CTAs an SM.
+KNOCKOUTS = {
+    "slots": {
+        "nohash": _NOHASH,
+        "noacc": [
+            ("fused_kmeans.cu", _SLOT_ACC_K8,
+             "      float ws = xv[0] + best;\n"
+             "#pragma unroll\n"
+             "      for (int r = 0; r < R; ++r) ws += w[r];\n"
+             "      slots[kk * S * kThreads + threadIdx.x] += ws;"),
+            ("fused_grouped.cu", _SLOT_ACC_K6,
+             "      float ws = xv[0] + x2[0];\n"
+             "#pragma unroll\n"
+             "      for (int r = 0; r < R; ++r) ws += w[r];\n"
+             "      slot(0, ONE ? 0 : kk, 0) += ws;")],
+        "nonote": [("fused_grouped.cu", "      if (!ONE && !finite) {",
+                    "      if (false) {")],
+        "rangesx": [
+            (f, "  const int r0 = blockIdx.x * R;\n"
+                "  const int range = blockIdx.y;",
+             "  const int r0 = blockIdx.y * R;\n"
+             "  const int range = blockIdx.x;")
+            for f in ("fused_kmeans.cu", "fused_grouped.cu")] + [
+            (f, "  dim3 grid((p.Bp + R - 1) / R, p.ranges, zdim);",
+             "  dim3 grid(p.ranges, (p.Bp + R - 1) / R, zdim);")
+            for f in ("fused_kmeans.cu", "fused_grouped.cu")],
+    },
+    "registers": {
+        "nohash": _NOHASH,
+        "noacc": [
+            ("fused_kmeans.cu",
+             "          acc[r][e] = __fmaf_rn(w[r], v[e], acc[r][e]);",
+             "          if (e == 0) acc[r][0] = __fadd_rn(acc[r][0], w[r]);\n"
+             "          else if (r == 0) acc[0][e] = __fadd_rn(acc[0][e], "
+             "v[e]);"),
+            ("fused_grouped.cu",
+             "          const float wg = hit ? w[r] : 0.f;\n"
+             "          acc_w[r][k] = __fadd_rn(acc_w[r][k], wg);\n"
+             "#pragma unroll\n"
+             "          for (int q = 0; q < DC; ++q) {\n"
+             "            acc_s1[r][k][q] = __fmaf_rn(wg, xv[q], "
+             "acc_s1[r][k][q]);\n"
+             "            acc_s2[r][k][q] = __fmaf_rn(wg, x2[q], "
+             "acc_s2[r][k][q]);\n"
+             "          }",
+             "          if (k == 0) acc_w[r][0] = __fadd_rn(acc_w[r][0], "
+             "hit ? w[r] : xv[0]);")],
+        "nonearest": [
+            ("fused_kmeans.cu",
+             "      const int jstar = nearest(xr, c_s, cc_s, p.d, p.k, best);",
+             "      const int jstar = c & 3;\n      best = xr[0];")],
+        "regs48": [
+            ("fused_grouped.cu", "constexpr int kGroupedAccs = 128;",
+             "constexpr int kGroupedAccs = 48;"),
+            # at least one row in the instances G = 1 and 8 never launch
+            ("fused_grouped.cu",
+             "                                   ? kGroupedAccs / kEntries\n",
+             "                                   ? (kGroupedAccs < kEntries ? 1"
+             " : kGroupedAccs / kEntries)\n"),
+            ("fused_grouped.cu",
+             "template <int DC, int KG>\n__global__ void "
+             "__launch_bounds__(kThreads)\ngrouped_moments_kernel",
+             "template <int DC, int KG>\n__global__ void "
+             "__launch_bounds__(kThreads, 3)\ngrouped_moments_kernel")],
+    },
+}
+PASS = "repro_torch.kernels._pass"
+KMEANS = "repro_torch.kernels.kmeans_assign.ops"
+#: design -> variant -> (module, attribute, new value from the old one),
+#: set while the variant is timed, with the base library
+KNOBS = {
+    "slots": {
+        "ctas2": (PASS, "SLOT_CTAS", lambda _: 2),
+        "ctas4": (PASS, "SLOT_CTAS", lambda _: 4),
+        "slots48": (PASS, "SLOT_FLOATS", lambda _: 48),
+        "dc2": (PASS, "dim_chunk", lambda f: lambda d: min(2, f(d))),
+        "pass": (KMEANS, "ASSIGN_IN_PLACE", lambda _: 0),
+        "inplace": (KMEANS, "ASSIGN_IN_PLACE", lambda _: 1 << 62)},
+    "registers": {"regs48": (PASS, "GROUPED_ACCS", lambda _: 48)},
+}
+#: design -> library -> the variants timed
+VARIANTS = {
+    "slots": {"fused_kmeans": ("base", "nohash", "noacc", "ctas2", "ctas4",
+                               "pass", "inplace", "rangesx"),
+              "fused_grouped": ("base", "nohash", "noacc", "nonote",
+                                "ctas2", "ctas4", "slots48", "dc2",
+                                "rangesx"),
+              "fused_pass": ("base",)},
+    "registers": {"fused_kmeans": ("base", "nohash", "noacc", "nonearest"),
+                  "fused_grouped": ("base", "nohash", "noacc", "regs48"),
+                  "fused_pass": ("base",)},
+}
+#: variant -> the kernel 6 shapes (G, d) it is timed at (default: all)
+ONLY = {"regs48": ((8, 1), (1, 1)), "slots48": ((8, 4), (16, 4)),
+        "dc2": ((8, 4), (16, 4))}
+REPS = {"fused_kmeans": 5, "fused_grouped": 10, "fused_pass": 10}
+#: launches back to back at least, where one takes under 0.1 ms
+SMALL_REPS = 200
+
+
+def ptxas_report(log: str):
+    """[function, registers, spill line] of every kernel in a report."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            entry = line.rsplit(" ", 1)[-1]
+        elif "spill" in line and entry:
+            out.append([entry, None, line.split(":", 1)[-1].strip()])
+        elif "Used" in line and "registers" in line and out:
+            m = re.search(r"Used (\d+) registers", line)
+            out[-1][1] = int(m.group(1)) if m else None
+    return out
+
+
+def start_build(_build, csrc: Path, name: str, variant: str, edits,
+                work: Path):
+    """Copy ``csrc`` with ``edits`` (each must match) and start nvcc on
+    ``name``.cu; returns (process, library path)."""
+    src = work / f"{name}-{variant}"
+    shutil.copytree(csrc, src)
+    (src / "poisson_cdf.h").write_text(_build.cdf_header())
+    for fname, old, new in edits:
+        f = src / fname
+        text = f.read_text()
+        if old not in text:
+            raise RuntimeError(f"knock-out text not in {fname}: {old[:60]!r}")
+        f.write_text(text.replace(old, new))
+    lib = src / f"lib{name}.so"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(src), "-o",
+           str(lib), str(src / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--label", default="probe")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root / "src"))
+    import ctypes
+
+    import torch
+    if not torch.cuda.is_available():
+        print("probe_slots: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch import random as trandom
+    from repro_torch.core import GroupedStatistic, KMeansStep, Mean, bootstrap
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kmeans_assign.ops import fused_poisson_kmeans
+    from repro_torch.kernels.weighted_stats.ops import fused_poisson_moments
+
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    design = "slots" if (csrc / "slot_tile.cuh").exists() else "registers"
+    knockouts, knobs = KNOCKOUTS[design], KNOBS[design]
+    work = root / "build" / "probe"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    started = {}
+    for name, variants in VARIANTS[design].items():
+        for v in variants:
+            if v != "base" and v not in knockouts:
+                if v not in knobs:
+                    raise RuntimeError(f"variant {v} is neither a knock-out "
+                                       f"nor a knob of the {design} design")
+                continue  # the base library under a knob
+            edits = [e for e in knockouts.get(v, [])
+                     if e[0] == f"{name}.cu" or e[0].endswith(".cuh")]
+            if v != "base" and not edits:
+                raise RuntimeError(f"variant {v} edits nothing of {name}")
+            started[(name, v)] = start_build(_build, csrc, name, v, edits,
+                                             work)
+    libs, ptxas = {}, {}
+    for (name, v), (proc, lib) in started.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(out, file=sys.stderr)
+            raise RuntimeError(f"nvcc failed for {name}-{v}")
+        cdll = ctypes.CDLL(str(lib))
+        fn = getattr(cdll, f"earl_{name}")
+        fn.argtypes = list(_build.SIGNATURES[name])
+        fn.restype = ctypes.c_int
+        libs[(name, v)] = cdll
+        ptxas[f"{name}-{v}"] = ptxas_report(out)
+    build_s = time.perf_counter() - t0
+    for key, lines in ptxas.items():
+        for fn, regs, spill in lines:
+            print(f"ptxas {key}: {fn}: {regs} registers; {spill}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"nvidia-smi: {smi}")
+
+    def with_variant(name, variant, fn):
+        lib = libs.get((name, variant), libs[(name, "base")])
+        _build._LOADED[name] = lib
+        knob = knobs.get(variant)
+        if knob:
+            module = importlib.import_module(knob[0])
+            before = getattr(module, knob[1])
+            setattr(module, knob[1], knob[2](before))
+        try:
+            return fn()
+        finally:
+            _build._LOADED[name] = libs[(name, "base")]
+            if knob:
+                setattr(module, knob[1], before)
+
+    def timed(name, fn, shape=None):
+        row = {}
+        reps = REPS[name]
+        if cs.launch_ms(torch, fn, name, 1) < 0.1:
+            reps = SMALL_REPS
+        for variant in VARIANTS[design][name]:
+            if shape is not None and shape not in ONLY.get(variant,
+                                                           (shape,)):
+                continue
+            row[variant] = with_variant(name, variant, lambda: cs.launch_ms(
+                torch, fn, name, reps))
+        row["call"] = cs.time_ms(torch, fn, reps)
+        return row
+
+    for name in VARIANTS[design]:
+        _build._LOADED[name] = libs[(name, "base")]
+    result = dict(label=args.label, root=str(root), design=design,
+                  device=smi, build_s=build_s, ptxas=ptxas, kmeans=[],
+                  grouped=[])
+    seed = 2025
+    for B, n, k, d in KMEANS_SHAPES:
+        x, cent = cs.km_data(torch, n, k, d, seed=n + k)
+        row = timed("fused_kmeans", lambda: fused_poisson_kmeans(
+            seed, x, cent, B))
+        row.update(B=B, n=n, k=k, d=d)
+        result["kmeans"].append(row)
+        print(f"kernel 8 {json.dumps(row)}")
+    for B, n, G, d in GROUPED_SHAPES:
+        xk = torch.from_numpy(cs.keyed_rows(n, d, G, seed=n + d + G)).cuda()
+        x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
+        row = timed("fused_grouped", lambda: fused_poisson_moments(
+            seed, x, B, group_ids=keys, num_groups=G), shape=(G, d))
+        row.update(B=B, n=n, G=G, d=d)
+        if (G, d) == (8, 1):
+            row["kernel2"] = timed("fused_pass", lambda: fused_poisson_moments(
+                seed, x, B))
+        result["grouped"].append(row)
+        print(f"kernel 6 {json.dumps(row)}")
+
+    # end to end, with the base kernels: each bootstrap a call (3 calls),
+    # and chip_smoke's grouped-against-masked comparison
+    xb, cb = cs.km_data(torch, 1 << 22, 5, 2, seed=7)
+    result["kmeans_bootstrap_ms"] = cs.time_ms(torch, lambda: bootstrap(
+        xb, KMeansStep(cb), 256, trandom.PRNGKey(11), backend="fused_rng"), 3)
+    xk = torch.from_numpy(cs.keyed_rows((1 << 24) - 1000)).cuda()
+    result["keyed_bootstrap_ms"] = cs.time_ms(torch, lambda: bootstrap(
+        xk, GroupedStatistic(Mean(), 8), 256, trandom.PRNGKey(13),
+        backend="fused_rng"), 3)
+    del xk
+    sh = cs.GB_RATIO_SHAPE
+    xk = torch.from_numpy(cs.keyed_rows(sh["n"], sh["d"], 8, seed=5)).cuda()
+    x, keys = xk[:, :-1].contiguous(), xk[:, -1].contiguous()
+    masks = [(keys == g).float() for g in range(8)]
+    grouped = cs.time_ms(torch, lambda: fused_poisson_moments(
+        seed, x, sh["B"], group_ids=keys, num_groups=8), 20)
+    masked = cs.time_ms(torch, lambda: [fused_poisson_moments(
+        seed, x, sh["B"], valid_mask=m) for m in masks], 20)
+    result["grouped_vs_masked"] = dict(grouped_ms=grouped, masked_ms=masked,
+                                       ratio=masked / grouped)
+    print(f"end to end: k-means bootstrap {result['kmeans_bootstrap_ms']} "
+          f"ms, keyed bootstrap {result['keyed_bootstrap_ms']} ms, grouped "
+          f"vs masked {json.dumps(result['grouped_vs_masked'])}")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -51,7 +51,8 @@ SIGNATURES: Dict[str, tuple] = {
     "kmeans_assign": (INT, INT, INT, VOID_P, VOID_P, VOID_P, INT, INT, INT,
                       VOID_P, VOID_P, VOID_P),
     "fused_kmeans": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P,
-                     VOID_P, INT, INT, VOID_P, VOID_P, VOID_P),
+                     VOID_P, INT, INT, INT, INT, INT, VOID_P, VOID_P, VOID_P,
+                     VOID_P),
     "fused_grouped": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P,
                       VOID_P, INT, INT, INT, INT, INT, VOID_P, VOID_P,
                       VOID_P, VOID_P, VOID_P, VOID_P, INT, VOID_P, VOID_P,

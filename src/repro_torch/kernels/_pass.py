@@ -21,12 +21,19 @@ MAX_TILES_PER_CTA = 1024
 MAX_ROWS = 8
 #: Shared memory a CTA may use on Hopper, in bytes.
 SMEM_BYTES = 232448
-#: f32 accumulators a thread of the grouped moments kernel keeps in
-#: registers (kGroupedAccs in csrc/fused_grouped.cu).
-GROUPED_ACCS = 128
-#: (dims, largest key chunk) of its instances: a CTA sums DC columns of x
-#: (1, 2 or 4) for KG keys (a power of two up to KEY_CHUNKS[DC]).
-KEY_CHUNKS = {1: 32, 2: 16, 4: 8}
+#: f32 slots of one row's key chunk in the slot kernels (kernel 6, the
+#: grouped moments of csrc/fused_grouped.cu, and kernel 8,
+#: csrc/fused_kmeans.cu; csrc/slot_tile.cuh): a chunk takes as many keys
+#: as fit, and each further chunk hashes its weights again.
+SLOT_FLOATS = 96
+#: CTAs an SM the slot kernels' rows aim for: rows are added while the
+#: CTA's shared memory leaves room for this many.  Three measured best
+#: against two and four in both kernels (probe_slots.py, PERF.md §6).
+SLOT_CTAS = 3
+#: Shared memory of an H100 SM, of which each CTA reserves 1 KB more.
+SM_SMEM_BYTES = 233472
+#: Threads a CTA of the fused kernels (kThreads in csrc/moments_tile.cuh).
+THREADS = 256
 
 
 def pass_geometry(Bp: int, np_: int, bn: int) -> Tuple[int, int]:
@@ -236,23 +243,89 @@ def binblocked_geometry(Bp: int, np_: int, bn: int, total: int,
                       -(-nt // (cluster * tpc)), windows)
 
 
-def _pow2_at_least(v: int) -> int:
-    return 1 << max(0, int(v) - 1).bit_length()
+def dim_chunk(d: int) -> int:
+    """Columns of x a CTA of a moments or slot kernel sums (dim_chunk in
+    csrc/moments_tile.cuh): 1, 2 or 4."""
+    return 1 if d <= 1 else 2 if d <= 2 else 4
 
 
-def grouped_geometry(G: int, d: int) -> Tuple[int, int, int, int]:
-    """(dims DC, keys KG, rows, z chunks) of a grouped moments pass.
+class SlotPass(NamedTuple):
+    """Launch geometry of a slot kernel (kernel 6 or 8).  Grid: x = blocks
+    of ``rows`` rows of W, y = ``ranges`` column ranges of
+    ``tiles_per_cta`` RNG n-tiles (pass_geometry's), z = ``chunks`` =
+    ``key_chunks`` chunks of ``kc`` keys (clusters, for kernel 8) times
+    chunks of ``dc`` columns of x.  A thread keeps ``rows`` rows of
+    ``row_slots`` f32 slots in shared memory: ``per_key`` for each key of
+    its chunk, and ``per_row`` of the row's own (kernel 8's inertia).  A
+    CTA hashes the weights of the columns whose key its chunk holds, so a
+    weight is drawn once per column chunk."""
+    rows: int
+    dc: int
+    kc: int
+    key_chunks: int
+    chunks: int
+    tiles_per_cta: int
+    ranges: int
+    per_key: int
+    per_row: int
 
-    A thread keeps rows · KG·(2·DC+1) accumulators (w, DC of s1 and DC
-    of s2 per key and row), at most GROUPED_ACCS.  Rows shrink before
-    anything is chunked: a weight is still drawn by exactly one CTA.  Only
-    past d > 4 or KG·(2·DC+1) > 128 does grid z cover the rest in chunks
-    of DC columns and KG keys, each paying the hash again."""
-    dc = min(4, _pow2_at_least(d))
-    kg = min(KEY_CHUNKS[dc], _pow2_at_least(G))
-    rows = min(MAX_ROWS, GROUPED_ACCS // (kg * (2 * dc + 1)))
-    chunks = -(-d // dc) * -(-G // kg)
-    return dc, kg, rows, chunks
+    @property
+    def row_slots(self) -> int:
+        return self.kc * self.per_key + self.per_row
+
+    def keys_of(self, chunk: int, keys: int) -> range:
+        """The keys of key chunk ``chunk`` (of ``keys`` keys)."""
+        return range(chunk * self.kc, min((chunk + 1) * self.kc, keys))
+
+    def smem_bytes(self) -> int:
+        """Two tile keys an n-tile, then the slots."""
+        return 16 * self.tiles_per_cta + 4 * THREADS * self.rows * \
+            self.row_slots
+
+
+def slot_geometry(Bp: int, np_: int, bn: int, keys: int, d: int,
+                  per_key: int, per_row: int = 0) -> SlotPass:
+    """Geometry of a slot pass over a (Bp, np_) implicit W cut into RNG
+    tiles bn columns wide, ``keys`` keys of ``per_key`` slots each (a
+    function of the column chunk ``dc``) and ``per_row`` slots of a row's
+    own.
+
+    A chunk takes as many keys as a row's SLOT_FLOATS hold (evened out
+    over the chunks), then as many rows as leave room for SLOT_CTAS CTAs
+    an SM (at least one), a power of two up to MAX_ROWS.  Rows and chunks
+    change no sum: the ranges are pass_geometry's, and each thread folds
+    its columns in order."""
+    dc = dim_chunk(d)
+    tpc, ranges = pass_geometry(Bp, np_, bn)
+    kc = max(1, min(keys, (SLOT_FLOATS - per_row) // per_key))
+    key_chunks = -(-keys // kc)
+    kc = -(-keys // key_chunks)
+    row = kc * per_key + per_row
+    room = SM_SMEM_BYTES // SLOT_CTAS - 1024 - 16 * tpc
+    rows = max(1, min(MAX_ROWS, room // (4 * THREADS * row)))
+    rows = 1 << (rows.bit_length() - 1)
+    geo = SlotPass(rows, dc, kc, key_chunks, key_chunks * -(-d // dc), tpc,
+                   ranges, per_key, per_row)
+    if geo.smem_bytes() > SMEM_BYTES - STATIC_SMEM:
+        raise NotImplementedError(
+            f"a slot pass needs {geo.smem_bytes()} bytes of shared memory, "
+            "more than a Hopper SM holds")
+    return geo
+
+
+def grouped_geometry(Bp: int, np_: int, bn: int, G: int,
+                     d: int) -> SlotPass:
+    """Kernel 6: a key's slots are w, and s1 and s2 of DC columns."""
+    dc = dim_chunk(d)
+    return slot_geometry(Bp, np_, bn, G, d, 2 * dc + 1)
+
+
+def kmeans_geometry(Bp: int, np_: int, bn: int, k: int,
+                    d: int) -> SlotPass:
+    """Kernel 8: a cluster's slots are the sums of DC columns and the
+    count; a row's own, its inertia."""
+    dc = dim_chunk(d)
+    return slot_geometry(Bp, np_, bn, k, d, dc + 1, 1)
 
 
 def check_cuda_f32(name: str, t: torch.Tensor) -> None:

@@ -1,12 +1,16 @@
 // GROUP BY passes over x with implicit Poisson(1) weights: one weight per
 // (row of W, column), drawn once, routed to the slot of the column's key.
 //
-// grouped_moments_kernel<DC, KG> replaces the TPU kernel
+// grouped_moments_kernel<R, DC> replaces the TPU kernel
 // repro/kernels/weighted_stats/kernel.py: fused_poisson_moments_grouped_kernel
 // (_fpm_grouped_kernel) on its threefry path: w_tot (B, G) and s1, s2
-// (B, G, d).  For key g it forms w_g = w · (key == g) and folds w_g, w_g·x
-// and w_g·x² exactly as fused_pass.cu folds a weight, so NaN or inf in
-// another key's row poisons slot g as it poisons the masked run.
+// (B, G, d).  A thread keeps its slots in shared memory (slot_tile.cuh):
+// for each of its R rows and each key of its CTA's chunk, w, s1 and s2 of
+// DC columns.  A column adds w, w·x and w·x² to its own key's slots only,
+// and a CTA hashes only the columns whose key its chunk holds, so each
+// weight is drawn once per chunk of DC columns of x, whatever G.  Another
+// key's non-finite x (or x²) turns the slot NaN, as w·0·x does in the
+// masked run and in the reference's dense scan.
 //
 // grouped_hist_kernel is the keyed histogram sketch: counts (B, G, d, nbins).
 // The reference has no TPU kernel for it (its grouped sketch is scan-only).
@@ -33,39 +37,37 @@
 //
 // Slot g of either kernel is bitwise the dedicated fused_pass launch with
 // valid_mask = valid · (key == g).  The moments kernel keeps fused_pass's
-// CTA geometry: the same column ranges (_pass.pass_geometry, a function of
-// the shapes), the same column order per thread, the warp butterfly and
-// the warps summed in order (block_sum's order), one partial per (row,
-// range) and sum_partials over the ranges in order, double for w_tot.
-// The weights are fused_pass's (poisson_tile.cuh); the 0/1 key mask is
-// exact, so w_g equals the masked run's weight.  Histogram counts are whole
-// numbers, exact in f32 under any order of the atomics.
+// column ranges (_pass.pass_geometry, a function of the shapes), the same
+// column order per thread, the warp butterfly and the warps summed in
+// order (block_sum's order), one partial per (row, range) and
+// sum_partials over the ranges in order, double for w_tot.  The weights
+// are fused_pass's (poisson_tile.cuh); the 0/1 key mask is exact, so a
+// key's weight equals the masked run's, and a skipped column adds +0 there
+// (slot_tile.cuh).  Rows a CTA and key chunks change no sum.  Histogram
+// counts are whole numbers, exact in f32 under any order of the atomics.
 //
 // Bound: operations.  The hash is 73 int32 operations a weight
-// (poisson_tile.cuh), paid once for all G keys; the moments add G·(2d+1)
-// f32 FMAs a weight (24 at G = 8, d = 1), the histogram one bin division
-// per value and block of rows and one shared atomic per nonzero weight.
+// (poisson_tile.cuh), paid once for all G keys; the moments add 2d+1
+// shared read-add-writes a weight (3 at d = 1), whatever G, the histogram
+// one bin division per value and block of rows and one shared atomic per
+// nonzero weight.
 //
-// Registers: a moments thread keeps rows · KG·(2·DC+1) accumulators (at
-// most kGroupedAccs = 128; 128 took fused_kmeans.cu to 254 registers).
-// A wide G·(2d+1) takes fewer rows of W per CTA (rows is a template
-// constant of the instance), which costs no hash: the ranges do not depend
-// on rows, and a weight is still drawn by one CTA.  Only past d > 4 or
-// KG·(2·DC+1) > 128 does grid z cover DC columns and KG keys a chunk,
-// paying the hash once per chunk.
-//
-// Moments grid: x = column ranges (whole RNG n-tiles, `tiles_per_cta`
-// each), y = blocks of rows of W, z = (key chunk, column chunk).
+// Moments geometry (_pass.grouped_geometry): a row's chunk of keys holds
+// at most SLOT_FLOATS slots, kg·(2·DC+1); rows are added while three CTAs
+// fit an SM (at least one row).
+// Grid: x = blocks of R rows of W (fastest, so the CTAs of one column
+// range run together and share its x and keys in L2), y = column ranges
+// (whole RNG n-tiles, `tiles_per_cta` each), z = (key chunk, column
+// chunk).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "hist_tile.cuh"
 #include "moments_tile.cuh"
 #include "poisson_tile.cuh"
+#include "slot_tile.cuh"
 
 namespace earl {
-
-constexpr int kGroupedAccs = 128;
 
 struct GroupedParams {
   int32_t seed;
@@ -76,7 +78,7 @@ struct GroupedParams {
   const float* mask;   // (np), or nullptr
   const float* keys;   // (np) key of each column, as f32 (padding: 0)
   int rows;            // rows of W per CTA
-  int kg;              // keys a chunk (histogram)
+  int kg;              // keys a chunk
   int tiles_per_cta;
   int ranges;
   // moments: partials (Bp, ranges, G) and (Bp, ranges, G, d)
@@ -91,54 +93,82 @@ struct GroupedParams {
   int* index;          // scratch of KeyedHist.index_ints ints
 };
 
-// Rows of W a CTA of the <DC, KG> moments instance takes.
-template <int DC, int KG>
-struct GroupedShape {
-  static constexpr int kEntries = KG * (2 * DC + 1);  // a row's accumulators
-  static constexpr int kRows = kGroupedAccs / kEntries < kMaxRows
-                                   ? kGroupedAccs / kEntries
-                                   : kMaxRows;
-};
-
-template <int DC, int KG>
-__global__ void __launch_bounds__(kThreads)
+// The moments kernel: rows R of W a CTA (1, 2, 4 or 8) and DC columns of
+// x, a template instance each; its key chunk (p.kg keys) is set at run
+// time.  A thread keeps R·kg·(2·DC+1) slots (slot_tile.cuh), [row][key
+// within the chunk][w, s1[DC], s2[DC]].  ONE: the chunk holds one key
+// (G = 1), and the slots are registers, summed as kernel 2 sums its
+// accumulators; no shared slots.
+template <int R, int DC, bool ONE>
+__global__ void __launch_bounds__(kThreads, 2)
 grouped_moments_kernel(GroupedParams p) {
-  constexpr int R = GroupedShape<DC, KG>::kRows;
-  constexpr int E = GroupedShape<DC, KG>::kEntries;
-  constexpr int S = 2 * DC + 1;  // a key's entries: w, s1[DC], s2[DC]
+  constexpr int S = 2 * DC + 1;  // a key's slots: w, s1[DC], s2[DC]
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float red[kWarps][R * E];
   TileKey* keys = reinterpret_cast<TileKey*>(smem_raw);
+  float* slots = reinterpret_cast<float*>(keys + 2 * p.tiles_per_cta);
+  float reg[ONE ? R * S : 1];
+  // slot s of row r and key kk (0 when ONE) of this thread
+  auto slot = [&](int r, int kk, int s) -> float& {
+    if constexpr (ONE) {
+      return reg[r * S + s];
+    } else {
+      return slots[((r * p.kg + kk) * S + s) * kThreads + threadIdx.x];
+    }
+  };
 
-  const int range = blockIdx.x;
-  const int r0 = blockIdx.y * R;
+  const int r0 = blockIdx.x * R;
+  const int range = blockIdx.y;
   const int ndc = (p.d + DC - 1) / DC;
   const int dz = (blockIdx.z % ndc) * DC;
-  const int g0 = (blockIdx.z / ndc) * KG;
+  const int g0 = (blockIdx.z / ndc) * p.kg;
+  const int kg = p.kg;
   const int nt = p.np / p.bn;
   const int t0 = range * p.tiles_per_cta;
   const int t1 = min(t0 + p.tiles_per_cta, nt);
   const int nrows = min(R, p.Bp - r0);
+  const int row_slots = kg * S;  // a row's slots
 
   int tsel[R], trow[R];
   cta_tile_keys<R>(p.seed, p.bb, r0, t0, t1, keys, tsel, trow);
+  if constexpr (ONE) {
+#pragma unroll
+    for (int e = 0; e < R * S; ++e) reg[e] = 0.f;
+  } else {
+    zero_slots(slots, R * row_slots);
+  }
   __syncthreads();
 
-  float acc_w[R][KG], acc_s1[R][KG][DC], acc_s2[R][KG][DC];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int k = 0; k < KG; ++k) {
-      acc_w[r][k] = 0.f;
-#pragma unroll
-      for (int q = 0; q < DC; ++q) acc_s1[r][k][q] = acc_s2[r][k][q] = 0.f;
-    }
-  }
-
+  // Another key's non-finite x (x²) turns s1 (s2) NaN, as w·0·x does in
+  // the dense fold (slot_tile.cuh); one key (ONE) folds w·(key == g)
+  // densely, as kernel 2 does, and needs no note.
+  PoisonNote nf1[DC], nf2[DC];
   for (int t = t0; t < t1; ++t) {
     const TileKey* tk = keys + 2 * (t - t0);
     for (int c = threadIdx.x; c < p.bn; c += blockDim.x) {
       const int64_t j = static_cast<int64_t>(t) * p.bn + c;
+      const float kf = __ldg(p.keys + j);
+      const int g = ONE ? 0 : column_key(kf, p.G);  // -1: no key
+      const int kk = g - g0;
+      // (key == g0) is column_key(kf) == g0 for the one key g0 < G
+      const bool hit = ONE ? kf == static_cast<float>(g0)
+                           : g >= 0 && kk >= 0 && kk < kg;
+      float xv[DC], x2[DC];
+      bool finite = true;
+#pragma unroll
+      for (int q = 0; q < DC; ++q) {
+        xv[q] = dz + q < p.d ? __ldg(p.x + j * p.d + dz + q) : 0.f;
+        x2[q] = __fmul_rn(xv[q], xv[q]);
+        finite = finite && isfinite(x2[q]);
+      }
+      if (!ONE && !finite) {
+        const int key = g < 0 ? p.G : g;  // no key: a key no slot has
+#pragma unroll
+        for (int q = 0; q < DC; ++q) {
+          if (!isfinite(xv[q])) nf1[q].note(key);
+          if (!isfinite(x2[q])) nf2[q].note(key);
+        }
+      }
+      if (!ONE && !hit) continue;  // another chunk's key: no hash
       float w[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -147,71 +177,75 @@ grouped_moments_kernel(GroupedParams p) {
                                      static_cast<uint32_t>(trow[r] * p.bn + c),
                                      j, p.n_valid, p.mask)
                    : 0.f;
-      }
-      const float key = p.keys[j];
-      float xv[DC], x2[DC];
-#pragma unroll
-      for (int q = 0; q < DC; ++q) {
-        xv[q] = dz + q < p.d ? p.x[j * p.d + dz + q] : 0.f;
-        x2[q] = __fmul_rn(xv[q], xv[q]);
+        // w is a whole number >= 0, so the select is the exact w·0
+        if (ONE && !hit) w[r] = 0.f;
       }
 #pragma unroll
-      for (int k = 0; k < KG; ++k) {
-        // w · (key == g): w is a whole number >= 0, so the select is the
-        // exact product, +0 off the key.
-        const bool hit = key == static_cast<float>(g0 + k);
+      for (int r = 0; r < R; ++r) {
+        float& aw = slot(r, ONE ? 0 : kk, 0);
+        aw = __fadd_rn(aw, w[r]);
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float wg = hit ? w[r] : 0.f;
-          acc_w[r][k] = __fadd_rn(acc_w[r][k], wg);
+        for (int q = 0; q < DC; ++q) {
+          float& a1 = slot(r, ONE ? 0 : kk, 1 + q);
+          float& a2 = slot(r, ONE ? 0 : kk, 1 + DC + q);
+          a1 = __fmaf_rn(w[r], xv[q], a1);
+          a2 = __fmaf_rn(w[r], x2[q], a2);
+        }
+      }
+    }
+  }
+  auto write = [&](int e, float total) {
+    const int r = e / row_slots, kk = (e % row_slots) / S, v = e % S;
+    const int g = g0 + kk;
+    if (r >= nrows || g >= p.G) return;
+    const int64_t slot =
+        (static_cast<int64_t>(r0 + r) * p.ranges + range) * p.G + g;
+    if (v == 0) {
+      if (dz == 0) p.part_w[slot] = total;
+    } else {
+      const int q = dz + (v - 1) % DC;
+      float* part = v <= DC ? p.part_s1 : p.part_s2;
+      if (q < p.d) part[slot * p.d + q] = total;
+    }
+  };
+  if constexpr (ONE) {
+    // kernel 2's block sums from registers: each warp's butterfly, 32
+    // slots at a time (slot_tile.cuh), then the warps in order from 0.f
+    constexpr int kGroups = (R * S + 31) / 32;
+    __shared__ float red[kWarps][kGroups * 32];
+    const int warp = threadIdx.x >> 5;
 #pragma unroll
-          for (int q = 0; q < DC; ++q) {
-            acc_s1[r][k][q] = __fmaf_rn(wg, xv[q], acc_s1[r][k][q]);
-            acc_s2[r][k][q] = __fmaf_rn(wg, x2[q], acc_s2[r][k][q]);
+    for (int e = 0; e < kGroups * 32; e += 32) {
+      float v[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u) v[u] = e + u < R * S ? reg[e + u] : 0.f;
+      red[warp][e + (threadIdx.x & 31)] = warp_sums32(v);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * S; e += blockDim.x) {
+      float total = 0.f;
+      for (int w = 0; w < kWarps; ++w) total += red[w][e];
+      write(e, total);
+    }
+  } else {
+    bool noted = false;
+#pragma unroll
+    for (int q = 0; q < DC; ++q) {
+      noted = noted || nf1[q].any() || nf2[q].any();
+    }
+    for (int r = 0; noted && r < R; ++r) {
+      for (int kk = 0; kk < kg; ++kk) {
+        float* s = slots + (r * row_slots + kk * S) * kThreads + threadIdx.x;
+#pragma unroll
+        for (int q = 0; q < DC; ++q) {
+          if (nf1[q].poisons(g0 + kk)) s[(1 + q) * kThreads] = poison_nan();
+          if (nf2[q].poisons(g0 + kk)) {
+            s[(1 + DC + q) * kThreads] = poison_nan();
           }
         }
       }
     }
-  }
-
-  // Each entry: the warp's fixed butterfly, then the warps in order from
-  // 0.f, which is block_sum's order (moments_tile.cuh).
-  const int warp = threadIdx.x >> 5;
-  const bool lane0 = (threadIdx.x & 31) == 0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int k = 0; k < KG; ++k) {
-      const int e = (r * KG + k) * S;
-      const float sw = warp_sum(acc_w[r][k]);
-      if (lane0) red[warp][e] = sw;
-#pragma unroll
-      for (int q = 0; q < DC; ++q) {
-        const float s1 = warp_sum(acc_s1[r][k][q]);
-        const float s2 = warp_sum(acc_s2[r][k][q]);
-        if (lane0) {
-          red[warp][e + 1 + q] = s1;
-          red[warp][e + 1 + DC + q] = s2;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < R * E; idx += blockDim.x) {
-    const int r = idx / E, k = (idx % E) / S, v = idx % S;
-    const int g = g0 + k;
-    if (r >= nrows || g >= p.G) continue;
-    float s = 0.f;
-    for (int wp = 0; wp < kWarps; ++wp) s += red[wp][idx];
-    const int64_t slot =
-        (static_cast<int64_t>(r0 + r) * p.ranges + range) * p.G + g;
-    if (v == 0) {
-      if (dz == 0) p.part_w[slot] = s;
-    } else {
-      const int q = dz + (v - 1) % DC;
-      float* part = v <= DC ? p.part_s1 : p.part_s2;
-      if (q < p.d) part[slot * p.d + q] = s;
-    }
+    reduce_slots(slots, R * row_slots, write);
   }
 }
 
@@ -407,33 +441,45 @@ int set_smem(Kernel kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <int DC, int KG>
+template <int R, int DC, bool ONE>
 int launch_moments(const GroupedParams& p, float* w_tot, float* s1,
                    float* s2, cudaStream_t stream) {
-  using Shape = GroupedShape<DC, KG>;
-  if (p.rows != Shape::kRows) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(TileKey) * 2 * p.tiles_per_cta;
-  auto kernel = grouped_moments_kernel<DC, KG>;
+  const size_t smem =
+      sizeof(TileKey) * 2 * p.tiles_per_cta +
+      (ONE ? 0 : sizeof(float) * kThreads * R * p.kg * (2 * DC + 1));
+  auto kernel = grouped_moments_kernel<R, DC, ONE>;
   if (int e = set_smem(kernel, smem)) return e;
-  const int zdim = ((p.d + DC - 1) / DC) * ((p.G + KG - 1) / KG);
-  dim3 grid(p.ranges, (p.Bp + p.rows - 1) / p.rows, zdim);
+  const int zdim = ((p.d + DC - 1) / DC) * ((p.G + p.kg - 1) / p.kg);
+  dim3 grid((p.Bp + R - 1) / R, p.ranges, zdim);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   sum_fused_partials(p.part_w, p.part_s1, p.part_s2, w_tot, s1, s2, p.Bp,
                      p.ranges, p.G, p.G * p.d, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The <DC, KG> instance of _pass.grouped_geometry's (dc, kg).
-int grouped_moments(const GroupedParams& p, int dc, int kg, float* w_tot,
+// One key a chunk keeps its slots in registers where R·(2·DC+1) <= 40
+// (more spill under the two-CTA bound).
+template <int R, int DC>
+int launch_rows(const GroupedParams& p, float* w_tot, float* s1, float* s2,
+                cudaStream_t stream) {
+  if constexpr (R * (2 * DC + 1) <= 40) {
+    if (p.kg == 1) {
+      return launch_moments<R, DC, true>(p, w_tot, s1, s2, stream);
+    }
+  }
+  return launch_moments<R, DC, false>(p, w_tot, s1, s2, stream);
+}
+
+// The <rows, dc> instance of _pass.grouped_geometry, p.kg keys a chunk.
+int grouped_moments(const GroupedParams& p, int dc, float* w_tot,
                     float* s1, float* s2, cudaStream_t s) {
-#define EARL_GROUPED_CASE(D, K) \
-  if (dc == D && kg == K) return launch_moments<D, K>(p, w_tot, s1, s2, s);
-  EARL_GROUPED_CASE(1, 1) EARL_GROUPED_CASE(1, 2) EARL_GROUPED_CASE(1, 4)
-  EARL_GROUPED_CASE(1, 8) EARL_GROUPED_CASE(1, 16) EARL_GROUPED_CASE(1, 32)
-  EARL_GROUPED_CASE(2, 1) EARL_GROUPED_CASE(2, 2) EARL_GROUPED_CASE(2, 4)
-  EARL_GROUPED_CASE(2, 8) EARL_GROUPED_CASE(2, 16)
-  EARL_GROUPED_CASE(4, 1) EARL_GROUPED_CASE(4, 2) EARL_GROUPED_CASE(4, 4)
-  EARL_GROUPED_CASE(4, 8)
+  if (p.kg < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define EARL_GROUPED_CASE(R, D) \
+  if (p.rows == R && dc == D) return launch_rows<R, D>(p, w_tot, s1, s2, s);
+  EARL_GROUPED_CASE(1, 1) EARL_GROUPED_CASE(2, 1) EARL_GROUPED_CASE(4, 1)
+  EARL_GROUPED_CASE(8, 1) EARL_GROUPED_CASE(1, 2) EARL_GROUPED_CASE(2, 2)
+  EARL_GROUPED_CASE(4, 2) EARL_GROUPED_CASE(8, 2) EARL_GROUPED_CASE(1, 4)
+  EARL_GROUPED_CASE(2, 4) EARL_GROUPED_CASE(4, 4) EARL_GROUPED_CASE(8, 4)
 #undef EARL_GROUPED_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -492,7 +538,7 @@ extern "C" int earl_fused_grouped(
   p.index = static_cast<int*>(index);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (part_w != nullptr) {
-    return earl::grouped_moments(p, dc, kg, static_cast<float*>(w_tot),
+    return earl::grouped_moments(p, dc, static_cast<float*>(w_tot),
                                  static_cast<float*>(s1),
                                  static_cast<float*>(s2), s);
   }

@@ -6,8 +6,10 @@
 // repro_torch/kernels/kmeans_assign/ops.py: assign_tile:
 //   xx = Σ_q x_q·x_q,  xc = Σ_q x_q·c_q  (ascending q),
 //   d² = max((xx − 2·xc) + cc, 0),
-// so d² and the argmin (ties to the lowest index) are bitwise the plain
-// version's.
+// so d² and the argmin (ties to the lowest index; a NaN d², from a value
+// that is not finite, wins over any number, the first NaN over later ones,
+// as argmin and min do in the plain version and in the reference) are
+// bitwise the plain version's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,7 +36,7 @@ __device__ __forceinline__ int nearest(const float* xr, const float* c,
     for (int q = 1; q < d; ++q) xc = __fadd_rn(xc, __fmul_rn(xr[q], cj[q]));
     float d2 = __fadd_rn(__fsub_rn(xx, __fmul_rn(2.f, xc)), cc[j]);
     d2 = d2 < 0.f ? 0.f : d2;
-    if (j == 0 || d2 < best) {
+    if (j == 0 || d2 < best || (isnan(d2) && !isnan(best))) {
       best = d2;
       jstar = j;
     }

@@ -23,7 +23,7 @@ constexpr int kMaxRows = 8;   // rows of W per CTA
 constexpr int kDimChunk = 4;  // columns of x per CTA (grid z covers the rest)
 
 // Columns of x a fused moments CTA sums, DC: 1, 2 or 4 (kDimChunk), the
-// least power of two that covers d up to 4 (_pass.grouped_geometry's dc).
+// least power of two that covers d up to 4 (_pass.dim_chunk).
 // DC < kDimChunk only where d <= 2, where one chunk of either covers all
 // d columns, so the grid z chunks, and every sum, are unchanged; a thread
 // only drops the accumulators of columns past d.

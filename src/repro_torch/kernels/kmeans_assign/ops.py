@@ -31,9 +31,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._pass import (SMEM_BYTES, TARGET_CTAS,
-                                       check_cuda_f32, pass_geometry,
-                                       stream_ptr)
+from repro_torch.kernels._pass import (SMEM_BYTES, STATIC_SMEM, TARGET_CTAS,
+                                       SlotPass, check_cuda_f32,
+                                       kmeans_geometry, stream_ptr)
 from repro_torch.kernels.poisson_counts.ref import weight_tile_blocks
 from repro_torch.kernels.weighted_stats.ops import (Prepared, _pad_to,
                                                     key_masks, mask_ptr,
@@ -44,9 +44,10 @@ Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 #: Columns each thread of the kmeans_assign kernel folds, at the least,
 #: before the CTA count reaches TARGET_CTAS.
 COLS_PER_THREAD = 8
-#: Static shared memory of the fused kernel (csrc/fused_kmeans.cu): the
-#: (warps, 8 rows × 16 entries) reduction table and the 16-entry table.
-FUSED_STATIC_SMEM = 4 * 8 * 8 * 16 + 8 * 16
+#: Column assignments in all (columns times the CTAs a column) up to which
+#: the fused kernel's bootstrap CTAs assign their own columns, saving the
+#: assignment pass's launch (csrc/fused_kmeans.cu; measured in PERF.md §6).
+ASSIGN_IN_PLACE = 1 << 18
 
 
 def assign_tile(x: torch.Tensor, cent: torch.Tensor
@@ -196,25 +197,47 @@ def assign_cuda(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
     return split_entries(out, k, d)
 
 
+def assign_in_place(geo: SlotPass, Bp: int, np_: int, k: int,
+                    d: int) -> bool:
+    """Whether the bootstrap CTAs of a fused k-means call assign their
+    columns themselves instead of reading the assignment pass's scratch:
+    when they would assign at most ASSIGN_IN_PLACE columns in all, which
+    costs less than one more launch, and the centroids fit beside the
+    slots."""
+    ctas_a_column = -(-Bp // geo.rows) * geo.chunks
+    return (ctas_a_column * np_ <= ASSIGN_IN_PLACE
+            and geo.smem_bytes() + 4 * k * (d + 1)
+            <= SMEM_BYTES - STATIC_SMEM)
+
+
 def kmeans_cuda(pr: Prepared, seed: int, cent: torch.Tensor) -> Triple:
-    """The fused kernel over a prepared call: Bp-row states on the card."""
+    """The fused kernel over a prepared call: Bp-row states on the card.
+    Its assignment pass writes each column's cluster and min-d² to an
+    8-byte-a-column scratch (or, ``assign_in_place``, the bootstrap CTAs
+    assign their own columns); the bootstrap pass runs at
+    ``kmeans_geometry``'s rows, cluster chunk and column chunk."""
     check_cuda_f32("values", pr.xp)
     check_cuda_f32("centroids", cent)
     k = cent.shape[0]
-    tpc, ranges = pass_geometry(pr.Bp, pr.np_, pr.bn)
-    if 16 * tpc + 4 * (k * pr.d + k) > SMEM_BYTES - FUSED_STATIC_SMEM:
+    if 4 * k * (pr.d + 1) > SMEM_BYTES:
         raise NotImplementedError(
-            f"{k} centroids of dimension {pr.d} do not fit in shared memory "
-            "beside the CTA's tile keys")
-    entries = k * (pr.d + 1) + 1
-    part = torch.empty(pr.Bp, ranges, entries, dtype=torch.float32,
-                       device=pr.device)
-    out = torch.empty(pr.Bp, entries, dtype=torch.float32, device=pr.device)
+            f"{k} centroids of dimension {pr.d} and their norms do not fit "
+            "in shared memory")
+    geo = kmeans_geometry(pr.Bp, pr.np_, pr.bn, k, pr.d)
+    asg = None
+    if not assign_in_place(geo, pr.Bp, pr.np_, k, pr.d):
+        asg = torch.empty(pr.np_, 2, dtype=torch.int32, device=pr.device)
+    part = torch.empty(pr.Bp, geo.ranges, k * (pr.d + 1) + geo.key_chunks,
+                       dtype=torch.float32, device=pr.device)
+    out = torch.empty(pr.Bp, k * (pr.d + 1) + 1, dtype=torch.float32,
+                      device=pr.device)
     fused_poisson_kmeans.launches += 1
     _build.launch("fused_kmeans", int(seed), pr.n_valid, pr.Bp, pr.np_,
                   pr.bb, pr.bn, pr.d, k, pr.xp.data_ptr(), mask_ptr(pr),
-                  cent.data_ptr(), tpc, ranges, part.data_ptr(),
-                  out.data_ptr(), stream_ptr(pr.device))
+                  cent.data_ptr(), geo.rows, geo.dc, geo.kc,
+                  geo.tiles_per_cta, geo.ranges,
+                  None if asg is None else asg.data_ptr(),
+                  part.data_ptr(), out.data_ptr(), stream_ptr(pr.device))
     return split_entries(out, k, pr.d)
 
 

@@ -277,11 +277,12 @@ moments_stream_cuda.launches = 0
 
 def grouped_moments_cuda(pr: Prepared, seed: int):
     """Kernel 6 (csrc/fused_grouped.cu) over a prepared keyed call:
-    (w_tot (Bp, G), s1 (Bp, G, d), s2 (Bp, G, d)) on the card."""
+    (w_tot (Bp, G), s1 (Bp, G, d), s2 (Bp, G, d)) on the card, at
+    ``grouped_geometry``'s rows, key chunk and column chunk."""
     check_cuda_f32("values", pr.xp)
     check_cuda_f32("group_ids", pr.gp)
-    tpc, ranges = pass_geometry(pr.Bp, pr.np_, pr.bn)
-    dc, kg, rows, _ = grouped_geometry(pr.G, pr.d)
+    geo = grouped_geometry(pr.Bp, pr.np_, pr.bn, pr.G, pr.d)
+    ranges = geo.ranges
 
     def e(*shape):
         return torch.empty(shape, dtype=torch.float32, device=pr.device)
@@ -291,7 +292,8 @@ def grouped_moments_cuda(pr: Prepared, seed: int):
     grouped_moments_cuda.launches += 1
     _build.launch("fused_grouped", int(seed), pr.n_valid, pr.Bp, pr.np_,
                   pr.bb, pr.bn, pr.d, pr.G, pr.xp.data_ptr(), mask_ptr(pr),
-                  pr.gp.data_ptr(), dc, kg, rows, tpc, ranges,
+                  pr.gp.data_ptr(), geo.dc, geo.kc, geo.rows,
+                  geo.tiles_per_cta, ranges,
                   *[t.data_ptr() for t in parts + out], 0, None, None, None,
                   None, stream_ptr(pr.device))
     return out

@@ -235,6 +235,83 @@ def test_cuda_grouped_kernels_match_plain_and_masked(cuda, B, n, d, G):
                 assert torch.equal(a[:, g], b)
 
 
+def _same_or_nan(a, b):
+    """Bitwise equal, NaN positions included (torch.equal is false on
+    NaN)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan], b[~nan]))
+
+
+def _positions_within(got, want, bound):
+    """NaN and ±inf at the same places; the finite entries within
+    1e-5·bound."""
+    got, want = got.cpu().double(), want.double()
+    fin = torch.isfinite(want)
+    inf = float("inf")
+    return (all(torch.equal(f(got), f(want)) for f in (
+                torch.isnan, lambda t: t == inf, lambda t: t == -inf))
+            and bool(((got[fin] - want[fin]).abs()
+                      <= 1e-5 * bound.double().expand_as(want)[fin]
+                      + 1e-30).all()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d,G", [(64, 5000, 1, 8), (100, 1000, 2, 4),
+                                     (24, 5000, 4, 16)])
+def test_cuda_nonfinite_values_match_plain_and_masked(cuda, B, n, d, G):
+    """±inf in one key's rows and NaN in another's: kernels 6 and 8 give
+    the plain version's NaN and inf positions (finite entries within the
+    usual bounds, w_tot and counts bitwise), and every keyed slot is the
+    dedicated kernel masked to its key, bitwise, NaN positions equal."""
+    x, keys, mask = _keyed(n, d, G, seed=n + d)
+    one, two = np.where(keys == 1)[0], np.where(keys == 2)[0]
+    x[one[3], 0], x[two[5], d - 1], x[one[9], d - 1] = (np.inf, np.nan,
+                                                        -np.inf)
+    seed = 91 + n
+    xc, kc, mc = (torch.from_numpy(a).to(cuda) for a in (x, keys, mask))
+    xt, kt, mt = (torch.from_numpy(a) for a in (x, keys, mask))
+    cent_np = x[:3].copy()
+    cent_np[0, 0] = 0.0
+    cc, ct = torch.from_numpy(cent_np).to(cuda), torch.from_numpy(cent_np)
+    for valid, valid_cpu in ((None, None), (mc, mt)):
+        kw = dict(group_ids=kc, num_groups=G, valid_mask=valid)
+        kw_cpu = dict(group_ids=kt, num_groups=G, valid_mask=valid_cpu)
+        # Σw|x| per key and dim over the finite values
+        bound = tws.fused_poisson_moments(
+            seed, xt.abs().nan_to_num(0, 0, 0), B, **kw_cpu)[1]
+        got = tws.fused_poisson_moments(seed, xc, B, **kw)
+        want = tws.fused_poisson_moments(seed, xt, B, **kw_cpu)
+        assert torch.equal(got[0].cpu(), want[0])
+        # at d = 1 key 2's NaN poisons every key's only column
+        assert torch.isnan(want[1]).any()
+        assert d == 1 or torch.isinf(want[2]).any()
+        assert _positions_within(got[1], want[1], bound)
+        assert _positions_within(got[2], want[2], want[2].abs())
+        for dedicated in (False, True):
+            km = tka.fused_poisson_kmeans(
+                seed, xc, cc, B, **(dict(valid_mask=valid) if dedicated
+                                    else kw))
+            km_want = tka.fused_poisson_kmeans(
+                seed, xt, ct, B, **(dict(valid_mask=valid_cpu) if dedicated
+                                    else kw_cpu))
+            assert torch.equal(km[1].cpu(), km_want[1])
+            assert torch.isnan(km_want[0]).any()
+            sb = bound.sum(1) if dedicated else bound
+            assert _positions_within(km[0], km_want[0], sb[..., None, :])
+            assert _positions_within(km[2], km_want[2], km_want[2].abs())
+        km = tka.fused_poisson_kmeans(seed, xc, cc, B, **kw)
+        for g in range(G):
+            m = (kc == g).float() if valid is None else valid * (kc == g)
+            for a, b in zip(got, tws.fused_poisson_moments(
+                    seed, xc, B, valid_mask=m)):
+                assert _same_or_nan(a[:, g], b)
+            for a, b in zip(km, tka.fused_poisson_kmeans(seed, xc, cc, B,
+                                                         valid_mask=m)):
+                assert _same_or_nan(a[:, g], b)
+
+
 @pytest.mark.cuda
 def test_cuda_keyed_tensor_never_reaches_the_plain_version(cuda,
                                                            monkeypatch):

@@ -616,3 +616,94 @@ def test_keyed_delta_run_continues_in_the_port():
                                        np.asarray(want.thetas),
                                        rtol=EST_RTOL)
         assert got.thetas.shape[:2] == (24, G)
+
+
+# ---------------------------------------------------------------------------
+# non-finite values: a ±inf in one key's rows, a NaN in another's
+# ---------------------------------------------------------------------------
+def _nonfinite(x, gid):
+    """x with +inf in a row of key 1 (dim 0), NaN in a row of key 2 (last
+    dim) and -inf in another row of key 1 (last dim)."""
+    x = x.copy()
+    one, two = np.where(gid == 1)[0], np.where(gid == 2)[0]
+    x[one[3], 0], x[two[5], D - 1], x[one[7], D - 1] = np.inf, np.nan, -np.inf
+    return x
+
+
+def _same_positions(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got) * np.sign(got),
+                                  np.isinf(want) * np.sign(want))
+
+
+def _slot_moments_emulation(x, gid, w):
+    """What the slot design of grouped_moments_kernel computes, order
+    aside, in float64 with IEEE products: a column adds w, w·x and w·x²
+    (x² rounded to f32) to its own key only, and a non-finite x (x²)
+    poisons s1 (s2) of every other key."""
+    xd = np.asarray(x, np.float64)
+    x2 = (np.asarray(x, np.float32) ** 2).astype(np.float64)
+    out = [np.zeros((w.shape[0], G)), np.zeros((w.shape[0], G, D)),
+           np.zeros((w.shape[0], G, D))]
+    with np.errstate(all="ignore"):
+        for g in range(G):
+            on = gid == g
+            out[0][:, g] = w[:, on].sum(1)
+            for a, v in ((out[1], xd), (out[2], x2)):
+                a[:, g] = w[:, on] @ v[on]
+                a[:, g, ~np.isfinite(v[~on]).all(0)] = np.nan
+    return out
+
+
+@pytest.mark.parametrize("hole", [False, True])
+def test_grouped_moments_nonfinite_match_jax_scan(keyed, hole):
+    """The plain version gives the JAX scan's NaN and inf positions: key
+    g's s1 and s2 are NaN where another key's row holds ±inf or NaN (0·x
+    in the dense scan), ±inf or NaN where its own does; w_tot is bitwise.
+    The kernel's rule, emulated, gives the same positions."""
+    _, x, gid = keyed
+    x = _nonfinite(x, gid)
+    valid, _ = _masks(gid, hole)
+    want = jws.fused_poisson_moments(
+        SEED, jnp.asarray(x), B, backend="scan",
+        valid_mask=None if valid is None else jnp.asarray(valid),
+        group_ids=jnp.asarray(gid), num_groups=G)
+    got = tws.fused_poisson_moments(SEED, _t(x), B, valid_mask=_t(valid),
+                                    group_ids=_t(gid), num_groups=G)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    emu = _slot_moments_emulation(x, gid, _weights(valid, N).numpy())
+    for i in (1, 2):
+        _same_positions(got[i].numpy(), want[i])
+        _same_positions(got[i].numpy(), emu[i])
+        fin = np.isfinite(np.asarray(want[i]))
+        np.testing.assert_allclose(got[i].numpy()[fin],
+                                   np.asarray(want[i])[fin], rtol=1e-5,
+                                   atol=1e-4)
+    assert np.isnan(got[1].numpy()).any()
+
+
+@pytest.mark.parametrize("hole", [False, True])
+def test_grouped_kmeans_nonfinite_match_jax_scan(keyed, hole):
+    """The keyed k-means plain version on ±inf and NaN values: the JAX
+    scan's NaN and inf positions, counts bitwise."""
+    _, x, gid = keyed
+    x = _nonfinite(x, gid)
+    valid, _ = _masks(gid, hole)
+    cent = np.random.default_rng(2).normal(size=(3, D)).astype(np.float32)
+    cent[0, 0] = 0.0
+    want = jka.fused_poisson_kmeans(
+        SEED, jnp.asarray(x), jnp.asarray(cent), B, backend="scan",
+        valid_mask=None if valid is None else jnp.asarray(valid),
+        group_ids=jnp.asarray(gid), num_groups=G)
+    got = tka.fused_poisson_kmeans(SEED, _t(x), _t(cent), B,
+                                   valid_mask=_t(valid), group_ids=_t(gid),
+                                   num_groups=G)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for i in (0, 2):
+        _same_positions(got[i].numpy(), want[i])
+        fin = np.isfinite(np.asarray(want[i]))
+        np.testing.assert_allclose(got[i].numpy()[fin],
+                                   np.asarray(want[i])[fin], rtol=1e-5,
+                                   atol=1e-4)
+    assert np.isnan(got[0].numpy()).any() and np.isnan(got[2].numpy()).any()

@@ -660,3 +660,112 @@ def test_keyed_hist_emulation_matches_plain_bitwise(G, d, nbins):
         np.testing.assert_array_equal(drawn, np.broadcast_to(
             ok.astype(np.int64), drawn.shape))
         assert want.numpy()[:, 2].sum() == 0.0
+
+
+@pytest.mark.parametrize("kind", ["grouped", "kmeans"])
+@pytest.mark.parametrize("Bp,np_,keys,d", [
+    (256, 2049 * 512, 8, 1), (256, 2049 * 512, 1, 1),
+    (256, 2049 * 512, 32, 1), (256, 2049 * 512, 16, 4),
+    (256, 8192 * 512, 5, 2), (24, 16 * 512, 5, 2), (256, 2049 * 512, 16, 8),
+    (8, 129, 3, 3), (128, 300, 200, 1), (1024, 16 * 512, 3000, 9)])
+def test_slot_geometry(kind, Bp, np_, keys, d):
+    """The slot kernels' geometry (kernel 6, keys = G; kernel 8, keys =
+    k clusters): the key chunks partition the keys and the column chunks
+    the d columns, so each (row, column) weight is drawn by exactly one
+    CTA of each column chunk (the one of its row's block, its column's
+    range and its key's chunk); a row's slots stay within SLOT_FLOATS;
+    the rows are the most (a power of two up to 8) that leave room for
+    SLOT_CTAS CTAs an SM, or one; the CTA's shared memory fits an SM."""
+    from repro_torch.kernels._pass import (MAX_ROWS, SLOT_CTAS, SLOT_FLOATS,
+                                           SM_SMEM_BYTES, SMEM_BYTES,
+                                           STATIC_SMEM, grouped_geometry,
+                                           kmeans_geometry)
+    bn = min(512, np_)
+    nt = np_ // bn
+    geometry = grouped_geometry if kind == "grouped" else kmeans_geometry
+    geo = geometry(Bp, np_, bn, keys, d)
+    dc = 1 if d <= 1 else 2 if d <= 2 else 4
+    assert geo.dc == dc
+    # kernel 6: w, s1 and s2 of DC columns a key; kernel 8: DC sums and
+    # the count a cluster, and the row's inertia
+    assert (geo.per_key, geo.per_row) == ((2 * dc + 1, 0) if kind ==
+                                          "grouped" else (dc + 1, 1))
+    assert geo.row_slots == geo.kc * geo.per_key + geo.per_row
+    assert geo.rows in (1, 2, 4, 8) and geo.rows <= MAX_ROWS
+    assert geo.row_slots <= SLOT_FLOATS
+    per_sm = SM_SMEM_BYTES // SLOT_CTAS
+    slots = 4 * 256 * geo.row_slots
+    assert geo.rows == 1 or geo.smem_bytes() + 1024 <= per_sm
+    assert geo.rows == MAX_ROWS or geo.smem_bytes() + geo.rows * slots + \
+        1024 > per_sm
+    assert geo.smem_bytes() == (16 * geo.tiles_per_cta
+                                + 4 * 256 * geo.rows * geo.row_slots)
+    assert geo.smem_bytes() + STATIC_SMEM <= SMEM_BYTES
+    key_chunks = -(-keys // geo.kc)
+    assert geo.key_chunks == key_chunks
+    assert geo.chunks == key_chunks * -(-d // dc)
+    seen = np.zeros(keys, np.int64)
+    for ch in range(key_chunks):
+        ks = geo.keys_of(ch, keys)
+        assert 1 <= len(ks) <= geo.kc
+        seen[list(ks)] += 1
+    assert (seen == 1).all()
+    cols = np.zeros(d, np.int64)
+    for z in range(-(-d // dc)):
+        cols[z * dc:min(d, (z + 1) * dc)] += 1
+    assert (cols == 1).all()
+    tiles = np.zeros(nt, np.int64)
+    for i in range(geo.ranges):
+        t0 = i * geo.tiles_per_cta
+        t1 = min(t0 + geo.tiles_per_cta, nt)
+        assert t0 < t1
+        tiles[t0:t1] += 1
+    rows = np.zeros(Bp, np.int64)
+    for b in range(-(-Bp // geo.rows)):
+        rows[b * geo.rows:min(Bp, (b + 1) * geo.rows)] += 1
+    assert (tiles == 1).all() and (rows == 1).all()
+    if (Bp, np_, keys, d) == (256, 2049 * 512, 8, 1) and kind == "grouped":
+        # the kernel table's shape: 2 rows of 8 keys, 48 KB of slots
+        assert (geo.rows, geo.kc, geo.chunks, geo.ranges) == (2, 8, 1, 33)
+    if (Bp, np_, keys, d) == (256, 8192 * 512, 5, 2) and kind == "kmeans":
+        # the k-means bootstrap: 4 rows of 5 clusters and an inertia
+        assert (geo.rows, geo.kc, geo.chunks, geo.row_slots) == (4, 5, 1, 16)
+
+
+def test_slot_geometry_raises_exactly_past_an_sm(monkeypatch):
+    """The slot pass raises once its tile keys and slots pass an SM's
+    shared memory, and not one slot before."""
+    from repro_torch.kernels import _pass
+    Bp, np_, bn = 256, 2049 * 512, 512
+    tpc, _ = _pass.pass_geometry(Bp, np_, bn)
+    room = (_pass.SMEM_BYTES - _pass.STATIC_SMEM - 16 * tpc) // (4 * 256)
+    monkeypatch.setattr(_pass, "SLOT_FLOATS", room + 1)
+    geo = _pass.slot_geometry(Bp, np_, bn, room, 1, 1)
+    assert (geo.rows, geo.kc) == (1, room)
+    assert geo.smem_bytes() + _pass.STATIC_SMEM <= _pass.SMEM_BYTES
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        _pass.slot_geometry(Bp, np_, bn, room + 1, 1, 1)
+
+
+def test_probe_knockouts_match_the_slot_sources(monkeypatch):
+    """probe_slots.py's edits of the slot design each match its source
+    once, and each of its variants is a knock-out or a knob of a module
+    attribute that exists, so a probe run on the card neither fails on a
+    stale edit nor times an unchanged kernel under another name."""
+    import importlib
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    probe = importlib.import_module("probe_slots")
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    assert (csrc / "slot_tile.cuh").exists()
+    for variant, edits in probe.KNOCKOUTS["slots"].items():
+        for fname, old, _ in edits:
+            assert (csrc / fname).read_text().count(old) == 1, (variant,
+                                                                 fname)
+    knobs = probe.KNOBS["slots"]
+    for variants in probe.VARIANTS["slots"].values():
+        for v in variants:
+            assert v == "base" or v in probe.KNOCKOUTS["slots"] or v in knobs
+    for module, attr, _ in knobs.values():
+        assert hasattr(importlib.import_module(module), attr), attr

@@ -358,3 +358,152 @@ def test_kmeans_fit_without_a_device_raises_on_a_cardless_machine(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kmeans_fit(np.ones((10, 2), np.float32), 2, 1, trandom.PRNGKey(0),
                    init=np.zeros((2, 2), np.float32))
+
+
+# ---------------------------------------------------------------------------
+# kernel 8's assignment pass and its non-finite values
+# ---------------------------------------------------------------------------
+def _nearest_np(x, cent):
+    """numpy emulation of fused_kmeans_assign (nearest() in
+    csrc/kmeans_tile.cuh): every product and sum its own f32 operation in
+    ascending q, d² = max((xx − 2·xc) + cc, 0) keeping NaN, and the first
+    NaN d², else the first smallest, wins.  Returns (j*, min-d²)."""
+    x, c = np.asarray(x, np.float32), np.asarray(cent, np.float32)
+    two = np.float32(2.0)
+    with np.errstate(all="ignore"):
+        xx = x[:, 0] * x[:, 0]
+        cc = c[:, 0] * c[:, 0]
+        for q in range(1, x.shape[1]):
+            xx = xx + x[:, q] * x[:, q]
+            cc = cc + c[:, q] * c[:, q]
+        jstar = np.zeros(x.shape[0], np.int64)
+        best = np.zeros(x.shape[0], np.float32)
+        for j in range(c.shape[0]):
+            xc = x[:, 0] * c[j, 0]
+            for q in range(1, x.shape[1]):
+                xc = xc + x[:, q] * c[j, q]
+            d2 = (xx - two * xc) + cc[j]
+            d2 = np.where(d2 < 0, np.float32(0.0), d2)
+            take = ((d2 < best) | (np.isnan(d2) & ~np.isnan(best))
+                    if j else np.ones_like(best, bool))
+            best = np.where(take, d2, best)
+            jstar = np.where(take, j, jstar)
+    return jstar, best
+
+
+def _nonfinite_rows(x, seed):
+    """x with +inf, -inf and NaN put in a few rows and dims."""
+    x = x.copy()
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(np.arange(10, x.shape[0]), size=6, replace=False)
+    vals = [np.inf, -np.inf, np.nan, np.inf, np.nan, -np.inf]
+    for i, (r, v) in enumerate(zip(rows, vals)):
+        x[r, i % x.shape[1]] = v
+    return x
+
+
+@pytest.mark.parametrize("case", ["blobs", "wide", "ties", "nonfinite"])
+def test_assign_pass_emulation_matches_assign_tile(case):
+    """The kernel's assignment pass, emulated in numpy, gives assign_tile's
+    (j*, min-d²) bitwise: on blobs, at k = 16, d = 8, on exact ties (the
+    lowest cluster), and on ±inf and NaN values (the first NaN d² wins,
+    as argmin does in both packages)."""
+    if case == "ties":
+        y = np.linspace(-1.0, 1.0, 300, dtype=np.float32)
+        x = np.stack([np.zeros_like(y), y], axis=1)
+        cent = np.array([[-1.0, 0.0], [1.0, 0.0], [0.0, 3.0]], np.float32)
+    else:
+        k, d = (16, 8) if case == "wide" else (5, 2)
+        x, cent = _data(1300, k, d, seed=4)
+        if case == "nonfinite":
+            x = _nonfinite_rows(x, seed=4)
+            cent[0, 0], cent[1, 1], cent[2, 0] = 0.0, -1.5, 2.0
+    assign, min_d2 = tka.assign_tile(torch.from_numpy(x),
+                                     torch.from_numpy(cent))
+    jstar, best = _nearest_np(x, cent)
+    np.testing.assert_array_equal(jstar, assign.argmax(1).numpy())
+    np.testing.assert_array_equal(best, min_d2.numpy())
+    if case == "ties":
+        assert (jstar == 0).all()
+    if case == "nonfinite":
+        assert np.isnan(best).any()
+    # the reference's d² come from a dot product, equal to the last bits
+    # only where no sum rounds, but NaN where the emulation's are
+    _, want = jka._assign_tile(jnp.asarray(x), jnp.asarray(cent), len(cent))
+    np.testing.assert_array_equal(np.isnan(best), np.isnan(np.asarray(want)))
+
+
+def _slot_kmeans_emulation(x, cent, w):
+    """What the slot design of fused_kmeans.cu computes, order aside, in
+    float64 with IEEE products (0·inf is NaN): a column adds w·x_q, w and
+    w·min-d² to its own cluster only, and a non-finite x_q poisons the
+    dimension-q sums of every other cluster.  (sums, counts, inertia)."""
+    jstar, best = _nearest_np(x, cent)
+    xd, wd = np.asarray(x, np.float64), np.asarray(w, np.float64)
+    B, (k, d) = wd.shape[0], cent.shape
+    sums = np.zeros((B, k, d))
+    counts = np.zeros((B, k))
+    inertia = np.zeros(B)
+    with np.errstate(all="ignore"):
+        for c in range(k):
+            on = jstar == c
+            sums[:, c] = wd[:, on] @ xd[on] if on.any() else 0.0
+            for q in range(d):
+                if not np.isfinite(xd[~on, q]).all():
+                    sums[:, c, q] = np.nan
+            counts[:, c] = wd[:, on].sum(1)
+            inertia += (wd[:, on] * best[on].astype(np.float64)).sum(1)
+    return sums, counts, inertia
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "holes"])
+def test_fused_kmeans_plain_nonfinite_matches_jax(mask_kind):
+    """±inf and NaN values: the plain version gives the JAX scan's NaN and
+    inf positions (finite entries within the usual bounds), and the slot
+    kernel's rule (emulated) gives the same positions."""
+    B, n, k, d = 24, 1300, 5, 2
+    x, cent = _data(n, k, d, seed=5)
+    x = _nonfinite_rows(x, seed=5)
+    cent[0, 0] = 0.0
+    rng = np.random.default_rng(9)
+    mask = ((rng.random(n) > 0.3).astype(np.float32)
+            if mask_kind == "holes" else None)
+    want = jka.fused_poisson_kmeans(
+        7, jnp.asarray(x), jnp.asarray(cent), B, backend="scan",
+        valid_mask=None if mask is None else jnp.asarray(mask))
+    got = tka.fused_poisson_kmeans(
+        7, torch.from_numpy(x), torch.from_numpy(cent), B,
+        valid_mask=None if mask is None else torch.from_numpy(mask))
+    emu = _slot_kmeans_emulation(x, cent,
+                                 _explicit_weights(7, B, n, None, mask))
+    for g, v, e in zip(got, want, emu):
+        g, v = g.numpy(), np.asarray(v)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(v))
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(e))
+        np.testing.assert_array_equal(np.isinf(g) * np.sign(g),
+                                      np.isinf(v) * np.sign(v))
+        np.testing.assert_array_equal(np.isinf(g) * np.sign(g),
+                                      np.isinf(e) * np.sign(e))
+        fin = np.isfinite(v)
+        np.testing.assert_allclose(g[fin], v[fin], rtol=1e-5, atol=1e-3)
+    assert np.isnan(got[0].numpy()).any() and np.isnan(got[2].numpy()).all()
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("Bp,np_,k,d,in_place", [
+    (24, 16 * 512, 5, 2, True), (256, 8192 * 512, 5, 2, False),
+    (256, 2049 * 512, 16, 8, False), (8, 512, 3, 1, True),
+    (8, 512, 5000, 8, False)])
+def test_fused_kmeans_assigns_in_place_only_on_small_grids(Bp, np_, k, d,
+                                                           in_place):
+    """The bootstrap CTAs assign their own columns (no assignment pass,
+    no scratch) only where they would assign at most ASSIGN_IN_PLACE
+    columns in all and the centroids fit beside the slots: the example's
+    B = 24, n = 8,000, not the B = 256, n = 2^22 bootstrap."""
+    from repro_torch.kernels._pass import SMEM_BYTES, kmeans_geometry
+    geo = kmeans_geometry(Bp, np_, min(512, np_), k, d)
+    got = tka.assign_in_place(geo, Bp, np_, k, d)
+    assert got == in_place
+    if got:
+        assert -(-Bp // geo.rows) * geo.chunks * np_ <= tka.ASSIGN_IN_PLACE
+        assert geo.smem_bytes() + 4 * k * (d + 1) <= SMEM_BYTES

@@ -135,6 +135,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import probe_slots\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
