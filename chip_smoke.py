@@ -36,7 +36,12 @@ failure:
    NaN in another's (d in {1, 2}, with and without a mask): the plain
    version's NaN and inf positions, the finite entries within the bounds
    above, and every keyed slot the masked dedicated kernel's, bitwise
-   with NaN at the same places; the
+   with NaN at the same places; kernel 9 on +-inf and NaN (NaN also on a
+   row of weight 0; d in {1, 2} and k = 16, d = 8; unit and whole-number
+   weights) at the plain version's NaN and inf positions, counts bitwise,
+   and at the k-means path's shape one kernel on the card a call
+   (torch.profiler), two calls bitwise and no weights bitwise unit
+   weights; the
    explicit-weight kernels (weighted_moments at B in {1, 7, 256}, n in
    {1, 1000, 2^20+37}, d in {1, 3, 8}; weighted_histogram at R in
    {1, 256}, d in {1, 4}, nbins in {256, 2048}, with NaN, +-inf, values
@@ -58,13 +63,16 @@ failure:
    attention (kernel 12: bf16 on the tensor cores, f32 on the CUDA
    cores) at tests/test_kernels.py's sweep, the unaligned Sq = 67 at
    head_dim 120 and GQA 4, a decode-offset case (kv_offset = 4096, window
-   4096), head dims 20 and 128, Sq and Skv of 200 and 513, and a query
-   block that sees no key (all zeros), each in f32 (atol 2e-5, rtol
+   4096), head dims 20 and 128, Sq and Skv of 200 and 513, a query block
+   that sees no key (all zeros), and head dims 168 and 256, each in f32
+   (atol 2e-5, rtol
    1e-4) and bf16 (one bf16 rounding, 1e-3 + 2^-7·|want|, plus the
    rounding of P to bf16 before P·V, 2^-8·(Σ p·|v|)/l from the plain
    version on |v|), and at the full-width prefill shape (4 x 32 query
    heads on 8 KV heads, 8192 tokens, head_dim 120, window 4096) in bf16,
-   where two launches must give the same bits, and in f32;
+   where two launches must give the same bits, and in f32, and at
+   gemma3-27b's (4 x 32 query heads on 16 KV heads of 168, window 1024
+   and global, bf16 twice bitwise; f32 windowed);
 4. the quickstart path, with every launch count set to 0 first and the
    geometry of every launch logged: the quickstart session
    (N = 2,000,000, StatisticGroup(Mean, Quantile(0.5), Std)), a Mean()
@@ -138,7 +146,18 @@ failure:
    bitwise its members' dedicated runs (the custom member's tiled scan
    also against its CPU run), and a keyed custom statistic at B = 256,
    n = 2^24 - 1000 peaks below one (B, n) f32 matrix;
-8. replay every distinct launch geometry that phases 4 to 7, 10 and 11
+12. (run after phase 11) gemma3-27b at full width (d_model 5376, 32/16
+   heads of 168, d_ff 21504, vocab 262,144) cut to one 5:1 local:global
+   pattern group (6 of its 62 layers: all 62 in f32 would be 113 GB of
+   parameters; seeded f32 params), from zeroed counts with its geometries
+   logged: the same 4 x 8192-token prefill and 32 decode steps, with
+   phase 11's gates (kernel 12 once a layer in the prefill and never in
+   decode, the peak above the params below one layer's f32 scores, decode
+   == teacher forcing within 2e-2 of the largest logit) and card == CPU on
+   the group cut to a local and a global layer (1 x 256 tokens, 8 steps,
+   the CPU fed the card's greedy tokens, each within 2e-2 of the largest
+   logit of the CPU's);
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 12
    logged on fresh data and hold it against the plain version as in
    phase 3;
 9. time each kernel (CUDA events) beside its plain version, its bound
@@ -163,8 +182,10 @@ failure:
    beside its plain version, its bound (4·D operations a visible
    query-key pair at the bf16 tensor-core rate, or q, k, v and o once
    over the memory rate), scaled_dot_product_attention with the boolean
-   causal-window mask and its own f32 route; then print the kernels line,
-   then the contract's last line.
+   causal-window mask (bf16, and f32 on the memory-efficient backend) and
+   its own f32 route, and at gemma3-27b's local and global layers and
+   recurrentgemma-2b's local layers (D = 168 and 256) in bf16 and f32;
+   then print the kernels line, then the contract's last line.
 
 Every plain version that a kernel is held against or timed beside runs
 under a check that it launches no kernel.
@@ -310,6 +331,16 @@ EVAL_SIGMA_GROW = 1.5e-4
 PROFILE_STEPS = 4
 # kernel 12's timing shape: the serving prefill's (B·Hq, S, D), Hkv, W
 FA_B, FA_HQ, FA_HKV, FA_S, FA_D, FA_W = 4, 32, 8, 8192, 120, 4096
+# gemma3-27b served at full width (phase 12): one 5:1 local:global pattern
+# group of its 62 layers (in f32 all 62 would be 113 GB of parameters),
+# 32/16 heads of 168, window 1024, the same 4 x 8192-token prompts and
+# 32 decode steps; card == CPU on the group cut to its fifth (local) and
+# sixth (global) layers
+GEMMA_ARCH, GEMMA_SEED, GEMMA_LAYERS = "gemma3-27b", 27, 6
+GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_W = 32, 16, 168, 1024
+# kernel 12 past head dim 128 at recurrentgemma-2b's local layers (10
+# query heads on 1 KV head of 256, window 2048) at the prefill's B and S
+RG_HQ, RG_HKV, RG_D, RG_W = 10, 1, 256, 2048
 # dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet, 700 W)
 BF16_FLOPS_PER_S = 989e12
 # the repaired routing: a keyed custom statistic's tiled scan at the
@@ -440,7 +471,7 @@ def geometry(lib: str, args: tuple) -> tuple:
         fields = dict(dtype=dtype, BHq=BHq, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
                       D=D, causal=causal, window=window, kv_offset=kv_offset)
     elif lib == "kmeans_assign":
-        n, d, k, _, _, _, cols, ranges, threads, _, _, _ = args
+        n, d, k, _, _, _, cols, ranges, threads, *_ = args
         fields = dict(n=n, d=d, k=k, cols=cols, ranges=ranges,
                       threads=threads)
     elif lib == "fused_kmeans":
@@ -700,6 +731,34 @@ def hold_kmeans_assign(parity, x, w, cent, what) -> None:
                   (w.double() @ x.abs().double()).float(), what)
 
 
+def assign_one_launch(torch) -> None:
+    """Kernel 9 at the k-means path's shape: one call is one kernel on the
+    card (torch.profiler: the last CTA sums the partials, no second
+    pass), two calls give the same bits, and no weights is unit weights,
+    bitwise; also in the shared-slot layout (k = 16, d = 8)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+    for k, d in ((KM_K, 2), KM_WIDE):
+        x, cent = km_data(torch, KM_N, k, d, seed=11)
+        ones = torch.ones(KM_N, device="cuda")
+        kmeans_assign(x, None, cent)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            a = kmeans_assign(x, None, cent)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(len(kernels) == 1, f"kmeans_assign at k={k}, d={d}: one call "
+              f"ran {kernels} on the card")
+        for u, v, o in zip(a, kmeans_assign(x, None, cent),
+                           kmeans_assign(x, ones, cent)):
+            check(torch.equal(u, v) and torch.equal(u, o),
+                  f"kmeans_assign at k={k}, d={d}: two calls, or no "
+                  "weights and unit weights, differ")
+        print(f"parity: kmeans_assign at n={KM_N}, k={k}, d={d} is one "
+              f"launch a call ({kernels[0][:60]}), bitwise repeatable")
+
+
 def int_weights(torch, n: int, gen):
     """Whole weights 0..3 on the card."""
     return torch.randint(0, 4, (n,), generator=gen).float().cuda()
@@ -744,6 +803,7 @@ def phase_parity_kmeans(torch, parity: Parity) -> None:
     counts = kmeans_assign(x, None, cent)[1]
     check(counts.tolist() == [300.0, 0.0, 0.0],
           f"tied points not all in cluster 0: {counts.tolist()}")
+    assign_one_launch(torch)
     # a group with a KMeansStep member: each slot bitwise its dedicated
     # kernel (the k-means slot runs the k-means kernel with the same seed)
     x, cent = km_data(torch, KM_SAMPLE, KM_K, 2, seed=3)
@@ -847,13 +907,47 @@ def within_positions(parity, name, got, want, bound, what) -> None:
                       bound.expand_as(want)[fin], what)
 
 
+def hold_nonfinite_assign(torch, parity) -> None:
+    """Kernel 9 on values with +inf, -inf and NaN, NaN also on a row of
+    weight 0, at d = 1 and 2 (k = 5, the register layout) and k = 16,
+    d = 8 (the shared slots), under unit and whole-number weights: the
+    plain version's NaN and inf positions (every other cluster's sums of
+    that dimension NaN, 0·x in its one-hot contraction, whatever the
+    weight), counts bitwise, finite entries within its bounds."""
+    from repro_torch.kernels.kmeans_assign.ops import (assign_plain,
+                                                       kmeans_assign)
+    gen = torch.Generator().manual_seed(29)
+    for k, d in ((KM_K, 1), (KM_K, 2), KM_WIDE):
+        for n in (KM_N, (1 << 16) + 37):
+            x, cent = km_data(torch, n, k, d, seed=n + 3 * d)
+            x[7, 0], x[n // 3, d - 1] = float("inf"), -float("inf")
+            x[n - 2, d - 1], x[n // 2, 0] = float("nan"), float("nan")
+            for unit in (True, False):
+                w = (torch.ones(n, device="cuda") if unit
+                     else int_weights(torch, n, gen))
+                w[n // 2] = 0.0
+                what = (f"non-finite x, n={n} k={k} d={d} "
+                        f"{'unit' if unit else 'whole'} weights")
+                got = kmeans_assign(x, w, cent)
+                want = plain(assign_plain, x, w, cent)
+                check(bool((want[0] != want[0]).any()), f"{what}: no NaN")
+                parity.bitwise("kmeans_assign", got[1], want[1],
+                               f"counts {what}")
+                bound = (w.double() @ x.double().abs().nan_to_num(
+                    0, 0, 0)).float()
+                within_positions(parity, "kmeans_assign", got[0], want[0],
+                                 bound, f"sums {what}")
+                within_positions(parity, "kmeans_assign", got[2], want[2],
+                                 want[2].abs(), f"inertia {what}")
+
+
 def hold_nonfinite(torch, parity) -> None:
     """Kernels 6 and 8 on values with +inf and -inf in rows of key 1 and
     NaN in a row of key 2: the plain version's NaN and inf positions
     (finite entries within its bounds, w_tot and counts bitwise), and
     every keyed slot the dedicated kernel masked to its key, bitwise with
     NaN at the same places (another key's non-finite value is 0·x = NaN
-    in the masked run)."""
+    in the masked run); then kernel 9 (hold_nonfinite_assign)."""
     from repro_torch.kernels.kmeans_assign.ops import (fused_kmeans_plain,
                                                        fused_poisson_kmeans,
                                                        grouped_kmeans_plain)
@@ -918,10 +1012,11 @@ def hold_nonfinite(torch, parity) -> None:
                                                          valid_mask=m)):
                     check(same_or_nan(a[:, g], b), f"keyed k-means slot "
                           f"{g} differs from the masked kernel, {what}")
+    hold_nonfinite_assign(torch, parity)
     torch.cuda.synchronize()
-    print("parity (non-finite x): kernels 6 and 8 give the plain versions' "
-          "NaN and inf positions, every keyed slot its masked kernel's "
-          f"({time.perf_counter() - t0:.1f} s)")
+    print("parity (non-finite x): kernels 6, 8 and 9 give the plain "
+          "versions' NaN and inf positions, every keyed slot its masked "
+          f"kernel's ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_parity_grouped(torch, parity: Parity) -> None:
@@ -2951,6 +3046,15 @@ FA_CASES = [
     ((1, 2, 1, 64, 32, 16), dict(causal=True, window=16,
                                  kv_offset=FA_NO_KEY_OFFSET)),
 ]
+#: head dims past 128, held in both routes: gemma3-27b's 168 at its 32/16
+#: heads (three TMA boxes, the third 24 columns of zero fill) and 256
+#: (four), causal and windowed, Sq and Skv off the tiles
+FA_WIDE_CASES = [
+    ((1, 32, 16, 200, 200, 168), dict(causal=True)),
+    ((2, 4, 2, 300, 300, 168), dict(causal=True, window=100)),
+    ((1, 8, 2, 513, 513, 256), dict(causal=True)),
+    ((1, 4, 4, 130, 260, 256), dict(causal=True, window=64, kv_offset=130)),
+]
 
 
 def fa_inputs(torch, shape, dtype, gen):
@@ -2979,10 +3083,11 @@ def hold_attention(parity, got, q, k, v, kw, what):
 
 
 def phase_parity_attention(torch, parity: Parity) -> None:
-    """Kernel 12 against its plain version at the sweep (f32 and bf16)
-    and at the full-width prefill shape (bf16, and f32 to hold the window's
+    """Kernel 12 against its plain version at the sweep (f32 and bf16),
+    at head dims 168 and 256, and at the full-width prefill shapes of
+    h2o-danube-3-4b and gemma3-27b (bf16, and f32 to hold the window's
     tile skip tightly where Sq passes the window); two bf16 launches at
-    that shape must give the same bits."""
+    those shapes and past head dim 128 must give the same bits."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     gen = torch.Generator(device="cuda").manual_seed(12)
     cases = [(s, kw, dt) for s, kw in FA_CASES
@@ -2990,6 +3095,13 @@ def phase_parity_attention(torch, parity: Parity) -> None:
     cases += [((FA_B, FA_HQ, FA_HKV, FA_S, FA_S, FA_D),
                dict(causal=True, window=FA_W), dt)
               for dt in (torch.bfloat16, torch.float32)]
+    cases += [(s, kw, dt) for s, kw in FA_WIDE_CASES
+              for dt in (torch.float32, torch.bfloat16)]
+    # gemma3-27b's prefill: its local (window 1024) and global layers
+    gemma = (FA_B, GEMMA_HQ, GEMMA_HKV, FA_S, FA_S, GEMMA_D)
+    cases += [(gemma, dict(causal=True, window=GEMMA_W), torch.bfloat16),
+              (gemma, dict(causal=True), torch.bfloat16),
+              (gemma, dict(causal=True, window=GEMMA_W), torch.float32)]
     for shape, kw, dt in cases:
         q, k, v = fa_inputs(torch, shape, dt, gen)
         got = flash_attention(q, k, v, **kw)
@@ -2997,12 +3109,12 @@ def phase_parity_attention(torch, parity: Parity) -> None:
                                     f"{shape} {kw} {dt}")
         if shape[3] == FA_S:
             print(f"parity: flash_attention at the full-width prefill "
-                  f"shape in {dt}: max |err| {err}, largest share of the "
-                  f"bound {share}")
+                  f"shape {shape} {kw} in {dt}: max |err| {err}, largest "
+                  f"share of the bound {share}")
         if kw.get("kv_offset") == FA_NO_KEY_OFFSET:
             check(bool((got == 0).all()), f"flash_attention {shape} {kw} "
                   f"{dt}: rows that see no key are not 0")
-        if dt == torch.bfloat16 and shape[3] == FA_S:
+        if dt == torch.bfloat16 and (shape[3] == FA_S or shape[5] > 128):
             check(torch.equal(got, flash_attention(q, k, v, **kw)),
                   f"flash_attention {shape} {kw}: two bf16 launches differ")
     torch.cuda.synchronize()
@@ -3010,7 +3122,7 @@ def phase_parity_attention(torch, parity: Parity) -> None:
           f"{len(cases)} cases; max |err| "
           f"{parity.err['flash_attention']}, largest share of the bound "
           f"{json.dumps(parity.fa_share)}; two bf16 launches at the "
-          f"full-width shape bitwise equal")
+          f"full-width shapes and past head dim 128 bitwise equal")
 
 
 def logits_tolerance(want) -> float:
@@ -3019,11 +3131,12 @@ def logits_tolerance(want) -> float:
     return 2e-2 * float(want.abs().max())
 
 
-def serve(torch, cfg, params, prompts, gen_steps, cache_len):
-    """prefill (with room for the decode steps) and greedy decode steps;
-    returns (logits per step, decoded tokens, prefill seconds, decode
-    seconds, flash_attention launches of the prefill and of the decode,
-    the cache after the last step)."""
+def serve(torch, cfg, params, prompts, gen_steps, cache_len, forced=None):
+    """prefill (with room for the decode steps) and greedy decode steps, or
+    steps fed the tokens ``forced`` (B, gen_steps); returns (logits per
+    step, decoded tokens, prefill seconds, decode seconds, flash_attention
+    launches of the prefill and of the decode, the cache after the last
+    step)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models import prefill
     from repro_torch.train import make_decode_step
@@ -3043,7 +3156,8 @@ def serve(torch, cfg, params, prompts, gen_steps, cache_len):
     steps, toks = [logits], []
     t0 = time.perf_counter()
     for t in range(gen_steps):
-        tok = torch.argmax(logits, -1)[:, None]
+        tok = (torch.argmax(logits, -1)[:, None] if forced is None
+               else forced[:, t:t + 1])
         toks.append(tok)
         logits, cache = decode_step(params, cache, tok,
                                     prompts.shape[1] + t)
@@ -3222,110 +3336,165 @@ def routing_on_the_card(torch):
     return dict(keyed_custom_s=wall, keyed_custom_peak_bytes=peak)
 
 
+def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
+                        forced_cpu: bool = False):
+    """A model at full width on the card: seeded f32 params, SERVE_B x
+    SERVE_PROMPT prompts prefilled and SERVE_GEN greedy decode steps
+    (kernel 12 once a layer in the prefill, never in decode; the peak above
+    the params below one layer's f32 score tensor), with ``profile`` one
+    decode step under torch.profiler, then decode == teacher forcing and
+    card == CPU on ``cut(cfg, params)`` = (config, params, what): the
+    CPU's own greedy steps, or with ``forced_cpu`` steps fed the card's
+    greedy tokens, whose every token must then be the CPU's argmax or
+    within the tolerance of its largest logit (among 262,144 random
+    logits, two can lie closer than bf16's rounding, and one flipped
+    token sends two greedy runs apart).  Returns (params, info); the
+    caller deletes the params."""
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.models import (forward_hidden, init_params,
+                                    logits_from_hidden, num_params)
+
+    info = {}
+    torch.cuda.synchronize()
+    free0 = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    torch.cuda.synchronize()
+    count, nbytes = num_params(params)
+    check(count == cfg.num_params(), f"params {count} != the config's "
+          f"{cfg.num_params()}")
+    param_bytes = torch.cuda.memory_allocated() - free0
+    print(f"serve: {cfg.name}: {count} parameters, {nbytes} bytes in "
+          f"{cfg.param_dtype}; {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+          f"(padded {cfg.padded_vocab}), window {cfg.window}")
+    docs = synthetic_tokens(SERVE_B, SERVE_PROMPT, cfg.vocab, seed=seed)
+    prompts = torch.from_numpy(docs).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    steps, toks, t_pre, t_dec, n_pre, n_dec, cache = serve(
+        torch, cfg, params, prompts, SERVE_GEN, SERVE_PROMPT + SERVE_GEN)
+    peak = torch.cuda.max_memory_allocated() - param_bytes - free0
+    scores = SERVE_B * cfg.n_heads * SERVE_PROMPT * SERVE_PROMPT * 4
+    check(n_pre == cfg.n_layers and n_dec == 0,
+          f"flash_attention launched {n_pre} times in the prefill and "
+          f"{n_dec} in decode, expected {cfg.n_layers} and 0")
+    check(peak < scores, f"serve peak {peak} B above the params, not "
+          f"below one layer's score tensor ({scores} B)")
+    check(all(bool(torch.isfinite(s[:, :cfg.vocab]).all())
+              for s in steps), "serve logits are not finite")
+    info.update(prefill_s=t_pre, decode_s=t_dec,
+                decode_tokens_per_s=SERVE_B * SERVE_GEN / t_dec,
+                peak_above_params_bytes=peak, param_bytes=param_bytes)
+    print(f"serve (cuda): {SERVE_B} x {SERVE_PROMPT} prompt tokens "
+          f"prefilled in {t_pre:.3f} s ({n_pre} flash_attention "
+          f"launches), {SERVE_GEN} greedy steps in {t_dec:.3f} s = "
+          f"{SERVE_B * SERVE_GEN / t_dec:.1f} tokens/s; peak {peak} B "
+          f"above the params (one layer's f32 scores: {scores} B)")
+    if profile:
+        info.update(profile_decode(torch, cfg, params, cache, toks[:, -1:],
+                                   SERVE_PROMPT + SERVE_GEN))
+    del cache
+
+    # decode == teacher forcing: the prompt extended by the decoded
+    # tokens, in one forward
+    full = torch.cat([prompts, toks], dim=1)
+    with torch.no_grad():
+        h, _ = forward_hidden(cfg, params, full, mode="train")
+        tf = logits_from_hidden(cfg, params,
+                                h[:, SERVE_PROMPT - 1:])[..., :cfg.vocab]
+    del h
+    dec = torch.stack([s[:, :cfg.vocab] for s in steps], dim=1)
+    err = float((dec - tf).abs().max())
+    tol = logits_tolerance(tf)
+    check(err <= tol, f"decode vs teacher forcing: max |err| {err} over "
+          f"{tol}")
+    agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
+    info.update(teacher_forcing_max_err=err, teacher_forcing_tol=tol,
+                teacher_forcing_argmax_agreement=agree)
+    print(f"serve: decode == teacher forcing over {SERVE_GEN + 1} "
+          f"positions: max |logit err| {err} (tolerance {tol}); "
+          f"argmax agreement {agree}")
+    del full, tf, dec, steps
+
+    # card == CPU on the cut model
+    one, p1, what = cut(cfg, params)
+    p1_cpu = _tree_to(p1, "cpu")
+    prompt1 = prompts[:1, :CPU_PROMPT]
+    c_steps, c_toks, *_ = serve(torch, one, p1, prompt1, CPU_GEN,
+                                CPU_PROMPT + CPU_GEN)
+    h_steps, h_toks, t_cpu, *_ = serve(
+        torch, one, p1_cpu, prompt1.cpu(), CPU_GEN, CPU_PROMPT + CPU_GEN,
+        forced=c_toks.cpu() if forced_cpu else None)
+    c = torch.stack(c_steps).cpu()[..., :cfg.vocab]
+    hh = torch.stack(h_steps)[..., :cfg.vocab]
+    err = float((c - hh).abs().max())
+    tol = logits_tolerance(hh)
+    check(err <= tol, f"card vs CPU at {what}: max |err| {err} over {tol}")
+    if forced_cpu:
+        # the logits that chose each card token, on the CPU
+        chose = hh[:-1]
+        gap = (chose.max(-1).values
+               - chose.gather(-1, c_toks.cpu().T[..., None])[..., 0])
+        ties = int((chose.argmax(-1) != c_toks.cpu().T).sum())
+        check(bool((gap <= tol).all()), f"card vs CPU: a card token is "
+              f"{float(gap.max())} below the CPU's largest logit, past "
+              f"{tol}")
+        info.update(card_vs_cpu_near_ties=ties)
+    else:
+        check(torch.equal(c_toks.cpu(), h_toks), f"card vs CPU greedy "
+              f"tokens differ: {c_toks.tolist()} vs {h_toks.tolist()}")
+    info.update(card_vs_cpu_max_err=err, card_vs_cpu_tol=tol)
+    tokens = (f"the CPU fed the card's greedy tokens {c_toks.tolist()}, "
+              f"{info['card_vs_cpu_near_ties']} of them a near tie on the "
+              f"CPU" if forced_cpu else
+              f"greedy tokens equal {c_toks.tolist()}")
+    print(f"serve: card == CPU at {what} (1 x {CPU_PROMPT} tokens, "
+          f"{CPU_GEN} steps): max |logit err| {err} (tolerance {tol}), "
+          f"{tokens}; CPU prefill {t_cpu:.2f} s")
+    del p1, p1_cpu, prompts
+    return params, info
+
+
+def one_layer(cfg, params):
+    """The model cut to its first layer."""
+    import dataclasses
+    return (dataclasses.replace(cfg, n_layers=1),
+            {"embedding": params["embedding"],
+             "final_norm": params["final_norm"],
+             "groups": {"0": _tree_slice(params["groups"]["0"])}},
+            "one layer")
+
+
+def local_and_global(cfg, params):
+    """gemma3's pattern group cut to its last local and its global layer:
+    both kinds of layer at head dim 168, in 2 of 6 layers."""
+    import dataclasses
+    groups = params["groups"]
+    return (dataclasses.replace(cfg, n_layers=2,
+                                layer_pattern=("local", "global")),
+            {"embedding": params["embedding"],
+             "final_norm": params["final_norm"],
+             "groups": {"0": _tree_slice(groups["4"]),
+                        "1": _tree_slice(groups["5"])}},
+            "a local and a global layer")
+
+
 def phase_serve_path(torch):
     """Phase 11: h2o-danube-3-4b at full width on the card, from zeroed
     launch counts with its geometries logged."""
-    import dataclasses
     from repro_torch import random as trandom
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_tokens
     from repro_torch.data.pipeline import EvalSamplePipeline
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.models import (forward_hidden, init_params,
-                                    logits_from_hidden, num_params)
     from repro_torch.train import EarlEval, make_eval_step
 
     cfg = get_config(SERVE_ARCH)
     zero_counts()
-    info = {}
     with LaunchLog() as log:
-        torch.cuda.synchronize()
-        free0 = torch.cuda.memory_allocated()
-        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-            SERVE_SEED), device="cuda")
-        torch.cuda.synchronize()
-        count, nbytes = num_params(params)
-        check(count == cfg.num_params(), f"params {count} != the config's "
-              f"{cfg.num_params()}")
-        param_bytes = torch.cuda.memory_allocated() - free0
-        print(f"serve: {cfg.name}: {count} parameters, {nbytes} bytes in "
-              f"{cfg.param_dtype}; {cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-              f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
-              f"(padded {cfg.padded_vocab}), window {cfg.window}")
-        docs = synthetic_tokens(SERVE_B, SERVE_PROMPT, cfg.vocab,
-                                seed=SERVE_SEED)
-        prompts = torch.from_numpy(docs).cuda()
-        torch.cuda.reset_peak_memory_stats()
-        steps, toks, t_pre, t_dec, n_pre, n_dec, cache = serve(
-            torch, cfg, params, prompts, SERVE_GEN, SERVE_PROMPT + SERVE_GEN)
-        peak = torch.cuda.max_memory_allocated() - param_bytes - free0
-        scores = SERVE_B * cfg.n_heads * SERVE_PROMPT * SERVE_PROMPT * 4
-        check(n_pre == cfg.n_layers and n_dec == 0,
-              f"flash_attention launched {n_pre} times in the prefill and "
-              f"{n_dec} in decode, expected {cfg.n_layers} and 0")
-        check(peak < scores, f"serve peak {peak} B above the params, not "
-              f"below one layer's score tensor ({scores} B)")
-        check(all(bool(torch.isfinite(s[:, :cfg.vocab]).all())
-                  for s in steps), "serve logits are not finite")
-        info.update(prefill_s=t_pre, decode_s=t_dec,
-                    decode_tokens_per_s=SERVE_B * SERVE_GEN / t_dec,
-                    peak_above_params_bytes=peak, param_bytes=param_bytes)
-        print(f"serve (cuda): {SERVE_B} x {SERVE_PROMPT} prompt tokens "
-              f"prefilled in {t_pre:.3f} s ({n_pre} flash_attention "
-              f"launches), {SERVE_GEN} greedy steps in {t_dec:.3f} s = "
-              f"{SERVE_B * SERVE_GEN / t_dec:.1f} tokens/s; peak {peak} B "
-              f"above the params (one layer's f32 scores: {scores} B)")
-        info.update(profile_decode(torch, cfg, params, cache, toks[:, -1:],
-                                   SERVE_PROMPT + SERVE_GEN))
-        del cache
-
-        # decode == teacher forcing: the prompt extended by the decoded
-        # tokens, in one forward
-        full = torch.cat([prompts, toks], dim=1)
-        with torch.no_grad():
-            h, _ = forward_hidden(cfg, params, full, mode="train")
-            tf = logits_from_hidden(cfg, params,
-                                    h[:, SERVE_PROMPT - 1:])[..., :cfg.vocab]
-        del h
-        dec = torch.stack([s[:, :cfg.vocab] for s in steps], dim=1)
-        err = float((dec - tf).abs().max())
-        tol = logits_tolerance(tf)
-        check(err <= tol, f"decode vs teacher forcing: max |err| {err} over "
-              f"{tol}")
-        agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
-        info.update(teacher_forcing_max_err=err, teacher_forcing_tol=tol,
-                    teacher_forcing_argmax_agreement=agree)
-        print(f"serve: decode == teacher forcing over {SERVE_GEN + 1} "
-              f"positions: max |logit err| {err} (tolerance {tol}); "
-              f"argmax agreement {agree}")
-        del full, tf, dec, steps
-
-        # card == CPU on the model cut to one layer
-        one = dataclasses.replace(cfg, n_layers=1)
-        p1 = {"embedding": params["embedding"],
-              "final_norm": params["final_norm"],
-              "groups": {"0": _tree_slice(params["groups"]["0"])}}
-        p1_cpu = _tree_to(p1, "cpu")
-        prompt1 = prompts[:1, :CPU_PROMPT]
-        c_steps, c_toks, *_ = serve(torch, one, p1, prompt1, CPU_GEN,
-                                    CPU_PROMPT + CPU_GEN)
-        h_steps, h_toks, t_cpu, *_ = serve(
-            torch, one, p1_cpu, prompt1.cpu(), CPU_GEN, CPU_PROMPT + CPU_GEN)
-        c = torch.stack(c_steps).cpu()[..., :cfg.vocab]
-        hh = torch.stack(h_steps)[..., :cfg.vocab]
-        err = float((c - hh).abs().max())
-        tol = logits_tolerance(hh)
-        check(err <= tol, f"card vs CPU at one layer: max |err| {err} over "
-              f"{tol}")
-        check(torch.equal(c_toks.cpu(), h_toks), f"card vs CPU greedy "
-              f"tokens differ: {c_toks.tolist()} vs {h_toks.tolist()}")
-        info.update(card_vs_cpu_max_err=err, card_vs_cpu_tol=tol)
-        print(f"serve: card == CPU at one layer (1 x {CPU_PROMPT} tokens, "
-              f"{CPU_GEN} steps): max |logit err| {err} (tolerance {tol}), "
-              f"greedy tokens equal {c_toks.tolist()}; CPU prefill "
-              f"{t_cpu:.2f} s")
-        del p1, p1_cpu
+        params, info = serve_at_full_width(torch, cfg, SERVE_SEED,
+                                           one_layer, profile=True)
 
         # EarlEval at full width
         corpus = synthetic_tokens(EVAL_DOCS, EVAL_DOC_LEN, cfg.vocab,
@@ -3367,6 +3536,38 @@ def phase_serve_path(torch):
         check(launches[k] > 0, f"phase 11 launched no {k}")
     print(f"launches, the serving path: {json.dumps(launches)}")
     print("serve summary: " + json.dumps(info))
+    return launches, log.geometries, info
+
+
+def phase_serve_gemma(torch):
+    """Phase 12: gemma3-27b at full width (head dim 168) on the card, cut
+    to one 5:1 local:global pattern group, from zeroed launch counts with
+    its geometries logged."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GEMMA_ARCH)
+    check((cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, cfg.window)
+          == (GEMMA_D, GEMMA_HQ, GEMMA_HKV, GEMMA_W),
+          f"{cfg.name} is not the shape kernel 12 is timed at")
+    full_layers = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=GEMMA_LAYERS)
+    print(f"serve: {cfg.name} cut from {full_layers} layers to one pattern "
+          f"group {cfg.layer_pattern} ({GEMMA_LAYERS} layers): all "
+          f"{full_layers} in f32 would be "
+          f"{4 * get_config(GEMMA_ARCH).num_params()} bytes of parameters")
+    zero_counts()
+    with LaunchLog() as log:
+        params, info = serve_at_full_width(
+            torch, cfg, GEMMA_SEED, local_and_global, profile=False,
+            forced_cpu=True)
+        del params
+        torch.cuda.empty_cache()
+    launches = log.counts()
+    for k in SERVE_KERNELS:
+        check(launches[k] > 0, f"phase 12 launched no {k}")
+    print(f"launches, the gemma3 serving path: {json.dumps(launches)}")
+    print("serve summary (gemma3-27b): " + json.dumps(info))
     return launches, log.geometries, info
 
 
@@ -3488,9 +3689,90 @@ def attention_pairs(S: int, W: int) -> int:
     return W * (W + 1) // 2 + (S - W) * W
 
 
+def library_f32_ms(torch, q, k, v, mask, scale):
+    """One f32 scaled_dot_product_attention call of the same function,
+    K/V expanded to the query heads beforehand and the memory-efficient
+    backend asked for (f32 with a mask; PyTorch's math fallback would
+    build the (B, H, S, S) scores); None, with the reason printed, where
+    PyTorch refuses it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = q.shape[1] // k.shape[1]
+    k32, v32 = (t.float().repeat_interleave(rep, dim=1) for t in (k, v))
+    q32 = q.float()
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return time_ms(torch, lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               q32, k32, v32, attn_mask=mask, scale=scale), 2)
+    except RuntimeError as e:
+        print(f"scaled_dot_product_attention in f32 not timed: {e}")
+        return None
+
+
+def wide_head_times(torch, gen):
+    """Kernel 12 past head dim 128 at the serving prefill's B and S: gemma3
+    -27b's local (window 1024) and global layers (32/16 heads of 168) and
+    recurrentgemma-2b's local layers (10/1 heads of 256, window 2048);
+    bf16, the f32 route and one bf16 scaled_dot_product_attention call;
+    bound as the main row's."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    out = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    i = torch.arange(FA_S, device="cuda")
+    for name, hq, hkv, d, w in (("gemma3_local", GEMMA_HQ, GEMMA_HKV, GEMMA_D,
+                                 GEMMA_W),
+                                ("gemma3_global", GEMMA_HQ, GEMMA_HKV,
+                                 GEMMA_D, None),
+                                ("recurrentgemma_local", RG_HQ, RG_HKV, RG_D,
+                                 RG_W)):
+        q, k, v = fa_inputs(torch, (FA_B, hq, hkv, FA_S, FA_S, d),
+                            torch.bfloat16, gen)
+        kw = dict(causal=True, window=w, scale=d ** -0.5)
+        row = dict(case=name, B=FA_B, Hq=hq, Hkv=hkv, S=FA_S, D=d, window=w,
+                   ms=time_ms(torch, lambda: flash_attention(q, k, v, **kw),
+                              5))
+        if name == "gemma3_local":
+            row["plain_ms"] = time_ms(torch, lambda: plain(
+                flash_attention_plain, q, k, v, **kw), 1)
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        row["f32_ms"] = time_ms(torch, lambda: flash_attention(
+            q32, k32, v32, **kw), 1)
+        del q32, k32, v32
+        mask = (i[None, :] <= i[:, None])
+        if w is not None:
+            mask = mask & (i[None, :] > i[:, None] - w)
+        try:
+            row["library_ms"] = time_ms(torch, lambda: sdpa(
+                q, k, v, attn_mask=mask, scale=d ** -0.5, enable_gqa=True),
+                2)
+        except RuntimeError as e:
+            row["library_ms"] = None
+            print(f"scaled_dot_product_attention at {name} not timed: {e}")
+        pairs = attention_pairs(FA_S, w or FA_S)
+        flops = 4 * d * pairs * FA_B * hq
+        nbytes = 2 * (2 * FA_B * hq + 2 * FA_B * hkv) * FA_S * d
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   flops=flops, bytes=nbytes)
+        out.append(row)
+        del q, k, v, mask
+        print(f"timing flash_attention at {name} ({FA_B} x {hq}/{hkv} heads "
+              f"of {d}, {FA_S} tokens, window {w}): bf16 "
+              f"{row['ms']:.4f} ms; f32 {row['f32_ms']:.4f} ms; sdpa "
+              f"{row['library_ms']} ms; "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
+              + (f"; plain {row['plain_ms']:.2f} ms" if "plain_ms" in row
+                 else ""))
+    return out
+
+
 def serve_rows(torch, launches, parity: Parity):
     """Kernel 12 at the serving prefill's shape: 4 x 32 query heads on 8
-    KV heads, 8192 tokens, head_dim 120, window 4096, bf16."""
+    KV heads, 8192 tokens, head_dim 120, window 4096, bf16; the f32 route
+    and scaled_dot_product_attention in f32 beside it; then past head dim
+    128 (wide_head_times)."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(99)
@@ -3510,6 +3792,7 @@ def serve_rows(torch, launches, parity: Parity):
     library_ms = time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask,
                                              scale=FA_D ** -0.5,
                                              enable_gqa=True), 5)
+    f32_library_ms = library_f32_ms(torch, q, k, v, mask, FA_D ** -0.5)
     pairs = attention_pairs(FA_S, FA_W)
     # operations: QK^T and PV, 2·D each a visible pair; bytes: q, k, v and
     # o once each, in bf16
@@ -3524,6 +3807,9 @@ def serve_rows(torch, launches, parity: Parity):
                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                library_ms=library_ms, f32_ms=f32_ms,
+               library_f32_ms=f32_library_ms,
+               registers={n: r for n, r in PTXAS_REGISTERS.items()
+                          if "attention_tc" in n or "attention_f32" in n},
                shape=dict(B=FA_B, Hq=FA_HQ, Hkv=FA_HKV, S=FA_S, D=FA_D,
                           window=FA_W, dtype="bfloat16", pairs_per_head=pairs,
                           flops=flops, bytes=nbytes))
@@ -3533,9 +3819,10 @@ def serve_rows(torch, launches, parity: Parity):
     print(f"timing flash_attention: {ms:.4f} ms in bf16 ({flops / ms / 1e9:.1f} "
           f"TFLOP/s of visible work; f32 route {f32_ms:.4f} ms; plain "
           f"{plain_ms:.2f} ms, scaled_dot_product_attention "
-          f"{library_ms:.4f} ms, bound "
+          f"{library_ms:.4f} ms (f32 {f32_library_ms} ms), bound "
           f"{row['bound_ms']:.4f} ms by {row['bound_by']}: {pairs} visible "
           f"pairs a head, {flops} flops, {nbytes} bytes)")
+    row["wide_heads"] = wide_head_times(torch, gen)
     return [row]
 
 
@@ -3690,13 +3977,15 @@ def main() -> int:
     lap("10 (streaming path)")
     sv_launches, sv_geometries, _ = phase_serve_path(torch)
     lap("11 (serving path)")
+    gm_launches, gm_geometries, _ = phase_serve_gemma(torch)
+    lap("12 (gemma3-27b serving path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
-                + sv_launches[k] for k in launches}
+                + sv_launches[k] + gm_launches[k] for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"six: {json.dumps(launches)}")
+          f"seven: {json.dumps(launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
                          **mat_geometries, **st_geometries,
-                         **sv_geometries}, parity)
+                         **sv_geometries, **gm_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)

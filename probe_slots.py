@@ -4,6 +4,7 @@ fused_grouped.cu) alone, in knock-outs and at other geometries, with
 kernel 2 beside them.
 
     python3 probe_slots.py [--root CHECKOUT] [--label L] [--out FILE]
+                           [--kernel9 | --attention]
 
 Needs one CUDA card and nvcc, and chip_smoke.py beside this script, whose
 timers and data it uses.  ``--root`` is the checkout whose src/repro_torch
@@ -23,6 +24,19 @@ n = 2^22 k-means bootstrap, the keyed Mean bootstrap at B = 256,
 n = 2^24 - 1000, and the grouped kernel against G masked kernel-2
 launches at chip_smoke's GB_RATIO_SHAPE.  Prints one JSON object as its
 last line, and writes it to ``--out`` when given.
+
+``--kernel9`` times kernel 9 (kmeans_assign.cu) instead, at the k-means
+path's shape (n = 400,000, k = 5, d = 2, no weights, as kmeans_fit calls
+it, and unit weights): a call, the kernel alone, the host's time to
+return from a call, and one window of calls under torch.profiler: the
+card's time of each kernel it ran and the host's time in each operation,
+with the wrapper's launch (``_build.launch``) and the whole call as
+spans of their own; then, for the register design, its variants alone
+in two turns (K9_KNOCKOUTS, K9_KNOBS).
+
+``--attention`` times kernel 12's bf16 route past head dim 128 alone at
+chip_smoke.py's wide-head shapes, its K/V tiling against the other that
+fits in shared memory (K12_KNOCKOUTS), in turns.
 """
 import argparse
 import importlib
@@ -218,11 +232,286 @@ def start_build(_build, csrc: Path, name: str, variant: str, edits,
                             stderr=subprocess.STDOUT, text=True), lib
 
 
+#: calls a kernel 9 timing averages over, and calls in its profiled window
+K9_REPS, K9_PROFILED = 200, 20
+_K9_FOLD = (
+    "    if (j < k) {  // uniform: the slots past k stay 0\n"
+    "      const float wj = j == js ? wv : 0.f;\n"
+    "#pragma unroll\n"
+    "      for (int q = 0; q < D; ++q) {\n"
+    "        acc[j * D + q] = __fmaf_rn(wj, xr[q], acc[j * D + q]);\n"
+    "      }\n"
+    "      acc[KM * D + j] = __fadd_rn(acc[KM * D + j], wj);\n"
+    "    }\n"
+    "  }\n"
+    "  acc[KM * (D + 1)] = __fmaf_rn(wv, best, acc[KM * (D + 1)]);\n")
+#: kernel 9's variants of the register layout (csrc/kmeans_assign.cu,
+#: assign_regs), as [(file, old text, new text)]: notes: a point adds into
+#: its own cluster only (predicated selects) and a thread notes its
+#: non-finite values per dimension and poisons the other clusters before
+#: the block sums (PoisonNote, as the slot kernels do); nofold: the loads
+#: and sums without the assignment; nosync: no ticket and no sum across
+#: CTAs; nofinish: the ticket, but the last CTA sums nothing.
+K9_KNOCKOUTS = {
+    "notes": [
+        ("kmeans_assign.cu", _K9_FOLD,
+         "    if (j < k) {\n"
+         "      const bool hit = j == js;\n"
+         "#pragma unroll\n"
+         "      for (int q = 0; q < D; ++q) {\n"
+         "        float& a = acc[j * D + q];\n"
+         "        a = hit ? __fmaf_rn(wv, xr[q], a) : a;\n"
+         "      }\n"
+         "      float& cnt = acc[KM * D + j];\n"
+         "      cnt = hit ? __fadd_rn(cnt, wv) : cnt;\n"
+         "    }\n"
+         "  }\n"
+         "  acc[KM * (D + 1)] = __fmaf_rn(wv, best, acc[KM * (D + 1)]);\n"
+         "#pragma unroll\n"
+         "  for (int q = 0; q < D; ++q) {\n"
+         "    if (!isfinite(xr[q])) nf[q].note(js);\n"
+         "  }\n"),
+        ("kmeans_assign.cu",
+         "    int k, float (&acc)[KM * (D + 1) + 1]) {",
+         "    int k, float (&acc)[KM * (D + 1) + 1], "
+         "earl::PoisonNote (&nf)[D]) {"),
+        ("kmeans_assign.cu",
+         "        fold_point<D, KM>(xs[b] + u * D, ws[b][u], c, cc, p.k, "
+         "acc);",
+         "        fold_point<D, KM>(xs[b] + u * D, ws[b][u], c, cc, p.k, "
+         "acc, nf);"),
+        ("kmeans_assign.cu",
+         "  for (int e = 0; e < E; ++e) acc[e] = 0.f;\n",
+         "  for (int e = 0; e < E; ++e) acc[e] = 0.f;\n"
+         "  earl::PoisonNote nf[D];\n"),
+        ("kmeans_assign.cu",
+         "  // block sums: 32 entries a butterfly, then the warps in order\n",
+         "  bool noted = false;\n"
+         "#pragma unroll\n"
+         "  for (int q = 0; q < D; ++q) noted = noted || nf[q].any();\n"
+         "  if (noted) {\n"
+         "#pragma unroll\n"
+         "    for (int j = 0; j < KM; ++j) {\n"
+         "#pragma unroll\n"
+         "      for (int q = 0; q < D; ++q) {\n"
+         "        if (nf[q].poisons(j)) acc[j * D + q] = "
+         "earl::poison_nan();\n"
+         "      }\n"
+         "    }\n"
+         "  }\n"
+         "  // block sums: 32 entries a butterfly, then the warps in order\n")],
+    "nofold": [
+        ("kmeans_assign.cu",
+         "        fold_point<D, KM>(xs[b] + u * D, ws[b][u], c, cc, p.k, "
+         "acc);",
+         "        acc[u] += ws[b][u] + xs[b][u * D];")],
+    "nosync": [
+        ("kmeans_assign.cu",
+         "    p.part[static_cast<int64_t>(blockIdx.x) * entries + o] = total;\n"
+         "  }\n"
+         "  finish(p, entries);",
+         "    p.part[static_cast<int64_t>(blockIdx.x) * entries + o] = total;\n"
+         "  }")],
+    "nofinish": [("kmeans_assign.cu", "  if (!last) return;",
+                  "  if (true) return;")],
+}
+#: kernel 12's bf16 tiling past head dim 128 (csrc/flash_attention.cu):
+#: tiles128, 128-key K/V tiles in one stage in place of 64-key tiles in
+#: two (the same shared bytes)
+K12_KNOCKOUTS = {"tiles128": [
+    ("flash_attention.cu",
+     "  return D <= 192 ? EARL_TC(192, 64, 2) : EARL_TC(256, 64, 2);",
+     "  return D <= 192 ? EARL_TC(192, 128, 1) : EARL_TC(256, 128, 1);")]}
+#: (case, query heads, KV heads, head dim, window) at chip_smoke.py's
+#: FA_B requests of FA_S tokens: gemma3-27b's local and global layers and
+#: recurrentgemma-2b's local layers
+K12_SHAPES = [("gemma3_local", cs.GEMMA_HQ, cs.GEMMA_HKV, cs.GEMMA_D,
+               cs.GEMMA_W),
+              ("gemma3_global", cs.GEMMA_HQ, cs.GEMMA_HKV, cs.GEMMA_D, None),
+              ("recurrentgemma_local", cs.RG_HQ, cs.RG_HKV, cs.RG_D,
+               cs.RG_W)]
+K12_REPS = 10
+#: kernel 9's geometry knobs: points a thread at the least (ranges 391,
+#: 196 and 66 at n = 400,000, against 131)
+K9_KNOBS = {f"points{v}": (KMEANS, "REG_POINTS", lambda _, v=v: v)
+            for v in (4, 8, 24)}
+K9_VARIANTS = ("base", "notes", "nofold", "nosync", "nofinish", "points4",
+               "points8", "points24")
+
+
+def probe_kernel9(torch, root: Path, label: str) -> dict:
+    """Kernel 9 at the k-means path's shape: ms a call and alone, the
+    host's return, and where one call's time goes (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kmeans_assign import ops as tka
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+    logs = _build.build_all(["kmeans_assign"])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    x, cent = cs.km_data(torch, cs.KM_N, cs.KM_K, 2, seed=5)
+    ones = torch.ones(cs.KM_N, device="cuda")
+    result = dict(label=label, root=str(root), device=smi,
+                  ptxas=ptxas_report(logs.get("kmeans_assign", "")),
+                  n=cs.KM_N, k=cs.KM_K, d=2, variants={})
+    # the register design's variants, alone, in turns with the base
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    if "assign_regs" in (csrc / "kmeans_assign.cu").read_text():
+        work = root / "build" / "probe9"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        started = {v: start_build(_build, csrc, "kmeans_assign", v, e, work)
+                   for v, e in K9_KNOCKOUTS.items()}
+        base = _build.library("kmeans_assign")
+        libs = {}
+        for v, (proc, lib) in started.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                print(out, file=sys.stderr)
+                raise RuntimeError(f"nvcc failed for kmeans_assign-{v}")
+            libs[v] = ctypes.CDLL(str(lib))
+            fn = libs[v].earl_kmeans_assign
+            fn.argtypes = list(_build.SIGNATURES["kmeans_assign"])
+            fn.restype = ctypes.c_int
+            result["variants"][f"ptxas_{v}"] = ptxas_report(out)
+        fn = lambda: kmeans_assign(x, None, cent)  # noqa: E731
+        for turn in range(2):
+            for v in K9_VARIANTS:
+                _build._LOADED["kmeans_assign"] = libs.get(v, base)
+                knob = K9_KNOBS.get(v)
+                if knob:
+                    module = importlib.import_module(knob[0])
+                    before = getattr(module, knob[1])
+                    setattr(module, knob[1], knob[2](before))
+                tka.assign_geometry.cache_clear()
+                try:
+                    t = cs.launch_ms(torch, fn, "kmeans_assign", K9_REPS)
+                finally:
+                    _build._LOADED["kmeans_assign"] = base
+                    if knob:
+                        setattr(module, knob[1], before)
+                    tka.assign_geometry.cache_clear()
+                    torch.cuda.synchronize()
+                    for ticket, _ in tka._SCRATCH.values():
+                        ticket.zero_()
+                result["variants"].setdefault(v, []).append(t)
+        print(f"kernel 9 variants, alone, two turns (ms): "
+              f"{json.dumps({v: result['variants'][v] for v in K9_VARIANTS})}")
+    for name, w in (("no_weights", None), ("unit_weights", ones)):
+        fn = lambda: kmeans_assign(x, w, cent)  # noqa: E731
+        call = cs.time_ms(torch, fn, K9_REPS)
+        alone = cs.launch_ms(torch, fn, "kmeans_assign", K9_REPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(K9_REPS):
+            fn()
+        host = (time.perf_counter() - t0) / K9_REPS * 1e3
+        torch.cuda.synchronize()
+        launch = _build.launch
+
+        def spanned(lib, *a):
+            with record_function("earl_launch"):
+                return launch(lib, *a)
+        _build.launch = spanned
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(K9_PROFILED):
+                    with record_function("kmeans_assign_call"):
+                        fn()
+                torch.cuda.synchronize()
+        finally:
+            _build.launch = launch
+        ops = sorted(({"key": r.key, "count": r.count,
+                       "cpu_us_a_call": r.cpu_time_total / K9_PROFILED,
+                       "self_cpu_us_a_call":
+                           r.self_cpu_time_total / K9_PROFILED,
+                       "device_us_a_call":
+                           r.device_time_total / K9_PROFILED}
+                      for r in prof.key_averages()),
+                     key=lambda r: -r["cpu_us_a_call"])
+        kernels = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                k = kernels.setdefault(e.name, [0, 0.0])
+                k[0] += 1
+                k[1] += e.time_range.end - e.time_range.start
+        result[name] = dict(
+            call_ms=call, alone_ms=alone, host_return_ms=host,
+            profiled_ops=ops[:30],
+            device_kernels={k: dict(count=c, us_each=t / c)
+                            for k, (c, t) in kernels.items()})
+        print(f"kernel 9 ({name}): a call {call:.4f} ms, alone "
+              f"{alone:.4f} ms, host returns after {host:.4f} ms; card "
+              f"kernels {json.dumps(result[name]['device_kernels'])}")
+        for r in ops[:30]:
+            print(f"  profiled {r['key']}: {json.dumps(r)}")
+    return result
+
+
+def probe_attention(torch, root: Path, label: str) -> dict:
+    """Kernel 12 in bf16 alone at K12_SHAPES, the base tiling and each of
+    K12_KNOCKOUTS in turns (base, variant, variant, base)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    logs = _build.build_all(["flash_attention"])
+    base = _build.library("flash_attention")
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    work = root / "build" / "probe12"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    result = dict(label=label, root=str(root), device=smi,
+                  ptxas={"base": ptxas_report(logs.get("flash_attention",
+                                                       ""))},
+                  shapes=[])
+    libs = {}
+    for v, edits in K12_KNOCKOUTS.items():
+        proc, lib = start_build(_build, csrc, "flash_attention", v, edits,
+                                work)
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(out, file=sys.stderr)
+            raise RuntimeError(f"nvcc failed for flash_attention-{v}")
+        libs[v] = ctypes.CDLL(str(lib))
+        fn = libs[v].earl_flash_attention
+        fn.argtypes = list(_build.SIGNATURES["flash_attention"])
+        fn.restype = ctypes.c_int
+        result["ptxas"][v] = ptxas_report(out)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for case, hq, hkv, d, w in K12_SHAPES:
+        q, k, v = cs.fa_inputs(torch, (cs.FA_B, hq, hkv, cs.FA_S, cs.FA_S,
+                                       d), torch.bfloat16, gen)
+        fn = lambda: flash_attention(q, k, v, causal=True,  # noqa: E731
+                                     window=w)
+        row = dict(case=case, B=cs.FA_B, Hq=hq, Hkv=hkv, S=cs.FA_S, D=d,
+                   window=w)
+        for variant in libs:
+            for turn in ("base", variant, variant, "base"):
+                _build._LOADED["flash_attention"] = libs.get(turn, base)
+                try:
+                    t = cs.launch_ms(torch, fn, "flash_attention", K12_REPS)
+                finally:
+                    _build._LOADED["flash_attention"] = base
+                row.setdefault(turn, []).append(t)
+        result["shapes"].append(row)
+        print(f"kernel 12 alone (ms) {json.dumps(row)}")
+        del q, k, v
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default="probe")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--kernel9", action="store_true")
+    ap.add_argument("--attention", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
@@ -232,6 +521,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_slots: no CUDA device", file=sys.stderr)
         return 2
+    if args.kernel9 or args.attention:
+        result = (probe_kernel9 if args.kernel9 else probe_attention)(
+            torch, root, args.label)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(result, indent=1))
+        print(json.dumps(result))
+        return 0
     from repro_torch import random as trandom
     from repro_torch.core import GroupedStatistic, KMeansStep, Mean, bootstrap
     from repro_torch.kernels import _build

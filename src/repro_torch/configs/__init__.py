@@ -29,7 +29,8 @@ ARCH_IDS = (
     "whisper-small",
 )
 #: the ones the port runs
-PORTED_ARCH_IDS = ("h2o-danube-3-4b", "stablelm-3b", "granite-3-2b")
+PORTED_ARCH_IDS = ("h2o-danube-3-4b", "stablelm-3b", "granite-3-2b",
+                   "gemma3-27b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in PORTED_ARCH_IDS}

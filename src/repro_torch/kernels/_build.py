@@ -49,7 +49,7 @@ SIGNATURES: Dict[str, tuple] = {
                    INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
                    INT, VOID_P, VOID_P, VOID_P, INT, VOID_P, VOID_P),
     "kmeans_assign": (INT, INT, INT, VOID_P, VOID_P, VOID_P, INT, INT, INT,
-                      VOID_P, VOID_P, VOID_P),
+                      VOID_P, VOID_P, VOID_P, VOID_P),
     "fused_kmeans": (INT, INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P,
                      VOID_P, INT, INT, INT, INT, INT, VOID_P, VOID_P, VOID_P,
                      VOID_P),

@@ -21,34 +21,46 @@
 // Bound: the two products, 4·D operations per visible (query, key) pair;
 // the bytes (q, k, v and o once each) take far less time.  Two routes:
 //
-// bf16 (attention_tc): both products on the tensor cores.  A CTA owns 128
-// query rows as two warpgroups of 64 (wgmma's M) and walks K/V tiles of
-// 128 keys.  D is padded to DP = 64 or 128 by the TMA's zero fill (head
-// dim 120 is two 64-column boxes, the second reading 8 zero columns), and
-// q, k and v are read through 3-D tensor maps (D, S, B·H), so a box never
-// crosses into the next head and the ragged Sq / Skv edges read zeros.
-// 128-byte swizzle.  Q is loaded once; K and V go through a ring of two
-// stages, each with its own mbarrier per operand, so QKᵀ of a tile starts
-// before its V has landed and the next tile's copies overlap this tile's
-// work.  S = Q·Kᵀ is wgmma m64n128k16 with both operands K-major in shared
-// memory; the online softmax runs in the accumulator's registers (a row's
+// bf16 (attention_tc<DP, BN, STAGES>): both products on the tensor cores.
+// A CTA owns 128 query rows as two warpgroups of 64 (wgmma's M) and walks
+// K/V tiles of BN keys.  D is padded to DP = 64, 128, 192 or 256 by the
+// TMA's zero fill (head dim 120 is two 64-column boxes, the second reading
+// 8 zero columns; 168 is three, the third reading 24), and q, k and v are
+// read through 3-D tensor maps (D, S, B·H), so a box never crosses into
+// the next head and the ragged Sq / Skv edges read zeros.  128-byte
+// swizzle.  Q is loaded once; K and V go through a ring of STAGES stages,
+// each with its own mbarrier per operand, so QKᵀ of a tile starts before
+// its V has landed and, with two stages, the next tile's copies overlap
+// this tile's work.  Up to DP = 128: BN = 128 keys, two stages.  Past it
+// Q, K and V of 128-key tiles in two stages would take (1 + 2·2)·DP·256
+// bytes, 241 KB at DP = 192, past the 227 KB a CTA may have, and the
+// O accumulator is DP/2 f32 registers a thread (128 at DP = 256) beside
+// S's BN/2: so BN = 64 keys in two stages (145 and 193 KB, S 32
+// registers).  BN = 128 in one stage takes the same bytes and measured
+// 11-25% slower (probe_slots.py --attention, PERF.md §6).  S = Q·Kᵀ
+// is wgmma m64nBNk16 with both operands K-major in shared memory; the
+// online softmax runs in the accumulator's registers (a row's
 // max and sum reduced over the four threads of its quad) in the log2
 // domain (scale·log2 e folded into the scores), masking only tiles that a
 // causal, window or Skv edge cuts; masked scores are -inf, which with
 // m starting at -1e30 is the reference's -1e30 / p = 0.  P is rounded to
 // bf16 in registers, where the accumulator's layout is already wgmma's
 // register A fragment, and O += P·V is wgmma with V read MN-major
-// (transpose bit), so V stays (key, D) as TMA loaded it.  l sums the
+// (transpose bit), so V stays (key, D) as TMA loaded it: m64nDPk16, its
+// N spanning the DP/64 boxes of a V tile.  l sums the
 // unrounded f32 P.  The output is O / max(l, 1e-30) rounded to bf16 (RNE).
 // Fixed order, no atomics: two launches give the same bits.  Simple
 // first: no producer warp and no ping-pong between the warpgroups; both
 // meet at a __syncthreads() after each tile, before its stage is refilled.
 //
-// f32 (attention_f32): IEEE f32 FMAs on the CUDA cores (the tensor cores'
-// TF32 keeps 10 bits).  One CTA per (b·h, 64 query rows), two threads a
-// row, each holding half of the row's q and of the accumulator in
-// registers (D padded to a multiple of 8 with zeros), K/V tiles of 32 keys
-// walked through shared memory.
+// f32 (attention_f32<DH, TPR, BK>): IEEE f32 FMAs on the CUDA cores (the
+// tensor cores' TF32 keeps 10 bits).  One CTA per (b·h, 64 query rows),
+// TPR threads a row, each holding DH columns of the row's q and of the
+// accumulator in registers (D padded with zeros), K/V tiles of BK keys
+// walked through shared memory: two threads a row and 32 keys up to
+// D = 128, four threads a row and 16 keys past it (DH = 48 or 64, so q and
+// the accumulator stay at 2·DH registers; 16 keys keep the two tiles
+// under the 48 KB of static shared memory).
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -61,33 +73,33 @@ constexpr float kNegInf = -1e30f;
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
-constexpr int kF32BlockQ = 64;               // query rows a CTA owns
-constexpr int kF32BlockK = 32;               // keys a shared-memory tile holds
-constexpr int kF32Threads = 2 * kF32BlockQ;  // two threads a query row
+constexpr int kF32BlockQ = 64;  // query rows a CTA owns
 
-// DH: the half of the padded head dimension a thread holds (a multiple of
-// 4, for float4 reads of shared memory).
-template <int DH>
-__global__ void __launch_bounds__(kF32Threads)
+// DH: the columns of the padded head dimension a thread holds (a multiple
+// of 4, for float4 reads of shared memory); TPR: threads a query row (a
+// power of two, neighbouring lanes); BK: keys a shared-memory tile holds.
+template <int DH, int TPR, int BK>
+__global__ void __launch_bounds__(TPR * kF32BlockQ)
 attention_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int BHq,
               int Hq, int Hkv, int Sq, int Skv, int D, float scale,
               int causal, int window, int kv_offset) {
-  // a key's two halves sit 4 floats apart more than their width, so the
-  // float4 reads of the two threads of a row fall on different banks
+  constexpr int kThreadsF32 = TPR * kF32BlockQ;
+  // a key's parts sit 4 floats apart more than their width, so the float4
+  // reads of the threads of a row fall on different banks
   constexpr int kStride = DH + 4;
-  __shared__ __align__(16) float ks[kF32BlockK][2][kStride];
-  __shared__ __align__(16) float vs[kF32BlockK][2][kStride];
+  __shared__ __align__(16) float ks[BK][TPR][kStride];
+  __shared__ __align__(16) float vs[BK][TPR][kStride];
 
   const int nqb = (Sq + kF32BlockQ - 1) / kF32BlockQ;
   const int bh = blockIdx.x % BHq;
   const int qb = nqb - 1 - static_cast<int>(blockIdx.x / BHq);
   const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const int half = threadIdx.x & 1;
-  const int row = qb * kF32BlockQ + (threadIdx.x >> 1);
+  const int part = threadIdx.x % TPR;
+  const int row = qb * kF32BlockQ + threadIdx.x / TPR;
   const bool row_ok = row < Sq;
   const int pos = row + kv_offset;
-  const int d0 = half * DH;
+  const int d0 = part * DH;
 
   float qr[DH], acc[DH];
   const float* qrow =
@@ -107,11 +119,10 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* kb = k + static_cast<int64_t>(kvh) * Skv * D;
   const float* vb = v + static_cast<int64_t>(kvh) * Skv * D;
-  for (int t0 = (k_beg / kF32BlockK) * kF32BlockK; t0 < k_end;
-       t0 += kF32BlockK) {
+  for (int t0 = (k_beg / BK) * BK; t0 < k_end; t0 += BK) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kF32BlockK * 2 * DH; e += kF32Threads) {
-      const int j = e / (2 * DH), dd = e - j * (2 * DH);
+    for (int e = threadIdx.x; e < BK * TPR * DH; e += kThreadsF32) {
+      const int j = e / (TPR * DH), dd = e - j * (TPR * DH);
       const int key = t0 + j;
       const bool ok = key < Skv && dd < D;
       const int64_t src = static_cast<int64_t>(key) * D + dd;
@@ -120,12 +131,12 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[kF32BlockK];
+    float s[BK];
     unsigned live = 0u;
     float tile_max = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(&ks[j][half][0]);
+    for (int j = 0; j < BK; ++j) {
+      const float4* kr = reinterpret_cast<const float4*>(&ks[j][part][0]);
       float dot = 0.f;
 #pragma unroll
       for (int c = 0; c < DH / 4; ++c) {
@@ -135,7 +146,9 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
         dot = fmaf(qr[4 * c + 2], kk.z, dot);
         dot = fmaf(qr[4 * c + 3], kk.w, dot);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+#pragma unroll
+      for (int m = 1; m < TPR; m <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, m);
       const int col = t0 + j;
       const bool ok = row_ok && col < Skv && (!causal || col <= pos) &&
                       (window <= 0 || col > pos - window);
@@ -147,7 +160,7 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float alpha = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       s[j] = ((live >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
       psum += s[j];
     }
@@ -155,8 +168,8 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DH; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(&vs[j][half][0]);
+    for (int j = 0; j < BK; ++j) {
+      const float4* vr = reinterpret_cast<const float4*>(&vs[j][part][0]);
       const float p = s[j];
 #pragma unroll
       for (int c = 0; c < DH / 4; ++c) {
@@ -192,20 +205,24 @@ cudaError_t launch_f32(int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   float* op = static_cast<float*>(o);
-#define EARL_FA(DH)                                                       \
-  attention_f32<DH><<<grid, kF32Threads, 0, stream>>>(                    \
+#define EARL_FA(DH, TPR, BK)                                              \
+  attention_f32<DH, TPR, BK><<<grid, TPR * kF32BlockQ, 0, stream>>>(      \
       qp, kp, vp, op, BHq, Hq, Hkv, Sq, Skv, D, scale, causal, window,    \
       kv_offset)
   if (D <= 8) {
-    EARL_FA(4);
+    EARL_FA(4, 2, 32);
   } else if (D <= 16) {
-    EARL_FA(8);
+    EARL_FA(8, 2, 32);
   } else if (D <= 32) {
-    EARL_FA(16);
+    EARL_FA(16, 2, 32);
   } else if (D <= 64) {
-    EARL_FA(32);
+    EARL_FA(32, 2, 32);
   } else if (D <= 128) {
-    EARL_FA(64);
+    EARL_FA(64, 2, 32);
+  } else if (D <= 192) {
+    EARL_FA(48, 4, 16);
+  } else if (D <= 256) {
+    EARL_FA(64, 4, 16);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -217,19 +234,21 @@ cudaError_t launch_f32(int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
 // bf16: tensor cores (wgmma), fed by TMA
 // ---------------------------------------------------------------------------
 constexpr int kBlockM = 128;    // query rows a CTA owns: two warpgroups of 64
-constexpr int kBlockN = 128;    // keys a K/V tile holds
 constexpr int kThreads = 256;   // two consumer warpgroups
-constexpr int kStages = 2;      // the K/V ring
 constexpr int kBoxCols = 64;    // bf16 columns a 128-byte swizzled box holds
-constexpr int kBoxBytes = 128 * 128;  // a box of 128 rows of 128 bytes
+constexpr int kRowBytes = 128;  // a box row: 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The dynamic shared memory a CTA takes at padded head dim DP: Q, then
-// kStages (K, V) pairs, each a 128-row tile of DP / 64 boxes, and 1 KB to
-// align the first box to the 1,024 bytes the 128-byte swizzle repeats on.
-__host__ __device__ constexpr int tile_bytes(int DP) { return DP / kBoxCols * kBoxBytes; }
-__host__ __device__ constexpr int smem_bytes(int DP) {
-  return (1 + 2 * kStages) * tile_bytes(DP) + 1024;
+// A tile of `rows` rows at padded head dim DP: DP / 64 boxes of `rows`
+// rows of 128 bytes.
+__host__ __device__ constexpr int tile_bytes(int DP, int rows) {
+  return DP / kBoxCols * rows * kRowBytes;
+}
+// The dynamic shared memory a CTA takes: Q (128 rows), then STAGES (K, V)
+// pairs of BN-row tiles, and 1 KB to align the first box to the 1,024
+// bytes the 128-byte swizzle repeats on.
+__host__ __device__ constexpr int smem_bytes(int DP, int BN, int STAGES) {
+  return tile_bytes(DP, kBlockM) + 2 * STAGES * tile_bytes(DP, BN) + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -317,6 +336,12 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #define EARL_F64(d)                                                     \
   EARL_F32(d), EARL_F8(d, 32), EARL_F8(d, 40), EARL_F8(d, 48),          \
       EARL_F8(d, 56)
+#define EARL_F96(d)                                                     \
+  EARL_F64(d), EARL_F8(d, 64), EARL_F8(d, 72), EARL_F8(d, 80),          \
+      EARL_F8(d, 88)
+#define EARL_F128(d)                                                    \
+  EARL_F96(d), EARL_F8(d, 96), EARL_F8(d, 104), EARL_F8(d, 112),        \
+      EARL_F8(d, 120)
 #define EARL_R32                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
@@ -327,11 +352,30 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
   "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
   "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
   "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define EARL_R96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+#define EARL_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+  "%122, %123, %124, %125, %126, %127}"
 
-// S (64 x 128, f32) = A·B over one k-step of 16, A and B K-major in
-// shared memory; `accumulate` 0 overwrites S.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
+// S (64 x N, f32) = A·B over one k-step of 16, A and B K-major in
+// shared memory; `accumulate` 0 overwrites S.  N = 128 or 64 keys.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -342,9 +386,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : EARL_F64(d)
       : "l"(a), "l"(b), "r"(accumulate));
 }
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " EARL_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : EARL_F32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // O (64 x N, f32) += A·B over one k-step of 16: A (bf16 pairs) in
-// registers, B MN-major in shared memory (the transpose bit).
+// registers, B MN-major in shared memory (the transpose bit).  N = DP:
+// 64, 128, 192 or 256.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t b) {
   asm volatile(
@@ -369,6 +426,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : EARL_F32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " EARL_R96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : EARL_F96(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " EARL_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : EARL_F128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -381,9 +462,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// DP: the padded head dimension, 64 or 128.  D: the head dimension of the
-// output rows (a multiple of 8).  scale_log2: the score scale times log2 e.
-template <int DP>
+// DP: the padded head dimension, 64, 128, 192 or 256; BN: keys a K/V tile
+// holds, 64 or 128; STAGES: the K/V ring's depth.  D: the head dimension
+// of the output rows (a multiple of 8).  scale_log2: the score scale times
+// log2 e.
+template <int DP, int BN, int STAGES>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
@@ -392,18 +475,22 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
              int Skv, int D, float scale_log2, int causal, int window,
              int kv_offset) {
   constexpr int kBoxes = DP / kBoxCols;
-  constexpr int kTile = tile_bytes(DP);
+  constexpr int kQBox = kBlockM * kRowBytes;  // a box of Q: 128 rows
+  constexpr int kKVBox = BN * kRowBytes;      // a box of K or V: BN rows
+  constexpr int kQTile = tile_bytes(DP, kBlockM);
+  constexpr int kKVTile = tile_bytes(DP, BN);
   constexpr int kAcc = DP / 2;  // O entries a thread holds: 64 x DP / 128
+  constexpr int kS = BN / 2;    // S entries a thread holds: 64 x BN / 128
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
 
-  // Q, then stage s's K at 1 + 2s tiles and V at 2 + 2s
+  // Q, then stage s's K and V tiles
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = smem_u32(&bars[0]);
   auto bar_k = [&](int s) { return smem_u32(&bars[1 + s]); };
-  auto bar_v = [&](int s) { return smem_u32(&bars[1 + kStages + s]); };
-  auto sk = [&](int s) { return sq + (1 + 2 * s) * kTile; };
-  auto sv = [&](int s) { return sq + (2 + 2 * s) * kTile; };
+  auto bar_v = [&](int s) { return smem_u32(&bars[1 + STAGES + s]); };
+  auto sk = [&](int s) { return sq + kQTile + 2 * s * kKVTile; };
+  auto sv = [&](int s) { return sq + kQTile + (2 * s + 1) * kKVTile; };
 
   const int nqb = (Sq + kBlockM - 1) / kBlockM;
   const int bh = blockIdx.x % BHq;
@@ -424,9 +511,8 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
   const int last = min(q0 + kBlockM, Sq) - 1 + kv_offset;
   const int k_end = causal ? min(Skv, last + 1) : Skv;
   const int k_beg = window > 0 ? max(0, first - window + 1) : 0;
-  const int t_first = k_beg / kBlockN;
-  const int n_tiles =
-      k_end > k_beg ? (k_end + kBlockN - 1) / kBlockN - t_first : 0;
+  const int t_first = k_beg / BN;
+  const int n_tiles = k_end > k_beg ? (k_end + BN - 1) / BN - t_first : 0;
   // the rows of this warpgroup see every key of a tile (no mask) when the
   // tile ends before Skv, before its first row's diagonal, and after its
   // last row's window
@@ -434,7 +520,7 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_k(s), 1);
       mbar_init(bar_v(s), 1);
     }
@@ -446,23 +532,23 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
   const CUtensorMap* km = &kmap;
   const CUtensorMap* vm = &vmap;
   auto load_kv = [&](int j) {  // tile j of this CTA's walk, by thread 0
-    const int s = j % kStages;
-    const int key0 = (t_first + j) * kBlockN;
-    mbar_expect_tx(bar_k(s), kTile);
+    const int s = j % STAGES;
+    const int key0 = (t_first + j) * BN;
+    mbar_expect_tx(bar_k(s), kKVTile);
 #pragma unroll
     for (int b = 0; b < kBoxes; ++b)
-      tma_load(sk(s) + b * kBoxBytes, km, bar_k(s), b * kBoxCols, key0, kvh);
-    mbar_expect_tx(bar_v(s), kTile);
+      tma_load(sk(s) + b * kKVBox, km, bar_k(s), b * kBoxCols, key0, kvh);
+    mbar_expect_tx(bar_v(s), kKVTile);
 #pragma unroll
     for (int b = 0; b < kBoxes; ++b)
-      tma_load(sv(s) + b * kBoxBytes, vm, bar_v(s), b * kBoxCols, key0, kvh);
+      tma_load(sv(s) + b * kKVBox, vm, bar_v(s), b * kBoxCols, key0, kvh);
   };
   if (tid == 0) {
-    mbar_expect_tx(bar_q, kTile);
+    mbar_expect_tx(bar_q, kQTile);
 #pragma unroll
     for (int b = 0; b < kBoxes; ++b)
-      tma_load(sq + b * kBoxBytes, qm, bar_q, b * kBoxCols, q0, bh);
-    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
+      tma_load(sq + b * kQBox, qm, bar_q, b * kBoxCols, q0, bh);
+    for (int j = 0; j < STAGES && j < n_tiles; ++j) load_kv(j);
   }
 
   float acc[kAcc];
@@ -472,19 +558,21 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
   mbar_wait(bar_q, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % kStages;
-    const uint32_t parity = (j / kStages) & 1;
-    const int t0 = (t_first + j) * kBlockN;
+    const int s = j % STAGES;
+    const uint32_t parity = (j / STAGES) & 1;
+    const int t0 = (t_first + j) * BN;
 
     // S = Q·Kᵀ: D_pad / 16 k-steps; a k-step is 32 bytes into a box row
-    float sc[64];
+    float sc[kS];
     mbar_wait(bar_k(s), parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      wgmma_ss_n128(sc, smem_desc(sq + wg * 64 * 128 + off, 16, 1024),
-                    smem_desc(sk(s) + off, 16, 1024), kk > 0);
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss(sc,
+               smem_desc(sq + wg * 64 * kRowBytes + (kk / 4) * kQBox + col,
+                         16, 1024),
+               smem_desc(sk(s) + (kk / 4) * kKVBox + col, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -493,8 +581,7 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
     // online softmax: sc[4·n8 + 2·i + e] is row r0 + 8i, column
     // t0 + 8·n8 + c0 + e
     const bool masked =
-        !(t0 + kBlockN <= Skv &&
-          (!causal || t0 + kBlockN - 1 <= wg_first) &&
+        !(t0 + BN <= Skv && (!causal || t0 + BN - 1 <= wg_first) &&
           (window <= 0 || t0 > wg_first + 63 - window));
     float alpha[2];
 #pragma unroll
@@ -502,7 +589,7 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
       const int pos = r0 + 8 * i + kv_offset;
       float mx = -INFINITY;
 #pragma unroll
-      for (int n8 = 0; n8 < 16; ++n8) {
+      for (int n8 = 0; n8 < BN / 8; ++n8) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float x = sc[4 * n8 + 2 * i + e] * scale_log2;
@@ -522,7 +609,7 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
       alpha[i] = fast_exp2(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int n8 = 0; n8 < 16; ++n8) {
+      for (int n8 = 0; n8 < BN / 8; ++n8) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p = fast_exp2(sc[4 * n8 + 2 * i + e] - m_new);
@@ -543,9 +630,9 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
     }
     // P in bf16 as wgmma's A fragments: k-step kk covers columns
     // 16kk .. 16kk + 15, i.e. accumulator groups n8 = 2kk and 2kk + 1
-    uint32_t pa[8][4];
+    uint32_t pa[BN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
       pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
       pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
       pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -553,19 +640,19 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
     }
 
     // O += P·V: k-step kk is keys 16kk .. 16kk + 15, 2,048 bytes into a
-    // box; N = DP spans the boxes, kBoxBytes apart (the leading offset)
+    // box; N = DP spans the boxes, kKVBox apart (the leading offset)
     mbar_wait(bar_v(s), parity);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_rs(acc, pa[kk], smem_desc(sv(s) + kk * 2048, kBoxBytes, 1024));
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(acc, pa[kk], smem_desc(sv(s) + kk * 2048, kKVBox, 1024));
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(acc);
 
     __syncthreads();  // both warpgroups are done with stage s
-    if (tid == 0 && j + kStages < n_tiles) load_kv(j + kStages);
+    if (tid == 0 && j + STAGES < n_tiles) load_kv(j + STAGES);
   }
 
 #pragma unroll
@@ -617,10 +704,11 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (D, S, BH) bf16 tensor in boxes of 64 columns x 128 rows x 1 head,
+// A (D, S, BH) bf16 tensor in boxes of 64 columns x `rows` rows x 1 head,
 // 128-byte swizzle, zeros out of bounds.  An empty tensor (S = 0) leaves
 // the map zero: the kernel then loads nothing from it.
-bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int BH) {
+bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int BH,
+                int rows) {
   *map = CUtensorMap{};
   if (S == 0) return true;
   const EncodeTiled encode = encoder();
@@ -630,7 +718,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int BH) {
                               static_cast<cuuint64_t>(BH)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(S) * D * 2};
-  const cuuint32_t box[3] = {kBoxCols, 128, 1};
+  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem,
@@ -639,21 +727,29 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int BH) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
-cudaError_t launch_tc_dp(const CUtensorMap& qm, const CUtensorMap& km,
-                         const CUtensorMap& vm, int BHq, int Hq, int Hkv,
-                         int Sq, int Skv, int D, float scale_log2,
-                         int causal, int window, int kv_offset, void* o,
-                         cudaStream_t stream) {
+template <int DP, int BN, int STAGES>
+cudaError_t launch_tc_dp(const void* q, const void* k, const void* v,
+                         int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
+                         float scale_log2, int causal, int window,
+                         int kv_offset, void* o, cudaStream_t stream) {
+  static_assert(smem_bytes(DP, BN, STAGES) <= 232448,
+                "a CTA's shared memory is past the 227 KB Hopper gives");
   const int64_t blocks =
       static_cast<int64_t>(BHq) * ((Sq + kBlockM - 1) / kBlockM);
   if (blocks >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+  const int BHkv = BHq / Hq * Hkv;
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(&qm, q, D, Sq, BHq, kBlockM) ||
+      !tensor_map(&km, k, D, Skv, BHkv, BN) ||
+      !tensor_map(&vm, v, D, Skv, BHkv, BN))
+    return cudaErrorInvalidValue;
+  constexpr int smem = smem_bytes(DP, BN, STAGES);
   const cudaError_t e = cudaFuncSetAttribute(
-      attention_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(DP));
+      attention_tc<DP, BN, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  attention_tc<DP><<<static_cast<unsigned>(blocks), kThreads,
-                     smem_bytes(DP), stream>>>(
+  attention_tc<DP, BN, STAGES><<<static_cast<unsigned>(blocks), kThreads,
+                                 smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), BHq, Hq, Hkv, Sq, Skv, D,
       scale_log2, causal, window, kv_offset);
   return cudaGetLastError();
@@ -667,25 +763,23 @@ cudaError_t launch_tc(int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
   };
-  if (D % 8 != 0 || D > 128 || !aligned(q) || !aligned(k) || !aligned(v))
-    return cudaErrorInvalidValue;
-  const int BHkv = BHq / Hq * Hkv;
-  CUtensorMap qm, km, vm;
-  if (!tensor_map(&qm, q, D, Sq, BHq) || !tensor_map(&km, k, D, Skv, BHkv) ||
-      !tensor_map(&vm, v, D, Skv, BHkv))
+  if (D % 8 != 0 || D > 256 || !aligned(q) || !aligned(k) || !aligned(v))
     return cudaErrorInvalidValue;
   const float scale_log2 = scale * kLog2e;
-  if (D <= 64)
-    return launch_tc_dp<64>(qm, km, vm, BHq, Hq, Hkv, Sq, Skv, D,
-                            scale_log2, causal, window, kv_offset, o, stream);
-  return launch_tc_dp<128>(qm, km, vm, BHq, Hq, Hkv, Sq, Skv, D, scale_log2,
-                           causal, window, kv_offset, o, stream);
+#define EARL_TC(DP, BN, STAGES)                                            \
+  launch_tc_dp<DP, BN, STAGES>(q, k, v, BHq, Hq, Hkv, Sq, Skv, D,          \
+                               scale_log2, causal, window, kv_offset, o,   \
+                               stream)
+  if (D <= 128) return D <= 64 ? EARL_TC(64, 128, 2) : EARL_TC(128, 128, 2);
+  return D <= 192 ? EARL_TC(192, 64, 2) : EARL_TC(256, 64, 2);
+#undef EARL_TC
 }
 
 }  // namespace
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); window: 0 for
-// none.  bf16 takes D a multiple of 8 up to 128 and 16-byte aligned q, k, v.
+// none.  D up to 256; bf16 takes D a multiple of 8 and 16-byte aligned q,
+// k, v.
 extern "C" int earl_flash_attention(int dtype, int BHq, int Hq, int Hkv,
                                     int Sq, int Skv, int D, float scale,
                                     int causal, int window, int kv_offset,

@@ -27,10 +27,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._pass import stream_ptr
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 
-#: Largest head dimension the kernel takes (the bf16 route pads D to 128,
-#: two 64-column TMA boxes; the f32 route holds half of a 128-wide row in
-#: each of a row's two threads).
-MAX_HEAD_DIM = 128
+#: Largest head dimension the kernel takes (the bf16 route pads D to 256,
+#: four 64-column TMA boxes, the widest wgmma N; the f32 route holds a
+#: quarter of a 256-wide row in each of a row's four threads).
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -176,7 +176,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{v.dtype}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dimension {d} is past the kernel's "
-                         f"{MAX_HEAD_DIM}")
+                         f"MAX_HEAD_DIM = {MAX_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if q.dtype == torch.bfloat16:

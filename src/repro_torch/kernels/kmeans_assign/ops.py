@@ -26,7 +26,8 @@ running sums across tiles are float64, rounded once, as the moments' are.
 from __future__ import annotations
 
 import copy
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -41,9 +42,16 @@ from repro_torch.kernels.weighted_stats.ops import (Prepared, _pad_to,
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-#: Columns each thread of the kmeans_assign kernel folds, at the least,
-#: before the CTA count reaches TARGET_CTAS.
+#: Columns each thread of the kmeans_assign kernel's shared-slot layout
+#: folds, at the least, before the CTA count reaches TARGET_CTAS.
 COLS_PER_THREAD = 8
+#: The kmeans_assign kernel's register layout (csrc/kmeans_assign.cu,
+#: assign_regs): d up to REG_MAX_DIM and k up to REG_CLUSTERS, 256 threads,
+#: each loading 4 points at once (QUAD; a CTA's range is a multiple of 4
+#: points) and folding REG_POINTS at the least before the CTAs reach
+#: REG_CTAS, two an SM of an H100: the last CTA then sums few partials.
+REG_MAX_DIM, REG_CLUSTERS, REG_THREADS, QUAD = 4, 8, 256, 4
+REG_POINTS, REG_CTAS = 12, 2 * 132
 #: Column assignments in all (columns times the CTAs a column) up to which
 #: the fused kernel's bootstrap CTAs assign their own columns, saving the
 #: assignment pass's launch (csrc/fused_kmeans.cu; measured in PERF.md §6).
@@ -161,14 +169,24 @@ def split_entries(out: torch.Tensor, k: int, d: int) -> Triple:
             out[..., kd:kd + k], out[..., kd + k])
 
 
+@functools.lru_cache(maxsize=256)
 def assign_geometry(n: int, k: int, d: int) -> Tuple[int, int, int]:
     """(threads, columns per CTA, ranges) of a kmeans_assign pass, a
-    function of the shapes alone (the sums' order depends on it).  A thread
-    keeps its k·(d+1)+1 accumulators in shared memory, so a wide (k, d)
-    takes fewer threads a CTA."""
+    function of the shapes alone (the sums' order depends on it).  Up to
+    d = REG_MAX_DIM and k = REG_CLUSTERS the accumulators are registers:
+    256 threads, ranges of a multiple of QUAD columns, at most REG_CTAS
+    of them.  Past that a thread
+    keeps its k·(d+1)+1 accumulators and d notes in shared memory, so a
+    wide (k, d) takes fewer threads a CTA."""
+    if d <= REG_MAX_DIM and k <= REG_CLUSTERS:
+        threads, per = REG_THREADS, REG_THREADS * REG_POINTS
+        ranges = max(1, min(REG_CTAS, -(-n // per)))
+        cols = max(QUAD, -(-n // ranges))
+        cols += (-cols) % QUAD
+        return threads, cols, max(1, -(-n // cols))
     entries = k * (d + 1) + 1
     for threads in (256, 128, 64, 32):
-        if 4 * (entries * threads + k * d + k) <= SMEM_BYTES:
+        if 4 * ((entries + d) * threads + k * d + k) <= SMEM_BYTES:
             break
     else:
         raise NotImplementedError(
@@ -180,20 +198,47 @@ def assign_geometry(n: int, k: int, d: int) -> Tuple[int, int, int]:
     return threads, cols, max(1, -(-n // cols))
 
 
-def assign_cuda(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
-                ) -> Triple:
-    for name, t in (("values", x), ("weights", w), ("centroids", cent)):
-        check_cuda_f32(name, t)
+#: (device index, stream) -> (ticket, partials): the kmeans_assign
+#: kernel's scratch, kept across calls.  The ticket is one u32 that the
+#: kernel's last CTA resets to 0; the partials grow to the largest
+#: ranges · entries seen.  Launches on one stream run in order, so they
+#: share them.
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def assign_scratch(device: torch.device, stream: int, size: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (ticket, partials of at least ``size`` floats) of a stream."""
+    key = (device.index, stream)
+    got = _SCRATCH.get(key)
+    if got is None or got[1].numel() < size:
+        ticket = (torch.zeros(1, dtype=torch.int32, device=device)
+                  if got is None else got[0])
+        got = (ticket, torch.empty(size, dtype=torch.float32,
+                                   device=device))
+        _SCRATCH[key] = got
+    return got
+
+
+def assign_cuda(x: torch.Tensor, w, cent: torch.Tensor) -> Triple:
+    """One kmeans_assign launch; ``w`` None is unit weights (the kernel
+    reads no weights)."""
+    check_cuda_f32("values", x)
+    if w is not None:
+        check_cuda_f32("weights", w)
+    check_cuda_f32("centroids", cent)
     n, d = x.shape
     k = cent.shape[0]
     threads, cols, ranges = assign_geometry(n, k, d)
     entries = k * (d + 1) + 1
-    part = torch.empty(ranges, entries, dtype=torch.float32, device=x.device)
+    stream = stream_ptr(x.device)
+    ticket, part = assign_scratch(x.device, stream, ranges * entries)
     out = torch.empty(entries, dtype=torch.float32, device=x.device)
     kmeans_assign.launches += 1
-    _build.launch("kmeans_assign", n, d, k, x.data_ptr(), w.data_ptr(),
-                  cent.data_ptr(), cols, ranges, threads, part.data_ptr(),
-                  out.data_ptr(), stream_ptr(x.device))
+    _build.launch("kmeans_assign", n, d, k, x.data_ptr(),
+                  None if w is None else w.data_ptr(), cent.data_ptr(), cols,
+                  ranges, threads, part.data_ptr(), ticket.data_ptr(),
+                  out.data_ptr(), stream)
     return split_entries(out, k, d)
 
 
@@ -271,15 +316,16 @@ def kmeans_assign(values: torch.Tensor, weights, centroids) -> Triple:
     values' device."""
     x = values if values.ndim == 2 else values.reshape(values.shape[0], -1)
     x = x.to(torch.float32).contiguous()
-    w = (torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-         if weights is None else torch.as_tensor(weights).to(
-             device=x.device, dtype=torch.float32).contiguous())
-    if w.shape != (x.shape[0],):
+    w = None if weights is None else torch.as_tensor(weights).to(
+        device=x.device, dtype=torch.float32).contiguous()
+    if w is not None and w.shape != (x.shape[0],):
         raise ValueError(f"weights must be ({x.shape[0]},), got "
                          f"{tuple(w.shape)}")
     cent = centroids_on(centroids, x.device, x.shape[1])
     if x.device.type == "cuda":
         return assign_cuda(x, w, cent)
+    if w is None:
+        w = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
     return assign_plain(x, w, cent)
 
 

@@ -6,7 +6,8 @@ port's plain version (``flash_attention_plain``, what a CPU tensor runs)
 and its second plain version (``flash_attention_windowed``) are held
 against the JAX package's ``"blockwise"``, ``"windowed"`` and
 ``"pallas_interpret"`` backends and against ``mha_reference``, over the
-sweep of tests/test_kernels.py plus head_dim 120 and GQA 4: f32 within
+sweep of tests/test_kernels.py plus head_dim 120 and GQA 4, and at head
+dims 168 and 256 (gemma3-27b's and recurrentgemma-2b's): f32 within
 atol 2e-5 and rtol 1e-4, bf16 within 3e-2 (compared in f32).  The CUDA
 kernel is held against the plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py); its bf16 route rounds P to
@@ -66,6 +67,31 @@ def test_plain_matches_jax(shape, kw, backend):
     want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                jnp.asarray(v), backend=backend, block_q=32,
                                block_k=32, **kw)
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), block_q=32, block_k=32,
+                              **kw)
+    _close(got.numpy(), want)
+
+
+# head dims past 128: gemma3-27b's 168 (5376 / 32) and recurrentgemma-2b's
+# 256, causal and windowed, with GQA
+WIDE_HEADS = [
+    ((1, 4, 2, 64, 64, 168), dict(causal=True)),
+    ((1, 4, 1, 80, 80, 168), dict(causal=True, window=24)),
+    ((1, 4, 2, 64, 64, 256), dict(causal=True)),
+    ((1, 2, 1, 72, 72, 256), dict(causal=True, window=32)),
+]
+
+
+@pytest.mark.parametrize("shape,kw", WIDE_HEADS,
+                         ids=[str(s) for s, _ in WIDE_HEADS])
+def test_plain_matches_jax_past_head_dim_128(shape, kw):
+    """The plain version (what the card's kernel is held to) against the
+    JAX package's blockwise attention at D = 168 and 256."""
+    q, k, v = _qkv(shape, seed=5)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), backend="blockwise",
+                               block_q=32, block_k=32, **kw)
     got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), block_q=32, block_k=32,
                               **kw)

@@ -37,7 +37,11 @@ takes more than 65,535 heads; one prefill launches it once a layer and
 decode never, and decode equals teacher forcing.  The tiled scan (kernel 1 from an n-tile
 offset) gives the CPU run's weights and w_tot bitwise, its dots within
 1e-5·Σw|x|, and a group with keyed and custom members is bitwise their
-dedicated runs.
+dedicated runs.  Kernel 9 on ±inf and NaN values (NaN on a row of weight
+0 too) gives the plain version's NaN and inf positions, is one launch a
+call and bitwise repeatable, and reads no weights bitwise as unit ones.
+Kernel 12 at head dims 168 and 256 (both routes) within its tolerance,
+and past 256 it raises.
 """
 import numpy as np
 import pytest
@@ -310,6 +314,68 @@ def test_cuda_nonfinite_values_match_plain_and_masked(cuda, B, n, d, G):
             for a, b in zip(km, tka.fused_poisson_kmeans(seed, xc, cc, B,
                                                          valid_mask=m)):
                 assert _same_or_nan(a[:, g], b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(1000, 5, 1), (1000, 5, 2),
+                                   ((1 << 16) + 37, 5, 2), (3000, 16, 8)])
+@pytest.mark.parametrize("weights", ["unit", "whole"])
+def test_cuda_kmeans_assign_nonfinite_matches_plain(cuda, n, k, d, weights):
+    """Kernel 9 on +inf, -inf and NaN values, NaN on a row of weight 0:
+    the plain version's NaN and inf positions (every other cluster's sums
+    of that dimension NaN, whatever the weight), counts bitwise, finite
+    entries within 1e-5·Σw|x|; (3000, 16, 8) takes the shared-slot
+    layout."""
+    x, centers = synthetic_clusters(n, k=k, dim=d, seed=n + d)
+    rng = np.random.default_rng(n + k)
+    cent = (centers + rng.normal(0, 0.1, centers.shape)).astype(np.float32)
+    w = (np.ones(n, np.float32) if weights == "unit"
+         else rng.integers(1, 4, n).astype(np.float32))
+    x[7, 0], x[19, d - 1], x[n - 2, d - 1] = np.inf, -np.inf, np.nan
+    x[31, d - 1] = np.nan
+    w[31] = 0.0
+    xc, cc, wc = (torch.from_numpy(a).to(cuda) for a in (x, cent, w))
+    got = tka.kmeans_assign(xc, wc, cc)
+    want = tka.kmeans_assign(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(cent))
+    assert torch.isnan(want[0]).any()
+    assert torch.equal(got[1].cpu(), want[1])
+    bound = torch.from_numpy(w).double() @ torch.from_numpy(x).double(
+        ).abs().nan_to_num(0, 0, 0)
+    assert _positions_within(got[0], want[0], bound)
+    assert _positions_within(got[2], want[2], want[2].abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(400_000, 5, 2), (1001, 3, 1),
+                                   (3000, 16, 8)])
+def test_cuda_kmeans_assign_is_one_launch_and_repeatable(cuda, monkeypatch,
+                                                         n, k, d):
+    """One call is one kernel launch (the last CTA sums the partials; no
+    second pass); two calls give the same bits; no weights is unit
+    weights, bitwise; x a row slice off a 16-byte boundary (scalar loads)
+    gives the plain version's counts."""
+    from repro_torch.kernels import _build
+    x, centers = synthetic_clusters(n + 1, k=k, dim=d, seed=n)
+    cc = torch.from_numpy(centers.astype(np.float32)).to(cuda)
+    xc = torch.from_numpy(x).to(cuda)
+    calls, launch = [], _build.launch
+    monkeypatch.setattr(_build, "launch", lambda name, *a: (
+        calls.append(name), launch(name, *a))[1])
+    torch.cuda.synchronize()
+    a = tka.kmeans_assign(xc[:n], None, cc)
+    torch.cuda.synchronize()
+    assert calls == ["kmeans_assign"]
+    b = tka.kmeans_assign(xc[:n], None, cc)
+    ones = tka.kmeans_assign(xc[:n], torch.ones(n, device=cuda), cc)
+    for u, v, o in zip(a, b, ones):
+        assert torch.equal(u, v) and torch.equal(u, o)
+    off = tka.kmeans_assign(xc[1:], None, cc)
+    want = tka.kmeans_assign(torch.from_numpy(x[1:]), None,
+                             torch.from_numpy(centers.astype(np.float32)))
+    assert torch.equal(off[1].cpu(), want[1])
+    assert _within(off[0], want[0], torch.from_numpy(x[1:]).double().abs(
+        ).sum(0))
 
 
 @pytest.mark.cuda
@@ -816,12 +882,45 @@ def test_cuda_flash_attention_bf16_is_bitwise_repeatable(cuda, shape, kw):
                        tfa.flash_attention(q, k, v, **kw))
 
 
+#: head dims past 128: gemma3-27b's 168 at its 32/16 heads (three TMA
+#: boxes, the third 24 columns of zero fill) and 256 (four), causal and
+#: windowed, Sq and Skv off the tiles
+WIDE_FA_CASES = [
+    ((1, 32, 16, 200, 200, 168), dict(causal=True)),
+    ((2, 4, 2, 300, 300, 168), dict(causal=True, window=100)),
+    ((1, 8, 2, 513, 513, 256), dict(causal=True)),
+    ((1, 4, 4, 130, 260, 256), dict(causal=True, window=64,
+                                    kv_offset=130)),
+]
+
+
 @pytest.mark.cuda
-def test_cuda_flash_attention_bf16_head_dim_past_128_raises(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,kw", WIDE_FA_CASES,
+                         ids=[str(s) for s, _ in WIDE_FA_CASES])
+def test_cuda_flash_attention_head_dims_168_and_256_match_plain(
+        cuda, shape, kw, dtype):
+    """D = 168 and 256 in both routes at kernel 12's tolerance; bf16 twice
+    bitwise."""
     from repro_torch.kernels.flash_attention import ops as tfa
-    q, k, v = _fa_inputs((1, 2, 1, 16, 16, 136), torch.bfloat16, cuda, 6)
+    q, k, v = _fa_inputs(shape, dtype, cuda, shape[3] + shape[5])
+    got = tfa.flash_attention(q, k, v, **kw)
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _fa_close(got, want, dtype, q, k, v, **kw)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, tfa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_head_dim_past_256_raises(cuda, dtype):
+    from repro_torch.kernels.flash_attention import ops as tfa
+    q, k, v = _fa_inputs((1, 2, 1, 16, 16, 264), dtype, cuda, 6)
     before = tfa.flash_attention.launches
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="MAX_HEAD_DIM = 256"):
         tfa.flash_attention(q, k, v)
     assert tfa.flash_attention.launches == before
 

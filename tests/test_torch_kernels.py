@@ -769,3 +769,39 @@ def test_probe_knockouts_match_the_slot_sources(monkeypatch):
             assert v == "base" or v in probe.KNOCKOUTS["slots"] or v in knobs
     for module, attr, _ in knobs.values():
         assert hasattr(importlib.import_module(module), attr), attr
+
+
+def test_probe_kernel9_variants_match_its_source(monkeypatch):
+    """probe_slots.py --kernel9's edits of csrc/kmeans_assign.cu each match
+    the source once, and every variant it times is a knock-out, a knob of
+    a module attribute that exists, or the base."""
+    import importlib
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    probe = importlib.import_module("probe_slots")
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    for variant, edits in probe.K9_KNOCKOUTS.items():
+        for fname, old, _ in edits:
+            assert (csrc / fname).read_text().count(old) == 1, (variant,
+                                                                 fname)
+    for v in probe.K9_VARIANTS:
+        assert (v == "base" or v in probe.K9_KNOCKOUTS
+                or v in probe.K9_KNOBS), v
+    for module, attr, _ in probe.K9_KNOBS.values():
+        assert hasattr(importlib.import_module(module), attr), attr
+
+
+def test_probe_attention_variant_matches_its_source(monkeypatch):
+    """probe_slots.py --attention's edit of csrc/flash_attention.cu (the
+    other K/V tiling past head dim 128) matches the source once."""
+    import importlib
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    probe = importlib.import_module("probe_slots")
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    for variant, edits in probe.K12_KNOCKOUTS.items():
+        for fname, old, new in edits:
+            assert (csrc / fname).read_text().count(old) == 1, variant
+            assert old != new

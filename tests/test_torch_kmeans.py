@@ -490,6 +490,72 @@ def test_fused_kmeans_plain_nonfinite_matches_jax(mask_kind):
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("case", ["inf", "-inf", "nan", "nan_w0", "inf_w0"])
+def test_assign_plain_nonfinite_matches_jax_scan(case, d):
+    """One Lloyd pass (kernel 9's function) over a value +inf, -inf or NaN,
+    on a row of weight 1 or 0: the plain version gives the JAX scan's NaN
+    and inf positions, every other cluster's sums of that dimension NaN
+    (0·x in the one-hot contraction, whatever the weight), finite entries
+    within the usual bounds and counts bitwise; the rule the card's kernel
+    keeps (emulated: the point's own cluster adds w·x, the others are
+    poisoned) gives the same positions."""
+    n, k = 1000, 5
+    x, cent = _data(n, k, d, seed=6)
+    w = np.random.default_rng(8).integers(1, 4, n).astype(np.float32)
+    val = {"inf": np.inf, "-inf": -np.inf, "nan": np.nan, "nan_w0": np.nan,
+           "inf_w0": np.inf}[case]
+    x[123, d - 1] = val
+    if case.endswith("_w0"):
+        w[123] = 0.0
+    got = tka.kmeans_assign(torch.from_numpy(x), torch.from_numpy(w),
+                            torch.from_numpy(cent))
+    want = jka.kmeans_assign(jnp.asarray(x), jnp.asarray(w),
+                             jnp.asarray(cent), backend="scan")
+    emu = [e[0] for e in _slot_kmeans_emulation(x, cent, w[None].astype(
+        np.float64))]
+    for g, v, e in zip(got, want, emu):
+        g, v = g.numpy(), np.asarray(v)
+        for a in (v, e):
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(a))
+            np.testing.assert_array_equal(np.isinf(g) * np.sign(g),
+                                          np.isinf(a) * np.sign(a))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    sums, want0 = got[0].numpy(), np.asarray(want[0])
+    fin = np.isfinite(want0)
+    own = _nearest_np(x[123:124], cent)[0][0]
+    others = np.arange(k) != own
+    assert np.isnan(sums[others, d - 1]).all()
+    bound = w.astype(np.float64) @ np.abs(np.nan_to_num(
+        x.astype(np.float64), posinf=0.0, neginf=0.0))
+    diff = np.abs(sums[fin] - want0[fin])
+    assert np.all(diff <= 1e-5 * np.broadcast_to(bound, sums.shape)[fin])
+
+
+@pytest.mark.parametrize("n,k,d", [(400_000, 5, 2), (37, 3, 1), (5, 8, 4),
+                                   (1300, 5, 2), ((1 << 22) + 3, 8, 4),
+                                   (600, 16, 8), (600, 9, 1), (70, 5, 5)])
+def test_assign_geometry(n, k, d):
+    """kmeans_assign's geometry, as the kernel takes it: the register
+    layout (d <= 4, k <= 8) at 256 threads over column ranges of a
+    multiple of 4 points, the shared-slot layout past it with its
+    accumulators and notes in shared memory; ranges cover n, none empty,
+    at most TARGET_CTAS (REG_CTAS in the register layout)."""
+    from repro_torch.kernels._pass import SMEM_BYTES, TARGET_CTAS
+    threads, cols, ranges = tka.assign_geometry(n, k, d)
+    assert 1 <= ranges <= TARGET_CTAS
+    assert (ranges - 1) * cols < n <= ranges * cols
+    if d <= tka.REG_MAX_DIM and k <= tka.REG_CLUSTERS:
+        assert threads == tka.REG_THREADS and cols % tka.QUAD == 0
+        assert ranges <= tka.REG_CTAS
+    else:
+        assert threads % 32 == 0
+        assert 4 * ((k * (d + 1) + 1 + d) * threads + k * d + k) \
+            <= SMEM_BYTES
+    if (n, k, d) == (400_000, 5, 2):
+        assert (threads, cols, ranges) == (256, 3056, 131)
+
+
 @pytest.mark.parametrize("Bp,np_,k,d,in_place", [
     (24, 16 * 512, 5, 2, True), (256, 8192 * 512, 5, 2, False),
     (256, 2049 * 512, 16, 8, False), (8, 512, 3, 1, True),

@@ -4,11 +4,13 @@ against the JAX package on the CPU.
 The JAX package's own parameters are carried across with
 ``params_from_numpy``, so both packages run the same model on the same
 tokens (numpy, from a seed).  For the smoke configs of h2o-danube-3-4b,
-granite-3-2b and stablelm-3b: prefill and 16 greedy decode steps give
+granite-3-2b, stablelm-3b and gemma3-27b: prefill and 16 greedy decode steps give
 logits within 1e-4 of max|logit|, the same greedy tokens, ``slot_pos``
 bitwise and k/v within 1e-5; ``per_example_loss`` within 1e-5 relative;
 the configs equal field for field, apart from the documented drop
-``attention_backend``.
+``attention_backend``.  gemma3-27b also at its head dimension, 168, in a
+reduced model of one 5:1 pattern group: the forward's logits within 1e-4
+of max|logit|.
 """
 import dataclasses
 
@@ -20,7 +22,9 @@ import torch
 
 from repro.configs import get_config as j_get_config
 from repro.models import decode_step as j_decode
+from repro.models import forward_hidden as j_forward_hidden
 from repro.models import init_params as j_init
+from repro.models import logits_from_hidden as j_logits
 from repro.models import per_example_loss as j_pel
 from repro.models import prefill as j_prefill
 from repro_torch.configs import ARCH_IDS, PORTED_ARCH_IDS, get_config
@@ -118,6 +122,28 @@ def test_configs_are_the_jax_configs(arch):
         assert got == want
         assert (get_config(arch, smoke=smoke).num_params()
                 == j_get_config(arch, smoke=smoke).num_params())
+
+
+def test_gemma3_at_head_dim_168_matches_jax():
+    """gemma3-27b's head dimension, 5376 / 32 = 168, at 2 query heads on 1
+    KV head, 6 layers (one 5:1 local:global pattern group, the smoke
+    window 16 under a 40-token context): the full forward's logits within
+    1e-4 of max|logit| of the JAX package's on its own parameters."""
+    jcfg, jparams, cfg, params = _models(
+        "gemma3-27b", n_layers=6, d_model=336, n_heads=2, n_kv_heads=1,
+        head_dim=168, d_ff=256)
+    assert cfg.head_dim_ == 168 and cfg.n_groups == 1
+    assert cfg.layer_pattern.count("global") == 1
+    toks = _tokens(cfg, 2, 40, seed=3)
+    jh, _ = j_forward_hidden(jcfg, jparams, jnp.asarray(toks))
+    want = j_logits(jcfg, jparams, jh)
+    with torch.no_grad():
+        h, _ = forward_hidden(cfg, params, torch.from_numpy(toks))
+        got = logits_from_hidden(cfg, params, h)
+    scale = np.abs(np.asarray(want)[..., :cfg.vocab]).max()
+    err = np.abs(got.numpy()[..., :cfg.vocab]
+                 - np.asarray(want)[..., :cfg.vocab]).max()
+    assert err <= 1e-4 * scale
 
 
 def test_unported_architectures_raise_naming_the_roadmap():
