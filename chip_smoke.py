@@ -157,7 +157,36 @@ failure:
    the group cut to a local and a global layer (1 x 256 tokens, 8 steps,
    the CPU fed the card's greedy tokens, each within 2e-2 of the largest
    logit of the CPU's);
-8. replay every distinct launch geometry that phases 4 to 7 and 10 to 12
+13. (run after phase 12) the live path, from zeroed counts with its
+   geometries logged, every file under a temporary directory removed
+   afterwards: the quickstart group's EarlSession over the 2,000,000-row
+   store (sigma 0.006, 3 rounds) killed after its first save and resumed,
+   bitwise the uninterrupted run (result, CI, cv, n_used, iterations,
+   history); resumed after a completed run with no kernel launch after
+   its restore; and on the CPU with the same B, rows and iterations.
+   Then 2^24 f32 rows in 256 batches of 65,536 from a producer thread
+   into an IngestLog(capacity=64), folded at B = 256 by a sliding
+   window of the group (4 panes, kernel 4 once a fold) and the README's
+   SlidingWindow(Var(), 131072, 32768) (every batch spans 2 panes, kernel
+   2 twice a fold, a checkpoint every 8 folds): launches a fold equal the
+   panes a batch spans, the ring never holds more than its panes nor more
+   device bytes than panes x one pane's; a cumulative Mean session is
+   bitwise bootstrap_streaming(chunk=65,536); a delivery with duplicates
+   and reorder (FaultyStore.delivery_plan) is bitwise in-order delivery;
+   the Var session killed after fold 101 (its last snapshot at fold 96)
+   and resumed is bitwise the uninterrupted run; a backlogged poll that
+   sheds is bitwise the oracle fold of the same masks; a lost batch that
+   arrives late at a lone median (kernel 3) folds (p_eff back to 1) or is
+   dropped and counted; the
+   first 16 batches at B = 8 on the card and the CPU: w_tot and histogram
+   counts bitwise, s1 within 1e-5·Σw|x|, s2 within 1e-5·Σw·x².  The same
+   batches through DurableIngestLog under fsync never, batch and always
+   (the same segment bytes; append MB/s), the recovery scan's s/GB, a
+   mode="tail" consumer folding Mean() against a producer thread (bitwise
+   the in-memory log's session), and the last segment torn at a header,
+   a record-frame, a payload and a footer byte (each recovery bitwise the
+   in-memory log of the surviving batches);
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 13
    logged on fresh data and hold it against the plain version as in
    phase 3;
 9. time each kernel (CUDA events) beside its plain version, its bound
@@ -346,6 +375,41 @@ BF16_FLOPS_PER_S = 989e12
 # the repaired routing: a keyed custom statistic's tiled scan at the
 # one-shot bootstrap's size, and a group with keyed and custom members
 ROUTE_G, ROUTE_GROUP_N = 8, 1 << 20
+# the live path (phase 13): the quickstart group's session over the
+# quickstart's law at 2^24 rows, sigma 0.002 and the quickstart's key 0,
+# with tau 0.001: the default tau (0.01) is wider than the pilot's cv
+# (about 0.008), so SSABE's phase A would stop at B = 4; at 0.001 it picks
+# B = 16 and the session grows its sample over several rounds: 4, to
+# 246,808 rows, on an H100; 3 on the CPU, whose first target is a row
+# larger. On 2M rows B * n >= N sends it to the exact job, or it meets
+# sigma in one round and leaves nothing to resume. Killed after its first
+# save;
+# 2^24 f32 rows (64 MiB) in 256 batches of 65,536
+# from a producer thread into an IngestLog(capacity=64), folded at B = 256
+# by session A (the group in 4 panes of 2^20 rows) and session B (the
+# README's SlidingWindow(Var(), 131072, 32768): every batch spans 2 panes,
+# a checkpoint every 8 folds, killed after fold 101); a backlogged poll of
+# 32 batches that sheds; 24 batches with one lost, folded by a lone
+# median (kernel 3); the first 16 batches on
+# the CPU at B = 8 (the plain versions draw about 4.5e6 weights/s on the
+# host, so B = 256 would take minutes); the same batches through the
+# durable log
+RESUME_N, RESUME_SIGMA, RESUME_TAU, RESUME_KEY = 1 << 24, 0.002, 0.001, 0
+# SSABE's first target is a fitted real number of rows, which the card's
+# f32 sums move by a row or so against the CPU's; a row more or less
+# re-tiles every later resample weight, so the CPU's own run is held to
+# the card's B and first target within RESUME_ROWS_RTOL, and the CPU
+# resumed from the card's first snapshot to the card's rounds exactly
+RESUME_ROWS_RTOL = 1e-3
+LIVE_N, LIVE_BATCH, LIVE_B, LIVE_CAPACITY, LIVE_SEED = \
+    1 << 24, 1 << 16, 256, 64, 13
+LIVE_A, LIVE_B_WIN = (1 << 22, 1 << 20), (131_072, 32_768)
+LIVE_CKPT_EVERY, LIVE_KILL_AT = 8, 101
+LIVE_SHED_BATCHES, LIVE_LATE_BATCHES, LIVE_LOST = 32, 24, 5
+LIVE_CPU_BATCHES, LIVE_CPU_B = 16, 8
+#: the kernels the live path's main runs (the uninterrupted session and the
+#: A/B drain) launch; kernel 3 runs in the late gate's lone median
+LIVE_KERNELS = ("fused_poisson_moments", "fused_poisson_multi")
 
 
 def check(ok: bool, what: str) -> None:
@@ -457,6 +521,8 @@ def wrappers():
 def zero_counts() -> None:
     for f in wrappers().values():
         f.launches = 0
+    for log in LaunchLog.entered:       # a log around the zeroing goes on
+        log.before = LaunchLog.counts()
 
 
 def geometry(lib: str, args: tuple) -> tuple:
@@ -527,6 +593,9 @@ class LaunchLog:
     since the launch before.  ``geometries`` maps (wrapper name, geometry)
     to the number of launches."""
 
+    #: the logs entered now, which ``zero_counts`` keeps in step
+    entered = []
+
     def __init__(self):
         from repro_torch.kernels import _build
         self.build = _build
@@ -539,10 +608,12 @@ class LaunchLog:
     def __enter__(self):
         self.orig, self.before = self.build.launch, self.counts()
         self.build.launch = self.launch
+        LaunchLog.entered.append(self)
         return self
 
     def __exit__(self, *exc):
         self.build.launch = self.orig
+        LaunchLog.entered.remove(self)
 
     def launch(self, lib, *args):
         now = self.counts()
@@ -3898,6 +3969,647 @@ def check_no_spills(log: str, kernel: str) -> None:
     check(seen > 0 or not log, f"ptxas reported no {kernel} instance")
 
 
+# ---------------------------------------------------------------------------
+# the live path (phase 13): session resume, windows, the live session and
+# durable ingest
+# ---------------------------------------------------------------------------
+def tensor_bytes(tree) -> int:
+    from repro_torch.checkpoint.manager import _leaves
+    return sum(t.numel() * t.element_size() for _, t in _leaves(tree))
+
+
+def ring_bytes(session) -> int:
+    """Device bytes of a LiveSession's pane ring."""
+    return tensor_bytes([(p.states, p.est) for p in session._ring.values()])
+
+
+class FoldMeter:
+    """Times a LiveSession's folds (the host's dispatch, the batch's copy
+    included) and emits (the panes' merge, finalize and report, which ends
+    in a device sync), counts the launches of ``kernel`` each fold made
+    beside the panes its batch spans, and keeps the ring's largest
+    occupancy and device bytes."""
+
+    def __init__(self, session, kernel):
+        self.fold_ms, self.emit_ms, self.per_fold = [], [], []
+        self.max_panes = self.max_bytes = 0
+        fold, emit = session._fold_into_panes, session._emit
+
+        def timed_fold(batch, valid):
+            before = kernel.launches
+            t0 = time.perf_counter()
+            fold(batch, valid)
+            self.fold_ms.append(1e3 * (time.perf_counter() - t0))
+            spans = len(session._masks_for(batch.row0, batch.rows, valid))
+            self.per_fold.append((kernel.launches - before, spans))
+
+        def timed_emit(seq, shed):
+            t0 = time.perf_counter()
+            out = emit(seq, shed)
+            self.emit_ms.append(1e3 * (time.perf_counter() - t0))
+            self.max_panes = max(self.max_panes, session.panes_live)
+            self.max_bytes = max(self.max_bytes, ring_bytes(session))
+            return out
+
+        session._fold_into_panes = timed_fold
+        session._emit = timed_emit
+
+    def summary(self) -> dict:
+        import statistics
+        return dict(folds=len(self.fold_ms),
+                    fold_ms_median=statistics.median(self.fold_ms),
+                    emit_ms_median=statistics.median(self.emit_ms),
+                    max_panes=self.max_panes, max_ring_bytes=self.max_bytes)
+
+
+def same_live_report(a, b) -> bool:
+    """Bitwise: thetas, estimate and the accounting the CI rides on."""
+    def leaves(t):
+        return list(t) if isinstance(t, tuple) else [t]
+    return (all(bool(torch_equal(u, v)) for u, v in zip(
+        leaves(a.thetas) + leaves(a.estimate),
+        leaves(b.thetas) + leaves(b.estimate)))
+        and (a.rows, a.valid_rows, a.p_eff, a.window_start, a.window_end)
+        == (b.rows, b.valid_rows, b.p_eff, b.window_start, b.window_end))
+
+
+def torch_equal(u, v) -> bool:
+    return u.shape == v.shape and bool((u == v).all())
+
+
+def live_resume(torch, tmp: str):
+    """The quickstart group's EarlSession over RESUME_N rows on the card:
+    killed after its first save and resumed (bitwise the uninterrupted
+    run), resumed after a completed run (no kernel launch after the
+    restore), run on the CPU (the same B, its first round within
+    RESUME_ROWS_RTOL) and resumed on the CPU from the card's first
+    snapshot (the card's rounds; mean within 1e-5, Std 26e-5 relative,
+    the median within a bin).  Returns the walls and the launches of the
+    uninterrupted run, the main path's, from zeroed counts."""
+    import os
+    import shutil
+    from repro_torch import random as trandom
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import (EarlSession, Mean, Quantile,
+                                  StatisticGroup, Std)
+    from repro_torch.data import PreMapSampler, ShardedStore, synthetic_numeric
+
+    data = synthetic_numeric(RESUME_N, mean=10.0, std=2.0, seed=0)
+
+    def run(device=None, checkpoint=None, resume=False):
+        store = ShardedStore.from_array(data, split_size=65_536)
+        group = StatisticGroup((Mean(), Quantile(0.5, lo=LO, hi=HI), Std()))
+        session = EarlSession(PreMapSampler(store, seed=1, device=device),
+                              group, sigma=RESUME_SIGMA, tau=RESUME_TAU,
+                              backend="fused_rng", checkpoint=checkpoint,
+                              device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = session.run(trandom.PRNGKey(RESUME_KEY), resume=resume)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(a, b) -> bool:
+        return ((a.B, a.n_used, a.iterations, a.cv, a.fell_back,
+                 [e["n"] for e in a.history])
+                == (b.B, b.n_used, b.iterations, b.cv, b.fell_back,
+                    [e["n"] for e in b.history])
+                and all(torch_equal(u, v) for u, v in zip(
+                    a.result + a.ci_lo + a.ci_hi,
+                    b.result + b.ci_lo + b.ci_hi)))
+
+    class Restoring(CheckpointManager):
+        """Notes the launch counts when its restore returns."""
+        at_restore = None
+
+        def restore(self, *a, **kw):
+            out = super().restore(*a, **kw)
+            torch.cuda.synchronize()
+            self.at_restore = LaunchLog.counts()
+            return out
+
+    run()                                   # warm: builds and first calls
+    zero_counts()
+    base, base_s = run()
+    launches = LaunchLog.counts()
+    check(not base.fell_back and base.iterations >= 2 and base.B >= 16,
+          f"the resume session did not iterate at a real B: B = {base.B}, "
+          f"{base.iterations} rounds, fell_back={base.fell_back}")
+    kill = os.path.join(tmp, "session_kill")
+    try:
+        run(checkpoint=dying_manager(kill, 1))
+        check(False, "the session outlived its first save")
+    except _Die:
+        pass
+    first = os.path.join(tmp, "session_first")    # for the CPU's resume
+    shutil.copytree(kill, first)
+    got, resume_s = run(checkpoint=CheckpointManager(kill, async_save=False),
+                        resume=True)
+    check(same(got, base), "the resumed session differs from the "
+          "uninterrupted run")
+    check(all(r.is_cuda for r in got.result), "the resumed result is not "
+          "on the card")
+    done = os.path.join(tmp, "session_done")
+    full, _ = run(checkpoint=CheckpointManager(done, async_save=False))
+    mgr = Restoring(done, async_save=False)
+    again, again_s = run(checkpoint=mgr, resume=True)
+    check(mgr.at_restore is not None
+          and LaunchLog.counts() == mgr.at_restore,
+          "the resume after a completed run launched a kernel after its "
+          "restore")
+    check(same(again, full) and same(full, base), "the resume after a "
+          "completed run differs from the run")
+    rows = [e["n"] for e in base.history]
+    cpu, cpu_s = run("cpu")
+    cpu_rows = [e["n"] for e in cpu.history]
+    check(cpu.B == base.B and not cpu.fell_back
+          and abs(cpu_rows[0] - rows[0]) <= RESUME_ROWS_RTOL * rows[0],
+          f"cpu session took B = {cpu.B}, rounds {cpu_rows}; cuda B = "
+          f"{base.B}, rounds {rows}")
+    carried, carried_s = run("cpu", CheckpointManager(first, async_save=False),
+                             resume=True)
+    carried_rows = [e["n"] for e in carried.history]
+    check((carried.B, carried.n_used, carried.iterations, carried.fell_back,
+           carried_rows)
+          == (base.B, base.n_used, base.iterations, base.fell_back, rows),
+          f"the cpu session resumed from the card's first snapshot took "
+          f"B = {carried.B}, rounds {carried_rows}; cuda B = {base.B}, "
+          f"rounds {rows}")
+    for name, c, g, tol in zip(
+            ("mean", "median", "std"), carried.result, base.result,
+            (1e-5, None, 26e-5)):
+        c, g = float(c.reshape(-1)[0]), float(g.reshape(-1)[0])
+        ok = (abs(c - g) <= (HI - LO) / NBINS if tol is None
+              else abs(c - g) <= tol * abs(g))
+        check(ok, f"the cpu resumed session's {name} {c} against the "
+              f"card's {g}")
+    info = dict(N=RESUME_N, sigma=RESUME_SIGMA, tau=RESUME_TAU,
+                key=RESUME_KEY, B=base.B, n_used=base.n_used,
+                iterations=base.iterations, rounds=rows, cpu_rounds=cpu_rows,
+                cv=base.cv, killed_after_round=1, uninterrupted_s=base_s,
+                resumed_s=resume_s, resumed_after_completion_s=again_s,
+                cpu_s=cpu_s, cpu_resumed_from_card_s=carried_s)
+    print("live: session resume (cuda): " + json.dumps(info))
+    return info, launches
+
+
+def window_oracle(torch, log, window, key, valid_of, B: int,
+                  device="cuda"):
+    """The window's report folded by hand: each pane of the last window
+    from the batches it overlaps (whole batch, the pane's mask of
+    ``valid_of(seq, rows)``, the batch's seed), the panes merged in
+    ascending order; (thetas, estimate, p_eff)."""
+    import numpy as np
+    from repro_torch.core.bootstrap import (fused_resample_states,
+                                            offset_seed, seed_from_key)
+    stat, base = window.stat, seed_from_key(key)
+    top = (log.total_rows - 1) // window.slide
+    states = est = None
+    rows = valid = 0
+    for p in range(max(0, top - window.panes + 1), top + 1):
+        lo, hi = window.pane_rows(p)
+        st, es = stat.init_batch(1, B, device), stat.init_state(1, device)
+        for sq in range(log.next_seq):
+            b = log.batch(sq)
+            if b.row_end <= lo or b.row0 >= hi:
+                continue
+            a, e = max(lo, b.row0) - b.row0, min(hi, b.row_end) - b.row0
+            m = np.zeros(b.rows, np.float32)
+            m[a:e] = valid_of(sq, b.rows)[a:e]
+            x = torch.from_numpy(np.ascontiguousarray(b.data)).to(device)
+            mt = torch.from_numpy(m).to(device)
+            es = stat.update(es, x, mt)
+            st = stat.merge(st, fused_resample_states(
+                stat, offset_seed(base, sq), x, B, valid_mask=mt))
+            rows += e - a
+            valid += int(m.sum())
+        states = st if states is None else stat.merge(states, st)
+        est = es if est is None else stat.merge(est, es)
+    p_eff = valid / rows
+    return (stat.correct(stat.finalize_batch(states), p_eff),
+            stat.correct(stat.finalize(est), p_eff), p_eff)
+
+
+def hold_live_panes(torch, card, cpu, absolute, what) -> None:
+    """Each pane of a card session against the CPU session's: w_tot and
+    histogram counts bitwise, s1 within 1e-5·Σw|x| (``absolute``: the card
+    session over |x|), s2 within 1e-5·Σw·x²."""
+    from repro_torch.core.reduce_api import HistogramState, MomentState
+
+    def hold(g, c, a, where):
+        if isinstance(g, tuple):
+            for i, parts in enumerate(zip(g, c, a)):
+                hold(*parts, f"{where} slot {i}")
+        elif isinstance(g, MomentState):
+            check(torch_equal(g.w.cpu(), c.w), f"{what} {where}: w_tot "
+                  "differs from the CPU's")
+            for got, want, bound, name in ((g.s1, c.s1, a.s1, "s1"),
+                                           (g.s2, c.s2, c.s2, "s2")):
+                diff = (got.cpu() - want).abs()
+                check(bool((diff <= 1e-5 * bound.cpu().abs()).all()),
+                      f"{what} {where}: {name} max |err| "
+                      f"{float(diff.max())} over its 1e-5 bound")
+        else:
+            check(isinstance(g, HistogramState)
+                  and torch_equal(g.counts.cpu(), c.counts),
+                  f"{what} {where}: histogram counts differ from the CPU's")
+
+    check(sorted(card._ring) == sorted(cpu._ring) == sorted(absolute._ring),
+          f"{what}: the card and the CPU hold other panes")
+    for p in card._ring:
+        hold(card._ring[p].states, cpu._ring[p].states,
+             absolute._ring[p].states, f"pane {p} states")
+        hold(card._ring[p].est, cpu._ring[p].est, absolute._ring[p].est,
+             f"pane {p} estimate")
+
+
+def live_stream(torch, tmp: str) -> dict:
+    """2^24 f32 rows in 256 batches of 65,536 from a producer thread into
+    an IngestLog(capacity=64), folded by session A (the quickstart group
+    in 4 panes of 2^20 rows, kernel 4 once a fold) and session B (the
+    README's Var window, two panes a batch, kernel 2 twice a fold, a
+    checkpoint every 8 folds) at B = 256; then the gates on the same
+    batches, and the durable log."""
+    import dataclasses
+    import os
+    import threading
+
+    import numpy as np
+    from repro_torch import random as trandom
+    from repro_torch.core import (Mean, Median, Quantile, SlidingWindow,
+                                  StatisticGroup, Std, Var)
+    from repro_torch.core.streaming import bootstrap_streaming
+    from repro_torch.data import synthetic_numeric
+    from repro_torch.ft import FaultyStore, LagPolicy
+    from repro_torch.kernels.fused_multi.ops import fused_poisson_multi
+    from repro_torch.kernels.weighted_stats.ops import fused_poisson_moments
+    from repro_torch.live import IngestLog, LiveSession
+
+    n_b = LIVE_N // LIVE_BATCH
+    data = synthetic_numeric(LIVE_N, mean=10.0, std=2.0, seed=LIVE_SEED)
+    batches = [data[i * LIVE_BATCH:(i + 1) * LIVE_BATCH] for i in range(n_b)]
+    key = trandom.PRNGKey(LIVE_SEED)
+
+    def window_a():
+        return SlidingWindow(StatisticGroup((Mean(), Quantile(
+            0.5, lo=LO, hi=HI), Std())), *LIVE_A)
+
+    def window_b():
+        return SlidingWindow(Var(), *LIVE_B_WIN)
+
+    # ---- sessions A and B against a producer thread ------------------
+    log = IngestLog(capacity=LIVE_CAPACITY)
+    a = LiveSession(log, window_a(), B=LIVE_B, key=key, name="A")
+    b = LiveSession(log, window_b(), B=LIVE_B, key=key, name="B",
+                    checkpoint=os.path.join(tmp, "B"),
+                    checkpoint_every=LIVE_CKPT_EVERY)
+    meters = {"A": FoldMeter(a, fused_poisson_multi),
+              "B": FoldMeter(b, fused_poisson_moments)}
+    errors = []
+
+    def produce():
+        try:
+            for xb in batches:
+                log.append(xb, timeout=120.0)
+        except BaseException as exc:            # noqa: BLE001 — reported
+            errors.append(exc)
+
+    producer = threading.Thread(target=produce, name="live-producer",
+                                daemon=True)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    producer.start()
+    while min(a.counters.folded, b.counters.folded) < n_b:
+        check(not errors, f"the producer failed: {errors}")
+        check(time.perf_counter() - t0 < 300.0, "the live sessions did not "
+              "drain the log within 300 s")
+        if not (a.poll() + b.poll()):
+            time.sleep(0.0002)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = LaunchLog.counts()
+    check(launches["fused_poisson_multi"] == n_b
+          and launches["fused_poisson_moments"] == 2 * n_b,
+          f"the drain of {n_b} batches launched {launches}")
+    producer.join(timeout=60.0)
+    check(not producer.is_alive() and not errors,
+          f"the producer did not finish: {errors}")
+    b.checkpoint.wait()
+    rep_a, rep_b = a.report(), b.report()
+    stream = dict(batches=n_b, rows=LIVE_N, B=LIVE_B, drain_s=drain_s,
+                  batches_per_s=n_b / drain_s)
+    for name, s, meter, launches_per in (("A", a, meters["A"], 1),
+                                         ("B", b, meters["B"], 2)):
+        pane = s._init_pane()
+        pane_bytes = tensor_bytes((pane.states, pane.est))
+        summary = meter.summary()
+        summary.update(panes=s.window.panes, pane_bytes=pane_bytes)
+        stream[name] = summary
+        check(meter.max_panes <= s.window.panes,
+              f"session {name}'s ring held {meter.max_panes} panes")
+        check(meter.max_bytes <= s.window.panes * pane_bytes,
+              f"session {name}'s ring held {meter.max_bytes} device bytes, "
+              f"over {s.window.panes} x {pane_bytes}")
+        check(all(k == p == launches_per for k, p in meter.per_fold),
+              f"session {name}: launches per fold against the panes each "
+              f"batch spans: {sorted(set(meter.per_fold))}")
+    tail_rows = data[-LIVE_A[0]:, 0].astype(np.float64)
+    for got, exact, tol, what in (
+            (rep_a.estimate[0], tail_rows.mean(), 1e-5, "mean"),
+            (rep_a.estimate[1], np.median(tail_rows), (HI - LO) / NBINS,
+             "median"),
+            (rep_a.estimate[2], tail_rows.std(), 1e-3, "std")):
+        v = float(got.reshape(-1)[0])
+        err = abs(v - exact) if what == "median" else abs(v / exact - 1)
+        check(math.isfinite(v) and err <= tol,
+              f"session A's window {what} {v} against {exact}")
+    check(all(t.shape[0] == LIVE_B and bool(torch.isfinite(t).all())
+              for t in rep_a.thetas + (rep_b.thetas,)),
+          "a live session's thetas are not finite or of the wrong shape")
+    var_exact = data[-LIVE_B_WIN[0]:, 0].astype(np.float64).var()
+    check(abs(float(rep_b.estimate.reshape(-1)[0]) / var_exact - 1) < 1e-3,
+          f"session B's window Var {rep_b.estimate} against {var_exact}")
+    print("live: sessions A and B (cuda): " + json.dumps(stream))
+
+    # ---- a cumulative Mean is the streaming bootstrap ---------------
+    c = LiveSession(log, Mean(), B=LIVE_B, key=key, name="cumulative")
+    c.poll()
+    rep_c = c.report()
+    ref = bootstrap_streaming(log.store, Mean(), LIVE_B, key,
+                              chunk=LIVE_BATCH)
+    check(torch_equal(rep_c.thetas, ref.thetas)
+          and torch_equal(rep_c.estimate, ref.estimate),
+          "the cumulative Mean session differs from bootstrap_streaming")
+
+    # ---- duplicated and reordered delivery --------------------------
+    faulty = FaultyStore(log.store)
+    plan = faulty.delivery_plan(seed=42, p_duplicate=0.05, max_reorder=3)
+    d = LiveSession(None, window_b(), B=LIVE_B, key=key)
+    for sq in plan:
+        d.feed(log.batch(sq))
+    check(d.counters.folded == n_b
+          and d.counters.duplicates == faulty.injected.duplicates > 0
+          and faulty.injected.reordered > 0,
+          f"the faulty delivery folded {d.counters}")
+    check(same_live_report(d.report(), rep_b), "duplicated and reordered "
+          "delivery differs from in-order delivery")
+
+    # ---- session B killed between checkpoints, resumed --------------
+    kill = os.path.join(tmp, "kill")
+    k = LiveSession(None, window_b(), B=LIVE_B, key=key, checkpoint=kill,
+                    checkpoint_every=LIVE_CKPT_EVERY)
+    for sq in range(LIVE_KILL_AT):
+        k.feed(log.batch(sq))
+    k.checkpoint.wait()     # its last snapshot is on disk; later folds die
+    del k
+    t0 = time.perf_counter()
+    r = LiveSession(log, window_b(), B=LIVE_B, key=key, checkpoint=kill,
+                    checkpoint_every=LIVE_CKPT_EVERY, resume=True,
+                    name="resumed")
+    restored = r.counters.folded
+    check(restored == LIVE_KILL_AT // LIVE_CKPT_EVERY * LIVE_CKPT_EVERY,
+          f"the resumed session restored {restored} folds")
+    check(all(t.is_cuda for p in r._ring.values()
+              for t in (p.states.w, p.est.s1)),
+          "the restored panes are not on the card")
+    r.poll()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    check(r.counters.folded == n_b and same_live_report(r.report(), rep_b),
+          "the resumed session B differs from the uninterrupted run")
+
+    # ---- shedding against the masked oracle ------------------------
+    shed_log = IngestLog()
+    for xb in batches[:LIVE_SHED_BATCHES]:
+        shed_log.append(xb)
+    policy = LagPolicy(max_lag_batches=LIVE_CAPACITY, shed_backlog=0,
+                       p_shed=0.5, shed_seed=99)
+    s = LiveSession(shed_log, window_b(), B=LIVE_B, key=key, policy=policy)
+    shed = [rep.shed for rep in s.poll()]
+    check(shed == [True] * (LIVE_SHED_BATCHES - 1) + [False],
+          f"the backlogged poll shed {shed}")
+    rep_s = s.report()
+
+    def shed_mask(sq, rows):
+        if sq == LIVE_SHED_BATCHES - 1:
+            return np.ones(rows, np.float32)
+        return (np.random.default_rng((99, sq)).random(rows) < 0.5
+                ).astype(np.float32)
+
+    thetas, estimate, p_eff = window_oracle(torch, shed_log, window_b(), key,
+                                            shed_mask, LIVE_B)
+    check(rep_s.p_eff == p_eff < 1.0 and torch_equal(rep_s.thetas, thetas)
+          and torch_equal(rep_s.estimate, estimate),
+          "the shed session differs from the masked oracle")
+
+    # ---- a lost batch and its late arrival --------------------------
+    late = {}
+    for mode in ("fold", "drop"):     # a lone median: kernel 3 a fold
+        s = LiveSession(None, Median(lo=LO, hi=HI), B=LIVE_B, key=key,
+                        policy=LagPolicy(max_lag_batches=3, late=mode))
+        hist = wrappers()["fused_poisson_hist"]
+        before = hist.launches
+        for sq in range(LIVE_LATE_BATCHES):
+            if sq != LIVE_LOST:
+                s.feed(log.batch(sq))
+        lost_p = s.report().p_eff
+        out = s.feed(log.batch(LIVE_LOST))
+        late[mode] = (dataclasses.asdict(s.counters), lost_p,
+                      s.report().p_eff, len(out))
+        folds = s.counters.folded + s.counters.late_folded
+        check(hist.launches - before == folds > 0,
+              f"late={mode!r}: {hist.launches - before} launches of kernel "
+              f"3 for {folds} folds")
+    full_p = (LIVE_LATE_BATCHES - 1) / LIVE_LATE_BATCHES
+    check(late["fold"][0]["gaps_skipped"] == 1 and late["fold"][1] == full_p
+          and late["fold"][0]["late_folded"] == 1 and late["fold"][2] == 1.0
+          and late["fold"][3] == 1, f"late='fold': {late['fold']}")
+    check(late["drop"][0]["late_dropped"] == 1 and late["drop"][2] == full_p
+          and late["drop"][3] == 0, f"late='drop': {late['drop']}")
+
+    # ---- the first batches on the CPU ------------------------------
+    small, absolute = IngestLog(), IngestLog()
+    for xb in batches[:LIVE_CPU_BATCHES]:
+        small.append(xb)
+        absolute.append(np.abs(xb))
+    t0 = time.perf_counter()
+    for name, window in (("A", window_a), ("B", window_b)):
+        runs = [LiveSession(lg, window(), B=LIVE_CPU_B, key=key, device=dev,
+                            name=f"{name}-{dev}")
+                for lg, dev in ((small, None), (small, "cpu"),
+                                (absolute, None))]
+        for s in runs:
+            s.poll()
+        hold_live_panes(torch, *runs, f"session {name}'s first "
+                        f"{LIVE_CPU_BATCHES} batches at B={LIVE_CPU_B}")
+    cpu_s = time.perf_counter() - t0
+
+    stream.update(cumulative_equals_streaming=True,
+                  delivery=dict(plan=len(plan),
+                                duplicates=faulty.injected.duplicates,
+                                reordered=faulty.injected.reordered),
+                  resume=dict(killed_at_fold=LIVE_KILL_AT,
+                              restored_folds=restored, resume_s=resume_s,
+                              uninterrupted_drain_s=drain_s),
+                  shed=dict(batches=LIVE_SHED_BATCHES, p_eff=p_eff),
+                  late={m: dict(p_eff_lost=v[1], p_eff_after=v[2])
+                        for m, v in late.items()},
+                  cpu_check_s=cpu_s)
+    print("live: gates (cuda): " + json.dumps(
+        {k: stream[k] for k in ("delivery", "resume", "shed", "late",
+                                "cpu_check_s")}))
+    stream["durable"] = live_durable(torch, batches, log, rep_c, key, tmp)
+    return stream, launches
+
+
+def live_durable(torch, batches, log, rep_c, key, tmp: str) -> dict:
+    """The same batches through DurableIngestLog under each fsync policy:
+    append MB/s, the same segment bytes, the recovery scan, a tail
+    consumer folding Mean() against a producer thread (bitwise the
+    in-memory log's session), and the last segment torn at a header, a
+    record-frame, a payload and a footer byte (each recovery bitwise the
+    in-memory log fed the surviving batches)."""
+    import os
+    import shutil
+    import threading
+
+    import numpy as np
+    from repro_torch.core import Mean
+    from repro_torch.ft import torn_write
+    from repro_torch.live import DurableIngestLog, IngestLog, LiveSession
+    from repro_torch.live import segment as seg
+
+    n_b = len(batches)
+    seg_bytes = (seg.HEADER_SIZE + seg.REC_HEADER_SIZE + 4 + seg.FOOTER_SIZE
+                 + LIVE_BATCH * 4)
+    total = n_b * seg_bytes
+    rates = {}
+    for fsync in ("batch", "never", "always"):
+        root = os.path.join(tmp, f"log_{fsync}")
+        t0 = time.perf_counter()
+        with DurableIngestLog(root, fsync=fsync) as dl:
+            for xb in batches:
+                dl.append(xb)
+        rates[fsync] = total / (time.perf_counter() - t0) / 1e6
+        names = sorted(os.listdir(root))
+        check(names == [seg.segment_name(i) for i in range(n_b)],
+              f"fsync={fsync!r} left {len(names)} files")
+    base_root = os.path.join(tmp, "log_batch")
+    for fsync in ("never", "always"):
+        for i in range(n_b):
+            name = seg.segment_name(i)
+            with open(os.path.join(base_root, name), "rb") as f1, \
+                    open(os.path.join(tmp, f"log_{fsync}", name), "rb") as f2:
+                check(f1.read() == f2.read(), f"fsync={fsync!r} wrote other "
+                      f"bytes than 'batch' in {name}")
+
+    def same_store(store, n) -> bool:
+        return len(store.splits) == n and all(
+            np.array_equal(store.splits[i], log.store.splits[i])
+            and store.split_checksum(i) == log.store.split_checksum(i)
+            for i in range(n))
+
+    t0 = time.perf_counter()
+    rec = DurableIngestLog(base_root)
+    scan_s = time.perf_counter() - t0
+    check(rec.recovery.batches == n_b and rec.recovery.truncated_at is None
+          and same_store(rec.store, n_b), f"recovery of the clean log: "
+          f"{rec.recovery}")
+    rec.close()
+
+    # a tail consumer against a producer thread
+    tail_root = os.path.join(tmp, "log_tail")
+    os.makedirs(tail_root)
+    errors = []
+
+    def produce():
+        try:
+            with DurableIngestLog(tail_root, fsync="batch") as dl:
+                for i, xb in enumerate(batches):
+                    dl.append(xb)
+                    if i % 8 == 7:
+                        dl.flush()
+        except BaseException as exc:            # noqa: BLE001 — reported
+            errors.append(exc)
+
+    tail = DurableIngestLog(tail_root, mode="tail")
+    s = LiveSession(tail, Mean(), B=LIVE_B, key=key, name="tail")
+    producer = threading.Thread(target=produce, name="durable-producer",
+                                daemon=True)
+    t0 = time.perf_counter()
+    producer.start()
+    while s.counters.folded < n_b:
+        check(not errors, f"the durable producer failed: {errors}")
+        check(time.perf_counter() - t0 < 300.0, "the tail consumer did not "
+              "see every batch within 300 s")
+        if not s.poll():
+            time.sleep(0.001)
+    tail_s = time.perf_counter() - t0
+    producer.join(timeout=60.0)
+    check(not producer.is_alive() and not errors,
+          f"the durable producer did not finish: {errors}")
+    check(s.counters.duplicates == 0
+          and same_live_report(s.report(), rep_c), "the tail consumer's "
+          "Mean differs from the in-memory log's session")
+
+    # the last segment torn at a byte of each region
+    last = seg.segment_name(n_b - 1)
+    size = os.path.getsize(os.path.join(base_root, last))
+    cuts = {"header": 10, "record frame": seg.HEADER_SIZE + 10,
+            "payload": seg.HEADER_SIZE + seg.REC_HEADER_SIZE + 1000,
+            "footer": size - 5}
+    work = os.path.join(tmp, "log_work")
+    for region, cut in cuts.items():
+        shutil.copytree(base_root, work)
+        torn_write(os.path.join(work, last), cut)
+        dl = DurableIngestLog(work)
+        r = dl.recovery
+        check((r.batches, r.truncated_at, r.files_dropped,
+               dl.counters.short_reads) == (n_b - 1, n_b - 1, 1, 1)
+              and same_store(dl.store, n_b - 1),
+              f"the last segment torn at its {region} (byte {cut}): {r}")
+        dl.close()
+        shutil.rmtree(work)
+    info = dict(segment_bytes=seg_bytes, log_bytes=total,
+                append_MB_per_s=rates, recovery_scan_s=scan_s,
+                recovery_s_per_GB=scan_s / (total / 1e9),
+                tail_consumer_s=tail_s, torn_cuts=cuts)
+    print("live: durable ingest: " + json.dumps(info))
+    return info
+
+
+def phase_live_path(torch):
+    """Phase 13: the session's checkpoint and resume, the live sessions
+    and durable ingest on the card; every launch's geometry is logged for
+    phase 8, and the launches of the main path (the uninterrupted session
+    and the A/B drain, each from zeroed counts) are returned; every file
+    goes under a temporary directory that is removed afterwards."""
+    import shutil
+    import tempfile
+
+    torch.cuda.synchronize()
+    zero_counts()
+    tmp = tempfile.mkdtemp(prefix="earl_live_")
+    t0 = time.perf_counter()
+    try:
+        with LaunchLog() as log:
+            session, session_launches = live_resume(torch, tmp)
+            live, drain_launches = live_stream(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    info = dict(session=session, live=live,
+                phase_s=time.perf_counter() - t0)
+    launches = {k: session_launches[k] + drain_launches[k]
+                for k in session_launches}
+    check(all(launches[k] > 0 for k in LIVE_KERNELS),
+          f"a kernel of the live path was not launched: {launches}")
+    print(f"launches, the live path: the session {json.dumps(session_launches)}"
+          f"; the drain {json.dumps(drain_launches)}; phase 13 took "
+          f"{info['phase_s']:.1f} s")
+    return launches, log.geometries, info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3979,13 +4691,17 @@ def main() -> int:
     lap("11 (serving path)")
     gm_launches, gm_geometries, _ = phase_serve_gemma(torch)
     lap("12 (gemma3-27b serving path)")
+    lv_launches, lv_geometries, _ = phase_live_path(torch)
+    lap("13 (live path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
-                + sv_launches[k] + gm_launches[k] for k in launches}
+                + sv_launches[k] + gm_launches[k] + lv_launches[k]
+                for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"seven: {json.dumps(launches)}")
+          f"eight: {json.dumps(launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
                          **mat_geometries, **st_geometries,
-                         **sv_geometries, **gm_geometries}, parity)
+                         **sv_geometries, **gm_geometries,
+                         **lv_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)

@@ -1,6 +1,7 @@
 """EARL core in PyTorch: statistics, accuracy, the bootstrap engines
 (materialized and matrix-free), delta maintenance, SSABE, the session
-driver and the crash-safe streaming bootstrap."""
+driver with checkpoint and resume, the crash-safe streaming bootstrap
+and the windows a live session folds."""
 from repro_torch.core.accuracy import (AccuracyReport, GroupAccuracyReport,
                                        KeyedAccuracyReport,
                                        coefficient_of_variation,
@@ -22,9 +23,11 @@ from repro_torch.core.delta import (MultinomialDeltaBootstrap, PoissonDelta,
 from repro_torch.core.reduce_api import (Count, GroupedStatistic,
                                          HistogramState, KMeansState,
                                          KMeansStep, Mean, MeanLoss, Median,
-                                         MomentState, Quantile, Statistic,
-                                         StatisticGroup, Std, Sum, Var,
-                                         kmeans_fit)
+                                         MomentState, Quantile,
+                                         SlidingWindow, Statistic,
+                                         StatisticGroup, Std, Sum,
+                                         TumblingWindow, Var, Window,
+                                         bind_params, kmeans_fit)
 from repro_torch.core.session import EarlSession, EarlyResult
 from repro_torch.core.ssabe import SSABEResult, ssabe
 from repro_torch.core.streaming import (StreamingBootstrapResult,
@@ -43,7 +46,8 @@ __all__ = [
     "poisson_delta_result", "shared_base_bootstrap", "work_saved",
     "Count", "GroupedStatistic", "HistogramState", "KMeansState",
     "KMeansStep", "Mean", "MeanLoss", "Median", "MomentState", "Quantile",
-    "Statistic", "StatisticGroup", "Std", "Sum", "Var", "kmeans_fit",
+    "SlidingWindow", "Statistic", "StatisticGroup", "Std", "Sum",
+    "TumblingWindow", "Var", "Window", "bind_params", "kmeans_fit",
     "EarlSession", "EarlyResult", "SSABEResult", "ssabe",
     "StreamingBootstrapResult", "StreamReport", "bootstrap_streaming",
 ]

@@ -85,6 +85,44 @@ def split_params(stat: "Statistic") -> Tuple[tuple, dict]:
     return walk(stat, ""), params
 
 
+def bind_params(spec: tuple, params: dict) -> "Statistic":
+    """Inverse of ``split_params``: the statistic that ``spec`` describes,
+    with each tensor of ``params`` re-attached at its path.  A group is
+    rebuilt around its members (``with_members``) and a keyed statistic
+    around its inner one (``with_inner``), so their derived attributes are
+    the constructors' own.  Only the statistics of this module rebuild
+    (``_BINDABLE``, by the class name ``split_params`` records).  The port
+    itself never calls this: a live session folds with the statistic it
+    was given."""
+
+    def build(node, path):
+        if path in params:
+            return params[path]
+        if (isinstance(node, tuple) and len(node) == 2
+                and node[0] in _BINDABLE and isinstance(node[1], tuple)):
+            cls = _BINDABLE[node[0]]
+            obj = cls.__new__(cls)
+            for k, v in node[1]:
+                obj.__dict__[k] = build(v, f"{path}.{k}")
+            if isinstance(obj, StatisticGroup):
+                return obj.with_members(obj.members)
+            if isinstance(obj, GroupedStatistic):
+                return obj.with_inner(obj.inner)
+            return obj
+        if isinstance(node, tuple):
+            if node and node[0] in ("tensor", "object"):
+                raise ValueError(f"bind_params: nothing to bind at "
+                                 f"{path!r} ({node!r})")
+            return tuple(build(v, f"{path}[{i}]") for i, v in enumerate(node))
+        return node
+
+    stat = build(spec, "")
+    if not isinstance(stat, Statistic):
+        raise TypeError(f"bind_params: {spec!r} is not the spec of one of "
+                        f"{sorted(_BINDABLE)}")
+    return stat
+
+
 def _rows_of_update(stat, states, values: torch.Tensor,
                     weights: torch.Tensor):
     """B-leading ``states`` advanced by ``stat.update`` once per row of
@@ -540,6 +578,11 @@ class StatisticGroup(Statistic):
         #: member i finalizes slot state ``self.member_slot[i]``
         self.member_slot = tuple(member_slot)
 
+    def with_members(self, members) -> "StatisticGroup":
+        """The group rebuilt around new member instances (same length):
+        how ``bind_params`` re-attaches the members' parameters."""
+        return StatisticGroup(members)
+
     def init_state(self, dim: int, device="cpu") -> Tuple:
         return tuple(s.init_state(dim, device) for s in self.slots)
 
@@ -637,6 +680,12 @@ class GroupedStatistic(Statistic):
         self.inner = inner
         self.num_groups = num_groups
         self.mergeable = bool(inner.mergeable)
+
+    def with_inner(self, inner: Statistic) -> "GroupedStatistic":
+        """Rebuilt around a new inner instance: how ``bind_params``
+        re-attaches the inner statistic's parameters (KMeansStep
+        centroids)."""
+        return GroupedStatistic(inner, self.num_groups)
 
     @staticmethod
     def _split_key(values) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -749,5 +798,80 @@ class GroupedStatistic(Statistic):
                                           valid_mask=valid_mask)
 
 
+class Window:
+    """A windowed view of a mergeable statistic over a live row stream.
+
+    Rows fall into fixed-width *panes* of ``slide`` rows; pane ``p`` covers
+    global rows ``[p*slide, (p+1)*slide)``.  A window of ``size`` rows is
+    a whole number of panes (``size % slide == 0``), so a live session
+    keeps one mergeable state per pane in a ring and answers a window by
+    re-merging its ``size // slide`` newest panes: eviction drops a pane
+    and re-merges the survivors, never subtracts and never re-reads the
+    log, and device memory is O(panes · state) whatever the stream's
+    length.  The wrapped statistic must be ``mergeable``.
+    """
+
+    def __init__(self, stat: Statistic, size: int, slide: int):
+        if not isinstance(stat, Statistic):
+            raise TypeError(f"{stat!r} is not a Statistic")
+        if not getattr(stat, "mergeable", False):
+            raise ValueError(
+                f"{type(stat).__name__} is not mergeable; windowed folding "
+                f"re-merges per-pane states and needs an associative merge")
+        size, slide = int(size), int(slide)
+        if slide < 1:
+            raise ValueError(f"slide must be >= 1, got {slide}")
+        if size < slide:
+            raise ValueError(f"size ({size}) must be >= slide ({slide})")
+        if size % slide != 0:
+            raise ValueError(f"size ({size}) must be a multiple of the "
+                             f"slide ({slide}) so a window is a whole "
+                             f"number of panes")
+        self.stat = stat
+        self.size = size
+        self.slide = slide
+
+    @property
+    def panes(self) -> int:
+        """Panes per window: the ring's steady-state occupancy bound."""
+        return self.size // self.slide
+
+    def pane_of(self, row: int) -> int:
+        return int(row) // self.slide
+
+    def pane_rows(self, pane: int) -> Tuple[int, int]:
+        return pane * self.slide, (pane + 1) * self.slide
+
+    def _static_key(self):
+        return (type(self).__name__, self.size, self.slide,
+                self.stat._static_key())
+
+    def __repr__(self):
+        return (f"{type(self).__name__}({self.stat!r}, size={self.size}, "
+                f"slide={self.slide})")
+
+
+class TumblingWindow(Window):
+    """Non-overlapping windows: one pane a window, reset every ``size``
+    rows.  ``TumblingWindow(stat, s)`` is ``SlidingWindow(stat, s, s)``."""
+
+    def __init__(self, stat: Statistic, size: int):
+        super().__init__(stat, size, size)
+
+
+class SlidingWindow(Window):
+    """Overlapping windows of ``size`` rows advancing by ``slide`` rows;
+    the ring holds ``size // slide`` panes and a report re-merges them."""
+
+    def __init__(self, stat: Statistic, size: int, slide: int):
+        super().__init__(stat, size, slide)
+
+
 class MeanLoss(Mean):
     """Alias used by train/earl_eval: the statistic is the per-example loss."""
+
+
+#: the statistics ``bind_params`` rebuilds, by their ``split_params`` name
+_BINDABLE = {cls.__qualname__: cls for cls in (
+    Mean, Sum, Count, Var, Std, Quantile, KMeansStep, StatisticGroup,
+    GroupedStatistic, MeanLoss)}

@@ -17,10 +17,11 @@ import numpy as np
 from repro_torch import random as trandom
 from repro_torch.core import ssabe as ssabe_mod
 from repro_torch.core.accuracy import AccuracyReport
-from repro_torch.core.bootstrap import check_backend
+from repro_torch.core.bootstrap import check_backend, seed_from_key
 from repro_torch.core.delta import (poisson_delta_extend, poisson_delta_init,
                                     poisson_delta_result)
-from repro_torch.core.reduce_api import Statistic, _as_2d
+from repro_torch.core.reduce_api import Statistic, _as_2d, split_params
+from repro_torch.core.streaming import run_fingerprint
 from repro_torch.device import as_tensor, resolve_device
 
 
@@ -54,9 +55,16 @@ class EarlSession:
     prefix extension.  ``device=None`` runs on the card.  ``backend=None``
     materializes Poisson weights for SSABE and the delta-maintained main
     loop (the paper's engine); ``"fused_rng"`` runs both matrix-free.
-    ``mesh``, ``data_axis``, ``checkpoint`` and ``checkpoint_every`` stand
-    in the JAX package's places; a mesh or a checkpoint raises (not
-    ported yet).
+    ``mesh`` and ``data_axis`` stand in the JAX package's places; a mesh
+    raises (not ported yet).
+
+    ``checkpoint`` (a ``CheckpointManager`` or a root path) snapshots the
+    delta-maintained carry after every ``checkpoint_every``-th growth
+    round, with the loop's cursor in its meta.json; ``run(key,
+    resume=True)`` restores the latest snapshot onto the session's device
+    and continues.  The loop's only randomness is the PoissonDelta's (its
+    key and per-extend step) and ``sampler.take`` is a fixed permutation,
+    so the resumed run is bitwise the uninterrupted one.
     """
 
     def __init__(self, sampler, stat: Statistic, sigma: float = 0.05,
@@ -67,10 +75,11 @@ class EarlSession:
                  data_axis: str = "data", checkpoint=None,
                  checkpoint_every: int = 1, device=None):
         check_backend(backend, "poisson", mesh)
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "EarlSession(checkpoint=) is not ported yet (ROADMAP.md §1 "
-                "item 1)")
+        if checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        self.checkpoint = checkpoint
+        self.checkpoint_every = int(checkpoint_every)
         self.device = resolve_device(device)
         self.sampler = sampler
         self.stat = stat
@@ -124,13 +133,28 @@ class EarlSession:
             history=history, wall_time_s=time.perf_counter() - t0,
             ssabe=None, reports=reports)
 
+    def _early(self, res, n_have: int, B: int, iterations: int, history,
+               t0: float, est) -> EarlyResult:
+        N = self.sampler.N
+        return EarlyResult(
+            result=res.estimate, cv=res.cv, ci_lo=res.report.ci_lo,
+            ci_hi=res.report.ci_hi, n_used=n_have, N=N, fraction=n_have / N,
+            B=B, iterations=iterations, fell_back=False, history=history,
+            wall_time_s=time.perf_counter() - t0, ssabe=est,
+            reports=getattr(res.report, "members", None))
+
     def run(self, key, resume: bool = False) -> EarlyResult:
-        if resume:
-            raise NotImplementedError("resume needs checkpoint=, which is "
-                                      "not ported yet")
         t0 = time.perf_counter()
         N = self.sampler.N
         history: List[dict] = []
+
+        mgr = self.checkpoint
+        if isinstance(mgr, str):
+            from repro_torch.checkpoint.manager import CheckpointManager
+            mgr = CheckpointManager(mgr, async_save=True)
+        if resume and mgr is None:
+            raise ValueError("resume=True needs checkpoint= (where would "
+                             "the cursor come from?)")
 
         # ---- pilot + SSABE (local mode) --------------------------------
         n_pilot = min(N, self.max_pilot,
@@ -149,16 +173,53 @@ class EarlSession:
         dim = _as_2d(pilot).shape[1]
         pd = poisson_delta_init(self.stat, B, dim, trandom.fold_in(key, 2),
                                 backend=self.backend, device=self.device)
+        spec, params = split_params(self.stat)
+        fp = run_fingerprint(spec, params, int(B), seed_from_key(pd.key), N,
+                             dim)
         n_have = 0
         iterations = 0
+        if resume:
+            # pilot and SSABE were just recomputed from the same key, so B,
+            # n_target and est are the original run's; only the carry and
+            # the cursor come from disk.
+            cur = mgr.meta().get("cursor")
+            if cur is None or cur.get("kind") != "session":
+                raise ValueError(
+                    f"checkpoint under {mgr.root} has no EarlSession "
+                    "cursor: not an EarlSession checkpoint")
+            if cur["fingerprint"] != fp:
+                raise ValueError(
+                    "checkpoint fingerprint mismatch: the snapshot was "
+                    "taken under a different (statistic, B, key, sampler); "
+                    "resuming it would silently produce a different "
+                    f"estimator (checkpoint {cur['fingerprint'][:12]}…, "
+                    f"run {fp[:12]}…)")
+            # the freshly initialised carry on self.device is the template
+            (states, est_state), _ = mgr.restore((pd.states, pd.est_state))
+            pd = dataclasses.replace(pd, states=states, est_state=est_state,
+                                     n=int(cur["n_have"]),
+                                     step=int(cur["step"]))
+            n_have = int(cur["n_have"])
+            iterations = int(cur["iterations"])
+            n_target = int(cur["n_target_next"])
+            history = [dict(e, member_cvs=tuple(e["member_cvs"]))
+                       if "member_cvs" in e else dict(e)
+                       for e in cur["history"]]
+            # the snapshot may already meet the gate (killed between the
+            # save and the return): re-derive the result, do not extend
+            res = poisson_delta_result(pd, p=n_have / N,
+                                       p_keys=self._p_keys(n_have))
+            if res.cv <= self.sigma or n_have >= self.max_fraction * N:
+                mgr.wait()
+                return self._early(res, n_have, B, iterations, history, t0,
+                                   est)
         while True:
             iterations += 1
             n_goal = min(int(n_target), N)
             pd = poisson_delta_extend(pd, self._take(n_have, n_goal))
             n_have = n_goal
-            p = n_have / N
             # the point estimate is delta-maintained in pd.est_state
-            res = poisson_delta_result(pd, p=p,
+            res = poisson_delta_result(pd, p=n_have / N,
                                        p_keys=self._p_keys(n_have))
             entry = dict(iteration=iterations, n=n_have, B=int(B),
                          cv=float(res.cv), t=time.perf_counter() - t0)
@@ -167,15 +228,26 @@ class EarlSession:
                 entry["member_cvs"] = tuple(float(r.cv)
                                             for r in member_reports)
             history.append(entry)
+            if mgr is not None and iterations % self.checkpoint_every == 0:
+                # the cursor rides meta.json, so history must be JSON-plain
+                mgr.save(iterations, (pd.states, pd.est_state),
+                         extra={"cursor": dict(
+                             kind="session", fingerprint=fp,
+                             n_have=int(n_have), step=int(pd.step),
+                             iterations=int(iterations),
+                             n_target_next=int(min(
+                                 N, int(n_have * self.growth))),
+                             history=[
+                                 {**e, "member_cvs": list(e["member_cvs"])}
+                                 if "member_cvs" in e else e
+                                 for e in history])})
             if res.cv <= self.sigma or n_have >= self.max_fraction * N:
-                return EarlyResult(
-                    result=res.estimate, cv=res.cv,
-                    ci_lo=res.report.ci_lo, ci_hi=res.report.ci_hi,
-                    n_used=n_have, N=N, fraction=p, B=B,
-                    iterations=iterations, fell_back=False,
-                    history=history,
-                    wall_time_s=time.perf_counter() - t0, ssabe=est,
-                    reports=member_reports)
+                if mgr is not None:
+                    mgr.wait()          # durable before reporting success
+                return self._early(res, n_have, B, iterations, history, t0,
+                                   est)
             if n_have >= N:
+                if mgr is not None:
+                    mgr.wait()
                 return self._full_job(t0, history)
             n_target = min(N, int(n_have * self.growth))

@@ -284,30 +284,38 @@ def bit_flip(path: str, offset: int, mask: int = 0x01) -> None:
 def enospc_after(nbytes: int):
     """Within this context the 'disk' accepts ``nbytes`` more bytes, then
     every further write raises ``ENOSPC``, mid-file if the budget runs out
-    there.  Patches the single write seam every checkpoint byte funnels
-    through (``checkpoint.manager._write``), so the failure is exactly a
-    real full disk: a partial staging file and a loud OSError."""
+    there.  Patches the two write seams every byte of a checkpoint
+    (``checkpoint.manager._write``) and of a log segment
+    (``live.segment._write``) funnels through, one budget for both, so the
+    failure is exactly a real full disk: a partial staging file and a
+    loud OSError."""
     from repro_torch.checkpoint import manager as _manager
+    from repro_torch.live import segment as _segment
 
     if nbytes < 0:
         raise ValueError(f"nbytes must be >= 0, got {nbytes}")
     budget = {"left": int(nbytes)}
-    orig = _manager._write
+    seams = (_manager, _segment)
+    origs = [m._write for m in seams]
 
-    def _failing(f, data):
-        take = min(len(data), budget["left"])
-        if take:
-            orig(f, data[:take])
-            budget["left"] -= take
-        if take < len(data):
-            raise OSError(errno.ENOSPC,
-                          "No space left on device (injected)")
+    def failing(orig):
+        def _failing(f, data):
+            take = min(len(data), budget["left"])
+            if take:
+                orig(f, data[:take])
+                budget["left"] -= take
+            if take < len(data):
+                raise OSError(errno.ENOSPC,
+                              "No space left on device (injected)")
+        return _failing
 
-    _manager._write = _failing
+    for m, orig in zip(seams, origs):
+        m._write = failing(orig)
     try:
         yield budget
     finally:
-        _manager._write = orig
+        for m, orig in zip(seams, origs):
+            m._write = orig
 
 
 class ResilientStore(ShardedStore):

@@ -41,7 +41,11 @@ dedicated runs.  Kernel 9 on ±inf and NaN values (NaN on a row of weight
 0 too) gives the plain version's NaN and inf positions, is one launch a
 call and bitwise repeatable, and reads no weights bitwise as unit ones.
 Kernel 12 at head dims 168 and 256 (both routes) within its tolerance,
-and past 256 it raises.
+and past 256 it raises.  The live slice: a session whose batches span two
+window panes launches kernel 2 (or 4) once a pane and holds each pane's
+states against the CPU session's as above; a live session and an
+EarlSession killed and resumed on the card are bitwise their
+uninterrupted runs, with the restored states on the card.
 """
 import numpy as np
 import pytest
@@ -1077,3 +1081,155 @@ def test_cuda_keyed_custom_statistic_stays_below_the_weight_matrix(cuda):
     peak = torch.cuda.max_memory_allocated() - base
     assert st.w.shape == (B, G)
     assert peak < B * n * 4 // 8
+
+
+def _live_log(n_batches, rows, d, seed=31, absolute=False):
+    from repro_torch.live import IngestLog
+    rng = np.random.default_rng(seed)
+    log = IngestLog()
+    for _ in range(n_batches):
+        x = rng.normal(size=(rows, d)).astype(np.float32)
+        log.append(np.abs(x) if absolute else x)
+    return log
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["var", "group"])
+def test_cuda_live_fold_across_two_panes_matches_plain(cuda, kind):
+    """Batches of 48 rows over 32-row panes: every fold spans two panes
+    and launches the fused kernel once a pane (kernel 2 for Var, kernel 4
+    for the quickstart group) over the whole batch under each pane's
+    mask.  Each pane's states against the CPU session's (the plain
+    versions): w_tot and counts bitwise, s1 within 1e-5·Σw|x|, s2 within
+    1e-5·Σw·x²."""
+    from repro_torch import random as trandom
+    from repro_torch.core import SlidingWindow, Var
+    from repro_torch.core.reduce_api import HistogramState, MomentState
+    from repro_torch.live import LiveSession
+
+    stat = (Var() if kind == "var" else
+            StatisticGroup((Mean(), Quantile(0.5, NBINS, LO, HI), Std())))
+    kernel = (tws.fused_poisson_moments if kind == "var"
+              else tfm.fused_poisson_multi)
+    log = _live_log(6, 48, 2)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        s = LiveSession(log, SlidingWindow(stat, 128, 32), B=64,
+                        key=trandom.PRNGKey(3), device=dev)
+        before = kernel.launches
+        reports = s.poll()
+        runs[dev] = (s, reports, kernel.launches - before)
+    cpu, gpu = runs["cpu"][0], runs["cuda"][0]
+    # a 48-row batch at row r overlaps panes r // 32 .. (r + 47) // 32
+    assert runs["cuda"][2] == sum((48 * i + 47) // 32 - 48 * i // 32 + 1
+                                  for i in range(6))
+    abs_s = LiveSession(_live_log(6, 48, 2, absolute=True),
+                        SlidingWindow(stat, 128, 32), B=64,
+                        key=trandom.PRNGKey(3), device="cpu")
+    abs_s.poll()
+    assert sorted(gpu._ring) == sorted(cpu._ring)
+
+    def check(g, c, a):
+        if isinstance(g, tuple):
+            for parts in zip(g, c, a):
+                check(*parts)
+        elif isinstance(g, MomentState):
+            assert torch.equal(g.w.cpu(), c.w)
+            assert bool(((g.s1.cpu() - c.s1).abs() <= 1e-5 * a.s1).all())
+            assert bool(((g.s2.cpu() - c.s2).abs() <= 1e-5 * c.s2).all())
+        else:
+            assert isinstance(g, HistogramState)
+            assert torch.equal(g.counts.cpu(), c.counts)
+
+    for p in gpu._ring:
+        check(gpu._ring[p].states, cpu._ring[p].states,
+              abs_s._ring[p].states)
+        assert (gpu._ring[p].rows, gpu._ring[p].valid) == \
+            (cpu._ring[p].rows, cpu._ring[p].valid)
+
+
+@pytest.mark.cuda
+def test_cuda_live_resume_is_bitwise_and_lands_on_the_card(cuda, tmp_path):
+    """A windowed session on the card killed at a fold that is not a
+    checkpoint boundary resumes from its last snapshot onto the card and
+    ends bitwise the uninterrupted run."""
+    from repro_torch import random as trandom
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import SlidingWindow, Var
+    from repro_torch.live import LiveSession
+
+    class Kill(Exception):
+        pass
+
+    class Dying(CheckpointManager):
+        def save(self, *a, **kw):
+            super().save(*a, **kw)
+            raise Kill
+
+    log = _live_log(10, 64, 1)
+    window = SlidingWindow(Var(), 128, 32)
+    base = LiveSession(log, window, B=32, key=trandom.PRNGKey(5))
+    base.poll()
+    want = base.report()
+    root = str(tmp_path / "ckpt")
+    # the first save is at fold 4; the run dies there, 6 folds short
+    with pytest.raises(Kill):
+        LiveSession(log, window, B=32, key=trandom.PRNGKey(5),
+                    checkpoint=Dying(root, async_save=False),
+                    checkpoint_every=4).poll()
+    r = LiveSession(log, window, B=32, key=trandom.PRNGKey(5), resume=True,
+                    checkpoint=CheckpointManager(root, async_save=False),
+                    checkpoint_every=4)
+    assert r.counters.folded == 4
+    assert all(p.states.w.is_cuda and p.est.s1.is_cuda
+               for p in r._ring.values())
+    r.poll()
+    got = r.report()
+    assert torch.equal(got.thetas, want.thetas)
+    assert torch.equal(got.estimate, want.estimate)
+    assert got.p_eff == want.p_eff and r.counters.folded == 10
+
+
+@pytest.mark.cuda
+def test_cuda_session_resume_is_bitwise(cuda, tmp_path):
+    """The quickstart group's session at 200,000 rows and sigma 0.002 on
+    the card, killed after its first save and resumed, is bitwise the
+    uninterrupted run; it takes the CPU run's B, rows and iterations."""
+    from repro_torch import random as trandom
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import EarlSession
+    from repro_torch.data import PreMapSampler, ShardedStore, \
+        synthetic_numeric
+
+    class Kill(Exception):
+        pass
+
+    class Dying(CheckpointManager):
+        def save(self, *a, **kw):
+            super().save(*a, **kw)
+            raise Kill
+
+    data = synthetic_numeric(200_000, mean=10.0, std=2.0, seed=0)
+
+    def run(device=None, checkpoint=None, resume=False):
+        store = ShardedStore.from_array(data, split_size=65_536)
+        group = StatisticGroup((Mean(), Quantile(0.5, lo=0.0, hi=25.0),
+                                Std()))
+        return EarlSession(PreMapSampler(store, seed=1, device=device),
+                           group, sigma=0.002, backend="fused_rng",
+                           checkpoint=checkpoint, device=device).run(
+            trandom.PRNGKey(0), resume=resume)
+
+    base = run()
+    root = str(tmp_path / "ckpt")
+    with pytest.raises(Kill):
+        run(checkpoint=Dying(root, async_save=False))
+    got = run(checkpoint=CheckpointManager(root, async_save=False),
+              resume=True)
+    assert (got.B, got.n_used, got.iterations, got.cv) == \
+        (base.B, base.n_used, base.iterations, base.cv)
+    for a, b in zip(got.result, base.result):
+        assert torch.equal(a, b) and a.is_cuda
+    cpu = run("cpu")
+    assert (cpu.B, cpu.n_used, cpu.iterations) == \
+        (base.B, base.n_used, base.iterations)

@@ -185,8 +185,10 @@ def test_public_signatures_follow_the_jax_order(jmod, tmod, name):
 def test_unported_mesh_and_checkpoint_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EarlSession(None, tcore.Mean(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EarlSession(None, tcore.Mean(), checkpoint="ck", device="cpu")
+    # the checkpoint branch is ported: the constructor takes one
+    s = EarlSession(None, tcore.Mean(), checkpoint="ck", checkpoint_every=2,
+                    device="cpu")
+    assert (s.checkpoint, s.checkpoint_every) == ("ck", 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcore.bootstrap(np.ones(4), tcore.Mean(), 2, trandom.PRNGKey(0),
                         mesh=object(), device="cpu")
