@@ -159,11 +159,14 @@ failure:
    logit of the CPU's);
 13. (run after phase 12) the live path, from zeroed counts with its
    geometries logged, every file under a temporary directory removed
-   afterwards: the quickstart group's EarlSession over the 2,000,000-row
-   store (sigma 0.006, 3 rounds) killed after its first save and resumed,
-   bitwise the uninterrupted run (result, CI, cv, n_used, iterations,
-   history); resumed after a completed run with no kernel launch after
-   its restore; and on the CPU with the same B, rows and iterations.
+   afterwards: the quickstart group's EarlSession over the quickstart's
+   law at 2^24 rows (sigma 0.002, tau 0.001, key 0: B = 16, 4 rounds on
+   the card) killed after its first save and resumed, bitwise the
+   uninterrupted run (result, CI, cv, n_used, iterations, history);
+   resumed after a completed run with no kernel launch after its restore;
+   on the CPU with the card's B and its first round within 1e-3; and
+   resumed on the CPU from the card's first snapshot, in the card's
+   rounds.
    Then 2^24 f32 rows in 256 batches of 65,536 from a producer thread
    into an IngestLog(capacity=64), folded at B = 256 by a sliding
    window of the group (4 panes, kernel 4 once a fold) and the README's
@@ -186,7 +189,35 @@ failure:
    the in-memory log's session), and the last segment torn at a header,
    a record-frame, a payload and a footer byte (each recovery bitwise the
    in-memory log of the surviving batches);
-8. replay every distinct launch geometry that phases 4 to 7 and 10 to 13
+14. (run after phase 13) the mesh path, from zeroed counts: in this
+   process, with its geometries logged, a world of one NCCL rank
+   (DeviceMesh("cuda", [0]), destroyed at the end of the phase), where
+   sharded_fused_states(mesh=) at B = 256, n = 2^24 - 1000 is bitwise
+   fused_resample_states for Mean and Var (kernel 2), Median (kernel 3),
+   the quickstart group (kernel 4), GroupedStatistic(Mean(), 8) (kernel
+   6) and KMeansStep at k = 5, d = 2 (kernel 8), each of which must
+   launch; EarlSession(mesh=) on phase 13's law bitwise the session
+   without a mesh (walls side by side); DistributedEarl(backend=
+   "fused_rng") under failure_mask(n, 16, [0, 3, 7]) bitwise the fused
+   path under that valid_mask; the materialized DistributedEarl at B =
+   64, n = 2^20 bitwise its weights' update_batch, and those weights
+   the CPU's _poisson_for_shard (drawn in a thread from the phase's
+   start and held last: bitwise but for entries whose running log sum
+   lies within an ulp of -1, where CUDA's and the host's f32 log may
+   part; each such entry is replayed with both logs and counted).  Then a
+   world of 4 gloo ranks on the one card (fresh
+   interpreters of this script, --mesh-rank R; each with a timeout, any
+   nonzero exit fails): on every rank the six families, their chunks of
+   2^20 rows (with the estimate state) and a PoissonDelta's two extends
+   bitwise sharded_fused_states(nshards=4) computed here (outside the
+   geometry log); the group's
+   session over the same law with key 1 bitwise across ranks, iterating,
+   within 2% of the exact answers; the elastic reduce (shard 1 lost,
+   shard 3 past its deadline) bitwise estimate_with_loss_mask at
+   p_surviving = 0.5.  Prints psum_state's ms a call at world 1 (NCCL)
+   and 4 (gloo, through pinned host memory), the spawn-to-join s and the
+   phase's s beside the card's name and power limit;
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 14
    logged on fresh data and hold it against the plain version as in
    phase 3;
 9. time each kernel (CUDA events) beside its plain version, its bound
@@ -410,6 +441,31 @@ LIVE_CPU_BATCHES, LIVE_CPU_B = 16, 8
 #: the kernels the live path's main runs (the uninterrupted session and the
 #: A/B drain) launch; kernel 3 runs in the late gate's lone median
 LIVE_KERNELS = ("fused_poisson_moments", "fused_poisson_multi")
+# the mesh path (phase 14): the one-shot bootstrap's size, B = 256 over
+# n = 2^24 - 1000 rows (x of the quickstart's law, [value, key] over 8
+# keys, k = 5 2-d blobs), in a world of one NCCL rank in this process and
+# a world of 4 gloo ranks (fresh interpreters) sharing the one card:
+# chunks of 2^20 rows, two delta extends of half the rows each, the
+# quickstart group's session over phase 13's law, DistributedEarl with 3
+# of 16 shards lost, the elastic reduce with shard 1 lost and shard 3
+# past its deadline; the materialized step at B = 64, n = 2^20
+MESH_B, MESH_N, MESH_CHUNK, MESH_WORLD = 256, BOOT_N, 1 << 20, 4
+MESH_G, MESH_K, MESH_KEY = 8, 5, 14
+MESH_FT_SHARDS, MESH_FT_LOST = 16, (0, 3, 7)
+MESH_ELASTIC_LOST, MESH_ELASTIC_DONE_S, MESH_ELASTIC_DEADLINE_S = \
+    (1,), (0.1, 0.2, 0.3, 9.0), 1.0
+MESH_MAT_B, MESH_MAT_N = 64, 1 << 20
+# the world of 4's session: phase 13's law with key 1.  Four shards draw
+# other streams than one, and with key 0 SSABE's fit (n about 11.5M rows
+# at B = 8 on the CPU) sends the group to the exact job; with key 1 it
+# picks B = 32 and n about 165,000 rows, and the session iterates
+MESH_SESSION_KEY = 1
+MESH_PSUM_REPS, MESH_RANK_TIMEOUT_S = 20, 300
+#: the kernels the mesh path's families launch: 2 (Mean, Var), 3 (Median),
+#: 4 (the group), 6 (GroupedStatistic(Mean)) and 8 (KMeansStep)
+MESH_KERNELS = ("fused_poisson_moments", "fused_poisson_hist",
+                "fused_poisson_multi", "fused_poisson_moments_grouped",
+                "fused_poisson_kmeans")
 
 
 def check(ok: bool, what: str) -> None:
@@ -4610,8 +4666,464 @@ def phase_live_path(torch):
     return launches, log.geometries, info
 
 
+def mesh_inputs(torch):
+    """The mesh phase's global values, made alike in every process from
+    MESH_KEY: x (MESH_N, 1) of the quickstart's law, [value, key] over
+    MESH_G keys, and MESH_K 2-d blobs, on the card; and the blobs'
+    centroids (near their centers) on the host."""
+    import numpy as np
+    from repro_torch.data import synthetic_clusters
+    gen = torch.Generator().manual_seed(MESH_KEY)
+    x = torch.randn(MESH_N, 1, generator=gen) * 2.0 + 10.0
+    keys = torch.randint(0, MESH_G, (MESH_N, 1), generator=gen).float()
+    blobs, centers = synthetic_clusters(MESH_N, k=MESH_K, dim=2,
+                                        seed=MESH_KEY)
+    cent = centers + 0.1 * np.random.default_rng(MESH_KEY).normal(
+        size=centers.shape)
+    values = dict(x=x.cuda(), keyed=torch.cat([x, keys], 1).cuda(),
+                  blobs=torch.from_numpy(blobs).cuda())
+    return values, torch.from_numpy(cent.astype(np.float32))
+
+
+def mesh_families(cent):
+    """Each family's statistic and the values it runs over."""
+    from repro_torch.core import (GroupedStatistic, KMeansStep, Mean,
+                                  Quantile, StatisticGroup, Std, Var)
+    return {
+        "mean": (Mean(), "x"), "var": (Var(), "x"),
+        "median": (Quantile(0.5, nbins=NBINS, lo=LO, hi=HI), "x"),
+        "group": (StatisticGroup((Mean(), Quantile(0.5, lo=LO, hi=HI),
+                                  Std())), "x"),
+        "grouped": (GroupedStatistic(Mean(), MESH_G), "keyed"),
+        "kmeans": (KMeansStep(cent), "blobs")}
+
+
+def mesh_states(stat, v, mesh=None, nshards=None):
+    """A family's states in the three runs the world of 4 holds: one
+    call, chunks of MESH_CHUNK rows (with the estimate state) and a
+    PoissonDelta's two extends over the halves of the rows (through
+    ``mesh``, or the ``nshards`` oracle merged as an extend merges)."""
+    from repro_torch import random as trandom
+    from repro_torch.core import (poisson_delta_extend, poisson_delta_init,
+                                  sharded_fused_states)
+    from repro_torch.core.bootstrap import seed_from_key
+    key = trandom.PRNGKey(MESH_KEY)
+    base = seed_from_key(key)
+    kw = dict(mesh=mesh, nshards=nshards)
+    half = v.shape[0] // 2
+    out = {"one": sharded_fused_states(stat, base, v, MESH_B, **kw),
+           "chunk": sharded_fused_states(stat, base, v, MESH_B,
+                                         chunk=MESH_CHUNK,
+                                         with_estimate=True, **kw)}
+    if mesh is not None:
+        pd = poisson_delta_init(stat, MESH_B, v.shape[1], key,
+                                backend="fused_rng", mesh=mesh)
+        for part in (v[:half], v[half:]):
+            pd = poisson_delta_extend(pd, part)
+        out["delta"] = (pd.states, pd.est_state)
+        return out
+    states = stat.init_batch(v.shape[1], MESH_B, v.device)
+    est = stat.init_state(v.shape[1], v.device)
+    for step, part in enumerate((v[:half], v[half:])):
+        states = stat.merge(states, sharded_fused_states(
+            stat, base, part, MESH_B, nshards=nshards, step=step))
+        est = stat.update(est, part)
+    out["delta"] = (states, est)
+    return out
+
+
+def flat_leaves(tree, prefix: str) -> dict:
+    from repro_torch.checkpoint.manager import _leaves
+    return {prefix + p: t for p, t in _leaves(tree)}
+
+
+def psum_ms(torch, stat, states, groups) -> float:
+    """ms a ``psum_state`` call of ``states`` (host clock, the card synced
+    after each call; every rank of the groups calls it alike)."""
+    stat.psum_state(states, groups)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_PSUM_REPS):
+        stat.psum_state(states, groups)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / MESH_PSUM_REPS
+
+
+def mesh_session(torch, data, mesh, key=RESUME_KEY):
+    """The quickstart group's EarlSession over phase 13's law (RESUME_*)
+    on the card, with ``mesh`` or without; (result, wall s)."""
+    from repro_torch import random as trandom
+    from repro_torch.core import (EarlSession, Mean, Quantile,
+                                  StatisticGroup, Std)
+    from repro_torch.data import PreMapSampler, ShardedStore
+    store = ShardedStore.from_array(data, split_size=65_536)
+    group = StatisticGroup((Mean(), Quantile(0.5, lo=LO, hi=HI), Std()))
+    session = EarlSession(PreMapSampler(store, seed=1), group,
+                          sigma=RESUME_SIGMA, tau=RESUME_TAU,
+                          backend="fused_rng", mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = session.run(trandom.PRNGKey(key))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def session_key(r) -> tuple:
+    """What two runs of a session must share bitwise, besides its
+    tensors."""
+    return (r.B, r.n_used, r.iterations, r.cv, r.fell_back,
+            [(e["n"], e["cv"], e.get("member_cvs")) for e in r.history])
+
+
+def same_session(torch, a, b) -> bool:
+    return session_key(a) == session_key(b) and all(
+        torch_equal(u, v) for u, v in zip(a.result + a.ci_lo + a.ci_hi,
+                                          b.result + b.ci_lo + b.ci_hi))
+
+
+def mesh_rank(argv) -> int:
+    """One rank of phase 14's gloo world (``--mesh-rank R --mesh-world W
+    --mesh-store FILE --mesh-out DIR``): the families' states, the
+    session, the elastic reduce and ``psum_state``'s ms through the host,
+    on the card, written to DIR/rank<R>.pt and DIR/rank<R>.json."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    opts = dict(zip(argv[1::2], argv[2::2]))
+    rank, world = int(opts["--mesh-rank"]), int(opts["--mesh-world"])
+    out = opts["--mesh-out"]
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import random as trandom
+    from repro_torch.core import DistributedEarl
+    from repro_torch.core._mesh import data_groups
+    from repro_torch.data import synthetic_numeric
+    from repro_torch.ft import (FailurePolicy, ShardEvents, elastic_estimate,
+                                failure_mask)
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            store=dist.FileStore(opts["--mesh-store"], world))
+    try:
+        mesh = DeviceMesh("cpu", list(range(world)), mesh_dim_names=("data",))
+        values, cent = mesh_inputs(torch)
+        res, info, runs = {}, {}, {}
+        for name, (stat, vname) in mesh_families(cent).items():
+            runs[name] = mesh_states(stat, values[vname], mesh=mesh)
+            for run, tree in runs[name].items():
+                res.update(flat_leaves(tree, f"{name}/{run}"))
+        group = mesh_families(cent)["group"][0]
+        info["psum_ms"] = psum_ms(torch, group, runs["group"]["one"],
+                                  data_groups(mesh, "data"))
+        data = synthetic_numeric(RESUME_N, mean=10.0, std=2.0, seed=0)
+        r, info["session_s"] = mesh_session(torch, data, mesh,
+                                            MESH_SESSION_KEY)
+        res.update(flat_leaves((r.result, r.ci_lo, r.ci_hi), "session"))
+        info["session"] = session_key(r)
+        earl = DistributedEarl(mesh, group, MESH_B, backend="fused_rng")
+        key = trandom.PRNGKey(MESH_KEY)
+        er = elastic_estimate(
+            earl, values["x"], key,
+            ShardEvents(n_shards=world, lost=MESH_ELASTIC_LOST,
+                        completion_s=MESH_ELASTIC_DONE_S),
+            FailurePolicy(deadline_s=MESH_ELASTIC_DEADLINE_S))
+        direct = earl.estimate_with_loss_mask(
+            values["x"], failure_mask(MESH_N, world, [1, 3]), key,
+            p=er.report.p_surviving)
+        res.update(flat_leaves((er.report.result, er.report.ci_lo,
+                                er.report.ci_hi), "elastic"))
+        res.update(flat_leaves((direct.estimate, direct.report.ci_lo,
+                                direct.report.ci_hi), "direct"))
+        info["elastic"] = dict(lost=list(er.lost), late=list(er.late),
+                               p=er.report.p_surviving, cv=er.report.cv,
+                               direct_cv=direct.cv,
+                               shards_lost=er.report.shards_lost)
+        torch.save({k: t.cpu() for k, t in res.items()},
+                   os.path.join(out, f"rank{rank}.pt"))
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_mesh_world(tmp: str) -> list:
+    """Phase 14's gloo ranks, fresh interpreters of this script (never a
+    fork of a process that holds a CUDA context)."""
+    import os
+    procs = []
+    for rank in range(MESH_WORLD):
+        log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--mesh-rank", str(rank), "--mesh-world", str(MESH_WORLD),
+             "--mesh-store", os.path.join(tmp, "store"), "--mesh-out", tmp],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def join_mesh_world(procs, tmp: str) -> None:
+    """Waits for every rank (MESH_RANK_TIMEOUT_S each); any rank that
+    exits nonzero or outlives its time fails the phase, with its log."""
+    import os
+    try:
+        for p, _ in procs:
+            p.wait(timeout=MESH_RANK_TIMEOUT_S)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for rank, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"mesh rank {rank} exited {p.returncode}")
+
+
+def mesh_world1(torch, values, cent):
+    """Phase 14 (a) and (c) in this process, a world of one NCCL rank:
+    the families, the session and DistributedEarl through the mesh
+    bitwise the unsharded path.  Returns (info, the mesh calls'
+    launches, the materialized step's weights on the host)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch import random as trandom
+    from repro_torch.core import (DistributedEarl, fused_resample_states,
+                                  sharded_fused_states)
+    from repro_torch.core._mesh import data_groups
+    from repro_torch.core.bootstrap import offset_seed, seed_from_key
+    from repro_torch.core.distributed import _poisson_for_shard
+    from repro_torch.data import synthetic_numeric
+    from repro_torch.ft import failure_mask
+
+    mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+    launches, info = {}, {}
+
+    def mesh_call(fn):
+        out, made = counted(fn)
+        for k, v in made.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    key = trandom.PRNGKey(MESH_KEY)
+    base = seed_from_key(key)
+    for name, (stat, vname) in mesh_families(cent).items():
+        v = values[vname]
+        got = mesh_call(lambda: sharded_fused_states(stat, base, v, MESH_B,
+                                                     mesh=mesh))
+        want = fused_resample_states(stat, base, v, MESH_B)
+        check(all(torch_equal(a, b) for a, b in zip(
+            flat_leaves(got, "").values(), flat_leaves(want, "").values())),
+            f"mesh: world 1 {name} differs from the unsharded fused path")
+    group = mesh_families(cent)["group"][0]
+    info["psum_ms_world1_nccl"] = psum_ms(
+        torch, group, fused_resample_states(group, base, values["x"],
+                                            MESH_B),
+        data_groups(mesh, "data"))
+    data = synthetic_numeric(RESUME_N, mean=10.0, std=2.0, seed=0)
+    mesh_session(torch, data, None)              # warm both
+    mesh_session(torch, data, mesh)
+    got, wall = mesh_call(lambda: mesh_session(torch, data, mesh))
+    walls = {"mesh": [wall], "no_mesh": []}
+    for kind in ("no_mesh", "no_mesh", "mesh"):
+        r, wall = mesh_session(torch, data, mesh if kind == "mesh" else None)
+        walls[kind].append(wall)
+        if kind == "no_mesh":
+            want = r
+    check(same_session(torch, got, want) and got.iterations >= 2,
+          f"mesh: the world-1 session differs from the one without a mesh "
+          f"or did not iterate: {session_key(got)} against "
+          f"{session_key(want)}")
+    info.update(session_world1_walls_s=walls, session_world1=dict(
+        B=got.B, n_used=got.n_used, iterations=got.iterations, cv=got.cv))
+    mask = failure_mask(MESH_N, MESH_FT_SHARDS, MESH_FT_LOST).cuda()
+    earl = DistributedEarl(mesh, group, MESH_B, backend="fused_rng")
+    res = mesh_call(lambda: earl.estimate_with_loss_mask(values["x"], mask,
+                                                         key))
+    want = group.finalize_batch(fused_resample_states(
+        group, offset_seed(base, 0), values["x"], MESH_B, valid_mask=mask))
+    check(all(torch_equal(a, b) for a, b in zip(res.thetas, want))
+          and res.n == int(mask.sum()),
+          "mesh: DistributedEarl under failure_mask(n, 16, [0, 3, 7]) "
+          "differs from the fused path under that valid_mask")
+    # (c) the materialized step, and its shard's weights on the card,
+    # which phase_mesh_path holds against the CPU's draw
+    xs = values["x"][:MESH_MAT_N]
+    mat = DistributedEarl(mesh, group, MESH_MAT_B)
+    res = mesh_call(lambda: mat.estimate(xs, key))
+    w = _poisson_for_shard(key, 0, MESH_MAT_B, MESH_MAT_N)
+    want = group.finalize_batch(group.update_batch(
+        group.init_batch(1, MESH_MAT_B, xs.device), xs, w))
+    check(all(torch_equal(a, b) for a, b in zip(res.thetas, want)),
+          "mesh: the materialized DistributedEarl differs from its "
+          "weights' update_batch")
+    check(all(launches.get(k, 0) > 0 for k in MESH_KERNELS),
+          f"mesh: a kernel of the mesh path was not launched: {launches}")
+    return info, launches, w.cpu()
+
+
+def poisson_flips(torch, key, card, host, tol: float = 1e-6):
+    """Holds the card's Poisson(1) draw of shard 0 (``_poisson_for_shard``)
+    against the host's: bitwise, but for the flips ROADMAP §3 documents,
+    where CUDA's and the host's f32 log differ by an ulp and an entry's
+    running sum lies within that of -1.  Each differing entry is replayed
+    from its own uniforms with both logs: the card's ladder must give the
+    card's draw, the host's the host's, and the host's sum must lie within
+    ``tol`` of -1 at the step where the first of the two stops.  Returns
+    (flips, the largest |sum + 1| there)."""
+    from repro_torch import random as trandom
+    card = card.cpu().reshape(-1)
+    host = host.reshape(-1)
+    pos = (card != host).nonzero().reshape(-1)
+    if pos.numel() == 0:
+        return 0, 0.0
+    rng = trandom.fold_in(key, 0)
+    sums = {"cpu": torch.zeros(pos.numel()),
+            "cuda": torch.zeros(pos.numel(), device="cuda")}
+    draws = {d: torch.full((pos.numel(),), -1, dtype=torch.int64)
+             for d in sums}
+    history = []
+    t = 0
+    while any(bool((v < 0).any()) for v in draws.values()):
+        check(t < 64, "mesh: a replayed Poisson ladder did not stop")
+        rng, sub = trandom.split(rng)
+        u = trandom._unit_floats(trandom.bits_at(sub, pos))
+        for d in sums:
+            sums[d] = sums[d] + torch.log(u.to(d))
+            stop = (draws[d] < 0) & ~(sums[d].cpu() > -1.0)
+            draws[d][stop] = t
+        history.append(sums["cpu"].clone())
+        t += 1
+    first = torch.minimum(draws["cpu"], draws["cuda"])
+    at = torch.stack(history)[first, torch.arange(pos.numel())]
+    gap = float((at + 1.0).abs().max())
+    check(torch.equal(draws["cuda"], card[pos].long())
+          and torch.equal(draws["cpu"], host[pos].long()) and gap <= tol,
+          f"mesh: {pos.numel()} of the card's shard weights differ from "
+          f"the CPU's _poisson_for_shard, not all by the ulp flip of f32 "
+          f"log near -1 (largest |sum + 1| {gap})")
+    return int(pos.numel()), gap
+
+
+def mesh_world4(torch, values, cent, tmp: str):
+    """Phase 14 (b): the gloo world of 4 ranks on the one card, each rank
+    bitwise the ``nshards=4`` oracle computed here while they run; their
+    sessions bitwise each other and within 2% of the exact answers; the
+    elastic reduce bitwise ``estimate_with_loss_mask`` at p = 0.5."""
+    import numpy as np
+    from repro_torch.data import synthetic_numeric
+    t0 = time.perf_counter()
+    procs = spawn_mesh_world(tmp)
+    try:
+        oracle = {}
+        for name, (stat, vname) in mesh_families(cent).items():
+            for run, tree in mesh_states(stat, values[vname],
+                                         nshards=MESH_WORLD).items():
+                oracle.update(flat_leaves(tree, f"{name}/{run}"))
+        torch.cuda.synchronize()
+    finally:
+        join_mesh_world(procs, tmp)
+    spawn_to_join = time.perf_counter() - t0
+    ranks = []
+    for rank in range(MESH_WORLD):
+        got = torch.load(f"{tmp}/rank{rank}.pt", weights_only=True)
+        with open(f"{tmp}/rank{rank}.json") as f:
+            ranks.append((got, json.load(f)))
+    for rank, (got, info) in enumerate(ranks):
+        for k, want in oracle.items():
+            check(torch_equal(got[k], want.cpu()), f"mesh: rank {rank}'s "
+                  f"{k} differs from sharded_fused_states(nshards=4)")
+        e = info["elastic"]
+        check(e["p"] == 0.5 and e["shards_lost"] == 2 and e["late"] == [3]
+              and e["cv"] == e["direct_cv"]
+              and all(torch_equal(got[k], got["direct" + k[7:]])
+                      for k in got if k.startswith("elastic")),
+              f"mesh: rank {rank}'s elastic reduce {e} differs from "
+              f"estimate_with_loss_mask at p = 0.5")
+    got0, info0 = ranks[0]
+    for rank, (got, info) in enumerate(ranks[1:], 1):
+        check(info["session"] == info0["session"] and all(
+            torch_equal(got[k], got0[k]) for k in got
+            if k.startswith("session")),
+            f"mesh: rank {rank}'s session differs from rank 0's")
+    data = synthetic_numeric(RESUME_N, mean=10.0, std=2.0, seed=0)
+    exact = (float(data.mean()), float(np.median(data)), float(data.std()))
+    result = [float(got0[f"session[0][{i}]"].reshape(-1)[0])
+              for i in range(3)]
+    rel = [abs(r - e) / abs(e) for r, e in zip(result, exact)]
+    check(max(rel) < 0.02 and not info0["session"][4],
+          f"mesh: the world-4 session's rel_err {rel}, or it fell back to "
+          f"the exact job: {info0['session'][:5]}")
+    return dict(spawn_to_join_s=spawn_to_join,
+                psum_ms_world4_gloo=info0["psum_ms"],
+                session_world4_s=[i["session_s"] for _, i in ranks],
+                session_world4=info0["session"][:5], rel_err=rel)
+
+
+def phase_mesh_path(torch):
+    """Phase 14: the mesh path, from zeroed counts; a world of one NCCL
+    rank in this process, with its geometries logged for phase 8, then a
+    world of 4 gloo ranks on the card (the ``nshards=4`` oracle they are
+    held to runs here while they run, outside the log: phase 8 replays
+    this process's main path).  The CPU's draw
+    of the materialized step's weights runs in a thread from the start
+    and is held to the card's last.  Returns the world-1 mesh calls'
+    launches, the geometries and the info printed."""
+    import numpy as np
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch.distributed as dist
+    from repro_torch import random as trandom
+    from repro_torch.core.distributed import _poisson_for_shard
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_counts()
+    tmp = tempfile.mkdtemp(prefix="earl_mesh_")
+    pool = ThreadPoolExecutor(max_workers=1)
+    draw = pool.submit(_poisson_for_shard, trandom.PRNGKey(MESH_KEY), 0,
+                       MESH_MAT_B, MESH_MAT_N, "cpu")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "nccl"),
+                                                 1))
+    try:
+        values, cent = mesh_inputs(torch)
+        gloo = os.path.join(tmp, "gloo")
+        os.makedirs(gloo)
+        with LaunchLog() as log:
+            info, launches, w = mesh_world1(torch, values, cent)
+        info.update(mesh_world4(torch, values, cent, gloo))
+        t1 = time.perf_counter()
+        w_cpu = draw.result()
+        info["cpu_draw_wait_s"] = time.perf_counter() - t1
+        flips, gap = poisson_flips(torch, trandom.PRNGKey(MESH_KEY), w,
+                                   w_cpu)
+        info["materialized_weights"] = dict(
+            entries=int(np.prod(w.shape)), ulp_flips=flips,
+            largest_gap_to_minus_1=gap)
+    finally:
+        dist.destroy_process_group()
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    info.update(card=smi, phase_s=time.perf_counter() - t0)
+    print("mesh: " + json.dumps(info))
+    print(f"launches, the mesh path (world 1): {json.dumps(launches)}; "
+          f"phase 14 took {info['phase_s']:.1f} s")
+    return launches, log.geometries, info
+
+
 def main() -> int:
     import torch
+    if "--mesh-rank" in sys.argv:
+        return mesh_rank(sys.argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
@@ -4693,15 +5205,17 @@ def main() -> int:
     lap("12 (gemma3-27b serving path)")
     lv_launches, lv_geometries, _ = phase_live_path(torch)
     lap("13 (live path)")
+    ms_launches, ms_geometries, _ = phase_mesh_path(torch)
+    lap("14 (mesh path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
                 + sv_launches[k] + gm_launches[k] + lv_launches[k]
-                for k in launches}
+                + ms_launches.get(k, 0) for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"eight: {json.dumps(launches)}")
+          f"nine: {json.dumps(launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
                          **mat_geometries, **st_geometries,
                          **sv_geometries, **gm_geometries,
-                         **lv_geometries}, parity)
+                         **lv_geometries, **ms_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)

@@ -12,7 +12,8 @@ Tensors pass through NumPy: ``save`` copies every leaf to the host before
 it returns, so a caller may fold the next chunk into the same tensors in
 place while an asynchronous write is still running.  ``restore`` takes a
 *template* tree and puts each array on its template leaf's device, in its
-dtype.  Every byte of a checkpoint goes through one write seam,
+dtype, or (the elastic path) onto a mesh through ``distribute_tensor``.
+Every byte of a checkpoint goes through one write seam,
 ``_write``, which ``ft.inject.enospc_after`` replaces to fill the disk.
 """
 from __future__ import annotations
@@ -88,6 +89,23 @@ def _unflatten_into(template: Any, flat: Dict[str, np.ndarray]) -> Any:
         out.append(torch.as_tensor(arr).to(device=leaf.device,
                                            dtype=leaf.dtype))
     return _rebuild(template, iter(out))
+
+
+def _distribute(tree: Any, shardings: Any) -> Any:
+    """Each tensor of ``tree`` through ``distribute_tensor`` onto the
+    (DeviceMesh, placements) pair at its place in ``shardings``, a tree of
+    ``tree``'s structure."""
+    if isinstance(tree, torch.Tensor):
+        from torch.distributed.tensor import distribute_tensor
+        mesh, placements = shardings
+        return distribute_tensor(tree, mesh, list(placements))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_distribute(v, s) for v, s in zip(tree, shardings))
+    if isinstance(tree, dict):
+        return {k: _distribute(v, shardings[k]) for k, v in tree.items()}
+    return type(tree)(**{f.name: _distribute(getattr(tree, f.name),
+                                             getattr(shardings, f.name))
+                         for f in dataclasses.fields(tree)})
 
 
 class CheckpointManager:
@@ -260,16 +278,24 @@ class CheckpointManager:
         with open(os.path.join(self._dir(step), "meta.json")) as f:
             return json.load(f)["extra"]
 
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> tuple[Any, Dict[str, Any]]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Any, Dict[str, Any]]:
         """Restore into ``template``'s structure, each leaf on its
-        template leaf's device and in its dtype."""
+        template leaf's device and in its dtype.  ``shardings`` (the
+        elastic path) is a tree of the template's structure holding a
+        (DeviceMesh, placements) pair a leaf: each restored leaf is then
+        ``distribute_tensor``-ed onto it.  Checkpoints hold full arrays,
+        so a restore onto a mesh of any size is exactly that; every rank
+        of the mesh calls it."""
         d = self._dir(step)
         with np.load(os.path.join(d, "arrays.npz")) as z:
             flat = {k: z[k] for k in z.files}
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
-        return _unflatten_into(template, flat), meta["extra"]
+        state = _unflatten_into(template, flat)
+        if shardings is not None:
+            state = _distribute(state, shardings)
+        return state, meta["extra"]
 
     # -- gc ---------------------------------------------------------------
     def _gc(self) -> None:

@@ -18,6 +18,18 @@ weighted statistic.  Two backends, as in the JAX package:
   others fall back to materializing the same implicit weights.  The
   stream seed derives from the key, so delta maintenance and common random
   numbers carry over from the JAX package bit for bit.
+
+Multi-rank (``mesh=`` and ``data_axis=`` on the fused backend): the n axis
+is split over the mesh's data axis, each rank (one process per rank,
+every rank holding the same global values) draws its implicit weights
+in-kernel on its own contiguous block of rows, from a stream keyed by
+``(base_seed, shard, chunk)`` through ``offset_seed``, and only the small
+per-resample states cross ranks (``Statistic.psum_state``).  The paper's
+Hadoop mapping: mapper = a shard's fused update, combiner = ``merge``,
+reducer = the ordered sum of mergeable states.
+``sharded_fused_states(..., mesh=None, nshards=s)`` runs the same
+decomposition in one process and is bitwise the mesh run (both fold the
+shards left to right in shard order): the oracle.
 """
 from __future__ import annotations
 
@@ -28,6 +40,8 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch.core import accuracy
+from repro_torch.core._mesh import (check_mesh, data_groups, num_shards,
+                                    shard_index)
 from repro_torch.core.reduce_api import Statistic, _as_2d, tree_map
 from repro_torch.device import as_tensor, resolve_device
 
@@ -84,6 +98,129 @@ def fused_resample_states(stat: Statistic, seed: int, x2: torch.Tensor,
     return tree_map(lambda *xs: torch.stack(xs), *rows)
 
 
+def _block(x: torch.Tensor, start: int, rows: int) -> torch.Tensor:
+    """Rows [start, start + rows) of ``x``, zero-padded past its end."""
+    blk = x[start:start + rows]
+    if blk.shape[0] == rows:
+        return blk
+    return torch.cat([blk, blk.new_zeros(rows - blk.shape[0], x.shape[1])])
+
+
+def _shard_local_states(stat: Statistic, base_seed: int,
+                        x_local: torch.Tensor, B: int, shard_idx: int,
+                        nshards: int, n_valid_local: int,
+                        chunk: Optional[int] = None, step: int = 0,
+                        with_estimate: bool = False):
+    """Fused states of ONE shard's local rows.
+
+    Local chunk c of shard i draws the stream ``offset_seed(base_seed,
+    (step + c) * nshards + i)``: distinct per (shard, chunk) within a call
+    and per (shard, step) across delta extends, and with one shard the
+    index collapses to the chunk or step counter, the unsharded seeds.
+    ``chunk=None`` is one fused call over the local rows.
+    ``with_estimate=True`` also folds the shard's valid rows into one
+    unweighted estimate state in the same pass: ``(states, est_state)``.
+    """
+    n_local, dim = x_local.shape
+    dev = x_local.device
+
+    def estimate(est, xc, nv):
+        vi = (torch.arange(xc.shape[0], device=dev) < nv).to(torch.float32)
+        return stat.update(est, xc, vi)
+
+    if chunk is None:
+        seed = offset_seed(base_seed, step * nshards + shard_idx)
+        states = fused_resample_states(stat, seed, x_local, B,
+                                       n_valid=n_valid_local)
+        if not with_estimate:
+            return states
+        return states, estimate(stat.init_state(dim, dev), x_local,
+                                n_valid_local)
+    nchunks = -(-n_local // chunk)
+    states = stat.init_batch(dim, B, dev)
+    est = stat.init_state(dim, dev)
+    for c in range(nchunks):
+        xc = _block(x_local, c * chunk, chunk)
+        nv = min(max(n_valid_local - c * chunk, 0), chunk)
+        seed = offset_seed(base_seed, (step + c) * nshards + shard_idx)
+        delta = fused_resample_states(stat, seed, xc, B, n_valid=nv)
+        if with_estimate:
+            est = estimate(est, xc, nv)
+        states = stat.merge(states, delta)
+    return (states, est) if with_estimate else states
+
+
+def sharded_fused_states(stat: Statistic, base_seed: int,
+                         x2: torch.Tensor, B: int, mesh=None,
+                         data_axis: str = "data",
+                         nshards: Optional[int] = None,
+                         chunk: Optional[int] = None, step: int = 0,
+                         with_estimate: bool = False):
+    """B-leading fused per-resample states of ``x2`` split over ``mesh``'s
+    ``data_axis`` (the multi-rank matrix-free path).
+
+    Rows go to ``nshards`` contiguous blocks of ``m = ceil(n / nshards)``
+    (the tail zero-padded, shard i valid for ``clip(n - i·m, 0, m)``
+    rows); each shard draws its implicit Poisson(1) weights in-kernel
+    from its own stream (``_shard_local_states``) and only the states are
+    summed across ranks (``Statistic.psum_state``).  Every rank passes the
+    same global ``x2`` and gets the same replicated states.
+
+    ``mesh=None`` with ``nshards`` runs the same decomposition in this
+    process, merging the shards left to right: the oracle a mesh run is
+    bitwise equal to.  ``chunk`` streams each shard's rows through
+    fixed-size fused calls; ``step`` offsets the stream counter for delta
+    extends.  They are mutually exclusive: the index (step + c)·nshards +
+    shard would alias across (step, chunk) pairs.  ``with_estimate=True``
+    returns ``(states, est_state)``, the unweighted estimate state summed
+    over the shards the same way.  The device of ``x2`` runs the
+    kernels."""
+    if not getattr(stat, "mergeable", True):
+        raise ValueError(
+            f"sharded_fused_states requires a mergeable statistic, but "
+            f"{type(stat).__name__} sets mergeable=False — its per-shard "
+            "states cannot be merge/psum-combined.  Use the single-device "
+            "bootstrap (backend='fused_rng' without mesh=/nshards=), or "
+            "implement an associative merge and set mergeable=True")
+    if not isinstance(x2, torch.Tensor):
+        raise TypeError("sharded_fused_states takes a torch.Tensor; its "
+                        "device picks the kernel (cuda) or the plain "
+                        "version (cpu)")
+    if mesh is not None:
+        nshards = num_shards(check_mesh(mesh), data_axis)
+    if nshards is None:
+        raise ValueError("sharded_fused_states needs mesh= or nshards=")
+    if chunk is not None and step != 0:
+        raise ValueError("chunk= and step= are mutually exclusive (their "
+                         "stream indices would alias; see docstring)")
+    x2 = _as_2d(x2)
+    n = x2.shape[0]
+    B, nshards = int(B), int(nshards)
+    m = -(-n // nshards)
+
+    def local(i):
+        nv = min(max(n - i * m, 0), m)
+        return _shard_local_states(stat, base_seed, _block(x2, i * m, m), B,
+                                   i, nshards, nv, chunk=chunk, step=step,
+                                   with_estimate=with_estimate)
+
+    if mesh is None:
+        states = est = None
+        for i in range(nshards):
+            si = local(i)
+            if with_estimate:
+                si, ei = si
+                est = ei if est is None else stat.merge(est, ei)
+            states = si if states is None else stat.merge(states, si)
+        return (states, est) if with_estimate else states
+    groups = data_groups(mesh, data_axis)
+    st = local(shard_index(mesh, data_axis))
+    if with_estimate:
+        st, est = st
+        return (stat.psum_state(st, groups), stat.psum_state(est, groups))
+    return stat.psum_state(st, groups)
+
+
 def multinomial_counts(key, B: int, n: int,
                        resample_size: Optional[int] = None,
                        device=None) -> torch.Tensor:
@@ -134,17 +271,20 @@ def bootstrap_thetas(values, stat: Statistic, weights: torch.Tensor,
 
 
 def check_backend(backend, engine, mesh) -> None:
-    """The backend rules the JAX package's entry points share.  ``mesh``
-    (and the ``data_axis`` that names one of its axes) is accepted in the
-    JAX package's place and raises: the mesh path is not ported yet."""
+    """The backend rules the JAX package's entry points share; a mesh must
+    also be a ``DeviceMesh`` (TypeError)."""
     if backend not in (None, "fused_rng"):
         raise ValueError(f"unknown bootstrap backend: {backend!r}")
     if backend == "fused_rng" and engine != "poisson":
         raise ValueError("backend='fused_rng' requires the poisson engine "
                          "(in-kernel RNG draws iid Poisson(1) weights)")
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP.md "
-                                  "§1 item 4, the mesh path)")
+        if backend != "fused_rng":
+            raise ValueError("mesh= requires backend='fused_rng' (the "
+                             "sharded path psums fused states; materialized "
+                             "weights would ship a (B, n) matrix across "
+                             "devices)")
+        check_mesh(mesh)
 
 
 def bootstrap(values, stat: Statistic, B: int, key, engine: str = "poisson",
@@ -155,7 +295,9 @@ def bootstrap(values, stat: Statistic, B: int, key, engine: str = "poisson",
     accuracy.  ``p`` (the sampled fraction) goes to ``stat.correct``.
 
     ``backend=None`` materializes the weights of ``engine``;
-    ``"fused_rng"`` runs the matrix-free pass (module docstring).
+    ``"fused_rng"`` runs the matrix-free pass (module docstring), and
+    with ``mesh=`` (a ``DeviceMesh``) splits the rows over ``data_axis``
+    and sums the per-shard states: every rank passes the same values.
     ``device=None`` means the card."""
     if not isinstance(stat, Statistic):
         raise TypeError("stat must be a reduce_api.Statistic")
@@ -164,7 +306,11 @@ def bootstrap(values, stat: Statistic, B: int, key, engine: str = "poisson",
     x2 = _as_2d(as_tensor(values, dev))
     B, n = int(B), x2.shape[0]
     if backend == "fused_rng":
-        states = fused_resample_states(stat, seed_from_key(key), x2, B)
+        if mesh is not None:
+            states = sharded_fused_states(stat, seed_from_key(key), x2, B,
+                                          mesh=mesh, data_axis=data_axis)
+        else:
+            states = fused_resample_states(stat, seed_from_key(key), x2, B)
         thetas = stat.finalize_batch(states)
     else:
         thetas = bootstrap_thetas(x2, stat,
@@ -188,7 +334,10 @@ def bootstrap_chunked(values, stat: Statistic, B: int, key,
     so no (B, n) matrix exists: (B, chunk) at most with ``backend=None``,
     whose chunk i draws ``poisson_weights(fold_in(key, i), B, chunk)``;
     with ``"fused_rng"`` chunk i is the stream ``offset_seed(base, i)``.
-    The unweighted estimate rides the same pass over each chunk."""
+    The unweighted estimate rides the same pass over each chunk.  With
+    ``mesh=`` (fused backend only) each rank streams its own block of rows
+    in ``chunk``-row fused calls and the states are summed once at the
+    end."""
     if engine != "poisson":
         raise ValueError("chunked bootstrap requires the poisson engine "
                          "(multinomial couples all chunks)")
@@ -197,6 +346,11 @@ def bootstrap_chunked(values, stat: Statistic, B: int, key,
     x = _as_2d(as_tensor(values, dev))
     n, dim = x.shape
     B = int(B)
+    if mesh is not None:
+        states, est = sharded_fused_states(
+            stat, seed_from_key(key), x, B, mesh=mesh, data_axis=data_axis,
+            chunk=chunk, with_estimate=True)
+        return _chunked_result(stat, states, est, p, B, n)
     xp = torch.cat([x, x.new_zeros((-n) % chunk, dim)])
     states = stat.init_batch(dim, B, dev)
     est = stat.init_state(dim, dev)
@@ -214,6 +368,10 @@ def bootstrap_chunked(values, stat: Statistic, B: int, key,
             w = poisson_weights(trandom.fold_in(key, i), B, chunk,
                                 device=dev) * vi[None, :]
             states = stat.update_batch(states, xi, w)
+    return _chunked_result(stat, states, est, p, B, n)
+
+
+def _chunked_result(stat, states, est, p, B, n) -> BootstrapResult:
     thetas = stat.correct(stat.finalize_batch(states), p)
     estimate = stat.correct(stat.finalize(est), p)
     return BootstrapResult(

@@ -8,7 +8,10 @@ Inter-iteration (§4.1), as in the JAX package:
   B, Δn)`` and updates every row (``backend=None``), or the matrix-free
   stream ``offset_seed(seed_from_key(key), step)`` merged into the states
   (``"fused_rng"``), so a run carried across from the JAX package
-  continues bit for bit.
+  continues bit for bit.  With ``mesh=`` (fused backend only) each rank
+  draws extension ``step``'s weights for its own block of Δs
+  (``sharded_fused_states(..., step=step)``) and only the delta states
+  are summed across ranks before the merge.
 * ``MultinomialDeltaBootstrap``: the paper-faithful baseline that fig10
   compares against.  Item-level resamples on the host in NumPy, grown
   through the §4.1 two-layer ``Sketch``, with the simulated disk accesses
@@ -34,7 +37,8 @@ from repro_torch import random as trandom
 from repro_torch.core import accuracy
 from repro_torch.core.bootstrap import (BootstrapResult, check_backend,
                                         fused_resample_states, offset_seed,
-                                        poisson_weights, seed_from_key)
+                                        poisson_weights, seed_from_key,
+                                        sharded_fused_states)
 from repro_torch.core.reduce_api import Statistic, StatisticGroup, _as_2d
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.random import key_data
@@ -51,8 +55,8 @@ class PoissonDelta:
     step: int            # one per extend
     backend: Optional[str] = None   # None: materialized Poisson weights;
     #                                 "fused_rng": matrix-free
-    mesh: Any = None                # accepted in the JAX package's place;
-    data_axis: str = "data"         # a mesh raises (not ported yet)
+    mesh: Any = None                # fused backend only: a DeviceMesh
+    data_axis: str = "data"         # whose data axis splits each Δs
     device: Optional[torch.device] = None   # None: the card
 
     def __post_init__(self):
@@ -77,8 +81,14 @@ def poisson_delta_extend(pd: PoissonDelta, new_values) -> PoissonDelta:
     """Fold Δs into the resample states and the point-estimate state."""
     x = _as_2d(as_tensor(new_values, pd.device))
     if pd.backend == "fused_rng":
-        seed = offset_seed(seed_from_key(pd.key), pd.step)
-        delta = fused_resample_states(pd.stat, seed, x, pd.B)
+        if pd.mesh is not None:
+            delta = sharded_fused_states(pd.stat, seed_from_key(pd.key), x,
+                                         pd.B, mesh=pd.mesh,
+                                         data_axis=pd.data_axis,
+                                         step=pd.step)
+        else:
+            seed = offset_seed(seed_from_key(pd.key), pd.step)
+            delta = fused_resample_states(pd.stat, seed, x, pd.B)
         states = pd.stat.merge(pd.states, delta)
     else:
         w = poisson_weights(trandom.fold_in(pd.key, pd.step), pd.B,

@@ -184,6 +184,18 @@ class Statistic:
         update(update(s0, x), y) (the delta-maintenance contract)."""
         return tree_map(torch.add, a, b)
 
+    def psum_state(self, state: State, axis_names) -> State:
+        """Cross-rank ``merge``: the per-shard states of a mesh summed over
+        its data axes.  ``axis_names`` is the port's handle for them, the
+        process group ``DeviceMesh.get_group`` returns (or a tuple of
+        groups, outermost axis first).  Every rank's leaves are gathered
+        and folded left to right in flat shard order, the order the
+        sequential ``nshards=`` oracle merges in, so a mesh run is bitwise
+        the oracle.  The default sums every leaf, as ``merge`` does; a
+        state with non-additive leaves (Quantile's lo/hi) overrides it."""
+        from repro_torch.core._mesh import psum_tree
+        return psum_tree(state, axis_names)
+
     def finalize(self, state: State) -> Result:
         raise NotImplementedError
 
@@ -388,6 +400,14 @@ class Quantile(Statistic):
 
     def merge(self, a: HistogramState, b: HistogramState) -> HistogramState:
         return HistogramState(counts=a.counts + b.counts, lo=a.lo, hi=a.hi)
+
+    def psum_state(self, state: HistogramState, axis_names
+                   ) -> HistogramState:
+        """Only the counts are additive; lo/hi are replicated configuration
+        (summed, they would scale the bin range by the shard count)."""
+        from repro_torch.core._mesh import psum_tensors
+        counts, = psum_tensors([state.counts], axis_names)
+        return HistogramState(counts=counts, lo=state.lo, hi=state.hi)
 
     def fused_poisson_states(self, seed, values, B, n_valid=None,
                              valid_mask=None):
@@ -596,6 +616,10 @@ class StatisticGroup(Statistic):
     def merge(self, a, b):
         return tuple(s.merge(ai, bi) for s, ai, bi in zip(self.slots, a, b))
 
+    def psum_state(self, state, axis_names):
+        return tuple(s.psum_state(st, axis_names)
+                     for s, st in zip(self.slots, state))
+
     def update_batch(self, states, values, weights):
         return tuple(s.update_batch(st, values, weights)
                      for s, st in zip(self.slots, states))
@@ -710,6 +734,9 @@ class GroupedStatistic(Statistic):
 
     def merge(self, a, b):
         return self.inner.merge(a, b)
+
+    def psum_state(self, state, axis_names):
+        return self.inner.psum_state(state, axis_names)
 
     def finalize(self, state) -> Result:
         return _tree_stack([self.inner.finalize(_tree_take(state, g, 0))

@@ -16,6 +16,7 @@ import numpy as np
 
 from repro_torch import random as trandom
 from repro_torch.core import ssabe as ssabe_mod
+from repro_torch.core._mesh import barrier, is_writer
 from repro_torch.core.accuracy import AccuracyReport
 from repro_torch.core.bootstrap import check_backend, seed_from_key
 from repro_torch.core.delta import (poisson_delta_extend, poisson_delta_init,
@@ -55,8 +56,11 @@ class EarlSession:
     prefix extension.  ``device=None`` runs on the card.  ``backend=None``
     materializes Poisson weights for SSABE and the delta-maintained main
     loop (the paper's engine); ``"fused_rng"`` runs both matrix-free.
-    ``mesh`` and ``data_axis`` stand in the JAX package's places; a mesh
-    raises (not ported yet).
+    ``mesh`` (a ``DeviceMesh``, fused backend only) splits SSABE's pilot
+    and every delta extension over ``data_axis``: per-shard in-kernel
+    weight streams, summed states, no weight traffic (the paper's
+    distributed resampling).  Every rank runs the session on the same
+    sampler and key and gets the same result.
 
     ``checkpoint`` (a ``CheckpointManager`` or a root path) snapshots the
     delta-maintained carry after every ``checkpoint_every``-th growth
@@ -64,7 +68,10 @@ class EarlSession:
     resume=True)`` restores the latest snapshot onto the session's device
     and continues.  The loop's only randomness is the PoissonDelta's (its
     key and per-extend step) and ``sampler.take`` is a fixed permutation,
-    so the resumed run is bitwise the uninterrupted one.
+    so the resumed run is bitwise the uninterrupted one.  Under a mesh
+    the rank at coordinate 0 writes each snapshot and the others wait at
+    a barrier until it is durable (one writer a root: several would race
+    on its staging directories); every rank restores.
     """
 
     def __init__(self, sampler, stat: Statistic, sigma: float = 0.05,
@@ -94,6 +101,8 @@ class EarlSession:
         self.max_pilot = int(max_pilot)
         self.l = int(l)
         self.backend = backend
+        self.mesh = mesh
+        self.data_axis = data_axis
 
     def _take(self, start: int, stop: int):
         return as_tensor(self.sampler.take(start, stop), self.device)
@@ -143,6 +152,18 @@ class EarlSession:
             wall_time_s=time.perf_counter() - t0, ssabe=est,
             reports=getattr(res.report, "members", None))
 
+    def _save(self, mgr, step: int, carry, extra: dict) -> None:
+        """One snapshot: the manager's own save without a mesh; under one,
+        the writer rank saves and waits until it is durable, and every
+        rank then passes a barrier."""
+        if self.mesh is None:
+            mgr.save(step, carry, extra=extra)
+            return
+        if is_writer(self.mesh):
+            mgr.save(step, carry, extra=extra)
+            mgr.wait()
+        barrier(self.mesh)
+
     def run(self, key, resume: bool = False) -> EarlyResult:
         t0 = time.perf_counter()
         N = self.sampler.N
@@ -162,7 +183,8 @@ class EarlSession:
         pilot = self._take(0, n_pilot)
         est = ssabe_mod.ssabe(pilot, self.stat, self.sigma, self.tau,
                               trandom.fold_in(key, 1), l=self.l, N=N,
-                              backend=self.backend, device=self.device)
+                              backend=self.backend, mesh=self.mesh,
+                              data_axis=self.data_axis, device=self.device)
         B, n_target = est.B, max(est.n, n_pilot)
 
         # ---- fallback check (paper §3.1) -------------------------------
@@ -172,7 +194,8 @@ class EarlSession:
         # ---- main loop with delta-maintained resamples ------------------
         dim = _as_2d(pilot).shape[1]
         pd = poisson_delta_init(self.stat, B, dim, trandom.fold_in(key, 2),
-                                backend=self.backend, device=self.device)
+                                backend=self.backend, mesh=self.mesh,
+                                data_axis=self.data_axis, device=self.device)
         spec, params = split_params(self.stat)
         fp = run_fingerprint(spec, params, int(B), seed_from_key(pd.key), N,
                              dim)
@@ -230,17 +253,17 @@ class EarlSession:
             history.append(entry)
             if mgr is not None and iterations % self.checkpoint_every == 0:
                 # the cursor rides meta.json, so history must be JSON-plain
-                mgr.save(iterations, (pd.states, pd.est_state),
-                         extra={"cursor": dict(
-                             kind="session", fingerprint=fp,
-                             n_have=int(n_have), step=int(pd.step),
-                             iterations=int(iterations),
-                             n_target_next=int(min(
-                                 N, int(n_have * self.growth))),
-                             history=[
-                                 {**e, "member_cvs": list(e["member_cvs"])}
-                                 if "member_cvs" in e else e
-                                 for e in history])})
+                self._save(mgr, iterations, (pd.states, pd.est_state),
+                           {"cursor": dict(
+                               kind="session", fingerprint=fp,
+                               n_have=int(n_have), step=int(pd.step),
+                               iterations=int(iterations),
+                               n_target_next=int(min(
+                                   N, int(n_have * self.growth))),
+                               history=[
+                                   {**e, "member_cvs": list(e["member_cvs"])}
+                                   if "member_cvs" in e else e
+                                   for e in history])})
             if res.cv <= self.sigma or n_have >= self.max_fraction * N:
                 if mgr is not None:
                     mgr.wait()          # durable before reporting success

@@ -22,7 +22,7 @@ from repro_torch import random as trandom
 from repro_torch.core import accuracy
 from repro_torch.core.bootstrap import (bootstrap_thetas, check_backend,
                                         fused_resample_states, seed_from_key,
-                                        weights_for)
+                                        sharded_fused_states, weights_for)
 from repro_torch.core.delta import (poisson_delta_extend, poisson_delta_init,
                                     poisson_delta_result)
 from repro_torch.core.reduce_api import Statistic, _as_2d, tree_map
@@ -63,14 +63,19 @@ def estimate_B(values, stat: Statistic, tau: float, key,
     prefixes of them are nested resample sets (common random numbers):
     rows of one (B_max, n) weight matrix of ``engine``, or with
     ``backend="fused_rng"`` implicit weights keyed per (resample tile,
-    item tile), whose row b does not depend on B_max."""
+    item tile), whose row b does not depend on B_max.  With ``mesh=`` the
+    pilot's rows are split over ``data_axis`` and only the states are
+    summed across ranks."""
     check_backend(backend, engine, mesh)
     if B_max is None:
         B_max = max(B_min + 1, int(math.ceil(1.0 / tau)))
     dev = resolve_device(device)
     x = _as_2d(as_tensor(values, dev))
     if backend == "fused_rng":
-        states = fused_resample_states(stat, seed_from_key(key), x, B_max)
+        seed = seed_from_key(key)
+        states = (fused_resample_states(stat, seed, x, B_max) if mesh is None
+                  else sharded_fused_states(stat, seed, x, B_max, mesh=mesh,
+                                            data_axis=data_axis))
         thetas_full = stat.finalize_batch(states)
     else:
         thetas_full = bootstrap_thetas(
@@ -130,7 +135,7 @@ def estimate_n(values, stat: Statistic, sigma: float, B: int, key,
     if n_cap is None:
         n_cap = 1 << 62
     pd = poisson_delta_init(stat, B, dim, key, backend=backend, mesh=mesh,
-                            device=dev)
+                            data_axis=data_axis, device=dev)
     history: List[Tuple[int, float]] = []
     prev = 0
     for i in range(1, l + 1):
@@ -150,15 +155,18 @@ def ssabe(pilot_values, stat: Statistic, sigma: float, tau: float, key,
           backend: str | None = None, mesh=None,
           data_axis: str = "data", device=None) -> SSABEResult:
     """Both SSABE phases on a pilot sample; ``engine`` draws phase A's
-    materialized weights."""
+    materialized weights, and ``mesh=`` splits both phases' rows over
+    ``data_axis`` (the states are summed, the weights never move)."""
     check_backend(backend, engine, mesh)
     dev = resolve_device(device)
     kb, kn = trandom.split(trandom.fold_in(key, 0xEA))
     B_hat, hist_B = estimate_B(pilot_values, stat, tau, kb, engine=engine,
-                               backend=backend, device=dev)
+                               backend=backend, mesh=mesh,
+                               data_axis=data_axis, device=dev)
     n_cap = N if N is not None else int(1e12)
     n_hat, hist_n, a, c = estimate_n(pilot_values, stat, sigma, B_hat, kn,
                                      l=l, n_cap=n_cap, backend=backend,
+                                     mesh=mesh, data_axis=data_axis,
                                      device=dev)
     x = _as_2d(as_tensor(pilot_values, dev)).cpu().numpy()
     return SSABEResult(

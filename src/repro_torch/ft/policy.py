@@ -1,14 +1,25 @@
 """One FailurePolicy for a run's failure behaviour, end to end.
 
-The port of the JAX package's ``ft/policy.py`` as far as the streaming
-driver needs it: ``ShardEvents`` (what happened to the shards of a run),
-``FailurePolicy`` (the prefetch path's ``retry`` and ``on_exhausted``, the
-reduce-side ``sigma``/``deadline_s`` verdict and the ``checkpoint`` a
-restart would restore from) and ``LagPolicy`` (a live session's answer to
-gaps, late batches and backlog).  EARL's §3.4 stance throughout: never
-wait unboundedly, degrade honestly, widen the CI through ``correct(p)``.
-``ElasticReport``/``elastic_estimate`` need the mesh path and are not
-ported yet.
+At the reduce a dead shard and a late shard are the same event, a missing
+partial, and EARL's §3.4 answer is never "wait" but "sum what arrived,
+bound the error of the survivors, and restart only if the bound misses
+sigma".  This module is that one path:
+
+* ``ShardEvents``: what happened to the shards of a run (lost outright,
+  per-shard completion times against ``FailurePolicy.deadline_s``).
+* ``elastic_estimate``: every failed or late shard folded into ONE row
+  mask (``failure_mask``, the mesh path's ceil-sized extents) and the
+  mesh step run once with it; a lost shard's partial is exactly zero,
+  the survivors' work is not recomputed, and the CI widens through
+  ``correct(p)`` with p the surviving fraction.
+* ``FailurePolicy``: the verdict (``meets_bound`` -> continue
+  approximate, else checkpoint restart), and the prefetch path's
+  ``retry``/``on_exhausted`` that the streaming driver reads.
+* ``LagPolicy``: a live session's answer to gaps, late batches and
+  backlog.
+
+``ft.recovery.estimate_with_failures`` and ``ft.straggler.DeadlineReducer``
+are thin veneers over ``elastic_estimate``.
 """
 from __future__ import annotations
 
@@ -16,7 +27,10 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core.reduce_api import _as_2d
+from repro_torch.device import as_tensor
 from repro_torch.ft.inject import RetryPolicy
+from repro_torch.ft.recovery import ShardLossReport, failure_mask
 
 CONTINUE = "continue_approximate"
 RESTART = "checkpoint_restart"
@@ -44,9 +58,8 @@ class ShardEvents:
 class FailurePolicy:
     """How a run responds to failure, end to end.
 
-    ``sigma``/``deadline_s`` govern the reduce-side verdict (``decide``;
-    the mesh path's ``elastic_estimate`` is not ported yet);
-    ``retry``/``on_exhausted`` govern the
+    ``sigma``/``deadline_s`` govern the reduce-side verdict
+    (``elastic_estimate``); ``retry``/``on_exhausted`` govern the
     prefetch-side read path (``bootstrap_streaming``'s ``ResilientStore``);
     ``checkpoint`` names where a restart would restore from.
     """
@@ -105,3 +118,44 @@ class LagPolicy:
                              f"got {self.shed_backlog}")
         if not 0.0 < self.p_shed <= 1.0:
             raise ValueError(f"p_shed must be in (0, 1], got {self.p_shed}")
+
+
+@dataclasses.dataclass
+class ElasticReport:
+    """Outcome of one degraded reduce."""
+    report: ShardLossReport
+    lost: Tuple[int, ...]            # shards that died mid-run
+    late: Tuple[int, ...]            # shards past the deadline
+    decision: str                    # CONTINUE or RESTART
+    can_restart: bool                # a CheckpointManager is configured
+
+
+def elastic_estimate(earl, values, key, events: ShardEvents,
+                     policy: FailurePolicy) -> ElasticReport:
+    """Degraded mesh estimate under mid-run shard loss and lateness.
+
+    Every failed or late shard goes into one ``failure_mask`` and the
+    mesh step runs once with it: the fused backend multiplies its
+    implicit weight tiles by each shard's mask block (interior holes
+    included), so a dead shard adds a zero partial and no surviving
+    shard's work is recomputed.  The result is bitwise
+    ``earl.estimate_with_loss_mask`` under the same mask."""
+    late = events.late(policy.deadline_s)
+    dead = tuple(sorted(set(events.lost) | set(late)))
+    x = _as_2d(as_tensor(values, earl.device))
+    mask = failure_mask(x.shape[0], events.n_shards, dead)
+    p = float(mask.mean())
+    res = earl.estimate_with_loss_mask(x, mask, key, p=p)
+    ok = res.cv <= policy.sigma
+    rep = ShardLossReport(
+        result=res.estimate, cv=res.cv,
+        ci_lo=res.report.ci_lo, ci_hi=res.report.ci_hi,
+        shards_total=events.n_shards, shards_lost=len(dead),
+        p_surviving=p, meets_bound=ok,
+        recommendation=("serve approximate result (within bound); "
+                        "defer node recovery" if ok else
+                        "error bound exceeded: trigger checkpoint restart "
+                        "of lost shards"))
+    return ElasticReport(report=rep, lost=tuple(sorted(events.lost)),
+                         late=late, decision=policy.decide(ok),
+                         can_restart=policy.checkpoint is not None)

@@ -1,7 +1,8 @@
 """The model stack of the JAX package's ``repro.models`` for the dense
 attention configs: config, layers, blocks and the decoder's forward,
-losses and serving paths.  ``partitioning`` and ``act_shard`` wait with
-the mesh path (ROADMAP.md §1); ``hint`` is the identity here."""
+losses and serving paths.  ``partitioning`` and ``act_shard`` are not
+ported yet (ROADMAP.md §1 item 5; they build on the mesh of
+``core/_mesh.py``); ``hint`` is the identity here."""
 from repro_torch.models.config import (SHAPES, SMOKE_SHAPES, ModelConfig,
                                        ShapeConfig, shape_is_supported)
 from repro_torch.models.decoder import (decode_step, embed, forward_hidden,

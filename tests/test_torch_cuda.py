@@ -45,7 +45,10 @@ and past 256 it raises.  The live slice: a session whose batches span two
 window panes launches kernel 2 (or 4) once a pane and holds each pane's
 states against the CPU session's as above; a live session and an
 EarlSession killed and resumed on the card are bitwise their
-uninterrupted runs, with the restored states on the card.
+uninterrupted runs, with the restored states on the card.  The mesh
+slice: a world of one NCCL rank (a fresh interpreter) gives the quickstart
+group's and a GroupedStatistic's sharded states bitwise the unsharded
+fused path, plain and at a delta step.
 """
 import numpy as np
 import pytest
@@ -1233,3 +1236,55 @@ def test_cuda_session_resume_is_bitwise(cuda, tmp_path):
     cpu = run("cpu")
     assert (cpu.B, cpu.n_used, cpu.iterations) == \
         (base.B, base.n_used, base.iterations)
+
+
+_NCCL1_SCRIPT = r"""
+import os, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.core import (GroupedStatistic, Mean, Quantile,
+                              StatisticGroup, Std, fused_resample_states,
+                              sharded_fused_states)
+from repro_torch.core.bootstrap import offset_seed
+from repro_torch.checkpoint.manager import _leaves
+
+os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+dist.init_process_group("nccl", store=dist.FileStore(sys.argv[1], 1),
+                        rank=0, world_size=1)
+try:
+    mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+    gen = torch.Generator().manual_seed(5)
+    n = (1 << 16) + 37
+    x = (torch.randn(n, 1, generator=gen) * 2 + 10).cuda()
+    keyed = torch.cat([x, torch.randint(0, 8, (n, 1), generator=gen)
+                       .float().cuda()], 1)
+    cases = ((StatisticGroup((Mean(), Quantile(0.5, lo=0.0, hi=25.0),
+                              Std())), x),
+             (GroupedStatistic(Mean(), 8), keyed))
+    for stat, v in cases:
+        for step in (0, 2):
+            got = sharded_fused_states(stat, 99, v, 64, mesh=mesh,
+                                       step=step)
+            want = fused_resample_states(stat, offset_seed(99, step), v, 64)
+            for (p, a), (_, b) in zip(_leaves(got), _leaves(want)):
+                assert a.is_cuda and torch.equal(a, b), (type(stat), p)
+finally:
+    dist.destroy_process_group()
+print("nccl world of 1: bitwise")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world_of_one_is_the_unsharded_path(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    out = subprocess.run(
+        [sys.executable, "-c", _NCCL1_SCRIPT, str(tmp_path / "store")],
+        env=dict(os.environ, PYTHONPATH=src), capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "bitwise" in out.stdout

@@ -1,6 +1,6 @@
 """Repairs of the port against the JAX package: the tiled scan for keyed
-custom statistics and groups with keyed or custom members, and the public
-signatures in the JAX package's order.
+custom statistics and groups with keyed or custom members, the public
+signatures in the JAX package's order, and the rules a mesh is held to.
 
 The tiled scan (``fused_poisson_tiled``) runs on the CPU here, against
 the JAX package's ``fused_poisson_tiled`` and ``backend="scan"``: w_tot
@@ -17,7 +17,10 @@ import pytest
 import torch
 
 import repro.core as jcore
+import repro.ft as jft
 import repro_torch.core as tcore
+import repro_torch.ft as tft
+from repro.checkpoint.manager import CheckpointManager as JManager
 from repro.core import GroupedStatistic as JGrouped
 from repro.core import MomentState as JMomentState
 from repro.core import Statistic as JStatistic
@@ -25,6 +28,7 @@ from repro.kernels.fused_multi import ops as jfm
 from repro.kernels.weighted_stats import ops as jws
 from repro_torch.core import (EarlSession, GroupedStatistic, MomentState,
                               PoissonDelta, Statistic, poisson_weights)
+from repro_torch.checkpoint import CheckpointManager as TManager
 from repro_torch.core.bootstrap import fused_resample_states
 from repro_torch.kernels.fused_multi.ops import fused_poisson_tiled
 from repro_torch.kernels.poisson_counts.ops import poisson_tiles
@@ -158,8 +162,12 @@ ENTRY_POINTS = [
         "poisson_delta_init", "PoissonDelta", "EarlSession",
         "MultinomialDeltaBootstrap", "shared_base_bootstrap", "ssabe",
         "kmeans_fit", "Quantile", "Median", "KMeansStep", "StatisticGroup",
-        "GroupedStatistic")] + [
-    (jssabe, tssabe, n) for n in ("estimate_B", "estimate_n")]
+        "GroupedStatistic", "sharded_fused_states", "DistributedEarl",
+        "build_bootstrap_step", "shard_values")] + [
+    (jssabe, tssabe, n) for n in ("estimate_B", "estimate_n")] + [
+    (jft, tft, n) for n in ("estimate_with_failures", "failure_mask",
+                            "DeadlineReducer", "elastic_estimate")] + [
+    (JManager, TManager, "restore")]
 
 
 def _params(obj):
@@ -182,20 +190,39 @@ def test_public_signatures_follow_the_jax_order(jmod, tmod, name):
     assert got == want
 
 
-def test_unported_mesh_and_checkpoint_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EarlSession(None, tcore.Mean(), mesh=object(), device="cpu")
+def test_a_mesh_is_a_device_mesh_on_the_fused_backend_and_checkpoints_work():
+    """A mesh that is not a ``DeviceMesh`` raises TypeError naming what a
+    mesh must be; ``mesh=`` without ``backend="fused_rng"`` raises the
+    JAX package's ValueError, whatever the mesh."""
+    key = trandom.PRNGKey(0)
+
+    def session(backend):
+        return EarlSession(None, tcore.Mean(), mesh=object(),
+                           backend=backend, device="cpu")
+
+    def boot(backend):
+        return tcore.bootstrap(np.ones(4), tcore.Mean(), 2, key,
+                               backend=backend, mesh=object(), device="cpu")
+
+    def delta(backend):
+        return PoissonDelta(stat=tcore.Mean(), key=key, states=None,
+                            est_state=None, B=2, n=0, step=0,
+                            backend=backend, mesh=object(), device="cpu")
+
+    for make in (session, boot, delta):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            make("fused_rng")
+        with pytest.raises(ValueError,
+                           match="mesh= requires backend='fused_rng'"):
+            make(None)
+    with pytest.raises(ValueError, match="mesh= requires backend='fused_rng'"):
+        jcore.EarlSession(None, jcore.Mean(), mesh=object())
+    with pytest.raises(ValueError, match="mesh= requires backend='fused_rng'"):
+        jcore.bootstrap(jnp.ones(4), jcore.Mean(), 2, None, mesh=object())
     # the checkpoint branch is ported: the constructor takes one
     s = EarlSession(None, tcore.Mean(), checkpoint="ck", checkpoint_every=2,
                     device="cpu")
     assert (s.checkpoint, s.checkpoint_every) == ("ck", 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.bootstrap(np.ones(4), tcore.Mean(), 2, trandom.PRNGKey(0),
-                        mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoissonDelta(stat=tcore.Mean(), key=trandom.PRNGKey(0), states=None,
-                     est_state=None, B=2, n=0, step=0, mesh=object(),
-                     device="cpu")
 
 
 def test_poisson_weights_takes_the_dtype_fourth():
