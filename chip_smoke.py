@@ -64,7 +64,10 @@ failure:
    cores) at tests/test_kernels.py's sweep, the unaligned Sq = 67 at
    head_dim 120 and GQA 4, a decode-offset case (kv_offset = 4096, window
    4096), head dims 20 and 128, Sq and Skv of 200 and 513, a query block
-   that sees no key (all zeros), and head dims 168 and 256, each in f32
+   that sees no key (all zeros), head dims 168 and 256, and phase 15's
+   non-causal geometries at batch 1 (64/8 heads of 128, 8192 queries over
+   1600 keys; 12/12 heads of 64, 1500 over 1500 and 224 over 1500), each
+   in f32
    (atol 2e-5, rtol
    1e-4) and bf16 (one bf16 rounding, 1e-3 + 2^-7·|want|, plus the
    rounding of P to bf16 before P·V, 2^-8·(Σ p·|v|)/l from the plain
@@ -217,9 +220,27 @@ failure:
    p_surviving = 0.5.  Prints psum_state's ms a call at world 1 (NCCL)
    and 4 (gloo, through pinned host memory), the spawn-to-join s and the
    phase's s beside the card's name and power limit;
-8. replay every distinct launch geometry that phases 4 to 7 and 10 to 14
+15. (run after phase 14) the cross-attention serving path, from zeroed
+   counts with its geometries logged: llama-3.2-vision-90b at its
+   published widths (d_model 8192, 64/8 heads of 128, d_ff 28672, vocab
+   128,256 padded to 129,024) cut to one ("full" x 4, "xattn") pattern
+   group (5 of its 100 layers: all 100 in f32 would be about 358 GB),
+   4 x 8192-token prompts each with 1600 stub image embeddings, then
+   whisper-small whole (12 encoder and 12 decoder layers, d_model 768,
+   12/12 heads of 64, vocab 51,865), 16 clips of 1500 stub frame
+   embeddings with 224-token prompts; seeded f32 params with every
+   cross-attention gate drawn from uniform [0.5, 1.0) (printed), 32
+   greedy decode steps; phase 11's gates, generalised: kernel 12 once a
+   self-attention, a cross-attention and an encoder layer in the prefill
+   (6 and 36) and never in decode, the peak above the params below one
+   layer's f32 scores plus the cross caches and enc_out, the parameter
+   count the config's plus the leaves its num_params leaves out; the same
+   prefill with every gate at zero moves the logits past the tolerance;
+   decode == teacher forcing; card == CPU on llama's xattn layer and on
+   the whole whisper model (one request, the CPU fed the card's tokens);
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 15
    logged on fresh data and hold it against the plain version as in
-   phase 3;
+   phase 3, printing each geometry's seconds, the longest first;
 9. time each kernel (CUDA events) beside its plain version, its bound
    and, for the explicit-weight kernels, one PyTorch call computing the
    same function; the sessions' wall times and the example's walls over a
@@ -244,8 +265,11 @@ failure:
    over the memory rate), scaled_dot_product_attention with the boolean
    causal-window mask (bf16, and f32 on the memory-efficient backend) and
    its own f32 route, and at gemma3-27b's local and global layers and
-   recurrentgemma-2b's local layers (D = 168 and 256) in bf16 and f32;
-   then print the kernels line, then the contract's last line.
+   recurrentgemma-2b's local layers (D = 168 and 256) in bf16 and f32,
+   and at phase 15's three non-causal geometries (llama's
+   cross-attention, whisper's encoder and cross-attention) alone, with
+   their bounds and one unmasked bf16 scaled_dot_product_attention call
+   each; then print the kernels line, then the contract's last line.
 
 Every plain version that a kernel is held against or timed beside runs
 under a check that it launches no kernel.
@@ -401,6 +425,31 @@ GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_W = 32, 16, 168, 1024
 # kernel 12 past head dim 128 at recurrentgemma-2b's local layers (10
 # query heads on 1 KV head of 256, window 2048) at the prefill's B and S
 RG_HQ, RG_HKV, RG_D, RG_W = 10, 1, 256, 2048
+# cross-attention serving (phase 15): llama-3.2-vision-90b at its published
+# widths cut to one ("full" x 4, "xattn") pattern group (5 of its 100
+# layers: all 100 in f32 would be about 358 GB of parameters), SERVE_B
+# requests of SERVE_PROMPT tokens, each with its 1600 stub image
+# embeddings; whisper-small whole (12 encoder and 12 decoder layers), 16
+# clips of 30 s (1500 stub frame embeddings each) with 224-token prompts
+# (half its 448-token text context); both SERVE_GEN greedy decode steps,
+# every cross-attention gate drawn from uniform [GATE_LO, GATE_HI) (the
+# init law's zero gate would make the cross-attention add nothing).
+# llama's stub image embeddings are normal with std VLM_AUX_STD: at std 1
+# its one cross-attention's softmax over 1600 keys is near uniform, its
+# output averages to about 1% of the residual, and zeroing the gate moved
+# the prefill's logits by 0.059, under the 0.092 tolerance of the logit
+# checks, which could then not see the cross-attention at all (whisper's
+# twelve, over its encoder's normed output, move them by far more)
+VLM_ARCH, VLM_SEED, VLM_LAYERS, VLM_AUX_STD = \
+    "llama-3.2-vision-90b", 90, 5, 2.0
+WHISPER_ARCH, WHISPER_SEED, WHISPER_B, WHISPER_PROMPT = \
+    "whisper-small", 30, 16, 224
+GATE_LO, GATE_HI = 0.5, 1.0
+#: kernel 12's non-causal geometries of phase 15, timed in phase 9:
+#: (name, B, Hq, Hkv, Sq, Skv, D)
+XA_TIMED = (("llama_cross_attention", 4, 64, 8, 8192, 1600, 128),
+            ("whisper_encoder", 16, 12, 12, 1500, 1500, 64),
+            ("whisper_cross_attention", 16, 12, 12, 224, 1500, 64))
 # dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet, 700 W)
 BF16_FLOPS_PER_S = 989e12
 # the repaired routing: a keyed custom statistic's tiled scan at the
@@ -1926,6 +1975,19 @@ def counted(fn):
                  if after[k] != before[k]}
 
 
+def main_run(fn):
+    """(fn(), the launches per kernel of that run alone): a run of the
+    main path, from zeroed counts (a LaunchLog around it goes on logging
+    geometries)."""
+    zero_counts()
+    out = fn()
+    return out, LaunchLog.counts()
+
+
+def add_counts(*runs) -> dict:
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def fault_tolerance_walk(torch):
     """examples/fault_tolerance.py parts 1 to 3 on the card, each held
     bitwise against its oracle, then the walk's Mean and Count on the
@@ -2453,7 +2515,8 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
     lo = torch.full((1,), LO, device="cuda")
     hi = torch.full((1,), HI, device="cuda")
     shapes = {}
-    for (name, fields), count in sorted(geometries.items(), key=str):
+
+    def one(name, fields, count):
         g = dict(fields)
         Bp, np_ = g.get("Bp"), g.get("np_")
         what = f"replay of {count} main-path launch(es) at {g}"
@@ -2461,24 +2524,24 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
             shapes.setdefault(name, []).append((g.get("B", g.get("R")),
                                                 g["n"]))
             replay_materialized(torch, parity, gen, name, fields, what)
-            continue
+            return
         if name == "flash_attention":
             shapes.setdefault(name, []).append((g["BHq"], g["Sq"], g["Skv"],
                                                 g["D"]))
             replay_attention(torch, parity, gen_cuda, fields, what)
-            continue
+            return
         if name in ("fused_poisson_moments_stream",
                     "fused_poisson_hist_binblocked"):
             shapes.setdefault(name, []).append((Bp, np_))
             replay_stream(torch, parity, gen, name, fields, what)
-            continue
+            return
         shapes.setdefault(name, []).append(
             (g["n"], g["k"], g["d"]) if name == "kmeans_assign"
             else (Bp, np_))
         seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
         if name in GROUPBY_KERNELS:
             replay_grouped(torch, parity, gen, seed, name, fields, what)
-            continue
+            return
         if name in KMEANS_KERNELS:
             # the plain versions launch nothing, so the log sees only the
             # kernel's launch
@@ -2497,7 +2560,7 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                                       n_valid=g["n_valid"], valid_mask=mask)
             check((name, fields) in log.geometries, f"{what}: launched "
                   f"{list(log.geometries)}")
-            continue
+            return
         if name == "poisson_counts" and g["offset"]:
             # a chunk of the tiled scan: n-tiles from an offset
             t0, t1 = 5, 5 + np_ // g["bn"]
@@ -2509,7 +2572,7 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
             parity.bitwise(name, w_k, plain(
                 weight_block, seed, np_ * 4, Bp, g["bb"], g["bn"], t0, t1,
                 device="cuda"), what)
-            continue
+            return
         if name == "poisson_counts":
             with LaunchLog() as log:
                 w_k = poisson_counts(seed, Bp, np_, device="cuda")
@@ -2518,7 +2581,7 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
             parity.bitwise(name, w_k, plain(
                 poisson_weights_plain, seed, Bp, np_, g["bb"], g["bn"],
                 device="cuda"), what)
-            continue
+            return
         d = g["d"]
         x = (torch.rand(np_, d, generator=gen) * (HI - LO) + LO).cuda()
         mask = None
@@ -2562,12 +2625,22 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                 for a, b in zip(got, ded):
                     check(bool((a == b).all()), f"{what}: a group member "
                           "differs from the dedicated kernel")
+    seconds = []
+    for (name, fields), count in sorted(geometries.items(), key=str):
+        t0 = time.perf_counter()
+        one(name, fields, count)
+        torch.cuda.synchronize()
+        seconds.append((time.perf_counter() - t0, name, dict(fields)))
     torch.cuda.synchronize()
     print(f"replay: {sum(len(v) for v in shapes.values())} main-path launch "
           f"geometries match their plain versions; (Bp, np), (n, k, d) "
           f"for kmeans_assign, (rows, n) for the explicit-weight kernels, "
           f"or (B·Hq, Sq, Skv, D) for flash_attention, per kernel "
           f"{json.dumps(shapes)}")
+    seconds.sort(key=lambda r: -r[0])
+    print(f"replay seconds: {sum(r[0] for r in seconds):.1f} s over "
+          f"{len(seconds)} geometries, the longest first: "
+          + json.dumps([[round(t, 3), n, g] for t, n, g in seconds]))
 
 
 def replay_grouped(torch, parity, gen, seed, name, fields, what) -> None:
@@ -3156,7 +3229,10 @@ def phase_timing(torch, launches, parity: Parity, quickstart):
 #: (b, hq, hkv, sq, skv, d), kwargs: tests/test_kernels.py's sweep, the
 #: unaligned Sq = 67 at head_dim 120 and GQA 4, a decode-offset case, head
 #: dims 20 (padded to 24 for TMA) and 128, Sq and Skv off the 128-row
-#: tiles (200, 513), and a query block that sees no key at all
+#: tiles (200, 513), a query block that sees no key at all, and phase
+#: 15's non-causal geometries at batch 1 (XA_TIMED: llama-3.2-vision's
+#: cross-attention, GQA 64/8 at D = 128 over 1600 keys; whisper-small's
+#: encoder, 1500 frames, and its cross-attention, 224 queries over them)
 FA_NO_KEY_OFFSET = 100
 FA_CASES = [
     ((2, 4, 2, 64, 64, 32), dict(causal=True)),
@@ -3172,6 +3248,9 @@ FA_CASES = [
     ((1, 4, 4, 200, 513, 64), dict(causal=False)),
     ((1, 2, 1, 64, 32, 16), dict(causal=True, window=16,
                                  kv_offset=FA_NO_KEY_OFFSET)),
+    ((1, 64, 8, 8192, 1600, 128), dict(causal=False)),
+    ((1, 12, 12, 1500, 1500, 64), dict(causal=False)),
+    ((1, 12, 12, 224, 1500, 64), dict(causal=False)),
 ]
 #: head dims past 128, held in both routes: gemma3-27b's 168 at its 32/16
 #: heads (three TMA boxes, the third 24 columns of zero fill) and 256
@@ -3258,12 +3337,14 @@ def logits_tolerance(want) -> float:
     return 2e-2 * float(want.abs().max())
 
 
-def serve(torch, cfg, params, prompts, gen_steps, cache_len, forced=None):
-    """prefill (with room for the decode steps) and greedy decode steps, or
-    steps fed the tokens ``forced`` (B, gen_steps); returns (logits per
-    step, decoded tokens, prefill seconds, decode seconds, flash_attention
-    launches of the prefill and of the decode, the cache after the last
-    step)."""
+def serve(torch, cfg, params, prompts, gen_steps, cache_len, forced=None,
+          aux=None):
+    """prefill (with room for the decode steps; ``aux`` the stub image or
+    frame embeddings of a model with cross-attention) and greedy decode
+    steps, or steps fed the tokens ``forced`` (B, gen_steps); returns
+    (logits per step, decoded tokens, prefill seconds, decode seconds,
+    flash_attention launches of the prefill and of the decode, the cache
+    after the last step)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models import prefill
     from repro_torch.train import make_decode_step
@@ -3276,7 +3357,8 @@ def serve(torch, cfg, params, prompts, gen_steps, cache_len, forced=None):
     n0 = flash_attention.launches
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits, cache = prefill(cfg, params, prompts, cache_len=cache_len)
+        logits, cache = prefill(cfg, params, prompts, aux=aux,
+                                cache_len=cache_len)
     sync()
     t_prefill = time.perf_counter() - t0
     n_prefill = flash_attention.launches - n0
@@ -3381,7 +3463,9 @@ def routing_on_the_card(torch):
     """The repaired routing: a group with a keyed and a custom member,
     each bitwise its dedicated run, and a keyed custom statistic over
     B = 256, n = 2^24 - 1000 rows whose peak stays below one (B, n) f32
-    weight matrix."""
+    weight matrix.  Returns (info, the launches of the group's run and
+    the keyed custom statistic's, each from zeroed counts: the dedicated
+    runs and the CPU comparison are checks)."""
     from repro_torch.core import (GroupedStatistic, Mean, MomentState,
                                   Statistic, StatisticGroup)
     from repro_torch.core.bootstrap import fused_resample_states
@@ -3420,8 +3504,8 @@ def routing_on_the_card(torch):
 
     vals = keyed_rows(ROUTE_GROUP_N, 1)
     keyed, custom = GroupedStatistic(Mean(), ROUTE_G), AbsSum()
-    got = fused_poisson_multi(StatisticGroup((Mean(), keyed, custom)), 77,
-                              vals, BIG_B)
+    got, group_launches = main_run(lambda: fused_poisson_multi(
+        StatisticGroup((Mean(), keyed, custom)), 77, vals, BIG_B))
     want = (fused_poisson_moments(77, vals, BIG_B),
             keyed.fused_poisson_states(77, vals, BIG_B),
             fused_poisson_tiled(custom, 77, vals, BIG_B))
@@ -3446,8 +3530,8 @@ def routing_on_the_card(torch):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    st = fused_resample_states(GroupedStatistic(AbsSum(), ROUTE_G), 99, vals,
-                               BIG_B)
+    st, keyed_launches = main_run(lambda: fused_resample_states(
+        GroupedStatistic(AbsSum(), ROUTE_G), 99, vals, BIG_B))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
@@ -3460,26 +3544,213 @@ def routing_on_the_card(torch):
           f"its members' dedicated runs; a keyed custom statistic at "
           f"B={BIG_B}, n={BOOT_N}: {wall:.3f} s, peak {peak} B above the "
           f"data (a (B, n) f32 matrix is {bn_bytes} B)")
-    return dict(keyed_custom_s=wall, keyed_custom_peak_bytes=peak)
+    return (dict(keyed_custom_s=wall, keyed_custom_peak_bytes=peak),
+            add_counts(group_launches, keyed_launches))
+
+
+def layer_kinds(cfg):
+    return [cfg.layer_pattern[i % cfg.pattern_len]
+            for i in range(cfg.n_layers)]
+
+
+def prefill_launches(cfg) -> int:
+    """Kernel 12's launches in one prefill (or forward): one a layer's
+    self-attention, one a cross-attention (``xattn``/``dec`` layers) and
+    one an encoder layer."""
+    kinds = layer_kinds(cfg)
+    return (len(kinds) + sum(k in ("xattn", "dec") for k in kinds)
+            + cfg.enc_layers)
+
+
+def uncounted_leaves(cfg) -> int:
+    """Parameters the reference's analytic ``num_params`` leaves out: a
+    gate a cross-attention, an x_norm a ``dec`` layer (an ``xattn`` layer's
+    is counted) and the encoder's final norm (ROADMAP §3)."""
+    kinds = layer_kinds(cfg)
+    return (kinds.count("xattn") + kinds.count("dec") * (cfg.d_model + 1)
+            + (cfg.d_model if cfg.is_encdec else 0))
+
+
+def aux_len(cfg) -> int:
+    return cfg.vision_tokens or cfg.enc_seq
+
+
+def layer_score_bytes(cfg, batch: int, prompt: int) -> int:
+    """The largest f32 score tensor one layer would hold, B·Hq·Sq·Skv·4
+    summed over its attentions: a decoder layer's self-attention and
+    cross-attention, or an encoder layer's self-attention over the aux."""
+    per = batch * cfg.n_heads * 4
+    cross = any(k in ("xattn", "dec") for k in cfg.layer_pattern)
+    out = per * prompt * (prompt + (aux_len(cfg) if cross else 0))
+    if cfg.is_encdec:
+        out = max(out, per * cfg.enc_seq * cfg.enc_seq)
+    return out
+
+
+def aux_cache_bytes(cfg, batch: int) -> int:
+    """Bytes of the prefill's cache that the cross-attention adds: each
+    ``xattn``/``dec`` layer's K/V over the aux, and ``enc_out``."""
+    cd = 2 if cfg.compute_dtype == "bfloat16" else 4
+    kv = 2 * batch * cfg.n_kv_heads * aux_len(cfg) * cfg.head_dim_ * cd
+    n = sum(k in ("xattn", "dec") for k in layer_kinds(cfg))
+    enc = batch * cfg.enc_seq * cfg.d_model * cd if cfg.is_encdec else 0
+    return n * kv + enc
+
+
+def self_cache_bytes(cfg, batch: int, cache_len: int) -> int:
+    """Bytes of the self-attention KV caches a prefill returns: each
+    layer's K and V over its ring (the window for ``swa``/``local``)."""
+    cd = 2 if cfg.compute_dtype == "bfloat16" else 4
+    out = 0
+    for kind in layer_kinds(cfg):
+        ring = (min(cfg.window, cache_len) if kind in ("swa", "local")
+                and cfg.window else cache_len)
+        out += 2 * batch * cfg.n_kv_heads * ring * cfg.head_dim_ * cd
+    return out
+
+
+def prefill_live_bytes(cfg, batch: int, prompt: int, cache_len: int
+                       ) -> int:
+    """What the prefill can hold at once besides the params, from the
+    code's own tensors, for the widest pass (the decoder's B·prompt tokens
+    or the encoder's B·enc_seq frames): the MLP's four (tokens, d_ff)
+    products in matmul_out_dtype (gate, up, silu(gate) and their product),
+    four (tokens, d_model) f32 residual-stream tensors, one layer's weights
+    and the embedding cast to the compute dtype, and the caches the
+    prefill returns (self K/V, cross K/V, enc_out)."""
+    cd = 2 if cfg.compute_dtype == "bfloat16" else 4
+    ob = 4 if cfg.matmul_out_dtype == "float32" else cd
+    tokens = max(batch * prompt, batch * cfg.enc_seq if cfg.is_encdec else 0)
+    attn = ((2 * cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim_
+            * cfg.d_model)
+    cross = any(k in ("xattn", "dec") for k in cfg.layer_pattern)
+    layer = (attn * (2 if cross else 1) + 3 * cfg.d_model * cfg.d_ff) * cd
+    return (4 * tokens * cfg.d_ff * ob + 4 * tokens * cfg.d_model * 4
+            + layer + cfg.padded_vocab * cfg.d_model * cd
+            + self_cache_bytes(cfg, batch, cache_len)
+            + aux_cache_bytes(cfg, batch))
+
+
+def cross_leaves(cache) -> dict:
+    """The cross-attention's part of a serving cache, by name: enc_out,
+    and each ``xattn``/``dec`` layer's K and V (a stacked group's one
+    layer at a time)."""
+    out = {}
+    if "enc_out" in cache:
+        out["enc_out"] = cache["enc_out"]
+    for part in ("groups", "rem"):
+        for name, c in cache.get(part, {}).items():
+            if "xattn" not in c:
+                continue
+            for kv in ("k", "v"):
+                for i, t in enumerate(c["xattn"][kv]):
+                    out[f"{part}.{name}[{i}].xattn.{kv}"] = t
+    return out
+
+
+class CrossTap:
+    """Records, in call order, the output of every cross-attention a
+    prefill runs (``models.layers.cross_attention`` in prefill mode),
+    copied to the host, while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.orig, self.outs = layers, layers.cross_attention, []
+
+        def tap(cfg, p, x, aux, cache=None, mode="train"):
+            y, c = self.orig(cfg, p, x, aux, cache=cache, mode=mode)
+            if mode == "prefill":
+                self.outs.append(y.detach().float().cpu())
+            return y, c
+        layers.cross_attention = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.cross_attention = self.orig
+
+
+def hold_relative(torch, got: dict, want: dict, what: str) -> dict:
+    """Each of ``got`` (card) against ``want`` (CPU) within 2e-2 of its
+    own largest |value| (logits_tolerance's bf16 rule); returns each
+    error's share of its tolerance."""
+    check(list(got) == list(want), f"{what}: the card has {list(got)}, the "
+          f"CPU {list(want)}")
+    shares = {}
+    for name, w in want.items():
+        w = w.float().cpu()
+        err = float((got[name].float().cpu() - w).abs().max())
+        tol = logits_tolerance(w)
+        check(tol > 0 and err <= tol, f"card vs CPU: {what} {name}: max "
+              f"|err| {err} over {tol}")
+        shares[name] = err / tol
+    return shares
+
+
+def gate_leaves(params) -> list:
+    """Every cross-attention gate tensor of a params tree."""
+    out = []
+
+    def walk(t):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "gate":
+                out.append(v)
+    walk(params)
+    return out
+
+
+def set_gates(torch, params, seed: int) -> list:
+    """Draws every gate in place from uniform [GATE_LO, GATE_HI) (a
+    generator seeded ``seed``) and returns their values: the init law's
+    zero gates would make every cross-attention add nothing, and a wrong
+    kernel 12 result, K/V or cache would pass every logit check."""
+    gen = torch.Generator().manual_seed(seed)
+    for g in gate_leaves(params):
+        g.copy_(torch.rand(g.shape, generator=gen) * (GATE_HI - GATE_LO)
+                + GATE_LO)
+    values = [float(v) for g in gate_leaves(params) for v in g.reshape(-1)]
+    check(bool(values) and all(v != 0.0 for v in values),
+          f"cross-attention gates not set: {values}")
+    return values
+
+
+def stub_aux(torch, cfg, batch: int, seed: int, std: float = 1.0):
+    """Seeded normal (batch, Ta, d_model) f32 stub embeddings of standard
+    deviation ``std`` on the card: the image's patches or the audio's
+    frames (the frontends are stubs, as in the JAX package); None for a
+    model without cross-attention."""
+    if not aux_len(cfg):
+        return None
+    return torch.randn((batch, aux_len(cfg), cfg.d_model),
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(seed), device="cuda") * std
 
 
 def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
-                        forced_cpu: bool = False):
-    """A model at full width on the card: seeded f32 params, SERVE_B x
-    SERVE_PROMPT prompts prefilled and SERVE_GEN greedy decode steps
-    (kernel 12 once a layer in the prefill, never in decode; the peak above
-    the params below one layer's f32 score tensor), with ``profile`` one
-    decode step under torch.profiler, then decode == teacher forcing and
-    card == CPU on ``cut(cfg, params)`` = (config, params, what): the
-    CPU's own greedy steps, or with ``forced_cpu`` steps fed the card's
-    greedy tokens, whose every token must then be the CPU's argmax or
-    within the tolerance of its largest logit (among 262,144 random
-    logits, two can lie closer than bf16's rounding, and one flipped
-    token sends two greedy runs apart).  Returns (params, info); the
-    caller deletes the params."""
+                        forced_cpu: bool = False, batch: int = SERVE_B,
+                        prompt: int = SERVE_PROMPT, aux_std: float = 1.0):
+    """A model at full width on the card: seeded f32 params (a model with
+    cross-attention: its gates drawn by ``set_gates`` and seeded stub aux
+    embeddings), batch x prompt prompts prefilled and SERVE_GEN greedy
+    decode steps (kernel 12 ``prefill_launches`` times in the prefill,
+    never in decode; the peak above the params below one layer's f32
+    score tensors and the cache the cross-attention adds), with
+    ``profile`` one decode step under torch.profiler, then decode ==
+    teacher forcing and card == CPU on ``cut(cfg, params)`` = (config,
+    params, what): the CPU's own greedy steps, or with ``forced_cpu``
+    steps fed the card's greedy tokens, whose every token must then be
+    the CPU's argmax or within the tolerance of its largest logit (among
+    100,000s of random logits, two can lie closer than bf16's rounding,
+    and one flipped token sends two greedy runs apart).  With
+    cross-attention, the same prefill with every gate at zero must move
+    the logits past the tolerance, and card == CPU also holds enc_out,
+    the cross K/V and each cross-attention's output.  Returns (params,
+    info, the launches of the served prefill and decode alone, from
+    zeroed counts); the caller deletes the params."""
     from repro_torch.data import synthetic_tokens
     from repro_torch.models import (forward_hidden, init_params,
-                                    logits_from_hidden, num_params)
+                                    logits_from_hidden, num_params, prefill)
 
     info = {}
     torch.cuda.synchronize()
@@ -3488,48 +3759,102 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
         seed), device="cuda")
     torch.cuda.synchronize()
     count, nbytes = num_params(params)
-    check(count == cfg.num_params(), f"params {count} != the config's "
-          f"{cfg.num_params()}")
+    extra = uncounted_leaves(cfg)
+    check(count == cfg.num_params() + extra, f"params {count} != the "
+          f"config's {cfg.num_params()} and {extra} uncounted leaves")
     param_bytes = torch.cuda.memory_allocated() - free0
-    print(f"serve: {cfg.name}: {count} parameters, {nbytes} bytes in "
-          f"{cfg.param_dtype}; {cfg.n_layers} layers, d_model "
+    print(f"serve: {cfg.name}: {count} parameters ({extra} of them "
+          f"uncounted by num_params), {nbytes} bytes in {cfg.param_dtype}; "
+          f"{cfg.n_layers} layers {cfg.layer_pattern}, d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
-          f"(padded {cfg.padded_vocab}), window {cfg.window}")
-    docs = synthetic_tokens(SERVE_B, SERVE_PROMPT, cfg.vocab, seed=seed)
+          f"(padded {cfg.padded_vocab}), window {cfg.window}, "
+          f"{cfg.enc_layers} encoder layers, aux {aux_len(cfg)} tokens")
+    if gate_leaves(params):
+        gates = set_gates(torch, params, seed)
+        info.update(gates=gates)
+        print(f"serve: {cfg.name}'s cross-attention gates, drawn from "
+              f"uniform [{GATE_LO}, {GATE_HI}): {gates}")
+    aux = stub_aux(torch, cfg, batch, seed + 1, aux_std)
+    if aux is not None:
+        print(f"serve: {batch} x {aux_len(cfg)} stub aux embeddings, "
+              f"normal with std {aux_std}")
+    docs = synthetic_tokens(batch, prompt, cfg.vocab, seed=seed)
     prompts = torch.from_numpy(docs).cuda()
     torch.cuda.reset_peak_memory_stats()
+    # the main path: the served prefill and decode, from zeroed counts
+    zero_counts()
     steps, toks, t_pre, t_dec, n_pre, n_dec, cache = serve(
-        torch, cfg, params, prompts, SERVE_GEN, SERVE_PROMPT + SERVE_GEN)
+        torch, cfg, params, prompts, SERVE_GEN, prompt + SERVE_GEN, aux=aux)
+    launches = LaunchLog.counts()
     peak = torch.cuda.max_memory_allocated() - param_bytes - free0
-    scores = SERVE_B * cfg.n_heads * SERVE_PROMPT * SERVE_PROMPT * 4
-    check(n_pre == cfg.n_layers and n_dec == 0,
+    scores = layer_score_bytes(cfg, batch, prompt)
+    cross_bytes = aux_cache_bytes(cfg, batch)
+    live = prefill_live_bytes(cfg, batch, prompt, prompt + SERVE_GEN)
+    check(tensor_bytes({k: v for k, v in cache.items() if k == "enc_out"})
+          + sum(tensor_bytes(c["xattn"]) for part in ("groups", "rem")
+                for c in cache.get(part, {}).values() if "xattn" in c)
+          == cross_bytes, f"the prefill's cross caches are not the "
+          f"{cross_bytes} B their shapes give")
+    want_pre = prefill_launches(cfg)
+    check(n_pre == want_pre and n_dec == 0,
           f"flash_attention launched {n_pre} times in the prefill and "
-          f"{n_dec} in decode, expected {cfg.n_layers} and 0")
-    check(peak < scores, f"serve peak {peak} B above the params, not "
-          f"below one layer's score tensor ({scores} B)")
+          f"{n_dec} in decode, expected {want_pre} and 0")
+    check(peak < scores + cross_bytes, f"serve peak {peak} B above the "
+          f"params, not below one layer's score tensors ({scores} B) and "
+          f"the cross caches ({cross_bytes} B)")
+    check(peak < live, f"serve peak {peak} B above the params, not below "
+          f"what the prefill can hold at once ({live} B, "
+          f"prefill_live_bytes)")
     check(all(bool(torch.isfinite(s[:, :cfg.vocab]).all())
               for s in steps), "serve logits are not finite")
     info.update(prefill_s=t_pre, decode_s=t_dec,
-                decode_tokens_per_s=SERVE_B * SERVE_GEN / t_dec,
-                peak_above_params_bytes=peak, param_bytes=param_bytes)
-    print(f"serve (cuda): {SERVE_B} x {SERVE_PROMPT} prompt tokens "
+                decode_tokens_per_s=batch * SERVE_GEN / t_dec,
+                peak_above_params_bytes=peak, param_bytes=param_bytes,
+                peak_bound_scores_bytes=scores + cross_bytes,
+                peak_bound_live_bytes=live,
+                prefill_launches=n_pre, decode_launches=n_dec)
+    print(f"serve (cuda): {batch} x {prompt} prompt tokens "
           f"prefilled in {t_pre:.3f} s ({n_pre} flash_attention "
           f"launches), {SERVE_GEN} greedy steps in {t_dec:.3f} s = "
-          f"{SERVE_B * SERVE_GEN / t_dec:.1f} tokens/s; peak {peak} B "
-          f"above the params (one layer's f32 scores: {scores} B)")
+          f"{batch * SERVE_GEN / t_dec:.1f} tokens/s; peak {peak} B "
+          f"above the params (one layer's f32 scores: {scores} B, the "
+          f"cross caches: {cross_bytes} B, what the prefill can hold at "
+          f"once: {live} B); launches {json.dumps(launches)}")
     if profile:
         info.update(profile_decode(torch, cfg, params, cache, toks[:, -1:],
-                                   SERVE_PROMPT + SERVE_GEN))
+                                   prompt + SERVE_GEN))
     del cache
+
+    if aux is not None:
+        # the cross-attention moved the logits: the same prefill with
+        # every gate at zero
+        saved = [g.clone() for g in gate_leaves(params)]
+        for g in gate_leaves(params):
+            g.zero_()
+        with torch.no_grad():
+            zl, zc = prefill(cfg, params, prompts, aux=aux,
+                             cache_len=prompt + SERVE_GEN)
+        del zc
+        for g, v in zip(gate_leaves(params), saved):
+            g.copy_(v)
+        moved = float((zl[:, :cfg.vocab] - steps[0][:, :cfg.vocab]).abs()
+                      .max())
+        tol = logits_tolerance(steps[0][:, :cfg.vocab])
+        check(moved > tol, f"the cross-attention moved the prefill's "
+              f"logits by {moved}, not past the tolerance {tol}")
+        info.update(gates_zero_moved=moved, gates_zero_tol=tol)
+        print(f"serve: with every gate at zero the prefill's logits move "
+              f"by {moved} (tolerance {tol}): the cross-attention counts")
+        del zl
 
     # decode == teacher forcing: the prompt extended by the decoded
     # tokens, in one forward
     full = torch.cat([prompts, toks], dim=1)
     with torch.no_grad():
-        h, _ = forward_hidden(cfg, params, full, mode="train")
+        h, _ = forward_hidden(cfg, params, full, aux=aux, mode="train")
         tf = logits_from_hidden(cfg, params,
-                                h[:, SERVE_PROMPT - 1:])[..., :cfg.vocab]
+                                h[:, prompt - 1:])[..., :cfg.vocab]
     del h
     dec = torch.stack([s[:, :cfg.vocab] for s in steps], dim=1)
     err = float((dec - tf).abs().max())
@@ -3548,16 +3873,64 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
     one, p1, what = cut(cfg, params)
     p1_cpu = _tree_to(p1, "cpu")
     prompt1 = prompts[:1, :CPU_PROMPT]
-    c_steps, c_toks, *_ = serve(torch, one, p1, prompt1, CPU_GEN,
-                                CPU_PROMPT + CPU_GEN)
-    h_steps, h_toks, t_cpu, *_ = serve(
-        torch, one, p1_cpu, prompt1.cpu(), CPU_GEN, CPU_PROMPT + CPU_GEN,
-        forced=c_toks.cpu() if forced_cpu else None)
+    aux1 = None if aux is None else aux[:1]
+    with CrossTap() as c_tap:
+        c_steps, c_toks, *_, c_cache = serve(
+            torch, one, p1, prompt1, CPU_GEN, prompt1.shape[1] + CPU_GEN,
+            aux=aux1)
+    with CrossTap() as h_tap:
+        h_steps, h_toks, t_cpu, *_, h_cache = serve(
+            torch, one, p1_cpu, prompt1.cpu(), CPU_GEN,
+            prompt1.shape[1] + CPU_GEN,
+            forced=c_toks.cpu() if forced_cpu else None,
+            aux=None if aux1 is None else aux1.cpu())
     c = torch.stack(c_steps).cpu()[..., :cfg.vocab]
     hh = torch.stack(h_steps)[..., :cfg.vocab]
     err = float((c - hh).abs().max())
     tol = logits_tolerance(hh)
     check(err <= tol, f"card vs CPU at {what}: max |err| {err} over {tol}")
+    if aux is not None:
+        # the cross-attention's own part, each within 2e-2 of its own
+        # largest value: enc_out, every cross K/V, every cross-attention
+        # output of the prefill (the logit check sees a wrong one only
+        # past the tolerance of the logits)
+        check(len(c_tap.outs) == len(h_tap.outs) == sum(
+            k in ("xattn", "dec") for k in layer_kinds(one)),
+            f"the prefills ran {len(c_tap.outs)} and {len(h_tap.outs)} "
+            f"cross-attentions")
+        shares = hold_relative(torch, cross_leaves(c_cache),
+                               cross_leaves(h_cache), what)
+        shares.update(hold_relative(
+            torch, {f"cross_attention[{i}]": y
+                    for i, y in enumerate(c_tap.outs)},
+            {f"cross_attention[{i}]": y for i, y in enumerate(h_tap.outs)},
+            what))
+        info.update(card_vs_cpu_cross_shares=shares)
+        print(f"serve: card == CPU at {what}, the cross-attention's part: "
+              f"max |err| as a share of 2e-2 of each one's largest value: "
+              f"{json.dumps(shares)}")
+    if one.is_encdec:
+        # which part moves the logits: the CPU's decoder fed the card's
+        # enc_out (the CPU's prefill logits against the card's, with its
+        # own encoder and with the card's)
+        from repro_torch.models import decoder
+        card_enc = c_cache["enc_out"].cpu()
+        own = decoder.encode
+        decoder.encode = lambda cfg_, params_, aux_: card_enc
+        try:
+            with torch.no_grad():
+                dl, _ = prefill(one, p1_cpu, prompt1.cpu(), aux=aux1.cpu(),
+                                cache_len=prompt1.shape[1] + CPU_GEN)
+        finally:
+            decoder.encode = own
+        pre_err = float((c[0] - hh[0]).abs().max())
+        dec_err = float((c[0] - dl[:, :cfg.vocab]).abs().max())
+        info.update(card_vs_cpu_prefill_err=pre_err,
+                    card_vs_cpu_prefill_err_card_enc_out=dec_err)
+        print(f"serve: card == CPU at {what}, the prefill's logits: max "
+              f"|err| {pre_err} with the CPU's own encoder, {dec_err} with "
+              f"the card's enc_out fed to the CPU's decoder")
+    del c_cache, h_cache
     if forced_cpu:
         # the logits that chose each card token, on the CPU
         chose = hh[:-1]
@@ -3576,11 +3949,11 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
               f"{info['card_vs_cpu_near_ties']} of them a near tie on the "
               f"CPU" if forced_cpu else
               f"greedy tokens equal {c_toks.tolist()}")
-    print(f"serve: card == CPU at {what} (1 x {CPU_PROMPT} tokens, "
+    print(f"serve: card == CPU at {what} (1 x {prompt1.shape[1]} tokens, "
           f"{CPU_GEN} steps): max |logit err| {err} (tolerance {tol}), "
           f"{tokens}; CPU prefill {t_cpu:.2f} s")
-    del p1, p1_cpu, prompts
-    return params, info
+    del p1, p1_cpu, prompts, aux
+    return params, info, launches
 
 
 def one_layer(cfg, params):
@@ -3608,31 +3981,30 @@ def local_and_global(cfg, params):
 
 
 def phase_serve_path(torch):
-    """Phase 11: h2o-danube-3-4b at full width on the card, from zeroed
-    launch counts with its geometries logged."""
+    """Phase 11: h2o-danube-3-4b at full width on the card, its
+    geometries logged; its launches are the main path's runs' (the served
+    run, the two EarlEval runs, the routing's group and keyed custom
+    statistic), each from zeroed counts."""
     from repro_torch import random as trandom
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_tokens
     from repro_torch.data.pipeline import EvalSamplePipeline
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.train import EarlEval, make_eval_step
 
     cfg = get_config(SERVE_ARCH)
-    zero_counts()
     with LaunchLog() as log:
-        params, info = serve_at_full_width(torch, cfg, SERVE_SEED,
-                                           one_layer, profile=True)
+        params, info, serve_launches = serve_at_full_width(
+            torch, cfg, SERVE_SEED, one_layer, profile=True)
 
         # EarlEval at full width
         corpus = synthetic_tokens(EVAL_DOCS, EVAL_DOC_LEN, cfg.vocab,
                                   seed=SERVE_SEED + 1)
         pipe = EvalSamplePipeline(corpus, seq_len=EVAL_DOC_LEN - 1)
-        n0 = flash_attention.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = EarlEval(make_eval_step(cfg), params, pipe, sigma=EVAL_SIGMA,
-                       tau=EVAL_TAU, eval_batch=EVAL_BATCH).run(
-            trandom.PRNGKey(0))
+        res, eval_launches = main_run(lambda: EarlEval(
+            make_eval_step(cfg), params, pipe, sigma=EVAL_SIGMA,
+            tau=EVAL_TAU, eval_batch=EVAL_BATCH).run(trandom.PRNGKey(0)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ev = res.history[-1]
@@ -3641,9 +4013,10 @@ def phase_serve_path(torch):
               and res.cv <= EVAL_SIGMA,
               f"EarlEval did not certify from under half the corpus: {ev}, "
               f"cv {res.cv}")
-        check(flash_attention.launches - n0 == batches * cfg.n_layers,
+        check(eval_launches["flash_attention"] == batches * cfg.n_layers,
               f"EarlEval launched flash_attention "
-              f"{flash_attention.launches - n0} times for {batches} batches")
+              f"{eval_launches['flash_attention']} times for {batches} "
+              f"batches")
         est = float(torch.as_tensor(res.result).reshape(-1)[0])
         info.update(eval_forwards=ev["model_forwards"],
                     eval_full_pass=ev["full_pass_forwards"], eval_cv=res.cv,
@@ -3653,12 +4026,16 @@ def phase_serve_path(torch):
               f"full_pass_forwards={ev['full_pass_forwards']}, B={res.B}, "
               f"iterations={res.iterations}, loss {est}, cv={res.cv}, wall "
               f"{wall:.2f} s")
-        info.update(earl_eval_grows(torch, cfg, params, pipe, res.n_used))
+        grows, grow_launches = main_run(lambda: earl_eval_grows(
+            torch, cfg, params, pipe, res.n_used))
+        info.update(grows)
         del params, pipe, res
         torch.cuda.empty_cache()
 
-        info.update(routing_on_the_card(torch))
-    launches = log.counts()
+        routing, routing_launches = routing_on_the_card(torch)
+        info.update(routing)
+    launches = add_counts(serve_launches, eval_launches, grow_launches,
+                          routing_launches)
     for k in SERVE_KERNELS + ROUTING_KERNELS:
         check(launches[k] > 0, f"phase 11 launched no {k}")
     print(f"launches, the serving path: {json.dumps(launches)}")
@@ -3668,8 +4045,8 @@ def phase_serve_path(torch):
 
 def phase_serve_gemma(torch):
     """Phase 12: gemma3-27b at full width (head dim 168) on the card, cut
-    to one 5:1 local:global pattern group, from zeroed launch counts with
-    its geometries logged."""
+    to one 5:1 local:global pattern group, its geometries logged; the
+    launches are the served run's, from zeroed counts."""
     import dataclasses
     from repro_torch.configs import get_config
 
@@ -3683,18 +4060,84 @@ def phase_serve_gemma(torch):
           f"group {cfg.layer_pattern} ({GEMMA_LAYERS} layers): all "
           f"{full_layers} in f32 would be "
           f"{4 * get_config(GEMMA_ARCH).num_params()} bytes of parameters")
-    zero_counts()
     with LaunchLog() as log:
-        params, info = serve_at_full_width(
+        params, info, launches = serve_at_full_width(
             torch, cfg, GEMMA_SEED, local_and_global, profile=False,
             forced_cpu=True)
         del params
         torch.cuda.empty_cache()
-    launches = log.counts()
     for k in SERVE_KERNELS:
         check(launches[k] > 0, f"phase 12 launched no {k}")
     print(f"launches, the gemma3 serving path: {json.dumps(launches)}")
     print("serve summary (gemma3-27b): " + json.dumps(info))
+    return launches, log.geometries, info
+
+
+def xattn_layer(cfg, params):
+    """llama-3.2-vision's pattern group cut to its ``xattn`` layer: causal
+    self-attention, then gated cross-attention over the image tokens, at
+    full width."""
+    import dataclasses
+    return (dataclasses.replace(cfg, n_layers=1, layer_pattern=("xattn",)),
+            {"embedding": params["embedding"],
+             "final_norm": params["final_norm"],
+             "groups": {"0": _tree_slice(params["groups"]["4"])}},
+            "the xattn layer")
+
+
+def whole_model(cfg, params):
+    return cfg, params, "the whole model"
+
+
+def phase_serve_xattn(torch):
+    """Phase 15: cross-attention serving on the card, its geometries
+    logged and its launches the two served runs', each from zeroed
+    counts: llama-3.2-vision-90b at its
+    published widths cut to one pattern group, then whisper-small whole,
+    each through ``serve_at_full_width`` (card == CPU on the xattn layer
+    and on the whole whisper model, the CPU fed the card's tokens)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    vlm = get_config(VLM_ARCH)
+    wsp = get_config(WHISPER_ARCH)
+    _, b, hq, hkv, _, ta, d = XA_TIMED[0]
+    check((vlm.n_heads, vlm.n_kv_heads, vlm.vision_tokens, vlm.head_dim_)
+          == (hq, hkv, ta, d) and b == SERVE_B, f"{vlm.name} is not the "
+          f"shape kernel 12 is timed at")
+    _, b, hq, hkv, sq, ta, d = XA_TIMED[2]
+    check((wsp.n_heads, wsp.n_kv_heads, wsp.enc_seq, wsp.head_dim_)
+          == (hq, hkv, ta, d) and (b, sq) == (WHISPER_B, WHISPER_PROMPT),
+          f"{wsp.name} is not the shape kernel 12 is timed at")
+    full_layers = vlm.n_layers
+    vlm = dataclasses.replace(vlm, n_layers=VLM_LAYERS)
+    print(f"serve: {vlm.name} cut from {full_layers} layers to one pattern "
+          f"group {vlm.layer_pattern} ({VLM_LAYERS} layers): all "
+          f"{full_layers} in f32 would be "
+          f"{4 * get_config(VLM_ARCH).num_params()} bytes of parameters")
+    t0 = time.perf_counter()
+    info = {}
+    with LaunchLog() as log:
+        params, info["vlm"], vlm_launches = serve_at_full_width(
+            torch, vlm, VLM_SEED, xattn_layer, profile=False,
+            forced_cpu=True, aux_std=VLM_AUX_STD)
+        del params
+        torch.cuda.empty_cache()
+        params, info["whisper"], wsp_launches = serve_at_full_width(
+            torch, wsp, WHISPER_SEED, whole_model, profile=False,
+            forced_cpu=True, batch=WHISPER_B, prompt=WHISPER_PROMPT)
+        del params
+        torch.cuda.empty_cache()
+    launches = add_counts(vlm_launches, wsp_launches)
+    for k in SERVE_KERNELS:
+        check(launches[k] > 0, f"phase 15 launched no {k}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    info.update(card=smi, phase_s=time.perf_counter() - t0)
+    print(f"launches, the cross-attention serving path: "
+          f"{json.dumps(launches)}")
+    print("serve summary (cross-attention): " + json.dumps(info))
     return launches, log.geometries, info
 
 
@@ -3895,6 +4338,45 @@ def wide_head_times(torch, gen):
     return out
 
 
+def cross_attention_times(torch, gen):
+    """Kernel 12 at phase 15's non-causal geometries (XA_TIMED) in bf16:
+    its time alone (launches back to back inside one wrapper call) and
+    through the wrapper, its bound (4·D operations a query-key pair, all
+    Sq·Skv of them visible, at the bf16 tensor-core rate, or q, k, v and o
+    once over the memory rate) and one bf16 scaled_dot_product_attention
+    call with no mask, K/V expanded to the query heads beforehand."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for name, b, hq, hkv, sq, skv, d in XA_TIMED:
+        q, k, v = fa_inputs(torch, (b, hq, hkv, sq, skv, d), torch.bfloat16,
+                            gen)
+        kw = dict(causal=False, scale=d ** -0.5)
+        row = dict(case=name, B=b, Hq=hq, Hkv=hkv, Sq=sq, Skv=skv, D=d,
+                   causal=False,
+                   ms=launch_ms(torch, lambda: flash_attention(q, k, v, **kw),
+                                "flash_attention", 10),
+                   wrapper_ms=time_ms(torch, lambda: flash_attention(
+                       q, k, v, **kw), 10))
+        ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        row["library_ms"] = time_ms(torch, lambda: sdpa(q, ke, ve,
+                                                        scale=d ** -0.5), 10)
+        flops = 4 * d * sq * skv * b * hq
+        nbytes = 2 * (2 * b * hq * sq + 2 * b * hkv * skv) * d
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   flops=flops, bytes=nbytes)
+        out.append(row)
+        del q, k, v, ke, ve
+        print(f"timing flash_attention at {name} ({b} x {hq}/{hkv} heads of "
+              f"{d}, {sq} queries over {skv} keys, not causal): bf16 "
+              f"{row['ms']:.4f} ms alone, {row['wrapper_ms']:.4f} ms through "
+              f"the wrapper; sdpa {row['library_ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+    return out
+
+
 def serve_rows(torch, launches, parity: Parity):
     """Kernel 12 at the serving prefill's shape: 4 x 32 query heads on 8
     KV heads, 8192 tokens, head_dim 120, window 4096, bf16; the f32 route
@@ -3950,6 +4432,7 @@ def serve_rows(torch, launches, parity: Parity):
           f"{row['bound_ms']:.4f} ms by {row['bound_by']}: {pairs} visible "
           f"pairs a head, {flops} flops, {nbytes} bytes)")
     row["wide_heads"] = wide_head_times(torch, gen)
+    row["not_causal"] = cross_attention_times(torch, gen)
     return [row]
 
 
@@ -5207,15 +5690,18 @@ def main() -> int:
     lap("13 (live path)")
     ms_launches, ms_geometries, _ = phase_mesh_path(torch)
     lap("14 (mesh path)")
+    xa_launches, xa_geometries, _ = phase_serve_xattn(torch)
+    lap("15 (cross-attention serving path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
                 + sv_launches[k] + gm_launches[k] + lv_launches[k]
-                + ms_launches.get(k, 0) for k in launches}
+                + ms_launches.get(k, 0) + xa_launches[k] for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"nine: {json.dumps(launches)}")
+          f"ten: {json.dumps(launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
                          **mat_geometries, **st_geometries,
                          **sv_geometries, **gm_geometries,
-                         **lv_geometries, **ms_geometries}, parity)
+                         **lv_geometries, **ms_geometries,
+                         **xa_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)

@@ -241,6 +241,18 @@ class Statistic:
         once per weight row."""
         return _rows_of_update(self, states, x_tile, w_tile)
 
+    def chunk_update(self, states: State, x: torch.Tensor, w: torch.Tensor,
+                     bn: int) -> State:
+        """Advance B-leading ``states`` by a chunk of weight tiles in plain
+        PyTorch: w (B, T·bn), x (T·bn, d), tile t the columns [t·bn,
+        (t+1)·bn), each tile as ``tile_update`` takes it, in tile order.
+        The default calls ``tile_update`` a tile at a time; a statistic
+        whose tile math batches over a chunk overrides it."""
+        for t in range(w.shape[1] // bn):
+            c = slice(t * bn, (t + 1) * bn)
+            states = self.tile_update(states, x[c], w[:, c])
+        return states
+
     def __call__(self, values: torch.Tensor,
                  weights: Optional[torch.Tensor] = None) -> Result:
         x = _as_2d(values)
@@ -288,12 +300,18 @@ class _MomentStatistic(Statistic):
                     ) -> MomentState:
         """The tile math of the moments scan lowering, and the batch
         update: (B, n) W against x and x² as f32 matrix products (on the
-        card in IEEE f32, never TF32)."""
-        x = _as_2d(x_tile).to(torch.float32)
+        card in IEEE f32, never TF32); ``chunk_update`` of one tile."""
+        return self.chunk_update(states, x_tile, w_tile, w_tile.shape[1])
+
+    def chunk_update(self, states: MomentState, x, w, bn: int
+                     ) -> MomentState:
+        """Each tile's f32 Σw, Σw·x and Σw·x² folded into the states in
+        tile order (``moments_chunk``)."""
+        from repro_torch.kernels.weighted_stats.ops import moments_chunk
+        x = _as_2d(x).to(torch.float32)
         check_ieee_matmul(x)
-        return MomentState(w=states.w + w_tile.sum(dim=1),
-                           s1=states.s1 + w_tile @ x,
-                           s2=states.s2 + w_tile @ (x * x))
+        return MomentState(*moments_chunk((states.w, states.s1, states.s2),
+                                          w, x, bn))
 
 
 def _total(state: MomentState) -> torch.Tensor:
@@ -429,13 +447,20 @@ class Quantile(Statistic):
     def tile_update(self, states: HistogramState, x_tile, w_tile
                     ) -> HistogramState:
         """The tile math of the histogram scan lowering: a plain
-        scatter-add, never kernel 10."""
+        scatter-add, never kernel 10; ``chunk_update`` of one tile."""
+        return self.chunk_update(states, x_tile, w_tile, w_tile.shape[1])
+
+    def chunk_update(self, states: HistogramState, x, w, bn: int
+                     ) -> HistogramState:
+        """The chunk's tiles as one scatter-add (their adds land in the
+        order of one scatter a tile)."""
         from repro_torch.kernels.weighted_hist.ops import hist_tile_update
-        x = x_tile.to(torch.float32)
+        del bn
+        x = x.to(torch.float32)
         d = x.shape[1]
-        B = w_tile.shape[0]
+        B = w.shape[0]
         counts = states.counts.reshape(B, d * self.nbins).clone()
-        hist_tile_update(counts, x, w_tile,
+        hist_tile_update(counts, x, w,
                          torch.full((d,), self.lo, device=x.device),
                          torch.full((d,), self.hi, device=x.device),
                          self.nbins)
@@ -516,16 +541,23 @@ class KMeansStep(Statistic):
 
     def tile_update(self, states: KMeansState, x_tile, w_tile
                     ) -> KMeansState:
-        """The tile math of the fused plain version (``kmeans_tile``), so
-        a group member consumes the shared weight tile as its dedicated
-        run does."""
+        """The tile math of the fused plain version, so a group member
+        consumes the shared weight tile as its dedicated run does;
+        ``chunk_update`` of one tile."""
+        return self.chunk_update(states, x_tile, w_tile, w_tile.shape[1])
+
+    def chunk_update(self, states: KMeansState, x, w, bn: int
+                     ) -> KMeansState:
+        """Each tile's f32 contraction (``contract_chunk``) folded into
+        the states in tile order."""
         from repro_torch.kernels.kmeans_assign import ops as ka_ops
-        x = x_tile.to(torch.float32)
+        from repro_torch.kernels.weighted_stats.ops import fold_tiles
+        x = x.to(torch.float32)
         cent = ka_ops.centroids_on(self.centroids, x.device, x.shape[1])
-        sums, counts, inertia = ka_ops.kmeans_tile(x, w_tile, cent)
-        return KMeansState(sums=states.sums + sums,
-                           counts=states.counts + counts,
-                           inertia=states.inertia + inertia)
+        parts = ka_ops.contract_chunk(w, ka_ops.tile_operands(x, cent),
+                                      x.shape[1], bn)
+        return KMeansState(*(fold_tiles(a, t) for a, t in zip(
+            (states.sums, states.counts, states.inertia), parts)))
 
     def finalize(self, state: KMeansState):
         return state.sums / (state.counts.unsqueeze(-1) + _EPS)

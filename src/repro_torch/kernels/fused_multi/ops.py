@@ -12,7 +12,8 @@ KMeansStep slot runs the k-means kernel (``fused_poisson_kmeans``) and a
 GroupedStatistic slot its keyed kernels (``fused_poisson_states``), each
 paying the hash once more; a custom slot runs ``fused_poisson_tiled``.  A
 CPU tensor runs the plain version, the JAX package's ``_multi_scan``: each
-weight tile is drawn once and handed to every slot's ``tile_update``.
+chunk of weight tiles is drawn once and handed to every slot's
+``chunk_update``.
 
 ``fused_poisson_tiled`` is the JAX package's generic matrix-free scan for
 one statistic: the implicit weights a bounded block of tiles at a time,
@@ -38,13 +39,14 @@ from repro_torch.kernels.poisson_counts.ops import poisson_tiles
 from repro_torch.kernels.poisson_counts.ref import tiles_per_chunk
 from repro_torch.kernels.weighted_hist.ops import (hist_slots_args,
                                                    range_vector)
-from repro_torch.kernels.weighted_stats.ops import (Prepared, mask_ptr,
-                                                    moment_buffers, prepare,
-                                                    tile_scan)
+from repro_torch.kernels.weighted_stats.ops import (Prepared, chunk_scan,
+                                                    mask_ptr, moment_buffers,
+                                                    prepare, tile_scan)
 
 
 def _multi_scan(slots, seed: int, pr: Prepared) -> Tuple:
-    """Plain version: one scan, one weight tile per step, every slot fed.
+    """Plain version: one scan, each chunk of weight tiles drawn once and
+    handed to every slot's ``chunk_update``.
 
     A moments or k-means slot carries its running sums across tiles in
     float64 and rounds them to f32 once, as its dedicated plain version
@@ -59,11 +61,11 @@ def _multi_scan(slots, seed: int, pr: Prepared) -> Tuple:
     states = [sums_as(s.init_batch(pr.d, pr.Bp, pr.device), torch.float64)
               for s in slots]
 
-    def consume(w, xt):
+    def consume(w, x):
         for i, s in enumerate(slots):
-            states[i] = s.tile_update(states[i], xt, w)
+            states[i] = s.chunk_update(states[i], x, w, pr.bn)
 
-    tile_scan(pr, seed, consume)
+    chunk_scan(pr, seed, consume)
     return tuple(sums_as(st, torch.float32) for st in states)
 
 

@@ -37,8 +37,9 @@ from repro_torch.kernels._pass import (SMEM_BYTES, STATIC_SMEM, TARGET_CTAS,
                                        kmeans_geometry, stream_ptr)
 from repro_torch.kernels.poisson_counts.ref import weight_tile_blocks
 from repro_torch.kernels.weighted_stats.ops import (Prepared, _pad_to,
+                                                    chunk_scan, fold_tiles,
                                                     key_masks, mask_ptr,
-                                                    prepare, tile_scan)
+                                                    prepare)
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -94,10 +95,15 @@ def contract_tile(w: torch.Tensor, ops: Triple, d: int) -> Triple:
             w @ min_d2)
 
 
-def kmeans_tile(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
-                ) -> Triple:
-    """The tile math of ``_fused_kmeans_scan``."""
-    return contract_tile(w, tile_operands(x, cent), x.shape[1])
+def contract_chunk(w: torch.Tensor, ops: Triple, d: int, bn: int
+                   ) -> Triple:
+    """``contract_tile`` for each tile of a (B, T·bn) chunk of weight
+    tiles, stacked: (sums (T, B, k, d), counts (T, B, k), inertia
+    (T, B))."""
+    tiles = [contract_tile(w[:, c], tuple(o[c] for o in ops), d)
+             for c in (slice(t * bn, (t + 1) * bn)
+                       for t in range(w.shape[1] // bn))]
+    return tuple(torch.stack(p) for p in zip(*tiles))
 
 
 def assign_plain(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
@@ -123,18 +129,19 @@ def assign_plain(x: torch.Tensor, w: torch.Tensor, cent: torch.Tensor
 def fused_kmeans_plain(pr: Prepared, seed: int, cent: torch.Tensor
                        ) -> Triple:
     """Plain version of the bootstrap over k-means: (sums (Bp, k, d),
-    counts (Bp, k), inertia (Bp,)), one ``kmeans_tile`` per weight tile of
-    the shared ``tile_scan``."""
+    counts (Bp, k), inertia (Bp,)), each tile's ``contract_tile`` folded in
+    float64 in tile order, a chunk of tiles at a time (``chunk_scan``)."""
     k = cent.shape[0]
     f64 = dict(dtype=torch.float64, device=pr.device)
     acc = [torch.zeros(pr.Bp, k, pr.d, **f64), torch.zeros(pr.Bp, k, **f64),
            torch.zeros(pr.Bp, **f64)]
 
-    def consume(w, xt):
-        for i, t in enumerate(kmeans_tile(xt, w, cent)):
-            acc[i] = acc[i] + t
+    def consume(w, x):
+        parts = contract_chunk(w, tile_operands(x, cent), pr.d, pr.bn)
+        for i, t in enumerate(parts):
+            acc[i] = fold_tiles(acc[i], t)
 
-    tile_scan(pr, seed, consume)
+    chunk_scan(pr, seed, consume)
     return tuple(a.float() for a in acc)
 
 
@@ -150,13 +157,14 @@ def grouped_kmeans_plain(pr: Prepared, seed: int, cent: torch.Tensor
            torch.zeros(pr.Bp, pr.G, k, **f64),
            torch.zeros(pr.Bp, pr.G, **f64)]
 
-    def consume(w, xt, gt):
-        ops = tile_operands(xt, cent)
-        for g, m in enumerate(key_masks(pr, gt)):
-            for i, t in enumerate(contract_tile(w * m[None, :], ops, pr.d)):
-                acc[i][:, g] += t
+    def consume(w, x, keys):
+        ops = tile_operands(x, cent)
+        for g, m in enumerate(key_masks(pr, keys)):
+            parts = contract_chunk(w * m[None, :], ops, pr.d, pr.bn)
+            for i, t in enumerate(parts):
+                acc[i][:, g] = fold_tiles(acc[i][:, g], t)
 
-    tile_scan(pr, seed, consume)
+    chunk_scan(pr, seed, consume)
     return tuple(a.float() for a in acc)
 
 

@@ -51,12 +51,12 @@ def weight_tile_blocks(B: int, n: int) -> Tuple[int, int]:
 
 
 def poisson_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """uint32 bits (int64 tensor) -> f32 Poisson(1) counts by the ladder."""
+    """uint32 bits (int64 tensor) -> f32 Poisson(1) counts by the ladder:
+    the number of rungs strictly below u (``bucketize``)."""
     u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    counts = torch.zeros(bits.shape, dtype=torch.float32, device=bits.device)
-    for c in POISSON_CDF_F32:
-        counts += (u > c).to(torch.float32)
-    return counts
+    rungs = torch.tensor(POISSON_CDF_F32, dtype=torch.float32,
+                         device=bits.device)
+    return torch.bucketize(u, rungs, out_int32=True).to(torch.float32)
 
 
 def tile_keys(seed: int, b_tiles: torch.Tensor,
@@ -69,18 +69,28 @@ def tile_keys(seed: int, b_tiles: torch.Tensor,
                         torch.zeros_like(n_tiles)[None, :], n_tiles[None, :])
 
 
+def block_keys(seed: int, Bp: int, block_b: int, t0: int, t1: int,
+               device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tile keys of n-tiles [t0, t1) for every b-tile: two
+    (Bp / block_b, t1 - t0) int64 tensors."""
+    ki = torch.arange(Bp // block_b, dtype=torch.int64, device=device)
+    kt = torch.arange(t0, t1, dtype=torch.int64, device=device)
+    return tile_keys(seed, ki, kt)
+
+
 def weight_block(seed: int, n_valid: int, Bp: int, block_b: int,
                  block_n: int, t0: int, t1: int,
                  valid: Optional[torch.Tensor] = None,
-                 device="cpu") -> torch.Tensor:
+                 device="cpu", keys=None) -> torch.Tensor:
     """(Bp, (t1 - t0)·block_n) f32 implicit weights of n-tiles [t0, t1).
 
-    ``valid`` is the matching (t1 - t0)·block_n slice of the 0/1 mask."""
-    nb_b = Bp // block_b
+    ``valid`` is the matching (t1 - t0)·block_n slice of the 0/1 mask;
+    ``keys``, the tiles' ``block_keys`` when the caller holds them (a scan
+    derives every tile's key once, not a few hundred small operations a
+    chunk)."""
     T = t1 - t0
-    ki = torch.arange(nb_b, dtype=torch.int64, device=device)
-    kt = torch.arange(t0, t1, dtype=torch.int64, device=device)
-    k0, k1 = tile_keys(seed, ki, kt)                          # (nb_b, T)
+    k0, k1 = (block_keys(seed, Bp, block_b, t0, t1, device) if keys is None
+              else keys)                                      # (nb_b, T)
     ctr = torch.arange(block_b * block_n, dtype=torch.int64,
                        device=device).reshape(block_b, block_n)
     o0, o1 = threefry2x32(k0[:, :, None, None], k1[:, :, None, None],
@@ -103,6 +113,9 @@ def poisson_weights_plain(seed: int, Bp: int, np_: int, block_b: int,
     """The whole padded (Bp, np_) implicit weight matrix, tile by tile."""
     nt = np_ // block_n
     step = tiles_per_chunk(Bp, block_n)
+    k0, k1 = block_keys(seed, Bp, block_b, 0, nt, device)
     return torch.cat([weight_block(seed, np_, Bp, block_b, block_n, t,
-                                   min(nt, t + step), device=device)
+                                   min(nt, t + step), device=device,
+                                   keys=(k0[:, t:t + step],
+                                         k1[:, t:t + step]))
                       for t in range(0, nt, step)], dim=1)

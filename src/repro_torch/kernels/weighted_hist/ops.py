@@ -37,14 +37,14 @@ from repro_torch.kernels._pass import (SMEM_BYTES, binblocked_geometry,
 from repro_torch.kernels.weighted_hist.ref import (_bin_indices,
                                                    finite_mass_mask)
 from repro_torch.kernels.weighted_stats.ops import (Prepared, key_masks,
-                                                    mask_ptr, prepare,
-                                                    tile_scan)
+                                                    chunk_scan, mask_ptr,
+                                                    prepare)
 
 
 def tile_bins(xt: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
               nbins: int):
     """(flat (bn·d,) bin index into a (d·nbins) row, finite-mass mask
-    (bn, d)) of one (bn, d) x tile."""
+    (bn, d)) of (bn, d) x rows: a tile, or a chunk of tiles."""
     d = xt.shape[1]
     idx = _bin_indices(xt, lo[None, :], hi[None, :], nbins)     # (bn, d)
     flat = (idx + torch.arange(d, device=xt.device)[None, :] * nbins
@@ -215,8 +215,10 @@ weighted_histogram.launches = 0
 
 def hist_plain(pr: Prepared, seed: int, lo: torch.Tensor, hi: torch.Tensor,
                nbins: int) -> torch.Tensor:
+    """Plain version: (Bp, d, nbins), a chunk of tiles a scatter (the tiles'
+    adds in the same order as one scatter a tile)."""
     counts = torch.zeros(pr.Bp, pr.d * nbins, device=pr.device)
-    tile_scan(pr, seed, lambda w, xt: hist_tile_update(counts, xt, w, lo, hi,
+    chunk_scan(pr, seed, lambda w, x: hist_tile_update(counts, x, w, lo, hi,
                                                        nbins))
     return counts.reshape(pr.Bp, pr.d, nbins)
 
@@ -228,12 +230,12 @@ def grouped_hist_plain(pr: Prepared, seed: int, lo: torch.Tensor,
     width = pr.d * nbins
     counts = torch.zeros(pr.Bp, pr.G * width, device=pr.device)
 
-    def consume(w, xt, gt):
-        flat, fm = tile_bins(xt, lo, hi, nbins)
-        for g, m in enumerate(key_masks(pr, gt)):
+    def consume(w, x, keys):
+        flat, fm = tile_bins(x, lo, hi, nbins)
+        for g, m in enumerate(key_masks(pr, keys)):
             scatter_tile(counts, flat + g * width, fm, w * m[None, :])
 
-    tile_scan(pr, seed, consume)
+    chunk_scan(pr, seed, consume)
     return counts.reshape(pr.Bp, pr.G, pr.d, nbins)
 
 

@@ -30,7 +30,8 @@ from repro_torch.kernels._pass import (MAX_ROWS, check_cuda_f32,
                                        explicit_geometry, grouped_geometry,
                                        pass_geometry, stream_ptr)
 from repro_torch.kernels.poisson_counts.ops import poisson_counts
-from repro_torch.kernels.poisson_counts.ref import (tiles_per_chunk,
+from repro_torch.kernels.poisson_counts.ref import (block_keys,
+                                                    tiles_per_chunk,
                                                     weight_block,
                                                     weight_tile_blocks)
 from repro_torch.kernels.weighted_stats.ref import weighted_moments_ref
@@ -155,30 +156,78 @@ def prepare(values: torch.Tensor, B: int, n_valid=None, valid_mask=None,
 
 
 def key_masks(pr: Prepared, g_tile: torch.Tensor) -> torch.Tensor:
-    """(G, bn) exact 0/1 masks (key == g) of a key tile."""
+    """(G, bn) exact 0/1 masks (key == g) of bn keys (a tile's or a
+    chunk's)."""
     keys = torch.arange(pr.G, dtype=torch.float32, device=g_tile.device)
     return (g_tile[None, :] == keys[:, None]).to(torch.float32)
 
 
-def tile_scan(pr: Prepared, seed: int, consume: Callable[..., None]) -> None:
-    """The scan lowering: every (Bp, bn) weight tile in n order,
-    handed to ``consume(w_tile, x_tile)`` with its (bn, d) x tile, and,
-    for a keyed call, its (bn,) key tile as a third argument.
-    Weights are drawn a chunk of tiles at a time."""
+def chunk_scan(pr: Prepared, seed: int, consume: Callable[..., None]
+               ) -> None:
+    """The scan lowering a chunk of weight tiles at a time, in n order:
+    ``consume(w, x_rows)`` with the chunk's (Bp, T·bn) weights and its
+    (T·bn, d) x rows, and for a keyed call its (T·bn,) keys as a third
+    argument; tile t of the chunk is columns [t·bn, (t+1)·bn).  The plain
+    versions batch their tile math over the chunk's T tiles
+    (``tile_products``, ``fold_tiles``): a call a chunk, where a call a
+    tile made their host time grow with n (32,768 tiles at n = 2^24)."""
     nt = pr.np_ // pr.bn
     step = tiles_per_chunk(pr.Bp, pr.bn)
+    k0, k1 = block_keys(int(seed), pr.Bp, pr.bb, 0, nt, pr.device)
     for c0 in range(0, nt, step):
         c1 = min(nt, c0 + step)
-        valid = None if pr.mp is None else pr.mp[c0 * pr.bn:c1 * pr.bn]
+        cols = slice(c0 * pr.bn, c1 * pr.bn)
+        valid = None if pr.mp is None else pr.mp[cols]
         w = weight_block(int(seed), pr.n_valid, pr.Bp, pr.bb, pr.bn, c0, c1,
-                         valid=valid, device=pr.device)
-        for t in range(c0, c1):
-            lo = (t - c0) * pr.bn
-            cols = slice(t * pr.bn, (t + 1) * pr.bn)
-            if pr.gp is None:
-                consume(w[:, lo:lo + pr.bn], pr.xp[cols])
-            else:
-                consume(w[:, lo:lo + pr.bn], pr.xp[cols], pr.gp[cols])
+                         valid=valid, device=pr.device,
+                         keys=(k0[:, c0:c1], k1[:, c0:c1]))
+        if pr.gp is None:
+            consume(w, pr.xp[cols])
+        else:
+            consume(w, pr.xp[cols], pr.gp[cols])
+
+
+def tile_scan(pr: Prepared, seed: int, consume: Callable[..., None]) -> None:
+    """The scan lowering a tile at a time: every (Bp, bn) weight tile in n
+    order, handed to ``consume(w_tile, x_tile)`` with its (bn, d) x tile,
+    and, for a keyed call, its (bn,) key tile as a third argument (the
+    tile math of a statistic's ``tile_update``)."""
+    bn = pr.bn
+
+    def tiles(w, x, *keys):
+        for t in range(w.shape[1] // bn):
+            c = slice(t * bn, (t + 1) * bn)
+            consume(w[:, c], x[c], *(k[c] for k in keys))
+    chunk_scan(pr, seed, tiles)
+
+
+def tile_products(w: torch.Tensor, y: torch.Tensor, bn: int
+                  ) -> torch.Tensor:
+    """(T, Bp, ...): for each tile t of w (Bp, T·bn) and y (T·bn, ...),
+    the f32 product of the tile's own bn columns, one matrix product a
+    tile as in the scan lowering a tile at a time (a batched product would
+    round the sums another way)."""
+    return torch.stack([w[:, t * bn:(t + 1) * bn] @ y[t * bn:(t + 1) * bn]
+                        for t in range(w.shape[1] // bn)])
+
+
+def tile_totals(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """(T, Bp): each tile's f32 weight total."""
+    return w.reshape(w.shape[0], -1, bn).sum(dim=-1).T
+
+
+def fold_tiles(acc: torch.Tensor, parts: torch.Tensor) -> torch.Tensor:
+    """acc + parts[0] + parts[1] + ... in acc's dtype (float64), in tile
+    order: a cumulative sum along the leading (tile) axis adds in order."""
+    return torch.cat([acc[None], parts.to(acc.dtype)]).cumsum(dim=0)[-1]
+
+
+def moments_chunk(acc, w: torch.Tensor, x: torch.Tensor, bn: int):
+    """float64 (w_tot, s1, s2) advanced by a chunk's tiles: each tile's
+    f32 Σw, Σw·x and Σw·x², folded in tile order."""
+    return (fold_tiles(acc[0], tile_totals(w, bn)),
+            fold_tiles(acc[1], tile_products(w, x, bn)),
+            fold_tiles(acc[2], tile_products(w, x * x, bn)))
 
 
 def moments_plain(pr: Prepared, seed: int
@@ -195,12 +244,10 @@ def moments_plain(pr: Prepared, seed: int
            torch.zeros(pr.Bp, pr.d, dtype=torch.float64, device=pr.device),
            torch.zeros(pr.Bp, pr.d, dtype=torch.float64, device=pr.device)]
 
-    def consume(w, xt):
-        acc[0] = acc[0] + w.sum(dim=1)
-        acc[1] = acc[1] + w @ xt
-        acc[2] = acc[2] + w @ (xt * xt)
+    def consume(w, x):
+        acc[:] = moments_chunk(acc, w, x, pr.bn)
 
-    tile_scan(pr, seed, consume)
+    chunk_scan(pr, seed, consume)
     return tuple(a.float() for a in acc)
 
 
@@ -213,20 +260,16 @@ def grouped_moments_plain(pr: Prepared, seed: int
     sums, so it is bitwise ``moments_plain`` under
     ``valid_mask = valid · (key == g)``: 0/1 masks compose exactly."""
     f64 = dict(dtype=torch.float64, device=pr.device)
-    acc = [torch.zeros(pr.Bp, pr.G, **f64),
-           torch.zeros(pr.Bp, pr.G, pr.d, **f64),
-           torch.zeros(pr.Bp, pr.G, pr.d, **f64)]
+    acc = [[torch.zeros(pr.Bp, **f64), torch.zeros(pr.Bp, pr.d, **f64),
+            torch.zeros(pr.Bp, pr.d, **f64)] for _ in range(pr.G)]
 
-    def consume(w, xt, gt):
-        x2 = xt * xt
-        for g, m in enumerate(key_masks(pr, gt)):
-            wg = w * m[None, :]
-            acc[0][:, g] += wg.sum(dim=1)
-            acc[1][:, g] += wg @ xt
-            acc[2][:, g] += wg @ x2
+    def consume(w, x, keys):
+        for g, m in enumerate(key_masks(pr, keys)):
+            acc[g][:] = moments_chunk(acc[g], w * m[None, :], x, pr.bn)
 
-    tile_scan(pr, seed, consume)
-    return tuple(a.float() for a in acc)
+    chunk_scan(pr, seed, consume)
+    return tuple(torch.stack([a[i] for a in acc], dim=1).float()
+                 for i in range(3))
 
 
 def moment_buffers(pr: Prepared, ranges: int):

@@ -1,6 +1,7 @@
 """The model stack of the JAX package's ``repro.models`` for the dense
-attention configs: config, layers, blocks and the decoder's forward,
-losses and serving paths.  ``partitioning`` and ``act_shard`` are not
+attention configs, the VLM (gated cross-attention layers) and the
+encoder-decoder: config, layers, blocks and the decoder's forward,
+losses and serving paths (``decoder.encode`` runs the encoder).  ``partitioning`` and ``act_shard`` are not
 ported yet (ROADMAP.md §1 item 5; they build on the mesh of
 ``core/_mesh.py``); ``hint`` is the identity here."""
 from repro_torch.models.config import (SHAPES, SMOKE_SHAPES, ModelConfig,

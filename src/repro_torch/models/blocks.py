@@ -1,7 +1,11 @@
 """Block-level dispatch: init / apply / cache-init for the attention block
-kinds the port has (``full``, ``swa``, ``local``, ``global``), as in the
-JAX package's ``repro/models/blocks.py``.  The other kinds (``xattn``,
-``enc``, ``dec``, ``rglru``, ``mlstm``, ``slstm``) and MoE MLPs raise
+kinds the port has, as in the JAX package's ``repro/models/blocks.py``:
+``full``, ``swa``, ``local`` and ``global`` (causal self-attention),
+``xattn`` (the VLM's: causal self-attention, then gated cross-attention
+to the image embeddings), ``enc`` (the encoder's non-causal
+self-attention) and ``dec`` (the encoder-decoder's: causal self-attention,
+then gated cross-attention to the encoder's output).  The recurrent kinds
+(``rglru``, ``mlstm``, ``slstm``) and MoE MLPs raise
 ``NotImplementedError`` until their layers are ported (ROADMAP.md §1)."""
 from __future__ import annotations
 
@@ -14,18 +18,23 @@ from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
-_PORTED = ("full", "swa", "local", "global")
+_ATTN_SELF = ("full", "swa", "local", "global", "xattn", "enc", "dec")
+_CROSS = ("xattn", "dec")
 
 
 def _kind_window(cfg: ModelConfig, kind: str) -> int:
     return cfg.window if kind in ("swa", "local") else 0
 
 
+def _kind_causal(kind: str) -> bool:
+    return kind != "enc"
+
+
 def _check(cfg: ModelConfig, kind: str) -> None:
-    if kind not in _PORTED:
+    if kind not in _ATTN_SELF:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md §1 item 5); "
-            f"the port has {_PORTED}")
+            f"the port has {_ATTN_SELF}")
     if cfg.num_experts:
         raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP.md "
                                   "§1 item 5)")
@@ -34,12 +43,16 @@ def _check(cfg: ModelConfig, kind: str) -> None:
 def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
                device, lead: Tuple[int, ...] = ()) -> Params:
     """One block's params; ``lead`` stacks a group of layers, (n_groups,).
-    Norm scales start at zero (the norm multiplies by 1 + scale)."""
+    Norm scales start at zero (the norm multiplies by 1 + scale), and so
+    do cross-attention gates."""
     _check(cfg, kind)
     zero = torch.zeros(lead + (cfg.d_model,), dtype=L._pdtype(cfg),
                        device=device)
     p: Params = {"attn_norm": zero,
                  "attn": L.init_attention(cfg, generator, device, lead)}
+    if kind in _CROSS:
+        p["x_norm"] = zero.clone()
+        p["xattn"] = L.init_cross_attention(cfg, generator, device, lead)
     if cfg.d_ff:
         p["mlp_norm"] = zero.clone()
         p["mlp"] = L.init_mlp(cfg, generator, device, lead)
@@ -48,25 +61,49 @@ def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, device) -> Dict[str, Any]:
+    """A block's serving cache: the self-attention's ring KV cache, and for
+    ``xattn``/``dec`` the cross-attention's (batch, n_kv_heads, aux_len,
+    head_dim) K/V, aux_len the image tokens or the encoder's frames."""
     _check(cfg, kind)
-    return {"attn": L.init_attn_cache(cfg, batch, cache_len,
-                                      _kind_window(cfg, kind), device)}
+    c: Dict[str, Any] = {"attn": L.init_attn_cache(
+        cfg, batch, cache_len, _kind_window(cfg, kind), device)}
+    if kind in _CROSS:
+        aux_len = cfg.vision_tokens if kind == "xattn" else cfg.enc_seq
+        shape = (batch, cfg.n_kv_heads, aux_len, cfg.head_dim_)
+        cd = L._cdtype(cfg)
+        c["xattn"] = {"k": torch.zeros(shape, dtype=cd, device=device),
+                      "v": torch.zeros(shape, dtype=cd, device=device)}
+    return c
 
 
 def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[Dict[str, Any]],
-                mode: str, cache_len: Optional[int] = None
+                aux: Optional[torch.Tensor] = None, mode: str,
+                cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """mode: train | prefill | decode.  Returns (x, new_cache)."""
+    """mode: train | prefill | decode.  ``aux`` (B, Ta, d) is what the
+    cross-attention of ``xattn``/``dec`` reads in train and prefill mode.
+    Returns (x, new_cache)."""
     _check(cfg, kind)
+    new_cache: Dict[str, Any] = {}
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     attn_out, kv = L.self_attention(
         cfg, p["attn"], h, window=_kind_window(cfg, kind),
-        positions=positions, causal=True,
+        positions=positions, causal=_kind_causal(kind),
         cache=None if cache is None else cache["attn"], mode=mode,
         cache_len=cache_len)
     x = x + attn_out
+    if kv is not None:
+        new_cache["attn"] = kv
+    if kind in _CROSS:
+        h = L.rms_norm(x, p["x_norm"], cfg.norm_eps)
+        xo, xc = L.cross_attention(
+            cfg, p["xattn"], h, aux,
+            cache=None if cache is None else cache["xattn"], mode=mode)
+        x = x + xo
+        if xc is not None:
+            new_cache["xattn"] = xc
     if cfg.d_ff:
         h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         x = x + L.mlp(cfg, p["mlp"], h)
-    return x, (None if kv is None else {"attn": kv})
+    return x, (new_cache or None)

@@ -8,6 +8,11 @@ axis, and ``rem`` the remainder layers unstacked.  A loop over the groups,
 each reading its views ``t[g]``, takes the place of ``lax.scan``; caches
 are stacked the same way.  Entry points run on the card unless the caller
 passes ``device="cpu"`` (init) or CPU tensors.
+
+The VLM (``xattn`` layers) and the encoder-decoder (``dec`` layers) take
+``aux`` (B, Ta, d_model): the image's patch embeddings, or the audio's
+frame embeddings, which ``encode`` turns into the ``enc_out`` the decoder's
+cross-attention reads (the frontends are stubs, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -35,12 +40,6 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
-def _check_decoder_only(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported "
-                                  "yet (ROADMAP.md §1 item 5)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -57,8 +56,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     padding rows zeroed, all in ``param_dtype``.  The draws come from
     ``generator`` (default: seed 0 on ``device``) and are not the JAX
     package's (carry its params across with ``interop.params_from_numpy``
-    for parity)."""
-    _check_decoder_only(cfg)
+    for parity).  Cross-attention gates start at zero, as there."""
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -77,13 +75,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                        lead=(cfg.n_groups,))
     if cfg.rem_pattern:
         params["rem"] = _init_group(cfg, cfg.rem_pattern, gen, dev)
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "groups": _init_group(cfg, ("enc",), gen, dev,
+                                  lead=(cfg.enc_layers,)),
+            "final_norm": torch.zeros((d,), dtype=pd, device=dev),
+        }
     return params
 
 
 def init_serve_cache(cfg: ModelConfig, batch: int, cache_len: int,
                      device=None) -> Params:
     """Cache tree matching the prefill output / decode input."""
-    _check_decoder_only(cfg)
     dev = resolve_device(device)
 
     def group_cache(pattern):
@@ -98,6 +101,9 @@ def init_serve_cache(cfg: ModelConfig, batch: int, cache_len: int,
             gc)
     if cfg.rem_pattern:
         cache["rem"] = group_cache(cfg.rem_pattern)
+    if cfg.is_encdec:
+        cache["enc_out"] = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                       dtype=L._cdtype(cfg), device=dev)
     return cache
 
 
@@ -112,20 +118,20 @@ def num_params(params: Params) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _group_fn(cfg, pattern, gp, x, *, positions, gcache, mode,
+def _group_fn(cfg, pattern, gp, x, *, positions, gcache, aux, mode,
               cache_len=None):
     ncs = {}
     for i, kind in enumerate(pattern):
         x, nc = apply_block(
             cfg, kind, gp[str(i)], x, positions=positions,
-            cache=None if gcache is None else gcache[str(i)], mode=mode,
-            cache_len=cache_len)
+            cache=None if gcache is None else gcache[str(i)], aux=aux,
+            mode=mode, cache_len=cache_len)
         ncs[str(i)] = nc
     return x, ncs
 
 
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
-               positions, caches, mode: str,
+               positions, caches, aux, mode: str,
                cache_len: Optional[int] = None
                ) -> Tuple[torch.Tensor, Optional[Params]]:
     pattern = cfg.layer_pattern
@@ -137,7 +143,8 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
             gc_in = (None if mode != "decode" else
                      tree_map(lambda t: t[g], caches["groups"]))
             x, gc = _group_fn(cfg, pattern, gp, x, positions=positions,
-                              gcache=gc_in, mode=mode, cache_len=cache_len)
+                              gcache=gc_in, aux=aux, mode=mode,
+                              cache_len=cache_len)
             gcs.append(gc)
         if mode == "prefill":
             new_caches["groups"] = tree_map(lambda *ts: torch.stack(ts),
@@ -147,11 +154,27 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     if cfg.rem_pattern:
         x, rc = _group_fn(
             cfg, cfg.rem_pattern, params["rem"], x, positions=positions,
-            gcache=None if mode != "decode" else caches["rem"], mode=mode,
-            cache_len=cache_len)
+            gcache=None if mode != "decode" else caches["rem"], aux=aux,
+            mode=mode, cache_len=cache_len)
         if mode != "train":
             new_caches["rem"] = rc
     return x, (new_caches if mode != "train" else None)
+
+
+def encode(cfg: ModelConfig, params: Params, audio_embeds: torch.Tensor
+           ) -> torch.Tensor:
+    """Whisper-style encoder over stub frontend embeddings (B, Ta, d): the
+    ``enc`` blocks (non-causal self-attention, kernel 12 on the card) in
+    train mode at positions 0..Ta-1, then the encoder's final norm."""
+    enc = params["encoder"]
+    dev = params["embedding"].device
+    x = audio_embeds.to(device=dev, dtype=L._cdtype(cfg))
+    positions = torch.arange(x.shape[1], device=dev)
+    for g in range(cfg.enc_layers):
+        gp = tree_map(lambda t: t[g], enc["groups"])
+        x, _ = _group_fn(cfg, ("enc",), gp, x, positions=positions,
+                         gcache=None, aux=None, mode="train")
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
@@ -180,16 +203,19 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None,
                    cache_len: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Optional[Params]]:
-    _check_decoder_only(cfg)
-    if aux is not None:
-        raise NotImplementedError("aux inputs (VLM, encoder-decoder) are not "
-                                  "ported yet (ROADMAP.md §1 item 5)")
+    if cfg.is_encdec and mode != "decode":
+        aux = encode(cfg, params, aux)
+    elif cfg.is_encdec and mode == "decode":
+        aux = caches["enc_out"]
     x = embed(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)
     x, new_caches = _run_stack(cfg, params, x, positions=positions,
-                               caches=caches, mode=mode, cache_len=cache_len)
+                               caches=caches, aux=aux, mode=mode,
+                               cache_len=cache_len)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if mode == "prefill" and cfg.is_encdec:
+        new_caches["enc_out"] = aux
     return x, new_caches
 
 
@@ -264,5 +290,7 @@ def decode_step(cfg: ModelConfig, params: Params, caches: Params,
         positions = torch.full((1,), int(pos), dtype=torch.int64, device=dev)
     h, new_caches = forward_hidden(cfg, params, token, mode="decode",
                                    caches=caches, positions=positions)
+    if cfg.is_encdec:
+        new_caches["enc_out"] = caches["enc_out"]
     logits = logits_from_hidden(cfg, params, h[:, 0])
     return logits, new_caches

@@ -1,6 +1,7 @@
 """Model layers: GQA self-attention (full and sliding-window, with the ring
-KV cache) and the SwiGLU MLP, as in the JAX package's
-``repro/models/layers.py``.
+KV cache), gated cross-attention (the VLM's ``xattn`` layers and the
+encoder-decoder's ``dec`` layers) and the SwiGLU MLP, as in the JAX
+package's ``repro/models/layers.py``.
 
 Conventions, the JAX package's:
   * params are plain nested dicts of tensors (param_dtype), cast to
@@ -9,11 +10,12 @@ Conventions, the JAX package's:
   * every block fn returns ``(y, new_cache)``; cache=None in train mode;
   * sequence caches of SWA layers are ring buffers of the window's size.
 
-Prefill and train mode call ``flash_attention`` (kernel 12 on the card).
-Decode reads the ring cache with plain products, as the JAX package's
-einsum does.  Projections keep the JAX package's output types
+Prefill and train mode call ``flash_attention`` (kernel 12 on the card),
+causal or not.  Decode reads the ring cache, and the cross-attention's
+K/V cache, with plain products, as the JAX package's einsum and its
+``"direct"`` backend do.  Projections keep the JAX package's output types
 (``matmul_out_dtype``): bf16 operands give f32 products (``matmul_out``).
-Cross-attention, MoE, RG-LRU and xLSTM are not ported yet (ROADMAP.md §1).
+MoE, RG-LRU and xLSTM are not ported yet (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import mha_reference
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -232,6 +235,55 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     ctx = ctx.reshape(b, hq, 1, dh).transpose(1, 2)
     y = project(ctx.to(cd), p["wo"].to(cd), torch.float32, contract=2)
     return y.to(x.dtype), {"k": newk, "v": newv, "slot_pos": slot_pos}
+
+
+# ---------------------------------------------------------------------------
+# cross attention (VLM xattn layers, whisper decoder)
+# ---------------------------------------------------------------------------
+def init_cross_attention(cfg: ModelConfig, generator: torch.Generator,
+                         device, lead: Tuple[int, ...] = ()) -> Params:
+    """Self-attention's projections and a scalar gate a layer, zero at
+    init (the JAX package's law): a fresh layer adds tanh(0)·y = 0."""
+    p = init_attention(cfg, generator, device, lead)
+    p["gate"] = torch.zeros(lead, dtype=_pdtype(cfg), device=device)
+    return p
+
+
+def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    aux: Optional[torch.Tensor], cache: Cache = None,
+                    mode: str = "train") -> Tuple[torch.Tensor, Cache]:
+    """x: (B, S, d) queries; aux: (B, Ta, d) keys/values (no rope).
+
+    Train and prefill project K/V from ``aux`` and attend with
+    ``flash_attention`` (kernel 12 on the card, not causal); decode reads
+    the projected K/V from the cache the prefill emitted and attends with
+    plain products (the JAX package's ``"direct"`` backend).  The output
+    is tanh(gate)·y in f32, returned in x's dtype."""
+    dh = cfg.head_dim_
+    cd = _cdtype(cfg)
+    xc = x.to(cd)
+    q = mmc(cfg, xc, p["wq"].to(cd)).to(cd)
+    if mode == "decode":
+        kh, vh = cache["k"], cache["v"]
+    else:
+        auxc = aux.to(device=x.device, dtype=cd)
+        # (B, Hkv, Ta, Dh) laid out as the cache holds it
+        kh = mmc(cfg, auxc, p["wk"].to(cd)).to(cd).transpose(1, 2) \
+            .contiguous()
+        vh = mmc(cfg, auxc, p["wv"].to(cd)).to(cd).transpose(1, 2) \
+            .contiguous()
+    qh = (q * (dh ** -0.5)).transpose(1, 2)          # (B, Hq, S, Dh)
+    if mode == "decode":
+        out = mha_reference(qh, kh, vh, causal=False, scale=1.0)
+    else:
+        out = flash_attention(qh, kh, vh, causal=False, window=None,
+                              scale=1.0, block_q=cfg.attn_block_q,
+                              block_k=cfg.attn_block_k)
+    y = out.transpose(1, 2)
+    y = mmc(cfg, y.to(cd), p["wo"].to(cd), contract=2)
+    y = torch.tanh(p["gate"].to(torch.float32)) * y.to(torch.float32)
+    new_cache = {"k": kh, "v": vh} if mode != "train" else None
+    return y.to(x.dtype), new_cache
 
 
 # ---------------------------------------------------------------------------

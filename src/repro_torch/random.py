@@ -27,7 +27,8 @@ The draws (``bits``, ``uniform``, ``poisson``, ``randint``,
 device: ``device=None`` means the card, and the host takes
 ``device="cpu"``.
 Every uint32 quantity here lives in an int64 tensor masked to 32 bits,
-because torch's shifts and adds are not defined on its uint32 dtype.
+because torch's shifts and adds are not defined on its uint32 dtype;
+threefry's rounds run on int32 words of the same bits.
 """
 from __future__ import annotations
 
@@ -49,8 +50,12 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 IntLike = Union[int, torch.Tensor]
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & MASK32
+def _words(v: IntLike) -> torch.Tensor:
+    """uint32 words (an int, or an int64 tensor in [0, 2^32)) as int32
+    tensors holding the same bits."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.tensor(v, dtype=torch.int64)
+    return (((v + (1 << 31)) & MASK32) - (1 << 31)).to(torch.int32)
 
 
 def threefry2x32(k0: IntLike, k1: IntLike, x0: IntLike,
@@ -60,21 +65,25 @@ def threefry2x32(k0: IntLike, k1: IntLike, x0: IntLike,
     Operands are Python ints or int64 tensors holding values in
     [0, 2^32); the result is a pair of int64 tensors in the same range.
     Same round and key-injection schedule as ``jax._src.prng``'s
-    unrolled lowering."""
-    def t(v):
-        return v if isinstance(v, torch.Tensor) else torch.tensor(
-            v, dtype=torch.int64)
-    k0, k1, x0, x1 = t(k0), t(k1), t(x0), t(x1)
-    ks = (k0, k1, (k0 ^ k1 ^ _KS_PARITY) & MASK32)
-    x0 = (x0 + ks[0]) & MASK32
-    x1 = (x1 + ks[1]) & MASK32
+    unrolled lowering.  The rounds run on int32 words holding the uint32
+    bits (int32 adds wrap at 2^32 as uint32 adds do; a right shift is
+    masked to a logical one): an operation moves half the bytes of int64,
+    and the bulk of the plain weight tiles' time is these rounds."""
+    k0, k1, x0, x1 = (_words(v) for v in (k0, k1, x0, x1))
+
+    def rotl(x, r):
+        return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
     for step in range(5):
         for r in _ROTATIONS[step % 2]:
-            x0 = (x0 + x1) & MASK32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(step + 1) % 3]) & MASK32
-        x1 = (x1 + ks[(step + 2) % 3] + (step + 1)) & MASK32
-    return x0, x1
+            x0 = x0 + x1
+            x1 = rotl(x1, r) ^ x0
+        x0 = x0 + ks[(step + 1) % 3]
+        # (ks + step + 1) on the key's shape, then one add on x1's
+        x1 = x1 + (ks[(step + 2) % 3] + (step + 1))
+    return x0.to(torch.int64) & MASK32, x1.to(torch.int64) & MASK32
 
 
 def PRNGKey(seed: int) -> torch.Tensor:

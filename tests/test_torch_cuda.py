@@ -774,7 +774,11 @@ def test_cuda_streaming_reuses_chunk_buffers_safely(cuda, queue_depth):
 #: (b, hq, hkv, sq, skv, d), kwargs: tests/test_kernels.py's sweep, head
 #: dims 16, 20 (padded to 24 for TMA), 64, 120 and 128, Sq and Skv off the
 #: 128-row tiles (67, 200, 513), Hq / Hkv in {1, 2, 4, 8}, a query block
-#: that sees no key at all, causal=False and the decode offset
+#: that sees no key at all, causal=False and the decode offset, and the
+#: cross-attention serving path's non-causal geometries at batch 1
+#: (llama-3.2-vision-90b's cross-attention, GQA 64/8 at D = 128 over 1600
+#: keys; whisper-small's encoder over 1500 frames and its cross-attention
+#: of 224 queries over them: the last key tile ragged)
 FA_CASES = [
     ((2, 4, 2, 64, 64, 32), dict(causal=True)),
     ((1, 4, 4, 128, 128, 32), dict(causal=True, window=32)),
@@ -790,6 +794,9 @@ FA_CASES = [
     ((1, 8, 8, 513, 200, 120), dict(causal=True, kv_offset=-100,
                                     window=300)),
     ((1, 2, 1, 64, 32, 16), dict(causal=True, window=16, kv_offset=100)),
+    ((1, 64, 8, 8192, 1600, 128), dict(causal=False)),
+    ((1, 12, 12, 1500, 1500, 64), dict(causal=False)),
+    ((1, 12, 12, 224, 1500, 64), dict(causal=False)),
 ]
 
 
@@ -986,6 +993,56 @@ def test_cuda_decode_matches_teacher_forcing(cuda):
         lg, cache = decode_step(cfg, params, cache, toks[:, S + t:S + t + 1],
                                 S + t)
         torch.testing.assert_close(lg, full[:, S + t], atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_smoke_matches_the_cpu(cuda):
+    """whisper-small's smoke config in f32 (2 encoder and 2 decoder
+    layers, the encoder over 37 frames, off the 16-row blocks) with its
+    gates drawn from uniform [0.5, 1.0): the prefill with the stub frame
+    embeddings and 4 greedy decode steps on the card within 1e-4 of
+    max|logit| of the same on the CPU, the same greedy tokens, and kernel
+    12 launched once an encoder layer and twice a decoder layer in the
+    prefill, never in decode."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as tfa
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = dataclasses.replace(get_config("whisper-small", smoke=True),
+                              enc_seq=37)
+    params = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    gates = params["groups"]["0"]["xattn"]["gate"]
+    gates.copy_(torch.rand(gates.shape, generator=gen) * 0.5 + 0.5)
+    toks = torch.randint(0, cfg.vocab, (2, 20), generator=gen)
+    aux = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=gen)
+
+    def to(tree, dev):
+        return ({k: to(v, dev) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.to(dev))
+    card = to(params, cuda)
+    runs = {}
+    for dev, p in (("cpu", params), (cuda, card)):
+        before = tfa.flash_attention.launches
+        lg, cache = prefill(cfg, p, toks.to(dev), aux=aux.to(dev),
+                            cache_len=24)
+        n_pre = tfa.flash_attention.launches - before
+        steps, out = [lg], []
+        for t in range(4):
+            tok = torch.argmax(lg, -1)[:, None]
+            out.append(tok.cpu())
+            lg, cache = decode_step(cfg, p, cache, tok, 20 + t)
+            steps.append(lg)
+        n_dec = tfa.flash_attention.launches - before - n_pre
+        runs[str(dev)] = (torch.stack(steps).cpu(), torch.cat(out, 1),
+                          n_pre, n_dec)
+    (want, want_toks, _, _), (got, got_toks, n_pre, n_dec) = (
+        runs["cpu"], runs[str(cuda)])
+    assert (n_pre, n_dec) == (cfg.enc_layers + 2 * cfg.n_layers, 0)
+    assert torch.equal(got_toks, want_toks)
+    v = cfg.vocab
+    assert float((got[..., :v] - want[..., :v]).abs().max()) <= (
+        1e-4 * float(want[..., :v].abs().max()))
 
 
 class _AbsSum:

@@ -3,10 +3,13 @@ against the JAX package on the CPU.
 
 The JAX package's own parameters are carried across with
 ``params_from_numpy``, so both packages run the same model on the same
-tokens (numpy, from a seed).  For the smoke configs of h2o-danube-3-4b,
-granite-3-2b, stablelm-3b and gemma3-27b: prefill and 16 greedy decode steps give
+tokens (numpy, from a seed).  For the smoke configs of every ported
+architecture (the VLM and the encoder-decoder with the same seeded aux in
+both packages, and their cross-attention gates drawn non-zero first,
+``torch_aux_inputs.with_gates``): prefill and 16 greedy decode steps give
 logits within 1e-4 of max|logit|, the same greedy tokens, ``slot_pos``
-bitwise and k/v within 1e-5; ``per_example_loss`` within 1e-5 relative;
+bitwise and k/v (self and cross) and enc_out within 1e-5;
+``per_example_loss`` within 1e-5 relative;
 the configs equal field for field, apart from the documented drop
 ``attention_backend``.  gemma3-27b also at its head dimension, 168, in a
 reduced model of one 5:1 pattern group: the forward's logits within 1e-4
@@ -34,6 +37,7 @@ from repro_torch.models import (decode_step, forward_hidden, init_params,
                                 num_params, per_example_loss, prefill)
 from repro_torch.train import (make_decode_step, make_eval_step,
                                make_prefill_step)
+from torch_aux_inputs import assert_gates_set, aux_for, with_gates
 
 torch.set_num_threads(1)
 
@@ -43,10 +47,22 @@ PROMPT, GEN = 24, 16
 def _models(arch, **overrides):
     jcfg = dataclasses.replace(j_get_config(arch, smoke=True), **overrides)
     cfg = dataclasses.replace(get_config(arch, smoke=True), **overrides)
-    jparams = j_init(jax.random.PRNGKey(0), jcfg)
-    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
-                               device="cpu")
-    return jcfg, jparams, cfg, params
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  j_init(jax.random.PRNGKey(0), jcfg))
+    if cfg.vision_tokens or cfg.is_encdec:
+        tree = with_gates(tree)
+    params = params_from_numpy(tree, device="cpu")
+    if cfg.vision_tokens or cfg.is_encdec:
+        assert_gates_set(params)
+    return jcfg, jax.tree_util.tree_map(jnp.asarray, tree), cfg, params
+
+
+def _aux(cfg, b):
+    """The same seeded aux for both packages (None where a config reads
+    none): (jax array, torch tensor)."""
+    a = aux_for(cfg, b)
+    return (None, None) if a is None else (jnp.asarray(a),
+                                           torch.from_numpy(a))
 
 
 def _tokens(cfg, b, s, seed=1):
@@ -62,26 +78,41 @@ def _logits_close(got, want, vocab, rel=1e-4):
 
 
 def _caches_close(tc, jc):
+    assert set(tc) == set(jc)
     for name in tc:
+        if name == "enc_out":
+            np.testing.assert_allclose(tc[name].numpy(),
+                                       np.asarray(jc[name]), atol=1e-5,
+                                       rtol=0)
+            continue
         for i in tc[name]:
             t, j = tc[name][i]["attn"], jc[name][i]["attn"]
             np.testing.assert_array_equal(t["slot_pos"].numpy(),
                                           np.asarray(j["slot_pos"]))
-            for kv in ("k", "v"):
-                np.testing.assert_allclose(t[kv].numpy(), np.asarray(j[kv]),
-                                           atol=1e-5, rtol=0)
+            pairs = [(t, j)]
+            if "xattn" in jc[name][i]:
+                pairs.append((tc[name][i]["xattn"], jc[name][i]["xattn"]))
+            for t, j in pairs:
+                for kv in ("k", "v"):
+                    np.testing.assert_allclose(t[kv].numpy(),
+                                               np.asarray(j[kv]), atol=1e-5,
+                                               rtol=0)
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
 def test_prefill_and_greedy_decode_match_jax(arch):
     jcfg, jparams, cfg, params = _models(arch)
     toks = _tokens(cfg, 2, PROMPT)
-    jl, jc = j_prefill(jcfg, jparams, jnp.asarray(toks),
+    jaux, taux = _aux(cfg, 2)
+    jl, jc = j_prefill(jcfg, jparams, jnp.asarray(toks), aux=jaux,
                        cache_len=PROMPT + GEN)
-    tl, tc = make_prefill_step(cfg)(params, {"tokens": torch.from_numpy(
-        toks)})
-    tl, tc = prefill(cfg, params, torch.from_numpy(toks),
+    batch = {"tokens": torch.from_numpy(toks)}
+    if taux is not None:
+        batch["aux"] = taux
+    sl, _ = make_prefill_step(cfg)(params, batch)
+    tl, tc = prefill(cfg, params, torch.from_numpy(toks), aux=taux,
                      cache_len=PROMPT + GEN)
+    _logits_close(sl, jl, cfg.vocab)
     _logits_close(tl, jl, cfg.vocab)
     assert (tl[:, cfg.vocab:] <= -1e29).all()
     _caches_close(tc, jc)
@@ -103,12 +134,15 @@ def test_per_example_loss_matches_jax(arch):
     docs = _tokens(cfg, 3, 41, seed=2)
     docs[1, 30:] = -1 + 0 * docs[1, 30:]      # padded labels are skipped
     tokens, labels = np.maximum(docs[:, :40], 0), docs[:, 1:]
-    want = np.asarray(j_pel(jcfg, jparams, {"tokens": jnp.asarray(tokens),
-                                            "labels": jnp.asarray(labels)}))
-    got = make_eval_step(cfg)(params, {"tokens": torch.from_numpy(tokens),
-                                       "labels": torch.from_numpy(labels)})
-    got2 = per_example_loss(cfg, params, {"tokens": torch.from_numpy(tokens),
-                                          "labels": torch.from_numpy(labels)})
+    jaux, taux = _aux(cfg, 3)
+    jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.from_numpy(tokens),
+          "labels": torch.from_numpy(labels)}
+    if taux is not None:
+        jb["aux"], tb["aux"] = jaux, taux
+    want = np.asarray(j_pel(jcfg, jparams, jb))
+    got = make_eval_step(cfg)(params, tb)
+    got2 = per_example_loss(cfg, params, tb)
     assert torch.equal(got, got2)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
 
