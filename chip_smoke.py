@@ -238,7 +238,27 @@ failure:
    prefill with every gate at zero moves the logits past the tolerance;
    decode == teacher forcing; card == CPU on llama's xattn layer and on
    the whole whisper model (one request, the CPU fed the card's tokens);
-8. replay every distinct launch geometry that phases 4 to 7 and 10 to 15
+16. (run after phase 15) the MoE serving path, from zeroed counts with
+   its geometries logged: mixtral-8x22b at its published widths (d_model
+   6144, 48/8 heads of 128, window 4096, 8 experts top-2 of d_ff 16384,
+   vocab 32,768) cut to 2 of its 56 layers in f32, then arctic-480b
+   (d_model 7168, 56/8 heads of 128, 128 experts top-2 of d_ff 4864 beside
+   a dense residual MLP, vocab 32,000) cut to 1 of its 35 layers in bf16,
+   each SERVE_B x SERVE_PROMPT prompts and SERVE_GEN greedy steps at the
+   published capacity factor 1.25 (the token-slots dropped in the prefill
+   and in each decode step printed); phase 11's gates, with the peak
+   against prefill_live_bytes extended by moe_live_bytes; swapping two
+   experts' weights (not the router's) where a last token keeps a slot
+   must move the prefill's logits past the tolerance; decode == teacher
+   forcing at the capacity factor E/k (nothing drops) on 1 x 256 tokens,
+   and card == CPU on the first layer (the CPU fed the card's tokens, its
+   expert products a chunk of experts at a time), each with the routing
+   held first (router probabilities within 2e-2 of a token's largest, a
+   differing choice only at a near tie, near ties within 1e-3 counted),
+   then the MoE outputs at the agreeing tokens and the logits before the
+   first differing one; on mixtral's first layer, moe_ffn_shard_map in a
+   world of one NCCL rank (one-way data and model axes) bitwise moe_ffn;
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 16
    logged on fresh data and hold it against the plain version as in
    phase 3, printing each geometry's seconds, the longest first;
 9. time each kernel (CUDA events) beside its plain version, its bound
@@ -269,7 +289,11 @@ failure:
    and at phase 15's three non-causal geometries (llama's
    cross-attention, whisper's encoder and cross-attention) alone, with
    their bounds and one unmasked bf16 scaled_dot_product_attention call
-   each; then print the kernels line, then the contract's last line.
+   each, and at phase 16's causal prefill geometries (mixtral's 48/8
+   heads with window 4096, arctic's 56/8 full causal) alone, through the
+   wrapper and in f32, beside their bounds and one masked bf16
+   scaled_dot_product_attention call each; then print the kernels line,
+   then the contract's last line.
 
 Every plain version that a kernel is held against or timed beside runs
 under a check that it launches no kernel.
@@ -450,6 +474,30 @@ GATE_LO, GATE_HI = 0.5, 1.0
 XA_TIMED = (("llama_cross_attention", 4, 64, 8, 8192, 1600, 128),
             ("whisper_encoder", 16, 12, 12, 1500, 1500, 64),
             ("whisper_cross_attention", 16, 12, 12, 224, 1500, 64))
+# the MoE serving path (phase 16): mixtral-8x22b at its published widths
+# (d_model 6144, 48/8 heads of 128, window 4096, 8 experts top-2 of d_ff
+# 16384) cut to 2 of its 56 layers in f32 (all 56 would be about 562 GB),
+# and arctic-480b (d_model 7168, 56/8 heads of 128, 128 experts top-2 of
+# d_ff 4864 beside a dense residual MLP) cut to 1 of its 35 layers in
+# bf16 (all 35 would be about 953 GB); SERVE_B requests of SERVE_PROMPT
+# tokens and SERVE_GEN greedy steps at the published capacity factor
+# 1.25, which drops slots.  Decode == teacher forcing runs at the
+# capacity factor E/k, where the capacity C is the token count and
+# nothing drops (decode routes B tokens, the forward B·S, so at 1.25 they
+# drop different slots), on 1 x CPU_PROMPT tokens.
+MIXTRAL_ARCH, MIXTRAL_SEED, MIXTRAL_LAYERS = "mixtral-8x22b", 22, 2
+ARCTIC_ARCH, ARCTIC_SEED, ARCTIC_LAYERS = "arctic-480b", 480, 1
+#: a near tie: a token's k-th and (k+1)-th router probabilities within
+#: this share of the k-th (counted and printed)
+NEAR_TIE = 1e-3
+#: router probabilities on the card against the CPU (or decode against
+#: teacher forcing), each token's within this share of its largest (the
+#: bf16 rule of logits_tolerance); a token may then choose another expert
+#: only where its k-th and (k+1)-th lie within twice that of each other
+ROUTER_TOL = 2e-2
+#: kernel 12's causal geometries of phase 16, timed in phase 9:
+#: (name, Hq, Hkv, D, window) at SERVE_B x SERVE_PROMPT
+MOE_FA_TIMED = (("mixtral", 48, 8, 128, 4096), ("arctic", 56, 8, 128, None))
 # dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet, 700 W)
 BF16_FLOPS_PER_S = 989e12
 # the repaired routing: a keyed custom statistic's tiled scan at the
@@ -3617,18 +3665,49 @@ def prefill_live_bytes(cfg, batch: int, prompt: int, cache_len: int
     products in matmul_out_dtype (gate, up, silu(gate) and their product),
     four (tokens, d_model) f32 residual-stream tensors, one layer's weights
     and the embedding cast to the compute dtype, and the caches the
-    prefill returns (self K/V, cross K/V, enc_out)."""
+    prefill returns (self K/V, cross K/V, enc_out).  A layer with experts
+    takes ``moe_live_bytes`` in place of the MLP's products and weights
+    (and keeps them beside it under ``dense_residual``)."""
     cd = 2 if cfg.compute_dtype == "bfloat16" else 4
     ob = 4 if cfg.matmul_out_dtype == "float32" else cd
     tokens = max(batch * prompt, batch * cfg.enc_seq if cfg.is_encdec else 0)
     attn = ((2 * cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim_
             * cfg.d_model)
     cross = any(k in ("xattn", "dec") for k in cfg.layer_pattern)
-    layer = (attn * (2 if cross else 1) + 3 * cfg.d_model * cfg.d_ff) * cd
-    return (4 * tokens * cfg.d_ff * ob + 4 * tokens * cfg.d_model * 4
+    dense = not cfg.num_experts or cfg.dense_residual
+    layer = (attn * (2 if cross else 1)
+             + (3 * cfg.d_model * cfg.d_ff if dense else 0)) * cd
+    return ((4 * tokens * cfg.d_ff * ob if dense else 0)
+            + 4 * tokens * cfg.d_model * 4
             + layer + cfg.padded_vocab * cfg.d_model * cd
             + self_cache_bytes(cfg, batch, cache_len)
-            + aux_cache_bytes(cfg, batch))
+            + aux_cache_bytes(cfg, batch)
+            + (moe_live_bytes(cfg, tokens) if cfg.num_experts else 0))
+
+
+def moe_live_bytes(cfg, tokens: int) -> int:
+    """What one MoE layer (``layers._moe_route_compute``) holds at once
+    over ``tokens`` tokens, from its own tensors, with C = ceil(T·k·cf/E)
+    and R = E·C dispatch rows: the routing's (T, E) probabilities (f32,
+    twice: the softmax and its sorted values) and sort order (int64) and
+    its nine (T·k,) slot arrays (int64), the (R + 1, d) dispatch buffer
+    and the (T·k, d) rows gathered into it (compute dtype), three (R, f)
+    expert products in f32 (gate, up, their product; the compute-dtype
+    h is smaller than the third), the (R, d) output in matmul_out_dtype
+    and its f32 copy with the zero row, the (T·k, d) f32 contributions and
+    the (T, d) f32 output, and one layer's expert and router weights
+    cast to the compute dtype."""
+    cd = 2 if cfg.compute_dtype == "bfloat16" else 4
+    ob = 4 if cfg.matmul_out_dtype == "float32" else cd
+    d, f, e, k = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.top_k
+    slots = tokens * k
+    rows = e * math.ceil(tokens * k * cfg.capacity_factor / e)
+    return (tokens * e * (4 + 4 + 8) + 9 * slots * 8
+            + (rows + 1) * d * cd + slots * d * cd
+            + 3 * rows * f * 4
+            + rows * d * ob + (rows + 1) * d * 4
+            + slots * d * 4 + tokens * d * 4
+            + (3 * e * d * f + d * e) * cd)
 
 
 def cross_leaves(cache) -> dict:
@@ -3667,6 +3746,221 @@ class CrossTap:
 
     def __exit__(self, *exc):
         self.layers.cross_attention = self.orig
+
+
+class RouteTap:
+    """Records, in call order, every MoE routing a run makes
+    (``models.layers.moe_route``: the Route, its tensors where they lie)
+    and, with ``outputs``, every MoE layer's output (``models.layers
+    .moe_ffn``) copied to the host, while it is entered.  Recording a
+    Route launches nothing: its tensors are the run's own."""
+
+    def __init__(self, outputs: bool = False):
+        self.outputs = outputs
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.orig = layers, (layers.moe_route, layers.moe_ffn)
+        self.routes, self.ys = [], []
+        route, ffn = self.orig
+
+        def tap_route(cfg, p, xt):
+            r = route(cfg, p, xt)
+            self.routes.append(r)
+            return r
+
+        def tap_ffn(cfg, p, x):
+            y = ffn(cfg, p, x)
+            if self.outputs:
+                self.ys.append(y.detach().float().cpu())
+            return y
+        layers.moe_route, layers.moe_ffn = tap_route, tap_ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route, self.layers.moe_ffn = self.orig
+
+
+def route_drops(routes, n_layers: int):
+    """(the prefill's dropped token-slots, each decode step's): a served
+    run routes n_layers times in the prefill, then n_layers times a
+    step."""
+    from repro_torch.models.layers import dropped_slots
+    d = [int(dropped_slots(r)) for r in routes]
+    return sum(d[:n_layers]), [sum(d[i:i + n_layers])
+                               for i in range(n_layers, len(d), n_layers)]
+
+
+def concat_routes(torch, routes):
+    """One Route, on the host, of batch-1 routings of consecutive tokens
+    (a prefill's, then a decode step's each): positions in order."""
+    from repro_torch.models.layers import Route
+    sts, off = [], 0
+    for r in routes:
+        sts.append(r.st.cpu() + off)
+        off += r.probs.shape[0]
+
+    def cat(name):
+        return torch.cat([getattr(r, name).cpu() for r in routes])
+    return Route(cat("logits"), cat("probs"), cat("eidx"), routes[0].cap,
+                 cat("se"), torch.cat(sts), cat("sg"), cat("keep"),
+                 cat("slot"))
+
+
+def hold_routing(torch, got, want, what: str):
+    """Two runs' routings of the same tokens, call by call (``got`` on the
+    card, ``want`` on the CPU or in a teacher-forced forward): the router
+    logits within logits_tolerance (2e-2 of the call's largest |logit|:
+    a wrong router product fails here), every token that chose other
+    experts or kept other slots explained by ``route_agreement`` where its
+    k-th and (k+1)-th logits lie within twice that tolerance of each other
+    (only there can two roundings within it flip a choice), and the near
+    ties (NEAR_TIE) and flips counted.  Returns (info, each call's (T,)
+    mask of the tokens that agree)."""
+    from repro_torch.models.layers import near_ties, route_agreement
+    check(len(got) == len(want), f"{what}: {len(got)} routings against "
+          f"{len(want)}")
+    info = dict(tokens=0, near_ties=0, flips=0, flips_at_near_tie=0,
+                differing_tokens=0, router_logit_share=0.0)
+    agrees = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        lg, lw = g.logits.float().cpu(), w.logits.float().cpu()
+        tol = logits_tolerance(lw)
+        err = float((lg - lw).abs().max())
+        check(err <= tol, f"{what}: routing {i}'s router logits differ by "
+              f"{err}, past {tol}")
+        # p_(k+1) / p_k > exp(-2·tol): the logits of the two within 2·tol
+        agree, _, unexplained = route_agreement(g, w,
+                                                -math.expm1(-2 * tol))
+        check(unexplained == 0, f"{what}: routing {i}: {unexplained} tokens "
+              f"chose other experts (or kept other slots) with no near tie")
+        flipped = (g.eidx.cpu().sort(-1).values
+                   != w.eidx.cpu().sort(-1).values).any(-1)
+        near = near_ties(g, NEAR_TIE).cpu() | near_ties(w, NEAR_TIE).cpu()
+        info["tokens"] += int(agree.numel())
+        info["near_ties"] += int(near.sum())
+        info["flips"] += int(flipped.sum())
+        info["flips_at_near_tie"] += int((flipped & near).sum())
+        info["differing_tokens"] += int((~agree).sum())
+        info["router_logit_share"] = max(info["router_logit_share"],
+                                         err / tol)
+        agrees.append(agree)
+    return info, agrees
+
+
+def differing_positions(agrees, positions) -> set:
+    """The positions (batch 1) whose routing differs in any call;
+    ``positions[i]`` is call i's first.  Only these are left out of a
+    logit check: a later token reads a differing one through attention
+    with a weight of about one over the keys it sees, far below the
+    tolerance."""
+    out = set()
+    for agree, base in zip(agrees, positions):
+        out.update(base + int(j) for j in (~agree).nonzero().flatten())
+    return out
+
+
+def hold_moe_outputs(torch, got, want, agrees, what: str) -> float:
+    """Each MoE layer's output on the card against the CPU's at the
+    tokens whose routing agrees, within 2e-2 of the CPU output's largest
+    |value| (logits_tolerance's bf16 rule); returns the largest share of
+    that tolerance."""
+    check(len(got) == len(want) == len(agrees), f"{what}: {len(got)} and "
+          f"{len(want)} MoE outputs for {len(agrees)} routings")
+    share = 0.0
+    for i, (g, w, a) in enumerate(zip(got, want, agrees)):
+        g, w = g.reshape(-1, g.shape[-1])[a], w.reshape(-1, w.shape[-1])
+        tol = logits_tolerance(w)
+        err = float((g - w[a]).abs().max()) if len(g) else 0.0
+        check(tol > 0 and err <= tol, f"card vs CPU: {what}: MoE output "
+              f"{i}: max |err| {err} over {tol}")
+        share = max(share, err / tol)
+    return share
+
+
+def moe_teacher_forcing(torch, cfg, params, prompts) -> dict:
+    """Decode == teacher forcing for a model with experts, at the capacity
+    factor E/k (C = T: no slot drops, so the decode's B tokens and the
+    forward's B·S route alike) on 1 x CPU_PROMPT tokens and SERVE_GEN
+    greedy steps: the routings held layer by layer (``hold_routing``,
+    each layer's decode calls in a row against the forward's), then the
+    logits within logits_tolerance at the positions before the first
+    token whose routing differs.  Then the routed experts reach the
+    logits: at that capacity every slot is kept, so swapping the weights
+    of an expert the prompt's last token uses with one it does not (the
+    router kept) must move the prefill's logits past the tolerance."""
+    import dataclasses
+    from repro_torch.models import forward_hidden, logits_from_hidden, prefill
+    from repro_torch.models.layers import dropped_slots
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                             / cfg.top_k)
+    prompt = prompts[:1, :CPU_PROMPT]
+    with RouteTap() as dec_tap:
+        steps, toks, *_ = serve(torch, nd, params, prompt, SERVE_GEN,
+                                CPU_PROMPT + SERVE_GEN)
+    full = torch.cat([prompt, toks], dim=1)
+    with RouteTap() as tf_tap, torch.no_grad():
+        h, _ = forward_hidden(nd, params, full, mode="train")
+        tf = logits_from_hidden(nd, params,
+                                h[:, CPU_PROMPT - 1:])[..., :cfg.vocab]
+    del h
+    dropped = sum(int(dropped_slots(r))
+                  for r in dec_tap.routes + tf_tap.routes)
+    check(dropped == 0, f"decode vs teacher forcing: {dropped} slots "
+          f"dropped at the capacity factor {nd.capacity_factor}")
+    n = cfg.n_layers
+    info, agrees = hold_routing(
+        torch, [concat_routes(torch, dec_tap.routes[i::n]) for i in range(n)],
+        tf_tap.routes, "decode vs teacher forcing")
+    differ = differing_positions(agrees, [0] * n)
+    dec = torch.stack([s[:, :cfg.vocab] for s in steps], dim=1)
+    held = [i for i in range(dec.shape[1])
+            if CPU_PROMPT - 1 + i not in differ]
+    check(len(held) > 0, "decode vs teacher forcing: no position whose "
+          "routing agrees")
+    err = float((dec[:, held] - tf[:, held]).abs().max())
+    tol = logits_tolerance(tf)
+    check(err <= tol, f"decode vs teacher forcing: max |err| {err} over "
+          f"{tol}")
+    info.update(teacher_forcing_max_err=err, teacher_forcing_tol=tol,
+                teacher_forcing_positions=len(held),
+                teacher_forcing_capacity_factor=nd.capacity_factor)
+    print(f"serve: decode == teacher forcing at the capacity factor "
+          f"{nd.capacity_factor} (no slot dropped), 1 x {CPU_PROMPT} tokens "
+          f"and {SERVE_GEN} steps: max |logit err| {err} (tolerance {tol}) "
+          f"over {len(held)} of {dec.shape[1]} positions; routing: "
+          f"{json.dumps({k: v for k, v in info.items() if not k.startswith('teacher')})}")
+
+    last = tf_tap.routes[-1].eidx[CPU_PROMPT - 1].tolist()
+    a = last[0]
+    b = next(e for e in range(cfg.num_experts) if e not in last)
+    swap_experts(params, a, b)
+    try:
+        with torch.no_grad():
+            ml, _ = prefill(nd, params, prompt, cache_len=CPU_PROMPT)
+    finally:
+        swap_experts(params, a, b)
+    moved = float((ml[:, :cfg.vocab] - steps[0][:, :cfg.vocab]).abs().max())
+    tol = logits_tolerance(steps[0][:, :cfg.vocab])
+    check(moved > tol, f"swapping experts {a} and {b} moved the prefill's "
+          f"logits by {moved}, not past the tolerance {tol}")
+    info.update(expert_swap=[a, b], expert_swap_moved=moved,
+                expert_swap_tol=tol)
+    print(f"serve: with experts {a} and {b} swapped (router kept) the "
+          f"prefill's logits move by {moved} (tolerance {tol}): the routed "
+          f"experts count")
+    return info
+
+
+def swap_experts(params, a: int, b: int) -> None:
+    """Swaps experts a and b's weights (not the router's columns) in every
+    layer, in place; a second call undoes it bitwise."""
+    for block in params["groups"].values():
+        for name in ("we_gate", "we_up", "we_down"):
+            t = block["mlp"][name]
+            held = t[:, a].clone()
+            t[:, a] = t[:, b]
+            t[:, b] = held
 
 
 def hold_relative(torch, got: dict, want: dict, what: str) -> dict:
@@ -3745,9 +4039,15 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
     and one flipped token sends two greedy runs apart).  With
     cross-attention, the same prefill with every gate at zero must move
     the logits past the tolerance, and card == CPU also holds enc_out,
-    the cross K/V and each cross-attention's output.  Returns (params,
-    info, the launches of the served prefill and decode alone, from
-    zeroed counts); the caller deletes the params."""
+    the cross K/V and each cross-attention's output.  With experts: the
+    token-slots the served run drops are counted (RouteTap), swapping two
+    experts' weights must move the prefill's logits past the tolerance,
+    decode == teacher forcing runs at the no-drop capacity
+    (``moe_teacher_forcing``), and card == CPU holds the routing first
+    (``hold_routing``), then the MoE outputs at the agreeing tokens and
+    the logits before the first differing one.  Returns (params, info,
+    the launches of the served prefill and decode alone, from zeroed
+    counts); the caller deletes the params."""
     from repro_torch.data import synthetic_tokens
     from repro_torch.models import (forward_hidden, init_params,
                                     logits_from_hidden, num_params, prefill)
@@ -3784,8 +4084,10 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
     torch.cuda.reset_peak_memory_stats()
     # the main path: the served prefill and decode, from zeroed counts
     zero_counts()
-    steps, toks, t_pre, t_dec, n_pre, n_dec, cache = serve(
-        torch, cfg, params, prompts, SERVE_GEN, prompt + SERVE_GEN, aux=aux)
+    with RouteTap() as served:
+        steps, toks, t_pre, t_dec, n_pre, n_dec, cache = serve(
+            torch, cfg, params, prompts, SERVE_GEN, prompt + SERVE_GEN,
+            aux=aux)
     launches = LaunchLog.counts()
     peak = torch.cuda.max_memory_allocated() - param_bytes - free0
     scores = layer_score_bytes(cfg, batch, prompt)
@@ -3821,10 +4123,26 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
           f"above the params (one layer's f32 scores: {scores} B, the "
           f"cross caches: {cross_bytes} B, what the prefill can hold at "
           f"once: {live} B); launches {json.dumps(launches)}")
+    if cfg.num_experts:
+        from repro_torch.models.layers import near_ties
+        pre, per_step = route_drops(served.routes, cfg.n_layers)
+        ties = sum(int(near_ties(r, NEAR_TIE).sum())
+                   for r in served.routes[:cfg.n_layers])
+        slots = batch * prompt * cfg.top_k * cfg.n_layers
+        info.update(prefill_dropped_slots=pre, prefill_slots=slots,
+                    decode_dropped_slots=per_step, prefill_near_ties=ties,
+                    capacity_factor=cfg.capacity_factor)
+        print(f"serve: {cfg.name} at the capacity factor "
+              f"{cfg.capacity_factor}: the prefill dropped {pre} of its "
+              f"{slots} token-slots ({ties} tokens at a near tie); each "
+              f"decode step dropped {per_step} of "
+              f"{batch * cfg.top_k * cfg.n_layers}")
     if profile:
         info.update(profile_decode(torch, cfg, params, cache, toks[:, -1:],
                                    prompt + SERVE_GEN))
     del cache
+
+    del served
 
     if aux is not None:
         # the cross-attention moved the logits: the same prefill with
@@ -3848,37 +4166,42 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
               f"by {moved} (tolerance {tol}): the cross-attention counts")
         del zl
 
-    # decode == teacher forcing: the prompt extended by the decoded
-    # tokens, in one forward
-    full = torch.cat([prompts, toks], dim=1)
-    with torch.no_grad():
-        h, _ = forward_hidden(cfg, params, full, aux=aux, mode="train")
-        tf = logits_from_hidden(cfg, params,
-                                h[:, prompt - 1:])[..., :cfg.vocab]
-    del h
-    dec = torch.stack([s[:, :cfg.vocab] for s in steps], dim=1)
-    err = float((dec - tf).abs().max())
-    tol = logits_tolerance(tf)
-    check(err <= tol, f"decode vs teacher forcing: max |err| {err} over "
-          f"{tol}")
-    agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
-    info.update(teacher_forcing_max_err=err, teacher_forcing_tol=tol,
-                teacher_forcing_argmax_agreement=agree)
-    print(f"serve: decode == teacher forcing over {SERVE_GEN + 1} "
-          f"positions: max |logit err| {err} (tolerance {tol}); "
-          f"argmax agreement {agree}")
-    del full, tf, dec, steps
+    if cfg.num_experts:
+        del steps
+        info["teacher_forcing"] = moe_teacher_forcing(torch, cfg, params,
+                                                      prompts)
+    else:
+        # decode == teacher forcing: the prompt extended by the decoded
+        # tokens, in one forward
+        full = torch.cat([prompts, toks], dim=1)
+        with torch.no_grad():
+            h, _ = forward_hidden(cfg, params, full, aux=aux, mode="train")
+            tf = logits_from_hidden(cfg, params,
+                                    h[:, prompt - 1:])[..., :cfg.vocab]
+        del h
+        dec = torch.stack([s[:, :cfg.vocab] for s in steps], dim=1)
+        err = float((dec - tf).abs().max())
+        tol = logits_tolerance(tf)
+        check(err <= tol, f"decode vs teacher forcing: max |err| {err} "
+              f"over {tol}")
+        agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
+        info.update(teacher_forcing_max_err=err, teacher_forcing_tol=tol,
+                    teacher_forcing_argmax_agreement=agree)
+        print(f"serve: decode == teacher forcing over {SERVE_GEN + 1} "
+              f"positions: max |logit err| {err} (tolerance {tol}); "
+              f"argmax agreement {agree}")
+        del full, tf, dec, steps
 
     # card == CPU on the cut model
     one, p1, what = cut(cfg, params)
     p1_cpu = _tree_to(p1, "cpu")
     prompt1 = prompts[:1, :CPU_PROMPT]
     aux1 = None if aux is None else aux[:1]
-    with CrossTap() as c_tap:
+    with CrossTap() as c_tap, RouteTap(outputs=True) as c_route:
         c_steps, c_toks, *_, c_cache = serve(
             torch, one, p1, prompt1, CPU_GEN, prompt1.shape[1] + CPU_GEN,
             aux=aux1)
-    with CrossTap() as h_tap:
+    with CrossTap() as h_tap, RouteTap(outputs=True) as h_route:
         h_steps, h_toks, t_cpu, *_, h_cache = serve(
             torch, one, p1_cpu, prompt1.cpu(), CPU_GEN,
             prompt1.shape[1] + CPU_GEN,
@@ -3886,7 +4209,31 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
             aux=None if aux1 is None else aux1.cpu())
     c = torch.stack(c_steps).cpu()[..., :cfg.vocab]
     hh = torch.stack(h_steps)[..., :cfg.vocab]
-    err = float((c - hh).abs().max())
+    held = list(range(c.shape[0]))
+    if one.num_experts:
+        # the routing first: a token whose choice may flip between two
+        # roundings moves its output by far more than the tolerance, so
+        # the outputs and logits are held where the routing agrees
+        import resource
+        n, p0 = one.n_layers, prompt1.shape[1]
+        rinfo, agrees = hold_routing(torch, c_route.routes, h_route.routes,
+                                     what)
+        rinfo["moe_output_share"] = hold_moe_outputs(
+            torch, c_route.ys, h_route.ys, agrees, what)
+        differ = differing_positions(
+            agrees, [0 if i < n else p0 + i // n - 1
+                     for i in range(len(agrees))])
+        held = [i for i in held if p0 - 1 + i not in differ]
+        check(len(held) > 0, f"card vs CPU at {what}: no position whose "
+              f"routing agrees")
+        rinfo.update(logit_positions=len(held),
+                     host_peak_rss_bytes=resource.getrusage(
+                         resource.RUSAGE_SELF).ru_maxrss * 1024)
+        info.update(card_vs_cpu_routing=rinfo)
+        print(f"serve: card == CPU at {what}, the routing: "
+              f"{json.dumps(rinfo)}")
+    del c_route, h_route
+    err = float((c[held] - hh[held]).abs().max())
     tol = logits_tolerance(hh)
     check(err <= tol, f"card vs CPU at {what}: max |err| {err} over {tol}")
     if aux is not None:
@@ -3936,6 +4283,7 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
         chose = hh[:-1]
         gap = (chose.max(-1).values
                - chose.gather(-1, c_toks.cpu().T[..., None])[..., 0])
+        gap = gap[[i for i in held if i < gap.shape[0]]]
         ties = int((chose.argmax(-1) != c_toks.cpu().T).sum())
         check(bool((gap <= tol).all()), f"card vs CPU: a card token is "
               f"{float(gap.max())} below the CPU's largest logit, past "
@@ -4138,6 +4486,111 @@ def phase_serve_xattn(torch):
     print(f"launches, the cross-attention serving path: "
           f"{json.dumps(launches)}")
     print("serve summary (cross-attention): " + json.dumps(info))
+    return launches, log.geometries, info
+
+
+def shard_map_world1(torch, cfg, params) -> dict:
+    """``moe_ffn_shard_map`` in a world of one NCCL rank (this process; a
+    FileStore under a removed temporary directory; NCCL_SOCKET_IFNAME
+    defaulted to lo), the mapping's "batch" on a one-way data axis and
+    "mlp" on a one-way model axis, against ``moe_ffn`` on the model's
+    first MoE layer at full width, over SERVE_B x SERVE_PROMPT seeded
+    normal hidden states in the compute dtype: bitwise."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.models.act_shard import (activation_sharding,
+                                              mapping_from_mesh)
+    from repro_torch.models.layers import (_cdtype, moe_ffn,
+                                           moe_ffn_shard_map)
+
+    p = {k: (v[0] if not isinstance(v, dict) else
+             {n: t[0] for n, t in v.items()})
+         for k, v in params["groups"]["0"]["mlp"].items()}
+    x = torch.randn((SERVE_B, SERVE_PROMPT, cfg.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda").to(_cdtype(cfg))
+    tmp = tempfile.mkdtemp(prefix="earl_moe_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "nccl"),
+                                                 1))
+    try:
+        mesh = DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "model"))
+        mapping = mapping_from_mesh(mesh, {"batch": ("pod", "data"),
+                                           "mlp": ("model",)})
+        check(mapping == {"batch": (("data", 1),), "mlp": (("model", 1),)},
+              f"mapping_from_mesh gave {mapping}")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = moe_ffn(cfg, p, x)
+            with activation_sharding(mapping, mesh=mesh):
+                got = moe_ffn_shard_map(
+                    dataclasses.replace(cfg, moe_impl="shard_map"), p, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(torch.equal(got, want), f"moe_ffn_shard_map in a world of one "
+              f"NCCL rank differs from moe_ffn by "
+              f"{float((got.float() - want.float()).abs().max())}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serve: {cfg.name}: moe_ffn_shard_map in a world of one NCCL "
+          f"rank ({mapping}) is moe_ffn bitwise on its first layer over "
+          f"{SERVE_B} x {SERVE_PROMPT} tokens ({wall:.3f} s for both)")
+    return dict(bitwise=True, mapping={k: list(v) for k, v in
+                                       mapping.items()}, both_s=wall)
+
+
+def phase_serve_moe(torch):
+    """Phase 16: the MoE serving path on the card, its geometries logged
+    and its launches the two served runs', each from zeroed counts:
+    mixtral-8x22b cut to MIXTRAL_LAYERS layers in f32, then arctic-480b
+    cut to ARCTIC_LAYERS in bf16, each through ``serve_at_full_width``
+    (the routing mutation, decode == teacher forcing at the no-drop
+    capacity, card == CPU on the first layer with the CPU fed the card's
+    tokens and the routing held first), and on mixtral's first layer
+    ``moe_ffn_shard_map`` in a world of one NCCL rank bitwise
+    ``moe_ffn``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    info, runs = {}, []
+    with LaunchLog() as log:
+        for key, arch, seed, n_layers in (
+                ("mixtral", MIXTRAL_ARCH, MIXTRAL_SEED, MIXTRAL_LAYERS),
+                ("arctic", ARCTIC_ARCH, ARCTIC_SEED, ARCTIC_LAYERS)):
+            cfg = get_config(arch)
+            _, hq, hkv, d, w = next(m for m in MOE_FA_TIMED if m[0] == key)
+            check((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+                   cfg.window or None) == (hq, hkv, d, w),
+                  f"{cfg.name} is not the shape kernel 12 is timed at")
+            width = 4 if cfg.param_dtype == "float32" else 2
+            print(f"serve: {cfg.name} cut from {cfg.n_layers} layers to "
+                  f"{n_layers}: all {cfg.n_layers} in {cfg.param_dtype} "
+                  f"would be {width * cfg.num_params()} bytes of parameters")
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+            params, info[key], made = serve_at_full_width(
+                torch, cfg, seed, one_layer, profile=False, forced_cpu=True)
+            runs.append(made)
+            if key == "mixtral":
+                info[key]["shard_map_world1"] = shard_map_world1(
+                    torch, cfg, params)
+            del params
+            torch.cuda.empty_cache()
+    launches = add_counts(*runs)
+    for k in SERVE_KERNELS:
+        check(launches[k] > 0, f"phase 16 launched no {k}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    info.update(card=smi, phase_s=time.perf_counter() - t0)
+    print(f"launches, the MoE serving path: {json.dumps(launches)}")
+    print("serve summary (MoE): " + json.dumps(info))
     return launches, log.geometries, info
 
 
@@ -4377,6 +4830,55 @@ def cross_attention_times(torch, gen):
     return out
 
 
+def moe_attention_times(torch, gen):
+    """Kernel 12 at phase 16's causal prefill geometries (MOE_FA_TIMED at
+    SERVE_B x SERVE_PROMPT): mixtral's windowed layers and arctic's full
+    causal ones, in bf16 (alone, launches back to back inside one wrapper
+    call, and through the wrapper) and in f32, beside one bf16
+    scaled_dot_product_attention call with the boolean causal(-window)
+    mask and the bound (4·D operations a visible query-key pair at the
+    bf16 tensor-core rate, or q, k, v and o once over the memory rate)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    i = torch.arange(SERVE_PROMPT, device="cuda")
+    out = []
+    for name, hq, hkv, d, w in MOE_FA_TIMED:
+        q, k, v = fa_inputs(torch, (SERVE_B, hq, hkv, SERVE_PROMPT,
+                                    SERVE_PROMPT, d), torch.bfloat16, gen)
+        kw = dict(causal=True, window=w, scale=d ** -0.5)
+        row = dict(case=name, B=SERVE_B, Hq=hq, Hkv=hkv, S=SERVE_PROMPT,
+                   D=d, window=w,
+                   ms=launch_ms(torch, lambda: flash_attention(q, k, v, **kw),
+                                "flash_attention", 5),
+                   wrapper_ms=time_ms(torch, lambda: flash_attention(
+                       q, k, v, **kw), 5))
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        row["f32_ms"] = time_ms(torch, lambda: flash_attention(
+            q32, k32, v32, **kw), 1)
+        del q32, k32, v32
+        mask = i[None, :] <= i[:, None]
+        if w is not None:
+            mask = mask & (i[None, :] > i[:, None] - w)
+        row["library_ms"] = time_ms(torch, lambda: sdpa(
+            q, k, v, attn_mask=mask, scale=d ** -0.5, enable_gqa=True), 2)
+        pairs = attention_pairs(SERVE_PROMPT, w or SERVE_PROMPT)
+        flops = 4 * d * pairs * SERVE_B * hq
+        nbytes = 2 * (2 * SERVE_B * hq + 2 * SERVE_B * hkv) * SERVE_PROMPT * d
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   flops=flops, bytes=nbytes)
+        out.append(row)
+        del q, k, v, mask
+        print(f"timing flash_attention at {name}'s prefill ({SERVE_B} x "
+              f"{hq}/{hkv} heads of {d}, {SERVE_PROMPT} tokens, window {w}): "
+              f"bf16 {row['ms']:.4f} ms alone, {row['wrapper_ms']:.4f} ms "
+              f"through the wrapper; f32 {row['f32_ms']:.4f} ms; sdpa "
+              f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+              f"by {row['bound_by']}")
+    return out
+
+
 def serve_rows(torch, launches, parity: Parity):
     """Kernel 12 at the serving prefill's shape: 4 x 32 query heads on 8
     KV heads, 8192 tokens, head_dim 120, window 4096, bf16; the f32 route
@@ -4433,6 +4935,7 @@ def serve_rows(torch, launches, parity: Parity):
           f"pairs a head, {flops} flops, {nbytes} bytes)")
     row["wide_heads"] = wide_head_times(torch, gen)
     row["not_causal"] = cross_attention_times(torch, gen)
+    row["moe_models"] = moe_attention_times(torch, gen)
     return [row]
 
 
@@ -5692,16 +6195,19 @@ def main() -> int:
     lap("14 (mesh path)")
     xa_launches, xa_geometries, _ = phase_serve_xattn(torch)
     lap("15 (cross-attention serving path)")
+    mo_launches, mo_geometries, _ = phase_serve_moe(torch)
+    lap("16 (MoE serving path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
                 + sv_launches[k] + gm_launches[k] + lv_launches[k]
-                + ms_launches.get(k, 0) + xa_launches[k] for k in launches}
+                + ms_launches.get(k, 0) + xa_launches[k] + mo_launches[k]
+                for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"ten: {json.dumps(launches)}")
+          f"eleven: {json.dumps(launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
                          **mat_geometries, **st_geometries,
                          **sv_geometries, **gm_geometries,
                          **lv_geometries, **ms_geometries,
-                         **xa_geometries}, parity)
+                         **xa_geometries, **mo_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)

@@ -2,9 +2,10 @@
 
 The port runs the configs its blocks cover: the dense attention ones
 (``full``, ``swa``, ``local`` and ``global`` layers with a SwiGLU MLP),
-the VLM with gated cross-attention layers (``xattn``) and the
-encoder-decoder (``enc`` and ``dec`` layers).  The JAX package's other
-architectures (MoE, recurrent) raise ``NotImplementedError`` until their
+the mixture-of-experts ones (mixtral-8x22b, arctic-480b), the VLM with
+gated cross-attention layers (``xattn``) and the encoder-decoder (``enc``
+and ``dec`` layers).  The JAX package's recurrent architectures
+(recurrentgemma-2b, xlstm-350m) raise ``NotImplementedError`` until their
 blocks are ported (ROADMAP.md §1).  ``smoke`` variants are the JAX package's
 runnable-on-CPU reductions of the same family, field for field.
 """
@@ -31,7 +32,8 @@ ARCH_IDS = (
 )
 #: the ones the port runs
 PORTED_ARCH_IDS = ("h2o-danube-3-4b", "stablelm-3b", "granite-3-2b",
-                   "gemma3-27b", "llama-3.2-vision-90b", "whisper-small")
+                   "gemma3-27b", "mixtral-8x22b", "arctic-480b",
+                   "llama-3.2-vision-90b", "whisper-small")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in PORTED_ARCH_IDS}
@@ -74,8 +76,9 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _MODULES:
         raise NotImplementedError(
-            f"{arch_id} needs blocks the port does not have yet (MoE or "
-            f"recurrent): ROADMAP.md §1 item 5; ported: {PORTED_ARCH_IDS}")
+            f"{arch_id} needs recurrent blocks (RG-LRU, xLSTM) the port "
+            f"does not have yet: ROADMAP.md §1 item 5; ported: "
+            f"{PORTED_ARCH_IDS}")
     cfg: ModelConfig = importlib.import_module(_MODULES[arch_id]).CONFIG
     cfg.validate()
     return smoke_of(cfg) if smoke else cfg

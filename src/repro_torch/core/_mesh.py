@@ -144,6 +144,20 @@ def psum_tensors(tensors: Sequence[torch.Tensor], groups) -> list:
     return out
 
 
+def gather_rows(t: torch.Tensor, groups) -> torch.Tensor:
+    """Every rank's ``t`` over ``groups``, concatenated along dim 0 in flat
+    shard order: ``shard_map``'s out_specs over a sharded leading axis,
+    where every rank ends with the global array."""
+    groups = _groups(groups)
+    flat = t.reshape(-1)
+    host = _stages_through_host(flat, groups)
+    if host:
+        flat = flat.cpu().pin_memory()
+    parts = _gather(flat, groups)
+    out = torch.cat([p.reshape(t.shape) for p in parts])
+    return out.to(t.device) if host else out
+
+
 def psum_tree(state, groups):
     """``psum_tensors`` over every leaf of a state tree."""
     leaves = []

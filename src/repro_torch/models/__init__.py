@@ -1,9 +1,11 @@
 """The model stack of the JAX package's ``repro.models`` for the dense
-attention configs, the VLM (gated cross-attention layers) and the
-encoder-decoder: config, layers, blocks and the decoder's forward,
-losses and serving paths (``decoder.encode`` runs the encoder).  ``partitioning`` and ``act_shard`` are not
-ported yet (ROADMAP.md §1 item 5; they build on the mesh of
-``core/_mesh.py``); ``hint`` is the identity here."""
+attention configs, the mixture-of-experts ones, the VLM (gated
+cross-attention layers) and the encoder-decoder: config, layers, blocks
+and the decoder's forward, losses and serving paths (``decoder.encode``
+runs the encoder).  ``act_shard`` holds the activation-sharding context
+that ``moe_ffn_shard_map`` reads; ``partitioning`` and ``act_shard.hint``
+are not ported yet (ROADMAP.md §1 item 5; they build on the mesh of
+``core/_mesh.py``), and ``hint`` is the identity here."""
 from repro_torch.models.config import (SHAPES, SMOKE_SHAPES, ModelConfig,
                                        ShapeConfig, shape_is_supported)
 from repro_torch.models.decoder import (decode_step, embed, forward_hidden,

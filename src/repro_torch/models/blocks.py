@@ -4,9 +4,12 @@ kinds the port has, as in the JAX package's ``repro/models/blocks.py``:
 ``xattn`` (the VLM's: causal self-attention, then gated cross-attention
 to the image embeddings), ``enc`` (the encoder's non-causal
 self-attention) and ``dec`` (the encoder-decoder's: causal self-attention,
-then gated cross-attention to the encoder's output).  The recurrent kinds
-(``rglru``, ``mlstm``, ``slstm``) and MoE MLPs raise
-``NotImplementedError`` until their layers are ported (ROADMAP.md §1)."""
+then gated cross-attention to the encoder's output).  A config with
+experts (mixtral-8x22b, arctic-480b) takes the mixture-of-experts FFN in
+place of the MLP: ``moe_ffn``, or ``moe_ffn_shard_map`` under
+``moe_impl="shard_map"``.  The recurrent kinds (``rglru``, ``mlstm``,
+``slstm``) raise ``NotImplementedError`` until their layers are ported
+(ROADMAP.md §1)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -35,9 +38,6 @@ def _check(cfg: ModelConfig, kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md §1 item 5); "
             f"the port has {_ATTN_SELF}")
-    if cfg.num_experts:
-        raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP.md "
-                                  "§1 item 5)")
 
 
 def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
@@ -55,7 +55,9 @@ def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
         p["xattn"] = L.init_cross_attention(cfg, generator, device, lead)
     if cfg.d_ff:
         p["mlp_norm"] = zero.clone()
-        p["mlp"] = L.init_mlp(cfg, generator, device, lead)
+        p["mlp"] = (L.init_moe(cfg, generator, device, lead)
+                    if cfg.num_experts
+                    else L.init_mlp(cfg, generator, device, lead))
     return p
 
 
@@ -105,5 +107,10 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
             new_cache["xattn"] = xc
     if cfg.d_ff:
         h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-        x = x + L.mlp(cfg, p["mlp"], h)
+        if cfg.num_experts:
+            moe = (L.moe_ffn_shard_map if cfg.moe_impl == "shard_map"
+                   else L.moe_ffn)
+            x = x + moe(cfg, p["mlp"], h)
+        else:
+            x = x + L.mlp(cfg, p["mlp"], h)
     return x, (new_cache or None)

@@ -14,13 +14,22 @@ Prefill and train mode call ``flash_attention`` (kernel 12 on the card),
 causal or not.  Decode reads the ring cache, and the cross-attention's
 K/V cache, with plain products, as the JAX package's einsum and its
 ``"direct"`` backend do.  Projections keep the JAX package's output types
-(``matmul_out_dtype``): bf16 operands give f32 products (``matmul_out``).
-MoE, RG-LRU and xLSTM are not ported yet (ROADMAP.md §1).
+(``matmul_out_dtype``): bf16 operands give f32 products (``matmul_out``,
+and ``bmm_out`` for the experts' batched products).
+
+The mixture-of-experts FFN (``init_moe``, ``moe_ffn``,
+``moe_ffn_shard_map``) is the JAX package's sort-based capacity routing:
+top-k gates, a stable sort of the token-slots by expert, a rank within
+each expert, slots past the capacity dropped, a gather into an
+(E·C + 1, d) dispatch buffer, the experts' SwiGLU as batched products
+and a scatter-add back to the tokens.  The JAX package computes all of it
+with XLA ops (no Pallas kernel), so the port's is PyTorch ops too.
+RG-LRU and xLSTM are not ported yet (ROADMAP.md §1).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -98,6 +107,19 @@ def matmul_out(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype
     if a.is_cuda and out_dtype == torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
     return (a.to(torch.float32) @ b.to(torch.float32)).to(out_dtype)
+
+
+def bmm_out(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype
+            ) -> torch.Tensor:
+    """The batched ``matmul_out``: a (e, m, k) @ b (e, k, n), f32
+    accumulation, the result in ``out_dtype``; on the card bf16 operands
+    give one ``torch.bmm(..., out_dtype=torch.float32)``, on the CPU the
+    f32 product of their bf16 values."""
+    if a.dtype == out_dtype and b.dtype == out_dtype:
+        return torch.bmm(a, b)
+    if a.is_cuda and out_dtype == torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
 
 
 def _out_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -312,3 +334,282 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
          * u.to(torch.float32)).to(cd)
     y = mmc(cfg, h, p["w_down"].to(cd))
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing, sort-based capacity dispatch (no (T, E, C) one-hot)
+# ---------------------------------------------------------------------------
+#: the most expert-weight elements the CPU's products convert to f32 at
+#: once (1 GiB of f32): arctic-480b's we_gate alone holds 4.5e9
+CPU_EXPERT_ELEMS = 1 << 28
+
+
+def _init_experts(shape, fan_in: int, dtype: torch.dtype,
+                  generator: torch.Generator, device) -> torch.Tensor:
+    """``dense_init``'s law drawn one (d, f) expert matrix at a time, so
+    no f32 temporary of the whole tensor sits beside a bf16 result."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1, *shape[-2:])
+    for i in range(flat.shape[0]):
+        flat[i] = dense_init(shape[-2:], fan_in, dtype, generator, device)
+    return out
+
+
+def init_moe(cfg: ModelConfig, generator: torch.Generator, device,
+             lead: Tuple[int, ...] = ()) -> Params:
+    """The router (d, E), the experts' SwiGLU weights (E, d, f), (E, d, f)
+    and (E, f, d), and with ``dense_residual`` a dense MLP beside them;
+    ``lead`` stacks a group of layers."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    pd = _pdtype(cfg)
+
+    def experts(shape, fan_in):
+        return _init_experts(lead + shape, fan_in, pd, generator, device)
+    p = {
+        "router": dense_init(lead + (d, e), d, pd, generator, device),
+        "we_gate": experts((e, d, f), d),
+        "we_up": experts((e, d, f), d),
+        "we_down": experts((e, f, d), f),
+    }
+    if cfg.dense_residual:
+        p["dense"] = init_mlp(cfg, generator, device, lead)
+    return p
+
+
+class Route(NamedTuple):
+    """The routing of T tokens.  Per token: ``logits`` and ``probs``
+    (T, E) the router's f32 logits and their softmax, and ``eidx`` (T, k)
+    its experts, best first.  Per token-slot, sorted by expert (T·k):
+    ``se`` the expert, ``st`` the token, ``sg`` its gate (divided by the
+    sum of the token's k gates), ``keep`` whether its rank in its expert
+    is below the capacity ``cap``, and ``slot`` its dispatch row, E·cap
+    where it is dropped."""
+    logits: torch.Tensor
+    probs: torch.Tensor
+    eidx: torch.Tensor
+    cap: int
+    se: torch.Tensor
+    st: torch.Tensor
+    sg: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+
+
+def moe_route(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> Route:
+    """Top-k routing of the tokens ``xt`` (T, d) with capacity
+    C = ceil(T·k·capacity_factor / E), as the JAX package routes: router
+    logits from compute-dtype operands in f32, softmax in f32, top-k,
+    then the token-slots in token-major order stably sorted by expert, so
+    that the slots past an expert's capacity are the JAX package's."""
+    t = xt.shape[0]
+    e, k = cfg.num_experts, cfg.top_k
+    cap = int(math.ceil(t * k * cfg.capacity_factor / e))
+    cd = _cdtype(cfg)
+    logits = project(xt.to(cd), p["router"].to(cd), torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    # jax.lax.top_k: descending, the lower index first on a tie;
+    # torch.topk promises no order among ties, a stable sort does
+    top, order_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    eidx = order_e[:, :k]
+    gate = top[:, :k] / top[:, :k].sum(-1, keepdim=True)
+
+    flat_e = eidx.reshape(-1)                                # (T·k,)
+    flat_t = torch.arange(t, device=xt.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], gate.reshape(-1)[order]
+    idx = torch.arange(t * k, device=xt.device)
+    is_start = torch.ones_like(se, dtype=torch.bool)
+    is_start[1:] = se[1:] != se[:-1]
+    # torch.cummax for the JAX package's associative_scan(max)
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    rank = idx - seg_start
+    keep = rank < cap
+    slot = torch.where(keep, se * cap + rank, e * cap)       # drop -> last
+    return Route(logits, probs, eidx, cap, se, st, sg, keep, slot)
+
+
+def dropped_slots(route: Route) -> torch.Tensor:
+    """The token-slots past their expert's capacity (a 0-d tensor)."""
+    return (~route.keep).sum()
+
+
+def near_ties(route: Route, rel: float = 1e-3) -> torch.Tensor:
+    """(T,) whether a token's k-th and (k+1)-th router probabilities lie
+    within ``rel`` of the k-th: a choice that products rounded another way
+    (the card's and the CPU's, or a batch of another size) may flip."""
+    k = route.eidx.shape[1]
+    if route.probs.shape[1] <= k:
+        return torch.zeros(route.probs.shape[0], dtype=torch.bool,
+                           device=route.probs.device)
+    top = torch.topk(route.probs, k + 1, dim=-1).values
+    return (top[:, k - 1] - top[:, k]) < rel * top[:, k - 1]
+
+
+def route_agreement(a: Route, b: Route, rel: float = 1e-3
+                    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Two routings of the same tokens (say the card's and the CPU's), on
+    the host: (agree, ties, unexplained).  ``agree`` (T,): the token chose
+    the same experts and kept the same slots in both; ``ties`` (T,): a
+    near tie in either.  ``unexplained`` counts the tokens whose choice
+    differs with no near tie of their own, and, where no choice differs,
+    the tokens whose kept slots differ (only a flipped choice can shift
+    another token's rank in its expert)."""
+    def kept(r):
+        out = torch.zeros(r.probs.shape, dtype=torch.bool)
+        keep = r.keep.cpu()
+        out[r.st.cpu()[keep], r.se.cpu()[keep]] = True
+        return out
+
+    chose = (a.eidx.cpu().sort(-1).values
+             == b.eidx.cpu().sort(-1).values).all(-1)
+    same_kept = (kept(a) == kept(b)).all(-1)
+    ties = near_ties(a, rel).cpu() | near_ties(b, rel).cpu()
+    unexplained = int((~chose & ~ties).sum())
+    if bool(chose.all()):
+        unexplained += int((~same_kept).sum())
+    return chose & same_kept, ties, unexplained
+
+
+def _expert_swiglu(cfg: ModelConfig, wg: torch.Tensor, wu: torch.Tensor,
+                   wd: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of each expert on its rows xe (e, C, d): the JAX package's
+    "ecd,edf->ecf" and "ecf,efd->ecd" in matmul_out_dtype, the gate in
+    f32, h in the compute dtype."""
+    cd, od = _cdtype(cfg), _out_dtype(cfg)
+    g = bmm_out(xe, wg.to(cd), od).to(torch.float32)
+    u = bmm_out(xe, wu.to(cd), od)
+    # g is this function's own f32 tensor: silu and the product in place
+    h = torch.nn.functional.silu(g, inplace=True).mul_(u.to(torch.float32))
+    del u
+    h = h.to(cd)
+    return bmm_out(h, wd.to(cd), od)
+
+
+def _experts(cfg: ModelConfig, p: Params, xe: torch.Tensor, route: Route
+             ) -> torch.Tensor:
+    """Every expert's SwiGLU on its dispatch rows xe (E, C, d).  On the
+    card one batched product a weight.  On the CPU the experts go a chunk
+    of at most CPU_EXPERT_ELEMS weight elements at a time, so their f32
+    copies stay bounded, and an expert with no kept slot is skipped: its
+    rows stay zero and no token reads them."""
+    if xe.is_cuda:
+        return _expert_swiglu(cfg, p["we_gate"], p["we_up"], p["we_down"],
+                              xe)
+    e, cap, _ = xe.shape
+    d, f = p["we_gate"].shape[-2:]
+    out = torch.zeros((e, cap, p["we_down"].shape[-1]),
+                      dtype=_out_dtype(cfg))
+    used = torch.zeros(e, dtype=torch.bool)
+    used[route.se[route.keep]] = True
+    ids = torch.nonzero(used).flatten()
+    for chunk in ids.split(max(1, CPU_EXPERT_ELEMS // (d * f))):
+        out[chunk] = _expert_swiglu(cfg, p["we_gate"][chunk],
+                                    p["we_up"][chunk], p["we_down"][chunk],
+                                    xe[chunk])
+    return out
+
+
+def _moe_route_compute(cfg: ModelConfig, p: Params, x: torch.Tensor
+                       ) -> torch.Tensor:
+    """Sort-based capacity routing and the experts' FFNs over the tokens
+    of ``x`` (B, S, d): dispatch by index into an (E·C + 1, d) buffer,
+    whose last row takes every dropped slot and is read by no expert,
+    then combine as a scatter-add of each kept slot's output times its
+    gate.  Returns y in f32, without the dense residual (the caller adds
+    it).  With f-sliced expert weights y is a partial sum (the caller
+    sums it over the model axes)."""
+    b, s, d = x.shape
+    t = b * s
+    e = cfg.num_experts
+    cd = _cdtype(cfg)
+    xt = x.reshape(t, d)
+    r = moe_route(cfg, p, xt)
+    cap = r.cap
+    buf = torch.zeros((e * cap + 1, d), dtype=cd, device=x.device)
+    buf[r.slot] = xt[r.st].to(cd)
+    out = _experts(cfg, p, buf[:e * cap].view(e, cap, d), r)
+    del buf
+    outf = torch.cat([out.reshape(e * cap, d).to(torch.float32),
+                      torch.zeros((1, d), dtype=torch.float32,
+                                  device=x.device)])
+    del out
+    contrib = outf[r.slot] * (r.sg * r.keep)[:, None]
+    del outf
+    # each token's k addends land on a zero row; at k = 2, 0 + a + b is
+    # exact in either order, so the card's atomic adds give one result
+    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    y.index_add_(0, r.st, contrib)
+    return y.reshape(b, s, d)
+
+
+def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Global MoE: one routing problem over all of x's tokens, plus the
+    dense MLP under ``dense_residual`` (in f32), cast back to x's dtype."""
+    y = _moe_route_compute(cfg, p, x)
+    if cfg.dense_residual:
+        y = y + mlp(cfg, p["dense"], x).to(torch.float32)
+    return y.to(x.dtype)
+
+
+def _mlp_partial(cfg: ModelConfig, p: Params, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """SwiGLU on an f-sliced weight slice; returns f32 partial sums (the
+    caller sums them over the model axes)."""
+    cd = _cdtype(cfg)
+    xc = x.to(cd)
+    g = mmc(cfg, xc, p["w_gate"].to(cd))
+    u = mmc(cfg, xc, p["w_up"].to(cd))
+    h = (torch.nn.functional.silu(g.to(torch.float32))
+         * u.to(torch.float32)).to(cd)
+    return mmc(cfg, h, p["w_down"].to(cd)).to(torch.float32)
+
+
+def moe_ffn_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor
+                      ) -> torch.Tensor:
+    """Group-local MoE (GShard groups = data shards) with expert weights
+    sliced along f over the model axes, on the mesh of the installed
+    ``act_shard.activation_sharding`` context.
+
+    Every rank holds the global x (B, S, d) and params (``core/_mesh.py``):
+    it routes the tokens of its data shard (capacity per group) through
+    its f-slice of every expert's weights (and of the dense residual's),
+    sums the f32 partial outputs over the model axes by
+    ``psum_tensors``'s gather and left fold in flat shard order, and
+    gathers the data shards, so it returns the global (B, S, d).  Falls
+    back to ``moe_ffn`` where the JAX package does: no context, no
+    ``"mlp"`` entry in the mapping, B not divisible by the batch ways or
+    d_ff by the model ways."""
+    from repro_torch.core._mesh import (data_groups, gather_rows,
+                                        num_shards, psum_tensors,
+                                        shard_index)
+    from repro_torch.models.act_shard import current_mapping, current_mesh
+    mesh = current_mesh()
+    mapping = current_mapping()
+    if mesh is None or mapping is None or "mlp" not in mapping:
+        return moe_ffn(cfg, p, x)
+
+    batch_axes = tuple(name for name, _ in mapping.get("batch", ()))
+    model_axes = tuple(name for name, _ in mapping["mlp"])
+    batch_ways = num_shards(mesh, batch_axes) if batch_axes else 1
+    if not model_axes or x.shape[0] % batch_ways != 0 \
+            or cfg.d_ff % num_shards(mesh, model_axes):
+        return moe_ffn(cfg, p, x)
+
+    rows = x.shape[0] // batch_ways
+    b0 = (shard_index(mesh, batch_axes) if batch_axes else 0) * rows
+    x_loc = x[b0:b0 + rows]
+    width = cfg.d_ff // num_shards(mesh, model_axes)
+    f0 = shard_index(mesh, model_axes) * width
+    fs = slice(f0, f0 + width)
+    p_loc = {"router": p["router"], "we_gate": p["we_gate"][..., fs],
+             "we_up": p["we_up"][..., fs], "we_down": p["we_down"][:, fs]}
+    y = _moe_route_compute(cfg, p_loc, x_loc)
+    if cfg.dense_residual:
+        dense = p["dense"]
+        y = y + _mlp_partial(cfg, {"w_gate": dense["w_gate"][:, fs],
+                                   "w_up": dense["w_up"][:, fs],
+                                   "w_down": dense["w_down"][fs]}, x_loc)
+    y = psum_tensors([y], data_groups(mesh, model_axes))[0].to(x.dtype)
+    if batch_axes:
+        y = gather_rows(y, data_groups(mesh, batch_axes))
+    return y

@@ -48,7 +48,12 @@ EarlSession killed and resumed on the card are bitwise their
 uninterrupted runs, with the restored states on the card.  The mesh
 slice: a world of one NCCL rank (a fresh interpreter) gives the quickstart
 group's and a GroupedStatistic's sharded states bitwise the unsharded
-fused path, plain and at a delta step.
+fused path, plain and at a delta step.  The MoE slice: the batched bf16
+product with an f32 output (``bmm_out``) within the f32 dot bound of the
+f32 product of the bf16 values; ``moe_ffn`` on the card against the CPU
+(f32 and bf16 compute) with its choices agreeing but at near ties and y
+within 1e-5 (f32) or 2e-2 (bf16) of max|y| at the agreeing tokens; the
+kept slots bitwise the CPU's where no choice flipped.
 """
 import numpy as np
 import pytest
@@ -1345,3 +1350,93 @@ def test_cuda_nccl_world_of_one_is_the_unsharded_path(cuda, tmp_path):
         timeout=600)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "bitwise" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts FFN
+# ---------------------------------------------------------------------------
+def _moe_inputs(compute_dtype, seed=0):
+    """mixtral-8x22b's smoke config widened to 8 experts, d_model 256 and
+    d_ff 512, f32 params, the given compute dtype; its params on the CPU
+    and tokens skewed toward some experts, so the published capacity
+    factor (1.25) drops slots."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import init_moe
+    cfg = dataclasses.replace(get_config("mixtral-8x22b", smoke=True),
+                              d_model=256, d_ff=512, num_experts=8,
+                              compute_dtype=compute_dtype)
+    p = init_moe(cfg, torch.Generator().manual_seed(seed), "cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = (torch.randn((2, 64, cfg.d_model), generator=gen)
+         + 1.5 * torch.randn((cfg.d_model,), generator=gen))
+    return cfg, p, x.to(getattr(torch, compute_dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_bmm_out_is_the_f32_product_of_the_bf16_values(cuda):
+    from repro_torch.models.layers import bmm_out
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn((8, 300, 256), device=cuda, generator=gen).bfloat16()
+    b = torch.randn((8, 256, 520), device=cuda, generator=gen).bfloat16()
+    got = bmm_out(a, b, torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (8, 300, 520)
+    want = torch.bmm(a.float(), b.float())
+    # the f32 dot bound: k · 2^-24 · Σ|a||b|, a rounding an addend
+    bound = 256 * 2.0 ** -24 * torch.bmm(a.float().abs(), b.float().abs())
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype,rel", [("float32", 1e-5),
+                                               ("bfloat16", 2e-2)])
+def test_cuda_moe_ffn_matches_the_cpu(cuda, compute_dtype, rel):
+    """moe_ffn on the card against the CPU on the same params and tokens
+    at capacity 1.25 (slots drop): the expert choices and kept slots
+    agree at every token but near ties (a k-th and (k+1)-th probability
+    within 1e-3 of each other), the dropped count agrees where no choice
+    flipped, and y agrees at the agreeing tokens within rel·max|y| (f32
+    compute: the dot bound's order; bf16: h rounded to bf16 before the
+    down projection, 2e-2 as chip_smoke.py's logits)."""
+    from repro_torch.models.layers import (dropped_slots, moe_ffn,
+                                           moe_route, route_agreement)
+    cfg, p, x = _moe_inputs(compute_dtype)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    xc = x.to(cuda)
+    want = moe_ffn(cfg, p, x).float()
+    got = moe_ffn(cfg, pc, xc).float().cpu()
+    rw = moe_route(cfg, p, x.reshape(-1, cfg.d_model))
+    rg = moe_route(cfg, pc, xc.reshape(-1, cfg.d_model))
+    agree, ties, unexplained = route_agreement(rg, rw)
+    assert unexplained == 0
+    assert int(dropped_slots(rw)) > 0
+    if bool(agree.all()):
+        assert int(dropped_slots(rg)) == int(dropped_slots(rw))
+    g = got.reshape(-1, cfg.d_model)[agree]
+    w = want.reshape(-1, cfg.d_model)[agree]
+    assert int(agree.sum()) >= x.shape[0] * x.shape[1] - int(ties.sum())
+    assert float((g - w).abs().max()) <= rel * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_drops_the_cpu_slots(cuda):
+    """At a capacity that drops many slots (0.5), f32 compute: where no
+    token's choice of experts flipped (only a near tie can flip one), the
+    sorted token-slots, which of them are kept and their dispatch rows
+    on the card are the CPU's, bitwise."""
+    import dataclasses
+    from repro_torch.models.layers import moe_route, route_agreement
+    cfg, p, x = _moe_inputs("float32", seed=4)
+    cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+    xt = x.reshape(-1, cfg.d_model)
+    rw = moe_route(cfg, p, xt)
+    rg = moe_route(cfg, {k: v.to(cuda) for k, v in p.items()}, xt.to(cuda))
+    _, _, unexplained = route_agreement(rg, rw)
+    assert unexplained == 0
+    assert int((~rw.keep).sum()) > 0
+    same = bool((rg.eidx.cpu().sort(-1).values
+                 == rw.eidx.sort(-1).values).all())
+    if not same:
+        return      # unexplained == 0: each flipped choice was a near tie
+    for name in ("se", "st", "keep", "slot"):
+        assert torch.equal(getattr(rg, name).cpu(), getattr(rw, name)), name
