@@ -258,7 +258,31 @@ failure:
    then the MoE outputs at the agreeing tokens and the logits before the
    first differing one; on mixtral's first layer, moe_ffn_shard_map in a
    world of one NCCL rank (one-way data and model axes) bitwise moe_ffn;
-8. replay every distinct launch geometry that phases 4 to 7 and 10 to 16
+17. (run after phase 16) the recurrent serving path, from zeroed counts
+   with its geometries logged: recurrentgemma-2b whole (26 layers, 8 x
+   (rglru, rglru, local) and 2 rglru; d_model 2560, RG-LRU width 2560,
+   10/1 heads of 256, window 2048; 2.894e9 f32 params), then xlstm-350m
+   whole (24 layers, 12 x (slstm, mlstm); d_model 1024, 4 heads of 256;
+   1.784e8), each SERVE_B x SERVE_PROMPT prompts, bf16 compute and
+   SERVE_GEN greedy steps; phase 11's gates with the parameter count the
+   config's plus the signed recurrent terms its num_params miscounts,
+   kernel 12 8 and 0 times a prefill (once a local layer) and never in
+   decode, the peak below prefill_live_bytes with recurrent_live_bytes;
+   every recurrent state knocked out between the prefill and the first
+   decode step (zeros, the stabilizers at -1e30) must move that step's
+   logits past the tolerance; decode == teacher forcing (1 x 256 tokens,
+   32 steps) and card == CPU on recurrentgemma-2b's first pattern group
+   and on the whole xlstm-350m (1 x 256 tokens, the CPU fed the card's
+   tokens), both held in f32 compute on the served params and printed in
+   bf16, where the recurrences carry every step's roundings (the served
+   4 x 8192 run's decode against teacher forcing too); then each
+   recurrent cell alone over the served shape (its prefill wall; the
+   sLSTM's device kernels a step) and one decode step's device kernels;
+   and kernel 12's f32 route at the f32 checks' geometry on the replay's
+   unit-normal data at scale 1 against its plain version and both against
+   f64 (printed: there the plain version's own error passes the replay's
+   f32 tolerance, so phase 17 hands phase 8 its bf16 geometries only);
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 17
    logged on fresh data and hold it against the plain version as in
    phase 3, printing each geometry's seconds, the longest first;
 9. time each kernel (CUDA events) beside its plain version, its bound
@@ -498,6 +522,27 @@ ROUTER_TOL = 2e-2
 #: kernel 12's causal geometries of phase 16, timed in phase 9:
 #: (name, Hq, Hkv, D, window) at SERVE_B x SERVE_PROMPT
 MOE_FA_TIMED = (("mixtral", 48, 8, 128, 4096), ("arctic", 56, 8, 128, None))
+# the recurrent serving path (phase 17): recurrentgemma-2b whole (26
+# layers: 8 x (rglru, rglru, local) and 2 rglru; d_model 2560, RG-LRU
+# width 2560, 10/1 heads of 256, window 2048, d_ff 7680, vocab 256,000)
+# and xlstm-350m whole (24 layers: 12 x (slstm, mlstm); d_model 1024, 4
+# heads of 256, mlstm_chunk 256, no MLP, vocab 50,304), SERVE_B x
+# SERVE_PROMPT prompts and SERVE_GEN greedy steps each, in bf16; card ==
+# CPU on each model's first pattern group
+RG_ARCH, RG_SEED = "recurrentgemma-2b", 26
+XL_ARCH, XL_SEED = "xlstm-350m", 350
+#: the recurrent block kinds (models/config.py's RECURRENT_KINDS)
+RECURRENT = ("rglru", "mlstm", "slstm")
+#: decode == teacher forcing of a model with recurrent cells in bf16, as a
+#: share of max |logit|: whole, 26 and 24 layers deep, bf16 moves these
+#: logits further than the attention models' 2e-2 (the served run itself
+#: holds the reading below bf16's own distance from the f32 teacher
+#: forcing on the same tokens)
+RECURRENT_LOGIT_SHARE = 5e-2
+#: the two prompt lengths the sLSTM's device kernels are counted at
+#: (torch.profiler); their difference over the added tokens is a step's
+#: (64 steps apart, so a few stray device events barely move the count)
+STEP_COUNT_S = (16, 80)
 # dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet, 700 W)
 BF16_FLOPS_PER_S = 989e12
 # the repaired routing: a keyed custom statistic's tiled scan at the
@@ -3379,17 +3424,20 @@ def phase_parity_attention(torch, parity: Parity) -> None:
           f"full-width shapes and past head dim 128 bitwise equal")
 
 
-def logits_tolerance(want) -> float:
-    """bf16 tolerance of a logit: 2e-2 of the largest |logit| (bf16 keeps
-    8 bits; roundings in another order move a logit by a few of them)."""
-    return 2e-2 * float(want.abs().max())
+def logits_tolerance(want, share: float = 2e-2) -> float:
+    """bf16 tolerance of a logit: ``share`` (2e-2) of the largest |logit|
+    (bf16 keeps 8 bits; roundings in another order move a logit by a few
+    of them)."""
+    return share * float(want.abs().max())
 
 
 def serve(torch, cfg, params, prompts, gen_steps, cache_len, forced=None,
-          aux=None):
+          aux=None, on_prefill=None):
     """prefill (with room for the decode steps; ``aux`` the stub image or
     frame embeddings of a model with cross-attention) and greedy decode
-    steps, or steps fed the tokens ``forced`` (B, gen_steps); returns
+    steps, or steps fed the tokens ``forced`` (B, gen_steps); ``on_prefill``
+    is called with the prefill's cache before the decode clock starts (the
+    steps write that cache in place); returns
     (logits per step, decoded tokens, prefill seconds, decode seconds,
     flash_attention launches of the prefill and of the decode, the cache
     after the last step)."""
@@ -3410,6 +3458,8 @@ def serve(torch, cfg, params, prompts, gen_steps, cache_len, forced=None,
     sync()
     t_prefill = time.perf_counter() - t0
     n_prefill = flash_attention.launches - n0
+    if on_prefill is not None:
+        on_prefill(cache)
     steps, toks = [logits], []
     t0 = time.perf_counter()
     for t in range(gen_steps):
@@ -3602,21 +3652,13 @@ def layer_kinds(cfg):
 
 
 def prefill_launches(cfg) -> int:
-    """Kernel 12's launches in one prefill (or forward): one a layer's
-    self-attention, one a cross-attention (``xattn``/``dec`` layers) and
-    one an encoder layer."""
+    """Kernel 12's launches in one prefill (or forward): one an attention
+    layer's self-attention (a recurrent layer has none), one a
+    cross-attention (``xattn``/``dec`` layers) and one an encoder
+    layer."""
     kinds = layer_kinds(cfg)
-    return (len(kinds) + sum(k in ("xattn", "dec") for k in kinds)
-            + cfg.enc_layers)
-
-
-def uncounted_leaves(cfg) -> int:
-    """Parameters the reference's analytic ``num_params`` leaves out: a
-    gate a cross-attention, an x_norm a ``dec`` layer (an ``xattn`` layer's
-    is counted) and the encoder's final norm (ROADMAP §3)."""
-    kinds = layer_kinds(cfg)
-    return (kinds.count("xattn") + kinds.count("dec") * (cfg.d_model + 1)
-            + (cfg.d_model if cfg.is_encdec else 0))
+    return (sum(k not in RECURRENT for k in kinds)
+            + sum(k in ("xattn", "dec") for k in kinds) + cfg.enc_layers)
 
 
 def aux_len(cfg) -> int:
@@ -3646,14 +3688,63 @@ def aux_cache_bytes(cfg, batch: int) -> int:
 
 
 def self_cache_bytes(cfg, batch: int, cache_len: int) -> int:
-    """Bytes of the self-attention KV caches a prefill returns: each
-    layer's K and V over its ring (the window for ``swa``/``local``)."""
+    """Bytes of the self caches a prefill returns: an attention layer's K
+    and V over its ring (the window for ``swa``/``local``), a recurrent
+    layer's state (``recurrent_state_bytes``)."""
     cd = 2 if cfg.compute_dtype == "bfloat16" else 4
     out = 0
     for kind in layer_kinds(cfg):
+        if kind in RECURRENT:
+            out += recurrent_state_bytes(cfg, kind, batch)
+            continue
         ring = (min(cfg.window, cache_len) if kind in ("swa", "local")
                 and cfg.window else cache_len)
         out += 2 * batch * cfg.n_kv_heads * ring * cfg.head_dim_ * cd
+    return out
+
+
+def recurrent_state_bytes(cfg, kind: str, batch: int) -> int:
+    """A recurrent layer's serving state: ``rglru`` the f32 (B, r) lru and
+    the (B, cw - 1, r) conv state in the compute dtype; ``mlstm`` the f32
+    (B, H, dh, dh) C, (B, H, dh) n and (B, H) m; ``slstm`` four f32
+    (B, H, dh)."""
+    cd = 2 if cfg.compute_dtype == "bfloat16" else 4
+    h, dh, r = cfg.n_heads, cfg.head_dim_, cfg.rnn_width_
+    if kind == "rglru":
+        return batch * r * 4 + batch * (cfg.conv_width - 1) * r * cd
+    if kind == "mlstm":
+        return batch * h * (dh * dh + dh + 1) * 4
+    return 4 * batch * h * dh * 4
+
+
+def recurrent_live_bytes(cfg, tokens: int) -> int:
+    """What the largest recurrent cell of the config holds at once over
+    ``tokens`` tokens, from its own tensors (``models/layers.py``), with
+    its weights cast to the compute dtype: ``rglru_block`` at most eight
+    f32 (T, r) tensors (a and the gated input, and the doubling scan's a,
+    b, their two new levels and a product), the gate branch in
+    matmul_out_dtype and three (T, r) in the compute dtype (the raw and
+    convolved inputs and a conv term); ``mlstm_block`` seven f32
+    (T, H·dh) (q, k, v, the chunks' outputs, their concatenation and its
+    copies) and a projection in matmul_out_dtype; ``slstm_block`` twelve
+    f32 (T, H·dh) (the gates' (T, 4·H·dh) projections and their
+    heads-first copy, the steps' outputs, their stack and copies), and
+    its recurrent matrices in f32."""
+    cd = 2 if cfg.compute_dtype == "bfloat16" else 4
+    ob = 4 if cfg.matmul_out_dtype == "float32" else cd
+    d, h, dh, r = cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.rnn_width_
+    hd = h * dh
+    kinds = set(layer_kinds(cfg))
+    out = 0
+    if "rglru" in kinds:
+        out = max(out, tokens * r * (8 * 4 + ob + 3 * cd)
+                  + (3 * d * r + 2 * r * r + cfg.conv_width * r) * cd)
+    if "mlstm" in kinds:
+        out = max(out, tokens * hd * (7 * 4 + ob)
+                  + (4 * d * hd + 2 * d * h) * cd)
+    if "slstm" in kinds:
+        out = max(out, tokens * hd * 12 * 4 + 5 * d * hd * cd
+                  + 4 * h * dh * dh * 4)
     return out
 
 
@@ -3665,9 +3756,10 @@ def prefill_live_bytes(cfg, batch: int, prompt: int, cache_len: int
     products in matmul_out_dtype (gate, up, silu(gate) and their product),
     four (tokens, d_model) f32 residual-stream tensors, one layer's weights
     and the embedding cast to the compute dtype, and the caches the
-    prefill returns (self K/V, cross K/V, enc_out).  A layer with experts
-    takes ``moe_live_bytes`` in place of the MLP's products and weights
-    (and keeps them beside it under ``dense_residual``)."""
+    prefill returns (self K/V or recurrent state, cross K/V, enc_out).  A
+    layer with experts takes ``moe_live_bytes`` in place of the MLP's
+    products and weights (and keeps them beside it under
+    ``dense_residual``); a recurrent cell adds ``recurrent_live_bytes``."""
     cd = 2 if cfg.compute_dtype == "bfloat16" else 4
     ob = 4 if cfg.matmul_out_dtype == "float32" else cd
     tokens = max(batch * prompt, batch * cfg.enc_seq if cfg.is_encdec else 0)
@@ -3682,7 +3774,8 @@ def prefill_live_bytes(cfg, batch: int, prompt: int, cache_len: int
             + layer + cfg.padded_vocab * cfg.d_model * cd
             + self_cache_bytes(cfg, batch, cache_len)
             + aux_cache_bytes(cfg, batch)
-            + (moe_live_bytes(cfg, tokens) if cfg.num_experts else 0))
+            + (moe_live_bytes(cfg, tokens) if cfg.num_experts else 0)
+            + recurrent_live_bytes(cfg, tokens))
 
 
 def moe_live_bytes(cfg, tokens: int) -> int:
@@ -4045,7 +4138,12 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
     decode == teacher forcing runs at the no-drop capacity
     (``moe_teacher_forcing``), and card == CPU holds the routing first
     (``hold_routing``), then the MoE outputs at the agreeing tokens and
-    the logits before the first differing one.  Returns (params, info,
+    the logits before the first differing one.  With recurrent cells: the
+    first decode step from the prefill's cache with every state knocked
+    out must move its logits past the tolerance, and decode == teacher
+    forcing is held within RECURRENT_LOGIT_SHARE of max |logit| and below
+    the teacher forcing's own distance from the same in f32 compute (the
+    control: what bf16 alone moves).  Returns (params, info,
     the launches of the served prefill and decode alone, from zeroed
     counts); the caller deletes the params."""
     from repro_torch.data import synthetic_tokens
@@ -4059,7 +4157,7 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
         seed), device="cuda")
     torch.cuda.synchronize()
     count, nbytes = num_params(params)
-    extra = uncounted_leaves(cfg)
+    extra = cfg.uncounted_params()
     check(count == cfg.num_params() + extra, f"params {count} != the "
           f"config's {cfg.num_params()} and {extra} uncounted leaves")
     param_bytes = torch.cuda.memory_allocated() - free0
@@ -4083,11 +4181,17 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
     prompts = torch.from_numpy(docs).cuda()
     torch.cuda.reset_peak_memory_stats()
     # the main path: the served prefill and decode, from zeroed counts
+    recurrent = any(k in RECURRENT for k in layer_kinds(cfg))
+    snap = {}
+
+    def keep(cache):
+        """the prefill's cache, for the state knock-out"""
+        snap["cache"] = _tree_clone(cache)
     zero_counts()
     with RouteTap() as served:
         steps, toks, t_pre, t_dec, n_pre, n_dec, cache = serve(
             torch, cfg, params, prompts, SERVE_GEN, prompt + SERVE_GEN,
-            aux=aux)
+            aux=aux, on_prefill=keep if recurrent else None)
     launches = LaunchLog.counts()
     peak = torch.cuda.max_memory_allocated() - param_bytes - free0
     scores = layer_score_bytes(cfg, batch, prompt)
@@ -4166,6 +4270,27 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
               f"by {moved} (tolerance {tol}): the cross-attention counts")
         del zl
 
+    if recurrent:
+        # the recurrent state counts: the first decode step from the
+        # prefill's cache with every cell's state knocked out
+        from repro_torch.train import make_decode_step
+        ko = snap.pop("cache")
+        knock_out_states(ko)
+        with torch.no_grad():
+            kl, _ = make_decode_step(cfg)(params, ko, toks[:, :1], prompt)
+        del ko
+        moved = float((kl[:, :cfg.vocab] - steps[1][:, :cfg.vocab]).abs()
+                      .max())
+        tol = logits_tolerance(steps[1][:, :cfg.vocab])
+        check(moved > tol, f"knocking out the recurrent state moved the "
+              f"first decode step's logits by {moved}, not past the "
+              f"tolerance {tol}")
+        info.update(state_knockout_moved=moved, state_knockout_tol=tol)
+        print(f"serve: with every recurrent state knocked out after the "
+              f"prefill, the first decode step's logits move by {moved} "
+              f"(tolerance {tol}): the state counts")
+        del kl
+
     if cfg.num_experts:
         del steps
         info["teacher_forcing"] = moe_teacher_forcing(torch, cfg, params,
@@ -4181,16 +4306,37 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
         del h
         dec = torch.stack([s[:, :cfg.vocab] for s in steps], dim=1)
         err = float((dec - tf).abs().max())
-        tol = logits_tolerance(tf)
+        tol = logits_tolerance(tf, RECURRENT_LOGIT_SHARE if recurrent
+                               else 2e-2)
+        agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
+        del dec, steps
         check(err <= tol, f"decode vs teacher forcing: max |err| {err} "
               f"over {tol}")
-        agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
         info.update(teacher_forcing_max_err=err, teacher_forcing_tol=tol,
                     teacher_forcing_argmax_agreement=agree)
         print(f"serve: decode == teacher forcing over {SERVE_GEN + 1} "
               f"positions: max |logit err| {err} (tolerance {tol}); "
               f"argmax agreement {agree}")
-        del full, tf, dec, steps
+        if recurrent:
+            # the control: the same teacher forcing in f32 compute
+            import dataclasses
+            f32 = dataclasses.replace(cfg, compute_dtype="float32")
+            with torch.no_grad():
+                h, _ = forward_hidden(f32, params, full, aux=aux,
+                                      mode="train")
+                drift = float((logits_from_hidden(
+                    f32, params, h[:, prompt - 1:])[..., :cfg.vocab]
+                    - tf).abs().max())
+            del h
+            check(err <= drift, f"decode vs teacher forcing in "
+                  f"{cfg.compute_dtype}: max |err| {err}, past the "
+                  f"{drift} that {cfg.compute_dtype} alone moves the "
+                  f"teacher forcing's logits from f32")
+            info.update(teacher_forcing_vs_f32=drift)
+            print(f"serve: in {cfg.compute_dtype}, teacher forcing lies "
+                  f"{drift} from the same in f32 (max |logit| "
+                  f"{float(tf.abs().max())}): decode lies closer to it")
+        del full, tf
 
     # card == CPU on the cut model
     one, p1, what = cut(cfg, params)
@@ -4302,6 +4448,97 @@ def serve_at_full_width(torch, cfg, seed, cut, profile: bool,
           f"{tokens}; CPU prefill {t_cpu:.2f} s")
     del p1, p1_cpu, prompts, aux
     return params, info, launches
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def knock_out_states(cache) -> None:
+    """Every recurrent cell's state in a serving cache back to its start:
+    lru, conv_state, mC, mn, sc, sn and sh to zero, the stabilizers mm
+    and sm to -1e30."""
+    for part in ("groups", "rem"):
+        for block in cache.get(part, {}).values():
+            for name, t in block.get("cell", {}).items():
+                t.fill_(-1e30 if name in ("mm", "sm") else 0.0)
+
+
+def device_ops(torch, fn):
+    """The device kernels and copies of ``fn()`` under torch.profiler;
+    None where the profiler saw none (device tracing unavailable)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    return n or None
+
+
+def recurrent_block_times(torch, cfg, params) -> dict:
+    """Each recurrent kind of the config alone on the card, on its first
+    layer's params: one cell (``layers.rglru_block``, ``mlstm_block`` or
+    ``slstm_block``) in prefill mode over SERVE_B x SERVE_PROMPT seeded
+    normal hidden states in the compute dtype, its wall on the host's
+    clock around a synchronized call after a warm-up; the sLSTM's device
+    kernels a step (torch.profiler at the STEP_COUNT_S lengths, their
+    difference over the added steps); and one decode step of the whole
+    model, its device kernels (from a fresh cache: values do not change
+    what it launches)."""
+    from repro_torch.models import decoder, init_serve_cache
+    from repro_torch.models.blocks import _CELLS
+    from repro_torch.models.layers import _cdtype
+    from repro_torch.train import make_decode_step
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {}
+
+    def hidden(s):
+        return torch.randn((SERVE_B, s, cfg.d_model), generator=gen,
+                           device="cuda").to(_cdtype(cfg))
+    for i, kind in enumerate(cfg.layer_pattern):
+        if kind not in RECURRENT or f"{kind}_prefill_s" in out:
+            continue
+        p = decoder.tree_map(lambda t: t[0],
+                             params["groups"][str(i)]["cell"])
+        cell = _CELLS[kind][2]
+        with torch.no_grad():
+            cell(cfg, p, hidden(SERVE_PROMPT // 32), mode="prefill")
+            x = hidden(SERVE_PROMPT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cell(cfg, p, x, mode="prefill")
+            torch.cuda.synchronize()
+            out[f"{kind}_prefill_s"] = time.perf_counter() - t0
+            del x
+            if kind == "slstm":
+                a, b = (device_ops(torch, lambda: cell(
+                    cfg, p, hidden(s), mode="prefill"))
+                        for s in STEP_COUNT_S)
+                out["slstm_kernels_a_step"] = (
+                    None if a is None or b is None
+                    else (b - a) / (STEP_COUNT_S[1] - STEP_COUNT_S[0]))
+    n = sum(k == "slstm" for k in layer_kinds(cfg))
+    if n:
+        out["slstm_layers_prefill_s"] = n * out["slstm_prefill_s"]
+    cache = init_serve_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN,
+                             device="cuda")
+    tok = torch.zeros((SERVE_B, 1), dtype=torch.int64, device="cuda")
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        step(params, cache, tok, SERVE_PROMPT)
+        out["decode_step_kernels"] = device_ops(
+            torch, lambda: step(params, cache, tok, SERVE_PROMPT + 1))
+    del cache
+    print(f"serve: {cfg.name}'s recurrent cells alone ({SERVE_B} x "
+          f"{SERVE_PROMPT} tokens, prefill mode, one layer each): "
+          f"{json.dumps(out)} (device kernels and copies from "
+          f"torch.profiler; None: not measured)")
+    return out
 
 
 def one_layer(cfg, params):
@@ -4435,6 +4672,17 @@ def xattn_layer(cfg, params):
 
 def whole_model(cfg, params):
     return cfg, params, "the whole model"
+
+
+def first_group(cfg, params):
+    """The model cut to its first pattern group (recurrentgemma-2b's two
+    rglru layers and a local one; xlstm-350m's slstm and mlstm)."""
+    import dataclasses
+    return (dataclasses.replace(cfg, n_layers=cfg.pattern_len),
+            {"embedding": params["embedding"],
+             "final_norm": params["final_norm"],
+             "groups": _tree_slice(params["groups"])},
+            "the first pattern group")
 
 
 def phase_serve_xattn(torch):
@@ -4594,6 +4842,46 @@ def phase_serve_moe(torch):
     return launches, log.geometries, info
 
 
+def phase_serve_recurrent(torch):
+    """Phase 17: the recurrent serving path on the card, its geometries
+    logged and its launches the two served runs', each from zeroed
+    counts: recurrentgemma-2b whole, then xlstm-350m whole, each served in
+    bf16 through ``serve_at_full_width`` (the state knock-out; decode ==
+    teacher forcing with its f32 control; card == CPU on the first
+    pattern group, the CPU fed the card's tokens), then each recurrent
+    cell alone (``recurrent_block_times``)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    info, runs = {}, []
+    with LaunchLog() as log:
+        for key, arch, seed in (("recurrentgemma", RG_ARCH, RG_SEED),
+                                ("xlstm", XL_ARCH, XL_SEED)):
+            cfg = get_config(arch)
+            if key == "recurrentgemma":
+                check((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+                       cfg.window) == (RG_HQ, RG_HKV, RG_D, RG_W),
+                      f"{cfg.name} is not the shape kernel 12 is timed at")
+            params, info[key], made = serve_at_full_width(
+                torch, cfg, seed, first_group, profile=False,
+                forced_cpu=True)
+            runs.append(made)
+            info[key].update(recurrent_block_times(torch, cfg, params))
+            del params
+            torch.cuda.empty_cache()
+    launches = add_counts(*runs)
+    check(launches["flash_attention"] == 8, f"phase 17 launched "
+          f"flash_attention {launches['flash_attention']} times, expected "
+          f"recurrentgemma-2b's 8 local layers' prefill")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    info.update(card=smi, phase_s=time.perf_counter() - t0)
+    print(f"launches, the recurrent serving path: {json.dumps(launches)}")
+    print("serve summary (recurrent): " + json.dumps(info))
+    return launches, log.geometries, info
+
+
 class _LossRows:
     """A sampler over a vector of per-document losses: an EarlSession on
     the CPU fed the losses that the card's EarlEval computed."""
@@ -4690,7 +4978,7 @@ def _tree_to(tree, device):
 
 def replay_attention(torch, parity, gen, fields, what) -> None:
     """One kernel 12 launch geometry on fresh data against the plain
-    version."""
+    version, at the scale the models use, D^-0.5."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     g = dict(fields)
     b = g["BHq"] // g["Hq"]
@@ -4698,7 +4986,7 @@ def replay_attention(torch, parity, gen, fields, what) -> None:
     q, k, v = fa_inputs(torch, (b, g["Hq"], g["Hkv"], g["Sq"], g["Skv"],
                                 g["D"]), dt, gen)
     kw = dict(causal=bool(g["causal"]), window=g["window"] or None,
-              kv_offset=g["kv_offset"], scale=1.0)
+              kv_offset=g["kv_offset"], scale=g["D"] ** -0.5)
     with LaunchLog() as log:
         got = flash_attention(q, k, v, **kw)
     check(("flash_attention", fields) in log.geometries,
@@ -4735,9 +5023,11 @@ def library_f32_ms(torch, q, k, v, mask, scale):
 def wide_head_times(torch, gen):
     """Kernel 12 past head dim 128 at the serving prefill's B and S: gemma3
     -27b's local (window 1024) and global layers (32/16 heads of 168) and
-    recurrentgemma-2b's local layers (10/1 heads of 256, window 2048);
-    bf16, the f32 route and one bf16 scaled_dot_product_attention call;
-    bound as the main row's."""
+    recurrentgemma-2b's local layers (10/1 heads of 256, window 2048, the
+    shape phase 17 serves); bf16 through the wrapper and alone (launches
+    back to back inside one wrapper call), the f32 route and one bf16
+    scaled_dot_product_attention call with the boolean causal(-window)
+    mask; bound as the main row's."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     out = []
@@ -4754,7 +5044,9 @@ def wide_head_times(torch, gen):
         kw = dict(causal=True, window=w, scale=d ** -0.5)
         row = dict(case=name, B=FA_B, Hq=hq, Hkv=hkv, S=FA_S, D=d, window=w,
                    ms=time_ms(torch, lambda: flash_attention(q, k, v, **kw),
-                              5))
+                              5),
+                   alone_ms=launch_ms(torch, lambda: flash_attention(
+                       q, k, v, **kw), "flash_attention", 5))
         if name == "gemma3_local":
             row["plain_ms"] = time_ms(torch, lambda: plain(
                 flash_attention_plain, q, k, v, **kw), 1)
@@ -4783,7 +5075,8 @@ def wide_head_times(torch, gen):
         del q, k, v, mask
         print(f"timing flash_attention at {name} ({FA_B} x {hq}/{hkv} heads "
               f"of {d}, {FA_S} tokens, window {w}): bf16 "
-              f"{row['ms']:.4f} ms; f32 {row['f32_ms']:.4f} ms; sdpa "
+              f"{row['ms']:.4f} ms, alone {row['alone_ms']:.4f} ms; f32 "
+              f"{row['f32_ms']:.4f} ms; masked bf16 sdpa "
               f"{row['library_ms']} ms; "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
               + (f"; plain {row['plain_ms']:.2f} ms" if "plain_ms" in row
@@ -6197,17 +6490,20 @@ def main() -> int:
     lap("15 (cross-attention serving path)")
     mo_launches, mo_geometries, _ = phase_serve_moe(torch)
     lap("16 (MoE serving path)")
+    rc_launches, rc_geometries, _ = phase_serve_recurrent(torch)
+    lap("17 (recurrent serving path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
                 + sv_launches[k] + gm_launches[k] + lv_launches[k]
                 + ms_launches.get(k, 0) + xa_launches[k] + mo_launches[k]
-                for k in launches}
+                + rc_launches[k] for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"eleven: {json.dumps(launches)}")
+          f"twelve: {json.dumps(launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
                          **mat_geometries, **st_geometries,
                          **sv_geometries, **gm_geometries,
                          **lv_geometries, **ms_geometries,
-                         **xa_geometries, **mo_geometries}, parity)
+                         **xa_geometries, **mo_geometries,
+                         **rc_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)

@@ -1,13 +1,13 @@
 """Config registry: ``get_config(arch_id, smoke=False)``.
 
-The port runs the configs its blocks cover: the dense attention ones
-(``full``, ``swa``, ``local`` and ``global`` layers with a SwiGLU MLP),
-the mixture-of-experts ones (mixtral-8x22b, arctic-480b), the VLM with
-gated cross-attention layers (``xattn``) and the encoder-decoder (``enc``
-and ``dec`` layers).  The JAX package's recurrent architectures
-(recurrentgemma-2b, xlstm-350m) raise ``NotImplementedError`` until their
-blocks are ported (ROADMAP.md §1).  ``smoke`` variants are the JAX package's
-runnable-on-CPU reductions of the same family, field for field.
+The port runs every architecture of the JAX package's registry: the
+dense attention configs (``full``, ``swa``, ``local`` and ``global``
+layers with a SwiGLU MLP), the mixture-of-experts ones (mixtral-8x22b,
+arctic-480b), the VLM with gated cross-attention layers (``xattn``), the
+encoder-decoder (``enc`` and ``dec`` layers) and the recurrent ones
+(recurrentgemma-2b: RG-LRU and local attention; xlstm-350m: sLSTM and
+mLSTM).  ``smoke`` variants are the JAX package's runnable-on-CPU
+reductions of the same family, field for field.
 """
 from __future__ import annotations
 
@@ -30,13 +30,8 @@ ARCH_IDS = (
     "recurrentgemma-2b",
     "whisper-small",
 )
-#: the ones the port runs
-PORTED_ARCH_IDS = ("h2o-danube-3-4b", "stablelm-3b", "granite-3-2b",
-                   "gemma3-27b", "mixtral-8x22b", "arctic-480b",
-                   "llama-3.2-vision-90b", "whisper-small")
-
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
-            for a in PORTED_ARCH_IDS}
+            for a in ARCH_IDS}
 
 
 def smoke_of(cfg: ModelConfig) -> ModelConfig:
@@ -74,11 +69,6 @@ def smoke_of(cfg: ModelConfig) -> ModelConfig:
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"{arch_id} needs recurrent blocks (RG-LRU, xLSTM) the port "
-            f"does not have yet: ROADMAP.md §1 item 5; ported: "
-            f"{PORTED_ARCH_IDS}")
     cfg: ModelConfig = importlib.import_module(_MODULES[arch_id]).CONFIG
     cfg.validate()
     return smoke_of(cfg) if smoke else cfg
@@ -89,5 +79,5 @@ def get_shape(shape_id: str, smoke: bool = False) -> ShapeConfig:
     return table[shape_id]
 
 
-__all__ = ["ARCH_IDS", "PORTED_ARCH_IDS", "get_config", "get_shape",
+__all__ = ["ARCH_IDS", "get_config", "get_shape",
            "smoke_of", "SHAPES", "SMOKE_SHAPES", "shape_is_supported"]

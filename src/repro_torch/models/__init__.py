@@ -1,6 +1,7 @@
-"""The model stack of the JAX package's ``repro.models`` for the dense
-attention configs, the mixture-of-experts ones, the VLM (gated
-cross-attention layers) and the encoder-decoder: config, layers, blocks
+"""The model stack of the JAX package's ``repro.models`` for every config:
+the dense attention ones, the mixture-of-experts ones, the VLM (gated
+cross-attention layers), the encoder-decoder and the recurrent ones
+(RG-LRU, mLSTM and sLSTM cells): config, layers, blocks
 and the decoder's forward, losses and serving paths (``decoder.encode``
 runs the encoder).  ``act_shard`` holds the activation-sharding context
 that ``moe_ffn_shard_map`` reads; ``partitioning`` and ``act_shard.hint``

@@ -150,6 +150,25 @@ class ModelConfig:
         total += d                          # final norm
         return total
 
+    def uncounted_params(self) -> int:
+        """What the analytic ``num_params`` miscounts, signed, so that
+        ``num_params() + uncounted_params()`` is the parameters' own count:
+        it leaves out a gate a cross-attention, an x_norm a ``dec`` layer
+        (an ``xattn`` layer's is counted) and the encoder's final norm; an
+        ``rglru`` layer holds 2r² - d·r - r more than it counts, an
+        ``mlstm`` layer 2·d·h - 4·h·dh² - 3·d·h·dh - d and an ``slstm``
+        layer -2·d·h·dh - d."""
+        d, h, dh, r = self.d_model, self.n_heads, self.head_dim_, \
+            self.rnn_width_
+        kinds = [self.layer_pattern[i % self.pattern_len]
+                 for i in range(self.n_layers)]
+        return (kinds.count("xattn") + kinds.count("dec") * (d + 1)
+                + (d if self.is_encdec else 0)
+                + kinds.count("rglru") * (2 * r * r - d * r - r)
+                + kinds.count("mlstm") * (2 * d * h - 4 * h * dh * dh
+                                          - 3 * d * h * dh - d)
+                + kinds.count("slstm") * (-2 * d * h * dh - d))
+
     def num_active_params(self) -> int:
         """Per-token active params (MoE: top_k of num_experts)."""
         if not self.num_experts:

@@ -1,6 +1,6 @@
 """The language model: embeddings + block groups + chunked CE loss, with the
-prefill/decode serving paths (ring KV caches), as in the JAX package's
-``repro/models/decoder.py``.
+prefill/decode serving paths (ring KV caches, recurrent cells' state), as
+in the JAX package's ``repro/models/decoder.py``.
 
 Params keep the JAX package's layout: ``groups`` holds each block of the
 cyclic layer pattern with its tensors stacked on a leading ``n_groups``

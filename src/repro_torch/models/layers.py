@@ -24,7 +24,14 @@ each expert, slots past the capacity dropped, a gather into an
 (E·C + 1, d) dispatch buffer, the experts' SwiGLU as batched products
 and a scatter-add back to the tokens.  The JAX package computes all of it
 with XLA ops (no Pallas kernel), so the port's is PyTorch ops too.
-RG-LRU and xLSTM are not ported yet (ROADMAP.md §1).
+
+The recurrent cells are PyTorch ops as well, as the JAX package computes
+them outside any Pallas kernel: the RG-LRU (``rglru_block``: a width-4
+causal conv, f32 gates, a log-depth doubling scan, ``linear_scan``, in
+place of ``jax.lax.associative_scan``), the mLSTM (``mlstm_block``: a
+loop over chunks of ``_mlstm_chunk``) and the sLSTM (``slstm_block``: a
+loop of one ``_slstm_step`` a token).  Their decode writes the new state
+into the cache it is given, as the self-attention's does.
 """
 from __future__ import annotations
 
@@ -613,3 +620,334 @@ def moe_ffn_shard_map(cfg: ModelConfig, p: Params, x: torch.Tensor
     if batch_axes:
         y = gather_rows(y, data_groups(mesh, batch_axes))
     return y
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+_LRU_C = 8.0
+#: the stabilisers' start: with -inf, m + F - m_new would give NaN
+_NEG = -1e30
+
+
+def init_rglru(cfg: ModelConfig, generator: torch.Generator, device,
+               lead: Tuple[int, ...] = ()) -> Params:
+    """The input and gate-branch projections (d, r), the width-cw
+    depthwise conv (cw, r), the recurrence and input gates (r, r), the
+    decay ``lam`` (r,) from uniform [0.7, 0.95) and the output (r, d)."""
+    d, r, cw = cfg.d_model, cfg.rnn_width_, cfg.conv_width
+    pd = _pdtype(cfg)
+
+    def init(shape, fan_in):
+        return dense_init(lead + shape, fan_in, pd, generator, device)
+    p = {"w_x": init((d, r), d), "w_y": init((d, r), d),
+         "conv": init((cw, r), cw), "w_a": init((r, r), r),
+         "w_i": init((r, r), r)}
+    lam = torch.rand(lead + (r,), generator=generator, device=device)
+    p["lam"] = lam.mul_(0.95 - 0.7).add_(0.7).to(pd)
+    p["w_out"] = init((r, d), r)
+    return p
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, device
+                     ) -> Dict[str, torch.Tensor]:
+    r, cw = cfg.rnn_width_, cfg.conv_width
+    return {"lru": torch.zeros((batch, r), dtype=torch.float32,
+                               device=device),
+            "conv_state": torch.zeros((batch, cw - 1, r),
+                                      dtype=_cdtype(cfg), device=device)}
+
+
+def _causal_conv(u: torch.Tensor, kern: torch.Tensor,
+                 state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Depthwise causal conv. u: (B, S, r), kern: (cw, r); ``state`` the
+    cw - 1 inputs before u (zeros where None).  Returns (out, a copy of
+    the last cw - 1 inputs: a view would keep the whole sequence alive in
+    a prefill's cache)."""
+    cw, s = kern.shape[0], u.shape[1]
+    if state is None:
+        up = torch.nn.functional.pad(u, (0, 0, cw - 1, 0))
+    else:
+        up = torch.cat([state.to(u.dtype), u], dim=1)
+    out = up[:, 0:s] * kern[0]
+    for i in range(1, cw):
+        out = out + up[:, i:i + s] * kern[i]
+    return out, (up[:, -(cw - 1):].clone() if cw > 1 else None)
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t · h_(t-1) + b_t over axis 1 from h_(-1) = 0, the JAX
+    package's ``associative_scan`` of (a1·a2, b1·a2 + b2), as a log-depth
+    doubling scan: ceil(log2 S) levels of (a, b) <- (a · a_shift,
+    b + a · b_shift), each out of place.  Its f32 order is neither JAX's
+    nor a sequential loop's."""
+    s, off = a.shape[1], 1
+    while off < s:
+        b_new = b.clone()
+        b_new[:, off:] += a[:, off:] * b[:, :-off]
+        if 2 * off < s:
+            a_new = a.clone()
+            a_new[:, off:] *= a[:, :-off]
+            a = a_new
+        b, off = b_new, 2 * off
+    return b
+
+
+def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
+           ) -> Dict[str, torch.Tensor]:
+    """Decode's new state copied into the cache it was given (a stacked
+    group's view writes through to the stack), which is returned."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return cache
+
+
+def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                cache: Cache = None, mode: str = "train"
+                ) -> Tuple[torch.Tensor, Cache]:
+    """The gated linear recurrence: u = conv(x·w_x), gates
+    r, i = sigmoid(u·w_a), sigmoid(u·w_i) in f32 from compute-dtype
+    operands, a = exp(-8·softplus(lam)·r), h_t = a·h_(t-1) +
+    sqrt(1 - a²)·i·u, out = (gelu_tanh(x·w_y) · h)·w_out.  Train and
+    prefill scan the sequence (``linear_scan``); decode takes one step and
+    writes ``lru`` and ``conv_state`` into its cache in place.  The
+    prefill's conv state is the last cw - 1 raw inputs (the JAX package
+    pads them again; ``_causal_conv`` already returns them)."""
+    cd = _cdtype(cfg)
+    xc = x.to(cd)
+    u = mmc(cfg, xc, p["w_x"].to(cd)).to(cd)
+    gate_branch = mmc(cfg, xc, p["w_y"].to(cd))
+    conv_state = cache["conv_state"] if mode == "decode" else None
+    u, new_conv = _causal_conv(u, p["conv"].to(cd), conv_state)
+    # the gates, each freed once used: at full width every one is a
+    # (B, S, r) f32 tensor
+    rt = torch.sigmoid(project(u, p["w_a"].to(cd), torch.float32))
+    a = torch.exp((-_LRU_C * torch.nn.functional.softplus(
+        p["lam"].to(torch.float32))) * rt)
+    del rt
+    it = torch.sigmoid(project(u, p["w_i"].to(cd), torch.float32))
+    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (
+        it * u.to(torch.float32))
+    del it, u
+    if mode == "decode":
+        new_h = a[:, 0] * cache["lru"] + gated[:, 0]
+        h = new_h[:, None, :]
+    else:
+        h = linear_scan(a, gated)
+        new_h = h[:, -1].clone()               # not a view of the sequence
+        del a, gated
+    y = torch.nn.functional.gelu(gate_branch.to(torch.float32),
+                                 approximate="tanh") * h
+    y = mmc(cfg, y.to(cd), p["w_out"].to(cd))
+    if mode == "train":
+        return y.to(x.dtype), None
+    new = {"lru": new_h, "conv_state": new_conv}
+    return y.to(x.dtype), (_write(cache, new) if mode == "decode" else new)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory, chunkwise-parallel) and sLSTM (step loop)
+# ---------------------------------------------------------------------------
+def init_mlstm(cfg: ModelConfig, generator: torch.Generator, device,
+               lead: Tuple[int, ...] = ()) -> Params:
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim_
+    pd = _pdtype(cfg)
+
+    def init(shape, fan_in):
+        return dense_init(lead + shape, fan_in, pd, generator, device)
+    return {"wq": init((d, h, dh), d), "wk": init((d, h, dh), d),
+            "wv": init((d, h, dh), d), "wi": init((d, h), d),
+            "wf": init((d, h), d), "wo": init((h, dh, d), h * dh)}
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device
+                     ) -> Dict[str, torch.Tensor]:
+    h, dh = cfg.n_heads, cfg.head_dim_
+    f32 = torch.float32
+    return {"mC": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
+            "mn": torch.zeros((batch, h, dh), dtype=f32, device=device),
+            "mm": torch.full((batch, h), _NEG, dtype=f32, device=device)}
+
+
+def _mlstm_chunk(q, k, v, ig, lf, carry):
+    """One chunk of the stabilized mLSTM recurrence.
+
+    q, k, v: (B, H, c, dh) f32; ig: (B, H, c) input gate pre-activation;
+    lf: (B, H, c) log forget gate; carry: (C (B, H, dh, dh), n (B, H, dh),
+    m (B, H)).  Returns (h (B, H, c, dh), the carry after the chunk)."""
+    C, nvec, m = carry
+    F = torch.cumsum(lf, dim=-1)
+    logw = ig - F
+    m_loc = torch.cummax(logw, dim=2).values
+    m_new = torch.maximum(m[..., None], m_loc) + F     # running stabilizer
+    # inter-chunk: the carried state, scaled
+    inter_scale = torch.exp(m[..., None] + F - m_new)
+    h_inter = (q @ C) * inter_scale[..., None]
+    n_inter = (q @ nvec[..., None])[..., 0] * inter_scale
+    # intra-chunk: quadratic
+    s_qk = q @ k.transpose(-1, -2)
+    decay = (F[..., :, None] - F[..., None, :] + ig[..., None, :]
+             - m_new[..., :, None])
+    c = decay.shape[-1]
+    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    D = torch.where(tri, torch.exp(decay), 0.0)
+    w = s_qk * D
+    h_intra = w @ v
+    n_intra = w.sum(dim=-1)
+    denom = torch.maximum((n_inter + n_intra).abs(), torch.exp(-m_new))
+    h = (h_inter + h_intra) / denom[..., None]
+    # the carry at the chunk's end
+    Fe = F[..., -1]
+    m_carry = torch.maximum(m + Fe, logw.max(dim=-1).values + Fe)
+    c_scale = torch.exp(m + Fe - m_carry)
+    kv_w = torch.exp(Fe[..., None] - F + ig - m_carry[..., None])
+    C_new = (C * c_scale[..., None, None]
+             + (k * kv_w[..., None]).transpose(-1, -2) @ v)
+    n_new = nvec * c_scale[..., None] + (k * kv_w[..., None]).sum(dim=2)
+    return h, (C_new, n_new, m_carry)
+
+
+def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                cache: Cache = None, mode: str = "train"
+                ) -> Tuple[torch.Tensor, Cache]:
+    """The mLSTM: q, k (both scaled by dh^-0.5) and v in f32, input gate
+    pre-activations ig and log forget gates lf = -softplus(-x·wf) in f32
+    from compute-dtype operands, then ``_mlstm_chunk`` over chunks of
+    ``mlstm_chunk`` tokens (train pads the last; the prefill needs a whole
+    number of chunks), and decode as one chunk of length 1, its state
+    written into the cache in place."""
+    b, s, _ = x.shape
+    h_, dh = cfg.n_heads, cfg.head_dim_
+    cd = _cdtype(cfg)
+    f32 = torch.float32
+    xc = x.to(cd)
+
+    def heads(w, scale=None):                  # (B, H, S, dh) in f32
+        t = mmc(cfg, xc, w.to(cd)).to(f32).transpose(1, 2)
+        return t if scale is None else t * scale
+    q = heads(p["wq"], dh ** -0.5)
+    k = heads(p["wk"], dh ** -0.5)
+    v = heads(p["wv"])
+    ig = project(xc, p["wi"].to(cd), f32).transpose(1, 2)
+    lf = -torch.nn.functional.softplus(
+        -project(xc, p["wf"].to(cd), f32)).transpose(1, 2)
+
+    if mode == "decode":
+        carry = (cache["mC"], cache["mn"], cache["mm"])
+        hout, (C, nvec, m) = _mlstm_chunk(q, k, v, ig, lf, carry)
+        y = mmc(cfg, hout.transpose(1, 2).to(cd), p["wo"].to(cd),
+                contract=2)
+        return y.to(x.dtype), _write(cache, {"mC": C, "mn": nvec, "mm": m})
+
+    c = min(cfg.mlstm_chunk, s)
+    pad = (-s) % c
+    # the carry would include the pad steps: exact only when c divides s
+    assert mode != "prefill" or pad == 0, \
+        "prefill length must be a multiple of mlstm_chunk"
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (q, k, v))
+        ig, lf = (torch.nn.functional.pad(t, (0, pad)) for t in (ig, lf))
+    carry = (torch.zeros((b, h_, dh, dh), dtype=f32, device=x.device),
+             torch.zeros((b, h_, dh), dtype=f32, device=x.device),
+             torch.full((b, h_), _NEG, dtype=f32, device=x.device))
+    hs = []
+    for c0 in range(0, s + pad, c):
+        sl = slice(c0, c0 + c)
+        hout, carry = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                   ig[..., sl], lf[..., sl], carry)
+        hs.append(hout)
+    hout = torch.cat(hs, dim=2)[:, :, :s]
+    y = mmc(cfg, hout.transpose(1, 2).to(cd), p["wo"].to(cd), contract=2)
+    new_cache = None
+    if mode == "prefill":
+        new_cache = {"mC": carry[0], "mn": carry[1], "mm": carry[2]}
+    return y.to(x.dtype), new_cache
+
+
+def init_slstm(cfg: ModelConfig, generator: torch.Generator, device,
+               lead: Tuple[int, ...] = ()) -> Params:
+    """The gates' input projections (d, 4, H, dh) in z, i, f, o order,
+    the per-head recurrent matrices (H, dh, 4, dh) and the output
+    (H, dh, d)."""
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim_
+    pd = _pdtype(cfg)
+
+    def init(shape, fan_in):
+        return dense_init(lead + shape, fan_in, pd, generator, device)
+    return {"wx": init((d, 4, h, dh), d), "r": init((h, dh, 4, dh), dh),
+            "wo": init((h, dh, d), h * dh)}
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device
+                     ) -> Dict[str, torch.Tensor]:
+    shape = (batch, cfg.n_heads, cfg.head_dim_)
+
+    def zero():
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"sc": zero(), "sn": zero(), "sh": zero(),
+            "sm": torch.full(shape, _NEG, dtype=torch.float32,
+                             device=device)}
+
+
+def _slstm_step(rmat, state, gx):
+    """One sLSTM step, heads first: rmat (H, dh, 4·dh) f32; state (c, n,
+    h, m), each (H, B, dh); gx (H, B, 4·dh) the step's input projections
+    (z, i, f, o).  The recurrent product and the input add are one
+    ``baddbmm`` (f32 products and sums, one rounding each, as the JAX
+    package's f32 einsum and add).  Returns the new state; its h is the
+    step's output."""
+    c, n, hprev, m = state
+    g = torch.baddbmm(gx, hprev, rmat).unflatten(-1, (4, -1))
+    z = torch.tanh(g[..., 0, :])
+    i_t = g[..., 1, :]
+    fm = g[..., 2, :] + m
+    o = torch.sigmoid(g[..., 3, :])
+    m_new = torch.maximum(fm, i_t)
+    ip = torch.exp(i_t - m_new)
+    fp = torch.exp(fm - m_new)
+    c_new = torch.addcmul(fp * c, ip, z)
+    n_new = torch.addcmul(ip, fp, n)
+    h_new = o * c_new / torch.clamp_min(n_new, 1e-6)
+    return c_new, n_new, h_new, m_new
+
+
+def slstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                cache: Cache = None, mode: str = "train"
+                ) -> Tuple[torch.Tensor, Cache]:
+    """The sLSTM: the gates' input projections for every token in one
+    product (f32 from compute-dtype operands), then one ``_slstm_step`` a
+    token with the recurrent matrices in f32 (IEEE: the package turns
+    TF32 off).  Decode takes one step and writes sc, sn, sh and sm into
+    its cache in place."""
+    b, s, _ = x.shape
+    h_, dh = cfg.n_heads, cfg.head_dim_
+    cd = _cdtype(cfg)
+    f32 = torch.float32
+    # (B, S, 4, H, dh) -> (S, H, B, 4·dh): each step's slice contiguous
+    gx = project(x.to(cd), p["wx"].to(cd), f32)
+    gx = gx.permute(1, 3, 0, 2, 4).reshape(s, h_, b, 4 * dh)
+    rmat = p["r"].to(f32).reshape(h_, dh, 4 * dh)
+
+    if mode == "decode":                  # (B, H, dh) -> (H, B, dh) views
+        state = tuple(cache[k].transpose(0, 1)
+                      for k in ("sc", "sn", "sh", "sm"))
+    else:
+        z = torch.zeros((h_, b, dh), dtype=f32, device=x.device)
+        state = (z, z, z, torch.full((h_, b, dh), _NEG, dtype=f32,
+                                     device=x.device))
+    hs = []
+    for t in range(s):
+        state = _slstm_step(rmat, state, gx[t])
+        hs.append(state[2])
+    hs = torch.stack(hs, dim=2).permute(1, 2, 0, 3)     # (B, S, H, dh)
+    # decode's output product is f32 whatever matmul_out_dtype says, as
+    # the JAX package's einsum32 there
+    y = project(hs.to(cd), p["wo"].to(cd),
+                f32 if mode == "decode" else _out_dtype(cfg), contract=2)
+    if mode == "train":
+        return y.to(x.dtype), None
+    new = dict(zip(("sc", "sn", "sh", "sm"),
+                   (t.transpose(0, 1).contiguous() for t in state)))
+    return y.to(x.dtype), (_write(cache, new) if mode == "decode" else new)

@@ -53,7 +53,11 @@ product with an f32 output (``bmm_out``) within the f32 dot bound of the
 f32 product of the bf16 values; ``moe_ffn`` on the card against the CPU
 (f32 and bf16 compute) with its choices agreeing but at near ties and y
 within 1e-5 (f32) or 2e-2 (bf16) of max|y| at the agreeing tokens; the
-kept slots bitwise the CPU's where no choice flipped.
+kept slots bitwise the CPU's where no choice flipped.  The recurrent
+slice: recurrentgemma-2b's and xlstm-350m's smoke models decode equal to
+teacher forcing (atol 2e-4, rtol 1e-3), kernel 12 once a ``local`` layer
+in the prefill and never in decode, and decode writing the recurrent
+state into the cache in place.
 """
 import numpy as np
 import pytest
@@ -998,6 +1002,43 @@ def test_cuda_decode_matches_teacher_forcing(cuda):
         lg, cache = decode_step(cfg, params, cache, toks[:, S + t:S + t + 1],
                                 S + t)
         torch.testing.assert_close(lg, full[:, S + t], atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m"])
+def test_cuda_recurrent_decode_matches_teacher_forcing(cuda, arch):
+    """The recurrent smoke models (RG-LRU with local attention; sLSTM and
+    mLSTM) in f32 on the card: decode step t's logits equal the full
+    forward's at position S + t, the prefill launches kernel 12 once a
+    ``local`` layer and decode never, and every decode step writes the
+    recurrent state into the cache it was given."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as tfa
+    from repro_torch.models import (decode_step, forward_hidden,
+                                    init_params, logits_from_hidden, prefill)
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    B, S = 2, 32
+    toks = torch.randint(0, cfg.vocab, (B, S + 3), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    h, _ = forward_hidden(cfg, params, toks, mode="train")
+    full = logits_from_hidden(cfg, params, h)
+    before = tfa.flash_attention.launches
+    lg, cache = prefill(cfg, params, toks[:, :S], cache_len=S + 3)
+    local = sum(cfg.layer_pattern[i % cfg.pattern_len] == "local"
+                for i in range(cfg.n_layers))
+    assert tfa.flash_attention.launches == before + local
+    torch.testing.assert_close(lg, full[:, S - 1], atol=2e-4, rtol=1e-3)
+    cell = cache["groups"]["0"]["cell"]
+    for t in range(3):
+        state = {k: v.clone() for k, v in cell.items()}
+        lg, new = decode_step(cfg, params, cache, toks[:, S + t:S + t + 1],
+                              S + t)
+        torch.testing.assert_close(lg, full[:, S + t], atol=2e-4, rtol=1e-3)
+        for k, v in new["groups"]["0"]["cell"].items():
+            assert v is cell[k] and not torch.equal(v, state[k])
+    assert tfa.flash_attention.launches == before + local
 
 
 @pytest.mark.cuda

@@ -366,19 +366,10 @@ def test_init_follows_the_jax_layout(arch):
 def test_num_params_leaves_out_the_uncounted_leaves(arch):
     """The reference's analytic ``num_params`` leaves out each gate, and
     for ``dec`` layers each x_norm and the encoder's final norm: the leaves
-    counted on the params exceed it by exactly those (``uncounted``)."""
+    counted on the params exceed it by exactly those
+    (``ModelConfig.uncounted_params``)."""
     cfg = get_config(arch, smoke=True)
     params = init_params(cfg, device="cpu")
     count = decoder.num_params(params)[0]
-    assert count == cfg.num_params() + uncounted(cfg)
-    assert uncounted(cfg) == (2 if arch == ARCHS[0] else 194)
-
-
-def uncounted(cfg) -> int:
-    """Leaves of the params the reference's ``num_params`` does not count:
-    a gate for each ``xattn`` layer; a gate and an x_norm for each ``dec``
-    layer, and the encoder's final norm."""
-    kinds = [cfg.layer_pattern[i % cfg.pattern_len]
-             for i in range(cfg.n_layers)]
-    return (kinds.count("xattn") + kinds.count("dec") * (cfg.d_model + 1)
-            + (cfg.d_model if cfg.is_encdec else 0))
+    assert count == cfg.num_params() + cfg.uncounted_params()
+    assert cfg.uncounted_params() == (2 if arch == ARCHS[0] else 194)
