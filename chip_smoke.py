@@ -7,16 +7,18 @@ Needs one CUDA card, nvcc and this checkout; it imports nothing of JAX or
 of the JAX package.  Phases, each of which raises (exit code 1) on
 failure:
 
-1. build the thirteen CUDA kernels from kernels/csrc (poisson_counts.cu,
+1. build the fourteen CUDA kernels from kernels/csrc (poisson_counts.cu,
    fused_pass.cu, which holds the three fused ones, kmeans_assign.cu,
    fused_kmeans.cu, fused_grouped.cu, which holds the two GROUP BY ones
    (the keyed histogram with its index pass), weighted_moments.cu,
-   weighted_hist.cu, fused_stream.cu, fused_binblocked.cu and
-   flash_attention.cu; one nvcc per source, all at once) and print the
-   build seconds and ptxas's registers and spills; kernel 12's
-   tensor-core instances, kernels 2, 3, 4, 6, 7, 8 (its assignment pass
-   too) and 10 and the keyed histogram must spill 0 bytes, and kernel 8's
-   instance of the B=256, n=2^22 bootstrap use at most 128 registers;
+   weighted_hist.cu, fused_stream.cu, fused_binblocked.cu,
+   flash_attention.cu and flash_attention_bwd.cu, kernel 12's backward;
+   one nvcc per source, all at once) and print the build seconds and
+   ptxas's registers and spills; kernel 12's tensor-core instances and
+   every instance of its backward, kernels 2, 3, 4, 6, 7, 8 (its
+   assignment pass too) and 10 and the keyed histogram must spill 0
+   bytes, and kernel 8's instance of the B=256, n=2^22 bootstrap use at
+   most 128 registers;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at B=256, n=2^20+37, with and without a
@@ -282,9 +284,38 @@ failure:
    unit-normal data at scale 1 against its plain version and both against
    f64 (printed: there the plain version's own error passes the replay's
    f32 tolerance, so phase 17 hands phase 8 its bf16 geometries only);
-8. replay every distinct launch geometry that phases 4 to 7 and 10 to 17
+18. (run after phase 17) the training path, from zeroed counts with its
+   geometries logged: granite-3-2b whole (40 layers, 2.5e9 f32 params,
+   f32 AdamW states, bf16 compute) on 4 x 4096 tokens (train_4k's global
+   batch of 256 cut to 4): leg 1, three make_train_step steps and one
+   adaptive step (4 microbatches through make_grad_step,
+   earl_accumulate_gradients and adamw_update), kernel 12 twice a layer
+   (the forward and remat's recompute) and its backward once a layer in
+   every step and microbatch, no plain version run, every leaf's
+   gradient finite and non-zero, the accumulated mean bitwise the mean
+   of the used microbatches' gradients (on a few leaves), the peak below
+   the reckoning (train_reckoning); the adaptive step under
+   torch.profiler (busy share) with the f32 backward products timed on
+   CUDA events; card == CPU on the first layer (1 x 512 tokens, bf16 and
+   f32 compute; gradients within 2e-2 of each leaf's largest, loss and
+   grad_norm within 2e-2, and the step's AdamW update on the card's
+   gradients within four ulps of the CPU's); five steps on one repeated batch
+   lower the loss (4 layers); leg 2, launch/train.main at 4 layers with
+   --adaptive-accum, --eval-every and --ckpt-every, and a run stopped
+   after one step and resumed (losses within f32 rounding, cursor and
+   step bitwise, checkpoint seconds and bytes printed); the embedding's
+   backward twice, bitwise or not, with and without
+   torch.use_deterministic_algorithms; then kernel 12's backward against
+   its plain version at the slice's geometry in bf16 and f32, at the
+   other models' train-mode geometries (BWD_CASES), on a query block
+   that sees no key and with kv_offset > 0, and against autograd
+   through ref.mha_reference in f64 (each dq, dk, dv entry within
+   1e-5·Σ|terms|, bf16 also 2^-7·|want|; two launches bitwise);
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 18
    logged on fresh data and hold it against the plain version as in
-   phase 3, printing each geometry's seconds, the longest first;
+   phase 3 (kernel 12's forward also with lse written: the same bits,
+   and lse the plain version's; its backward as in phase 18), printing
+   each geometry's seconds, the longest first;
 9. time each kernel (CUDA events) beside its plain version, its bound
    and, for the explicit-weight kernels, one PyTorch call computing the
    same function; the sessions' wall times and the example's walls over a
@@ -316,8 +347,11 @@ failure:
    each, and at phase 16's causal prefill geometries (mixtral's 48/8
    heads with window 4096, arctic's 56/8 full causal) alone, through the
    wrapper and in f32, beside their bounds and one masked bf16
-   scaled_dot_product_attention call each; then print the kernels line,
-   then the contract's last line.
+   scaled_dot_product_attention call each; kernel 12's backward at the
+   slice's geometry alone, beside its plain version, its f32 route, its
+   bound (10·D operations a visible pair) and scaled_dot_product_attention
+   forward plus backward less its forward (boolean causal mask); then
+   print the kernels line, then the contract's last line.
 
 Every plain version that a kernel is held against or timed beside runs
 under a check that it launches no kernel.
@@ -360,6 +394,8 @@ REPLACES = {
     "fused_poisson_hist_binblocked":
         "src/repro/kernels/weighted_hist/kernel.py:195",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
+    # no TPU kernel: XLA differentiates the reference's blockwise path
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/ops.py:43",
 }
 SOURCES = {
     "poisson_counts": "src/repro_torch/kernels/csrc/poisson_counts.cu",
@@ -379,6 +415,8 @@ SOURCES = {
     "fused_poisson_hist_binblocked":
         "src/repro_torch/kernels/csrc/fused_binblocked.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 #: the kernels each main path must launch
 QUICKSTART_KERNELS = ("poisson_counts", "fused_poisson_moments",
@@ -545,6 +583,22 @@ RECURRENT_LOGIT_SHARE = 5e-2
 STEP_COUNT_S = (16, 80)
 # dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet, 700 W)
 BF16_FLOPS_PER_S = 989e12
+# the training path (phase 18): granite-3-2b whole (40 layers, d_model
+# 2048, 32/8 heads of 64, d_ff 8192, vocab 49,155 padded to 51,200; f32
+# params and AdamW states, bf16 compute) at the JAX package's train_4k
+# sequence length, 4,096, with its global batch of 256 cut to TRAIN_B = 4
+# to fit one card: TRAIN_STEPS train steps, then one adaptive step of
+# TRAIN_MICRO microbatches; card == CPU on its first layer at 1 x
+# TRAIN_CPU_S tokens within TRAIN_CPU_SHARE of each leaf's largest entry
+# (the serving law); TRAIN_FALL_STEPS steps on one repeated batch and leg
+# 2 (launch/train.main) at granite's full width cut to LEG2_LAYERS layers,
+# LEG2_STEPS steps of LEG2_MICRO microbatches
+TRAIN_ARCH, TRAIN_SEED = "granite-3-2b", 18
+TRAIN_B, TRAIN_S, TRAIN_DOCS = 4, 4096, 64
+TRAIN_STEPS, TRAIN_MICRO = 3, 4
+TRAIN_CPU_S, TRAIN_CPU_SHARE = 512, 2e-2
+TRAIN_FALL_STEPS = 5
+LEG2_LAYERS, LEG2_STEPS, LEG2_MICRO = 4, 2, 2
 # the repaired routing: a keyed custom statistic's tiled scan at the
 # one-shot bootstrap's size, and a group with keyed and custom members
 ROUTE_G, ROUTE_GROUP_N = 8, 1 << 20
@@ -689,7 +743,8 @@ def wrappers():
     ``launches``: the wrapper, or for the GROUP BY kernels and kernels 5
     and 7 the card path of the wrapper's keyed, streamed or block_bins
     call."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_backward_cuda)
     from repro_torch.kernels.fused_multi.ops import fused_poisson_multi
     from repro_torch.kernels.kmeans_assign.ops import (fused_poisson_kmeans,
                                                        kmeans_assign)
@@ -713,7 +768,8 @@ def wrappers():
             "weighted_histogram": weighted_histogram,
             "fused_poisson_moments_stream": moments_stream_cuda,
             "fused_poisson_hist_binblocked": binblocked_cuda,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_backward_cuda}
 
 
 def zero_counts() -> None:
@@ -729,7 +785,7 @@ def geometry(lib: str, args: tuple) -> tuple:
     if lib == "poisson_counts":
         _, Bp, np_, bb, bn, t0, _, _ = args
         fields = dict(Bp=Bp, np_=np_, bb=bb, bn=bn, offset=t0 > 0)
-    elif lib == "flash_attention":
+    elif lib in ("flash_attention", "flash_attention_bwd"):
         (dtype, BHq, Hq, Hkv, Sq, Skv, D, _, causal, window, kv_offset,
          *_) = args
         fields = dict(dtype=dtype, BHq=BHq, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
@@ -2618,10 +2674,12 @@ def phase_replay(torch, geometries, parity: Parity) -> None:
                                                 g["n"]))
             replay_materialized(torch, parity, gen, name, fields, what)
             return
-        if name == "flash_attention":
+        if name in ("flash_attention", "flash_attention_bwd"):
             shapes.setdefault(name, []).append((g["BHq"], g["Sq"], g["Skv"],
                                                 g["D"]))
-            replay_attention(torch, parity, gen_cuda, fields, what)
+            (replay_attention if name == "flash_attention"
+             else replay_attention_bwd)(torch, parity, gen_cuda, fields,
+                                        what)
             return
         if name in ("fused_poisson_moments_stream",
                     "fused_poisson_hist_binblocked"):
@@ -4978,8 +5036,10 @@ def _tree_to(tree, device):
 
 def replay_attention(torch, parity, gen, fields, what) -> None:
     """One kernel 12 launch geometry on fresh data against the plain
-    version, at the scale the models use, D^-0.5."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    version, at the scale the models use, D^-0.5; the same launch with
+    lse written (a training forward's) must give the same bits, and lse
+    the plain version's within 1e-4 + 1e-5·|lse| (-inf at its rows)."""
+    from repro_torch.kernels.flash_attention import ops
     g = dict(fields)
     b = g["BHq"] // g["Hq"]
     dt = torch.float32 if g["dtype"] == 0 else torch.bfloat16
@@ -4988,10 +5048,21 @@ def replay_attention(torch, parity, gen, fields, what) -> None:
     kw = dict(causal=bool(g["causal"]), window=g["window"] or None,
               kv_offset=g["kv_offset"], scale=g["D"] ** -0.5)
     with LaunchLog() as log:
-        got = flash_attention(q, k, v, **kw)
+        got = ops.flash_attention(q, k, v, **kw)
     check(("flash_attention", fields) in log.geometries,
           f"{what}: launched {list(log.geometries)}")
-    hold_attention(parity, got, q, k, v, kw, what)
+    want, lse_p = plain(ops.flash_attention_plain_lse, q, k, v, **kw)
+    pv_abs = attention_pv_abs(q, k, v, kw) if q.element_size() == 2 else None
+    parity.attention(got, want, what, pv_abs)
+    del want, pv_abs
+    with_lse, lse = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+    check(torch.equal(with_lse, got), f"{what}: the output with lse "
+          f"differs from without")
+    fin = torch.isfinite(lse_p)
+    check(torch.equal(fin, torch.isfinite(lse)) and (
+        not bool(fin.any()) or bool(((lse - lse_p)[fin].abs() <= 1e-4
+                                     + 1e-5 * lse_p[fin].abs()).all())),
+        f"{what}: lse is not the plain version's")
 
 
 def attention_pairs(S: int, W: int) -> int:
@@ -6399,6 +6470,748 @@ def phase_mesh_path(torch):
     return launches, log.geometries, info
 
 
+# ---------------------------------------------------------------------------
+# the training path (phase 18): granite-3-2b trained whole
+# ---------------------------------------------------------------------------
+#: kernel 12's backward against its plain version, beside the slice's own
+#: geometry: (name, (b, hq, hkv, sq, skv, d), kwargs) at the other
+#: models' train-mode geometries, 1 x TRAIN_S tokens (h2o-danube-3-4b's
+#: window 4096, gemma3-27b's local layers at head dim 168,
+#: recurrentgemma-2b's window 2048 at head dim 256), phase 15's non-causal
+#: ones at batch 1, a query block that sees no key and a kv_offset > 0
+BWD_CASES = (
+    ("h2o_window", (1, 32, 8, 4096, 4096, 120), dict(causal=True,
+                                                      window=4096)),
+    ("gemma3_local", (1, 32, 16, 4096, 4096, 168), dict(causal=True,
+                                                         window=1024)),
+    ("recurrentgemma_local", (1, 10, 1, 4096, 4096, 256),
+     dict(causal=True, window=2048)),
+    ("llama_cross_attention", (1, 64, 8, 8192, 1600, 128),
+     dict(causal=False)),
+    ("whisper_encoder", (1, 12, 12, 1500, 1500, 64), dict(causal=False)),
+    ("whisper_cross_attention", (1, 12, 12, 224, 1500, 64),
+     dict(causal=False)),
+    ("no_key", (1, 2, 1, 64, 32, 16), dict(causal=True, window=16,
+                                            kv_offset=FA_NO_KEY_OFFSET)),
+    ("kv_offset", (2, 4, 2, 200, 300, 64), dict(causal=True,
+                                                kv_offset=64)),
+)
+
+
+def bwd_bounds(torch, q, k, v, o, do, lse, causal, window, kv_offset,
+               scale, heads: int = 8):
+    """Σ|terms| of each entry of dq, dk and dv, dense in f32 a few query
+    heads at a time: P from lse, |dS| bounded by P·(|dO|·|V|ᵀ + rowsum|dO
+    ∘ O|)."""
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    mask = attention_mask(sq, skv, causal, window, kv_offset, q.device)
+    lse4 = lse.reshape(b, hq, sq, 1)
+    bq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    bk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    bv = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    for h0 in range(0, hq, heads):
+        hs = slice(h0, min(h0 + heads, hq))
+        kvh = torch.arange(hs.start, hs.stop, device=q.device) // g
+        qf, of, dof = (t[:, hs].float() for t in (q, o, do))
+        kf, vf = k[:, kvh].float(), v[:, kvh].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+        p = torch.where(mask, torch.exp(s - lse4[:, hs]), 0.0)
+        del s
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof.abs(), vf.abs())
+                  + (dof * of).abs().sum(-1, keepdim=True))
+        bq[:, hs] = scale * torch.einsum("bhqk,bhkd->bhqd", ds, kf.abs())
+        bk.index_add_(1, kvh, scale * torch.einsum("bhqk,bhqd->bhkd", ds,
+                                                   qf.abs()))
+        bv.index_add_(1, kvh, torch.einsum("bhqk,bhqd->bhkd", p, dof.abs()))
+        del p, ds
+    return bq, bk, bv
+
+
+def hold_backward(torch, parity, got, want, bounds, what):
+    """The backward kernel's (dq, dk, dv) against the plain version's:
+    each entry within 1e-5·Σ|terms| (``bwd_bounds``), and in bf16 also
+    one bf16 rounding of the value, 2^-7·|want|.  Returns the largest
+    share of the bound used."""
+    share = 0.0
+    for name, g, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+        diff = (g.float() - w.float()).abs()
+        tol = 1e-5 * bd
+        if w.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * w.float().abs()
+        parity.err["flash_attention_bwd"] = max(
+            parity.err["flash_attention_bwd"], float(diff.max()))
+        share = max(share, float((diff / tol.clamp_min(1e-30)).max()))
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and bool((diff <= tol).all()),
+              f"flash_attention_bwd {what}: {name} max |err| "
+              f"{float(diff.max())}")
+    return share
+
+
+def backward_case(torch, parity, gen, shape, kw, dtype, what):
+    """Kernel 12 with lse and its backward kernel on fresh unit-normal q, k,
+    v and dO at the models' scale D^-0.5, against the plain versions
+    (each checked to launch nothing): the forward's output bitwise the
+    same with and without lse, lse within 1e-4 + 1e-5·|lse| of the plain
+    version's (-inf at the same rows), the gradients by
+    ``hold_backward``.  Returns the largest share of the bound used."""
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = fa_inputs(torch, shape, dtype, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=kw["causal"], window=kw.get("window"),
+              kv_offset=kw.get("kv_offset", 0), scale=shape[5] ** -0.5)
+    o, lse = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+    check(torch.equal(o, ops.flash_attention_cuda(q, k, v, **kw)),
+          f"kernel 12 {what}: the output with lse differs from without")
+    _, lse_p = plain(ops.flash_attention_plain_lse, q, k, v, **kw)
+    fin = torch.isfinite(lse_p)
+    check(torch.equal(fin, torch.isfinite(lse)), f"kernel 12 {what}: lse "
+          f"is not finite at the plain version's rows")
+    if bool(fin.any()):
+        err = (lse - lse_p)[fin].abs()
+        check(bool((err <= 1e-4 + 1e-5 * lse_p[fin].abs()).all()),
+              f"kernel 12 {what}: lse max |err| {float(err.max())}")
+    got = ops.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    want = plain(ops.flash_attention_backward_plain, q, k, v, o, lse, do,
+                 **kw)
+    bounds = bwd_bounds(torch, q, k, v, o, do, lse, kw["causal"],
+                        kw["window"], kw["kv_offset"], kw["scale"])
+    share = hold_backward(torch, parity, got, want, bounds, what)
+    if kw["kv_offset"] == FA_NO_KEY_OFFSET:
+        check(all(bool((t == 0).all()) for t in got), f"{what}: rows that "
+              f"see no key got non-zero gradients")
+    again = ops.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {what}: two launches differ")
+    return share
+
+
+def backward_oracle_f64(torch, parity) -> float:
+    """The second oracle: the backward kernel in f32 on the card against
+    autograd through ref.mha_reference in f64 on the CPU, at a small
+    geometry, each entry within 1e-5·Σ|terms| (the f64 oracle has no
+    error of its own at that scale)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import mha_reference
+    g = torch.Generator().manual_seed(64)
+    shape = (2, 8, 2, 77, 93, 64)
+    b, hq, hkv, sq, skv, d = shape
+    q, k, v, do = (torch.randn(s, generator=g, dtype=torch.float64)
+                   for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d), (b, hq, sq, d)))
+    kw = dict(causal=True, window=40, kv_offset=16, scale=d ** -0.5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    mha_reference(*leaves, **kw).backward(do)
+    qc, kc, vc, dc = (t.float().cuda() for t in (q, k, v, do))
+    o, lse = ops._forward_cuda(qc, kc, vc, with_lse=True, **kw)
+    got = ops.flash_attention_backward_cuda(qc, kc, vc, o, lse, dc, **kw)
+    bounds = bwd_bounds(torch, qc, kc, vc, o, dc, lse, kw["causal"],
+                        kw["window"], kw["kv_offset"], kw["scale"])
+    want = [leaf.grad.float().cuda() for leaf in leaves]
+    return hold_backward(torch, parity, got, want, bounds,
+                         "against autograd of mha_reference in f64")
+
+
+def phase_parity_backward(torch, parity: Parity) -> dict:
+    """Kernel 12's backward against its plain version at the slice's
+    geometry (TRAIN_B x TRAIN_S, granite's 32/8 heads of 64, causal) in
+    bf16 and f32 and at BWD_CASES in bf16 (f32 too at the small ones), and
+    against the f64 oracle; returns the largest share of the bound per
+    case."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    shares = {}
+    cases = [("granite_train", (TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 64),
+              dict(causal=True), dt)
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(n, s, kw, torch.bfloat16) for n, s, kw in BWD_CASES]
+    cases += [(n, s, kw, torch.float32) for n, s, kw in BWD_CASES
+              if s[3] <= 1500]
+    for name, shape, kw, dt in cases:
+        key = f"{name}_{str(dt).replace('torch.', '')}"
+        shares[key] = backward_case(torch, parity, gen, shape, kw, dt,
+                                    f"{name} {shape} {kw} {dt}")
+        torch.cuda.empty_cache()
+    shares["f64_oracle"] = backward_oracle_f64(torch, parity)
+    torch.cuda.synchronize()
+    print(f"parity: flash_attention_bwd matches its plain version at "
+          f"{len(cases)} cases and the f64 oracle; max |err| "
+          f"{parity.err['flash_attention_bwd']}; share of the bound per "
+          f"case {json.dumps(shares)}")
+    return shares
+
+
+class PlainCalls:
+    """Counts calls of kernel 12's plain versions (forward and backward)
+    while entered: the card's training path must make none."""
+
+    NAMES = ("flash_attention_plain", "flash_attention_plain_lse",
+             "flash_attention_backward_plain")
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+        self.ops, self.orig, self.calls = ops, {}, 0
+        for n in self.NAMES:
+            self.orig[n] = fn = getattr(ops, n)
+            setattr(ops, n, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def counted_fn(*a, **kw):
+            self.calls += 1
+            return fn(*a, **kw)
+        return counted_fn
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.ops, n, fn)
+
+
+class ProductTimer:
+    """CUDA events around every backward of the f32-output products
+    (models/layers._ProductOut) while entered; ``ms()`` their sum."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+        self.cls, self.orig, self.pairs = layers._ProductOut, \
+            layers._ProductOut.backward, []
+        orig = self.orig
+
+        def backward(ctx, g):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(ctx, g)
+            b.record()
+            self.pairs.append((a, b))
+            return out
+        self.cls.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.orig)
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def device_busy_ms(torch, prof):
+    """The union of the device spans a profiler saw, in ms (None where it
+    saw none: then not measured)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us * 1e-3 if spans else None
+
+
+def leaf_dict(tree) -> dict:
+    from repro_torch.optim.adamw import tree_leaves
+    return dict(tree_leaves(tree))
+
+
+def train_reckoning(cfg, n_params: int) -> dict:
+    """The memory reckoning of a full-depth training step written before
+    the first run (bytes): params, gradients, m and v in f32, remat's saved
+    group inputs, one group's recompute (six f32 (tokens, d_ff) products
+    of the SwiGLU), the logits the chunked CE keeps for the backward, and
+    a second gradient tree under adaptive accumulation."""
+    tokens = TRAIN_B * TRAIN_S
+    r = dict(params=4 * n_params, grads=4 * n_params, m_v=8 * n_params,
+             remat_inputs=cfg.n_layers * tokens * cfg.d_model * 2,
+             group_recompute=6 * tokens * cfg.d_ff * 4,
+             logits=tokens * cfg.padded_vocab * 4,
+             second_grads=4 * n_params)
+    r["total"] = sum(r.values())
+    return r
+
+
+def grads_nonzero(torch, grads, what: str) -> None:
+    """Every leaf's gradient finite and not all zero."""
+    for path, g in leaf_dict(grads).items():
+        check(bool(torch.isfinite(g).all()), f"{what}: the gradient of "
+              f"{path} is not finite")
+        check(float(g.abs().max()) > 0, f"{what}: the gradient of {path} "
+              f"is zero")
+
+
+def train_leg1(torch, cfg, opt_cfg) -> tuple:
+    """Leg 1 of phase 18: TRAIN_STEPS ``make_train_step`` steps on the card
+    at full depth, then one adaptive-accumulation step (TRAIN_MICRO
+    microbatches through ``make_grad_step``, ``earl_accumulate_gradients``
+    and ``adamw_update``), as ``launch/train.main`` composes them.  Each
+    step (and microbatch) must launch kernel 12 twice a layer (the forward
+    and remat's recompute) and its backward once, and no plain version
+    may run.  Returns (state, info, launches)."""
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.data.pipeline import TokenBatchPipeline
+    from repro_torch.models import num_params
+    from repro_torch.optim import adamw_update, earl_accumulate_gradients
+    from repro_torch.train import (init_train_state, make_grad_step,
+                                   make_train_step)
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    state = init_train_state(gen, cfg, opt_cfg, device="cuda")
+    n_params, n_bytes = num_params(state.params)
+    docs = synthetic_tokens(TRAIN_DOCS, TRAIN_S + 1, cfg.vocab,
+                            seed=TRAIN_SEED)
+    pipe = TokenBatchPipeline(docs, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                              device="cuda")
+    train_step = make_train_step(cfg, opt_cfg)
+    grad_step = make_grad_step(cfg)
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+    walls, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with PlainCalls() as plains:
+        for _ in range(TRAIN_STEPS):
+            tokens, labels = pipe.next_batch()
+            t = time.perf_counter()
+            (state, m), made = counted(lambda: train_step(
+                state, {"tokens": tokens, "labels": labels}))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            check(made == per_step, f"a train step launched {made}, "
+                  f"expected {per_step}")
+        mbs = []
+        for _ in range(TRAIN_MICRO):
+            tokens, labels = pipe.next_batch()
+            mbs.append({"tokens": tokens, "labels": labels})
+        # a few leaves of every microbatch's gradients, kept to hold the
+        # accumulated mean against
+        kept = ("/final_norm", "/groups/0/attn_norm", "/embedding")
+        seen, micro = [], []
+
+        def watched(params, mb):
+            out, made = counted(lambda: grad_step(params, mb))
+            check(made == per_step, f"a microbatch launched {made}, "
+                  f"expected {per_step}")
+            flat = leaf_dict(out[0])
+            if not seen:
+                grads_nonzero(torch, out[0], "the first microbatch")
+            seen.append({p: flat[p][:64].clone() for p in kept})
+            micro.append(float(out[1]))
+            return out
+        t = time.perf_counter()
+        with ProductTimer() as products, torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            grads, decision = earl_accumulate_gradients(
+                watched, state.params, mbs, sigma=0.02)
+            torch.cuda.synchronize()
+            t_acc = time.perf_counter() - t
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, _, om = adamw_update(state.params, grads, state.opt, opt_cfg)
+            end.record()
+            torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t
+        adamw_ms = start.elapsed_time(end)
+        products_ms = products.ms()
+    launches = LaunchLog.counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(plains.calls == 0, f"the card's training path ran kernel 12's "
+          f"plain versions {plains.calls} times")
+    used = decision.microbatches_used
+    flat = leaf_dict(grads)
+    for p in kept:
+        want = seen[0][p].clone()
+        for s in seen[1:used]:
+            want += s[p]
+        want /= used
+        check(torch.equal(flat[p][:64], want), f"the accumulated mean of "
+              f"{p} is not the mean of the {used} used microbatches")
+    del grads
+    busy = device_busy_ms(torch, prof)
+    tokens = TRAIN_B * TRAIN_S
+    warm = sorted(walls[1:])
+    wall = warm[len(warm) // 2] if len(warm) % 2 else \
+        0.5 * (warm[len(warm) // 2 - 1] + warm[len(warm) // 2])
+    pairs = TRAIN_S * (TRAIN_S + 1) // 2
+    flops = 6 * n_params * tokens + 12 * cfg.head_dim_ * pairs * TRAIN_B \
+        * cfg.n_heads * cfg.n_layers
+    reck = train_reckoning(cfg, n_params)
+    check(peak < reck["total"], f"phase 18's peak {peak} bytes is past the "
+          f"reckoning's {reck['total']}")
+    info = dict(params=n_params, param_bytes=n_bytes,
+                losses=losses, step_walls_s=walls, step_wall_s=wall,
+                tokens_per_s=tokens / wall, flops_per_step=flops,
+                flops_share=flops / wall / BF16_FLOPS_PER_S,
+                micro_used=used, grad_cv=decision.cv,
+                micro_grad_norms=micro, adaptive_step_s=step_wall,
+                accumulate_s=t_acc, adaptive_loss=decision.mean_loss,
+                adamw_ms=adamw_ms, grad_norm=float(om["grad_norm"]),
+                profiled_device_ms=busy,
+                busy_share=None if busy is None else busy / (step_wall * 1e3),
+                f32_backward_products_ms=products_ms,
+                f32_backward_products_share=products_ms / (step_wall * 1e3),
+                peak_bytes=peak, reckoning=reck)
+    print(f"phase 18 leg 1: {cfg.name} at full depth, {n_params} params "
+          f"({n_bytes} bytes), {TRAIN_B} x {TRAIN_S} tokens: losses "
+          f"{losses}, step walls {walls} s (warm median {wall:.3f} s, "
+          f"{tokens / wall:.1f} tokens/s, {flops:.4g} flops a step, "
+          f"{info['flops_share']:.4f} of 989e12); adaptive step: "
+          f"{used} of {TRAIN_MICRO} microbatches used, grad_cv "
+          f"{decision.cv}, {step_wall:.3f} s, AdamW update {adamw_ms:.2f} "
+          f"ms; busy {busy} ms of it ({info['busy_share']}), f32 "
+          f"backward products {products_ms:.1f} ms "
+          f"({info['f32_backward_products_share']:.3f}); peak {peak} bytes "
+          f"against the reckoning's {reck['total']} "
+          f"({json.dumps(reck)})")
+    return state, info, launches
+
+
+def first_layer(cfg, params):
+    """granite cut to its first layer: the embedding, the final norm and
+    layer 0 of every stacked leaf, as fresh tensors."""
+    import dataclasses
+    from repro_torch.models.decoder import tree_map
+    one = dataclasses.replace(cfg, n_layers=cfg.pattern_len)
+    p = {"embedding": params["embedding"].clone(),
+         "final_norm": params["final_norm"].clone(),
+         "groups": tree_map(lambda t: t[:1].clone(), params["groups"])}
+    return one, p
+
+
+def card_equals_cpu(torch, cfg, params, opt_cfg) -> dict:
+    """granite's first layer at full width on 1 x TRAIN_CPU_S tokens, the
+    CPU fed the card's params, in bf16 and f32 compute: every leaf's
+    gradient within TRAIN_CPU_SHARE of that leaf's largest |gradient|,
+    loss and grad_norm within TRAIN_CPU_SHARE relative; then the train
+    step's update (``adamw_update``, as ``make_train_step`` composes it
+    after the gradients) on the card and on the CPU from the same state
+    and the card's gradients, within four f32 ulps of each param plus
+    1e-6·lr.  The update is held on the same gradients because a first
+    AdamW step moves each entry by lr·g/(|g| + eps), a sign function of g:
+    gradients equal within bf16's rounding still flip it at entries
+    near zero (the norm scales start at zero, so their new values are
+    the update alone)."""
+    import dataclasses
+    from repro_torch.models.decoder import tree_map
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import make_grad_step
+    one, p = first_layer(cfg, params)
+    g = torch.Generator().manual_seed(TRAIN_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (1, TRAIN_CPU_S + 1), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for compute in ("bfloat16", "float32"):
+        c = dataclasses.replace(one, compute_dtype=compute)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            pd = tree_map(lambda t: t.to(dev), p)
+            grads, gnorm, loss = make_grad_step(c)(pd, batch)
+            res[dev] = (grads, float(gnorm), float(loss))
+        (gc, nc, lc), (gh, nh, lh) = res["cuda"], res["cpu"]
+        worst = {}
+        flat_h = leaf_dict(gh)
+        for path, t in leaf_dict(gc).items():
+            want = flat_h[path]
+            share = float((t.cpu() - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            worst[path] = share
+            check(share <= TRAIN_CPU_SHARE, f"card == CPU ({compute}): "
+                  f"the gradient of {path} is {share} of its largest "
+                  f"entry away")
+        for what, a, b in (("grad_norm", nc, nh), ("loss", lc, lh)):
+            check(abs(a - b) <= TRAIN_CPU_SHARE * abs(b), f"card == CPU "
+                  f"({compute}): {what} {a} against {b}")
+        steps = {}
+        for dev in ("cuda", "cpu"):
+            pd = tree_map(lambda t: t.to(dev).clone(), p)
+            gd = tree_map(lambda t: t.to(dev), gc)
+            _, st, m = adamw_update(pd, gd, adamw_init(pd, opt_cfg), opt_cfg)
+            steps[dev] = (leaf_dict(pd), float(m["grad_norm"]),
+                          float(m["lr"]))
+        (pc, mnc, lrc), (ph, mnh, lrh) = steps["cuda"], steps["cpu"]
+        check(abs(mnc - mnh) <= 1e-6 * mnh and lrc == lrh, f"card == CPU "
+              f"({compute}): the update's grad_norm {mnc} against {mnh}")
+        ulps = 0.0
+        for path, want in ph.items():
+            got = pc[path].cpu()
+            tol = 4 * torch.abs(torch.nextafter(want, want + 1) - want) \
+                + 1e-6 * lrh
+            diff = (got - want).abs()
+            ulps = max(ulps, float((diff / tol).max()))
+            check(bool((diff <= tol).all()), f"card == CPU ({compute}): the "
+                  f"updated {path} max |err| {float(diff.max())}")
+        out[compute] = dict(grad_share=max(worst.values()),
+                            worst_leaf=max(worst, key=worst.get),
+                            loss=(lc, lh), grad_norm=(nc, nh),
+                            update_share_of_tolerance=ulps)
+        del gc, gh, pc, ph
+    print(f"phase 18 card == CPU on {cfg.name}'s first layer, 1 x "
+          f"{TRAIN_CPU_S} tokens: {json.dumps(out)}")
+    return out
+
+
+def loss_falls(torch, cfg, opt_cfg) -> dict:
+    """TRAIN_FALL_STEPS train steps on one repeated batch of granite at
+    full width cut to LEG2_LAYERS layers: the loss must fall."""
+    import dataclasses
+    from repro_torch.train import init_train_state, make_train_step
+    c = dataclasses.replace(cfg, n_layers=LEG2_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 2)
+    state = init_train_state(gen, c, opt_cfg, device="cuda")
+    g = torch.Generator().manual_seed(TRAIN_SEED + 3)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=g)
+    batch = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+    step = make_train_step(c, opt_cfg)
+    losses = []
+    for _ in range(TRAIN_FALL_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    check(losses[-1] < losses[0], f"five steps on one batch did not lower "
+          f"the loss: {losses}")
+    print(f"phase 18 the loss falls on one repeated batch ({LEG2_LAYERS} "
+          f"layers, {TRAIN_B} x {TRAIN_S}): {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (predicted: from about ln(vocab) = "
+          f"{math.log(cfg.vocab):.2f}, lower after {TRAIN_FALL_STEPS} "
+          f"steps); every step {losses}")
+    return dict(losses=losses)
+
+
+def embedding_determinism(torch, cfg) -> dict:
+    """The embedding's backward (index_put_ with accumulate, atomics on the
+    card) at leg 1's tokens: two runs bitwise or not, by default and under
+    torch.use_deterministic_algorithms."""
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 4)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S), generator=g,
+                         device="cuda")
+    emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=g,
+                      device="cuda")
+    ct = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), generator=g,
+                     device="cuda").to(torch.bfloat16)
+
+    def grad():
+        w = emb.detach().requires_grad_(True)
+        w[toks].to(torch.bfloat16).backward(ct)
+        return w.grad
+
+    out = {}
+    for mode in (False, True):
+        torch.use_deterministic_algorithms(mode)
+        try:
+            a, b = grad(), grad()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["deterministic" if mode else "default"] = bool(torch.equal(a, b))
+    print(f"phase 18 the embedding's backward twice bitwise: "
+          f"{json.dumps(out)}")
+    return out
+
+
+def train_leg2(torch, tmp: str) -> dict:
+    """Leg 2 of phase 18: ``repro_torch.launch.train.main`` itself at
+    granite's full width cut to LEG2_LAYERS layers, TRAIN_B x TRAIN_S,
+    with adaptive accumulation, EarlEval every 2 steps, a checkpoint
+    every 2 steps and the final save: LEG2_STEPS steps uninterrupted, then
+    a run stopped after 1 step (its final save) and resumed to LEG2_STEPS
+    (``--ckpt-every 0``: the final save only).  The resumed
+    run's losses must equal the uninterrupted run's within f32 rounding
+    (the embedding's backward adds with atomics), its pipeline cursor and
+    step bitwise.  Returns (info, launches of the uninterrupted run)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as tlaunch
+    over = json.dumps({"n_layers": LEG2_LAYERS})
+
+    def run(root, steps, every, *extra):
+        return tlaunch.main([
+            "--arch", TRAIN_ARCH, "--override", over, "--steps", str(steps),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--docs",
+            str(TRAIN_DOCS), "--ckpt-dir", root, "--ckpt-every", str(every),
+            "--eval-every", "2", "--adaptive-accum", "--microbatches",
+            str(LEG2_MICRO), "--seed", str(TRAIN_SEED), *extra])
+    zero_counts()
+    with PlainCalls() as plains:
+        full = run(f"{tmp}/full", LEG2_STEPS, 2)
+        launches = LaunchLog.counts()
+        run(f"{tmp}/part", 1, 2)
+        # the resumed run saves once, at its end (a save is about 13 s
+        # of 4.2 GB through the card's host disk)
+        resumed = run(f"{tmp}/part", LEG2_STEPS, 0, "--resume")
+    check(plains.calls == 0, f"main on the card ran kernel 12's plain "
+          f"versions {plains.calls} times")
+    a, b = full["history"][1:], resumed["history"]
+    check(len(a) == len(b) == LEG2_STEPS - 1, f"resumed {len(b)} steps")
+    for x, y in zip(a, b):
+        for key in ("loss", "grad_norm"):
+            check(abs(x[key] - y[key]) <= 1e-5 * abs(x[key]), f"the resumed "
+                  f"run's {key} {y[key]} is not the uninterrupted {x[key]}")
+        check(x["micro_used"] == y["micro_used"] and x["lr"] == y["lr"],
+              f"the resumed run's step differs: {y} against {x}")
+    ma = CheckpointManager(f"{tmp}/full").meta()
+    mb = CheckpointManager(f"{tmp}/part").meta()
+    check(ma == mb, f"the resumed run's cursor {mb} is not the "
+          f"uninterrupted {ma}")
+    bitwise = all(x == y for x, y in zip(a, b))
+    info = dict(steps=LEG2_STEPS, history=full["history"],
+                resumed_history=resumed["history"], resumed_bitwise=bitwise,
+                cursor=ma, ckpt=full["ckpt"], resumed_ckpt=resumed["ckpt"],
+                evals=full["evals"], wall_s=full["wall_s"])
+    print(f"phase 18 leg 2: main at {LEG2_LAYERS} layers, {LEG2_STEPS} "
+          f"steps: {json.dumps(full['history'])}; checkpoints "
+          f"{json.dumps(full['ckpt'])}; EarlEval forwards "
+          f"{json.dumps(full['evals'])}; resumed from step 1 "
+          f"{'bitwise' if bitwise else 'within f32 rounding'}: "
+          f"{json.dumps(resumed['history'])}, cursor {json.dumps(ma)}")
+    return info, launches
+
+
+def phase_train_path(torch, parity: Parity):
+    """Phase 18: the training path on the card, its geometries logged and
+    its launches leg 1's and leg 2's uninterrupted run, each from zeroed
+    counts.  Leg 1 trains granite-3-2b whole (train_leg1), leg 2 runs
+    launch/train.main at LEG2_LAYERS layers (train_leg2); beside them the
+    backward kernel's parity (phase_parity_backward), card == CPU on the
+    first layer, the loss on one repeated batch and the embedding's
+    determinism."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim_) == (40, 2048, 32, 8, 64), f"{cfg.name} is not the "
+          f"shape phase 18 reckons with")
+    opt_cfg = AdamWConfig(warmup_steps=1, state_dtype=cfg.adam_dtype)
+    info = {}
+    with LaunchLog() as log:
+        state, info["leg1"], l1 = train_leg1(torch, cfg, opt_cfg)
+        info["card_cpu"] = card_equals_cpu(torch, cfg, state.params, opt_cfg)
+        del state
+        torch.cuda.empty_cache()
+        info["loss_falls"] = loss_falls(torch, cfg, opt_cfg)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            info["leg2"], l2 = train_leg2(torch, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    info["embedding"] = embedding_determinism(torch, cfg)
+    info["backward_parity"] = phase_parity_backward(torch, parity)
+    launches = add_counts(l1, l2)
+    want = {"flash_attention": 2 * cfg.n_layers * (TRAIN_STEPS
+                                                   + info["leg1"]["micro_used"]),
+            "flash_attention_bwd": cfg.n_layers * (
+                TRAIN_STEPS + info["leg1"]["micro_used"])}
+    check(all(l1[k] == v for k, v in want.items()), f"leg 1 launched "
+          f"{l1}, expected {want}")
+    check(all(v == 0 for k, v in l1.items() if k not in want),
+          f"leg 1 launched another kernel: {l1}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    info.update(card=smi, phase_s=time.perf_counter() - t0)
+    print(f"launches, the training path: leg 1 {json.dumps(l1)}, leg 2 "
+          f"{json.dumps(l2)}")
+    print("train summary: " + json.dumps(info))
+    return launches, log.geometries, info
+
+
+def replay_attention_bwd(torch, parity, gen, fields, what) -> None:
+    """One backward launch geometry on fresh data against the plain
+    version (``backward_case``)."""
+    g = dict(fields)
+    dt = torch.float32 if g["dtype"] == 0 else torch.bfloat16
+    shape = (g["BHq"] // g["Hq"], g["Hq"], g["Hkv"], g["Sq"], g["Skv"],
+             g["D"])
+    kw = dict(causal=bool(g["causal"]), window=g["window"] or None,
+              kv_offset=g["kv_offset"])
+    with LaunchLog() as log:
+        backward_case(torch, parity, gen, shape, kw, dt, what)
+    check(("flash_attention_bwd", fields) in log.geometries,
+          f"{what}: launched {list(log.geometries)}")
+
+
+def backward_rows(torch, launches, parity: Parity, shares):
+    """Kernel 12's backward at the slice's geometry (TRAIN_B x TRAIN_S,
+    32/8 heads of 64, causal), bf16: alone (launches back to back inside
+    one wrapper call), its plain version, its f32 route, its bound (10·D
+    operations a visible pair at the bf16 tensor-core rate, or the f32
+    rate for f32; or the bytes of q, k, v, o, dO and lse read and dq, dk,
+    dv written once over the memory rate) and scaled_dot_product_attention
+    with the boolean causal mask, forward plus backward less its forward."""
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    B, hq, hkv, S, d = TRAIN_B, 32, 8, TRAIN_S, 64
+    q, k, v = fa_inputs(torch, (B, hq, hkv, S, S, d), torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kw = dict(causal=True, window=None, kv_offset=0, scale=d ** -0.5)
+    o, lse = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+    ms = launch_ms(torch, lambda: ops.flash_attention_backward_cuda(
+        q, k, v, o, lse, do, **kw), "flash_attention_bwd", 5)
+    plain_ms = time_ms(torch, lambda: plain(
+        ops.flash_attention_backward_plain, q, k, v, o, lse, do, **kw), 1)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o32, lse32 = ops._forward_cuda(q32, k32, v32, with_lse=True, **kw)
+    f32_ms = launch_ms(torch, lambda: ops.flash_attention_backward_cuda(
+        q32, k32, v32, o32, lse32, do32, **kw), "flash_attention_bwd", 2)
+    del q32, k32, v32, do32, o32, lse32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    i = torch.arange(S, device="cuda")
+    mask = i[None, :] <= i[:, None]
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        return sdpa(qs, ks, vs, attn_mask=mask, scale=kw["scale"],
+                    enable_gqa=True)
+
+    def fwd_bwd():
+        fwd().backward(do)
+    try:
+        sdpa_fwd_ms = time_ms(torch, fwd, 3)
+        sdpa_ms = time_ms(torch, fwd_bwd, 3)
+    except RuntimeError as e:
+        sdpa_fwd_ms = sdpa_ms = None
+        print(f"scaled_dot_product_attention's backward not timed: {e}")
+    del qs, ks, vs
+    pairs = attention_pairs(S, S)
+    flops = 10 * d * pairs * B * hq
+    nbytes = 2 * (3 * B * hq * S * d + 2 * B * hkv * S * d) \
+        + 4 * B * hq * S + 2 * (B * hq + 2 * B * hkv) * S * d
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    f32_bound = max(flops / F32_FLOPS_PER_S, 2 * t_bytes) * 1e3
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source=SOURCES["flash_attention_bwd"],
+               replaces=REPLACES["flash_attention_bwd"],
+               launches=launches["flash_attention_bwd"],
+               max_abs_err=parity.err["flash_attention_bwd"], ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=(None if sdpa_ms is None
+                           else sdpa_ms - sdpa_fwd_ms), f32_ms=f32_ms,
+               f32_bound_ms=f32_bound, library_fwd_bwd_ms=sdpa_ms,
+               library_fwd_ms=sdpa_fwd_ms, bound_shares=shares,
+               registers={n: r for n, r in PTXAS_REGISTERS.items()
+                          if "attention_bwd" in n},
+               shape=dict(B=B, Hq=hq, Hkv=hkv, S=S, D=d, causal=True,
+                          dtype="bfloat16", pairs_per_head=pairs,
+                          flops=flops, bytes=nbytes))
+    print(f"timing flash_attention_bwd at {B} x {hq}/{hkv} heads of {d}, "
+          f"{S} tokens, causal: bf16 {ms:.4f} ms alone "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of visible work), f32 "
+          f"{f32_ms:.4f} ms (its bound {f32_bound:.4f} ms at the f32 rate); "
+          f"plain {plain_ms:.2f} ms; scaled_dot_product_attention's "
+          f"backward {row['library_ms']} ms (forward and backward "
+          f"{sdpa_ms}, forward {sdpa_fwd_ms}); bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+    return [row]
+
+
 def main() -> int:
     import torch
     if "--mesh-rank" in sys.argv:
@@ -6427,6 +7240,7 @@ def main() -> int:
                                        "spill", "wgmma")):
                 print(f"ptxas {lib}: {line.split(':', 1)[-1].strip()}")
     check_no_spills(logs.get("flash_attention", ""), "attention_tc")
+    check_no_spills(logs.get("flash_attention_bwd", ""), "attention_bwd")
     check_no_spills(logs.get("fused_binblocked", ""), "binblocked_kernel")
     check_no_spills(logs.get("weighted_hist", ""), "hist_kernel")
     check_no_spills(logs.get("fused_pass", ""), "fused_pass_kernel")
@@ -6492,24 +7306,30 @@ def main() -> int:
     lap("16 (MoE serving path)")
     rc_launches, rc_geometries, _ = phase_serve_recurrent(torch)
     lap("17 (recurrent serving path)")
+    tr_launches, tr_geometries, tr_info = phase_train_path(torch, parity)
+    lap("18 (training path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
                 + sv_launches[k] + gm_launches[k] + lv_launches[k]
                 + ms_launches.get(k, 0) + xa_launches[k] + mo_launches[k]
-                + rc_launches[k] for k in launches}
+                + rc_launches[k] + tr_launches[k] for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
-          f"twelve: {json.dumps(launches)}")
+          f"paths: {json.dumps(launches)}; the training path's "
+          f"{json.dumps(tr_launches)}")
     phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
                          **mat_geometries, **st_geometries,
                          **sv_geometries, **gm_geometries,
                          **lv_geometries, **ms_geometries,
                          **xa_geometries, **mo_geometries,
-                         **rc_geometries}, parity)
+                         **rc_geometries, **tr_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)
     rows += materialized_rows(torch, launches, parity)
     rows += stream_rows(torch, launches, parity)
     rows += serve_rows(torch, launches, parity)
+    rows[-1]["train_launches"] = tr_launches["flash_attention"]
+    rows += backward_rows(torch, launches, parity,
+                          tr_info["backward_parity"])
     lap("9 (timing)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

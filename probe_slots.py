@@ -4,7 +4,7 @@ fused_grouped.cu) alone, in knock-outs and at other geometries, with
 kernel 2 beside them.
 
     python3 probe_slots.py [--root CHECKOUT] [--label L] [--out FILE]
-                           [--kernel9 | --attention]
+                           [--kernel9 | --attention | --lse-parent PARENT]
 
 Needs one CUDA card and nvcc, and chip_smoke.py beside this script, whose
 timers and data it uses.  ``--root`` is the checkout whose src/repro_torch
@@ -37,6 +37,13 @@ in two turns (K9_KNOCKOUTS, K9_KNOBS).
 ``--attention`` times kernel 12's bf16 route past head dim 128 alone at
 chip_smoke.py's wide-head shapes, its K/V tiling against the other that
 fits in shared memory (K12_KNOCKOUTS), in turns.
+
+``--lse-parent PARENT`` builds kernel 12 from PARENT's source too (a
+checkout whose ``earl_flash_attention`` takes no ``lse`` pointer) and
+holds this checkout's kernel, launched with a null ``lse`` and with one,
+bitwise against the parent's at chip_smoke.py's FA_CASES and
+FA_WIDE_CASES in f32 and bf16 and at the serving prefill's shape in
+bf16.
 """
 import argparse
 import importlib
@@ -505,6 +512,67 @@ def probe_attention(torch, root: Path, label: str) -> dict:
     return result
 
 
+def probe_lse_parent(torch, root: Path, parent: Path) -> dict:
+    """Kernel 12's output with and without lse against PARENT's kernel,
+    bitwise, at every geometry of chip_smoke's FA_CASES and FA_WIDE_CASES
+    (f32 and bf16) and the serving prefill's shape (bf16)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._pass import stream_ptr
+    from repro_torch.kernels.flash_attention import ops
+    work = root / "build" / "probe_lse"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    src = parent / "src" / "repro_torch" / "kernels" / "csrc"
+    lib_path = work / "libparent_flash_attention.so"
+    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                          str(src), "-o", str(lib_path),
+                          str(src / "flash_attention.cu")],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent's kernel 12:\n"
+                           f"{out.stdout}{out.stderr}")
+    fn = ctypes.CDLL(str(lib_path)).earl_flash_attention
+    fn.argtypes = list(_build.SIGNATURES["flash_attention"])[:-2] + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    cases = [(s, kw, dt) for s, kw in cs.FA_CASES + cs.FA_WIDE_CASES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append(((cs.FA_B, cs.FA_HQ, cs.FA_HKV, cs.FA_S, cs.FA_S, cs.FA_D),
+                  dict(causal=True, window=cs.FA_W), torch.bfloat16))
+    same = 0
+    for shape, kw, dt in cases:
+        q, k, v = cs.fa_inputs(torch, shape, dt, gen)
+        d = shape[5]
+        kw = dict(causal=kw["causal"], window=kw.get("window"),
+                  kv_offset=kw.get("kv_offset", 0), scale=d ** -0.5)
+        got, _ = ops._forward_cuda(q, k, v, with_lse=False, **kw)
+        got_lse, _ = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+        if dt == torch.bfloat16:
+            q3, k3, v3 = (ops._tma_ready(t) for t in (q, k, v))
+        else:
+            q3, k3, v3 = q.contiguous(), k.contiguous(), v.contiguous()
+        want = torch.empty_like(q3)
+        err = fn(ops._DTYPES[dt], shape[0] * shape[1], shape[1], shape[2],
+                 shape[3], shape[4], q3.shape[3], float(kw["scale"]),
+                 int(kw["causal"]), kw["window"] or 0, kw["kv_offset"],
+                 q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                 want.data_ptr(), stream_ptr(q.device))
+        if err != 0:
+            raise RuntimeError(f"the parent's kernel 12 failed: {err}")
+        want = want[..., :d]
+        ok = torch.equal(got, want) and torch.equal(got_lse, want)
+        print(f"kernel 12 {shape} {kw} {dt}: bitwise the parent's {ok}")
+        if not ok:
+            raise RuntimeError(f"kernel 12 at {shape} {kw} {dt} is not "
+                               f"bitwise the parent's")
+        same += 1
+        del q, k, v, q3, k3, v3
+    return dict(parent=str(parent), geometries_bitwise=same,
+                geometries=len(cases))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
@@ -512,6 +580,7 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--kernel9", action="store_true")
     ap.add_argument("--attention", action="store_true")
+    ap.add_argument("--lse-parent", default=None)
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
@@ -521,6 +590,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_slots: no CUDA device", file=sys.stderr)
         return 2
+    if args.lse_parent:
+        result = probe_lse_parent(torch, root, Path(args.lse_parent))
+        print(json.dumps(result))
+        return 0
     if args.kernel9 or args.attention:
         result = (probe_kernel9 if args.kernel9 else probe_attention)(
             torch, root, args.label)

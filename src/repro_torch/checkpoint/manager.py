@@ -8,7 +8,8 @@ directory per step, atomically renamed into place:
         arrays.npz          flat {path -> array} of the state tree
         meta.json           step, extra state (a stream's cursor, ...)
 
-Tensors pass through NumPy: ``save`` copies every leaf to the host before
+Tensors pass through NumPy (a bf16 leaf as its int16 bits, read back
+bitwise into a bf16 template leaf): ``save`` copies every leaf to the host before
 it returns, so a caller may fold the next chunk into the same tensors in
 place while an asynchronous write is still running.  ``restore`` takes a
 *template* tree and puts each array on its template leaf's device, in its
@@ -71,10 +72,14 @@ def _rebuild(tree: Any, leaves) -> Any:
                          for f in dataclasses.fields(tree)})
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu", copy=True)
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
     """Host copies of every leaf, taken now."""
-    return {p: t.detach().to("cpu", copy=True).numpy()
-            for p, t in _leaves(tree)}
+    return {p: _host(t) for p, t in _leaves(tree)}
 
 
 def _unflatten_into(template: Any, flat: Dict[str, np.ndarray]) -> Any:
@@ -86,8 +91,10 @@ def _unflatten_into(template: Any, flat: Dict[str, np.ndarray]) -> Any:
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {path}: "
                              f"{arr.shape} vs {tuple(leaf.shape)}")
-        out.append(torch.as_tensor(arr).to(device=leaf.device,
-                                           dtype=leaf.dtype))
+        t = torch.as_tensor(arr)
+        if leaf.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
+        out.append(t.to(device=leaf.device, dtype=leaf.dtype))
     return _rebuild(template, iter(out))
 
 

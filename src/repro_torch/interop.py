@@ -13,7 +13,9 @@ imports jax or the JAX package.  What crosses:
   and backend;
 * a sharded store: its splits;
 * a model's params (or serve caches): the nested dict of arrays, in the
-  JAX package's layout, which the port keeps.
+  JAX package's layout, which the port keeps;
+* a train state: its params and its AdamW state (m, v and step, each
+  leaf in its own dtype: arctic-480b's bf16 m and v stay bf16).
 
 This is the system's counterpart of carrying weights across: a run begun
 in one package continues in the other from the same RNG stream.
@@ -97,3 +99,19 @@ def params_from_numpy(tree, device=None):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return _tensor_from_numpy(tree, dev)
+
+
+def train_state_from_numpy(params, opt_state, device=None):
+    """A JAX ``TrainState`` as the port's: ``params`` its params tree and
+    ``opt_state`` its ``OptState`` (anything with ``m``, ``v`` and
+    ``step``), each a numpy copy; on ``device`` (the card unless
+    ``device="cpu"``)."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.steps import TrainState
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(opt_state.step)), dtype=torch.int32,
+                        device=dev)
+    return TrainState(
+        params=params_from_numpy(params, dev),
+        opt=OptState(m=params_from_numpy(opt_state.m, dev),
+                     v=params_from_numpy(opt_state.v, dev), step=step))

@@ -42,7 +42,9 @@ FLOAT = ctypes.c_float
 #: weighted_moments and weighted_hist take an explicit weight matrix;
 #: fused_stream is the moments pass with x double-buffered through shared
 #: memory, fused_binblocked the output-tiled (block_bins) histogram;
-#: flash_attention is the attention of the model stack (kernel 12).
+#: flash_attention is the attention of the model stack (kernel 12), with
+#: a null or an f32 pointer for each row's log-sum-exp; flash_attention_bwd
+#: its backward (q, k, v, o, dO, lse, a delta scratch, dq, dk, dv).
 SIGNATURES: Dict[str, tuple] = {
     "poisson_counts": (INT, INT, INT, INT, INT, INT, VOID_P, VOID_P),
     "fused_pass": (INT, INT, INT, INT, INT, INT, INT, VOID_P, VOID_P, INT,
@@ -69,7 +71,10 @@ SIGNATURES: Dict[str, tuple] = {
                          VOID_P, VOID_P, INT, VOID_P, VOID_P, INT, INT, INT,
                          INT, INT, VOID_P, VOID_P),
     "flash_attention": (INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, INT,
-                        INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P),
+                        INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P),
+    "flash_attention_bwd": (INT, INT, INT, INT, INT, INT, INT, FLOAT, INT,
+                            INT, INT, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P,
+                            VOID_P, VOID_P, VOID_P, VOID_P, VOID_P, VOID_P),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

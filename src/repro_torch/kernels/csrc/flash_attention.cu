@@ -18,6 +18,12 @@
 // the last query blocks first: under a causal mask they see the most keys,
 // so the last wave of CTAs is the lightest.
 //
+// With a non-null ``lse`` (a training forward), both routes also write each
+// query row's log-sum-exp, m + log(l) in natural units (f32, (B·Hq, Sq);
+// -inf for a row that sees no key), which the backward kernel
+// (flash_attention_bwd.cu) reads; a null ``lse`` writes nothing more, and
+// the output is the same either way.
+//
 // Bound: the two products, 4·D operations per visible (query, key) pair;
 // the bytes (q, k, v and o once each) take far less time.  Two routes:
 //
@@ -81,7 +87,8 @@ constexpr int kF32BlockQ = 64;  // query rows a CTA owns
 template <int DH, int TPR, int BK>
 __global__ void __launch_bounds__(TPR * kF32BlockQ)
 attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int BHq,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int BHq,
               int Hq, int Hkv, int Sq, int Skv, int D, float scale,
               int causal, int window, int kv_offset) {
   constexpr int kThreadsF32 = TPR * kF32BlockQ;
@@ -190,13 +197,15 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = 0; d < DH; ++d) {
       if (d0 + d < D) orow[d0 + d] = acc[d] / denom;
     }
+    if (lse != nullptr && part == 0)
+      lse[static_cast<int64_t>(bh) * Sq + row] = m + logf(l);
   }
 }
 
 cudaError_t launch_f32(int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
                        float scale, int causal, int window, int kv_offset,
                        const void* q, const void* k, const void* v, void* o,
-                       cudaStream_t stream) {
+                       float* lse, cudaStream_t stream) {
   const int64_t blocks =
       static_cast<int64_t>(BHq) * ((Sq + kF32BlockQ - 1) / kF32BlockQ);
   if (blocks >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
@@ -207,8 +216,8 @@ cudaError_t launch_f32(int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
   float* op = static_cast<float*>(o);
 #define EARL_FA(DH, TPR, BK)                                              \
   attention_f32<DH, TPR, BK><<<grid, TPR * kF32BlockQ, 0, stream>>>(      \
-      qp, kp, vp, op, BHq, Hq, Hkv, Sq, Skv, D, scale, causal, window,    \
-      kv_offset)
+      qp, kp, vp, op, lse, BHq, Hq, Hkv, Sq, Skv, D, scale, causal,       \
+      window, kv_offset)
   if (D <= 8) {
     EARL_FA(4, 2, 32);
   } else if (D <= 16) {
@@ -238,6 +247,7 @@ constexpr int kThreads = 256;   // two consumer warpgroups
 constexpr int kBoxCols = 64;    // bf16 columns a 128-byte swizzled box holds
 constexpr int kRowBytes = 128;  // a box row: 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // A tile of `rows` rows at padded head dim DP: DP / 64 boxes of `rows`
 // rows of 128 bytes.
@@ -471,9 +481,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 attention_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
-             __nv_bfloat16* __restrict__ o, int BHq, int Hq, int Hkv, int Sq,
-             int Skv, int D, float scale_log2, int causal, int window,
-             int kv_offset) {
+             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int BHq,
+             int Hq, int Hkv, int Sq, int Skv, int D, float scale_log2,
+             int causal, int window, int kv_offset) {
   constexpr int kBoxes = DP / kBoxCols;
   constexpr int kQBox = kBlockM * kRowBytes;  // a box of Q: 128 rows
   constexpr int kKVBox = BN * kRowBytes;      // a box of K or V: BN rows
@@ -665,6 +675,9 @@ attention_tc(const __grid_constant__ CUtensorMap qmap,
     const int row = r0 + 8 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m is in log2 units with scale·log2 e folded in: m·ln 2 + log l
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<int64_t>(bh) * Sq + row] = m[i] * kLn2 + logf(l[i]);
     __nv_bfloat16* orow = o + (static_cast<int64_t>(bh) * Sq + row) * D;
 #pragma unroll
     for (int n8 = 0; n8 < DP / 8; ++n8) {
@@ -731,7 +744,8 @@ template <int DP, int BN, int STAGES>
 cudaError_t launch_tc_dp(const void* q, const void* k, const void* v,
                          int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
                          float scale_log2, int causal, int window,
-                         int kv_offset, void* o, cudaStream_t stream) {
+                         int kv_offset, void* o, float* lse,
+                         cudaStream_t stream) {
   static_assert(smem_bytes(DP, BN, STAGES) <= 232448,
                 "a CTA's shared memory is past the 227 KB Hopper gives");
   const int64_t blocks =
@@ -750,15 +764,15 @@ cudaError_t launch_tc_dp(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return e;
   attention_tc<DP, BN, STAGES><<<static_cast<unsigned>(blocks), kThreads,
                                  smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), BHq, Hq, Hkv, Sq, Skv, D,
-      scale_log2, causal, window, kv_offset);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, BHq, Hq, Hkv, Sq,
+      Skv, D, scale_log2, causal, window, kv_offset);
   return cudaGetLastError();
 }
 
 cudaError_t launch_tc(int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
                       float scale, int causal, int window, int kv_offset,
                       const void* q, const void* k, const void* v, void* o,
-                      cudaStream_t stream) {
+                      float* lse, cudaStream_t stream) {
   // TMA reads rows of a multiple of 16 bytes from 16-byte aligned bases
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -769,7 +783,7 @@ cudaError_t launch_tc(int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
 #define EARL_TC(DP, BN, STAGES)                                            \
   launch_tc_dp<DP, BN, STAGES>(q, k, v, BHq, Hq, Hkv, Sq, Skv, D,          \
                                scale_log2, causal, window, kv_offset, o,   \
-                               stream)
+                               lse, stream)
   if (D <= 128) return D <= 64 ? EARL_TC(64, 128, 2) : EARL_TC(128, 128, 2);
   return D <= 192 ? EARL_TC(192, 64, 2) : EARL_TC(256, 64, 2);
 #undef EARL_TC
@@ -779,17 +793,18 @@ cudaError_t launch_tc(int BHq, int Hq, int Hkv, int Sq, int Skv, int D,
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); window: 0 for
 // none.  D up to 256; bf16 takes D a multiple of 8 and 16-byte aligned q,
-// k, v.
+// k, v.  lse: null, or (BHq, Sq) f32 for each row's log-sum-exp.
 extern "C" int earl_flash_attention(int dtype, int BHq, int Hq, int Hkv,
                                     int Sq, int Skv, int D, float scale,
                                     int causal, int window, int kv_offset,
                                     void* q, void* k, void* v, void* o,
-                                    void* stream) {
+                                    void* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lp = static_cast<float*>(lse);
   const cudaError_t err =
       dtype == 0 ? launch_f32(BHq, Hq, Hkv, Sq, Skv, D, scale, causal,
-                              window, kv_offset, q, k, v, o, s)
+                              window, kv_offset, q, k, v, o, lp, s)
                  : launch_tc(BHq, Hq, Hkv, Sq, Skv, D, scale, causal, window,
-                             kv_offset, q, k, v, o, s);
+                             kv_offset, q, k, v, o, lp, s);
   return static_cast<int>(err);
 }

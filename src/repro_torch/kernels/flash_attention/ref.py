@@ -27,7 +27,9 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   scale: Optional[float] = None, kv_offset: int = 0
                   ) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  GQA via head repeat."""
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  GQA via head repeat.
+    f32 arithmetic, f64 for f64 inputs (the oracle of the backward's
+    tests: autograd through this function in f64)."""
     hq, d = q.shape[1], q.shape[3]
     hkv = k.shape[1]
     if scale is None:
@@ -35,11 +37,11 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     group = hq // hkv
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
-                     k.to(torch.float32)) * scale
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(f), k.to(f)) * scale
     mask = attention_mask(q.shape[2], k.shape[2], causal, window, kv_offset,
                           device=q.device)
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(f))
     return out.to(q.dtype)

@@ -4,10 +4,19 @@ in the JAX package's ``repro/models/decoder.py``.
 
 Params keep the JAX package's layout: ``groups`` holds each block of the
 cyclic layer pattern with its tensors stacked on a leading ``n_groups``
-axis, and ``rem`` the remainder layers unstacked.  A loop over the groups,
-each reading its views ``t[g]``, takes the place of ``lax.scan``; caches
-are stacked the same way.  Entry points run on the card unless the caller
-passes ``device="cpu"`` (init) or CPU tensors.
+axis, and ``rem`` the remainder layers unstacked.  A loop over the groups
+takes the place of ``lax.scan``: each group reads its layer of every
+stacked leaf through one ``unbind`` a leaf (``_layers``), whose backward
+stacks the layers' gradients once; indexing ``t[g]`` would instead add a
+zero tensor of the whole stacked leaf into its gradient for every layer,
+O(L²) traffic and a transient of the leaf's size each time.  Caches are
+stacked the same way.  In a training forward (train mode with gradients
+on) and ``cfg.remat`` set, each pattern group, of the decoder and of the
+encoder, runs under ``torch.utils.checkpoint`` (non-reentrant), as the
+JAX package wraps the scan body in ``jax.checkpoint``: only the group's
+input is kept, and the backward recomputes the group.  Entry points run
+on the card unless the caller passes ``device="cpu"`` (init) or CPU
+tensors.
 
 The VLM (``xattn`` layers) and the encoder-decoder (``dec`` layers) take
 ``aux`` (B, Ta, d_model): the image's patch embeddings, or the audio's
@@ -19,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -130,6 +140,34 @@ def _group_fn(cfg, pattern, gp, x, *, positions, gcache, aux, mode,
     return x, ncs
 
 
+def _layers(stacked: Params, n: int):
+    """The ``n`` layers of a stacked group's params, as views: one
+    ``unbind`` a leaf."""
+    per = tree_map(lambda t: t.unbind(0), stacked)
+    return [tree_map(lambda u: u[g], per) for g in range(n)]
+
+
+def _remat(cfg: ModelConfig, mode: str) -> bool:
+    return mode == "train" and cfg.remat and torch.is_grad_enabled()
+
+
+def _train_group(cfg, pattern, gp, x, positions, aux):
+    return _group_fn(cfg, pattern, gp, x, positions=positions, gcache=None,
+                     aux=aux, mode="train")[0]
+
+
+def _run_group(cfg, pattern, gp, x, *, positions, gcache, aux, mode,
+               cache_len=None):
+    """One pattern group; under remat (``_remat``) through the
+    non-reentrant checkpoint, which keeps only its inputs."""
+    if _remat(cfg, mode):
+        return checkpoint(_train_group, cfg, pattern, gp, x, positions, aux,
+                          use_reentrant=False,
+                          preserve_rng_state=False), None
+    return _group_fn(cfg, pattern, gp, x, positions=positions,
+                     gcache=gcache, aux=aux, mode=mode, cache_len=cache_len)
+
+
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                positions, caches, aux, mode: str,
                cache_len: Optional[int] = None
@@ -138,13 +176,12 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     new_caches: Params = {}
     if cfg.n_groups > 0:
         gcs = []
-        for g in range(cfg.n_groups):
-            gp = tree_map(lambda t: t[g], params["groups"])
+        for g, gp in enumerate(_layers(params["groups"], cfg.n_groups)):
             gc_in = (None if mode != "decode" else
                      tree_map(lambda t: t[g], caches["groups"]))
-            x, gc = _group_fn(cfg, pattern, gp, x, positions=positions,
-                              gcache=gc_in, aux=aux, mode=mode,
-                              cache_len=cache_len)
+            x, gc = _run_group(cfg, pattern, gp, x, positions=positions,
+                               gcache=gc_in, aux=aux, mode=mode,
+                               cache_len=cache_len)
             gcs.append(gc)
         if mode == "prefill":
             new_caches["groups"] = tree_map(lambda *ts: torch.stack(ts),
@@ -165,15 +202,15 @@ def encode(cfg: ModelConfig, params: Params, audio_embeds: torch.Tensor
            ) -> torch.Tensor:
     """Whisper-style encoder over stub frontend embeddings (B, Ta, d): the
     ``enc`` blocks (non-causal self-attention, kernel 12 on the card) in
-    train mode at positions 0..Ta-1, then the encoder's final norm."""
+    train mode at positions 0..Ta-1 (remat as the decoder's groups), then
+    the encoder's final norm."""
     enc = params["encoder"]
     dev = params["embedding"].device
     x = audio_embeds.to(device=dev, dtype=L._cdtype(cfg))
     positions = torch.arange(x.shape[1], device=dev)
-    for g in range(cfg.enc_layers):
-        gp = tree_map(lambda t: t[g], enc["groups"])
-        x, _ = _group_fn(cfg, ("enc",), gp, x, positions=positions,
-                         gcache=None, aux=None, mode="train")
+    for gp in _layers(enc["groups"], cfg.enc_layers):
+        x, _ = _run_group(cfg, ("enc",), gp, x, positions=positions,
+                          gcache=None, aux=None, mode="train")
     return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 

@@ -99,20 +99,60 @@ def dense_init(shape, in_axis_size: int, dtype: torch.dtype,
     return t.mul_(in_axis_size ** -0.5).to(dtype)
 
 
+class _ProductOut(torch.autograd.Function):
+    """bf16 operands, one f32 product on the card (``torch.mm`` or
+    ``torch.bmm`` with ``out_dtype=torch.float32``), which PyTorch cannot
+    differentiate.  The backward is the JAX package's transpose rule for
+    ``preferred_element_type``: the f32 cotangent against the other
+    operand upcast to f32, an IEEE f32 product (TF32 is off), rounded to
+    the operand's dtype.  That is what autograd gives on the CPU path
+    (``(a.to(f32) @ b.to(f32))``), so the card's gradients are the
+    CPU's."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.ndim == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(torch.float32)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b.to(torch.float32).transpose(-1, -2)
+                              ).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.matmul(a.to(torch.float32).transpose(-1, -2), g
+                              ).to(b.dtype)
+        return da, db
+
+
+def _product_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _ProductOut.apply(a, b)
+    if a.ndim == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
 def matmul_out(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype
                ) -> torch.Tensor:
     """a (m, k) @ b (k, n) with the JAX package's ``preferred_element_type``
     semantics: f32 accumulation, the result in ``out_dtype``.  Operands of
     ``out_dtype`` multiply as they are.  Narrower operands (bf16) with an
     f32 output: on the card one bf16 product with an f32 output
-    (``torch.mm(..., out_dtype=)``, f32 accumulation, rounded once to f32);
-    on the CPU the f32 product of the bf16-valued operands (exact products,
-    f32 sums), since the CPU's torch has no such output type.  f32 products
-    run in IEEE f32 (the package turns TF32 off)."""
+    (``torch.mm(..., out_dtype=)``, f32 accumulation, rounded once to f32;
+    differentiable through ``_ProductOut``); on the CPU the f32 product of
+    the bf16-valued operands (exact products, f32 sums), since the CPU's
+    torch has no such output type.  f32 products run in IEEE f32 (the
+    package turns TF32 off)."""
     if a.dtype == out_dtype and b.dtype == out_dtype:
         return a @ b
     if a.is_cuda and out_dtype == torch.float32:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _product_out(a, b)
     return (a.to(torch.float32) @ b.to(torch.float32)).to(out_dtype)
 
 
@@ -120,12 +160,13 @@ def bmm_out(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype
             ) -> torch.Tensor:
     """The batched ``matmul_out``: a (e, m, k) @ b (e, k, n), f32
     accumulation, the result in ``out_dtype``; on the card bf16 operands
-    give one ``torch.bmm(..., out_dtype=torch.float32)``, on the CPU the
-    f32 product of their bf16 values."""
+    give one ``torch.bmm(..., out_dtype=torch.float32)`` (differentiable
+    through ``_ProductOut``), on the CPU the f32 product of their bf16
+    values."""
     if a.dtype == out_dtype and b.dtype == out_dtype:
         return torch.bmm(a, b)
     if a.is_cuda and out_dtype == torch.float32:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _product_out(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
 
 

@@ -1481,3 +1481,203 @@ def test_cuda_moe_drops_the_cpu_slots(cuda):
         return      # unexplained == 0: each flipped choice was a near tie
     for name in ("se", "st", "keep", "slot"):
         assert torch.equal(getattr(rg, name).cpu(), getattr(rw, name)), name
+
+
+# ---------------------------------------------------------------------------
+# the training slice: kernel 12's backward, lse, the f32-output products'
+# gradients and a smoke train step, each on the card against the CPU or the
+# plain version
+# ---------------------------------------------------------------------------
+#: (b, hq, hkv, sq, skv, d), kwargs: causal GQA 4:1, a window, not causal
+#: with Sq != Skv, ragged 37 and 67, a negative and a positive kv_offset,
+#: a query block that sees no key, and head dims 20, 168 and 256
+FA_BWD_CASES = [
+    ((2, 8, 2, 128, 128, 64), dict(causal=True)),
+    ((1, 4, 1, 200, 200, 64), dict(causal=True, window=50)),
+    ((1, 4, 4, 37, 67, 16), dict(causal=False)),
+    ((1, 4, 2, 67, 37, 20), dict(causal=True, kv_offset=30)),
+    ((1, 8, 8, 130, 100, 128), dict(causal=True, kv_offset=-20, window=60)),
+    ((1, 2, 1, 64, 32, 16), dict(causal=True, window=16, kv_offset=100)),
+    ((1, 4, 2, 96, 96, 168), dict(causal=True)),
+    ((1, 2, 1, 80, 80, 256), dict(causal=True, window=32)),
+]
+
+
+def _bwd_bounds(q, k, v, o, do, lse, causal=True, window=None, kv_offset=0,
+                scale=None):
+    """Σ|terms| of each entry of dq, dk and dv (dense, f32): P from lse,
+    |dS| bounded by P·(|dO|·|V|ᵀ + rowsum|dO ∘ O|)."""
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    f = [t.float() for t in (q, k, v, o, do)]
+    qf, of, dof = f[0], f[3], f[4]
+    kf, vf = (t.repeat_interleave(g, dim=1) for t in f[1:3])
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    mask = attention_mask(sq, skv, causal, window, kv_offset, q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hq, sq, 1)), 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof.abs(), vf.abs())
+              + (dof * of).abs().sum(-1, keepdim=True))
+    bq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, kf.abs())
+    bk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, qf.abs())
+    bv = torch.einsum("bhqk,bhqd->bhkd", p, dof.abs())
+    return bq, (bk.reshape(b, hkv, g, skv, d).sum(2),
+                bv.reshape(b, hkv, g, skv, d).sum(2))
+
+
+def _bwd_close(got, want, bound):
+    """f32 within 1e-5·Σ|terms|; bf16 also one bf16 rounding of the
+    value, 2^-7·|want|."""
+    tol = 1e-5 * bound
+    if want.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    return bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,kw", FA_BWD_CASES,
+                         ids=[str(s) for s, _ in FA_BWD_CASES])
+def test_cuda_flash_attention_backward_matches_plain(cuda, shape, kw, dtype):
+    """The backward kernel against flash_attention_backward_plain on the
+    same q, k, v, o, lse and dO (the kernel's forward), one launch a call,
+    and lse against the plain version's; two launches give the same
+    bits."""
+    from repro_torch.kernels.flash_attention import ops as tfa
+    q, k, v = _fa_inputs(shape, dtype, cuda, shape[3] + shape[4])
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)
+                     ).to(dtype).to(cuda)
+    scale = shape[5] ** -0.5
+    kw = dict(kw, scale=scale, window=kw.get("window"),
+              kv_offset=kw.get("kv_offset", 0))
+    o, lse = tfa._forward_cuda(q, k, v, with_lse=True, **kw)
+    assert torch.equal(o, tfa.flash_attention_cuda(q, k, v, **kw))
+    _, lse_plain = tfa.flash_attention_plain_lse(q, k, v, **kw)
+    fin = torch.isfinite(lse_plain)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert not bool(fin.any()) or \
+        float((lse - lse_plain)[fin].abs().max()) <= 1e-4
+    before = tfa.flash_attention_backward_cuda.launches
+    got = tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    assert tfa.flash_attention_backward_cuda.launches == before + 1
+    want = tfa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    bounds = _bwd_bounds(q, k, v, o, do, lse, kw["causal"], kw["window"],
+                         kw["kv_offset"], scale)
+    bounds = (bounds[0],) + bounds[1]
+    for name, g_, w_, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+        assert g_.dtype == dtype and g_.shape == w_.shape, name
+        assert _bwd_close(g_, w_, bd), name
+    again = tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if kw["kv_offset"] == 100:       # the window ends before the first key
+        assert all(bool((t == 0).all()) for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_gradients_match_the_cpu(cuda, dtype):
+    """flash_attention with a gradient on the card (kernel 12 forward with
+    lse, then the backward kernel: one launch each) against autograd on
+    the CPU (the plain versions), on transposed (non-contiguous) inputs
+    as self_attention passes them."""
+    from repro_torch.kernels.flash_attention import ops as tfa
+    shape, kw = (2, 8, 2, 96, 96, 64), dict(causal=True, window=40)
+    g = torch.Generator().manual_seed(8)
+    base = [torch.randn((s[0], s[2], s[1], s[3]), generator=g).to(dtype)
+            for s in ((2, 8, 96, 64), (2, 2, 96, 64), (2, 2, 96, 64))]
+    do = torch.randn((2, 8, 96, 64), generator=g).to(dtype)
+
+    def run(dev):
+        leaves = [t.to(dev).requires_grad_(True) for t in base]
+        q, k, v = (t.transpose(1, 2) for t in leaves)
+        out = tfa.flash_attention(q, k, v, **kw)
+        out.backward(do.to(dev))
+        return out.detach().cpu(), [t.grad.cpu() for t in leaves]
+
+    f0, b0 = tfa.flash_attention.launches, \
+        tfa.flash_attention_backward_cuda.launches
+    out_c, grads_c = run(cuda)
+    assert tfa.flash_attention.launches == f0 + 1
+    assert tfa.flash_attention_backward_cuda.launches == b0 + 1
+    out_h, grads_h = run("cpu")
+    share = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip([out_c] + grads_c, [out_h] + grads_h):
+        assert float((a.float() - b.float()).abs().max()) <= \
+            share * float(b.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_product_out_gradients_match_the_cpu(cuda):
+    """matmul_out and bmm_out with bf16 operands and an f32 output
+    differentiate on the card (torch.mm/bmm with out_dtype has no
+    derivative of its own): the gradients are the CPU path's, f32
+    products of the f32 cotangent and the bf16 operand rounded to bf16,
+    within one bf16 rounding (f32 sums in another order)."""
+    from repro_torch.models.layers import bmm_out, matmul_out
+    g = torch.Generator().manual_seed(9)
+    for fn, sa, sb in ((matmul_out, (48, 64), (64, 80)),
+                       (bmm_out, (3, 40, 64), (3, 64, 24))):
+        a = torch.randn(sa, generator=g).to(torch.bfloat16)
+        b = torch.randn(sb, generator=g).to(torch.bfloat16)
+        ct = torch.randn(sa[:-1] + sb[-1:], generator=g)
+        grads = []
+        for dev in (cuda, "cpu"):
+            ad, bd = (t.to(dev).requires_grad_(True) for t in (a, b))
+            out = fn(ad, bd, torch.float32)
+            assert out.dtype == torch.float32
+            out.backward(ct.to(dev))
+            grads.append((ad.grad.cpu(), bd.grad.cpu()))
+        for got, want in zip(*grads):
+            assert got.dtype == torch.bfloat16
+            diff = (got.float() - want.float()).abs()
+            assert bool((diff <= 2.0 ** -7 * want.float().abs()
+                         + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_cuda_smoke_train_step_matches_the_cpu(cuda, compute):
+    """One granite-3-2b smoke train step on the card (kernel 12 forward
+    with remat's recompute, its backward, the f32-output products'
+    backward) against the same step on the CPU from the same params:
+    loss, grad_norm and every updated parameter within 1e-4 (f32
+    compute) or 2e-2 (bf16) of the largest value."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.kernels.flash_attention import ops as tfa
+    from repro_torch.train import TrainState, make_train_step
+    cfg = dataclasses.replace(get_config("granite-3-2b", smoke=True),
+                              compute_dtype=compute)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": toks[:, :64], "labels": toks[:, 1:]}
+    out = []
+    for dev in (cuda, "cpu"):
+        p = tree_map(lambda t: t.to(dev).clone(), params)
+        state = TrainState(p, adamw_init(p, ocfg))
+        f0 = tfa.flash_attention.launches
+        b0 = tfa.flash_attention_backward_cuda.launches
+        state, m = make_train_step(cfg, ocfg)(state, batch)
+        if dev == cuda:
+            assert tfa.flash_attention.launches - f0 == 2 * cfg.n_layers
+            assert tfa.flash_attention_backward_cuda.launches - b0 == \
+                cfg.n_layers
+        out.append((m, dict(tree_leaves(state.params))))
+    share = 1e-4 if compute == "float32" else 2e-2
+    (mc, pc), (mh, ph) = out
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mc[key]) - float(mh[key])) <= \
+            share * abs(float(mh[key]))
+    for path, want in ph.items():
+        got = pc[path].cpu()
+        assert float((got - want).abs().max()) <= \
+            share * float(want.abs().max()), path

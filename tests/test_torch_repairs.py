@@ -40,6 +40,18 @@ torch.set_num_threads(1)
 # the packages' ``core.ssabe`` attribute is the function, not the module
 jssabe = importlib.import_module("repro.core.ssabe")
 tssabe = importlib.import_module("repro_torch.core.ssabe")
+#: the training slice's modules, JAX package and port
+TRAINING = [(importlib.import_module(f"repro.{m}"),
+             importlib.import_module(f"repro_torch.{m}"), names)
+            for m, names in (
+                ("optim.adamw", ("adamw_init", "adamw_update",
+                                 "AdamWConfig")),
+                ("optim.adaptive_accum", ("gradient_cv",
+                                          "earl_accumulate_gradients")),
+                ("optim.compression", ("error_feedback_compress",)),
+                ("data.pipeline", ("TokenBatchPipeline",)),
+                ("train.steps", ("init_train_state", "make_train_step",
+                                 "make_grad_step")))]
 
 G, SEED = 3, 77
 
@@ -167,7 +179,11 @@ ENTRY_POINTS = [
     (jssabe, tssabe, n) for n in ("estimate_B", "estimate_n")] + [
     (jft, tft, n) for n in ("estimate_with_failures", "failure_mask",
                             "DeadlineReducer", "elastic_estimate")] + [
-    (JManager, TManager, "restore")]
+    (JManager, TManager, "restore")] + [
+    (jm, tm, n) for jm, tm, names in TRAINING for n in names]
+#: a JAX key that the port takes as a torch.Generator (the documented
+#: drop of the init functions)
+RENAMES = {"init_train_state": {"key": "generator"}}
 
 
 def _params(obj):
@@ -182,7 +198,8 @@ def _params(obj):
 def test_public_signatures_follow_the_jax_order(jmod, tmod, name):
     """Names and order as the JAX package has them, minus the documented
     drops, with the port's ``device`` last where it has one."""
-    want = [p for p in _params(getattr(jmod, name))
+    want = [RENAMES.get(name, {}).get(p, p)
+            for p in _params(getattr(jmod, name))
             if p not in DROPS.get(name, ())]
     got = _params(getattr(tmod, name))
     if got and got[-1] == "device":
