@@ -15,7 +15,8 @@ failure:
    flash_attention.cu and flash_attention_bwd.cu, kernel 12's backward;
    one nvcc per source, all at once) and print the build seconds and
    ptxas's registers and spills; kernel 12's tensor-core instances and
-   every instance of its backward, kernels 2, 3, 4, 6, 7, 8 (its
+   every instance of its backward (each of its tensor-core route's three
+   kernels named and present), kernels 2, 3, 4, 6, 7, 8 (its
    assignment pass too) and 10 and the keyed histogram must spill 0
    bytes, and kernel 8's instance of the B=256, n=2^22 bootstrap use at
    most 128 registers;
@@ -291,7 +292,8 @@ failure:
    adaptive step (4 microbatches through make_grad_step,
    earl_accumulate_gradients and adamw_update), kernel 12 twice a layer
    (the forward and remat's recompute) and its backward once a layer in
-   every step and microbatch, no plain version run, every leaf's
+   every step and microbatch, each backward on the tensor cores
+   (``tc_launches``), no plain version run, every leaf's
    gradient finite and non-zero, the accumulated mean bitwise the mean
    of the used microbatches' gradients (on a few leaves), the peak below
    the reckoning (train_reckoning); the adaptive step under
@@ -310,7 +312,9 @@ failure:
    other models' train-mode geometries (BWD_CASES), on a query block
    that sees no key and with kv_offset > 0, and against autograd
    through ref.mha_reference in f64 (each dq, dk, dv entry within
-   1e-5·Σ|terms|, bf16 also 2^-7·|want|; two launches bitwise);
+   1e-5·Σ|terms|, bf16 also 2^-7·|want|, and on the tensor-core route,
+   bf16 up to D = 128, also 2^-8·Σ|terms| for P and dS rounded to bf16;
+   the route checked on every call; two launches bitwise);
 8. replay every distinct launch geometry that phases 4 to 7 and 10 to 18
    logged on fresh data and hold it against the plain version as in
    phase 3 (kernel 12's forward also with lse written: the same bits,
@@ -348,9 +352,10 @@ failure:
    heads with window 4096, arctic's 56/8 full causal) alone, through the
    wrapper and in f32, beside their bounds and one masked bf16
    scaled_dot_product_attention call each; kernel 12's backward at the
-   slice's geometry alone, beside its plain version, its f32 route, its
-   bound (10·D operations a visible pair) and scaled_dot_product_attention
-   forward plus backward less its forward (boolean causal mask); then
+   slice's geometry alone (the tensor-core route), its share of its
+   bound (10·D operations a visible pair), beside its plain version, its
+   f32 route and scaled_dot_product_attention forward plus backward less
+   its forward (boolean causal mask, and is_causal); then
    print the kernels line, then the contract's last line.
 
 Every plain version that a kernel is held against or timed beside runs
@@ -775,6 +780,7 @@ def wrappers():
 def zero_counts() -> None:
     for f in wrappers().values():
         f.launches = 0
+    wrappers()["flash_attention_bwd"].tc_launches = 0
     for log in LaunchLog.entered:       # a log around the zeroing goes on
         log.before = LaunchLog.counts()
 
@@ -6530,15 +6536,18 @@ def bwd_bounds(torch, q, k, v, o, do, lse, causal, window, kv_offset,
     return bq, bk, bv
 
 
-def hold_backward(torch, parity, got, want, bounds, what):
+def hold_backward(torch, parity, got, want, bounds, what, tc=False):
     """The backward kernel's (dq, dk, dv) against the plain version's:
     each entry within 1e-5·Σ|terms| (``bwd_bounds``), and in bf16 also
-    one bf16 rounding of the value, 2^-7·|want|.  Returns the largest
-    share of the bound used."""
+    one bf16 rounding of the value, 2^-7·|want|; on the tensor-core route
+    (``tc``) also 2^-8·Σ|terms|: P and dS are rounded to bf16 (RNE,
+    relative 2^-8 at most) before the products that take them, one
+    rounded factor in each term.  Returns the largest share of the bound
+    used."""
     share = 0.0
     for name, g, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
         diff = (g.float() - w.float()).abs()
-        tol = 1e-5 * bd
+        tol = (1e-5 + (2.0 ** -8 if tc else 0.0)) * bd
         if w.dtype == torch.bfloat16:
             tol = tol + 2.0 ** -7 * w.float().abs()
         parity.err["flash_attention_bwd"] = max(
@@ -6556,8 +6565,10 @@ def backward_case(torch, parity, gen, shape, kw, dtype, what):
     v and dO at the models' scale D^-0.5, against the plain versions
     (each checked to launch nothing): the forward's output bitwise the
     same with and without lse, lse within 1e-4 + 1e-5·|lse| of the plain
-    version's (-inf at the same rows), the gradients by
+    version's (-inf at the same rows), the backward on the tensor cores
+    exactly when bf16 and D <= BWD_TC_MAX_D, the gradients by
     ``hold_backward``.  Returns the largest share of the bound used."""
+    from repro_torch.kernels._pass import BWD_TC_MAX_D
     from repro_torch.kernels.flash_attention import ops
     q, k, v = fa_inputs(torch, shape, dtype, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
@@ -6574,12 +6585,18 @@ def backward_case(torch, parity, gen, shape, kw, dtype, what):
         err = (lse - lse_p)[fin].abs()
         check(bool((err <= 1e-4 + 1e-5 * lse_p[fin].abs()).all()),
               f"kernel 12 {what}: lse max |err| {float(err.max())}")
+    tc0 = ops.flash_attention_backward_cuda.tc_launches
     got = ops.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    tc = dtype == torch.bfloat16 and shape[5] <= BWD_TC_MAX_D
+    check(ops.flash_attention_backward_cuda.tc_launches == tc0 + int(tc),
+          f"flash_attention_bwd {what}: the tensor-core route ran "
+          f"{ops.flash_attention_backward_cuda.tc_launches - tc0} times, "
+          f"expected {int(tc)}")
     want = plain(ops.flash_attention_backward_plain, q, k, v, o, lse, do,
                  **kw)
     bounds = bwd_bounds(torch, q, k, v, o, do, lse, kw["causal"],
                         kw["window"], kw["kv_offset"], kw["scale"])
-    share = hold_backward(torch, parity, got, want, bounds, what)
+    share = hold_backward(torch, parity, got, want, bounds, what, tc)
     if kw["kv_offset"] == FA_NO_KEY_OFFSET:
         check(all(bool((t == 0).all()) for t in got), f"{what}: rows that "
               f"see no key got non-zero gradients")
@@ -6819,6 +6836,9 @@ def train_leg1(torch, cfg, opt_cfg) -> tuple:
         adamw_ms = start.elapsed_time(end)
         products_ms = products.ms()
     launches = LaunchLog.counts()
+    tc = wrappers()["flash_attention_bwd"].tc_launches
+    check(tc == launches["flash_attention_bwd"], f"leg 1's backward took "
+          f"the tensor cores {tc} of {launches['flash_attention_bwd']} times")
     peak = torch.cuda.max_memory_allocated()
     check(plains.calls == 0, f"the card's training path ran kernel 12's "
           f"plain versions {plains.calls} times")
@@ -6847,7 +6867,7 @@ def train_leg1(torch, cfg, opt_cfg) -> tuple:
                 losses=losses, step_walls_s=walls, step_wall_s=wall,
                 tokens_per_s=tokens / wall, flops_per_step=flops,
                 flops_share=flops / wall / BF16_FLOPS_PER_S,
-                micro_used=used, grad_cv=decision.cv,
+                micro_used=used, grad_cv=decision.cv, tc_launches=tc,
                 micro_grad_norms=micro, adaptive_step_s=step_wall,
                 accumulate_s=t_acc, adaptive_loss=decision.mean_loss,
                 adamw_ms=adamw_ms, grad_norm=float(om["grad_norm"]),
@@ -7136,6 +7156,40 @@ def replay_attention_bwd(torch, parity, gen, fields, what) -> None:
           f"{what}: launched {list(log.geometries)}")
 
 
+def sdpa_backward_ms(torch, q, k, v, do, kw) -> dict:
+    """scaled_dot_product_attention on the same q, k, v (GQA by
+    ``enable_gqa``) and dO: {"mask": (forward ms, forward and backward
+    ms) with the boolean mask of ``kw`` (none where every key is
+    visible), "is_causal": the same with ``is_causal=True`` where the mask
+    is the causal one alone, else absent}; (None, None) with the reason
+    printed where PyTorch refuses a call."""
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq, skv = q.shape[2], k.shape[2]
+    full = not kw["causal"] and kw["window"] is None
+    mask = None if full else attention_mask(
+        sq, skv, kw["causal"], kw["window"], kw["kv_offset"], q.device)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ways = {"mask": dict(attn_mask=mask)}
+    if kw["causal"] and kw["window"] is None and kw["kv_offset"] == 0 \
+            and sq == skv:
+        ways["is_causal"] = dict(is_causal=True)
+    out = {}
+    for name, extra in ways.items():
+        def fwd():
+            return sdpa(qs, ks, vs, scale=kw["scale"], enable_gqa=True,
+                        **extra)
+
+        def fwd_bwd():
+            fwd().backward(do)
+        try:
+            out[name] = (time_ms(torch, fwd, 3), time_ms(torch, fwd_bwd, 3))
+        except RuntimeError as e:
+            out[name] = (None, None)
+            print(f"scaled_dot_product_attention ({name}) not timed: {e}")
+    return out
+
+
 def backward_rows(torch, launches, parity: Parity, shares):
     """Kernel 12's backward at the slice's geometry (TRAIN_B x TRAIN_S,
     32/8 heads of 64, causal), bf16: alone (launches back to back inside
@@ -7143,7 +7197,8 @@ def backward_rows(torch, launches, parity: Parity, shares):
     operations a visible pair at the bf16 tensor-core rate, or the f32
     rate for f32; or the bytes of q, k, v, o, dO and lse read and dq, dk,
     dv written once over the memory rate) and scaled_dot_product_attention
-    with the boolean causal mask, forward plus backward less its forward."""
+    with the boolean causal mask and with ``is_causal`` (``sdpa_backward_ms``),
+    forward plus backward less its forward."""
     from repro_torch.kernels.flash_attention import ops
     gen = torch.Generator(device="cuda").manual_seed(181)
     B, hq, hkv, S, d = TRAIN_B, 32, 8, TRAIN_S, 64
@@ -7152,8 +7207,11 @@ def backward_rows(torch, launches, parity: Parity, shares):
         torch.bfloat16)
     kw = dict(causal=True, window=None, kv_offset=0, scale=d ** -0.5)
     o, lse = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+    tc0 = ops.flash_attention_backward_cuda.tc_launches
     ms = launch_ms(torch, lambda: ops.flash_attention_backward_cuda(
         q, k, v, o, lse, do, **kw), "flash_attention_bwd", 5)
+    check(ops.flash_attention_backward_cuda.tc_launches == tc0 + 1,
+          "the timed bf16 backward did not take the tensor-core route")
     plain_ms = time_ms(torch, lambda: plain(
         ops.flash_attention_backward_plain, q, k, v, o, lse, do, **kw), 1)
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
@@ -7161,24 +7219,9 @@ def backward_rows(torch, launches, parity: Parity, shares):
     f32_ms = launch_ms(torch, lambda: ops.flash_attention_backward_cuda(
         q32, k32, v32, o32, lse32, do32, **kw), "flash_attention_bwd", 2)
     del q32, k32, v32, do32, o32, lse32
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    i = torch.arange(S, device="cuda")
-    mask = i[None, :] <= i[:, None]
-    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-
-    def fwd():
-        return sdpa(qs, ks, vs, attn_mask=mask, scale=kw["scale"],
-                    enable_gqa=True)
-
-    def fwd_bwd():
-        fwd().backward(do)
-    try:
-        sdpa_fwd_ms = time_ms(torch, fwd, 3)
-        sdpa_ms = time_ms(torch, fwd_bwd, 3)
-    except RuntimeError as e:
-        sdpa_fwd_ms = sdpa_ms = None
-        print(f"scaled_dot_product_attention's backward not timed: {e}")
-    del qs, ks, vs
+    lib = sdpa_backward_ms(torch, q, k, v, do, kw)
+    sdpa_fwd_ms, sdpa_ms = lib["mask"]
+    causal_fwd_ms, causal_ms = lib.get("is_causal", (None, None))
     pairs = attention_pairs(S, S)
     flops = 10 * d * pairs * B * hq
     nbytes = 2 * (3 * B * hq * S * d + 2 * B * hkv * S * d) \
@@ -7195,19 +7238,25 @@ def backward_rows(torch, launches, parity: Parity, shares):
                library_ms=(None if sdpa_ms is None
                            else sdpa_ms - sdpa_fwd_ms), f32_ms=f32_ms,
                f32_bound_ms=f32_bound, library_fwd_bwd_ms=sdpa_ms,
-               library_fwd_ms=sdpa_fwd_ms, bound_shares=shares,
+               library_fwd_ms=sdpa_fwd_ms,
+               library_is_causal_ms=(None if causal_ms is None
+                                     else causal_ms - causal_fwd_ms),
+               bound_share=max(t_ops, t_bytes) * 1e3 / ms,
+               bound_shares=shares,
                registers={n: r for n, r in PTXAS_REGISTERS.items()
                           if "attention_bwd" in n},
                shape=dict(B=B, Hq=hq, Hkv=hkv, S=S, D=d, causal=True,
                           dtype="bfloat16", pairs_per_head=pairs,
                           flops=flops, bytes=nbytes))
     print(f"timing flash_attention_bwd at {B} x {hq}/{hkv} heads of {d}, "
-          f"{S} tokens, causal: bf16 {ms:.4f} ms alone "
-          f"({flops / ms / 1e9:.1f} TFLOP/s of visible work), f32 "
+          f"{S} tokens, causal: bf16 (tensor cores) {ms:.4f} ms alone "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of visible work, "
+          f"{row['bound_share']:.4f} of its bound), f32 "
           f"{f32_ms:.4f} ms (its bound {f32_bound:.4f} ms at the f32 rate); "
           f"plain {plain_ms:.2f} ms; scaled_dot_product_attention's "
-          f"backward {row['library_ms']} ms (forward and backward "
-          f"{sdpa_ms}, forward {sdpa_fwd_ms}); bound "
+          f"backward {row['library_ms']} ms with the boolean mask (forward "
+          f"and backward {sdpa_ms}, forward {sdpa_fwd_ms}), "
+          f"{row['library_is_causal_ms']} ms with is_causal; bound "
           f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
     return [row]
 
@@ -7240,7 +7289,9 @@ def main() -> int:
                                        "spill", "wgmma")):
                 print(f"ptxas {lib}: {line.split(':', 1)[-1].strip()}")
     check_no_spills(logs.get("flash_attention", ""), "attention_tc")
-    check_no_spills(logs.get("flash_attention_bwd", ""), "attention_bwd")
+    for kernel in ("attention_bwd", "attention_bwd_prep",
+                   "attention_bwd_dkdv_tc", "attention_bwd_dq_tc"):
+        check_no_spills(logs.get("flash_attention_bwd", ""), kernel)
     check_no_spills(logs.get("fused_binblocked", ""), "binblocked_kernel")
     check_no_spills(logs.get("weighted_hist", ""), "hist_kernel")
     check_no_spills(logs.get("fused_pass", ""), "fused_pass_kernel")

@@ -4,7 +4,8 @@ fused_grouped.cu) alone, in knock-outs and at other geometries, with
 kernel 2 beside them.
 
     python3 probe_slots.py [--root CHECKOUT] [--label L] [--out FILE]
-                           [--kernel9 | --attention | --lse-parent PARENT]
+                           [--kernel9 | --attention | --attention-bwd |
+                            --lse-parent PARENT]
 
 Needs one CUDA card and nvcc, and chip_smoke.py beside this script, whose
 timers and data it uses.  ``--root`` is the checkout whose src/repro_torch
@@ -38,14 +39,24 @@ in two turns (K9_KNOCKOUTS, K9_KNOBS).
 chip_smoke.py's wide-head shapes, its K/V tiling against the other that
 fits in shared memory (K12_KNOCKOUTS), in turns.
 
-``--lse-parent PARENT`` builds kernel 12 from PARENT's source too (a
-checkout whose ``earl_flash_attention`` takes no ``lse`` pointer) and
-holds this checkout's kernel, launched with a null ``lse`` and with one,
-bitwise against the parent's at chip_smoke.py's FA_CASES and
+``--attention-bwd`` times kernel 12's backward on the tensor cores (bf16
+up to head dim 128) alone at phase 18's granite-3-2b shape and the other
+train-mode shapes of 4,096 tokens and more, its tiling against the
+others (K12B_KNOCKOUTS: query tiles of 64 rows, key tiles of 128, rings
+of one stage), in turns, with scaled_dot_product_attention's backward on
+the same inputs; at head dims past 128 (the CUDA-core route) it times
+the kernel alone.
+
+``--lse-parent PARENT`` builds kernel 12 and its backward from PARENT's
+source too (a checkout from the training slice on) and holds this
+checkout's kernel, launched with a null ``lse`` and with one, and its
+lse, bitwise against the parent's at chip_smoke.py's FA_CASES and
 FA_WIDE_CASES in f32 and bf16 and at the serving prefill's shape in
-bf16.
+bf16, and the backward's CUDA-core route (f32, and bf16 past head dim
+128) bitwise PARENT's at tests/test_torch_cuda.py's FA_BWD_CASES.
 """
 import argparse
+import ctypes
 import importlib
 import json
 import re
@@ -338,6 +349,28 @@ K12_SHAPES = [("gemma3_local", cs.GEMMA_HQ, cs.GEMMA_HKV, cs.GEMMA_D,
               ("recurrentgemma_local", cs.RG_HQ, cs.RG_HKV, cs.RG_D,
                cs.RG_W)]
 K12_REPS = 10
+#: kernel 12's backward on the tensor cores (csrc/flash_attention_bwd.cu,
+#: launch_tc), its other tilings: bq64, query tiles of 64 rows in the
+#: dK/dV pass at head dim 64; bn128, key tiles of 128 in the dQ pass at
+#: head dim 64; bq64bn128, both (the first tiling timed); stages1, rings
+#: of one stage in both passes at both head dims
+_K12B_BASE = ("  return D <= 64 ? EARL_TC_BWD(64, 128, 64, 2) : "
+              "EARL_TC_BWD(128, 64, 64, 2);")
+K12B_KNOCKOUTS = {
+    v: [("flash_attention_bwd.cu", _K12B_BASE,
+         f"  return D <= 64 ? EARL_TC_BWD({lo}) : EARL_TC_BWD({hi});")]
+    for v, lo, hi in (("bq64", "64, 64, 64, 2", "128, 64, 64, 2"),
+                      ("bn128", "64, 128, 128, 2", "128, 64, 64, 2"),
+                      ("bq64bn128", "64, 64, 128, 2", "128, 64, 64, 2"),
+                      ("stages1", "64, 128, 64, 1", "128, 64, 64, 1"))}
+#: (case, (b, hq, hkv, sq, skv, d), kwargs): phase 18's granite-3-2b
+#: step and chip_smoke.py's BWD_CASES at 4,096 tokens and more, whose
+#: head dims past 128 (gemma3-27b's, recurrentgemma-2b's) run the
+#: CUDA-core route, timed alone without variants
+K12B_SHAPES = [("granite_train", (cs.TRAIN_B, 32, 8, cs.TRAIN_S, cs.TRAIN_S,
+                                  64), dict(causal=True))] + [
+    (n, s, kw) for n, s, kw in cs.BWD_CASES if s[3] >= 4096]
+K12B_REPS = 5
 #: kernel 9's geometry knobs: points a thread at the least (ranges 391,
 #: 196 and 66 at n = 400,000, against 131)
 K9_KNOBS = {f"points{v}": (KMEANS, "REG_POINTS", lambda _, v=v: v)
@@ -350,7 +383,6 @@ def probe_kernel9(torch, root: Path, label: str) -> dict:
     """Kernel 9 at the k-means path's shape: ms a call and alone, the
     host's return, and where one call's time goes (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.kmeans_assign import ops as tka
     from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
@@ -461,7 +493,6 @@ def probe_kernel9(torch, root: Path, label: str) -> dict:
 def probe_attention(torch, root: Path, label: str) -> dict:
     """Kernel 12 in bf16 alone at K12_SHAPES, the base tiling and each of
     K12_KNOCKOUTS in turns (base, variant, variant, base)."""
-    import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import flash_attention
     logs = _build.build_all(["flash_attention"])
@@ -512,11 +543,153 @@ def probe_attention(torch, root: Path, label: str) -> dict:
     return result
 
 
+def probe_attention_bwd(torch, root: Path, label: str) -> dict:
+    """Kernel 12's backward in bf16 on the tensor cores alone at
+    K12B_SHAPES, the base tiling and each of K12B_KNOCKOUTS in turns
+    (base, variant, variant, base), each variant's gradients beside the
+    base's (largest |difference|: another tiling sums in another order),
+    and scaled_dot_product_attention's backward on the same inputs."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+    logs = _build.build_all(["flash_attention", "flash_attention_bwd"])
+    base = _build.library("flash_attention_bwd")
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    work = root / "build" / "probe12b"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    started = {v: start_build(_build, csrc, "flash_attention_bwd", v, edits,
+                              work) for v, edits in K12B_KNOCKOUTS.items()}
+    tc = ("_tc", "prep")
+    result = dict(label=label, root=str(root), device=smi, ptxas={
+        "base": [r for r in ptxas_report(logs.get("flash_attention_bwd", ""))
+                 if any(t in r[0] for t in tc)]}, shapes=[])
+    libs = {}
+    for v, (proc, lib) in started.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(out, file=sys.stderr)
+            raise RuntimeError(f"nvcc failed for flash_attention_bwd-{v}")
+        libs[v] = ctypes.CDLL(str(lib))
+        fn = libs[v].earl_flash_attention_bwd
+        fn.argtypes = list(_build.SIGNATURES["flash_attention_bwd"])
+        fn.restype = ctypes.c_int
+        result["ptxas"][v] = [r for r in ptxas_report(out)
+                              if any(t in r[0] for t in tc)]
+    for key, lines in result["ptxas"].items():
+        for fn_name, regs, spill in lines:
+            print(f"ptxas {key}: {fn_name}: {regs} registers; {spill}")
+    from repro_torch.kernels._pass import BWD_TC_MAX_D
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    for case, shape, kw in K12B_SHAPES:
+        q, k, v = cs.fa_inputs(torch, shape, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kw = dict(causal=kw["causal"], window=kw.get("window"),
+                  kv_offset=0, scale=shape[5] ** -0.5)
+        o, lse = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+        fn = lambda: ops.flash_attention_backward_cuda(  # noqa: E731
+            q, k, v, o, lse, do, **kw)
+        want = fn()
+        row = dict(case=case, shape=list(shape), **kw, diff={})
+        if shape[5] > BWD_TC_MAX_D:
+            row["base"] = [cs.launch_ms(torch, fn, "flash_attention_bwd", 2)
+                           for _ in range(2)]
+        for variant in (libs if shape[5] <= BWD_TC_MAX_D else ()):
+            _build._LOADED["flash_attention_bwd"] = libs[variant]
+            try:
+                got = fn()
+            finally:
+                _build._LOADED["flash_attention_bwd"] = base
+            row["diff"][variant] = max(float((a.float() - b.float()).abs()
+                                             .max()) for a, b in zip(got,
+                                                                     want))
+            for turn in ("base", variant, variant, "base"):
+                _build._LOADED["flash_attention_bwd"] = libs.get(turn, base)
+                try:
+                    t = cs.launch_ms(torch, fn, "flash_attention_bwd",
+                                     K12B_REPS)
+                finally:
+                    _build._LOADED["flash_attention_bwd"] = base
+                row.setdefault(turn, []).append(t)
+        row["sdpa"] = cs.sdpa_backward_ms(torch, q, k, v, do, kw)
+        result["shapes"].append(row)
+        print(f"kernel 12's backward alone (ms) {json.dumps(row)}")
+        del q, k, v, do, o, lse, want
+    return result
+
+
+def build_parent(_build, src: Path, name: str, work: Path):
+    """PARENT's ``csrc/<name>.cu`` built with the port's nvcc flags: its
+    entry point, bound with this checkout's signature."""
+    lib_path = work / f"libparent_{name}.so"
+    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                          str(src), "-o", str(lib_path),
+                          str(src / f"{name}.cu")],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent's {name}:\n"
+                           f"{out.stdout}{out.stderr}")
+    fn = getattr(ctypes.CDLL(str(lib_path)), f"earl_{name}")
+    fn.argtypes = list(_build.SIGNATURES[name])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def probe_bwd_parent(torch, parent_bwd, cases) -> int:
+    """The backward's CUDA-core route (f32 at every D, bf16 past D = 128)
+    bitwise PARENT's at ``cases``; returns the geometries held."""
+    from repro_torch.kernels._pass import BWD_TC_MAX_D, stream_ptr
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    same = 0
+    for shape, kw in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            if dt == torch.bfloat16 and shape[5] <= BWD_TC_MAX_D:
+                continue
+            q, k, v = cs.fa_inputs(torch, shape, dt, gen)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+            b, hq, hkv, sq, skv, d = shape
+            kw = dict(causal=kw["causal"], window=kw.get("window"),
+                      kv_offset=kw.get("kv_offset", 0), scale=d ** -0.5)
+            o, lse = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+            tc0 = ops.flash_attention_backward_cuda.tc_launches
+            got = ops.flash_attention_backward_cuda(q, k, v, o, lse, do,
+                                                    **kw)
+            if ops.flash_attention_backward_cuda.tc_launches != tc0:
+                raise RuntimeError(f"{shape} {dt} took the tensor cores")
+            qc, kc, vc, oc, dc = (t.contiguous() for t in (q, k, v, o, do))
+            want = [torch.empty_like(t) for t in (qc, kc, vc)]
+            delta = torch.empty((b * hq, sq), dtype=torch.float32,
+                                device=q.device)
+            err = parent_bwd(
+                ops._DTYPES[dt], b * hq, hq, hkv, sq, skv, d,
+                float(kw["scale"]), int(kw["causal"]), kw["window"] or 0,
+                kw["kv_offset"], qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                oc.data_ptr(), dc.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), *(t.data_ptr() for t in want),
+                stream_ptr(q.device))
+            if err != 0:
+                raise RuntimeError(f"the parent's backward failed: {err}")
+            ok = all(torch.equal(a, w) for a, w in zip(got, want))
+            print(f"kernel 12's backward {shape} {kw} {dt}: bitwise the "
+                  f"parent's {ok}")
+            if not ok:
+                raise RuntimeError(f"kernel 12's backward at {shape} {kw} "
+                                   f"{dt} is not bitwise the parent's")
+            same += 1
+    return same
+
+
 def probe_lse_parent(torch, root: Path, parent: Path) -> dict:
-    """Kernel 12's output with and without lse against PARENT's kernel,
-    bitwise, at every geometry of chip_smoke's FA_CASES and FA_WIDE_CASES
-    (f32 and bf16) and the serving prefill's shape (bf16)."""
-    import ctypes
+    """Kernel 12's output with and without lse, and lse, against PARENT's
+    kernel (a checkout from the training slice on), bitwise, at every
+    geometry of chip_smoke's FA_CASES and FA_WIDE_CASES (f32 and bf16)
+    and the serving prefill's shape (bf16); then the backward's CUDA-core
+    route bitwise PARENT's at tests/test_torch_cuda.py's FA_BWD_CASES
+    (``probe_bwd_parent``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels._pass import stream_ptr
     from repro_torch.kernels.flash_attention import ops
@@ -524,18 +697,7 @@ def probe_lse_parent(torch, root: Path, parent: Path) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     src = parent / "src" / "repro_torch" / "kernels" / "csrc"
-    lib_path = work / "libparent_flash_attention.so"
-    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
-                          str(src), "-o", str(lib_path),
-                          str(src / "flash_attention.cu")],
-                         capture_output=True, text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the parent's kernel 12:\n"
-                           f"{out.stdout}{out.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).earl_flash_attention
-    fn.argtypes = list(_build.SIGNATURES["flash_attention"])[:-2] + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build_parent(_build, src, "flash_attention", work)
     gen = torch.Generator(device="cuda").manual_seed(27)
     cases = [(s, kw, dt) for s, kw in cs.FA_CASES + cs.FA_WIDE_CASES
              for dt in (torch.float32, torch.bfloat16)]
@@ -548,29 +710,36 @@ def probe_lse_parent(torch, root: Path, parent: Path) -> dict:
         kw = dict(causal=kw["causal"], window=kw.get("window"),
                   kv_offset=kw.get("kv_offset", 0), scale=d ** -0.5)
         got, _ = ops._forward_cuda(q, k, v, with_lse=False, **kw)
-        got_lse, _ = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+        got_lse, lse = ops._forward_cuda(q, k, v, with_lse=True, **kw)
         if dt == torch.bfloat16:
             q3, k3, v3 = (ops._tma_ready(t) for t in (q, k, v))
         else:
             q3, k3, v3 = q.contiguous(), k.contiguous(), v.contiguous()
         want = torch.empty_like(q3)
+        want_lse = torch.empty_like(lse)
         err = fn(ops._DTYPES[dt], shape[0] * shape[1], shape[1], shape[2],
                  shape[3], shape[4], q3.shape[3], float(kw["scale"]),
                  int(kw["causal"]), kw["window"] or 0, kw["kv_offset"],
                  q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                 want.data_ptr(), stream_ptr(q.device))
+                 want.data_ptr(), want_lse.data_ptr(), stream_ptr(q.device))
         if err != 0:
             raise RuntimeError(f"the parent's kernel 12 failed: {err}")
         want = want[..., :d]
-        ok = torch.equal(got, want) and torch.equal(got_lse, want)
+        ok = (torch.equal(got, want) and torch.equal(got_lse, want)
+              and torch.equal(lse, want_lse))
         print(f"kernel 12 {shape} {kw} {dt}: bitwise the parent's {ok}")
         if not ok:
             raise RuntimeError(f"kernel 12 at {shape} {kw} {dt} is not "
                                f"bitwise the parent's")
         same += 1
         del q, k, v, q3, k3, v3
+    sys.path.insert(0, str(root / "tests"))
+    from test_torch_cuda import FA_BWD_CASES
+    bwd = build_parent(_build, src, "flash_attention_bwd", work)
     return dict(parent=str(parent), geometries_bitwise=same,
-                geometries=len(cases))
+                geometries=len(cases),
+                backward_geometries_bitwise=probe_bwd_parent(
+                    torch, bwd, FA_BWD_CASES))
 
 
 def main() -> int:
@@ -580,11 +749,11 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--kernel9", action="store_true")
     ap.add_argument("--attention", action="store_true")
+    ap.add_argument("--attention-bwd", action="store_true")
     ap.add_argument("--lse-parent", default=None)
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
-    import ctypes
 
     import torch
     if not torch.cuda.is_available():
@@ -594,9 +763,10 @@ def main() -> int:
         result = probe_lse_parent(torch, root, Path(args.lse_parent))
         print(json.dumps(result))
         return 0
-    if args.kernel9 or args.attention:
-        result = (probe_kernel9 if args.kernel9 else probe_attention)(
-            torch, root, args.label)
+    if args.kernel9 or args.attention or args.attention_bwd:
+        probe = (probe_kernel9 if args.kernel9 else probe_attention
+                 if args.attention else probe_attention_bwd)
+        result = probe(torch, root, args.label)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(result, indent=1))

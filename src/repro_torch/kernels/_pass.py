@@ -328,6 +328,83 @@ def kmeans_geometry(Bp: int, np_: int, bn: int, k: int,
     return slot_geometry(Bp, np_, bn, k, d, dc + 1, 1)
 
 
+#: Kernel 12's backward on the tensor cores (bf16 up to head dim
+#: BWD_TC_MAX_D; csrc/flash_attention_bwd.cu, kTcMaxD): keys (the dK/dV
+#: pass) or query rows (the dQ pass) a CTA owns, two warpgroups of
+#: BWD_TC_WG (kTcBlock); the lse₂/Δ scratch gives each query head Sq
+#: rounded up to BWD_TC_BLOCK rows (padded_rows).
+BWD_TC_MAX_D = 128
+BWD_TC_BLOCK = 128
+BWD_TC_WG = 64
+
+
+class AttentionBwdWalk(NamedTuple):
+    """The tile walks of kernel 12's backward on the tensor cores, for one
+    (batch, KV head): ``dkdv`` lists (key block, query head of the group,
+    first row of a BQ-row query tile, (masked, masked) of the two
+    warpgroups) in each CTA's order, the key blocks in grid order;
+    ``dq`` lists (query block, first key of a BN-key tile, (masked,
+    masked)), the last query blocks first.  A tile a warpgroup does not
+    mask is one whose every pair with a row before Sq is visible; rows
+    past Sq get P = 0 from the scratch's lse₂ = +inf.  ``rows``: Sq_pad."""
+    bq: int
+    bn: int
+    rows: int
+    dkdv: tuple
+    dq: tuple
+
+
+def attention_bwd_tiles(d: int) -> Tuple[int, int]:
+    """(BQ, BN): the dK/dV pass's query tile and the dQ pass's key tile at
+    head dim d (launch_tc's choice)."""
+    return (128, 64) if d <= 64 else (64, 64)
+
+
+def attention_bwd_geometry(hq: int, hkv: int, sq: int, skv: int, d: int,
+                           causal: bool, window, kv_offset: int
+                           ) -> AttentionBwdWalk:
+    """Mirror of attention_bwd_dkdv_tc's and attention_bwd_dq_tc's walks
+    (window None or 0: none), the same integer arithmetic."""
+    bq, bn = attention_bwd_tiles(d)
+    blk, wgr = BWD_TC_BLOCK, BWD_TC_WG
+    w = window or 0
+    g_size = hq // hkv
+    dkdv = []
+    for kb in range(-(-skv // blk)):
+        k0 = kb * blk
+        key_last = min(k0 + blk, skv) - 1
+        r_beg = max(0, k0 - kv_offset) if causal else 0
+        r_end = min(sq, key_last + w - kv_offset) if w > 0 else sq
+        t_first = r_beg // bq
+        n_t = -(-r_end // bq) - t_first if r_end > r_beg else 0
+        for j in range(g_size * n_t):
+            row0 = (t_first + j % n_t) * bq
+            masked = tuple(
+                not (wk0 + wgr <= skv
+                     and (not causal or wk0 + wgr - 1 <= row0 + kv_offset)
+                     and (w <= 0 or wk0 > row0 + bq - 1 + kv_offset - w))
+                for wk0 in (k0, k0 + wgr))
+            dkdv.append((kb, j // n_t, row0, masked))
+    dq = []
+    nqb = -(-sq // blk)
+    for qb in range(nqb - 1, -1, -1):
+        q0 = qb * blk
+        last = min(q0 + blk, sq) - 1 + kv_offset
+        k_end = min(skv, last + 1) if causal else skv
+        k_beg = max(0, q0 + kv_offset - w + 1) if w > 0 else 0
+        t_first = k_beg // bn
+        n_tiles = -(-k_end // bn) - t_first if k_end > k_beg else 0
+        for j in range(n_tiles):
+            t0 = (t_first + j) * bn
+            masked = tuple(
+                not (t0 + bn <= skv
+                     and (not causal or t0 + bn - 1 <= first)
+                     and (w <= 0 or t0 > first + wgr - 1 - w))
+                for first in (q0 + kv_offset, q0 + wgr + kv_offset))
+            dq.append((qb, t0, masked))
+    return AttentionBwdWalk(bq, bn, nqb * blk, tuple(dkdv), tuple(dq))
+
+
 def check_cuda_f32(name: str, t: torch.Tensor) -> None:
     if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()):
         raise ValueError(f"{name} must be a contiguous float32 CUDA tensor, "

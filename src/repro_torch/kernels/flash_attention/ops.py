@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._pass import stream_ptr
+from repro_torch.kernels._pass import BWD_TC_BLOCK, BWD_TC_MAX_D, stream_ptr
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 
 #: Largest head dimension the kernel takes (the bf16 route pads D to 256,
@@ -322,9 +322,14 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                                   causal: bool, window: Optional[int],
                                   scale: float, kv_offset: int):
     """Kernel 12's backward (csrc/flash_attention_bwd.cu) on the card:
-    (dq, dk, dv) in the inputs' dtype, IEEE f32 on the CUDA cores, in
-    three launches of one call (Δ, then dK and dV, then dQ); counted once
-    a call in ``flash_attention_backward_cuda.launches``."""
+    (dq, dk, dv) in the inputs' dtype, in three launches of one call (Δ,
+    then dK and dV, then dQ); counted once a call in
+    ``flash_attention_backward_cuda.launches``.  bf16 up to head dim
+    BWD_TC_MAX_D runs on the tensor cores (wgmma fed by TMA, P and dS
+    rounded to bf16 before the products that take them, f32
+    accumulation; D zero-padded to a multiple of 8 for TMA), also counted
+    in ``.tc_launches``; f32, and bf16 past it, on the CUDA cores in IEEE
+    f32."""
     _check_shapes(q, k, v)
     _check_cuda(q, k, v)
     b, hq, sq, d = q.shape
@@ -338,24 +343,35 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(lse.shape)} {lse.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    q, k, v, o, lse = (t.contiguous() for t in (q, k, v, o, lse))
-    do = do.to(q.dtype).contiguous()
+    tc = q.dtype == torch.bfloat16 and d <= BWD_TC_MAX_D
+    ready = _tma_ready if tc else torch.Tensor.contiguous
+    q, k, v, o = (ready(t) for t in (q, k, v, o))
+    do = ready(do.to(q.dtype))
+    lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b * hq, sq), dtype=torch.float32, device=q.device)
+        return dq[..., :d].zero_(), dk[..., :d].zero_(), dv[..., :d].zero_()
+    # the tensor-core route's scratch: lse₂ and Δ, each (B·Hq, Sq rounded
+    # up to BWD_TC_BLOCK); the CUDA cores': Δ, (B·Hq, Sq)
+    rows = -(-sq // BWD_TC_BLOCK) * BWD_TC_BLOCK
+    delta = torch.empty((2, b * hq, rows) if tc else (b * hq, sq),
+                        dtype=torch.float32, device=q.device)
     flash_attention_backward_cuda.launches += 1
+    flash_attention_backward_cuda.tc_launches += int(tc)
     _build.launch("flash_attention_bwd", _DTYPES[q.dtype], b * hq, hq, hkv,
-                  sq, skv, d, float(scale), int(causal),
+                  sq, skv, q.shape[3], float(scale), int(causal),
                   0 if window is None else int(window), int(kv_offset),
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   stream_ptr(q.device))
-    return dq, dk, dv
+    if q.shape[3] == d:
+        return dq, dk, dv
+    return tuple(t[..., :d].contiguous() for t in (dq, dk, dv))
 
 
 flash_attention_backward_cuda.launches = 0
+flash_attention_backward_cuda.tc_launches = 0
 
 
 class _Attention(torch.autograd.Function):

@@ -805,3 +805,20 @@ def test_probe_attention_variant_matches_its_source(monkeypatch):
         for fname, old, new in edits:
             assert (csrc / fname).read_text().count(old) == 1, variant
             assert old != new
+
+
+def test_probe_attention_bwd_variants_match_their_source(monkeypatch):
+    """probe_slots.py --attention-bwd's edits of csrc/flash_attention_bwd.cu
+    (the tensor-core route's other tilings) each match the source once and
+    change it."""
+    import importlib
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    probe = importlib.import_module("probe_slots")
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    assert probe.K12B_KNOCKOUTS
+    for variant, edits in probe.K12B_KNOCKOUTS.items():
+        for fname, old, new in edits:
+            assert (csrc / fname).read_text().count(old) == 1, variant
+            assert old != new
