@@ -315,7 +315,28 @@ failure:
    1e-5·Σ|terms|, bf16 also 2^-7·|want|, and on the tensor-core route,
    bf16 up to D = 128, also 2^-8·Σ|terms| for P and dS rounded to bf16;
    the route checked on every call; two launches bitwise);
-8. replay every distinct launch geometry that phases 4 to 7 and 10 to 18
+19. (run after phase 18) the sharded path: granite-3-2b at full width cut
+   to 4 of its 40 layers (0.348e9 f32 params, bf16 compute), its state
+   placed by launch/sharding.distribute_tree on a DeviceMesh (data,
+   model).  A world of one NCCL rank in this process (mesh 1 x 1, from
+   zeroed counts with its geometries logged, destroyed at the end): two
+   make_train_step steps of 4 x 4096 tokens under TRAIN_RULES bitwise the
+   unsharded steps (loss and metrics of each, every leaf of params, m and
+   v after them), a prefill and 8 decode steps (teacher tokens) under
+   SERVE_RULES bitwise the unsharded logits, kernel 12 20 times and its
+   backward 8 times through the sharded path, each step's wall beside the
+   unsharded one's and its collectives.  Then a world of 4 gloo ranks on
+   the card (fresh interpreters of this script, --shard-rank R; mesh 2 x
+   2 under TRAIN_RULES and SERVE_RULES without the FSDP split of "embed",
+   whose all-gather gloo's functional collectives cannot run on CUDA
+   tensors): a prefill and 4 decode steps within 2e-2 of max |logit| of
+   the unsharded steps run here meanwhile, one train step's gradients
+   within phase 18's card == CPU law and its update within four ulps of
+   adamw_update of those gradients, each rank's shapes resolve_spec's
+   and kernel 12 and its backward on its 16 query and 4 kv heads; its
+   collectives by kind with bytes (CommDebugMode and a dispatch mode,
+   which must agree), step wall and spawn-to-join s;
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 19
    logged on fresh data and hold it against the plain version as in
    phase 3 (kernel 12's forward also with lse written: the same bits,
    and lse the plain version's; its backward as in phase 18), printing
@@ -667,6 +688,31 @@ MESH_PSUM_REPS, MESH_RANK_TIMEOUT_S = 20, 300
 MESH_KERNELS = ("fused_poisson_moments", "fused_poisson_hist",
                 "fused_poisson_multi", "fused_poisson_moments_grouped",
                 "fused_poisson_kmeans")
+# the sharded path (phase 19): granite-3-2b at full width (d_model 2048,
+# 32/8 heads of 64, d_ff 8192, vocab 49,155 padded to 51,200; f32 params
+# and AdamW states, bf16 compute) cut to SHARD_LAYERS of its 40 layers,
+# SHARD_B x SHARD_S tokens, its state placed by distribute_tree on a
+# DeviceMesh (data, model): a world of one NCCL rank in this process
+# (mesh 1 x 1; SHARD_STEPS train steps under TRAIN_RULES and a prefill
+# with SHARD_DECODE1 decode steps under SERVE_RULES, bitwise the unsharded
+# steps), and a world of SHARD_WORLD gloo ranks sharing the card (mesh
+# SHARD_MESH; one train step and a prefill with SHARD_DECODE4 decode
+# steps, within phase 18's card == CPU tolerances and SHARD_LOGIT_SHARE
+# of max |logit| of the unsharded steps run here meanwhile)
+SHARD_ARCH, SHARD_LAYERS, SHARD_SEED = "granite-3-2b", 4, 19
+SHARD_B, SHARD_S, SHARD_STEPS = 4, 4096, 2
+SHARD_DECODE1, SHARD_DECODE4 = 8, 4
+SHARD_WORLD, SHARD_MESH, SHARD_AXES = 4, (2, 2), ("data", "model")
+SHARD_LOGIT_SHARE, SHARD_RANK_TIMEOUT_S = 2e-2, 400
+#: the logical axis the card's world of 4 leaves unsplit: gloo's functional
+#: all-gather (``_c10d_functional.all_gather_into_tensor``, DTensor's Shard
+#: -> Replicate) segfaults on CUDA tensors in torch 2.11 while its
+#: all-reduce, reduce-scatter and all-to-all run (``probe_slots.py
+#: --gloo-cuda``), so that world runs TRAIN_RULES and SERVE_RULES without
+#: the FSDP split of "embed" over data: the batch split over data and the
+#: weights over model, all-reduces only.  The FSDP gathers run in the
+#: CPU's world of 4 (tests/test_torch_sharded.py)
+SHARD_CARD4_UNSPLIT = "embed"
 
 
 def check(ok: bool, what: str) -> None:
@@ -7260,11 +7306,557 @@ def backward_rows(torch, launches, parity: Parity, shares):
           f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
     return [row]
 
+# ---------------------------------------------------------------------------
+# the sharded path (phase 19): granite-3-2b trained and served on a mesh
+# ---------------------------------------------------------------------------
+def shard_setup(torch):
+    """granite-3-2b cut to SHARD_LAYERS at full width, its params on the
+    card, the training batch, the serving prompts and their teacher tokens
+    and the AdamW config, all drawn from SHARD_SEED by a generator on the
+    card: every process that calls this holds the same values."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config(SHARD_ARCH), n_layers=SHARD_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SHARD_SEED)
+    params = init_params(cfg, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (SHARD_B, SHARD_S + SHARD_DECODE1 + 1),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :SHARD_S].contiguous(),
+             "labels": toks[:, 1:SHARD_S + 1].contiguous()}
+    teacher = toks[:, SHARD_S:SHARD_S + SHARD_DECODE1].contiguous()
+    opt = AdamWConfig(warmup_steps=1, state_dtype=cfg.adam_dtype)
+    return cfg, params, batch, teacher, opt
+
+
+def place(tree, axes_of, mesh, rules):
+    """``distribute_tree`` of ``tree`` with its placements from
+    ``axes_of`` (a partitioning function) and ``rules``."""
+    from repro_torch.launch import sharding as sh
+    return sh.distribute_tree(tree, sh.resolve_tree(tree, axes_of(tree),
+                                                    mesh, rules), mesh)
+
+
+def card4_rules(rules) -> dict:
+    """``rules`` for the card's world of 4 (SHARD_CARD4_UNSPLIT)."""
+    return dict(rules, **{SHARD_CARD4_UNSPLIT: None})
+
+
+def serve_logits(torch, cfg, params, tokens, teacher, steps, mesh=None,
+                 rules=None):
+    """(the prefill's last logits and ``steps`` decode steps' logits, each
+    step fed the teacher's token; their placements).  On ``mesh`` under
+    ``rules`` (SERVE_RULES when None; tokens placed by ``BATCH_AXES``)
+    each rank's local logits, else the whole ones and None."""
+    import contextlib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.act_shard import (activation_sharding,
+                                              mapping_from_mesh)
+    from repro_torch.models.partitioning import batch_axes
+
+    rules = sh.SERVE_RULES if rules is None else rules
+
+    def inputs(d):
+        return place(d, batch_axes, mesh, rules) if mesh else d
+
+    def local(t):
+        return t.to_local() if mesh else t
+
+    ctx = (activation_sharding(mapping_from_mesh(mesh, rules), mesh)
+           if mesh else contextlib.nullcontext())
+    out = []
+    with torch.no_grad(), ctx:
+        logits, cache = prefill(cfg, params, inputs({"tokens": tokens})[
+            "tokens"], cache_len=SHARD_S + steps)
+        out.append(local(logits))
+        for i in range(steps):
+            tok = inputs({"token": teacher[:, i:i + 1]})["token"]
+            logits, cache = decode_step(cfg, params, cache, tok, SHARD_S + i)
+            out.append(local(logits))
+    return out, (placement_codes(logits) if mesh else None)
+
+
+def placement_codes(t) -> list:
+    """A DTensor's placements as ("S", dim) or ("R",), for ``stitch``."""
+    return [("S", q.dim) if hasattr(q, "dim") else ("R",)
+            for q in t.placements]
+
+
+class CollectiveBytes:
+    """A dispatch mode that counts the collectives DTensor issues while
+    entered (the functional ``_c10d_functional`` ops and the native
+    ``c10d`` ones, as CommDebugMode counts both), by kind, with their bytes
+    by launch/hlo_analysis.py's conventions: an all-reduce 2 x its result,
+    an all-gather 1 x its result, a reduce-scatter 1 x its operand, an
+    all-to-all 1 x its result.  ``ops`` counts each op by name."""
+
+    #: op name -> (kind, multiple, the argument or result measured): "out"
+    #: the functional op's result, an int that argument (a tensor or a
+    #: list of them)
+    KINDS = {"all_reduce": ("all-reduce", 2, "out"),
+             "all_gather_into_tensor": ("all-gather", 1, "out"),
+             "reduce_scatter_tensor": ("reduce-scatter", 1, 0),
+             "all_to_all_single": ("all-to-all", 1, "out"),
+             "allreduce_": ("all-reduce", 2, 0),
+             "_allgather_base_": ("all-gather", 1, 0),
+             "allgather_": ("all-gather", 1, 0),
+             "allgather_into_tensor_coalesced_": ("all-gather", 1, 0),
+             "_reduce_scatter_base_": ("reduce-scatter", 1, 1),
+             "reduce_scatter_": ("reduce-scatter", 1, 1),
+             "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1, 1),
+             "alltoall_base_": ("all-to-all", 1, 0),
+             "alltoall_": ("all-to-all", 1, 0)}
+
+    def __init__(self):
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                # a DTensor op first desugars (with this mode on) into the
+                # local ops and the collectives of its redistributions
+                if any(t is DTensor for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                outer.record(func, args, out)
+                return out
+        self.mode = Mode()
+        self.counts, self.bytes, self.ops = {}, {}, {}
+
+    def record(self, func, args, out) -> None:
+        ns, name = func.namespace, func._overloadpacket.__name__
+        if ns == "_c10d_functional":
+            name = name.rstrip("_")
+        elif ns != "c10d":
+            return
+        if name not in self.KINDS:
+            return
+        kind, mult, which = self.KINDS[name]
+        t = out if which == "out" else args[which]
+        ts = t if isinstance(t, (list, tuple)) else [t]
+        nbytes = sum(x.numel() * x.element_size() for x in ts
+                     if hasattr(x, "numel"))
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) + mult * nbytes
+        key = f"{ns}.{name}"
+        self.ops[key] = self.ops.get(key, 0) + 1
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def counted_collectives(torch, fn):
+    """(fn(), {kind: [count, bytes]}, CommDebugMode's counts and the
+    dispatch mode's by op): the collectives of one call, from both
+    counters, whose counts must agree."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    with CommDebugMode() as comm, CollectiveBytes() as cb:
+        out = fn()
+    torch.cuda.synchronize()
+    debug = {str(k).split(".")[-1]: v
+             for k, v in comm.get_comm_counts().items()}
+    names = {"all-reduce": "all_reduce",
+             "all-gather": "all_gather_into_tensor",
+             "reduce-scatter": "reduce_scatter_tensor",
+             "all-to-all": "all_to_all_single"}
+    check(all(debug.get(names[k], 0) == n for k, n in cb.counts.items())
+          and sum(debug.values()) == sum(cb.counts.values()),
+          f"sharded: CommDebugMode counted {debug}, the dispatch mode "
+          f"{cb.counts}")
+    return out, {k: [cb.counts[k], cb.bytes[k]] for k in cb.counts}, \
+        dict(debug=debug, ops=cb.ops)
+
+
+def shard_world1(torch, tmp: str) -> tuple:
+    """Phase 19 (a), a world of one NCCL rank in this process: SHARD_STEPS
+    train steps of the state placed on a 1 x 1 mesh bitwise the unsharded
+    steps (each step's loss and metrics, and every leaf of params, m and
+    v after them), then the prefill and SHARD_DECODE1 decode steps under
+    SERVE_RULES bitwise the unsharded ones; kernel 12 and its backward
+    launched through the sharded path, counted from zero.  Returns (info,
+    launches)."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.act_shard import (activation_sharding,
+                                              mapping_from_mesh)
+    from repro_torch.models.decoder import tree_map
+    from repro_torch.models.partitioning import batch_axes
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train.steps import TrainState, train_state_axes
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "nccl"),
+                                                 1))
+    try:
+        mesh = make_mesh((1, 1), SHARD_AXES)
+        cfg, params, batch, teacher, opt = shard_setup(torch)
+        glob = TrainState(tree_map(lambda t: t.clone(), params),
+                          adamw_init(params, opt))
+        state = place(glob, train_state_axes, mesh, sh.TRAIN_RULES)
+        del glob
+        b_sh = place(batch, batch_axes, mesh, sh.TRAIN_RULES)
+        ref = TrainState(params, adamw_init(params, opt))
+        step = make_train_step(cfg, opt)
+        walls = {"unsharded": [], "sharded": []}
+        ref_m = []
+        for _ in range(SHARD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(ref, batch)
+            torch.cuda.synchronize()
+            walls["unsharded"].append(time.perf_counter() - t0)
+            ref_m.append({k: v.clone() for k, v in m.items()})
+        ref_logits, _ = serve_logits(torch, cfg, ref.params,
+                                     batch["tokens"], teacher, SHARD_DECODE1)
+        mapping = mapping_from_mesh(mesh, sh.TRAIN_RULES)
+        zero_counts()
+        collectives = []
+        for i in range(SHARD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with activation_sharding(mapping, mesh):
+                (_, m), coll, _ = counted_collectives(
+                    torch, lambda: step(state, b_sh))
+            torch.cuda.synchronize()
+            walls["sharded"].append(time.perf_counter() - t0)
+            collectives.append(coll)
+            for k, v in ref_m[i].items():
+                check(torch_equal(m[k], v), f"sharded: world 1 step {i}'s "
+                      f"{k} {float(m[k])} is not the unsharded "
+                      f"{float(v)}")
+        for part, a, b in (("params", state.params, ref.params),
+                           ("m", state.opt.m, ref.opt.m),
+                           ("v", state.opt.v, ref.opt.v)):
+            want = leaf_dict(b)
+            for path, t in leaf_dict(a).items():
+                check(torch_equal(t.to_local(), want[path]), f"sharded: "
+                      f"world 1 {part}{path} differs from the unsharded "
+                      f"steps'")
+        got, _ = serve_logits(torch, cfg, state.params, batch["tokens"],
+                              teacher, SHARD_DECODE1, mesh)
+        torch.cuda.synchronize()
+        launches = LaunchLog.counts()
+        for i, (a, b) in enumerate(zip(got, ref_logits)):
+            check(torch_equal(a, b), f"sharded: world 1 serving step {i}'s "
+                  f"logits differ from the unsharded step's")
+        want = {"flash_attention": SHARD_LAYERS * (2 * SHARD_STEPS + 1),
+                "flash_attention_bwd": SHARD_LAYERS * SHARD_STEPS}
+        check(all(launches[k] == v for k, v in want.items()) and all(
+            v == 0 for k, v in launches.items() if k not in want),
+            f"sharded: world 1 launched {launches}, expected {want}")
+        info = dict(step_walls_s=walls, collectives_per_step=collectives,
+                    loss=[float(m["loss"]) for m in ref_m],
+                    serve_steps_bitwise=len(got))
+    finally:
+        dist.destroy_process_group()
+    return info, launches
+
+
+def stitch(torch, pieces, shape):
+    """The global tensor of ``shape`` from each rank's (coordinate, local
+    tensor, placements): each local block written where ``local_shard``
+    cut it from."""
+    out = None
+    for coord, local, places in pieces:
+        if out is None:
+            out = torch.empty(shape, dtype=local.dtype)
+        idx = [slice(None)] * len(shape)
+        for m, p in enumerate(places):
+            if p[0] == "S":
+                dim, n = p[1], SHARD_MESH[m]
+                cur = idx[dim]
+                start = cur.start or 0
+                size = ((cur.stop if cur.stop is not None else shape[dim])
+                        - start) // n
+                idx[dim] = slice(start + coord[m] * size,
+                                 start + (coord[m] + 1) * size)
+        out[tuple(idx)] = local
+    return out
+
+
+def shard_rank(argv) -> int:
+    """One rank of phase 19's gloo world (``--shard-rank R --shard-world W
+    --shard-store FILE --shard-out DIR``) on the card: the prefill and
+    SHARD_DECODE4 decode steps under SERVE_RULES, then one train step
+    (``value_and_grad`` and ``adamw_update``, as ``make_train_step``
+    composes them) under TRAIN_RULES, both without SHARD_CARD4_UNSPLIT's
+    split (``card4_rules``), each rank's local shapes against
+    ``resolve_spec``; its local logits, gradients and updated params, the
+    step's wall and collectives and kernel 12's launches and geometries
+    to DIR/rank<R>.pt and DIR/rank<R>.json."""
+    import faulthandler
+    import os
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    faulthandler.enable()
+    opts = dict(zip(argv[1::2], argv[2::2]))
+    rank, world = int(opts["--shard-rank"]), int(opts["--shard-world"])
+    out = opts["--shard-out"]
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.act_shard import (activation_sharding,
+                                              mapping_from_mesh)
+    from repro_torch.models.partitioning import batch_axes, param_axes
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train.steps import TrainState, value_and_grad
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            store=dist.FileStore(opts["--shard-store"],
+                                                 world))
+    try:
+        mesh = make_mesh(SHARD_MESH, SHARD_AXES)
+        cfg, params, batch, teacher, opt = shard_setup(torch)
+        train_rules = card4_rules(sh.TRAIN_RULES)
+        serve_rules = card4_rules(sh.SERVE_RULES)
+        shapes = {path: tuple(t.shape)
+                  for path, t in leaf_dict(params).items()}
+        axes = leaf_dict(param_axes(params))
+        p_sh = place(params, param_axes, mesh, train_rules)
+        del params
+        torch.cuda.empty_cache()
+        sizes = dict(zip(SHARD_AXES, SHARD_MESH))
+        info = {"coordinate": list(mesh.get_coordinate())}
+        bad = []
+        for path, t in leaf_dict(p_sh).items():
+            parts = sh.resolve_spec(shapes[path], axes[path], mesh,
+                                    train_rules)
+            want = [n // math.prod(sizes[a] for a in (
+                () if p is None else (p,) if isinstance(p, str) else p))
+                for n, p in zip(shapes[path], parts)]
+            if list(t.to_local().shape) != want:
+                bad.append(path)
+        info["shapes_unlike_resolve_spec"] = bad
+        zero_counts()
+        with LaunchLog() as log:
+            logits, logit_places = serve_logits(
+                torch, cfg, p_sh, batch["tokens"], teacher, SHARD_DECODE4,
+                mesh, serve_rules)
+            torch.cuda.synchronize()
+            info["serve_launches"] = LaunchLog.counts()
+            state = TrainState(p_sh, adamw_init(p_sh, opt))
+            b_sh = place(batch, batch_axes, mesh, train_rules)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with activation_sharding(mapping_from_mesh(
+                    mesh, train_rules), mesh):
+                (grads, metrics), coll, debug = counted_collectives(
+                    torch, lambda: value_and_grad(cfg, state.params, b_sh))
+                (_, _, om), coll_u, _ = counted_collectives(
+                    torch, lambda: adamw_update(state.params, grads,
+                                                state.opt, opt))
+            torch.cuda.synchronize()
+            info["step_wall_s"] = time.perf_counter() - t0
+            info["train_launches"] = LaunchLog.counts()
+        info["geometries"] = sorted({
+            json.dumps(dict(g)) for (who, g), _ in log.geometries.items()
+            if who in ("flash_attention", "flash_attention_bwd")})
+        info.update(collectives_grad=coll, collectives_update=coll_u,
+                    comm_debug_grad=debug, loss=float(metrics["loss"]),
+                    grad_norm=float(om["grad_norm"]), lr=float(om["lr"]))
+        # a block replicated over data is written by data coordinate 0 only
+        places = {p: placement_codes(t) for p, t in leaf_dict(grads).items()}
+        mine = {p for p, c in places.items()
+                if c[0][0] == "S" or mesh.get_coordinate()[0] == 0}
+        res = {"grads": {p: t.to_local().cpu()
+                         for p, t in leaf_dict(grads).items() if p in mine},
+               "params": {p: t.to_local().cpu()
+                          for p, t in leaf_dict(state.params).items()
+                          if p in mine},
+               "placements": places,
+               "logits": [t.cpu() for t in logits],
+               "logit_placements": logit_places}
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def shard_world4(torch, tmp: str) -> dict:
+    """Phase 19 (b): the gloo world of SHARD_WORLD ranks on the card (fresh
+    interpreters, ``--shard-rank``; the rules without SHARD_CARD4_UNSPLIT's
+    split), while this process runs the unsharded serving steps and the
+    unsharded gradients on the same values.  The ranks' logits, stitched,
+    within SHARD_LOGIT_SHARE of max |logit|; their
+    gradients, stitched, within TRAIN_CPU_SHARE of each leaf's largest
+    entry, and loss and grad_norm within TRAIN_CPU_SHARE relative (phase
+    18's card == CPU law); their updated params within four f32 ulps plus
+    1e-6·lr of ``adamw_update`` applied here to the stitched gradients;
+    each rank's shapes resolve_spec's and kernel 12 and its backward run
+    on each rank's 16 query and 4 kv heads."""
+    import os
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import make_grad_step
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(SHARD_WORLD):
+        log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--shard-rank", str(rank), "--shard-world", str(SHARD_WORLD),
+             "--shard-store", os.path.join(tmp, "store"), "--shard-out",
+             tmp], stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        cfg, params, batch, teacher, opt = shard_setup(torch)
+        want_logits, _ = serve_logits(torch, cfg, params, batch["tokens"],
+                                      teacher, SHARD_DECODE4)
+        grads, gnorm, loss = make_grad_step(cfg)(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        try:
+            for p, _ in procs:
+                p.wait(timeout=SHARD_RANK_TIMEOUT_S)
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+    spawn_to_join = time.perf_counter() - t0
+    for rank, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        check(p.returncode == 0, f"sharded rank {rank} exited "
+              f"{p.returncode}")
+    infos, ranks = [], []
+    for rank in range(SHARD_WORLD):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            infos.append(json.load(f))
+        ranks.append(torch.load(os.path.join(tmp, f"rank{rank}.pt"),
+                                weights_only=False))
+    for rank, info in enumerate(infos):
+        check(not info["shapes_unlike_resolve_spec"], f"sharded: rank "
+              f"{rank}'s local shapes differ from resolve_spec's: "
+              f"{info['shapes_unlike_resolve_spec']}")
+        geos = [json.loads(g) for g in info["geometries"]]
+        check(geos and all(g["Hq"] == cfg.n_heads // SHARD_MESH[1]
+                           and g["Hkv"] == cfg.n_kv_heads // SHARD_MESH[1]
+                           for g in geos),
+              f"sharded: rank {rank}'s kernel 12 geometries {geos} are not "
+              f"its 16 query and 4 kv heads")
+        for key, want in (("serve_launches", {
+                "flash_attention": SHARD_LAYERS}), ("train_launches", {
+                "flash_attention": 2 * SHARD_LAYERS,
+                "flash_attention_bwd": SHARD_LAYERS})):
+            got = info[key]
+            check(all(got[k] == v for k, v in want.items()) and all(
+                v == 0 for k, v in got.items() if k not in want),
+                f"sharded: rank {rank}'s {key} {got}, expected {want}")
+        for what, a, b in (("loss", info["loss"], float(loss)),
+                           ("grad_norm", info["grad_norm"], float(gnorm))):
+            check(abs(a - b) <= TRAIN_CPU_SHARE * abs(b), f"sharded: rank "
+                  f"{rank}'s {what} {a} against the unsharded {b}")
+    coords = [tuple(i["coordinate"]) for i in infos]
+    worst_logit = 0.0
+    for i, want in enumerate(want_logits):
+        want = want.cpu()
+        got = stitch(torch, [(c, r["logits"][i], r["logit_placements"])
+                             for c, r in zip(coords, ranks)],
+                     tuple(want.shape))
+        err = float((got - want).abs().max())
+        tol = logits_tolerance(want[..., :cfg.vocab], SHARD_LOGIT_SHARE)
+        worst_logit = max(worst_logit, err / tol)
+        check(err <= tol, f"sharded: world 4 serving step {i}'s logits "
+              f"{err} from the unsharded, past {tol}")
+    flat_g = leaf_dict(grads)
+    stitched, grad_share = {}, {}
+    for path, want in flat_g.items():
+        got = stitch(torch, [(c, r["grads"][path], r["placements"][path])
+                             for c, r in zip(coords, ranks)
+                             if path in r["grads"]], tuple(want.shape))
+        want = want.cpu()
+        grad_share[path] = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        check(grad_share[path] <= TRAIN_CPU_SHARE, f"sharded: world 4's "
+              f"gradient of {path} is {grad_share[path]} of its largest "
+              f"entry away")
+        stitched[path] = got
+    from repro_torch.models.decoder import tree_map
+    from repro_torch.train.steps import _rebuild
+    g_tree = _rebuild(params, iter([stitched[p].cuda() for p in flat_g]))
+    p_new = tree_map(lambda t: t.clone(), params)
+    _, _, um = adamw_update(p_new, g_tree, adamw_init(p_new, opt), opt)
+    ulps = 0.0
+    for path, want in leaf_dict(p_new).items():
+        got = stitch(torch, [(c, r["params"][path], r["placements"][path])
+                             for c, r in zip(coords, ranks)
+                             if path in r["params"]], tuple(want.shape))
+        want = want.cpu()
+        tol = 4 * torch.abs(torch.nextafter(want, want + 1) - want) \
+            + 1e-6 * float(um["lr"])
+        diff = (got - want).abs()
+        ulps = max(ulps, float((diff / tol).max()))
+        check(bool((diff <= tol).all()), f"sharded: world 4's updated "
+              f"{path} max |err| {float(diff.max())} from adamw_update of "
+              f"its gradients")
+    return dict(spawn_to_join_s=spawn_to_join, unsplit=SHARD_CARD4_UNSPLIT,
+                step_walls_s=[i["step_wall_s"] for i in infos],
+                collectives_grad=infos[0]["collectives_grad"],
+                collectives_update=infos[0]["collectives_update"],
+                loss=(infos[0]["loss"], float(loss)),
+                grad_norm=(infos[0]["grad_norm"], float(gnorm)),
+                grad_share=max(grad_share.values()),
+                worst_grad_leaf=max(grad_share, key=grad_share.get),
+                update_share_of_tolerance=ulps,
+                logit_share_of_tolerance=worst_logit,
+                geometries=infos[0]["geometries"])
+
+
+def phase_sharded_path(torch):
+    """Phase 19: the sharded path; the world of one NCCL rank in this
+    process, its launches from zeroed counts and its geometries logged for
+    phase 8, then the world of SHARD_WORLD gloo ranks on the card.
+    Returns the world-1 launches, the geometries and the info printed."""
+    import os
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="earl_sharded_")
+    try:
+        with LaunchLog() as log:
+            w1, launches = shard_world1(torch, tmp)
+        torch.cuda.empty_cache()
+        w4dir = os.path.join(tmp, "world4")
+        os.makedirs(w4dir)
+        w4 = shard_world4(torch, w4dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    info = dict(world1=w1, world4=w4, card=smi,
+                phase_s=time.perf_counter() - t0)
+    print("sharded: " + json.dumps(info))
+    print(f"launches, the sharded path (world 1): {json.dumps(launches)}; "
+          f"phase 19 took {info['phase_s']:.1f} s")
+    return launches, log.geometries, info
+
 
 def main() -> int:
     import torch
     if "--mesh-rank" in sys.argv:
         return mesh_rank(sys.argv)
+    if "--shard-rank" in sys.argv:
+        return shard_rank(sys.argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
@@ -7359,10 +7951,13 @@ def main() -> int:
     lap("17 (recurrent serving path)")
     tr_launches, tr_geometries, tr_info = phase_train_path(torch, parity)
     lap("18 (training path)")
+    sh_launches, sh_geometries, _ = phase_sharded_path(torch)
+    lap("19 (sharded path)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
                 + sv_launches[k] + gm_launches[k] + lv_launches[k]
                 + ms_launches.get(k, 0) + xa_launches[k] + mo_launches[k]
-                + rc_launches[k] + tr_launches[k] for k in launches}
+                + rc_launches[k] + tr_launches[k] + sh_launches[k]
+                for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
           f"paths: {json.dumps(launches)}; the training path's "
           f"{json.dumps(tr_launches)}")
@@ -7371,7 +7966,8 @@ def main() -> int:
                          **sv_geometries, **gm_geometries,
                          **lv_geometries, **ms_geometries,
                          **xa_geometries, **mo_geometries,
-                         **rc_geometries, **tr_geometries}, parity)
+                         **rc_geometries, **tr_geometries,
+                         **sh_geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)

@@ -5,7 +5,7 @@ kernel 2 beside them.
 
     python3 probe_slots.py [--root CHECKOUT] [--label L] [--out FILE]
                            [--kernel9 | --attention | --attention-bwd |
-                            --lse-parent PARENT]
+                            --lse-parent PARENT | --gloo-cuda]
 
 Needs one CUDA card and nvcc, and chip_smoke.py beside this script, whose
 timers and data it uses.  ``--root`` is the checkout whose src/repro_torch
@@ -46,6 +46,17 @@ others (K12B_KNOCKOUTS: query tiles of 64 rows, key tiles of 128, rings
 of one stage), in turns, with scaled_dot_product_attention's backward on
 the same inputs; at head dims past 128 (the CUDA-core route) it times
 the kernel alone.
+
+``--gloo-cuda`` starts a gloo world of 4 ranks sharing the card (fresh
+interpreters of this script, ``--gloo-rank R --gloo-store FILE``) and
+tries, on CUDA tensors, each collective that DTensor issues
+(``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_to_all_single``, ``all_gather``, ``broadcast``) and each DTensor
+redistribution of a (data 2 x model 2) mesh on the card (Shard ->
+Replicate, Partial -> Replicate, Partial -> Shard, Shard(0) -> Shard(1)),
+checking each result against the same collective's sum or concatenation
+on the host.  Prints, per rank, which it takes and the error of each it
+refuses (``GLOO_PROBE_DEVICE=cpu`` runs the same on host tensors).
 
 ``--lse-parent PARENT`` builds kernel 12 and its backward from PARENT's
 source too (a checkout from the training slice on) and holds this
@@ -742,6 +753,185 @@ def probe_lse_parent(torch, root: Path, parent: Path) -> dict:
                     torch, bwd, FA_BWD_CASES))
 
 
+GLOO_WORLD = 4
+
+
+#: the collectives and redistributions ``--gloo-cuda`` tries, one world
+#: of 4 each (a rank that crashes on one hides nothing of the others)
+GLOO_ATTEMPTS = ("all_reduce", "broadcast", "all_gather",
+                 "all_gather_into_tensor", "reduce_scatter_tensor",
+                 "all_to_all_single", "all_gather_into_tensor, a subgroup",
+                 "funcol all_gather_tensor", "funcol all_gather_tensor, "
+                 "a subgroup", "dtensor Shard -> Replicate",
+                 "dtensor Shard(0) -> Replicate, contiguous",
+                 "dtensor Shard(1) -> Replicate, contiguous",
+                 "dtensor Partial -> Replicate", "dtensor Partial -> Shard",
+                 "dtensor Shard(0) -> Shard(1)")
+
+
+def gloo_rank(torch, rank: int, store: str, only=None) -> dict:
+    """One rank of ``--gloo-cuda``: each collective and redistribution on
+    CUDA tensors (or only the one named ``only``), ``ok`` where it ran and
+    agreed with the host's result, else the exception's first line."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+    from torch.distributed.device_mesh import init_device_mesh
+    import faulthandler
+    import os
+    import torch.distributed._functional_collectives as funcol
+    faulthandler.enable()
+    w = GLOO_WORLD
+    dist.init_process_group("gloo", rank=rank, world_size=w,
+                            store=dist.FileStore(store, w))
+    dev = torch.device(os.environ.get("GLOO_PROBE_DEVICE", "cuda"))
+    mine = torch.arange(8, dtype=torch.float32, device=dev) + 100 * rank
+    every = [torch.arange(8, dtype=torch.float32) + 100 * r
+             for r in range(w)]
+    out = {}
+
+    def attempt(name, fn, want):
+        if only is not None and name != only:
+            return
+        print(f"rank {rank}: {name}", flush=True)
+        try:
+            got = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = ("ok" if torch.equal(got.cpu(), want)
+                         else "wrong result")
+        except Exception as e:            # the probe records every refusal
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+
+    def all_reduce():
+        t = mine.clone()
+        dist.all_reduce(t)
+        return t
+    attempt("all_reduce", all_reduce, sum(every))
+
+    def all_gather_into():
+        t = torch.empty(8 * w, device=dev)
+        dist.all_gather_into_tensor(t, mine)
+        return t
+    attempt("all_gather_into_tensor", all_gather_into, torch.cat(every))
+
+    def reduce_scatter():
+        t = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(t, mine)
+        return t
+    attempt("reduce_scatter_tensor", reduce_scatter,
+            sum(every)[2 * rank:2 * rank + 2])
+
+    def all_to_all():
+        t = torch.empty(8, device=dev)
+        dist.all_to_all_single(t, mine)
+        return t
+    attempt("all_to_all_single", all_to_all,
+            torch.cat([e[2 * rank:2 * rank + 2] for e in every]))
+
+    def all_gather():
+        ts = [torch.empty(8, device=dev) for _ in range(w)]
+        dist.all_gather(ts, mine)
+        return torch.cat(ts)
+    attempt("all_gather", all_gather, torch.cat(every))
+
+    def broadcast():
+        t = mine.clone()
+        dist.broadcast(t, src=0)
+        return t
+    attempt("broadcast", broadcast, every[0])
+
+    mesh = init_device_mesh(dev.type, (2, 2),
+                            mesh_dim_names=("data", "model"))
+    sub = mesh.get_group("data")
+    mates = [every[r] for r in range(w)
+             if mesh.get_coordinate()[1] == r % 2]
+
+    def gather_sub():
+        t = torch.empty(16, device=dev)
+        dist.all_gather_into_tensor(t, mine, group=sub)
+        return t
+    attempt("all_gather_into_tensor, a subgroup", gather_sub,
+            torch.cat(mates))
+    attempt("funcol all_gather_tensor", lambda: funcol.all_gather_tensor(
+        mine, 0, list(range(w))).wait(), torch.cat(every))
+    attempt("funcol all_gather_tensor, a subgroup",
+            lambda: funcol.all_gather_tensor(mine, 0, sub).wait(),
+            torch.cat(mates))
+    glob = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    shard = DTensor.from_local(
+        glob.chunk(2, 0)[mesh.get_coordinate()[0]].chunk(
+            2, 1)[mesh.get_coordinate()[1]].to(dev), mesh,
+        [Shard(0), Shard(1)], run_check=False)
+    attempt("dtensor Shard -> Replicate", lambda: shard.redistribute(
+        mesh, [Replicate(), Replicate()]).to_local(), glob)
+    c = mesh.get_coordinate()
+    rows0 = DTensor.from_local(glob.chunk(2, 0)[c[0]].contiguous().to(dev),
+                               mesh, [Shard(0), Replicate()],
+                               run_check=False)
+    attempt("dtensor Shard(0) -> Replicate, contiguous",
+            lambda: rows0.redistribute(mesh, [Replicate(), Replicate()])
+            .to_local(), glob)
+    cols1 = DTensor.from_local(glob.chunk(2, 1)[c[1]].contiguous().to(dev),
+                               mesh, [Replicate(), Shard(1)],
+                               run_check=False)
+    attempt("dtensor Shard(1) -> Replicate, contiguous",
+            lambda: cols1.redistribute(mesh, [Replicate(), Replicate()])
+            .to_local(), glob)
+    part = DTensor.from_local(glob.to(dev), mesh, [Partial(), Partial()],
+                              run_check=False)
+    attempt("dtensor Partial -> Replicate", lambda: part.redistribute(
+        mesh, [Replicate(), Replicate()]).to_local(), glob * w)
+    attempt("dtensor Partial -> Shard", lambda: part.redistribute(
+        mesh, [Shard(0), Replicate()]).to_local(),
+        (glob * w).chunk(2, 0)[mesh.get_coordinate()[0]])
+    rows = DTensor.from_local(glob.chunk(2, 0)[mesh.get_coordinate()[0]].to(
+        dev), mesh, [Shard(0), Replicate()], run_check=False)
+    attempt("dtensor Shard(0) -> Shard(1)", lambda: rows.redistribute(
+        mesh, [Shard(1), Replicate()]).to_local(),
+        glob.chunk(2, 1)[mesh.get_coordinate()[0]])
+    dist.destroy_process_group()
+    return out
+
+
+def probe_gloo_cuda(torch, label: str) -> dict:
+    """``--gloo-cuda``: a world of 4 for each of GLOO_ATTEMPTS, each rank
+    this script again; an attempt's result is rank 0's, or the exit code
+    and log tail of a rank that died."""
+    import tempfile
+    results = {}
+    for i, name in enumerate(GLOO_ATTEMPTS):
+        with tempfile.TemporaryDirectory() as tmp:
+            store = str(Path(tmp) / "store")
+            procs = [subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--gloo-rank", str(r), "--gloo-store", store,
+                 "--gloo-only", str(i)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+                for r in range(GLOO_WORLD)]
+            logs = []
+            for p in procs:
+                try:
+                    logs.append(p.communicate(timeout=120)[0])
+                finally:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        died = [(r, p.returncode, log[-600:]) for r, (p, log) in
+                enumerate(zip(procs, logs)) if p.returncode != 0]
+        if died:
+            results[name] = {"died": died}
+        else:
+            results[name] = json.loads(logs[0].strip().splitlines()[-1])[
+                name]
+        print(f"gloo on CUDA tensors, {name}: {results[name]}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    return dict(label=label, device=smi, torch=torch.__version__,
+                results=results)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
@@ -751,6 +941,10 @@ def main() -> int:
     ap.add_argument("--attention", action="store_true")
     ap.add_argument("--attention-bwd", action="store_true")
     ap.add_argument("--lse-parent", default=None)
+    ap.add_argument("--gloo-cuda", action="store_true")
+    ap.add_argument("--gloo-rank", type=int, default=None)
+    ap.add_argument("--gloo-store", default=None)
+    ap.add_argument("--gloo-only", type=int, default=None)
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
@@ -759,6 +953,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_slots: no CUDA device", file=sys.stderr)
         return 2
+    if args.gloo_rank is not None:
+        only = (None if args.gloo_only is None
+                else GLOO_ATTEMPTS[args.gloo_only])
+        print(json.dumps(gloo_rank(torch, args.gloo_rank, args.gloo_store,
+                                   only)))
+        return 0
+    if args.gloo_cuda:
+        result = probe_gloo_cuda(torch, args.label)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(result, indent=1))
+        print(json.dumps(result))
+        return 0
     if args.lse_parent:
         result = probe_lse_parent(torch, root, Path(args.lse_parent))
         print(json.dumps(result))

@@ -7,12 +7,17 @@ arctic-480b), the VLM with gated cross-attention layers (``xattn``), the
 encoder-decoder (``enc`` and ``dec`` layers) and the recurrent ones
 (recurrentgemma-2b: RG-LRU and local attention; xlstm-350m: sLSTM and
 mLSTM).  ``smoke`` variants are the JAX package's runnable-on-CPU
-reductions of the same family, field for field.
+reductions of the same family, field for field.  ``input_specs`` gives
+every input of a step as ``meta`` tensors (the JAX package's
+``ShapeDtypeStruct`` stand-ins; nothing is allocated).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Any, Dict, Optional
+
+import torch
 
 from repro_torch.models.config import (SHAPES, SMOKE_SHAPES, ModelConfig,
                                        ShapeConfig, shape_is_supported)
@@ -79,5 +84,47 @@ def get_shape(shape_id: str, smoke: bool = False) -> ShapeConfig:
     return table[shape_id]
 
 
-__all__ = ["ARCH_IDS", "get_config", "get_shape",
+# ---------------------------------------------------------------------------
+# input specs (meta-tensor stand-ins; never allocates)
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _aux_spec(cfg: ModelConfig, batch: int) -> Optional[torch.Tensor]:
+    from repro_torch.models.layers import dtype_of
+    cd = dtype_of(cfg.compute_dtype)
+    if cfg.family == "vlm":
+        return _meta((batch, cfg.vision_tokens, cfg.d_model), cd)
+    if cfg.is_encdec:
+        return _meta((batch, cfg.enc_seq, cfg.d_model), cd)
+    return None
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``meta`` tensors for every input of the (train|prefill|decode) step:
+    the JAX package's keys, shapes and dtypes."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        specs: Dict[str, Any] = {"tokens": _meta((b, s), i32),
+                                 "labels": _meta((b, s), i32)}
+        aux = _aux_spec(cfg, b)
+        if aux is not None:
+            specs["aux"] = aux
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": _meta((b, s), i32)}
+        aux = _aux_spec(cfg, b)
+        if aux is not None:
+            specs["aux"] = aux
+        return specs
+    if shape.kind == "decode":
+        from repro_torch.models.decoder import init_serve_cache
+        return {"token": _meta((b, 1), i32), "pos": _meta((), i32),
+                "cache": init_serve_cache(cfg, b, s, device="meta")}
+    raise ValueError(shape.kind)
+
+
+__all__ = ["ARCH_IDS", "get_config", "get_shape", "input_specs",
            "smoke_of", "SHAPES", "SMOKE_SHAPES", "shape_is_supported"]

@@ -2,7 +2,9 @@
 
 Entry points run on the card unless the caller names the CPU: ``None``
 means ``"cuda"``, and asking for CUDA on a machine without a card raises
-instead of carrying on on the CPU.
+instead of carrying on on the CPU.  ``"meta"`` builds shape stand-ins
+(``configs.input_specs``, the partitioning axes of a full config) and
+allocates nothing.
 """
 from __future__ import annotations
 
@@ -11,8 +13,9 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu' "
+                         f"('meta' for shape stand-ins)")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "

@@ -18,7 +18,10 @@ imports jax or the JAX package.  What crosses:
   leaf in its own dtype: arctic-480b's bf16 m and v stay bf16).
 
 This is the system's counterpart of carrying weights across: a run begun
-in one package continues in the other from the same RNG stream.
+in one package continues in the other from the same RNG stream.  A tree
+carried across reaches a mesh as a JAX run's sharded state does, through
+``launch.sharding.distribute_tree`` with the shardings ``resolve_tree``
+gives (``jax.device_put``'s counterpart).
 """
 from __future__ import annotations
 

@@ -415,7 +415,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Output (B, Hq, Sq, D) in q's dtype; f32 accumulation throughout.
     ``block_q``/``block_k`` tile the plain versions on the CPU only; the
     kernels on the card pick their own tiles.  Differentiable in q, k
-    and v (``_Attention``)."""
+    and v (``_Attention``).  On a mesh the kernel runs on each rank's
+    local heads inside the attention's ``local_map``
+    (``models/sharded.py``); a DTensor that reaches it any other way
+    raises."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes local tensors: on a mesh it "
+                        "runs inside the attention's local_map "
+                        "(repro_torch.models.sharded), on each rank's "
+                        "local heads")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

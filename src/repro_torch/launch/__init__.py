@@ -1,3 +1,4 @@
-"""Launchers: the training entry point (``launch/train.py``).  The JAX
-package's production meshes, sharding resolution and dry-run wait for
-later slices (ROADMAP.md §6)."""
+"""Launchers: the training entry point (``launch/train.py``), the
+production meshes (``launch/mesh.py``) and the sharding rules and their
+resolution into DTensor placements (``launch/sharding.py``).  The JAX
+package's dry run waits for a later slice (ROADMAP.md §6)."""

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharded
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -87,6 +88,17 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
     return c
 
 
+def sublayer_input(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """x as a sublayer reads it: an alias while gradients are recorded, so
+    that the gradients of the sublayer's uses of x are summed before the
+    residual's is added, as on a mesh, where the sublayer is one
+    ``local_map`` (``models/sharded.py``).  The sums then associate alike,
+    and a mesh of one rank is bitwise this path."""
+    if x is not None and x.requires_grad and torch.is_grad_enabled():
+        return x.view_as(x)
+    return x
+
+
 def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[Dict[str, Any]],
                 aux: Optional[torch.Tensor] = None, mode: str,
@@ -95,10 +107,15 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
     """mode: train | prefill | decode.  ``aux`` (B, Ta, d) is what the
     cross-attention of ``xattn``/``dec`` reads in train and prefill mode.
     Returns (x, new_cache); decode writes into ``cache`` in place and
-    returns it."""
+    returns it.  A DTensor stream runs on its mesh
+    (``sharded.apply_block``)."""
+    if sharded.is_dtensor(x):
+        return sharded.apply_block(cfg, kind, p, x, positions=positions,
+                                   cache=cache, aux=aux, mode=mode,
+                                   cache_len=cache_len)
     new_cache: Dict[str, Any] = {}
     if kind in _CELLS:
-        h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        h = L.rms_norm(sublayer_input(x), p["norm"], cfg.norm_eps)
         out, cc = _CELLS[kind][2](cfg, p["cell"], h,
                                   cache=None if cache is None
                                   else cache["cell"], mode=mode)
@@ -106,12 +123,12 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
         if cc is not None:
             new_cache["cell"] = cc
         if cfg.d_ff:
-            h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+            h = L.rms_norm(sublayer_input(x), p["mlp_norm"], cfg.norm_eps)
             x = x + L.mlp(cfg, p["mlp"], h)
         return x, (new_cache or None)
     if kind not in _ATTN_SELF:
         raise ValueError(kind)
-    h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    h = L.rms_norm(sublayer_input(x), p["attn_norm"], cfg.norm_eps)
     attn_out, kv = L.self_attention(
         cfg, p["attn"], h, window=_kind_window(cfg, kind),
         positions=positions, causal=_kind_causal(kind),
@@ -121,15 +138,15 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
     if kv is not None:
         new_cache["attn"] = kv
     if kind in _CROSS:
-        h = L.rms_norm(x, p["x_norm"], cfg.norm_eps)
+        h = L.rms_norm(sublayer_input(x), p["x_norm"], cfg.norm_eps)
         xo, xc = L.cross_attention(
-            cfg, p["xattn"], h, aux,
+            cfg, p["xattn"], h, sublayer_input(aux),
             cache=None if cache is None else cache["xattn"], mode=mode)
         x = x + xo
         if xc is not None:
             new_cache["xattn"] = xc
     if cfg.d_ff:
-        h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        h = L.rms_norm(sublayer_input(x), p["mlp_norm"], cfg.norm_eps)
         if cfg.num_experts:
             moe = (L.moe_ffn_shard_map if cfg.moe_impl == "shard_map"
                    else L.moe_ffn)

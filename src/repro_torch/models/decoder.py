@@ -22,6 +22,13 @@ The VLM (``xattn`` layers) and the encoder-decoder (``dec`` layers) take
 ``aux`` (B, Ta, d_model): the image's patch embeddings, or the audio's
 frame embeddings, which ``encode`` turns into the ``enc_out`` the decoder's
 cross-attention reads (the frontends are stubs, as in the JAX package).
+
+On a mesh (DTensor params, caches and batches placed by
+``launch/sharding.distribute_tree``) the same functions run: ``hint``
+pins the stream's batch axis at each block's input and after the
+embedding, and the logits' vocab axis in the loss, as the JAX package's
+three sites do; the blocks, the embedding, the logits and the loss's
+cross-rank max and sums go through ``models/sharded.py``.
 """
 from __future__ import annotations
 
@@ -32,9 +39,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import sharded
+from repro_torch.models.act_shard import hint
 from repro_torch.models.blocks import (apply_block, init_block,
-                                       init_block_cache)
+                                       init_block_cache, sublayer_input)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharded import is_dtensor
 
 Params = Dict[str, Any]
 
@@ -69,7 +79,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     for parity).  Cross-attention gates start at zero, as there."""
     dev = resolve_device(device)
     gen = generator
-    if gen is None:
+    if gen is None and dev.type != "meta":     # meta: shapes, no draws
         gen = torch.Generator(device=dev).manual_seed(0)
     pd = L._pdtype(cfg)
     d, vp = cfg.d_model, cfg.padded_vocab
@@ -132,6 +142,7 @@ def _group_fn(cfg, pattern, gp, x, *, positions, gcache, aux, mode,
               cache_len=None):
     ncs = {}
     for i, kind in enumerate(pattern):
+        x = hint(x, ("batch", None, None))
         x, nc = apply_block(
             cfg, kind, gp[str(i)], x, positions=positions,
             cache=None if gcache is None else gcache[str(i)], aux=aux,
@@ -206,17 +217,28 @@ def encode(cfg: ModelConfig, params: Params, audio_embeds: torch.Tensor
     the encoder's final norm."""
     enc = params["encoder"]
     dev = params["embedding"].device
-    x = audio_embeds.to(device=dev, dtype=L._cdtype(cfg))
+    if is_dtensor(audio_embeds):
+        x = audio_embeds.to(L._cdtype(cfg))
+    else:
+        x = audio_embeds.to(device=dev, dtype=L._cdtype(cfg))
     positions = torch.arange(x.shape[1], device=dev)
     for gp in _layers(enc["groups"], cfg.enc_layers):
         x, _ = _run_group(cfg, ("enc",), gp, x, positions=positions,
                           gcache=None, aux=None, mode="train")
-    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+    return _final_norm(cfg, x, enc["final_norm"])
+
+
+def _final_norm(cfg: ModelConfig, x, scale):
+    if is_dtensor(x):
+        return sharded.rms_norm(cfg, x, scale)
+    return L.rms_norm(x, scale, cfg.norm_eps)
 
 
 def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
           ) -> torch.Tensor:
     emb = params["embedding"]
+    if is_dtensor(emb):
+        return hint(sharded.embed(cfg, emb, tokens), ("batch", None, None))
     return emb[tokens.to(device=emb.device, dtype=torch.int64)].to(
         L._cdtype(cfg))
 
@@ -224,6 +246,10 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
 def logits_from_hidden(cfg: ModelConfig, params: Params, h: torch.Tensor
                        ) -> torch.Tensor:
     """(…, d) -> (…, padded_vocab) f32, padding columns at -1e30."""
+    if is_dtensor(h):
+        return sharded.logits(cfg, params["embedding"] if cfg.tie_embeddings
+                              else params["out_proj"], h,
+                              cfg.tie_embeddings)
     w = (params["embedding"] if cfg.tie_embeddings
          else params["out_proj"].T)
     cd = L._cdtype(cfg)
@@ -250,7 +276,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x, new_caches = _run_stack(cfg, params, x, positions=positions,
                                caches=caches, aux=aux, mode=mode,
                                cache_len=cache_len)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _final_norm(cfg, x, params["final_norm"])
     if mode == "prefill" and cfg.is_encdec:
         new_caches["enc_out"] = aux
     return x, new_caches
@@ -259,6 +285,37 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
+def _row_max(logits: torch.Tensor) -> torch.Tensor:
+    """The max over the vocab, held constant (the JAX package's
+    ``logsumexp`` stops its gradient)."""
+    return torch.amax(logits, dim=-1).detach()
+
+
+def _row_sumexp(logits: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    return torch.exp(logits - m[..., None]).sum(dim=-1)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor, v0: int = 0
+          ) -> torch.Tensor:
+    """The labels' logits, where the vocab columns at hand are v0, v0 + 1,
+    ... (a rank's slice on a mesh); 0 for a label outside them (and for a
+    negative label, which the loss masks)."""
+    r = labels - v0
+    inside = (r >= 0) & (r < logits.shape[-1])
+    g = torch.gather(logits, -1, r.clamp(0, logits.shape[-1] - 1)[..., None])
+    return torch.where(inside, g[..., 0], 0.0)
+
+
+def _ce_parts(logits: torch.Tensor, labels: torch.Tensor):
+    """(logz, gold): logsumexp as the JAX package computes it, log(sum(
+    exp(l - max))) + max, and the labels' logits; on a mesh the max and the
+    sums run across the vocab split (``sharded.ce_parts``)."""
+    if is_dtensor(logits):
+        return sharded.ce_parts(logits, labels)
+    m = _row_max(logits)
+    return torch.log(_row_sumexp(logits, m)) + m, _gold(logits, labels)
+
+
 def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor,
                 labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token CE with the vocab-logit working set capped at
@@ -266,13 +323,23 @@ def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor,
     b, s, _ = h.shape
     c = cfg.loss_chunk if cfg.loss_chunk else s
     c = min(c, s)
-    labels = labels.to(device=h.device, dtype=torch.int64)
+    # the output weight read once for every chunk: gathered once on a
+    # mesh, and an alias here, so that both paths sum the chunks'
+    # gradients before the embedding lookup's
+    name = "embedding" if cfg.tie_embeddings else "out_proj"
+    if is_dtensor(h):
+        labels = sharded.rows_like(labels, h).to(torch.int64)
+        w = sharded.gather(params[name], name)
+    else:
+        labels = labels.to(device=h.device, dtype=torch.int64)
+        w = sublayer_input(params[name])
+    params = dict(params, **{name: w})
     ces, valids = [], []
     for c0 in range(0, s, c):
         logits = logits_from_hidden(cfg, params, h[:, c0:c0 + c])
+        logits = hint(logits, ("batch", None, "vocab"))
         li = labels[:, c0:c0 + c]
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li.clamp_min(0)[..., None])[..., 0]
+        logz, gold = _ce_parts(logits, li)
         valid = (li >= 0).to(torch.float32)
         ces.append((logz - gold) * valid)
         valids.append(valid)
@@ -284,9 +351,15 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
     h, _ = forward_hidden(cfg, params, batch["tokens"],
                           aux=batch.get("aux"), mode="train")
     ce, valid = _chunked_ce(cfg, params, h, batch["labels"])
-    count = torch.clamp_min(valid.sum(), 1.0)
-    loss = ce.sum() / count
+    count = torch.clamp_min(_total(valid), 1.0)
+    loss = _total(ce) / count
+    if is_dtensor(loss):            # replicated: every rank's is the loss
+        loss, count = loss.to_local(), count.to_local()
     return loss, {"loss": loss, "tokens": count}
+
+
+def _total(t: torch.Tensor) -> torch.Tensor:
+    return sharded.total(t) if is_dtensor(t) else t.sum()
 
 
 def per_example_loss(cfg: ModelConfig, params: Params,

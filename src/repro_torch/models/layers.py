@@ -229,14 +229,50 @@ def init_attn_cache(cfg: ModelConfig, batch: int, cache_len: int,
     }
 
 
+def kv_heads_for(cfg: ModelConfig, hq: int, hkv: int, q_head0: int = 0,
+                 kv_head0: int = 0):
+    """Which of the ``hkv`` kv heads at hand each of the ``hq`` query heads
+    at hand reads, where the first query head is global head ``q_head0``
+    and the first kv head global ``kv_head0`` (a rank's heads on a mesh):
+    query head j reads global kv head (q_head0 + j) // group.  None when
+    that is local kv head j // (hq // hkv), the grouping the attention
+    kernel applies; a slice of the kv heads when the heads read form a
+    run that groups evenly; else the index of each query head's kv
+    head."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    idx = [(q_head0 + j) // group - kv_head0 for j in range(hq)]
+    if hq % hkv == 0 and idx == [j // (hq // hkv) for j in range(hq)]:
+        return None
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if hq % n == 0 and idx == [lo + j // (hq // n) for j in range(hq)]:
+        return slice(lo, lo + n)
+    return idx
+
+
+def _select_kv(t: torch.Tensor, sel) -> torch.Tensor:
+    """(B, Hkv, S, Dh) -> the kv heads ``kv_heads_for`` chose."""
+    if sel is None:
+        return t
+    if isinstance(sel, slice):
+        return t[:, sel]
+    return t.index_select(1, torch.tensor(sel, device=t.device))
+
+
 def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                    window: int, positions: torch.Tensor,
                    cache: Cache = None, causal: bool = True,
                    mode: str = "train",
-                   cache_len: Optional[int] = None
+                   cache_len: Optional[int] = None, q_head0: int = 0,
+                   kv_head0: int = 0, cast: bool = True
                    ) -> Tuple[torch.Tensor, Cache]:
+    """The head counts are the weights' (a rank's local heads on a mesh,
+    whose first query and kv heads are global ``q_head0`` and
+    ``kv_head0``; ``kv_heads_for``).  ``cast=False`` returns y in the
+    output product's dtype, so that a sum over the ranks' heads comes
+    before the cast (the JAX package's all-reduce of the dot output)."""
     b, s, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hq, hkv, dh = p["wq"].shape[-2], p["wk"].shape[-2], cfg.head_dim_
+    sel = kv_heads_for(cfg, hq, hkv, q_head0, kv_head0)
     cd = _cdtype(cfg)
     xc = x.to(cd)
 
@@ -252,10 +288,13 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
 
     if mode != "decode":
         out = flash_attention(
-            qh, kh, vh, causal=causal, window=window or None, scale=1.0,
-            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+            qh, _select_kv(kh, sel), _select_kv(vh, sel), causal=causal,
+            window=window or None, scale=1.0, block_q=cfg.attn_block_q,
+            block_k=cfg.attn_block_k)
         y = out.transpose(1, 2)
-        y = mmc(cfg, y.to(cd), p["wo"].to(cd), contract=2).to(x.dtype)
+        y = mmc(cfg, y.to(cd), p["wo"].to(cd), contract=2)
+        if cast:
+            y = y.to(x.dtype)
         if mode == "train":
             return y, None
         # prefill: materialize the KV cache (ring layout for SWA layers);
@@ -280,7 +319,6 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     # card, so no step waits on a host read of the position.
     assert s == 1, "cached path is single-token decode"
     L = cache["k"].shape[2]
-    group = hq // hkv
     pos = positions.reshape(-1)[:1]                  # absolute position (1,)
     slot = pos % L if window else pos.clamp(0, L - 1)
     newk, newv, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
@@ -293,18 +331,19 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         svalid &= slot_pos <= pos
     if window:
         svalid &= slot_pos > pos - window
-    qg = qh.reshape(b, hkv, group, 1, dh)            # GQA grouping
+    kr, vr = _select_kv(newk, sel), _select_kv(newv, sel)
+    qg = qh.reshape(b, kr.shape[1], hq // kr.shape[1], 1, dh)  # GQA groups
     # compute-dtype operands, f32 products and sums: the JAX package's
     # einsum32
     scores = torch.einsum("bhgqk,bhsk->bhgqs", qg.to(torch.float32),
-                          newk.to(torch.float32))
+                          kr.to(torch.float32))
     scores = torch.where(svalid[None, None, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhgqs,bhsk->bhgqk", probs,
-                       newv.to(torch.float32))
+    ctx = torch.einsum("bhgqs,bhsk->bhgqk", probs, vr.to(torch.float32))
     ctx = ctx.reshape(b, hq, 1, dh).transpose(1, 2)
     y = project(ctx.to(cd), p["wo"].to(cd), torch.float32, contract=2)
-    return y.to(x.dtype), {"k": newk, "v": newv, "slot_pos": slot_pos}
+    return (y.to(x.dtype) if cast else y), \
+        {"k": newk, "v": newv, "slot_pos": slot_pos}
 
 
 # ---------------------------------------------------------------------------
@@ -321,14 +360,18 @@ def init_cross_attention(cfg: ModelConfig, generator: torch.Generator,
 
 def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     aux: Optional[torch.Tensor], cache: Cache = None,
-                    mode: str = "train") -> Tuple[torch.Tensor, Cache]:
+                    mode: str = "train", q_head0: int = 0,
+                    kv_head0: int = 0, cast: bool = True
+                    ) -> Tuple[torch.Tensor, Cache]:
     """x: (B, S, d) queries; aux: (B, Ta, d) keys/values (no rope).
 
     Train and prefill project K/V from ``aux`` and attend with
     ``flash_attention`` (kernel 12 on the card, not causal); decode reads
     the projected K/V from the cache the prefill emitted and attends with
     plain products (the JAX package's ``"direct"`` backend).  The output
-    is tanh(gate)·y in f32, returned in x's dtype."""
+    is tanh(gate)·y in f32, returned in x's dtype (in f32 with
+    ``cast=False``; the heads and ``q_head0``/``kv_head0`` as in
+    ``self_attention``)."""
     dh = cfg.head_dim_
     cd = _cdtype(cfg)
     xc = x.to(cd)
@@ -343,17 +386,20 @@ def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
         vh = mmc(cfg, auxc, p["wv"].to(cd)).to(cd).transpose(1, 2) \
             .contiguous()
     qh = (q * (dh ** -0.5)).transpose(1, 2)          # (B, Hq, S, Dh)
+    sel = kv_heads_for(cfg, qh.shape[1], kh.shape[1], q_head0, kv_head0)
     if mode == "decode":
-        out = mha_reference(qh, kh, vh, causal=False, scale=1.0)
+        out = mha_reference(qh, _select_kv(kh, sel), _select_kv(vh, sel),
+                            causal=False, scale=1.0)
     else:
-        out = flash_attention(qh, kh, vh, causal=False, window=None,
-                              scale=1.0, block_q=cfg.attn_block_q,
+        out = flash_attention(qh, _select_kv(kh, sel), _select_kv(vh, sel),
+                              causal=False, window=None, scale=1.0,
+                              block_q=cfg.attn_block_q,
                               block_k=cfg.attn_block_k)
     y = out.transpose(1, 2)
     y = mmc(cfg, y.to(cd), p["wo"].to(cd), contract=2)
     y = torch.tanh(p["gate"].to(torch.float32)) * y.to(torch.float32)
     new_cache = {"k": kh, "v": vh} if mode != "train" else None
-    return y.to(x.dtype), new_cache
+    return (y.to(x.dtype) if cast else y), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +419,10 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, device,
     }
 
 
-def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor, cast: bool = True
+        ) -> torch.Tensor:
+    """SwiGLU; ``cast=False`` returns y in the output product's dtype (a
+    rank's partial sum over its ``mlp`` slice on a mesh)."""
     cd = _cdtype(cfg)
     xc = x.to(cd)
     g = mmc(cfg, xc, p["w_gate"].to(cd))
@@ -381,7 +430,7 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = (torch.nn.functional.silu(g.to(torch.float32))
          * u.to(torch.float32)).to(cd)
     y = mmc(cfg, h, p["w_down"].to(cd))
-    return y.to(x.dtype)
+    return y.to(x.dtype) if cast else y
 
 
 # ---------------------------------------------------------------------------
@@ -533,13 +582,14 @@ def _expert_swiglu(cfg: ModelConfig, wg: torch.Tensor, wu: torch.Tensor,
     return bmm_out(h, wd.to(cd), od)
 
 
-def _experts(cfg: ModelConfig, p: Params, xe: torch.Tensor, route: Route
-             ) -> torch.Tensor:
-    """Every expert's SwiGLU on its dispatch rows xe (E, C, d).  On the
-    card one batched product a weight.  On the CPU the experts go a chunk
-    of at most CPU_EXPERT_ELEMS weight elements at a time, so their f32
-    copies stay bounded, and an expert with no kept slot is skipped: its
-    rows stay zero and no token reads them."""
+def _experts(cfg: ModelConfig, p: Params, xe: torch.Tensor, route: Route,
+             e0: int = 0) -> torch.Tensor:
+    """Every expert's SwiGLU on its dispatch rows xe (E, C, d), the experts
+    at hand being global experts e0, e0 + 1, ... (a rank's on a mesh).  On
+    the card one batched product a weight.  On the CPU the experts go a
+    chunk of at most CPU_EXPERT_ELEMS weight elements at a time, so their
+    f32 copies stay bounded, and an expert with no kept slot is skipped:
+    its rows stay zero and no token reads them."""
     if xe.is_cuda:
         return _expert_swiglu(cfg, p["we_gate"], p["we_up"], p["we_down"],
                               xe)
@@ -548,7 +598,8 @@ def _experts(cfg: ModelConfig, p: Params, xe: torch.Tensor, route: Route
     out = torch.zeros((e, cap, p["we_down"].shape[-1]),
                       dtype=_out_dtype(cfg))
     used = torch.zeros(e, dtype=torch.bool)
-    used[route.se[route.keep]] = True
+    se = route.se[route.keep] - e0
+    used[se[(se >= 0) & (se < e)]] = True
     ids = torch.nonzero(used).flatten()
     for chunk in ids.split(max(1, CPU_EXPERT_ELEMS // (d * f))):
         out[chunk] = _expert_swiglu(cfg, p["we_gate"][chunk],
@@ -557,15 +608,16 @@ def _experts(cfg: ModelConfig, p: Params, xe: torch.Tensor, route: Route
     return out
 
 
-def _moe_route_compute(cfg: ModelConfig, p: Params, x: torch.Tensor
-                       ) -> torch.Tensor:
+def _moe_route_compute(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       e0: int = 0) -> torch.Tensor:
     """Sort-based capacity routing and the experts' FFNs over the tokens
     of ``x`` (B, S, d): dispatch by index into an (E·C + 1, d) buffer,
     whose last row takes every dropped slot and is read by no expert,
     then combine as a scatter-add of each kept slot's output times its
     gate.  Returns y in f32, without the dense residual (the caller adds
-    it).  With f-sliced expert weights y is a partial sum (the caller
-    sums it over the model axes)."""
+    it).  With f-sliced expert weights, or only the experts e0, e0 + 1,
+    ... at hand (an expert-split mesh: the others' slots add zero rows), y
+    is a partial sum (the caller sums it over the model axes)."""
     b, s, d = x.shape
     t = b * s
     e = cfg.num_experts
@@ -573,13 +625,20 @@ def _moe_route_compute(cfg: ModelConfig, p: Params, x: torch.Tensor
     xt = x.reshape(t, d)
     r = moe_route(cfg, p, xt)
     cap = r.cap
+    el = p["we_gate"].shape[-3]                 # the experts at hand
     buf = torch.zeros((e * cap + 1, d), dtype=cd, device=x.device)
     buf[r.slot] = xt[r.st].to(cd)
-    out = _experts(cfg, p, buf[:e * cap].view(e, cap, d), r)
+    out = _experts(cfg, p, buf[e0 * cap:(e0 + el) * cap].view(el, cap, d),
+                   r, e0)
     del buf
-    outf = torch.cat([out.reshape(e * cap, d).to(torch.float32),
-                      torch.zeros((1, d), dtype=torch.float32,
-                                  device=x.device)])
+    if el == e:
+        outf = torch.cat([out.reshape(e * cap, d).to(torch.float32),
+                          torch.zeros((1, d), dtype=torch.float32,
+                                      device=x.device)])
+    else:
+        outf = torch.zeros((e * cap + 1, d), dtype=torch.float32,
+                           device=x.device)
+        outf[e0 * cap:(e0 + el) * cap] = out.reshape(el * cap, d)
     del out
     contrib = outf[r.slot] * (r.sg * r.keep)[:, None]
     del outf
@@ -744,8 +803,53 @@ def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
     return cache
 
 
+def rglru_in(cfg: ModelConfig, p: Params, x: torch.Tensor,
+             conv_state: Optional[torch.Tensor]):
+    """The RG-LRU's input side: (u = conv(x·w_x), the gate branch x·w_y,
+    the new conv state, and the gates' pre-activations u·w_a and u·w_i in
+    f32 from compute-dtype operands).  On a mesh that splits ``rnn`` the
+    pre-activations are a rank's partial sums, to be summed before the
+    sigmoids of ``rglru_out``."""
+    cd = _cdtype(cfg)
+    xc = x.to(cd)
+    u = mmc(cfg, xc, p["w_x"].to(cd)).to(cd)
+    gate_branch = mmc(cfg, xc, p["w_y"].to(cd))
+    u, new_conv = _causal_conv(u, p["conv"].to(cd), conv_state)
+    ra = project(u, p["w_a"].to(cd), torch.float32)
+    ia = project(u, p["w_i"].to(cd), torch.float32)
+    return u, gate_branch, new_conv, ra, ia
+
+
+def rglru_out(cfg: ModelConfig, p: Params, u: torch.Tensor,
+              gate_branch: torch.Tensor, ra: torch.Tensor, ia: torch.Tensor,
+              lru: Optional[torch.Tensor], mode: str):
+    """The RG-LRU's recurrence and output product from ``rglru_in``'s
+    tensors: (y in the product's dtype, the last state h)."""
+    cd = _cdtype(cfg)
+    # the gates, each freed once used: at full width every one is a
+    # (B, S, r) f32 tensor
+    rt = torch.sigmoid(ra)
+    a = torch.exp((-_LRU_C * torch.nn.functional.softplus(
+        p["lam"].to(torch.float32))) * rt)
+    del rt
+    it = torch.sigmoid(ia)
+    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (
+        it * u.to(torch.float32))
+    del it, u
+    if mode == "decode":
+        new_h = a[:, 0] * lru + gated[:, 0]
+        h = new_h[:, None, :]
+    else:
+        h = linear_scan(a, gated)
+        new_h = h[:, -1].clone()               # not a view of the sequence
+        del a, gated
+    y = torch.nn.functional.gelu(gate_branch.to(torch.float32),
+                                 approximate="tanh") * h
+    return mmc(cfg, y.to(cd), p["w_out"].to(cd)), new_h
+
+
 def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                cache: Cache = None, mode: str = "train"
+                cache: Cache = None, mode: str = "train", cast: bool = True
                 ) -> Tuple[torch.Tensor, Cache]:
     """The gated linear recurrence: u = conv(x·w_x), gates
     r, i = sigmoid(u·w_a), sigmoid(u·w_i) in f32 from compute-dtype
@@ -754,37 +858,22 @@ def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     prefill scan the sequence (``linear_scan``); decode takes one step and
     writes ``lru`` and ``conv_state`` into its cache in place.  The
     prefill's conv state is the last cw - 1 raw inputs (the JAX package
-    pads them again; ``_causal_conv`` already returns them)."""
-    cd = _cdtype(cfg)
-    xc = x.to(cd)
-    u = mmc(cfg, xc, p["w_x"].to(cd)).to(cd)
-    gate_branch = mmc(cfg, xc, p["w_y"].to(cd))
+    pads them again; ``_causal_conv`` already returns them).
+    ``cast=False`` returns y in the output product's dtype."""
     conv_state = cache["conv_state"] if mode == "decode" else None
-    u, new_conv = _causal_conv(u, p["conv"].to(cd), conv_state)
-    # the gates, each freed once used: at full width every one is a
-    # (B, S, r) f32 tensor
-    rt = torch.sigmoid(project(u, p["w_a"].to(cd), torch.float32))
-    a = torch.exp((-_LRU_C * torch.nn.functional.softplus(
-        p["lam"].to(torch.float32))) * rt)
-    del rt
-    it = torch.sigmoid(project(u, p["w_i"].to(cd), torch.float32))
-    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (
-        it * u.to(torch.float32))
-    del it, u
-    if mode == "decode":
-        new_h = a[:, 0] * cache["lru"] + gated[:, 0]
-        h = new_h[:, None, :]
-    else:
-        h = linear_scan(a, gated)
-        new_h = h[:, -1].clone()               # not a view of the sequence
-        del a, gated
-    y = torch.nn.functional.gelu(gate_branch.to(torch.float32),
-                                 approximate="tanh") * h
-    y = mmc(cfg, y.to(cd), p["w_out"].to(cd))
+    u, gate_branch, new_conv, ra, ia = rglru_in(cfg, p, x, conv_state)
+    # u read through an alias, as the second half of a mesh's two local
+    # maps reads it (``blocks.sublayer_input``)
+    y, new_h = rglru_out(cfg, p, u.view_as(u) if u.requires_grad else u,
+                         gate_branch, ra, ia,
+                         cache["lru"] if mode == "decode" else None, mode)
+    del u, ra, ia
+    if cast:
+        y = y.to(x.dtype)
     if mode == "train":
-        return y.to(x.dtype), None
+        return y, None
     new = {"lru": new_h, "conv_state": new_conv}
-    return y.to(x.dtype), (_write(cache, new) if mode == "decode" else new)
+    return y, (_write(cache, new) if mode == "decode" else new)
 
 
 # ---------------------------------------------------------------------------
@@ -850,16 +939,17 @@ def _mlstm_chunk(q, k, v, ig, lf, carry):
 
 
 def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                cache: Cache = None, mode: str = "train"
+                cache: Cache = None, mode: str = "train", cast: bool = True
                 ) -> Tuple[torch.Tensor, Cache]:
     """The mLSTM: q, k (both scaled by dh^-0.5) and v in f32, input gate
     pre-activations ig and log forget gates lf = -softplus(-x·wf) in f32
     from compute-dtype operands, then ``_mlstm_chunk`` over chunks of
     ``mlstm_chunk`` tokens (train pads the last; the prefill needs a whole
     number of chunks), and decode as one chunk of length 1, its state
-    written into the cache in place."""
+    written into the cache in place.  The heads are the weights' (a
+    rank's on a mesh); ``cast=False`` returns y in the product's dtype."""
     b, s, _ = x.shape
-    h_, dh = cfg.n_heads, cfg.head_dim_
+    h_, dh = p["wq"].shape[-2], cfg.head_dim_
     cd = _cdtype(cfg)
     f32 = torch.float32
     xc = x.to(cd)
@@ -879,7 +969,8 @@ def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         hout, (C, nvec, m) = _mlstm_chunk(q, k, v, ig, lf, carry)
         y = mmc(cfg, hout.transpose(1, 2).to(cd), p["wo"].to(cd),
                 contract=2)
-        return y.to(x.dtype), _write(cache, {"mC": C, "mn": nvec, "mm": m})
+        return (y.to(x.dtype) if cast else y), \
+            _write(cache, {"mC": C, "mn": nvec, "mm": m})
 
     c = min(cfg.mlstm_chunk, s)
     pad = (-s) % c
@@ -904,7 +995,7 @@ def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     new_cache = None
     if mode == "prefill":
         new_cache = {"mC": carry[0], "mn": carry[1], "mm": carry[2]}
-    return y.to(x.dtype), new_cache
+    return (y.to(x.dtype) if cast else y), new_cache
 
 
 def init_slstm(cfg: ModelConfig, generator: torch.Generator, device,
@@ -955,15 +1046,16 @@ def _slstm_step(rmat, state, gx):
 
 
 def slstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                cache: Cache = None, mode: str = "train"
+                cache: Cache = None, mode: str = "train", cast: bool = True
                 ) -> Tuple[torch.Tensor, Cache]:
     """The sLSTM: the gates' input projections for every token in one
     product (f32 from compute-dtype operands), then one ``_slstm_step`` a
     token with the recurrent matrices in f32 (IEEE: the package turns
     TF32 off).  Decode takes one step and writes sc, sn, sh and sm into
-    its cache in place."""
+    its cache in place.  The heads are the weights' (a rank's on a mesh);
+    ``cast=False`` returns y in the product's dtype."""
     b, s, _ = x.shape
-    h_, dh = cfg.n_heads, cfg.head_dim_
+    h_, dh = p["wx"].shape[-2], cfg.head_dim_
     cd = _cdtype(cfg)
     f32 = torch.float32
     # (B, S, 4, H, dh) -> (S, H, B, 4·dh): each step's slice contiguous
@@ -987,8 +1079,10 @@ def slstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     # the JAX package's einsum32 there
     y = project(hs.to(cd), p["wo"].to(cd),
                 f32 if mode == "decode" else _out_dtype(cfg), contract=2)
+    if cast:
+        y = y.to(x.dtype)
     if mode == "train":
-        return y.to(x.dtype), None
+        return y, None
     new = dict(zip(("sc", "sn", "sh", "sm"),
                    (t.transpose(0, 1).contiguous() for t in state)))
-    return y.to(x.dtype), (_write(cache, new) if mode == "decode" else new)
+    return y, (_write(cache, new) if mode == "decode" else new)

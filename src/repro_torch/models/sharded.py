@@ -1,0 +1,642 @@
+"""The model stack on a mesh: params, caches and batches as DTensors
+(``launch/sharding.distribute_tree``), the blocks run on each rank's
+local shards.
+
+The semantics are those of the JAX package's program compiled by GSPMD
+under the same shardings:
+
+* each product gathers its FSDP-sharded weight (``gather``: every split
+  of a dim whose logical axis is not one of ``KEEP``, such as "embed" over
+  data, becomes ``Replicate``) and keeps the model split of heads,
+  ``mlp``, ``vocab``, ``expert`` and ``rnn``;
+* a sublayer (its norm, its products, kernel 12, the MoE route's sort and
+  ``index_add_``, the recurrent scans, the in-place cache writes) runs in
+  one ``local_map`` (``run_local``) on the local tensors, with the
+  placements of its outputs written at its call site: ``Partial`` over the
+  mesh axes that split its contraction, the batch's ``Shard(0)`` over the
+  data axes;
+* that partial sum is summed by one all-reduce in the output product's
+  dtype (the JAX package's all-reduce of the dot output) where the
+  residual adds it (``residual``), then cast to the stream's dtype;
+* gradients: an input replicated over a mesh axis that splits the
+  sublayer gets its gradient as ``Partial`` there (each rank's share),
+  which DTensor's redistribute backward sums (the FSDP gather's backward
+  is a reduce-scatter, a replicated weight's an all-reduce).
+
+On a mesh of one rank every collective is one rank's copy and every local
+op is the unsharded op, so the steps are bitwise the unsharded ones.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.partitioning import PARAM_AXES
+
+#: logical axes whose split a sublayer keeps (the model split); every other
+#: split of a weight is gathered before use
+KEEP = frozenset(("heads", "kv_heads", "mlp", "expert", "rnn", "vocab"))
+_CELL_KINDS = ("rglru", "mlstm", "slstm")
+_CROSS = ("xattn", "dec")
+
+
+def _dt():
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    return DTensor, Partial, Replicate, Shard
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def local_of(t):
+    """A DTensor's local tensor; a plain tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _shard_dims(t) -> set:
+    _, _, _, Shard = _dt()
+    return {m for m, p in enumerate(t.placements) if isinstance(p, Shard)}
+
+
+def sum_over_shards(s: torch.Tensor, like) -> torch.Tensor:
+    """A rank's partial value ``s`` of a sum over the elements of the
+    DTensor ``like``, summed over the mesh axes that split ``like`` (an
+    all-reduce); over an axis that replicates it, ``s`` is already whole."""
+    DTensor, Partial, Replicate, Shard = _dt()
+    mesh = like.device_mesh
+    places = []
+    for p in like.placements:
+        if not isinstance(p, (Shard, Replicate)):
+            raise ValueError(f"a leaf placed {like.placements}: only Shard "
+                             f"and Replicate leaves are summed")
+        places.append(Partial() if isinstance(p, Shard) else Replicate())
+    if not any(isinstance(p, Partial) for p in places):
+        return s
+    return DTensor.from_local(s, mesh, places, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def shard_offset(t, dim: int) -> int:
+    """The global index of this rank's first element along ``dim`` (0 for
+    a plain tensor): the splits of ``dim``, outermost mesh dim first."""
+    if not is_dtensor(t):
+        return 0
+    _, _, _, Shard = _dt()
+    dim %= t.ndim
+    coord = t.device_mesh.get_coordinate()
+    n, off = t.shape[dim], 0
+    for m, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim % t.ndim == dim:
+            n //= t.device_mesh.size(m)
+            off += coord[m] * n
+    return off
+
+
+def gather(t, name: str):
+    """The weight leaf ``t`` (registered as ``name`` in ``PARAM_AXES``)
+    with every split of a dim outside ``KEEP`` gathered (``Replicate``);
+    always through ``redistribute``, whose backward brings the gradient
+    back to ``t``'s placements."""
+    _, _, Replicate, Shard = _dt()
+    axes = PARAM_AXES[name]
+    full = ("layers",) * (t.ndim - len(axes)) + tuple(axes)
+    target = []
+    for p in t.placements:
+        if isinstance(p, Shard):
+            target.append(p if full[p.dim % t.ndim] in KEEP else Replicate())
+        elif isinstance(p, Replicate):
+            target.append(p)
+        else:
+            raise ValueError(f"weight {name!r} placed {t.placements}")
+    return t.redistribute(t.device_mesh, target)
+
+
+def run_local(fn, args: Sequence[torch.Tensor], outs: Sequence) -> tuple:
+    """``local_map`` of ``fn`` over ``args`` (DTensors, or plain tensors
+    every rank holds whole) -> the tuple of its outputs as DTensors, with
+    ``outs`` their placements.  An input's gradient keeps its ``Shard``s
+    and is ``Partial`` over each mesh axis that splits some input but
+    replicates this one (the sublayer's split: that rank's gradient is a
+    share), else ``Replicate``."""
+    from torch.distributed.tensor.experimental import local_map
+    DTensor, Partial, Replicate, Shard = _dt()
+    dts = [a for a in args if isinstance(a, DTensor)]
+    mesh = dts[0].device_mesh
+    split = set().union(*(_shard_dims(a) for a in dts))
+    in_places, in_grads = [], []
+    for a in args:
+        if not isinstance(a, DTensor):
+            in_places.append(None)
+            in_grads.append(None)
+            continue
+        grad = []
+        for m, p in enumerate(a.placements):
+            if isinstance(p, Shard):
+                grad.append(p)
+            elif isinstance(p, Replicate):
+                grad.append(Partial() if m in split else Replicate())
+            else:
+                raise ValueError(f"a sublayer's input placed {a.placements}"
+                                 f": sum it (redistribute) first")
+        in_places.append(tuple(a.placements))
+        in_grads.append(tuple(grad))
+    out = local_map(fn, out_placements=tuple(list(o) for o in outs),
+                    in_placements=tuple(in_places),
+                    in_grad_placements=tuple(in_grads),
+                    device_mesh=mesh)(*args)
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+# ---------------------------------------------------------------------------
+# placements of a sublayer's outputs
+# ---------------------------------------------------------------------------
+def _check_stream(x) -> None:
+    """The residual stream (B, S, d) may split its batch only."""
+    _, _, Replicate, Shard = _dt()
+    for p in x.placements:
+        if not (isinstance(p, Replicate)
+                or (isinstance(p, Shard) and p.dim == 0)):
+            raise ValueError(f"the residual stream must be Shard(0) or "
+                             f"Replicate on each mesh axis, got "
+                             f"{x.placements}")
+
+
+def _batch_split(x, m: int) -> bool:
+    _, _, _, Shard = _dt()
+    p = x.placements[m]
+    return isinstance(p, Shard) and p.dim == 0
+
+
+def _model_split(x, weights) -> set:
+    """The mesh axes that split a sublayer's weights; a mesh axis may not
+    split both the batch and a weight."""
+    dims = set().union(*(_shard_dims(w) for w in weights))
+    both = [m for m in dims if _batch_split(x, m)]
+    if both:
+        names = [x.device_mesh.mesh_dim_names[m] for m in both]
+        raise ValueError(f"mesh axes {names} split both the batch and a "
+                         f"weight of one sublayer")
+    return dims
+
+
+def _sum_out(x, split: set) -> tuple:
+    """A (B, ..., d) output: the batch as x's, Partial over ``split``."""
+    _, Partial, Replicate, Shard = _dt()
+    return tuple(Shard(0) if _batch_split(x, m)
+                 else Partial() if m in split else Replicate()
+                 for m in range(x.device_mesh.ndim))
+
+
+def _split_out(x, w, wdim: int, tdim: int) -> tuple:
+    """An output whose dim ``tdim`` follows dim ``wdim`` of weight ``w``
+    (a cache's heads, a state's rnn width), the batch as x's."""
+    _, _, Replicate, Shard = _dt()
+    out = []
+    for m in range(x.device_mesh.ndim):
+        p = w.placements[m]
+        if _batch_split(x, m):
+            out.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim % w.ndim == wdim % w.ndim:
+            out.append(Shard(tdim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _replicated(x) -> tuple:
+    _, _, Replicate, _ = _dt()
+    return tuple(Replicate() for _ in range(x.device_mesh.ndim))
+
+
+def residual(x, y):
+    """x + y, y summed over its Partial axes and placed as x (one
+    all-reduce in y's dtype), then cast to x's dtype."""
+    return x + y.redistribute(x.device_mesh, x.placements).to(x.dtype)
+
+
+def _check_cache(name: str, t, want: tuple) -> None:
+    if not is_dtensor(t) or tuple(t.placements) != tuple(want):
+        raise ValueError(
+            f"decode's cache leaf {name!r} must be placed {want} (the "
+            f"prefill's, which follows the weights and the batch), got "
+            f"{getattr(t, 'placements', 'a plain tensor')}")
+
+
+# ---------------------------------------------------------------------------
+# sublayers
+# ---------------------------------------------------------------------------
+def rms_norm(cfg: ModelConfig, x, scale, name: str = "final_norm"):
+    """``layers.rms_norm`` of the stream with a gathered scale."""
+    s = gather(scale, name)
+    return run_local(lambda xl, sl: (L.rms_norm(xl, sl, cfg.norm_eps),),
+                     [x, s], [x.placements])[0]
+
+
+def _attention(cfg, kind, norm, p, x, *, positions, cache, mode,
+               cache_len):
+    w = {k: gather(p[k], k) for k in ("wq", "wk", "wv", "wo")}
+    s = gather(norm, "attn_norm")
+    split = _model_split(x, w.values())
+    q0, kv0 = shard_offset(w["wq"], -2), shard_offset(w["wk"], -2)
+    window = cfg.window if kind in ("swa", "local") else 0
+    kv_out = _split_out(x, w["wk"], -2, 1)
+    names = ("k", "v", "slot_pos")
+    outs = [_sum_out(x, split)]
+    args = [x, s, w["wq"], w["wk"], w["wv"], w["wo"]]
+    if mode != "train":
+        outs += [kv_out, kv_out, _replicated(x)]
+    if mode == "decode":
+        for n, want in zip(names, outs[1:]):
+            _check_cache(n, cache[n], want)
+        args += [cache[n] for n in names]
+
+    def local(xl, sl, wq, wk, wv, wo, *c):
+        h = L.rms_norm(xl, sl, cfg.norm_eps)
+        y, kv = L.self_attention(
+            cfg, {"wq": wq, "wk": wk, "wv": wv, "wo": wo}, h, window=window,
+            positions=positions, causal=kind != "enc",
+            cache=dict(zip(names, c)) if c else None, mode=mode,
+            cache_len=cache_len, q_head0=q0, kv_head0=kv0, cast=False)
+        return (y,) if kv is None else (y,) + tuple(kv[n] for n in names)
+
+    res = run_local(local, args, outs)
+    return res[0], (dict(zip(names, res[1:])) if mode != "train" else None)
+
+
+def _cross_attention(cfg, norm, p, x, aux, *, cache, mode):
+    w = {k: gather(p[k], k) for k in ("wq", "wk", "wv", "wo", "gate")}
+    s = gather(norm, "x_norm")
+    split = _model_split(x, w.values())
+    q0, kv0 = shard_offset(w["wq"], -2), shard_offset(w["wk"], -2)
+    kv_out = _split_out(x, w["wk"], -2, 1)
+    args = [x, s] + [w[k] for k in ("wq", "wk", "wv", "wo", "gate")]
+    if mode == "decode":
+        for n in ("k", "v"):
+            _check_cache(n, cache[n], kv_out)
+        args += [cache["k"], cache["v"]]
+    else:
+        if not is_dtensor(aux) or tuple(aux.placements) != tuple(
+                x.placements):
+            raise ValueError(
+                f"cross-attention's aux must be a DTensor placed as the "
+                f"stream ({x.placements}), got "
+                f"{getattr(aux, 'placements', 'a plain tensor')}")
+        args.append(aux)
+    outs = [_sum_out(x, split)] + ([kv_out, kv_out] if mode == "prefill"
+                                   else [])
+
+    def local(xl, sl, wq, wk, wv, wo, gate, *rest):
+        h = L.rms_norm(xl, sl, cfg.norm_eps)
+        pp = {"wq": wq, "wk": wk, "wv": wv, "wo": wo, "gate": gate}
+        if mode == "decode":
+            y, _ = L.cross_attention(cfg, pp, h, None,
+                                     cache={"k": rest[0], "v": rest[1]},
+                                     mode=mode, q_head0=q0, kv_head0=kv0,
+                                     cast=False)
+            return (y,)
+        y, kv = L.cross_attention(cfg, pp, h, rest[0], mode=mode,
+                                  q_head0=q0, kv_head0=kv0, cast=False)
+        return (y,) if kv is None else (y, kv["k"], kv["v"])
+
+    res = run_local(local, args, outs)
+    if mode == "decode":
+        return res[0], cache
+    return res[0], ({"k": res[1], "v": res[2]} if mode == "prefill"
+                    else None)
+
+
+def _mlp(cfg, norm, p, x, norm_name="mlp_norm"):
+    w = {k: gather(p[k], k) for k in ("w_gate", "w_up", "w_down")}
+    s = gather(norm, norm_name)
+    split = _model_split(x, w.values())
+
+    def local(xl, sl, wg, wu, wd):
+        h = L.rms_norm(xl, sl, cfg.norm_eps)
+        return (L.mlp(cfg, {"w_gate": wg, "w_up": wu, "w_down": wd}, h,
+                      cast=False),)
+
+    return run_local(local, [x, s, w["w_gate"], w["w_up"], w["w_down"]],
+                     [_sum_out(x, split)])[0]
+
+
+def _moe_shard_map_dims(cfg, x):
+    """The model mesh dims of ``moe_ffn_shard_map``'s group-local routing
+    (the batch split over the context's batch axes), or None where the
+    JAX package falls back to ``moe_ffn`` (no context, no "mlp" entry, the
+    batch not split so, or d_ff not divisible by the model ways)."""
+    from repro_torch.models.act_shard import current_mapping
+    mapping = current_mapping()
+    if cfg.moe_impl != "shard_map" or not mapping or "mlp" not in mapping:
+        return None
+    names = list(x.device_mesh.mesh_dim_names)
+    bdims = [names.index(n) for n, _ in mapping.get("batch", ())
+             if n in names]
+    mdims = [names.index(n) for n, _ in mapping["mlp"] if n in names]
+    ways = 1
+    for m in mdims:
+        ways *= x.device_mesh.size(m)
+    batch_ok = all(_batch_split(x, m) for m in bdims) and all(
+        not _batch_split(x, m) for m in range(len(names)) if m not in bdims)
+    if not mdims or not batch_ok or cfg.d_ff % ways:
+        return None
+    return mdims
+
+
+def _moe(cfg, norm, p, x):
+    """The MoE FFN's partial output (f32).  ``moe_impl="shard_map"`` (with
+    the context it needs): group-local routing of each data shard's tokens
+    through f-slices of every expert (the weights redistributed to split
+    d_ff over the model axes), one Partial sum.  Else the JAX package's
+    global routing: the tokens gathered over the batch axes, routed alike
+    on every rank, each rank computing its own experts (the others' slots
+    add zero rows), Partial over the axes that split the experts; the dense
+    residual is a ``_mlp`` of its own."""
+    DTensor, Partial, Replicate, Shard = _dt()
+    mesh = x.device_mesh
+    s = gather(norm, "mlp_norm")
+    router = p["router"].redistribute(mesh, _replicated(x))
+    mdims = _moe_shard_map_dims(cfg, x)
+    if mdims is not None:
+
+        def fsplit(t, dim):
+            return t.redistribute(mesh, [Shard(dim) if m in mdims
+                                         else Replicate()
+                                         for m in range(mesh.ndim)])
+        w = [fsplit(p["we_gate"], -1), fsplit(p["we_up"], -1),
+             fsplit(p["we_down"], -2)]
+        if cfg.dense_residual:
+            d = p["dense"]
+            w += [fsplit(d["w_gate"], -1), fsplit(d["w_up"], -1),
+                  fsplit(d["w_down"], -2)]
+
+        def local(xl, sl, rl, wg, wu, wd, *dense):
+            h = L.rms_norm(xl, sl, cfg.norm_eps)
+            y = L._moe_route_compute(cfg, {"router": rl, "we_gate": wg,
+                                           "we_up": wu, "we_down": wd}, h)
+            if dense:
+                y = y + L._mlp_partial(cfg, dict(zip(
+                    ("w_gate", "w_up", "w_down"), dense)), h)
+            return (y,)
+        return run_local(local, [x, s, router] + w,
+                         [_sum_out(x, set(mdims))])[0]
+
+    xg = x.redistribute(mesh, _replicated(x))
+    w = [gather(p[k], k) for k in ("we_gate", "we_up", "we_down")]
+    split = _model_split(xg, w)
+    e0 = shard_offset(w[0], -3)
+
+    def local(xl, sl, rl, wg, wu, wd):
+        h = L.rms_norm(xl, sl, cfg.norm_eps)
+        pp = {"router": rl, "we_gate": wg, "we_up": wu, "we_down": wd}
+        return (L._moe_route_compute(cfg, pp, h, e0),)
+    y = run_local(local, [xg, s, router] + w, [_sum_out(xg, split)])[0]
+    y = y.redistribute(mesh, x.placements)
+    if cfg.dense_residual:          # mlp's output in x's dtype, then f32
+        y = y + _mlp(cfg, norm, p["dense"], x).redistribute(
+            mesh, x.placements).to(x.dtype).to(torch.float32)
+    return y
+
+
+def _rglru(cfg, norm, p, x, *, cache, mode):
+    """The RG-LRU in two local halves: the gates' pre-activations u·w_a
+    and u·w_i, partial over the rnn split, are summed and split again by
+    one reduce-scatter before the sigmoids."""
+    names = ("w_x", "w_y", "conv", "w_a", "w_i", "lam", "w_out")
+    w = {k: gather(p[k], k) for k in names}
+    s = gather(norm, "norm")
+    split = _model_split(x, w.values())
+    u_out = _split_out(x, w["w_x"], -1, 2)
+    gate_sum = _sum_out(x, _shard_dims(w["w_a"]))
+    conv_out = _split_out(x, w["conv"], -1, 2)
+    lru_out = _split_out(x, w["lam"], -1, 1)
+    args = [x, s, w["w_x"], w["w_y"], w["conv"], w["w_a"], w["w_i"]]
+    if mode == "decode":
+        _check_cache("conv_state", cache["conv_state"], conv_out)
+        _check_cache("lru", cache["lru"], lru_out)
+        args.append(cache["conv_state"])
+
+    def first(xl, sl, wx, wy, conv, wa, wi, *state):
+        h = L.rms_norm(xl, sl, cfg.norm_eps)
+        pp = {"w_x": wx, "w_y": wy, "conv": conv, "w_a": wa, "w_i": wi}
+        return L.rglru_in(cfg, pp, h, state[0] if state else None)
+
+    u, gb, new_conv, ra, ia = run_local(
+        first, args, [u_out, u_out, conv_out, gate_sum, gate_sum])
+    ra = ra.redistribute(x.device_mesh, u_out)
+    ia = ia.redistribute(x.device_mesh, u_out)
+    args = [u, gb, ra, ia, w["lam"], w["w_out"], new_conv]
+    if mode == "decode":
+        args += [cache["lru"], cache["conv_state"]]
+
+    def second(ul, gl, ral, ial, lam, wout, conv_new, *state):
+        y, new_h = L.rglru_out(cfg, {"lam": lam, "w_out": wout}, ul, gl,
+                               ral, ial, state[0] if state else None, mode)
+        if state:                 # decode: the state written in place
+            state[0].copy_(new_h)
+            state[1].copy_(conv_new)
+        return y, new_h
+
+    y, new_h = run_local(second, args, [_sum_out(x, split), lru_out])
+    if mode == "train":
+        return y, None
+    if mode == "decode":
+        return y, cache
+    return y, {"lru": new_h, "conv_state": new_conv}
+
+
+def _xlstm(cfg, kind, norm, p, x, *, cache, mode):
+    if kind == "mlstm":
+        names, hw, hdim = ("wq", "wk", "wv", "wi", "wf", "wo"), "wq", -2
+        state = ("mC", "mn", "mm")
+        block = L.mlstm_block
+    else:
+        names, hw, hdim = ("wx", "r", "wo"), "wx", -2
+        state = ("sc", "sn", "sh", "sm")
+        block = L.slstm_block
+    w = {k: gather(p[k], k) for k in names}
+    s = gather(norm, "norm")
+    split = _model_split(x, w.values())
+    st_out = _split_out(x, w[hw], hdim, 1)
+    args = [x, s] + [w[k] for k in names]
+    if mode == "decode":
+        for n in state:
+            _check_cache(n, cache[n], st_out)
+        args += [cache[n] for n in state]
+
+    def local(xl, sl, *rest):
+        h = L.rms_norm(xl, sl, cfg.norm_eps)
+        pp = dict(zip(names, rest[:len(names)]))
+        c = dict(zip(state, rest[len(names):])) or None
+        y, nc = block(cfg, pp, h, cache=c, mode=mode, cast=False)
+        return (y,) if nc is None else (y,) + tuple(nc[n] for n in state)
+
+    outs = [_sum_out(x, split)] + ([st_out] * len(state)
+                                   if mode != "train" else [])
+    res = run_local(local, args, outs)
+    if mode == "train":
+        return res[0], None
+    return res[0], dict(zip(state, res[1:]))
+
+
+def apply_block(cfg: ModelConfig, kind: str, p, x, *, positions,
+                cache: Optional[Dict[str, Any]], aux=None, mode: str,
+                cache_len: Optional[int] = None):
+    """``blocks.apply_block`` on a mesh: each sublayer in its own
+    ``local_map``, its partial output summed into the stream."""
+    _check_stream(x)
+    new_cache: Dict[str, Any] = {}
+    if kind in _CELL_KINDS:
+        c = None if cache is None else cache["cell"]
+        if kind == "rglru":
+            y, cc = _rglru(cfg, p["norm"], p["cell"], x, cache=c, mode=mode)
+        else:
+            y, cc = _xlstm(cfg, kind, p["norm"], p["cell"], x, cache=c,
+                           mode=mode)
+        x = residual(x, y)
+        if cc is not None:
+            new_cache["cell"] = cc
+    else:
+        y, kv = _attention(cfg, kind, p["attn_norm"], p["attn"], x,
+                           positions=positions,
+                           cache=None if cache is None else cache["attn"],
+                           mode=mode, cache_len=cache_len)
+        x = residual(x, y)
+        if kv is not None:
+            new_cache["attn"] = kv
+        if kind in _CROSS:
+            y, xc = _cross_attention(
+                cfg, p["x_norm"], p["xattn"], x, aux,
+                cache=None if cache is None else cache["xattn"], mode=mode)
+            x = residual(x, y)
+            if xc is not None:
+                new_cache["xattn"] = xc
+    if cfg.d_ff:
+        if cfg.num_experts and kind not in _CELL_KINDS:
+            x = residual(x, _moe(cfg, p["mlp_norm"], p["mlp"], x))
+        else:
+            x = residual(x, _mlp(cfg, p["mlp_norm"], p["mlp"], x))
+    return x, (new_cache or None)
+
+
+# ---------------------------------------------------------------------------
+# embedding, logits, loss
+# ---------------------------------------------------------------------------
+def _as_dtensor(t, like):
+    """A plain tensor every rank holds whole, as a replicated DTensor on
+    ``like``'s mesh."""
+    if is_dtensor(t):
+        return t
+    DTensor, _, Replicate, _ = _dt()
+    mesh = like.device_mesh
+    return DTensor.from_local(t.to(like.device), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+
+
+def embed(cfg: ModelConfig, emb, tokens):
+    """The embedding lookup with the vocab split kept: each rank looks up
+    the tokens in its rows (zero elsewhere), one all-reduce sums them, the
+    sum is cast to the compute dtype."""
+    _, Partial, Replicate, Shard = _dt()
+    e = gather(emb, "embedding")
+    tokens = _as_dtensor(tokens, e)
+    v0 = shard_offset(e, 0)
+
+    def local(tok, el):
+        t = tok.to(torch.int64)
+        if el.shape[0] == cfg.padded_vocab:
+            return (el[t],)
+        r = t - v0
+        inside = (r >= 0) & (r < el.shape[0])
+        rows = el[r.clamp(0, el.shape[0] - 1)]
+        return (torch.where(inside[..., None], rows, 0.0),)
+
+    mesh = e.device_mesh
+    split = _shard_dims(e)
+    out = tuple(Shard(0) if _batch_split(tokens, m)
+                else Partial() if m in split else Replicate()
+                for m in range(mesh.ndim))
+    x = run_local(local, [tokens, e], [out])[0]
+    stream = tuple(Shard(0) if _batch_split(tokens, m) else Replicate()
+                   for m in range(mesh.ndim))
+    return x.redistribute(mesh, stream).to(L._cdtype(cfg))
+
+
+def logits(cfg: ModelConfig, w, h, tied: bool):
+    """(…, d) -> (…, padded_vocab) f32 with the vocab split kept (w the
+    embedding, or ``out_proj`` when not ``tied``), padding columns of this
+    rank's slice at -1e30."""
+    _, _, Replicate, Shard = _dt()
+    name, vdim = ("embedding", 0) if tied else ("out_proj", 1)
+    wg = gather(w, name)
+    v0 = shard_offset(wg, vdim)
+    cd = L._cdtype(cfg)
+
+    def local(hl, wl):
+        wv = wl if tied else wl.T                        # (V, d)
+        out = L.project(hl.to(cd), wv.to(cd).T, torch.float32)
+        cols = torch.arange(v0, v0 + wv.shape[0], device=hl.device)
+        return (out + torch.where(cols < cfg.vocab, 0.0, -1e30),)
+
+    vsplit = _shard_dims(wg)
+    out = tuple(Shard(0) if _batch_split(h, m)
+                else Shard(h.ndim - 1) if m in vsplit else Replicate()
+                for m in range(h.device_mesh.ndim))
+    return run_local(local, [h, wg], [out])[0]
+
+
+def ce_parts(logits_, labels):
+    """(logz, gold) of each row of vocab-split logits: the row max, the sum
+    of exp(l - max) and the gold logit each a rank's partial (max or sum)
+    over its vocab slice, summed across the split by one all-reduce each;
+    the same ops as ``decoder._ce_parts`` on one rank."""
+    DTensor, Partial, Replicate, Shard = _dt()
+    mesh = logits_.device_mesh
+    v0 = shard_offset(logits_, -1)
+    vsplit = {m for m, p in enumerate(logits_.placements)
+              if isinstance(p, Shard) and p.dim % logits_.ndim
+              == logits_.ndim - 1}
+    rows = tuple(Shard(0) if _batch_split(logits_, m) else Replicate()
+                 for m in range(mesh.ndim))
+
+    def part(kind):
+        return tuple(Shard(0) if _batch_split(logits_, m)
+                     else Partial(kind) if m in vsplit else Replicate()
+                     for m in range(mesh.ndim))
+
+    from repro_torch.models.decoder import _gold, _row_max, _row_sumexp
+    m = run_local(lambda l: (_row_max(l),), [logits_], [part("max")])[0]
+    m = m.redistribute(mesh, rows)
+    se = run_local(lambda l, ml: (_row_sumexp(l, ml),), [logits_, m],
+                   [part("sum")])[0].redistribute(mesh, rows)
+    gold = run_local(lambda l, lab: (_gold(l, lab, v0),), [logits_, labels],
+                     [part("sum")])[0].redistribute(mesh, rows)
+    return torch.log(se) + m, gold
+
+
+def rows_like(t, h):
+    """``t`` (a batch's labels: a DTensor, or a plain tensor every rank
+    holds whole) with its batch split as ``h``'s and replicated
+    elsewhere."""
+    _, _, Replicate, Shard = _dt()
+    t = _as_dtensor(t, h)
+    return t.redistribute(h.device_mesh, [
+        Shard(0) if _batch_split(h, m) else Replicate()
+        for m in range(h.device_mesh.ndim)])
+
+
+def total(t):
+    """The sum of every element of a batch-split DTensor, replicated."""
+    _, _, Replicate, _ = _dt()
+    return t.sum().redistribute(t.device_mesh,
+                                [Replicate()] * t.device_mesh.ndim)
+
+
+__all__ = ["KEEP", "apply_block", "ce_parts", "embed", "gather",
+           "is_dtensor", "local_of", "logits", "residual",
+           "rms_norm", "rows_like", "run_local", "shard_offset", "sum_over_shards",
+           "total"]

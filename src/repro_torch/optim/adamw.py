@@ -12,8 +12,14 @@ tensors: at granite-3-2b's full width a functional update would hold old
 and new params, m and v at once, about 30 GB more than fits one card.
 Each leaf is updated a chunk of ``CHUNK`` elements at a time, so the f32
 temporaries of the update stay small whatever the leaf's size; the update
-is elementwise, so the chunking changes no result.  ``opt_state_axes``
-waits for ``models/partitioning.py`` (ROADMAP.md §1).
+is elementwise, so the chunking changes no result.
+
+On a state placed on a mesh (DTensor leaves, ``launch/sharding``) the
+update runs the same chunks on each rank's local shards, and the global
+norm sums each leaf's local squares, then sums them over the mesh axes
+that split the leaf (an all-reduce; a leaf replicated over an axis is
+counted once).  On a mesh of one rank both are bitwise the unsharded
+update.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch.models.decoder import tree_map
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.sharded import is_dtensor, local_of, sum_over_shards
 
 Params = Any
 #: elements of a leaf updated (or squared and summed) at once
@@ -70,7 +77,9 @@ def adamw_init(params: Params, cfg: AdamWConfig) -> OptState:
     sd = dtype_of(cfg.state_dtype)
     leaves = [t for _, t in tree_leaves(params)]
 
-    def zeros(p):
+    def zeros(p):       # a DTensor's zeros keep its placements
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=sd)
         return torch.zeros(p.shape, dtype=sd, device=p.device)
     return OptState(m=tree_map(zeros, params), v=tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32,
@@ -86,13 +95,16 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares in f32, leaves in
-    ``tree_leaves`` order (the JAX package's)."""
+    ``tree_leaves`` order (the JAX package's).  A DTensor leaf's local
+    squares are summed over the mesh axes that split it."""
     total = None
     for _, leaf in tree_leaves(tree):
         s = None
-        for c in _chunks(leaf.contiguous()):
+        for c in _chunks(local_of(leaf).contiguous()):
             cs = torch.sum(torch.square(c.to(torch.float32)))
             s = cs if s is None else s + cs
+        if is_dtensor(leaf):
+            s = sum_over_shards(s, leaf)
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -104,13 +116,15 @@ def adamw_update(params: Params, grads: Params, state: OptState,
     decay.  Mutates ``params``, ``state.m``, ``state.v`` and
     ``state.step`` in place and returns them (the same objects), with
     ``{"grad_norm", "lr"}`` as 0-d f32 tensors on the params' device.
-    ``grads`` are read only."""
+    ``grads`` are read only.  DTensor params need m, v and grads placed
+    as they are; each rank updates its local shards."""
     gnorm = global_norm(grads)
     clip = torch.full_like(gnorm, cfg.grad_clip)
     scale = torch.clamp_max(clip / (gnorm + 1e-9), 1.0)
-    lr = _schedule(cfg, state.step)
-    state.step.add_(1)
-    step = state.step.to(torch.float32)
+    step_t = local_of(state.step)
+    lr = _schedule(cfg, step_t)
+    step_t.add_(1)
+    step = step_t.to(torch.float32)
     b1c = 1.0 - torch.pow(torch.full_like(step, cfg.b1), step)
     b2c = 1.0 - torch.pow(torch.full_like(step, cfg.b2), step)
     sd = dtype_of(cfg.state_dtype)
@@ -119,6 +133,14 @@ def adamw_update(params: Params, grads: Params, state: OptState,
     flat_v = dict(tree_leaves(state.v))
     for path, p in tree_leaves(params):
         g, m, v = flat_g[path], flat_m[path], flat_v[path]
+        if is_dtensor(p):       # each rank updates its own shards
+            for name, t in (("gradient", g), ("m", m), ("v", v)):
+                if not is_dtensor(t) or t.placements != p.placements:
+                    raise ValueError(
+                        f"{path}: the {name} must be placed as the "
+                        f"parameter ({p.placements}), got "
+                        f"{getattr(t, 'placements', 'a plain tensor')}")
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         if not (p.is_contiguous() and m.is_contiguous()
                 and v.is_contiguous()):
             raise ValueError(f"adamw_update updates contiguous leaves in "
@@ -136,3 +158,8 @@ def adamw_update(params: Params, grads: Params, state: OptState,
             mc.copy_(m_new.to(sd))
             vc.copy_(v_new.to(sd))
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_axes(params_axes: Any) -> Any:
+    """Logical axes for OptState given the params' axes (m/v mirror them)."""
+    return OptState(m=params_axes, v=params_axes, step=())

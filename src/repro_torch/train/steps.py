@@ -9,8 +9,11 @@ the state passed in.  Gradients come from ``torch.autograd.grad`` over
 every parameter leaf (detached leaves sharing the params' storage);
 kernel 12's backward on the card, the projections' f32 backward products
 (``models/layers._ProductOut``), remat (``models/decoder``).  A leaf that
-gets no gradient raises, naming the leaf.  ``train_state_axes`` waits
-for ``models/partitioning.py`` (ROADMAP.md §1)."""
+gets no gradient raises, naming the leaf.  A state placed on a mesh
+(``launch/sharding.distribute_tree``: DTensor leaves) runs through the
+same steps, as ``jax.jit(step, in_shardings=...)`` runs the same step
+function: the sharding comes from the inputs and the installed
+``act_shard.activation_sharding`` context."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,8 +23,10 @@ import torch
 
 from repro_torch.models import decoder
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.partitioning import param_axes
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_init,
-                                     adamw_update, global_norm, tree_leaves)
+                                     adamw_update, global_norm,
+                                     opt_state_axes, tree_leaves)
 
 Params = Any
 
@@ -40,6 +45,12 @@ def init_train_state(generator: Optional[torch.Generator],
     and zero AdamW states, on ``device`` (the card unless ``"cpu"``)."""
     params = decoder.init_params(cfg, generator, device)
     return TrainState(params=params, opt=adamw_init(params, opt_cfg))
+
+
+def train_state_axes(state_shapes: Any) -> Any:
+    """Logical axes for a TrainState (m/v mirror params)."""
+    p_axes = param_axes(state_shapes.params)
+    return TrainState(params=p_axes, opt=opt_state_axes(p_axes))
 
 
 def _rebuild(tree, leaves):

@@ -1393,6 +1393,104 @@ def test_cuda_nccl_world_of_one_is_the_unsharded_path(cuda, tmp_path):
     assert "bitwise" in out.stdout
 
 
+
+_SHARDED1_SCRIPT = r"""
+import dataclasses, os, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_backward_cuda)
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models.act_shard import activation_sharding, mapping_from_mesh
+from repro_torch.models.decoder import tree_map
+from repro_torch.models.partitioning import batch_axes, param_axes
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.train import make_train_step
+from repro_torch.train.steps import TrainState, train_state_axes
+
+os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+dist.init_process_group("nccl", store=dist.FileStore(sys.argv[1], 1),
+                        rank=0, world_size=1)
+try:
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = dataclasses.replace(get_config("granite-3-2b", smoke=True),
+                              compute_dtype="bfloat16", head_dim=64,
+                              attn_block_q=64, attn_block_k=64)
+    opt = AdamWConfig(lr=1e-3, eps=1e-3, warmup_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    params = init_params(cfg, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 258), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :256], "labels": toks[:, 1:257]}
+    glob = TrainState(tree_map(lambda t: t.clone(), params),
+                      adamw_init(params, opt))
+    state = sh.distribute_tree(glob, sh.resolve_tree(
+        glob, train_state_axes(glob), mesh, sh.TRAIN_RULES), mesh)
+    b_sh = sh.distribute_tree(batch, sh.resolve_tree(
+        batch, batch_axes(batch), mesh, sh.TRAIN_RULES), mesh)
+    ref = TrainState(params, adamw_init(params, opt))
+    step = make_train_step(cfg, opt)
+    flash_attention.launches = flash_attention_backward_cuda.launches = 0
+    for _ in range(2):
+        _, want = step(ref, batch)
+        with activation_sharding(mapping_from_mesh(mesh, sh.TRAIN_RULES),
+                                 mesh):
+            _, got = step(state, b_sh)
+        assert all(torch.equal(got[k], want[k]) for k in want), (got, want)
+    for a, b in ((state.params, ref.params), (state.opt.m, ref.opt.m),
+                 (state.opt.v, ref.opt.v)):
+        for (path, t), (_, u) in zip(tree_leaves(a), tree_leaves(b)):
+            assert torch.equal(t.to_local(), u), path
+    with torch.no_grad():
+        want, wc = prefill(cfg, ref.params, batch["tokens"], cache_len=260)
+        ps = sh.distribute_tree(ref.params, sh.resolve_tree(
+            ref.params, param_axes(ref.params), mesh, sh.SERVE_RULES), mesh)
+        tin = {"tokens": batch["tokens"]}
+        tb = sh.distribute_tree(tin, sh.resolve_tree(
+            tin, batch_axes(tin), mesh, sh.SERVE_RULES), mesh)
+        with activation_sharding(mapping_from_mesh(mesh, sh.SERVE_RULES),
+                                 mesh):
+            got, gc = prefill(cfg, ps, tb["tokens"], cache_len=260)
+            assert torch.equal(got.to_local(), want)
+            for i in range(3):
+                tok = toks[:, 256 + i:257 + i] if i < 2 else \
+                    want.argmax(-1, keepdim=True).to(torch.int32)
+                want, wc = decode_step(cfg, ref.params, wc, tok, 256 + i)
+                got, gc = decode_step(cfg, ps, gc, tok, 256 + i)
+                assert torch.equal(got.to_local(), want), i
+    assert flash_attention.launches > 0
+    assert flash_attention_backward_cuda.launches > 0
+finally:
+    dist.destroy_process_group()
+print("sharded world of 1: bitwise")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_world_of_one_is_bitwise_the_unsharded_steps(
+        cuda, tmp_path):
+    """granite-3-2b's smoke config (bf16 compute, head dim 64: kernel 12
+    and its backward on the tensor cores) on a 1 x 1 NCCL mesh: two train
+    steps under TRAIN_RULES (loss, metrics, every leaf of params, m and v)
+    and a prefill and 3 decode steps under SERVE_RULES bitwise the
+    unsharded steps, kernel 12 and its backward launched through the
+    sharded path."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    out = subprocess.run(
+        [sys.executable, "-c", _SHARDED1_SCRIPT, str(tmp_path / "store")],
+        env=dict(os.environ, PYTHONPATH=src), capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "bitwise" in out.stdout
+
 # ---------------------------------------------------------------------------
 # the mixture-of-experts FFN
 # ---------------------------------------------------------------------------

@@ -45,13 +45,18 @@ TRAINING = [(importlib.import_module(f"repro.{m}"),
              importlib.import_module(f"repro_torch.{m}"), names)
             for m, names in (
                 ("optim.adamw", ("adamw_init", "adamw_update",
-                                 "AdamWConfig")),
+                                 "AdamWConfig", "opt_state_axes")),
                 ("optim.adaptive_accum", ("gradient_cv",
                                           "earl_accumulate_gradients")),
                 ("optim.compression", ("error_feedback_compress",)),
                 ("data.pipeline", ("TokenBatchPipeline",)),
                 ("train.steps", ("init_train_state", "make_train_step",
-                                 "make_grad_step")))]
+                                 "make_grad_step", "train_state_axes")),
+                ("models.partitioning", ("param_axes",)),
+                ("models.act_shard", ("hint",)),
+                ("launch.sharding", ("resolve_spec", "resolve_tree")),
+                ("launch.mesh", ("make_production_mesh",)),
+                ("configs", ("input_specs",)))]
 
 G, SEED = 3, 77
 
