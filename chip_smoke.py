@@ -334,9 +334,26 @@ failure:
    within phase 18's card == CPU law and its update within four ulps of
    adamw_update of those gradients, each rank's shapes resolve_spec's
    and kernel 12 and its backward on its 16 query and 4 kv heads; its
-   collectives by kind with bytes (CommDebugMode and a dispatch mode,
-   which must agree), step wall and spawn-to-join s;
-8. replay every distinct launch geometry that phases 4 to 7 and 10 to 19
+   collectives by kind with bytes (CommDebugMode and
+   launch/hlo_analysis.CollectiveBytes, which must agree), step wall and
+   spawn-to-join s; then the flash-decoding layout in the same world:
+   h2o-danube-3-4b at full width cut to 4 layers, an unsharded prefill of
+   1 x 8192 tokens (kernel 12) on each rank, its cache placed by
+   SERVE_RULES (the ring's slots over data) and 8 teacher-forced decode
+   steps within 2e-2 of max |logit| of the unsharded decode run here;
+20. (run after phase 19) the dry run and the last modules: the fake
+   (FakeTensorMode, a "fake" process group) train step of phase 19's
+   world of one counts the real step's dot FLOPs exactly, the fake 2 x 2
+   train step and flash-decoding step issue the real world of 4's
+   collectives by kind with their bytes exactly, both the same on "cuda"
+   and "cpu" fake tensors in every FLOP, byte and collective field; two
+   production cells' records (launch/dryrun.lower_cell on the card);
+   configs/earl_analytics.CONFIG's Mean, Median and group sessions
+   (kernels 2, 3, 4) and its k-means with a KMeansStep bootstrap (kernels
+   9, 8), PostMapSampler's rows bitwise PreMapSampler's on the card; then
+   kernel 12's host time a call through its operators and the direct
+   launches (not counted);
+8. replay every distinct launch geometry that phases 4 to 7 and 10 to 20
    logged on fresh data and hold it against the plain version as in
    phase 3 (kernel 12's forward also with lse written: the same bits,
    and lse the plain version's; its backward as in phase 18), printing
@@ -713,6 +730,24 @@ SHARD_LOGIT_SHARE, SHARD_RANK_TIMEOUT_S = 2e-2, 400
 #: weights over model, all-reduces only.  The FSDP gathers run in the
 #: CPU's world of 4 (tests/test_torch_sharded.py)
 SHARD_CARD4_UNSPLIT = "embed"
+#: the flash-decoding layout in phase 19's world of 4: h2o-danube-3-4b at
+#: full width cut to FLASH_LAYERS, an unsharded prefill of 1 x FLASH_S
+#: tokens (kernel 12), its cache placed by SERVE_RULES at batch 1 (the
+#: ring's slots over data; without SHARD_CARD4_UNSPLIT's split), then
+#: FLASH_STEPS teacher-forced decode steps on the mesh against the
+#: unsharded decode within SHARD_LOGIT_SHARE of max |logit|
+FLASH_ARCH, FLASH_LAYERS, FLASH_SEED = "h2o-danube-3-4b", 4, 23
+FLASH_S, FLASH_STEPS = 8192, 8
+#: phase 20's production cells, (arch, shape, multi-pod), dry-run on the
+#: card: every cell of launch/dryrun.py --all runs on the CPU (PERF.md).
+#: granite-3-2b's train_4k on 16 x 16 (10.5-15.6 s to trace on the H100
+#: machine's host) was cut to keep the clock near its 1,000 s target;
+#: phase 20's world-1 and world-4 checks trace the same model's step
+DRY_CELLS = (("mixtral-8x22b", "decode_32k", True),
+             ("h2o-danube-3-4b", "long_500k", False))
+#: kernel 12's host time a call: calls a timing, at a shape whose launch
+#: the host outruns
+HOST_CALLS = 200
 
 
 def check(ok: bool, what: str) -> None:
@@ -7330,6 +7365,74 @@ def shard_setup(torch):
     return cfg, params, batch, teacher, opt
 
 
+def flash_setup(torch):
+    """h2o-danube-3-4b cut to FLASH_LAYERS at full width, its params on
+    the card, a 1 x FLASH_S prompt and FLASH_STEPS teacher tokens, from
+    FLASH_SEED by a generator on the card (the same values in every
+    process)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config(FLASH_ARCH), n_layers=FLASH_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
+    params = init_params(cfg, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, FLASH_S + FLASH_STEPS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    return cfg, params, toks[:, :FLASH_S].contiguous(), \
+        toks[:, FLASH_S:].contiguous()
+
+
+def flash_logits(torch, cfg, params, prompt, teacher):
+    """The unsharded prefill's cache and the unsharded decode's logits of
+    each teacher token (the reference of the flash-decoding steps)."""
+    from repro_torch.models import decode_step, prefill
+    out = []
+    with torch.no_grad():
+        _, cache = prefill(cfg, params, prompt,
+                           cache_len=FLASH_S + FLASH_STEPS)
+        for i in range(FLASH_STEPS):
+            logits, cache = decode_step(cfg, params, cache,
+                                        teacher[:, i:i + 1], FLASH_S + i)
+            out.append(logits)
+    return out
+
+
+def flash_rank(torch, mesh) -> tuple:
+    """A rank's flash-decoding run: the unsharded prefill, its cache and
+    the params placed by SERVE_RULES without SHARD_CARD4_UNSPLIT's split
+    (the cache's ring slots over data at batch 1), FLASH_STEPS decode
+    steps on the mesh.  Returns (the local logits, their placements, each
+    step's collectives, whether every cache k split its slots)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.act_shard import (activation_sharding,
+                                              mapping_from_mesh)
+    from repro_torch.models.partitioning import (batch_axes, cache_axes,
+                                                 param_axes)
+    rules = card4_rules(sh.SERVE_RULES)
+    cfg, params, prompt, teacher = flash_setup(torch)
+    with torch.no_grad():
+        _, cache = prefill(cfg, params, prompt,
+                           cache_len=FLASH_S + FLASH_STEPS)
+    p_sh = place(params, param_axes, mesh, rules)
+    c_sh = place(cache, cache_axes, mesh, rules)
+    del params, cache
+    torch.cuda.empty_cache()
+    split = all(placement_codes(t)[0] == ("S", t.ndim - 2)
+                for path, t in leaf_dict(c_sh).items() if path.endswith("/k"))
+    logits, colls = [], []
+    with torch.no_grad(), activation_sharding(mapping_from_mesh(mesh, rules),
+                                              mesh):
+        for i in range(FLASH_STEPS):
+            tok = place({"token": teacher[:, i:i + 1]}, batch_axes, mesh,
+                        rules)["token"]
+            (lg, c_sh), coll, _ = counted_collectives(
+                torch, lambda: decode_step(cfg, p_sh, c_sh, tok, FLASH_S + i))
+            logits.append(lg.to_local().cpu())
+            colls.append(coll)
+    return logits, placement_codes(lg), colls, split
+
+
 def place(tree, axes_of, mesh, rules):
     """``distribute_tree`` of ``tree`` with its placements from
     ``axes_of`` (a partitioning function) and ``rules``."""
@@ -7384,79 +7487,12 @@ def placement_codes(t) -> list:
             for q in t.placements]
 
 
-class CollectiveBytes:
-    """A dispatch mode that counts the collectives DTensor issues while
-    entered (the functional ``_c10d_functional`` ops and the native
-    ``c10d`` ones, as CommDebugMode counts both), by kind, with their bytes
-    by launch/hlo_analysis.py's conventions: an all-reduce 2 x its result,
-    an all-gather 1 x its result, a reduce-scatter 1 x its operand, an
-    all-to-all 1 x its result.  ``ops`` counts each op by name."""
-
-    #: op name -> (kind, multiple, the argument or result measured): "out"
-    #: the functional op's result, an int that argument (a tensor or a
-    #: list of them)
-    KINDS = {"all_reduce": ("all-reduce", 2, "out"),
-             "all_gather_into_tensor": ("all-gather", 1, "out"),
-             "reduce_scatter_tensor": ("reduce-scatter", 1, 0),
-             "all_to_all_single": ("all-to-all", 1, "out"),
-             "allreduce_": ("all-reduce", 2, 0),
-             "_allgather_base_": ("all-gather", 1, 0),
-             "allgather_": ("all-gather", 1, 0),
-             "allgather_into_tensor_coalesced_": ("all-gather", 1, 0),
-             "_reduce_scatter_base_": ("reduce-scatter", 1, 1),
-             "reduce_scatter_": ("reduce-scatter", 1, 1),
-             "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1, 1),
-             "alltoall_base_": ("all-to-all", 1, 0),
-             "alltoall_": ("all-to-all", 1, 0)}
-
-    def __init__(self):
-        from torch.distributed.tensor import DTensor
-        from torch.utils._python_dispatch import TorchDispatchMode
-        outer = self
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                # a DTensor op first desugars (with this mode on) into the
-                # local ops and the collectives of its redistributions
-                if any(t is DTensor for t in types):
-                    return NotImplemented
-                out = func(*args, **(kwargs or {}))
-                outer.record(func, args, out)
-                return out
-        self.mode = Mode()
-        self.counts, self.bytes, self.ops = {}, {}, {}
-
-    def record(self, func, args, out) -> None:
-        ns, name = func.namespace, func._overloadpacket.__name__
-        if ns == "_c10d_functional":
-            name = name.rstrip("_")
-        elif ns != "c10d":
-            return
-        if name not in self.KINDS:
-            return
-        kind, mult, which = self.KINDS[name]
-        t = out if which == "out" else args[which]
-        ts = t if isinstance(t, (list, tuple)) else [t]
-        nbytes = sum(x.numel() * x.element_size() for x in ts
-                     if hasattr(x, "numel"))
-        self.counts[kind] = self.counts.get(kind, 0) + 1
-        self.bytes[kind] = self.bytes.get(kind, 0) + mult * nbytes
-        key = f"{ns}.{name}"
-        self.ops[key] = self.ops.get(key, 0) + 1
-
-    def __enter__(self):
-        self.mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        return self.mode.__exit__(*exc)
-
-
 def counted_collectives(torch, fn):
     """(fn(), {kind: [count, bytes]}, CommDebugMode's counts and the
     dispatch mode's by op): the collectives of one call, from both
     counters, whose counts must agree."""
     from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch.hlo_analysis import CollectiveBytes
     with CommDebugMode() as comm, CollectiveBytes() as cb:
         out = fn()
     torch.cuda.synchronize()
@@ -7480,11 +7516,14 @@ def shard_world1(torch, tmp: str) -> tuple:
     steps (each step's loss and metrics, and every leaf of params, m and
     v after them), then the prefill and SHARD_DECODE1 decode steps under
     SERVE_RULES bitwise the unsharded ones; kernel 12 and its backward
-    launched through the sharded path, counted from zero.  Returns (info,
-    launches)."""
+    launched through the sharded path, counted from zero; the first
+    step's products counted (``hlo_flops.DotFlops``) for phase 20.
+    Returns (info, launches)."""
+    import contextlib
     import os
     import torch.distributed as dist
     from repro_torch.launch import sharding as sh
+    from repro_torch.launch.hlo_flops import DotFlops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.act_shard import (activation_sharding,
                                               mapping_from_mesh)
@@ -7524,9 +7563,13 @@ def shard_world1(torch, tmp: str) -> tuple:
         for i in range(SHARD_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with activation_sharding(mapping, mesh):
+            # the first step's products counted for phase 20's dry run
+            with activation_sharding(mapping, mesh), (
+                    DotFlops() if i == 0 else contextlib.nullcontext()) as d:
                 (_, m), coll, _ = counted_collectives(
                     torch, lambda: step(state, b_sh))
+            if i == 0:
+                dots = d.record_dict()
             torch.cuda.synchronize()
             walls["sharded"].append(time.perf_counter() - t0)
             collectives.append(coll)
@@ -7556,7 +7599,7 @@ def shard_world1(torch, tmp: str) -> tuple:
             f"sharded: world 1 launched {launches}, expected {want}")
         info = dict(step_walls_s=walls, collectives_per_step=collectives,
                     loss=[float(m["loss"]) for m in ref_m],
-                    serve_steps_bitwise=len(got))
+                    serve_steps_bitwise=len(got), dot_flops=dots)
     finally:
         dist.destroy_process_group()
     return info, launches
@@ -7592,8 +7635,9 @@ def shard_rank(argv) -> int:
     composes them) under TRAIN_RULES, both without SHARD_CARD4_UNSPLIT's
     split (``card4_rules``), each rank's local shapes against
     ``resolve_spec``; its local logits, gradients and updated params, the
-    step's wall and collectives and kernel 12's launches and geometries
-    to DIR/rank<R>.pt and DIR/rank<R>.json."""
+    step's wall and collectives and kernel 12's launches and geometries,
+    then the flash-decoding steps (``flash_rank``), to DIR/rank<R>.pt and
+    DIR/rank<R>.json."""
     import faulthandler
     import os
     import torch
@@ -7680,6 +7724,11 @@ def shard_rank(argv) -> int:
                "placements": places,
                "logits": [t.cpu() for t in logits],
                "logit_placements": logit_places}
+        del state, grads, b_sh, p_sh, metrics
+        torch.cuda.empty_cache()
+        (res["flash_logits"], res["flash_placements"],
+         info["flash_collectives"], info["flash_split"]) = flash_rank(torch,
+                                                                       mesh)
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
@@ -7699,7 +7748,9 @@ def shard_world4(torch, tmp: str) -> dict:
     18's card == CPU law); their updated params within four f32 ulps plus
     1e-6·lr of ``adamw_update`` applied here to the stitched gradients;
     each rank's shapes resolve_spec's and kernel 12 and its backward run
-    on each rank's 16 query and 4 kv heads."""
+    on each rank's 16 query and 4 kv heads; the flash-decoding steps
+    (``flash_rank``), stitched, within SHARD_LOGIT_SHARE of max |logit| of
+    the unsharded decode, each step's collectives the same."""
     import os
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.train import make_grad_step
@@ -7717,6 +7768,10 @@ def shard_world4(torch, tmp: str) -> dict:
         want_logits, _ = serve_logits(torch, cfg, params, batch["tokens"],
                                       teacher, SHARD_DECODE4)
         grads, gnorm, loss = make_grad_step(cfg)(params, batch)
+        fcfg, fparams, fprompt, fteacher = flash_setup(torch)
+        flash_want = [t.cpu() for t in flash_logits(torch, fcfg, fparams,
+                                                    fprompt, fteacher)]
+        del fparams
         torch.cuda.synchronize()
     finally:
         try:
@@ -7775,6 +7830,23 @@ def shard_world4(torch, tmp: str) -> dict:
         worst_logit = max(worst_logit, err / tol)
         check(err <= tol, f"sharded: world 4 serving step {i}'s logits "
               f"{err} from the unsharded, past {tol}")
+    worst_flash = 0.0
+    for i, want in enumerate(flash_want):
+        got = stitch(torch, [(c, r["flash_logits"][i], r["flash_placements"])
+                             for c, r in zip(coords, ranks)],
+                     tuple(want.shape))
+        err = float((got - want).abs().max())
+        tol = logits_tolerance(want[..., :fcfg.vocab], SHARD_LOGIT_SHARE)
+        worst_flash = max(worst_flash, err / tol)
+        check(err <= tol, f"sharded: flash-decoding step {i}'s logits {err} "
+              f"from the unsharded decode, past {tol}")
+    for rank, info in enumerate(infos):
+        check(info["flash_split"], f"sharded: rank {rank}'s flash-decoding "
+              f"cache does not split its slots over data")
+        check(all(c == infos[0]["flash_collectives"][0]
+                  for c in info["flash_collectives"]), f"sharded: rank "
+              f"{rank}'s flash-decoding steps issued "
+              f"{info['flash_collectives']}, not one count a step")
     flat_g = leaf_dict(grads)
     stitched, grad_share = {}, {}
     for path, want in flat_g.items():
@@ -7816,6 +7888,8 @@ def shard_world4(torch, tmp: str) -> dict:
                 worst_grad_leaf=max(grad_share, key=grad_share.get),
                 update_share_of_tolerance=ulps,
                 logit_share_of_tolerance=worst_logit,
+                flash_collectives_per_step=infos[0]["flash_collectives"][0],
+                flash_logit_share_of_tolerance=worst_flash,
                 geometries=infos[0]["geometries"])
 
 
@@ -7849,6 +7923,277 @@ def phase_sharded_path(torch):
     print(f"launches, the sharded path (world 1): {json.dumps(launches)}; "
           f"phase 19 took {info['phase_s']:.1f} s")
     return launches, log.geometries, info
+
+
+# ---------------------------------------------------------------------------
+# the dry run and the last modules (phase 20)
+# ---------------------------------------------------------------------------
+def dry_trace(torch, world: int, mesh_shape, device: str, cfg, shape,
+              rules_train, rules_serve) -> dict:
+    """``launch/dryrun.trace_step`` of one step on a mesh of ``mesh_shape``
+    (SHARD_AXES) over a fake process group of ``world`` ranks started in
+    this process (rank 0) and destroyed after."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        mesh = make_mesh(mesh_shape, SHARD_AXES, device=device)
+        return trace_step(cfg, shape, mesh, rules_train, rules_serve)
+    finally:
+        dist.destroy_process_group()
+
+
+def summed_collectives(*colls) -> dict:
+    """{kind: [count, bytes]} records added kind by kind."""
+    out = {}
+    for c in colls:
+        for kind, (n, b) in c.items():
+            got = out.setdefault(kind, [0, 0])
+            got[0] += n
+            got[1] += b
+    return out
+
+
+def dry_collectives(rec) -> dict:
+    return {k: [n, rec["collective_bytes_per_chip"][k]]
+            for k, n in rec["collective_counts_per_chip"].items()}
+
+
+#: a record's fields that must not depend on the fake tensors' device
+DEVICE_FREE = ("flops", "bytes_accessed", "memory",
+               "collective_bytes_per_chip", "collective_counts_per_chip",
+               "dot_flops_per_chip", "dot_bytes_per_chip",
+               "dot_flops_attention_per_chip", "dot_flops_by_op", "num_dots",
+               "state_bytes_global", "state_bytes_per_chip", "leaf_params",
+               "local_shapes")
+
+
+def dryrun_checks(torch, sharded: dict) -> dict:
+    """Phase 20 (a): the dry run against phase 19's real runs.  World 1:
+    the fake 1 x 1 train step's dot FLOPs, bytes and count equal to the
+    real step's (``hlo_flops.DotFlops``), exactly.  World 4: the fake
+    2 x 2 train step's collectives (SHARD_CARD4_UNSPLIT's rules) equal to
+    the real world's grad step and update, by kind with their bytes, and
+    the fake flash-decoding step's to each real one's, exactly.  Both fake
+    runs again with CPU tensors: every FLOP, byte and collective field the
+    same.  Then DRY_CELLS' production records (``lower_cell`` on the
+    card)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models.config import ShapeConfig
+    cfg = dataclasses.replace(get_config(SHARD_ARCH), n_layers=SHARD_LAYERS)
+    train = ShapeConfig("phase19", "train", SHARD_S, SHARD_B)
+    fcfg = dataclasses.replace(get_config(FLASH_ARCH), n_layers=FLASH_LAYERS)
+    fshape = ShapeConfig("flash", "decode", FLASH_S + FLASH_STEPS, 1)
+    card4 = (card4_rules(sh.TRAIN_RULES), card4_rules(sh.SERVE_RULES))
+    out = {}
+    rec1 = dry_trace(torch, 1, (1, 1), "cuda", cfg, train, sh.TRAIN_RULES,
+                     sh.SERVE_RULES)
+    real1 = sharded["world1"]["dot_flops"]
+    fake1 = dict(flops=rec1["dot_flops_per_chip"],
+                 dot_bytes=rec1["dot_bytes_per_chip"],
+                 num_dots=rec1["num_dots"])
+    check(fake1 == real1, f"dry run: world 1's fake step counts {fake1}, "
+          f"the real step {real1}")
+    out["world1_dot_flops"] = real1
+    recs = {}
+    for device in ("cuda", "cpu"):
+        recs[device] = (
+            dry_trace(torch, SHARD_WORLD, SHARD_MESH, device, cfg, train,
+                      *card4),
+            dry_trace(torch, SHARD_WORLD, SHARD_MESH, device, fcfg, fshape,
+                      *card4))
+    w4 = sharded["world4"]
+    want4 = summed_collectives(w4["collectives_grad"],
+                               w4["collectives_update"])
+    got4 = dry_collectives(recs["cuda"][0])
+    check(got4 == want4, f"dry run: world 4's fake train step issues {got4}, "
+          f"the real grad step and update {want4}")
+    gotf = dry_collectives(recs["cuda"][1])
+    wantf = w4["flash_collectives_per_step"]
+    check(gotf == wantf, f"dry run: the fake flash-decoding step issues "
+          f"{gotf}, each real one {wantf}")
+    for a, b, what in ((recs["cuda"][0], recs["cpu"][0], "train step"),
+                       (recs["cuda"][1], recs["cpu"][1], "flash decode")):
+        diff = {k: (a[k], b[k]) for k in DEVICE_FREE if a[k] != b[k]
+                and k != "local_shapes"}
+        check(not diff and a["local_shapes"] == b["local_shapes"],
+              f"dry run: the {what}'s record on cuda and cpu differs: "
+              f"{diff}")
+    out.update(world4_collectives=got4, flash_collectives=gotf,
+               world4_dot_flops=recs["cuda"][0]["dot_flops_per_chip"],
+               flash_dot_flops=recs["cuda"][1]["dot_flops_per_chip"],
+               lower_s={d: [r["lower_s"] for r in recs[d]] for d in recs})
+    cells = {}
+    for arch, shape, multi in DRY_CELLS:
+        rec = lower_cell(arch, shape, multi, device="cuda")
+        check(rec["status"] == "ok", f"dry run: {arch} {shape} "
+              f"{rec['mesh']} is {rec['status']}: {rec.get('error')}")
+        cells[f"{arch}.{shape}.{rec['mesh']}"] = dict(
+            dot_flops_per_chip=rec["dot_flops_per_chip"],
+            collective_bytes_per_chip=rec["collective_bytes_per_chip"],
+            state_bytes_per_chip=rec["state_bytes_per_chip"],
+            temp_bytes=rec["memory"]["temp_bytes"], lower_s=rec["lower_s"])
+    out["production"] = cells
+    return out
+
+
+def analytics_checks(torch) -> dict:
+    """Phase 20 (b): configs/earl_analytics.CONFIG on the card:
+    EarlSession(backend="fused_rng") over Mean, Median and their group at
+    CONFIG's N, split size, sigma, tau, pilot p and l (kernels 2, 3 and 4),
+    kmeans_fit at its k and iterations and a KMeansStep bootstrap of the
+    fit (kernels 9 and 8), each estimate against the exact one; walls and
+    rows read; PostMapSampler's rows bitwise PreMapSampler's."""
+    import numpy as np
+    from repro_torch import random as trandom
+    from repro_torch.configs.earl_analytics import CONFIG
+    from repro_torch.core import (EarlSession, KMeansStep, Mean, Median,
+                                  StatisticGroup, bootstrap, kmeans_fit)
+    from repro_torch.data import (PostMapSampler, PreMapSampler,
+                                  ShardedStore, synthetic_clusters,
+                                  synthetic_numeric)
+    data = synthetic_numeric(CONFIG.N, mean=10.0, std=2.0, seed=0)
+    exact = {"Mean": float(data.mean()), "Median": float(np.median(data))}
+
+    def since(before):
+        return {k: v - before[k] for k, v in LaunchLog.counts().items()}
+    before = LaunchLog.counts()
+    res = {}
+    for name, stat in (("Mean", Mean()), ("Median", Median(lo=LO, hi=HI)),
+                       ("group", StatisticGroup((Mean(),
+                                                 Median(lo=LO, hi=HI))))):
+        store = ShardedStore.from_array(data, split_size=CONFIG.split_size)
+        session = EarlSession(PreMapSampler(store, seed=1), stat,
+                              sigma=CONFIG.sigma, tau=CONFIG.tau,
+                              p_pilot=CONFIG.p_pilot, l=CONFIG.l,
+                              backend="fused_rng")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = session.run(trandom.PRNGKey(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        est = [float(torch.as_tensor(e).reshape(-1)[0]) for e in (
+            o.result if name == "group" else [o.result])]
+        want = [exact["Mean"], exact["Median"]] if name == "group" \
+            else [exact[name]]
+        for e, w in zip(est, want):
+            check(abs(e - w) / abs(w) < 0.02, f"analytics: {name} session "
+                  f"{e} against {w}")
+        res[name] = dict(wall_s=wall, rows_read=store.stats.rows_read,
+                         n_used=o.n_used, B=o.B, iterations=o.iterations,
+                         fell_back=o.fell_back, cv=o.cv, estimate=est)
+    launches = since(before)
+    for k in ("fused_poisson_moments", "fused_poisson_hist",
+              "fused_poisson_multi"):
+        check(launches.get(k, 0) > 0, f"analytics: the sessions launched no "
+              f"{k}: {launches}")
+    x_np, _ = synthetic_clusters(KM_N, k=CONFIG.kmeans_k, dim=2, seed=5)
+    x = torch.from_numpy(x_np).cuda()
+    before = LaunchLog.counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cents, inertia = kmeans_fit(x, CONFIG.kmeans_k, CONFIG.kmeans_iters,
+                                trandom.PRNGKey(0))
+    boot = bootstrap(x, KMeansStep(cents), KM_B, trandom.PRNGKey(0),
+                     backend="fused_rng")
+    torch.cuda.synchronize()
+    km_wall = time.perf_counter() - t0
+    km_launches = since(before)
+    check(km_launches["kmeans_assign"] > 0
+          and km_launches["fused_poisson_kmeans"] > 0,
+          f"analytics: k-means launched {km_launches}")
+    check(bool(torch.isfinite(cents).all()) and bool(torch.isfinite(
+        torch.as_tensor(boot.thetas[0] if isinstance(boot.thetas, tuple)
+                        else boot.thetas)).all()),
+          "analytics: k-means centroids or thetas not finite")
+    res["kmeans"] = dict(wall_s=km_wall, k=CONFIG.kmeans_k,
+                         iters=CONFIG.kmeans_iters, n=KM_N, B=KM_B,
+                         inertia=float(inertia))
+    res["launches"] = {k: launches[k] + km_launches[k] for k in launches
+                       if launches[k] + km_launches[k]}
+    small = synthetic_numeric(200_000, mean=10.0, std=2.0, seed=3)
+    pre = PreMapSampler(ShardedStore.from_array(small, CONFIG.split_size),
+                        seed=9)
+    post_store = ShardedStore.from_array(small, CONFIG.split_size)
+    post = PostMapSampler(post_store, seed=9)
+    a, b = pre.take(0, 50_000), post.take(0, 50_000)
+    check(a.is_cuda and b.is_cuda and torch_equal(a, b) and post.kv_count
+          == post_store.N and post_store.stats.rows_read == post_store.N,
+          "analytics: PostMapSampler's rows are not PreMapSampler's")
+    res["post_map"] = dict(rows=50_000, rows_read=post_store.stats.rows_read)
+    return res
+
+
+def host_us_per_call(torch) -> dict:
+    """Phase 20 (c): kernel 12's host time a call, the operator against
+    the direct launch the wrappers made before (``flash_attention_cuda``,
+    ``_forward_cuda``, ``flash_attention_backward_cuda``): HOST_CALLS
+    calls without a sync at (1, 2, 128, 64) bf16, whose launches the host
+    outruns, after a warm-up, the best of three."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((1, 2, 128, 64), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True, window=None, scale=0.125, kv_offset=0)
+    args = (True, None, 0.125, 0, 512, 512)
+    o, lse = fa._forward_cuda(q, k, v, with_lse=True, **kw)
+    ops = torch.ops.repro_torch
+    calls = {
+        "forward_op": lambda: ops.flash_attention(q, k, v, *args),
+        "forward_direct": lambda: fa.flash_attention_cuda(q, k, v, **kw),
+        "lse_op": lambda: ops.flash_attention_lse(q, k, v, *args),
+        "lse_direct": lambda: fa._forward_cuda(q, k, v, with_lse=True, **kw),
+        "backward_op": lambda: ops.flash_attention_backward(
+            q, k, v, o, lse, do, *args),
+        "backward_direct": lambda: fa.flash_attention_backward_cuda(
+            q, k, v, o, lse, do, **kw)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            t = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+            torch.cuda.synchronize()
+            best = t if best is None else min(best, t)
+        out[name] = best
+    return out
+
+
+def phase_dryrun(torch, sharded: dict) -> dict:
+    """Phase 20: the dry run against phase 19's real runs and on the
+    production meshes, and CONFIG of earl_analytics on the card; printed
+    with the card's name and power limit.  Kernel 12's host time a call
+    (``host_us_per_call``) runs after it, outside the launch counts."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    dry = dryrun_checks(torch, sharded)
+    t_dry = time.perf_counter() - t0
+    analytics = analytics_checks(torch)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    info = dict(dryrun=dry, dryrun_s=t_dry, analytics=analytics, card=smi,
+                phase_s=time.perf_counter() - t0)
+    print("dryrun: " + json.dumps(info))
+    for cell, rec in dry["production"].items():
+        print(f"dry run {cell} ({smi}): dot FLOPs/chip "
+              f"{rec['dot_flops_per_chip']:.4e}, collective bytes/chip "
+              f"{json.dumps(rec['collective_bytes_per_chip'])}, state "
+              f"bytes/chip {rec['state_bytes_per_chip']:.4e}, temp bytes "
+              f"{rec['temp_bytes']:.4e}, {rec['lower_s']} s")
+    print(f"phase 20 took {info['phase_s']:.1f} s")
+    return info
 
 
 def main() -> int:
@@ -7951,13 +8296,20 @@ def main() -> int:
     lap("17 (recurrent serving path)")
     tr_launches, tr_geometries, tr_info = phase_train_path(torch, parity)
     lap("18 (training path)")
-    sh_launches, sh_geometries, _ = phase_sharded_path(torch)
+    sh_launches, sh_geometries, sh_info = phase_sharded_path(torch)
     lap("19 (sharded path)")
+    zero_counts()
+    with LaunchLog() as dr_log:
+        phase_dryrun(torch, sh_info)
+        dr_launches = LaunchLog.counts()
+    print(f"kernel 12 host us a call ({smi}): "
+          + json.dumps(host_us_per_call(torch)))
+    lap("20 (dry run, earl_analytics)")
     launches = {k: earlier[k] + mat_launches[k] + st_launches[k]
                 + sv_launches[k] + gm_launches[k] + lv_launches[k]
                 + ms_launches.get(k, 0) + xa_launches[k] + mo_launches[k]
                 + rc_launches[k] + tr_launches[k] + sh_launches[k]
-                for k in launches}
+                + dr_launches[k] for k in launches}
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
           f"paths: {json.dumps(launches)}; the training path's "
           f"{json.dumps(tr_launches)}")
@@ -7967,7 +8319,7 @@ def main() -> int:
                          **lv_geometries, **ms_geometries,
                          **xa_geometries, **mo_geometries,
                          **rc_geometries, **tr_geometries,
-                         **sh_geometries}, parity)
+                         **sh_geometries, **dr_log.geometries}, parity)
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)

@@ -7,6 +7,9 @@
   bitwise the JAX package's, so both packages see the same sample.
 * ``PreMapSampler`` — the pre-map flavour: samples row indices first and
   reads only those rows (low load cost).
+* ``PostMapSampler`` — the post-map flavour: reads the whole store once,
+  hash-buckets its rows, then draws (exact key accounting, full load
+  cost); the same rows as ``PreMapSampler``.
 * ``StratifiedSampler`` — the permutation reordered by stride scheduling
   over an integer key column, so every prefix holds the keys in chosen
   shares (GROUP BY sessions); bitwise the JAX package's order.
@@ -132,3 +135,33 @@ class StratifiedSampler(PermutationSampler):
 class PreMapSampler(PermutationSampler):
     def __init__(self, store: ShardedStore, seed: int = 0, device=None):
         super().__init__(store, seed=seed, mode="pre_map", device=device)
+
+
+class PostMapSampler(PermutationSampler):
+    """The paper's post-map: read-then-select with hash bucketing.
+
+    The hash layer reproduces Algorithm 1: every row is assigned a random
+    key bucket on load (``np.random.default_rng(0xB0B)``, bitwise the JAX
+    package's ``bucket_of``); draws pop buckets without replacement.
+    Counting is exact: ``kv_count`` is known after the load (pre-map only
+    estimates it)."""
+
+    def __init__(self, store: ShardedStore, seed: int = 0,
+                 num_buckets: int = 1024, device=None):
+        super().__init__(store, seed=seed, mode="post_map", device=device)
+        self.num_buckets = num_buckets
+        self._loaded = False
+        self.kv_count: Optional[int] = None
+
+    def _load(self) -> None:
+        self._cache = self.store.read_all()
+        self.kv_count = len(self._cache)
+        rng = np.random.default_rng(0xB0B)
+        self.bucket_of = rng.integers(0, self.num_buckets,
+                                      size=self.kv_count)
+        self._loaded = True
+
+    def take(self, start: int, stop: int) -> torch.Tensor:
+        if not self._loaded:
+            self._load()
+        return super().take(start, stop)

@@ -23,6 +23,15 @@ behind the backward: XLA differentiates the JAX package's blockwise path.
 Without a gradient (serving, evaluation, ``torch.no_grad()``) the call is
 the single forward launch it always was, with no ``lse`` written.
 
+The three calls are operators of the ``repro_torch`` namespace
+(``torch.library``): ``flash_attention`` (no ``lse``), ``flash_attention_lse``
+and ``flash_attention_backward``, each with the card's launch for CUDA
+tensors, the plain version for CPU tensors, a fake implementation (the
+outputs' shapes, no launch) for FakeTensorMode and a FLOP formula in
+``torch.utils.flop_counter``'s registry: 4·D operations a visible pair
+forward, 10·D backward (``visible_pairs``).  The dry run
+(``launch/dryrun.py``) counts them so.
+
 The JAX package's ``backend=`` is dropped: the device decides.  The
 kernel picks its own tiles, so ``block_q``/``block_k`` shape the plain
 versions only; the results agree within f32 rounding (the running
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -374,36 +384,146 @@ flash_attention_backward_cuda.launches = 0
 flash_attention_backward_cuda.tc_launches = 0
 
 
+# ---------------------------------------------------------------------------
+# kernels 12 and 12b as operators of the ``repro_torch`` namespace: the card's
+# launch for CUDA tensors, the plain versions for CPU tensors, and a fake
+# implementation (the outputs' shapes, no launch) under FakeTensorMode, with
+# FLOP formulas in torch.utils.flop_counter's registry
+# ---------------------------------------------------------------------------
+_ARGS = ("bool causal, int? window, float scale, int kv_offset, int block_q, "
+         "int block_k")
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define(f"flash_attention(Tensor q, Tensor k, Tensor v, {_ARGS}) "
+            f"-> Tensor")
+_LIB.define(f"flash_attention_lse(Tensor q, Tensor k, Tensor v, {_ARGS}) "
+            f"-> (Tensor, Tensor)")
+_LIB.define(f"flash_attention_backward(Tensor q, Tensor k, Tensor v, "
+            f"Tensor o, Tensor lse, Tensor do, {_ARGS}) "
+            f"-> (Tensor, Tensor, Tensor)")
+
+
+def _fwd_cuda(q, k, v, causal, window, scale, kv_offset, block_q, block_k):
+    return _forward_cuda(q, k, v, causal=causal, window=window, scale=scale,
+                         kv_offset=kv_offset, with_lse=False)[0]
+
+
+def _fwd_plain(q, k, v, causal, window, scale, kv_offset, block_q, block_k):
+    return flash_attention_plain(
+        q, k, v, causal=causal, window=window, scale=scale,
+        kv_offset=kv_offset, block_q=block_q, block_k=block_k).contiguous()
+
+
+def _lse_cuda(q, k, v, causal, window, scale, kv_offset, block_q, block_k):
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return _forward_cuda(q, k, v, causal=causal, window=window, scale=scale,
+                         kv_offset=kv_offset, with_lse=True)
+
+
+def _lse_plain(q, k, v, causal, window, scale, kv_offset, block_q, block_k):
+    out, lse = flash_attention_plain_lse(
+        q, k, v, causal=causal, window=window, scale=scale,
+        kv_offset=kv_offset, block_q=block_q, block_k=block_k)
+    return out.contiguous(), lse.contiguous()
+
+
+def _bwd_cuda(q, k, v, o, lse, do, causal, window, scale, kv_offset,
+              block_q, block_k):
+    return flash_attention_backward_cuda(q, k, v, o, lse, do, causal=causal,
+                                         window=window, scale=scale,
+                                         kv_offset=kv_offset)
+
+
+def _bwd_plain(q, k, v, o, lse, do, causal, window, scale, kv_offset,
+               block_q, block_k):
+    return tuple(t.contiguous() for t in flash_attention_backward_plain(
+        q, k, v, o, lse, do, causal=causal, window=window, scale=scale,
+        kv_offset=kv_offset, block_q=block_q, block_k=block_k))
+
+
+def _fwd_fake(q, k, v, *_):
+    _check_shapes(q, k, v)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _lse_fake(q, k, v, *_):
+    b, hq, sq, _ = q.shape
+    return _fwd_fake(q, k, v), q.new_empty((b * hq, sq), dtype=torch.float32)
+
+
+def _bwd_fake(q, k, v, o, lse, do, *_):
+    _check_shapes(q, k, v)
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+for _name, _cuda, _plain, _fake in (
+        ("flash_attention", _fwd_cuda, _fwd_plain, _fwd_fake),
+        ("flash_attention_lse", _lse_cuda, _lse_plain, _lse_fake),
+        ("flash_attention_backward", _bwd_cuda, _bwd_plain, _bwd_fake)):
+    _LIB.impl(_name, _cuda, "CUDA")
+    _LIB.impl(_name, _plain, "CPU")
+    torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: Optional[int],
+                  kv_offset: int) -> int:
+    """The (query, key) pairs of one head that the masks leave visible:
+    query row r sits at position a = r + kv_offset and sees the keys
+    c < skv with c <= a (causal) and c > a - window (a window)."""
+    a = np.arange(sq, dtype=np.int64) + int(kv_offset)
+    hi = np.minimum(a, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(a - int(window) + 1, 0) if window else np.zeros(sq,
+                                                                    np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_flops(q_shape, k_shape, causal, window, kv_offset,
+                    per_pair: int) -> int:
+    """``per_pair``·D operations for each visible pair of each of the
+    B·Hq query heads: 4·D forward (q·kᵀ and p·v), 10·D backward (five
+    products)."""
+    b, hq, sq, d = q_shape
+    return per_pair * d * b * hq * visible_pairs(sq, k_shape[2], causal,
+                                                 window, kv_offset)
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+    ops = torch.ops.repro_torch
+
+    @register_flop_formula([ops.flash_attention, ops.flash_attention_lse])
+    def _fwd_flops(q, k, v, causal, window, scale, kv_offset, *_, **__):
+        return attention_flops(q, k, causal, window, kv_offset, 4)
+
+    @register_flop_formula(ops.flash_attention_backward)
+    def _bwd_flops(q, k, v, o, lse, do, causal, window, scale, kv_offset,
+                   *_, **__):
+        return attention_flops(q, k, causal, window, kv_offset, 10)
+
+
+_register_flops()
+
+
 class _Attention(torch.autograd.Function):
-    """flash_attention with a gradient: the forward saves q, k, v, the
-    output and lse; the backward is kernel 12's backward on the card and
-    its plain version on the CPU."""
+    """flash_attention with a gradient: the forward (``flash_attention_lse``)
+    saves q, k, v, the output and lse; the backward is
+    ``flash_attention_backward``: kernel 12's backward on the card, its
+    plain version on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, kv_offset, block_q,
                 block_k):
-        kw = dict(causal=causal, window=window, scale=scale,
-                  kv_offset=kv_offset)
-        if q.device.type == "cuda":
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = _forward_cuda(q, k, v, with_lse=True, **kw)
-        else:
-            out, lse = flash_attention_plain_lse(q, k, v, block_q=block_q,
-                                                 block_k=block_k, **kw)
+        args = (causal, window, scale, kv_offset, block_q, block_k)
+        out, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, *args)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = kw
-        ctx.blocks = dict(block_q=block_q, block_k=block_k)
+        ctx.args = args
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cuda":
-            grads = flash_attention_backward_cuda(q, k, v, o, lse, do,
-                                                  **ctx.kw)
-        else:
-            grads = flash_attention_backward_plain(q, k, v, o, lse, do,
-                                                   **ctx.kw, **ctx.blocks)
+        grads = torch.ops.repro_torch.flash_attention_backward(
+            q, k, v, o, lse, do, *ctx.args)
         return (*grads, None, None, None, None, None, None)
 
 
@@ -415,10 +535,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Output (B, Hq, Sq, D) in q's dtype; f32 accumulation throughout.
     ``block_q``/``block_k`` tile the plain versions on the CPU only; the
     kernels on the card pick their own tiles.  Differentiable in q, k
-    and v (``_Attention``).  On a mesh the kernel runs on each rank's
-    local heads inside the attention's ``local_map``
-    (``models/sharded.py``); a DTensor that reaches it any other way
-    raises."""
+    and v (``_Attention``).  The call is the operator
+    ``torch.ops.repro_torch.flash_attention`` (``_lse`` and ``_backward``
+    with a gradient), so FakeTensorMode and the FLOP counters see one op.
+    On a mesh the kernel runs on each rank's local heads inside the
+    attention's ``local_map`` (``models/sharded.py``); a DTensor that
+    reaches it any other way raises."""
     from torch.distributed.tensor import DTensor
     if any(isinstance(t, DTensor) for t in (q, k, v)):
         raise TypeError("flash_attention takes local tensors: on a mesh it "
@@ -427,16 +549,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         "local heads")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    args = (bool(causal), None if window is None else int(window),
+            float(scale), int(kv_offset), int(block_q), int(block_k))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _Attention.apply(q, k, v, causal, window, float(scale),
-                                int(kv_offset), block_q, block_k)
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    scale=float(scale), kv_offset=kv_offset)
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 scale=scale, kv_offset=kv_offset,
-                                 block_q=block_q, block_k=block_k)
+        return _Attention.apply(q, k, v, *args)
+    return torch.ops.repro_torch.flash_attention(q, k, v, *args)
 
 
 flash_attention.launches = 0

@@ -35,6 +35,8 @@ into the cache it is given, as the self-attention's does.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -53,6 +55,31 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+_CARD_ROUTE: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "card_route", default=False)
+
+
+@contextlib.contextmanager
+def card_route():
+    """Within the block, tensors on any device take the card's route where
+    the layers branch on the device (``matmul_out``/``bmm_out``'s bf16
+    products with an f32 output, ``_experts``' batched products over every
+    expert).  The dry run (``launch/dryrun.py``) traces the card's steps
+    with fake CPU tensors so, and the CPU's route, whose expert skip has a
+    data-dependent shape, cannot run under FakeTensorMode."""
+    token = _CARD_ROUTE.set(True)
+    try:
+        yield
+    finally:
+        _CARD_ROUTE.reset(token)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's route: a CUDA tensor, or any tensor
+    inside ``card_route()``."""
+    return t.is_cuda or _CARD_ROUTE.get()
 
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -151,7 +178,7 @@ def matmul_out(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype
     package turns TF32 off)."""
     if a.dtype == out_dtype and b.dtype == out_dtype:
         return a @ b
-    if a.is_cuda and out_dtype == torch.float32:
+    if on_card(a) and out_dtype == torch.float32:
         return _product_out(a, b)
     return (a.to(torch.float32) @ b.to(torch.float32)).to(out_dtype)
 
@@ -165,7 +192,7 @@ def bmm_out(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype
     values."""
     if a.dtype == out_dtype and b.dtype == out_dtype:
         return torch.bmm(a, b)
-    if a.is_cuda and out_dtype == torch.float32:
+    if on_card(a) and out_dtype == torch.float32:
         return _product_out(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
 
@@ -258,18 +285,47 @@ def _select_kv(t: torch.Tensor, sel) -> torch.Tensor:
     return t.index_select(1, torch.tensor(sel, device=t.device))
 
 
+class SeqSplit(NamedTuple):
+    """A decode cache whose ring slots are split across ranks (the
+    flash-decoding layout: ``cache_seq`` over the data axes when the batch
+    cannot split).  ``first``: the global index of this rank's first slot;
+    ``length``: the ring's global length; ``all_reduce(t, op)``: ``t``
+    reduced ("max" or "sum") over the ranks that split the slots."""
+    first: int
+    length: int
+    all_reduce: Any
+
+
+def _split_softmax_ctx(scores: torch.Tensor, valid: torch.Tensor,
+                       v: torch.Tensor, split: SeqSplit) -> torch.Tensor:
+    """softmax(scores) · v over slots split across ranks: each rank's
+    partial (max, sum, weighted V) over its own slots, combined by one
+    all-reduce of the max, then one of the sums (the weighted V with the
+    sum as its last column), each rescaled to the global max."""
+    m = split.all_reduce(scores.amax(dim=-1, keepdim=True), "max")
+    p = torch.where(valid[None, None, None, None, :], torch.exp(scores - m),
+                    0.0)
+    acc = torch.einsum("bhgqs,bhsk->bhgqk", p, v.to(torch.float32))
+    tot = split.all_reduce(torch.cat([acc, p.sum(dim=-1, keepdim=True)],
+                                     dim=-1), "sum")
+    return tot[..., :-1] / tot[..., -1:]
+
+
 def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                    window: int, positions: torch.Tensor,
                    cache: Cache = None, causal: bool = True,
                    mode: str = "train",
                    cache_len: Optional[int] = None, q_head0: int = 0,
-                   kv_head0: int = 0, cast: bool = True
+                   kv_head0: int = 0, cast: bool = True,
+                   seq_split: Optional["SeqSplit"] = None
                    ) -> Tuple[torch.Tensor, Cache]:
     """The head counts are the weights' (a rank's local heads on a mesh,
     whose first query and kv heads are global ``q_head0`` and
     ``kv_head0``; ``kv_heads_for``).  ``cast=False`` returns y in the
     output product's dtype, so that a sum over the ranks' heads comes
-    before the cast (the JAX package's all-reduce of the dot output)."""
+    before the cast (the JAX package's all-reduce of the dot output).
+    ``seq_split`` (decode only): the cache holds this rank's slice of the
+    ring's slots (the flash-decoding layout; ``SeqSplit``)."""
     b, s, _ = x.shape
     hq, hkv, dh = p["wq"].shape[-2], p["wk"].shape[-2], cfg.head_dim_
     sel = kv_heads_for(cfg, hq, hkv, q_head0, kv_head0)
@@ -318,13 +374,23 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     # the caller's cache is the returned one.  ``positions`` lies on the
     # card, so no step waits on a host read of the position.
     assert s == 1, "cached path is single-token decode"
-    L = cache["k"].shape[2]
-    pos = positions.reshape(-1)[:1]                  # absolute position (1,)
-    slot = pos % L if window else pos.clamp(0, L - 1)
     newk, newv, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
-    newk.index_copy_(2, slot, kh.to(newk.dtype))
-    newv.index_copy_(2, slot, vh.to(newv.dtype))
-    slot_pos.index_copy_(0, slot, pos.to(slot_pos.dtype))
+    pos = positions.reshape(-1)[:1]                  # absolute position (1,)
+    L = newk.shape[2] if seq_split is None else seq_split.length
+    slot = pos % L if window else pos.clamp(0, L - 1)
+    kw, vw, pw = kh.to(newk.dtype), vh.to(newv.dtype), pos.to(slot_pos.dtype)
+    if seq_split is not None:
+        # the rank whose slice holds the slot writes it; the others write
+        # their slot's own values back
+        slot = slot - seq_split.first
+        mine = (slot >= 0) & (slot < newk.shape[2])
+        slot = slot.clamp(0, newk.shape[2] - 1)
+        kw = torch.where(mine, kw, newk.index_select(2, slot))
+        vw = torch.where(mine, vw, newv.index_select(2, slot))
+        pw = torch.where(mine, pw, slot_pos.index_select(0, slot))
+    newk.index_copy_(2, slot, kw)
+    newv.index_copy_(2, slot, vw)
+    slot_pos.index_copy_(0, slot, pw)
 
     svalid = slot_pos >= 0
     if causal:
@@ -338,8 +404,11 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     scores = torch.einsum("bhgqk,bhsk->bhgqs", qg.to(torch.float32),
                           kr.to(torch.float32))
     scores = torch.where(svalid[None, None, None, None, :], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhgqs,bhsk->bhgqk", probs, vr.to(torch.float32))
+    if seq_split is None:
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhgqs,bhsk->bhgqk", probs, vr.to(torch.float32))
+    else:
+        ctx = _split_softmax_ctx(scores, svalid, vr, seq_split)
     ctx = ctx.reshape(b, hq, 1, dh).transpose(1, 2)
     y = project(ctx.to(cd), p["wo"].to(cd), torch.float32, contract=2)
     return (y.to(x.dtype) if cast else y), \
@@ -590,7 +659,7 @@ def _experts(cfg: ModelConfig, p: Params, xe: torch.Tensor, route: Route,
     chunk of at most CPU_EXPERT_ELEMS weight elements at a time, so their
     f32 copies stay bounded, and an expert with no kept slot is skipped:
     its rows stay zero and no token reads them."""
-    if xe.is_cuda:
+    if on_card(xe):
         return _expert_swiglu(cfg, p["we_gate"], p["we_up"], p["we_down"],
                               xe)
     e, cap, _ = xe.shape

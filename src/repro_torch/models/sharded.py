@@ -23,6 +23,14 @@ under the same shardings:
   which DTensor's redistribute backward sums (the FSDP gather's backward
   is a reduce-scatter, a replicated weight's an all-reduce).
 
+Decode also takes the flash-decoding layout: at batch 1 ``SERVE_RULES``
+puts the cache's ring slots (``cache_seq``) over the data axes, which the
+batch cannot use.  Each rank then attends over its own slots (its
+partial max, sum and weighted V), the ranks combine them by all-reduces
+only (the max, then the sums), and only the rank that holds slot
+``pos % cache_len`` writes the new K/V (``_decode_cache``, ``_seq_split``
+and ``layers.SeqSplit``).
+
 On a mesh of one rank every collective is one rank's copy and every local
 op is the unsharded op, so the steps are bitwise the unsharded ones.
 """
@@ -227,6 +235,59 @@ def _check_cache(name: str, t, want: tuple) -> None:
             f"{getattr(t, 'placements', 'a plain tensor')}")
 
 
+def _decode_cache(cache, kv_want) -> tuple:
+    """(the cache, the placements of its k, v and slot_pos after the step,
+    the caller's slot_pos where it was gathered, else None) for a decode's
+    self-attention: k and v placed as the prefill's (``kv_want``), except
+    that on a mesh dim where those replicate, k and v may split their
+    ring's slots (dim 2) with slot_pos split alike (the flash-decoding
+    layout: ``SERVE_RULES``' ``cache_seq`` over the data axes when the
+    batch cannot split).  slot_pos, which has no batch dim, may also be
+    split where k and v are not (the same rules resolve it alone); it is
+    gathered there for the step (one all-gather of the ring's positions,
+    as XLA's partitioner would) and the step's write copied back
+    (``_attention``).  Raises, naming the leaf, for any other placement."""
+    _, _, Replicate, Shard = _dt()
+    k, sp = cache["k"], cache["slot_pos"]
+    dims = {m for m, p in enumerate(getattr(k, "placements", ()))
+            if isinstance(p, Shard) and p.dim == 2
+            and isinstance(kv_want[m], Replicate)}
+    kv = tuple(Shard(2) if m in dims else p for m, p in enumerate(kv_want))
+    want_sp = tuple(Shard(0) if m in dims else Replicate()
+                    for m in range(len(kv_want)))
+    for n in ("k", "v"):
+        _check_cache(n, cache[n], kv)
+    split = None
+    if is_dtensor(sp) and tuple(sp.placements) != want_sp and all(
+            p == want_sp[m] or (m not in dims and p == Shard(0))
+            for m, p in enumerate(sp.placements)):
+        split, sp = sp, sp.redistribute(sp.device_mesh, want_sp)
+    _check_cache("slot_pos", sp, want_sp)
+    return dict(cache, slot_pos=sp), [kv, kv, want_sp], split
+
+
+def _seq_split(cache) -> Optional[L.SeqSplit]:
+    """``layers.SeqSplit`` of a cache placed by ``_decode_cache``
+    whose slots are split, else None: this rank's first slot, the ring's
+    length and an all-reduce over the mesh dims that split the slots (one
+    functional all-reduce a dim, as DTensor's Partial -> Replicate)."""
+    _, _, _, Shard = _dt()
+    sp = cache["slot_pos"]
+    dims = [m for m, p in enumerate(sp.placements) if isinstance(p, Shard)]
+    if not dims:
+        return None
+    from torch.distributed import _functional_collectives as funcol
+    mesh = sp.device_mesh
+
+    def all_reduce(t, op):
+        for m in dims:
+            t = funcol.all_reduce(t, op, (mesh, m))
+            if isinstance(t, funcol.AsyncCollectiveTensor):
+                t = t.wait()
+        return t
+    return L.SeqSplit(shard_offset(sp, 0), sp.shape[0], all_reduce)
+
+
 # ---------------------------------------------------------------------------
 # sublayers
 # ---------------------------------------------------------------------------
@@ -250,9 +311,10 @@ def _attention(cfg, kind, norm, p, x, *, positions, cache, mode,
     args = [x, s, w["wq"], w["wk"], w["wv"], w["wo"]]
     if mode != "train":
         outs += [kv_out, kv_out, _replicated(x)]
+    seq_split = split_pos = None
     if mode == "decode":
-        for n, want in zip(names, outs[1:]):
-            _check_cache(n, cache[n], want)
+        cache, outs[1:], split_pos = _decode_cache(cache, outs[1])
+        seq_split = _seq_split(cache)
         args += [cache[n] for n in names]
 
     def local(xl, sl, wq, wk, wv, wo, *c):
@@ -261,11 +323,20 @@ def _attention(cfg, kind, norm, p, x, *, positions, cache, mode,
             cfg, {"wq": wq, "wk": wk, "wv": wv, "wo": wo}, h, window=window,
             positions=positions, causal=kind != "enc",
             cache=dict(zip(names, c)) if c else None, mode=mode,
-            cache_len=cache_len, q_head0=q0, kv_head0=kv0, cast=False)
+            cache_len=cache_len, q_head0=q0, kv_head0=kv0, cast=False,
+            seq_split=seq_split)
         return (y,) if kv is None else (y,) + tuple(kv[n] for n in names)
 
     res = run_local(local, args, outs)
-    return res[0], (dict(zip(names, res[1:])) if mode != "train" else None)
+    if mode == "train":
+        return res[0], None
+    kv = dict(zip(names, res[1:]))
+    if split_pos is not None:       # the step's slot into the caller's shard
+        mine = split_pos.to_local()
+        mine.copy_(kv["slot_pos"].to_local().narrow(
+            0, shard_offset(split_pos, 0), mine.shape[0]))
+        kv["slot_pos"] = split_pos
+    return res[0], kv
 
 
 def _cross_attention(cfg, norm, p, x, aux, *, cache, mode):

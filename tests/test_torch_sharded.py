@@ -17,8 +17,14 @@ tests/torch_sharded_ranks.py's; none forks this process):
   within 1e-5 of the largest unsharded logit; mixtral-8x22b and
   arctic-480b also under ``moe_impl="shard_map"`` at capacity factor
   8.0, where the group-local routing drops nothing and so is the
-  unsharded global routing; and granite-3-2b under the rules of
-  chip_smoke.py's world of 4 on the card (no FSDP split of "embed");
+  unsharded global routing; granite-3-2b under the rules of
+  chip_smoke.py's world of 4 on the card (no FSDP split of "embed"); and
+  batch-1 decode in the flash-decoding layout (an unsharded prefill's
+  cache placed by ``SERVE_RULES``, its ring slots over data) for a full,
+  an swa and a local/global config, 10 greedy steps within 1e-5 of the
+  largest unsharded logit (f32), a cache whose slot_pos is replicated
+  while its slots are split refused, and at batch 4 a placed cache whose
+  slot_pos alone splits (gathered for each step);
 * a world of one gloo rank (mesh 1 x 1): two train steps, the prefill and
   the decode steps bitwise the unsharded ones, for every architecture but
   arctic-480b, whose dense residual is a ``local_map`` of its own beside
@@ -206,6 +212,29 @@ def test_world4_prefill_and_decode_match_the_unsharded_path(world4, arch):
         errs = res[arch]["serve"]["logit_errs"]
         assert len(errs) == 1 + R.DECODE_STEPS
         assert all(_within(e) for e in errs), errs
+
+
+@pytest.mark.parametrize("arch", R.FLASH_ARCHS)
+def test_world4_flash_decoding_matches_the_unsharded_decode(world4, arch):
+    for res in world4:
+        case = res[f"flash:{arch}"]
+        assert case["slots_split"] and all(case["slots_split"])
+        assert len(case["logit_errs"]) == R.FLASH_STEPS
+        assert all(_within(e) for e in case["logit_errs"]), \
+            case["logit_errs"]
+        assert case["misplaced_refused"]
+
+
+def test_world4_decode_of_a_placed_cache_gathers_slot_pos(world4):
+    """At batch 4 the batch takes data, so only slot_pos (no batch dim)
+    splits its slots: gathered for each step, written back after it."""
+    for res in world4:
+        case = res["placed:granite-3-2b"]
+        assert not any(case["slots_split"])
+        assert case["slot_pos_split"] and all(case["slot_pos_split"])
+        assert len(case["logit_errs"]) == R.FLASH_STEPS
+        assert all(_within(e) for e in case["logit_errs"]), \
+            case["logit_errs"]
 
 
 def test_hint_is_the_identity_without_a_context(world4):

@@ -54,6 +54,18 @@ SHARD_MAP_CASES = ("mixtral-8x22b:shard_map", "arctic-480b:shard_map")
 #: batch over data, the weights over model: all-reduces only)
 NO_FSDP_CASE = "granite-3-2b:no_fsdp"
 CASES = SHARD_MAP_CASES + (NO_FSDP_CASE,)
+#: batch-1 decode with the cache's ring slots over data (SERVE_RULES'
+#: cache_seq: the flash-decoding layout), one config a kind of attention
+#: cache: full, swa, and local with global
+FLASH_ARCHS = ("granite-3-2b", "h2o-danube-3-4b", "gemma3-27b")
+#: decode steps of the flash-decoding cases: the swa and local rings (16
+#: slots at smoke size, 8 a rank) wrap onto both ranks' slots
+FLASH_STEPS = 10
+#: the dry run's smoke cells held against a real world of 4
+#: (tests/test_torch_dryrun.py): (arch, smoke shape)
+DRYRUN_REAL_CELLS = (("granite-3-2b", "train_4k"),
+                     ("granite-3-2b", "decode_32k"),
+                     ("granite-3-2b", "long_500k"))
 
 
 def rules(case: str, name: str) -> dict:
@@ -236,6 +248,62 @@ def _serve_case(cfg, mesh, rules):
     return {"logit_errs": errs}
 
 
+def _placed_cache_decode_case(cfg, mesh, b=1):
+    """A batch-``b`` prefill on every rank (unsharded), its cache placed by
+    ``SERVE_RULES``' ``cache_axes`` and FLASH_STEPS greedy decode steps on
+    the mesh against the unsharded decode: the logits' errors, whether each
+    self-attention cache split its ring slots over data (at batch 1: the
+    flash-decoding layout; at a batch that splits over data only slot_pos
+    splits, gathered for each step), and whether a cache whose slot_pos is
+    replicated while k's slots are split is refused."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.act_shard import (activation_sharding,
+                                              mapping_from_mesh)
+    from repro_torch.models.partitioning import (batch_axes, cache_axes,
+                                                 param_axes)
+    from repro_torch.models.sharded import _decode_cache
+    from torch.distributed.tensor import Replicate, Shard
+    rules = sh.SERVE_RULES
+    params = params_from_numpy(numpy_params(cfg), device="cpu")
+    tokens = _tensors(numpy_batch(cfg, b=b))["tokens"]
+    with torch.no_grad():
+        ref_logits, ref_cache = prefill(cfg, params, tokens,
+                                        cache_len=S + FLASH_STEPS)
+    p_sh = sh.distribute_tree(params, sh.resolve_tree(
+        params, param_axes(params), mesh, rules), mesh)
+    c_sh = sh.distribute_tree(ref_cache, sh.resolve_tree(
+        ref_cache, cache_axes(ref_cache), mesh, rules), mesh)
+    split = [t.placements[0] == Shard(t.ndim - 2)
+             for p, t in _leaves(c_sh) if p.endswith("/k")]
+    pos_split = [t.placements[0] == Shard(t.ndim - 1)
+                 for p, t in _leaves(c_sh) if p.endswith("/slot_pos")]
+    errs = []
+    with torch.no_grad(), activation_sharding(mapping_from_mesh(mesh, rules),
+                                              mesh):
+        for i in range(FLASH_STEPS):
+            tok = ref_logits.argmax(-1, keepdim=True).to(torch.int32)
+            ref_logits, ref_cache = decode_step(cfg, params, ref_cache, tok,
+                                                S + i)
+            t_sh = sh.distribute_tree({"token": tok}, sh.resolve_tree(
+                {"token": tok}, batch_axes({"token": tok}), mesh, rules),
+                mesh)["token"]
+            logits, c_sh = decode_step(cfg, p_sh, c_sh, t_sh, S + i)
+            errs.append(_logit_err(logits.full_tensor(), ref_logits, cfg))
+    k = next(t for p, t in _leaves(c_sh) if p.endswith("/k"))[0]
+    layer = {"k": k, "v": k,
+             "slot_pos": sh.distribute_tree(
+                 {"s": torch.zeros(k.shape[-2], dtype=torch.int32)},
+                 {"s": (Replicate(), Replicate())}, mesh)["s"]}
+    try:
+        _decode_cache(layer, (Replicate(), Shard(1)))
+        refused = False
+    except ValueError:
+        refused = True
+    return {"logit_errs": errs, "slots_split": split,
+            "slot_pos_split": pos_split, "misplaced_refused": refused}
+
+
 def _logit_err(got, want, cfg):
     """[max |got - want|, its bound]: LOGIT_REL of the largest logit of the
     vocab (the padding columns sit at -1e30 in both)."""
@@ -379,7 +447,57 @@ def main(rank: int, world: int, store: str, out: str) -> None:
                 np.savez(os.path.join(out, f"jax_{arch}.npz"),
                          loss=float(m["loss"]),
                          grad_norm=float(m["grad_norm"]), **full)
+    for arch in FLASH_ARCHS:
+        res[f"flash:{arch}"] = _placed_cache_decode_case(config(arch), mesh)
+    res["placed:granite-3-2b"] = _placed_cache_decode_case(
+        config("granite-3-2b"), mesh, B)
     res["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
+
+
+def _dryrun_cells(mesh, cells, fake: bool) -> dict:
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.dryrun import trace_step
+    return {f"{arch}.{shape}": trace_step(get_config(arch, smoke=True),
+                                          get_shape(shape, smoke=True), mesh,
+                                          fake=fake)
+            for arch, shape in cells}
+
+
+def dryrun_real(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of tests/test_torch_dryrun.py's gloo world of 4 (2 x 2):
+    ``trace_step`` with real tensors (``fake=False``) on
+    DRYRUN_REAL_CELLS, the counts of the real steps (OUT/real<R>.json)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(MESH, AXES, device="cpu")
+        res = _dryrun_cells(mesh, DRYRUN_REAL_CELLS, fake=False)
+        with open(os.path.join(out, f"real{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_fake(out: str, cells) -> None:
+    """The dry run of ``cells`` (and DRYRUN_REAL_CELLS) on a 2 x 2 mesh
+    over a fake process group of 4 ranks, as rank 0 (OUT/fake.json)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=WORLD)
+    try:
+        mesh = make_mesh(MESH, AXES, device="cpu")
+        res = _dryrun_cells(mesh, tuple(dict.fromkeys(
+            tuple(map(tuple, cells)) + DRYRUN_REAL_CELLS)), fake=True)
+        with open(os.path.join(out, "fake.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
