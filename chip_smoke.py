@@ -307,13 +307,32 @@ failure:
    after one step and resumed (losses within f32 rounding, cursor and
    step bitwise, checkpoint seconds and bytes printed); the embedding's
    backward twice, bitwise or not, with and without
-   torch.use_deterministic_algorithms; then kernel 12's backward against
+   torch.use_deterministic_algorithms; leg 3, the two families whose heads
+   pass 128 at their published widths, only depth and batch cut
+   (wide_plan; the peak reckoned by train_reckoning with the chunked
+   CE's terms under 70e9 bytes first, and measured under the
+   reckoning): gemma3-27b's
+   first 2 layers (both local, head dim 168) at 1 x 4096 tokens and
+   recurrentgemma-2b's first pattern group (rglru, rglru, local, head dim
+   256) at 4 x 4096, two make_train_step steps each, kernel 12 twice a
+   local layer of a pattern group (the forward and remat's recompute) and
+   once a remainder layer, its backward once a local layer, each on the
+   tensor cores, no plain version run, the losses finite; a grad step
+   under torch.profiler (every gradient finite and non-zero; busy share,
+   the backward kernel's and the f32 backward products' ms), the peak
+   at or under the reckoning; on the initial params' slice that holds
+   the first attention layer, in bf16 the kernel against the backward's
+   plain version on the card (within 2e-2 of each leaf's largest
+   gradient) and card == CPU (2e-2; 5e-2 through recurrentgemma-2b's
+   RG-LRU), and for recurrentgemma-2b card == CPU in f32 (2e-2), the CPU
+   halves in a thread beside phase 8's replay; then
+   kernel 12's backward against
    its plain version at the slice's geometry in bf16 and f32, at the
    other models' train-mode geometries (BWD_CASES), on a query block
    that sees no key and with kv_offset > 0, and against autograd
    through ref.mha_reference in f64 (each dq, dk, dv entry within
    1e-5·Σ|terms|, bf16 also 2^-7·|want|, and on the tensor-core route,
-   bf16 up to D = 128, also 2^-8·Σ|terms| for P and dS rounded to bf16;
+   bf16 at every D, also 2^-8·Σ|terms| for P and dS rounded to bf16;
    the route checked on every call; two launches bitwise);
 19. (run after phase 18) the sharded path: granite-3-2b at full width cut
    to 4 of its 40 layers (0.348e9 f32 params, bf16 compute), its state
@@ -357,7 +376,8 @@ failure:
    logged on fresh data and hold it against the plain version as in
    phase 3 (kernel 12's forward also with lse written: the same bits,
    and lse the plain version's; its backward as in phase 18), printing
-   each geometry's seconds, the longest first;
+   each geometry's seconds, the longest first, while phase 18's leg 3 CPU
+   halves of card == CPU run in a thread beside it;
 9. time each kernel (CUDA events) beside its plain version, its bound
    and, for the explicit-weight kernels, one PyTorch call computing the
    same function; the sessions' wall times and the example's walls over a
@@ -393,8 +413,12 @@ failure:
    slice's geometry alone (the tensor-core route), its share of its
    bound (10·D operations a visible pair), beside its plain version, its
    f32 route and scaled_dot_product_attention forward plus backward less
-   its forward (boolean causal mask, and is_causal); then
-   print the kernels line, then the contract's last line.
+   its forward (boolean causal mask, and is_causal), and past head dim 128
+   at gemma3-27b's local and global layers and recurrentgemma-2b's local
+   layers (BWD_WIDE_TIMED) alone, beside its plain version, its bound,
+   the masked scaled_dot_product_attention's backward and its launches in
+   phase 18's leg 3; then print the kernels line, then the contract's
+   last line.
 
 Every plain version that a kernel is held against or timed beside runs
 under a check that it launches no kernel.
@@ -642,6 +666,32 @@ TRAIN_STEPS, TRAIN_MICRO = 3, 4
 TRAIN_CPU_S, TRAIN_CPU_SHARE = 512, 2e-2
 TRAIN_FALL_STEPS = 5
 LEG2_LAYERS, LEG2_STEPS, LEG2_MICRO = 4, 2, 2
+# phase 18's wide-head leg (leg 3): the two families whose heads pass 128
+# trained at their published widths, only the depth and the batch cut:
+# gemma3-27b (head dim 168, 32/16 heads, window 1024) cut to its first
+# WIDE_GEMMA_LAYERS layers, both local (no pattern group: the remainder
+# layers run outside remat, in the JAX package too), at WIDE_GEMMA_B x
+# TRAIN_S tokens; recurrentgemma-2b (head dim 256, 10/1 heads, window
+# 2048) cut to one pattern group (rglru, rglru, local) at WIDE_RG_B x
+# TRAIN_S; WIDE_STEPS make_train_step steps each, the peak reckoned by
+# train_reckoning with the chunked CE's terms (``chunked_ce``: what the CE
+# keeps at a 256,000-wide vocabulary and more) under WIDE_PEAK_LIMIT bytes
+# before the run and held at or under that reckoning on the card
+WIDE_GEMMA_LAYERS, WIDE_GEMMA_B = 2, 1
+WIDE_RG_LAYERS, WIDE_RG_B = 3, 4
+WIDE_STEPS, WIDE_PEAK_LIMIT = 2, 70e9
+#: leg 3's card == CPU (1 x TRAIN_CPU_S tokens, the initial params' slice
+#: holding the first attention layer): every model in bf16 compute (the
+#: leg's, through the backward's wide tensor-core route) with the kernel
+#: within TRAIN_CPU_SHARE of each leaf's largest gradient of the same step
+#: on the card with the backward's plain version in its place, and within
+#: TRAIN_CPU_SHARE of the CPU's, but a model with recurrent cells within
+#: WIDE_RECURRENT_SHARE of the CPU's there, and in f32 compute within
+#: TRAIN_CPU_SHARE: through recurrentgemma-2b's RG-LRU the bf16 gradients
+#: of card and CPU read 0.018-0.027 of a leaf's largest over four seeds,
+#: and 0.018-0.023 with the plain version on the card in place of the
+#: kernel (the worst leaves the cells' own; PERF.md §6)
+WIDE_RECURRENT_SHARE = 5e-2
 # the repaired routing: a keyed custom statistic's tiled scan at the
 # one-shot bootstrap's size, and a group with keyed and custom members
 ROUTE_G, ROUTE_GROUP_N = 8, 1 << 20
@@ -5152,12 +5202,6 @@ def replay_attention(torch, parity, gen, fields, what) -> None:
         f"{what}: lse is not the plain version's")
 
 
-def attention_pairs(S: int, W: int) -> int:
-    """Visible (query, key) pairs of one head under the causal window."""
-    W = min(W, S)
-    return W * (W + 1) // 2 + (S - W) * W
-
-
 def library_f32_ms(torch, q, k, v, mask, scale):
     """One f32 scaled_dot_product_attention call of the same function,
     K/V expanded to the query heads beforehand and the memory-efficient
@@ -5187,7 +5231,7 @@ def wide_head_times(torch, gen):
     scaled_dot_product_attention call with the boolean causal(-window)
     mask; bound as the main row's."""
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, visible_pairs)
     out = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     i = torch.arange(FA_S, device="cuda")
@@ -5222,7 +5266,7 @@ def wide_head_times(torch, gen):
         except RuntimeError as e:
             row["library_ms"] = None
             print(f"scaled_dot_product_attention at {name} not timed: {e}")
-        pairs = attention_pairs(FA_S, w or FA_S)
+        pairs = visible_pairs(FA_S, FA_S, True, w, 0)
         flops = 4 * d * pairs * FA_B * hq
         nbytes = 2 * (2 * FA_B * hq + 2 * FA_B * hkv) * FA_S * d
         t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -5289,7 +5333,8 @@ def moe_attention_times(torch, gen):
     scaled_dot_product_attention call with the boolean causal(-window)
     mask and the bound (4·D operations a visible query-key pair at the
     bf16 tensor-core rate, or q, k, v and o once over the memory rate)."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         visible_pairs)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     i = torch.arange(SERVE_PROMPT, device="cuda")
     out = []
@@ -5312,7 +5357,7 @@ def moe_attention_times(torch, gen):
             mask = mask & (i[None, :] > i[:, None] - w)
         row["library_ms"] = time_ms(torch, lambda: sdpa(
             q, k, v, attn_mask=mask, scale=d ** -0.5, enable_gqa=True), 2)
-        pairs = attention_pairs(SERVE_PROMPT, w or SERVE_PROMPT)
+        pairs = visible_pairs(SERVE_PROMPT, SERVE_PROMPT, True, w, 0)
         flops = 4 * d * pairs * SERVE_B * hq
         nbytes = 2 * (2 * SERVE_B * hq + 2 * SERVE_B * hkv) * SERVE_PROMPT * d
         t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -5336,7 +5381,7 @@ def serve_rows(torch, launches, parity: Parity):
     and scaled_dot_product_attention in f32 beside it; then past head dim
     128 (wide_head_times)."""
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, visible_pairs)
     gen = torch.Generator(device="cuda").manual_seed(99)
     q, k, v = fa_inputs(torch, (FA_B, FA_HQ, FA_HKV, FA_S, FA_S, FA_D),
                         torch.bfloat16, gen)
@@ -5355,7 +5400,7 @@ def serve_rows(torch, launches, parity: Parity):
                                              scale=FA_D ** -0.5,
                                              enable_gqa=True), 5)
     f32_library_ms = library_f32_ms(torch, q, k, v, mask, FA_D ** -0.5)
-    pairs = attention_pairs(FA_S, FA_W)
+    pairs = visible_pairs(FA_S, FA_S, True, FA_W, 0)
     # operations: QK^T and PV, 2·D each a visible pair; bytes: q, k, v and
     # o once each, in bf16
     flops = 4 * FA_D * pairs * FA_B * FA_HQ
@@ -6558,12 +6603,13 @@ def phase_mesh_path(torch):
 
 
 # ---------------------------------------------------------------------------
-# the training path (phase 18): granite-3-2b trained whole
+# the training path (phase 18): granite-3-2b trained whole, gemma3-27b and
+# recurrentgemma-2b at their published widths
 # ---------------------------------------------------------------------------
 #: kernel 12's backward against its plain version, beside the slice's own
 #: geometry: (name, (b, hq, hkv, sq, skv, d), kwargs) at the other
 #: models' train-mode geometries, 1 x TRAIN_S tokens (h2o-danube-3-4b's
-#: window 4096, gemma3-27b's local layers at head dim 168,
+#: window 4096, gemma3-27b's local and global layers at head dim 168,
 #: recurrentgemma-2b's window 2048 at head dim 256), phase 15's non-causal
 #: ones at batch 1, a query block that sees no key and a kv_offset > 0
 BWD_CASES = (
@@ -6571,6 +6617,7 @@ BWD_CASES = (
                                                       window=4096)),
     ("gemma3_local", (1, 32, 16, 4096, 4096, 168), dict(causal=True,
                                                          window=1024)),
+    ("gemma3_global", (1, 32, 16, 4096, 4096, 168), dict(causal=True)),
     ("recurrentgemma_local", (1, 10, 1, 4096, 4096, 256),
      dict(causal=True, window=2048)),
     ("llama_cross_attention", (1, 64, 8, 8192, 1600, 128),
@@ -6815,18 +6862,33 @@ def leaf_dict(tree) -> dict:
     return dict(tree_leaves(tree))
 
 
-def train_reckoning(cfg, n_params: int) -> dict:
-    """The memory reckoning of a full-depth training step written before
-    the first run (bytes): params, gradients, m and v in f32, remat's saved
-    group inputs, one group's recompute (six f32 (tokens, d_ff) products
-    of the SwiGLU), the logits the chunked CE keeps for the backward, and
-    a second gradient tree under adaptive accumulation."""
-    tokens = TRAIN_B * TRAIN_S
+def train_reckoning(cfg, n_params: int, batch: int = TRAIN_B,
+                    chunked_ce: bool = False) -> dict:
+    """The memory reckoning of a training step of ``batch`` x TRAIN_S
+    tokens written before the first run (bytes): params, gradients, m and v
+    in f32, remat's saved group inputs, one group's recompute (six f32
+    (tokens, d_ff) products of the SwiGLU), the logits the chunked CE keeps
+    for the backward, and a second gradient tree under adaptive
+    accumulation.  With ``chunked_ce``, the rest of what the chunked CE
+    keeps for the backward (``models/decoder._chunked_ce``): each chunk of
+    loss_chunk positions saves two f32 (tokens, padded_vocab) tensors in
+    all (the exp that ``logits`` counts, and the logits ``gather`` saves)
+    and its own bf16 copy of the (padded_vocab, d_model) output weight
+    (the f32 product's operand), ceil(TRAIN_S / loss_chunk) copies.  Leg
+    1's reckoning, written before its first run, leaves them out: at
+    granite's 51,200-wide vocabulary they are 4.2 GB, and its peak stays
+    under the reckoning without them."""
+    tokens = batch * TRAIN_S
     r = dict(params=4 * n_params, grads=4 * n_params, m_v=8 * n_params,
              remat_inputs=cfg.n_layers * tokens * cfg.d_model * 2,
              group_recompute=6 * tokens * cfg.d_ff * 4,
              logits=tokens * cfg.padded_vocab * 4,
              second_grads=4 * n_params)
+    if chunked_ce:
+        chunks = -(-TRAIN_S // (cfg.loss_chunk or TRAIN_S))
+        r.update(ce_gathered_logits=tokens * cfg.padded_vocab * 4,
+                 ce_weight_copies=chunks * cfg.padded_vocab * cfg.d_model
+                 * 2)
     r["total"] = sum(r.values())
     return r
 
@@ -6984,27 +7046,75 @@ def first_layer(cfg, params):
     return one, p
 
 
+def attention_slice(cfg, params):
+    """The model cut to the first piece that holds its first attention
+    layer: its first pattern group (``first_layer``), or, for a model cut
+    below one group (gemma3-27b's two remainder layers), its first
+    remainder layer."""
+    import dataclasses
+    if cfg.n_groups > 0:
+        return first_layer(cfg, params)
+    check(cfg.rem_pattern[0] not in RECURRENT, f"{cfg.name}'s first layer "
+          f"is not an attention layer")
+    from repro_torch.models.decoder import tree_map
+    one = dataclasses.replace(cfg, n_layers=1)
+    return one, {"embedding": params["embedding"].clone(),
+                 "final_norm": params["final_norm"].clone(),
+                 "rem": {"0": tree_map(lambda t: t.clone(),
+                                       params["rem"]["0"])}}
+
+
+def card_cpu_batch(torch, cfg) -> dict:
+    """card == CPU's batch: 1 x TRAIN_CPU_S tokens from a seeded
+    generator, on the CPU."""
+    g = torch.Generator().manual_seed(TRAIN_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (1, TRAIN_CPU_S + 1), generator=g)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def hold_card_cpu_grads(torch, label: str, card, cpu,
+                        share_max: float = TRAIN_CPU_SHARE) -> dict:
+    """card == CPU's law on a grad step's (grads, grad_norm, loss) from the
+    card and from the CPU (or from another run on the card): every leaf's
+    gradient within ``share_max`` of that leaf's largest |gradient|, loss
+    and grad_norm within TRAIN_CPU_SHARE relative; ``label`` names the
+    comparison in a failure."""
+    (gc, nc, lc), (gh, nh, lh) = card, cpu
+    worst = {}
+    flat_h = leaf_dict(gh)
+    for path, t in leaf_dict(gc).items():
+        want = flat_h[path]
+        share = float((t.cpu() - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        worst[path] = share
+        check(share <= share_max, f"{label}: the gradient of {path} is "
+              f"{share} of its largest entry away")
+    for what, a, b in (("grad_norm", nc, nh), ("loss", lc, lh)):
+        check(abs(a - b) <= TRAIN_CPU_SHARE * abs(b), f"{label}: {what} "
+              f"{a} against {b}")
+    return dict(grad_share=max(worst.values()),
+                worst_leaf=max(worst, key=worst.get),
+                loss=(lc, lh), grad_norm=(nc, nh))
+
+
 def card_equals_cpu(torch, cfg, params, opt_cfg) -> dict:
     """granite's first layer at full width on 1 x TRAIN_CPU_S tokens, the
-    CPU fed the card's params, in bf16 and f32 compute: every leaf's
-    gradient within TRAIN_CPU_SHARE of that leaf's largest |gradient|,
-    loss and grad_norm within TRAIN_CPU_SHARE relative; then the train
-    step's update (``adamw_update``, as ``make_train_step`` composes it
-    after the gradients) on the card and on the CPU from the same state
-    and the card's gradients, within four f32 ulps of each param plus
-    1e-6·lr.  The update is held on the same gradients because a first
-    AdamW step moves each entry by lr·g/(|g| + eps), a sign function of g:
-    gradients equal within bf16's rounding still flip it at entries
-    near zero (the norm scales start at zero, so their new values are
-    the update alone)."""
+    CPU fed the card's params, in bf16 and f32 compute, by
+    ``hold_card_cpu_grads``; then the train step's update
+    (``adamw_update``, as ``make_train_step`` composes it after the
+    gradients) on the card and on the CPU from the same state and the
+    card's gradients, within four f32 ulps of each param plus 1e-6·lr.
+    The update is held on the same gradients because a first AdamW step
+    moves each entry by lr·g/(|g| + eps), a sign function of g: gradients
+    equal within bf16's rounding still flip it at entries near zero (the
+    norm scales start at zero, so their new values are the update
+    alone)."""
     import dataclasses
     from repro_torch.models.decoder import tree_map
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.train import make_grad_step
     one, p = first_layer(cfg, params)
-    g = torch.Generator().manual_seed(TRAIN_SEED + 1)
-    toks = torch.randint(0, cfg.vocab, (1, TRAIN_CPU_S + 1), generator=g)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = card_cpu_batch(torch, cfg)
     out = {}
     for compute in ("bfloat16", "float32"):
         c = dataclasses.replace(one, compute_dtype=compute)
@@ -7013,20 +7123,9 @@ def card_equals_cpu(torch, cfg, params, opt_cfg) -> dict:
             pd = tree_map(lambda t: t.to(dev), p)
             grads, gnorm, loss = make_grad_step(c)(pd, batch)
             res[dev] = (grads, float(gnorm), float(loss))
-        (gc, nc, lc), (gh, nh, lh) = res["cuda"], res["cpu"]
-        worst = {}
-        flat_h = leaf_dict(gh)
-        for path, t in leaf_dict(gc).items():
-            want = flat_h[path]
-            share = float((t.cpu() - want).abs().max()) / max(
-                float(want.abs().max()), 1e-30)
-            worst[path] = share
-            check(share <= TRAIN_CPU_SHARE, f"card == CPU ({compute}): "
-                  f"the gradient of {path} is {share} of its largest "
-                  f"entry away")
-        for what, a, b in (("grad_norm", nc, nh), ("loss", lc, lh)):
-            check(abs(a - b) <= TRAIN_CPU_SHARE * abs(b), f"card == CPU "
-                  f"({compute}): {what} {a} against {b}")
+        out[compute] = hold_card_cpu_grads(
+            torch, f"card == CPU ({compute})", res["cuda"], res["cpu"])
+        gc, gh = res["cuda"][0], res["cpu"][0]
         steps = {}
         for dev in ("cuda", "cpu"):
             pd = tree_map(lambda t: t.to(dev).clone(), p)
@@ -7046,14 +7145,68 @@ def card_equals_cpu(torch, cfg, params, opt_cfg) -> dict:
             ulps = max(ulps, float((diff / tol).max()))
             check(bool((diff <= tol).all()), f"card == CPU ({compute}): the "
                   f"updated {path} max |err| {float(diff.max())}")
-        out[compute] = dict(grad_share=max(worst.values()),
-                            worst_leaf=max(worst, key=worst.get),
-                            loss=(lc, lh), grad_norm=(nc, nh),
-                            update_share_of_tolerance=ulps)
-        del gc, gh, pc, ph
+        out[compute]["update_share_of_tolerance"] = ulps
+        del gc, gh, pc, ph, res
     print(f"phase 18 card == CPU on {cfg.name}'s first layer, 1 x "
           f"{TRAIN_CPU_S} tokens: {json.dumps(out)}")
     return out
+
+
+def wide_card_cpu(torch, cfg, params, compute: str, share_max: float):
+    """Leg 3's card == CPU in ``compute`` on the slice of a model that holds
+    its first attention layer (``attention_slice``) at 1 x TRAIN_CPU_S
+    tokens, by ``hold_card_cpu_grads`` within ``share_max``.  In bf16
+    compute, where the backward takes the wide tensor-core route, the
+    card's grad step is first held within TRAIN_CPU_SHARE of the same step
+    on the card with the backward's plain version in the kernel's place
+    (the kernel alone, without the CPU's bf16 rounding of the rest).
+    Returns (that comparison, or {}, and the CPU's half: a function that
+    runs the CPU's grad step and holds it against the card's)."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.decoder import tree_map
+    from repro_torch.train import make_grad_step
+    one, p = attention_slice(cfg, params)
+    one = dataclasses.replace(one, compute_dtype=compute)
+    batch = card_cpu_batch(torch, cfg)
+    step = make_grad_step(one)
+
+    def run(pd):
+        grads, gnorm, loss = step(pd, batch)
+        return tree_map(lambda t: t.cpu(), grads), float(gnorm), float(loss)
+
+    card, out = run(p), {}
+    if compute == "bfloat16":
+        kernel = ops.flash_attention_backward_cuda
+
+        def plain_bwd(*a, **kw):
+            return ops.flash_attention_backward_plain(*a, **kw)
+        # the kernel's counts, unchanged, for a LaunchLog that reads them at
+        # the forward's launches meanwhile
+        plain_bwd.launches = kernel.launches
+        plain_bwd.tc_launches = kernel.tc_launches
+        ops.flash_attention_backward_cuda = plain_bwd
+        try:
+            plain = run(p)
+        finally:
+            ops.flash_attention_backward_cuda = kernel
+        out["kernel_vs_plain"] = hold_card_cpu_grads(
+            torch, f"{cfg.name}: the kernel against the backward's plain "
+            f"version on the card ({compute})", card, plain)
+    p_cpu = tree_map(lambda t: t.cpu(), p)
+    del p
+
+    def cpu_half() -> dict:
+        t = time.perf_counter()
+        res = hold_card_cpu_grads(
+            torch, f"{cfg.name}: card == CPU ({compute})", card, run(p_cpu),
+            share_max)
+        res.update(out, share_max=share_max, cpu_s=time.perf_counter() - t)
+        print(f"phase 18 card == CPU on {cfg.name} cut to {one.n_layers} "
+              f"layers, 1 x {TRAIN_CPU_S} tokens, {compute}: "
+              f"{json.dumps(res)}")
+        return res
+    return out, cpu_half
 
 
 def loss_falls(torch, cfg, opt_cfg) -> dict:
@@ -7171,14 +7324,179 @@ def train_leg2(torch, tmp: str) -> dict:
     return info, launches
 
 
+def wide_plan():
+    """Leg 3's models: [(cfg, batch, params, reckoning)], gemma3-27b and
+    recurrentgemma-2b at their published widths cut in depth
+    (WIDE_GEMMA_LAYERS, WIDE_RG_LAYERS) with their batches, the params
+    counted on meta tensors (shapes only) and the peak reckoned by
+    ``train_reckoning`` with the chunked CE's terms before anything is
+    allocated."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import init_params, num_params
+    plan = []
+    for arch, layers, batch in (("gemma3-27b", WIDE_GEMMA_LAYERS,
+                                 WIDE_GEMMA_B),
+                                ("recurrentgemma-2b", WIDE_RG_LAYERS,
+                                 WIDE_RG_B)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        n = num_params(init_params(cfg, device="meta"))[0]
+        plan.append((cfg, batch, n, train_reckoning(cfg, n, batch,
+                                                    chunked_ce=True)))
+    return plan
+
+
+def wide_step_launches(cfg) -> dict:
+    """Kernel 12's launches in one train step: the forward of every
+    attention layer, again in remat's recompute for the layers of a pattern
+    group (the remainder layers run outside remat), and its backward once
+    an attention layer."""
+    group = sum(k not in RECURRENT for k in cfg.layer_pattern)
+    rem = sum(k not in RECURRENT for k in cfg.rem_pattern)
+    return {"flash_attention": 2 * cfg.n_groups * group + rem,
+            "flash_attention_bwd": cfg.n_groups * group + rem}
+
+
+def kernel_device_ms(torch, prof, name: str) -> float:
+    """The summed device time of the kernels whose name holds ``name``
+    that a profiler saw, in ms."""
+    return 1e-3 * sum(e.time_range.end - e.time_range.start
+                      for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and name in e.name)
+
+
+def train_wide_heads(torch, opt_cfg) -> tuple:
+    """Leg 3 of phase 18: the two families whose heads pass 128
+    (``wide_plan``) trained on the card through ``init_train_state`` and
+    ``make_train_step``, WIDE_STEPS steps each on fresh batches of batch x
+    TRAIN_S tokens in bf16 compute, remat as configured.  Each step must
+    launch kernel 12 and its backward as ``wide_step_launches`` says, every
+    backward on the tensor cores, no plain version; the loss finite; then
+    one ``make_grad_step`` under torch.profiler and ``ProductTimer``:
+    every gradient finite and non-zero, the card's busy time, the backward
+    kernel's and the f32 backward products' ms; the peak at or under the
+    reckoning, itself under WIDE_PEAK_LIMIT before the run.  Before the
+    steps, the card's halves of card == CPU on the initial params' slice
+    that holds the first attention layer (``wide_card_cpu``; in bf16, and
+    for a model with recurrent cells in f32 too: WIDE_RECURRENT_SHARE).
+    Returns (info, launches, the CPU's halves), the CPU's halves to run
+    after the leg's timed steps, so that they do not share the host with
+    them."""
+    from repro_torch.train import (init_train_state, make_grad_step,
+                                   make_train_step)
+    info, launches, halves = {}, {k: 0 for k in LaunchLog.counts()}, []
+    for cfg, batch, n_params, reck in wide_plan():
+        check(reck["total"] < WIDE_PEAK_LIMIT, f"{cfg.name} reckons at "
+              f"{reck['total']} bytes, past {WIDE_PEAK_LIMIT}")
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 5)
+        state = init_train_state(gen, cfg, opt_cfg, device="cuda")
+        recurrent = any(k in RECURRENT for k in cfg.layer_pattern)
+        laws = [("bfloat16", WIDE_RECURRENT_SHARE if recurrent
+                 else TRAIN_CPU_SHARE)]
+        laws += [("float32", TRAIN_CPU_SHARE)] if recurrent else []
+        kernel_vs_plain = {}
+        for compute, share_max in laws:
+            kernel_vs_plain[compute], half = wide_card_cpu(
+                torch, cfg, state.params, compute, share_max)
+            halves.append(half)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator().manual_seed(TRAIN_SEED + 6)
+        toks = torch.randint(0, cfg.vocab, (WIDE_STEPS + 1, batch,
+                                            TRAIN_S + 1), generator=g)
+        batches = [{"tokens": t[:, :-1].cuda(), "labels": t[:, 1:].cuda()}
+                   for t in toks]
+        step = make_train_step(cfg, opt_cfg)
+        per_step = wide_step_launches(cfg)
+        walls, losses = [], []
+        zero_counts()
+        with PlainCalls() as plains:
+            for b in batches[:WIDE_STEPS]:
+                t = time.perf_counter()
+                (state, m), made = counted(lambda: step(state, b))
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                check(made == per_step, f"a {cfg.name} train step launched "
+                      f"{made}, expected {per_step}")
+            counts = LaunchLog.counts()
+            tc = wrappers()["flash_attention_bwd"].tc_launches
+            t = time.perf_counter()
+            with ProductTimer() as products, torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+                grads, gnorm, gloss = make_grad_step(cfg)(state.params,
+                                                          batches[-1])
+                torch.cuda.synchronize()
+                # the step's wall, without the profiler's collection
+                grad_wall = time.perf_counter() - t
+        check(plains.calls == 0, f"{cfg.name}'s training on the card ran "
+              f"kernel 12's plain versions {plains.calls} times")
+        check(tc == counts["flash_attention_bwd"] > 0, f"{cfg.name}'s "
+              f"backward took the tensor cores {tc} of "
+              f"{counts['flash_attention_bwd']} times")
+        check(all(math.isfinite(x) for x in losses + [float(gloss)]),
+              f"{cfg.name}'s losses {losses}, {float(gloss)}")
+        grads_nonzero(torch, grads, f"{cfg.name} (leg 3)")
+        del grads
+        peak = torch.cuda.max_memory_allocated()
+        check(peak <= reck["total"], f"{cfg.name}'s peak {peak} bytes is "
+              f"past the reckoning's {reck['total']}")
+        busy = device_busy_ms(torch, prof)
+        bwd_ms = kernel_device_ms(torch, prof, "attention_bwd")
+        tokens = batch * TRAIN_S
+        wall = walls[-1]
+        launches = add_counts(launches, counts)
+        one = dict(n_layers=cfg.n_layers, batch=batch, params=n_params,
+                   head_dim=cfg.head_dim_, losses=losses, step_walls_s=walls,
+                   step_wall_s=wall, tokens_per_s=tokens / wall,
+                   launches=counts, tc_launches=tc,
+                   grad_step_s=grad_wall, grad_loss=float(gloss),
+                   grad_norm=float(gnorm), profiled_device_ms=busy,
+                   busy_share=None if busy is None
+                   else busy / (grad_wall * 1e3),
+                   bwd_kernel_ms=bwd_ms,
+                   bwd_kernel_share=bwd_ms / (grad_wall * 1e3),
+                   f32_backward_products_ms=products.ms(),
+                   f32_backward_products_share=products.ms()
+                   / (grad_wall * 1e3),
+                   peak_bytes=peak, reckoning=reck,
+                   kernel_vs_plain=kernel_vs_plain["bfloat16"])
+        del state, batches
+        torch.cuda.empty_cache()
+        one["leg_s"] = time.perf_counter() - t0
+        info[cfg.name] = one
+        print(f"phase 18 leg 3: {cfg.name} at {cfg.n_layers} layers (head "
+              f"dim {cfg.head_dim_}), {n_params} params, {batch} x {TRAIN_S} "
+              f"tokens: losses {losses}, step walls {walls} s "
+              f"({tokens / wall:.1f} tokens/s); launches {json.dumps(counts)}"
+              f" ({tc} backward on the tensor cores); a grad step "
+              f"{grad_wall:.3f} s under the profiler, busy {busy} ms "
+              f"({one['busy_share']}), the backward kernel {bwd_ms:.3f} ms "
+              f"({one['bwd_kernel_share']:.4f}), the f32 backward products "
+              f"{products.ms():.1f} ms "
+              f"({one['f32_backward_products_share']:.3f}); peak {peak} "
+              f"bytes against the reckoning's {reck['total']} "
+              f"({json.dumps(reck)}); {one['leg_s']:.1f} s on the card; the "
+              f"kernel against the backward's plain version "
+              f"{json.dumps(kernel_vs_plain['bfloat16'])}")
+    return info, launches, halves
+
+
 def phase_train_path(torch, parity: Parity):
     """Phase 18: the training path on the card, its geometries logged and
-    its launches leg 1's and leg 2's uninterrupted run, each from zeroed
-    counts.  Leg 1 trains granite-3-2b whole (train_leg1), leg 2 runs
-    launch/train.main at LEG2_LAYERS layers (train_leg2); beside them the
-    backward kernel's parity (phase_parity_backward), card == CPU on the
-    first layer, the loss on one repeated batch and the embedding's
-    determinism."""
+    its launches leg 1's, leg 2's uninterrupted run and leg 3's train
+    steps, each from zeroed counts.  Leg 1 trains granite-3-2b whole
+    (train_leg1), leg 2 runs launch/train.main at LEG2_LAYERS layers
+    (train_leg2), leg 3 trains gemma3-27b and recurrentgemma-2b, whose
+    heads pass 128 (train_wide_heads); beside them the backward kernel's
+    parity (phase_parity_backward), card == CPU on the first layer, the
+    loss on one repeated batch and the embedding's determinism.  Returns
+    (launches, geometries, info, leg 3's CPU halves of card == CPU, each a
+    function to call)."""
     import shutil
     import tempfile
     from repro_torch.configs import get_config
@@ -7201,9 +7519,12 @@ def phase_train_path(torch, parity: Parity):
             info["leg2"], l2 = train_leg2(torch, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        t3 = time.perf_counter()
+        info["wide"], l3, halves = train_wide_heads(torch, opt_cfg)
+        info["wide_s"] = time.perf_counter() - t3
     info["embedding"] = embedding_determinism(torch, cfg)
     info["backward_parity"] = phase_parity_backward(torch, parity)
-    launches = add_counts(l1, l2)
+    launches = add_counts(l1, l2, l3)
     want = {"flash_attention": 2 * cfg.n_layers * (TRAIN_STEPS
                                                    + info["leg1"]["micro_used"]),
             "flash_attention_bwd": cfg.n_layers * (
@@ -7216,10 +7537,11 @@ def phase_train_path(torch, parity: Parity):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     info.update(card=smi, phase_s=time.perf_counter() - t0)
+    print(f"nvidia-smi: {smi}")
     print(f"launches, the training path: leg 1 {json.dumps(l1)}, leg 2 "
-          f"{json.dumps(l2)}")
+          f"{json.dumps(l2)}, leg 3 {json.dumps(l3)}")
     print("train summary: " + json.dumps(info))
-    return launches, log.geometries, info
+    return launches, log.geometries, info, halves
 
 
 def replay_attention_bwd(torch, parity, gen, fields, what) -> None:
@@ -7271,7 +7593,75 @@ def sdpa_backward_ms(torch, q, k, v, do, kw) -> dict:
     return out
 
 
-def backward_rows(torch, launches, parity: Parity, shares):
+#: the backward's shapes past head dim 128 that phase 9 times (BWD_CASES'
+#: names) and the leg 3 model whose layers launch each (None: no layer of
+#: leg 3's cut; gemma3-27b's global layer is the sixth of its pattern)
+BWD_WIDE_TIMED = (("gemma3_local", "gemma3-27b"),
+                  ("recurrentgemma_local", "recurrentgemma-2b"),
+                  ("gemma3_global", None))
+
+
+def backward_wide_times(torch, wide: dict) -> list:
+    """Kernel 12's backward in bf16 past head dim 128 (the tensor cores'
+    wide route) at BWD_WIDE_TIMED's shapes: alone (launches back to back
+    inside one wrapper call), its plain version, its bound (10·D
+    operations a visible pair at the bf16 tensor-core rate,
+    ``ops.attention_flops``, or the bytes of q, k, v, o, dO and lse read
+    and dq, dk, dv written once over the memory rate),
+    scaled_dot_product_attention's backward with the boolean mask
+    (forward and backward less its forward) and its launches in leg 3
+    (``wide``: train_wide_heads' info)."""
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator(device="cuda").manual_seed(182)
+    cases = {n: (sh, kw) for n, sh, kw in BWD_CASES}
+    out = []
+    for name, model in BWD_WIDE_TIMED:
+        shape, kw = cases[name]
+        b, hq, hkv, sq, skv, d = shape
+        q, k, v = fa_inputs(torch, shape, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kw = dict(causal=kw["causal"], window=kw.get("window"),
+                  kv_offset=kw.get("kv_offset", 0), scale=d ** -0.5)
+        o, lse = ops._forward_cuda(q, k, v, with_lse=True, **kw)
+        tc0 = ops.flash_attention_backward_cuda.tc_launches
+        ms = launch_ms(torch, lambda: ops.flash_attention_backward_cuda(
+            q, k, v, o, lse, do, **kw), "flash_attention_bwd", 5)
+        check(ops.flash_attention_backward_cuda.tc_launches == tc0 + 1,
+              f"the timed bf16 backward at {name} did not take the "
+              f"tensor-core route")
+        plain_ms = time_ms(torch, lambda: plain(
+            ops.flash_attention_backward_plain, q, k, v, o, lse, do, **kw), 1)
+        lib = sdpa_backward_ms(torch, q, k, v, do, kw)["mask"]
+        flops = ops.attention_flops(q.shape, k.shape, kw["causal"],
+                                    kw["window"], kw["kv_offset"], 10)
+        nbytes = 2 * (3 * b * hq * sq * d + 2 * b * hkv * skv * d) \
+            + 4 * b * hq * sq + 2 * (b * hq * sq + 2 * b * hkv * skv) * d
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        row = dict(case=name, shape=list(shape), **kw, ms=ms,
+                   plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_share=max(t_ops, t_bytes) * 1e3 / ms,
+                   library_ms=(None if lib[1] is None else lib[1] - lib[0]),
+                   library_fwd_bwd_ms=lib[1], library_fwd_ms=lib[0],
+                   flops=flops, bytes=nbytes, train_model=model,
+                   train_launches=(0 if model is None else
+                                   wide[model]["launches"]
+                                   ["flash_attention_bwd"]))
+        out.append(row)
+        print(f"timing flash_attention_bwd past head dim 128 at {name} "
+              f"{shape} {kw}: {ms:.4f} ms alone "
+              f"({flops / ms / 1e9:.1f} TFLOP/s of visible work, "
+              f"{row['bound_share']:.4f} of its bound {row['bound_ms']:.4f} "
+              f"ms by {row['bound_by']}); plain {plain_ms:.2f} ms; "
+              f"scaled_dot_product_attention's backward {row['library_ms']} "
+              f"ms with the boolean mask; {row['train_launches']} launches "
+              f"in leg 3 ({model})")
+        del q, k, v, do, o, lse
+    return out
+
+
+def backward_rows(torch, launches, parity: Parity, shares, wide):
     """Kernel 12's backward at the slice's geometry (TRAIN_B x TRAIN_S,
     32/8 heads of 64, causal), bf16: alone (launches back to back inside
     one wrapper call), its plain version, its f32 route, its bound (10·D
@@ -7279,7 +7669,8 @@ def backward_rows(torch, launches, parity: Parity, shares):
     rate for f32; or the bytes of q, k, v, o, dO and lse read and dq, dk,
     dv written once over the memory rate) and scaled_dot_product_attention
     with the boolean causal mask and with ``is_causal`` (``sdpa_backward_ms``),
-    forward plus backward less its forward."""
+    forward plus backward less its forward; then past head dim 128
+    (``backward_wide_times``, with leg 3's info ``wide``)."""
     from repro_torch.kernels.flash_attention import ops
     gen = torch.Generator(device="cuda").manual_seed(181)
     B, hq, hkv, S, d = TRAIN_B, 32, 8, TRAIN_S, 64
@@ -7303,7 +7694,7 @@ def backward_rows(torch, launches, parity: Parity, shares):
     lib = sdpa_backward_ms(torch, q, k, v, do, kw)
     sdpa_fwd_ms, sdpa_ms = lib["mask"]
     causal_fwd_ms, causal_ms = lib.get("is_causal", (None, None))
-    pairs = attention_pairs(S, S)
+    pairs = ops.visible_pairs(S, S, True, None, 0)
     flops = 10 * d * pairs * B * hq
     nbytes = 2 * (3 * B * hq * S * d + 2 * B * hkv * S * d) \
         + 4 * B * hq * S + 2 * (B * hq + 2 * B * hkv) * S * d
@@ -7339,6 +7730,7 @@ def backward_rows(torch, launches, parity: Parity, shares):
           f"and backward {sdpa_ms}, forward {sdpa_fwd_ms}), "
           f"{row['library_is_causal_ms']} ms with is_causal; bound "
           f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+    row["wide_heads"] = backward_wide_times(torch, wide)
     return [row]
 
 # ---------------------------------------------------------------------------
@@ -8227,7 +8619,8 @@ def main() -> int:
                 print(f"ptxas {lib}: {line.split(':', 1)[-1].strip()}")
     check_no_spills(logs.get("flash_attention", ""), "attention_tc")
     for kernel in ("attention_bwd", "attention_bwd_prep",
-                   "attention_bwd_dkdv_tc", "attention_bwd_dq_tc"):
+                   "attention_bwd_dkdv_tc", "attention_bwd_dkdv_wide",
+                   "attention_bwd_dq_tc"):
         check_no_spills(logs.get("flash_attention_bwd", ""), kernel)
     check_no_spills(logs.get("fused_binblocked", ""), "binblocked_kernel")
     check_no_spills(logs.get("weighted_hist", ""), "hist_kernel")
@@ -8294,7 +8687,8 @@ def main() -> int:
     lap("16 (MoE serving path)")
     rc_launches, rc_geometries, _ = phase_serve_recurrent(torch)
     lap("17 (recurrent serving path)")
-    tr_launches, tr_geometries, tr_info = phase_train_path(torch, parity)
+    tr_launches, tr_geometries, tr_info, tr_halves = phase_train_path(
+        torch, parity)
     lap("18 (training path)")
     sh_launches, sh_geometries, sh_info = phase_sharded_path(torch)
     lap("19 (sharded path)")
@@ -8313,13 +8707,24 @@ def main() -> int:
     print(f"launches, the three earlier paths: {json.dumps(earlier)}; all "
           f"paths: {json.dumps(launches)}; the training path's "
           f"{json.dumps(tr_launches)}")
-    phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
-                         **mat_geometries, **st_geometries,
-                         **sv_geometries, **gm_geometries,
-                         **lv_geometries, **ms_geometries,
-                         **xa_geometries, **mo_geometries,
-                         **rc_geometries, **tr_geometries,
-                         **sh_geometries, **dr_log.geometries}, parity)
+    # phase 18's leg 3 CPU halves of card == CPU run in a thread beside the
+    # replay, which times nothing: run inline they add about 80 s of host
+    # to the script's clock
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = [pool.submit(half) for half in tr_halves]
+        phase_replay(torch, {**geometries, **km_geometries, **gb_geometries,
+                             **mat_geometries, **st_geometries,
+                             **sv_geometries, **gm_geometries,
+                             **lv_geometries, **ms_geometries,
+                             **xa_geometries, **mo_geometries,
+                             **rc_geometries, **tr_geometries,
+                             **sh_geometries, **dr_log.geometries}, parity)
+        t = time.perf_counter()
+        for f in pending:
+            f.result()
+    print(f"phase 18 leg 3 card == CPU's CPU halves: "
+          f"{time.perf_counter() - t:.1f} s waited after the replay")
     lap("8 (replay)")
     rows = phase_timing(torch, launches, parity, quickstart)
     rows += groupby_rows(torch, launches, parity, gb_walls)
@@ -8328,7 +8733,7 @@ def main() -> int:
     rows += serve_rows(torch, launches, parity)
     rows[-1]["train_launches"] = tr_launches["flash_attention"]
     rows += backward_rows(torch, launches, parity,
-                          tr_info["backward_parity"])
+                          tr_info["backward_parity"], tr_info["wide"])
     lap("9 (timing)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

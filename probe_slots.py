@@ -39,13 +39,19 @@ in two turns (K9_KNOCKOUTS, K9_KNOBS).
 chip_smoke.py's wide-head shapes, its K/V tiling against the other that
 fits in shared memory (K12_KNOCKOUTS), in turns.
 
-``--attention-bwd`` times kernel 12's backward on the tensor cores (bf16
-up to head dim 128) alone at phase 18's granite-3-2b shape and the other
-train-mode shapes of 4,096 tokens and more, its tiling against the
-others (K12B_KNOCKOUTS: query tiles of 64 rows, key tiles of 128, rings
-of one stage), in turns, with scaled_dot_product_attention's backward on
-the same inputs; at head dims past 128 (the CUDA-core route) it times
-the kernel alone.
+``--attention-bwd`` times kernel 12's backward on the tensor cores (bf16)
+alone at phase 18's granite-3-2b shape and the other train-mode shapes
+of 4,096 tokens and more, its tiling against the others (K12B_KNOCKOUTS:
+up to head dim 128 query tiles of 64 rows, key tiles of 128, rings of one
+stage; past it a ring of one stage in the dK/dV pass, and key tiles of 32
+in two stages in the dQ pass),
+in turns, with its bound and scaled_dot_product_attention's backward on
+the same inputs.
+
+``--wide-card-cpu`` holds phase 18's leg 3 slice of recurrentgemma-2b
+(bf16 compute) on the card against the CPU from four initial params,
+with kernel 12's backward and with its plain version on the card: each
+leaf's share of its largest gradient (PERF.md §6).
 
 ``--gloo-cuda`` starts a gloo world of 4 ranks sharing the card (fresh
 interpreters of this script, ``--gloo-rank R --gloo-store FILE``) and
@@ -63,8 +69,10 @@ source too (a checkout from the training slice on) and holds this
 checkout's kernel, launched with a null ``lse`` and with one, and its
 lse, bitwise against the parent's at chip_smoke.py's FA_CASES and
 FA_WIDE_CASES in f32 and bf16 and at the serving prefill's shape in
-bf16, and the backward's CUDA-core route (f32, and bf16 past head dim
-128) bitwise PARENT's at tests/test_torch_cuda.py's FA_BWD_CASES.
+bf16, and the backward bitwise PARENT's at tests/test_torch_cuda.py's
+FA_BWD_CASES where both take one route: f32 (the CUDA cores) at every
+head dim, bf16 (the tensor cores) up to 128 (PARENT_TC_MAX_D: a parent
+from the backward's tensor-core route on).
 """
 import argparse
 import ctypes
@@ -361,12 +369,20 @@ K12_SHAPES = [("gemma3_local", cs.GEMMA_HQ, cs.GEMMA_HKV, cs.GEMMA_D,
                cs.RG_W)]
 K12_REPS = 10
 #: kernel 12's backward on the tensor cores (csrc/flash_attention_bwd.cu,
-#: launch_tc), its other tilings: bq64, query tiles of 64 rows in the
-#: dK/dV pass at head dim 64; bn128, key tiles of 128 in the dQ pass at
-#: head dim 64; bq64bn128, both (the first tiling timed); stages1, rings
-#: of one stage in both passes at both head dims
+#: launch_tc), its other tilings up to head dim 128: bq64, query tiles of
+#: 64 rows in the dK/dV pass at head dim 64; bn128, key tiles of 128 in
+#: the dQ pass at head dim 64; bq64bn128, both (the first tiling timed);
+#: stages1, rings of one stage in both passes at both head dims; past head
+#: dim 128 (the variants named wide_, timed at the shapes past it only;
+#: the base has key tiles of 64 in the dQ pass in a ring of one stage, as
+#: two stages of 64 keys do not fit beside Q and dO at DP = 256): wide_s1,
+#: a ring of one stage in the dK/dV pass too; wide_bn32, key tiles of 32
+#: in two stages in the dQ pass (the first tiling timed); wide_bn32s1,
+#: that with rings of one stage in both passes
 _K12B_BASE = ("  return D <= 64 ? EARL_TC_BWD(64, 128, 64, 2) : "
               "EARL_TC_BWD(128, 64, 64, 2);")
+_K12B_WIDE = ("    return D <= 192 ? EARL_TC_WIDE(192, 2, 64, 1) : "
+              "EARL_TC_WIDE(256, 2, 64, 1);")
 K12B_KNOCKOUTS = {
     v: [("flash_attention_bwd.cu", _K12B_BASE,
          f"  return D <= 64 ? EARL_TC_BWD({lo}) : EARL_TC_BWD({hi});")]
@@ -374,13 +390,22 @@ K12B_KNOCKOUTS = {
                       ("bn128", "64, 128, 128, 2", "128, 64, 64, 2"),
                       ("bq64bn128", "64, 64, 128, 2", "128, 64, 64, 2"),
                       ("stages1", "64, 128, 64, 1", "128, 64, 64, 1"))}
+K12B_KNOCKOUTS.update({
+    v: [("flash_attention_bwd.cu", _K12B_WIDE,
+         f"    return D <= 192 ? EARL_TC_WIDE(192, {t}) : "
+         f"EARL_TC_WIDE(256, {t});")]
+    for v, t in (("wide_s1", "1, 64, 1"), ("wide_bn32", "2, 32, 2"),
+                 ("wide_bn32s1", "1, 32, 1"))})
 #: (case, (b, hq, hkv, sq, skv, d), kwargs): phase 18's granite-3-2b
-#: step and chip_smoke.py's BWD_CASES at 4,096 tokens and more, whose
-#: head dims past 128 (gemma3-27b's, recurrentgemma-2b's) run the
-#: CUDA-core route, timed alone without variants
+#: step and chip_smoke.py's BWD_CASES at 4,096 tokens and more (the head
+#: dims past 128, gemma3-27b's and recurrentgemma-2b's, on the wide route),
+#: and recurrentgemma-2b's local layer at phase 18's training batch of 4
 K12B_SHAPES = [("granite_train", (cs.TRAIN_B, 32, 8, cs.TRAIN_S, cs.TRAIN_S,
                                   64), dict(causal=True))] + [
-    (n, s, kw) for n, s, kw in cs.BWD_CASES if s[3] >= 4096]
+    (n, s, kw) for n, s, kw in cs.BWD_CASES if s[3] >= 4096] + [
+    ("recurrentgemma_local_b4", (cs.WIDE_RG_B, 10, 1, cs.TRAIN_S,
+                                 cs.TRAIN_S, 256),
+     dict(causal=True, window=2048))]
 K12B_REPS = 5
 #: kernel 9's geometry knobs: points a thread at the least (ranges 391,
 #: 196 and 66 at n = 400,000, against 131)
@@ -573,7 +598,7 @@ def probe_attention_bwd(torch, root: Path, label: str) -> dict:
                          text=True).stdout.strip()
     started = {v: start_build(_build, csrc, "flash_attention_bwd", v, edits,
                               work) for v, edits in K12B_KNOCKOUTS.items()}
-    tc = ("_tc", "prep")
+    tc = ("_tc", "_wide", "prep")
     result = dict(label=label, root=str(root), device=smi, ptxas={
         "base": [r for r in ptxas_report(logs.get("flash_attention_bwd", ""))
                  if any(t in r[0] for t in tc)]}, shapes=[])
@@ -592,7 +617,6 @@ def probe_attention_bwd(torch, root: Path, label: str) -> dict:
     for key, lines in result["ptxas"].items():
         for fn_name, regs, spill in lines:
             print(f"ptxas {key}: {fn_name}: {regs} registers; {spill}")
-    from repro_torch.kernels._pass import BWD_TC_MAX_D
     gen = torch.Generator(device="cuda").manual_seed(28)
     for case, shape, kw in K12B_SHAPES:
         q, k, v = cs.fa_inputs(torch, shape, torch.bfloat16, gen)
@@ -605,10 +629,8 @@ def probe_attention_bwd(torch, root: Path, label: str) -> dict:
             q, k, v, o, lse, do, **kw)
         want = fn()
         row = dict(case=case, shape=list(shape), **kw, diff={})
-        if shape[5] > BWD_TC_MAX_D:
-            row["base"] = [cs.launch_ms(torch, fn, "flash_attention_bwd", 2)
-                           for _ in range(2)]
-        for variant in (libs if shape[5] <= BWD_TC_MAX_D else ()):
+        wide = shape[5] > 128
+        for variant in (v for v in libs if v.startswith("wide_") == wide):
             _build._LOADED["flash_attention_bwd"] = libs[variant]
             try:
                 got = fn()
@@ -625,6 +647,9 @@ def probe_attention_bwd(torch, root: Path, label: str) -> dict:
                 finally:
                     _build._LOADED["flash_attention_bwd"] = base
                 row.setdefault(turn, []).append(t)
+        row["bound_ms"] = ops.attention_flops(
+            q.shape, k.shape, kw["causal"], kw["window"], 0, 10) \
+            / cs.BF16_FLOPS_PER_S * 1e3
         row["sdpa"] = cs.sdpa_backward_ms(torch, q, k, v, do, kw)
         result["shapes"].append(row)
         print(f"kernel 12's backward alone (ms) {json.dumps(row)}")
@@ -649,16 +674,24 @@ def build_parent(_build, src: Path, name: str, work: Path):
     return fn
 
 
+#: the widest head dim a parent's tensor-core backward took (a checkout
+#: whose backward ran bf16 past it on the CUDA cores)
+PARENT_TC_MAX_D = 128
+
+
 def probe_bwd_parent(torch, parent_bwd, cases) -> int:
-    """The backward's CUDA-core route (f32 at every D, bf16 past D = 128)
-    bitwise PARENT's at ``cases``; returns the geometries held."""
-    from repro_torch.kernels._pass import BWD_TC_MAX_D, stream_ptr
+    """The backward bitwise PARENT's where both take the same route: f32
+    at every D (the CUDA cores) and bf16 up to D = PARENT_TC_MAX_D (the
+    tensor cores' instances up to DP = 128); returns the geometries
+    held."""
+    from repro_torch.kernels._pass import BWD_TC_BLOCK, stream_ptr
     from repro_torch.kernels.flash_attention import ops
     gen = torch.Generator(device="cuda").manual_seed(28)
     same = 0
     for shape, kw in cases:
         for dt in (torch.float32, torch.bfloat16):
-            if dt == torch.bfloat16 and shape[5] <= BWD_TC_MAX_D:
+            tc = dt == torch.bfloat16
+            if tc and shape[5] > PARENT_TC_MAX_D:
                 continue
             q, k, v = cs.fa_inputs(torch, shape, dt, gen)
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
@@ -669,14 +702,17 @@ def probe_bwd_parent(torch, parent_bwd, cases) -> int:
             tc0 = ops.flash_attention_backward_cuda.tc_launches
             got = ops.flash_attention_backward_cuda(q, k, v, o, lse, do,
                                                     **kw)
-            if ops.flash_attention_backward_cuda.tc_launches != tc0:
-                raise RuntimeError(f"{shape} {dt} took the tensor cores")
-            qc, kc, vc, oc, dc = (t.contiguous() for t in (q, k, v, o, do))
+            if ops.flash_attention_backward_cuda.tc_launches != tc0 + tc:
+                raise RuntimeError(f"{shape} {dt} did not take the route "
+                                   f"expected (tensor cores: {tc})")
+            ready = ops._tma_ready if tc else torch.Tensor.contiguous
+            qc, kc, vc, oc, dc = (ready(t) for t in (q, k, v, o, do))
             want = [torch.empty_like(t) for t in (qc, kc, vc)]
-            delta = torch.empty((b * hq, sq), dtype=torch.float32,
-                                device=q.device)
+            rows = -(-sq // BWD_TC_BLOCK) * BWD_TC_BLOCK
+            delta = torch.empty((2, b * hq, rows) if tc else (b * hq, sq),
+                                dtype=torch.float32, device=q.device)
             err = parent_bwd(
-                ops._DTYPES[dt], b * hq, hq, hkv, sq, skv, d,
+                ops._DTYPES[dt], b * hq, hq, hkv, sq, skv, qc.shape[3],
                 float(kw["scale"]), int(kw["causal"]), kw["window"] or 0,
                 kw["kv_offset"], qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                 oc.data_ptr(), dc.data_ptr(), lse.data_ptr(),
@@ -684,7 +720,7 @@ def probe_bwd_parent(torch, parent_bwd, cases) -> int:
                 stream_ptr(q.device))
             if err != 0:
                 raise RuntimeError(f"the parent's backward failed: {err}")
-            ok = all(torch.equal(a, w) for a, w in zip(got, want))
+            ok = all(torch.equal(a, w[..., :d]) for a, w in zip(got, want))
             print(f"kernel 12's backward {shape} {kw} {dt}: bitwise the "
                   f"parent's {ok}")
             if not ok:
@@ -698,9 +734,9 @@ def probe_lse_parent(torch, root: Path, parent: Path) -> dict:
     """Kernel 12's output with and without lse, and lse, against PARENT's
     kernel (a checkout from the training slice on), bitwise, at every
     geometry of chip_smoke's FA_CASES and FA_WIDE_CASES (f32 and bf16)
-    and the serving prefill's shape (bf16); then the backward's CUDA-core
-    route bitwise PARENT's at tests/test_torch_cuda.py's FA_BWD_CASES
-    (``probe_bwd_parent``)."""
+    and the serving prefill's shape (bf16); then the backward bitwise
+    PARENT's at tests/test_torch_cuda.py's FA_BWD_CASES
+    (``probe_bwd_parent``: f32 at every D, bf16 up to PARENT_TC_MAX_D)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels._pass import stream_ptr
     from repro_torch.kernels.flash_attention import ops
@@ -894,6 +930,65 @@ def gloo_rank(torch, rank: int, store: str, only=None) -> dict:
     return out
 
 
+#: the initial params' seeds ``--wide-card-cpu`` draws (phase 18's leg 3
+#: uses TRAIN_SEED + 5)
+WIDE_CARD_CPU_SEEDS = (5, 6, 7, 8)
+
+
+def probe_wide_card_cpu(torch, label: str) -> dict:
+    """recurrentgemma-2b's slice in phase 18's leg 3 (its one pattern group,
+    bf16 compute, 1 x TRAIN_CPU_S tokens) from the initial params of
+    WIDE_CARD_CPU_SEEDS: each leaf's gradient on the card against the
+    CPU's, as a share of the CPU leaf's largest |gradient|, with kernel
+    12's backward and with its plain version on the card in its place,
+    and the two card runs against each other."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.decoder import tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_grad_step
+    _build.build_all(["flash_attention", "flash_attention_bwd"])
+    cfg = cs.wide_plan()[1][0]
+    kernel = ops.flash_attention_backward_cuda
+
+    def shares(a, b):
+        fa, fb = cs.leaf_dict(a), cs.leaf_dict(b)
+        return {p: float((fa[p] - fb[p]).abs().max())
+                / max(float(fb[p].abs().max()), 1e-30) for p in fb}
+
+    def worst(sh, n=4):
+        return sorted(sh.items(), key=lambda x: -x[1])[:n]
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    result = dict(label=label, device=smi, seeds={})
+    for seed in WIDE_CARD_CPU_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(cs.TRAIN_SEED + seed)
+        params = init_train_state(gen, cfg, AdamWConfig(warmup_steps=1),
+                                  device="cuda").params
+        one, p = cs.attention_slice(cfg, params)
+        del params
+        batch = cs.card_cpu_batch(torch, cfg)
+        step = make_grad_step(one)
+        card = {}
+        try:
+            for name, bwd in (("kernel", kernel),
+                              ("plain", ops.flash_attention_backward_plain)):
+                ops.flash_attention_backward_cuda = bwd
+                card[name] = tree_map(lambda t: t.cpu(), step(p, batch)[0])
+        finally:
+            ops.flash_attention_backward_cuda = kernel
+        cpu = step(tree_map(lambda t: t.cpu(), p), batch)[0]
+        row = {f"{n}_vs_cpu": worst(shares(card[n], cpu)) for n in card}
+        row["kernel_vs_plain"] = worst(shares(card["kernel"], card["plain"]))
+        result["seeds"][seed] = row
+        print(f"seed {seed}: {json.dumps(row)}", flush=True)
+        del p, card, cpu
+        torch.cuda.empty_cache()
+    return result
+
+
 def probe_gloo_cuda(torch, label: str) -> dict:
     """``--gloo-cuda``: a world of 4 for each of GLOO_ATTEMPTS, each rank
     this script again; an attempt's result is rank 0's, or the exit code
@@ -942,6 +1037,7 @@ def main() -> int:
     ap.add_argument("--attention-bwd", action="store_true")
     ap.add_argument("--lse-parent", default=None)
     ap.add_argument("--gloo-cuda", action="store_true")
+    ap.add_argument("--wide-card-cpu", action="store_true")
     ap.add_argument("--gloo-rank", type=int, default=None)
     ap.add_argument("--gloo-store", default=None)
     ap.add_argument("--gloo-only", type=int, default=None)
@@ -959,8 +1055,9 @@ def main() -> int:
         print(json.dumps(gloo_rank(torch, args.gloo_rank, args.gloo_store,
                                    only)))
         return 0
-    if args.gloo_cuda:
-        result = probe_gloo_cuda(torch, args.label)
+    if args.gloo_cuda or args.wide_card_cpu:
+        result = (probe_gloo_cuda if args.gloo_cuda
+                  else probe_wide_card_cpu)(torch, args.label)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(result, indent=1))

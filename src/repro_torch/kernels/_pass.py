@@ -329,50 +329,72 @@ def kmeans_geometry(Bp: int, np_: int, bn: int, k: int,
 
 
 #: Kernel 12's backward on the tensor cores (bf16 up to head dim
-#: BWD_TC_MAX_D; csrc/flash_attention_bwd.cu, kTcMaxD): keys (the dK/dV
-#: pass) or query rows (the dQ pass) a CTA owns, two warpgroups of
-#: BWD_TC_WG (kTcBlock); the lse₂/Δ scratch gives each query head Sq
-#: rounded up to BWD_TC_BLOCK rows (padded_rows).
-BWD_TC_MAX_D = 128
+#: BWD_TC_MAX_D; csrc/flash_attention_bwd.cu, kTcMaxD): query rows a CTA of
+#: the dQ pass owns (kTcBlock), two warpgroups of BWD_TC_WG rows; keys a
+#: CTA of the dK/dV pass owns, BWD_TC_BLOCK up to head dim 128 (two
+#: warpgroups of BWD_TC_WG keys) and BWD_WIDE_KEYS past it (kWideKeys; both
+#: warpgroups on them, each over half of a query tile's rows); the lse₂/Δ
+#: scratch gives each query head Sq rounded up to BWD_TC_BLOCK rows
+#: (padded_rows).
+BWD_TC_MAX_D = 256
 BWD_TC_BLOCK = 128
 BWD_TC_WG = 64
+BWD_WIDE_KEYS = 64
 
 
 class AttentionBwdWalk(NamedTuple):
     """The tile walks of kernel 12's backward on the tensor cores, for one
     (batch, KV head): ``dkdv`` lists (key block, query head of the group,
     first row of a BQ-row query tile, (masked, masked) of the two
-    warpgroups) in each CTA's order, the key blocks in grid order;
-    ``dq`` lists (query block, first key of a BN-key tile, (masked,
-    masked)), the last query blocks first.  A tile a warpgroup does not
-    mask is one whose every pair with a row before Sq is visible; rows
-    past Sq get P = 0 from the scratch's lse₂ = +inf.  ``rows``: Sq_pad."""
+    warpgroups) in each CTA's order, the key blocks (``keys`` keys each)
+    in grid order; ``dq`` lists (query block, first key of a BN-key tile,
+    (masked, masked)), the last query blocks first.  A tile a warpgroup
+    does not mask is one whose every pair with a row before Sq is visible;
+    rows past Sq get P = 0 from the scratch's lse₂ = +inf.  ``rows``:
+    Sq_pad."""
     bq: int
     bn: int
+    keys: int
     rows: int
     dkdv: tuple
     dq: tuple
 
+    def dkdv_parts(self, kb: int, row0: int):
+        """(first key, keys, first row, rows) of each warpgroup's share of
+        the dK/dV pass's tile (kb, row0): 64 keys each over the tile's BQ
+        rows up to head dim 128, the CTA's 64 keys over half of its rows
+        each past it."""
+        k0 = kb * self.keys
+        if self.keys == BWD_TC_BLOCK:
+            return [(k0 + w * BWD_TC_WG, BWD_TC_WG, row0, self.bq)
+                    for w in (0, 1)]
+        half = self.bq // 2
+        return [(k0, self.keys, row0 + w * half, half) for w in (0, 1)]
 
-def attention_bwd_tiles(d: int) -> Tuple[int, int]:
-    """(BQ, BN): the dK/dV pass's query tile and the dQ pass's key tile at
-    head dim d (launch_tc's choice)."""
-    return (128, 64) if d <= 64 else (64, 64)
+
+def attention_bwd_tiles(d: int) -> Tuple[int, int, int]:
+    """(BQ, BN, keys): the dK/dV pass's query tile, the dQ pass's key tile
+    and the dK/dV pass's keys a CTA at head dim d (launch_tc's choice)."""
+    if d > 128:
+        return 64, 64, BWD_WIDE_KEYS
+    return (128, 64, BWD_TC_BLOCK) if d <= 64 else (64, 64, BWD_TC_BLOCK)
 
 
 def attention_bwd_geometry(hq: int, hkv: int, sq: int, skv: int, d: int,
                            causal: bool, window, kv_offset: int
                            ) -> AttentionBwdWalk:
-    """Mirror of attention_bwd_dkdv_tc's and attention_bwd_dq_tc's walks
-    (window None or 0: none), the same integer arithmetic."""
-    bq, bn = attention_bwd_tiles(d)
+    """Mirror of attention_bwd_dkdv_tc's (attention_bwd_dkdv_wide's past
+    head dim 128) and attention_bwd_dq_tc's walks (window None or 0:
+    none), the same integer arithmetic."""
+    bq, bn, keys = attention_bwd_tiles(d)
     blk, wgr = BWD_TC_BLOCK, BWD_TC_WG
     w = window or 0
     g_size = hq // hkv
+    walk = AttentionBwdWalk(bq, bn, keys, -(-sq // blk) * blk, (), ())
     dkdv = []
-    for kb in range(-(-skv // blk)):
-        k0 = kb * blk
-        key_last = min(k0 + blk, skv) - 1
+    for kb in range(-(-skv // keys)):
+        k0 = kb * keys
+        key_last = min(k0 + keys, skv) - 1
         r_beg = max(0, k0 - kv_offset) if causal else 0
         r_end = min(sq, key_last + w - kv_offset) if w > 0 else sq
         t_first = r_beg // bq
@@ -380,14 +402,13 @@ def attention_bwd_geometry(hq: int, hkv: int, sq: int, skv: int, d: int,
         for j in range(g_size * n_t):
             row0 = (t_first + j % n_t) * bq
             masked = tuple(
-                not (wk0 + wgr <= skv
-                     and (not causal or wk0 + wgr - 1 <= row0 + kv_offset)
-                     and (w <= 0 or wk0 > row0 + bq - 1 + kv_offset - w))
-                for wk0 in (k0, k0 + wgr))
+                not (pk0 + nk <= skv
+                     and (not causal or pk0 + nk - 1 <= pr0 + kv_offset)
+                     and (w <= 0 or pk0 > pr0 + nr - 1 + kv_offset - w))
+                for pk0, nk, pr0, nr in walk.dkdv_parts(kb, row0))
             dkdv.append((kb, j // n_t, row0, masked))
     dq = []
-    nqb = -(-sq // blk)
-    for qb in range(nqb - 1, -1, -1):
+    for qb in range(walk.rows // blk - 1, -1, -1):
         q0 = qb * blk
         last = min(q0 + blk, sq) - 1 + kv_offset
         k_end = min(skv, last + 1) if causal else skv
@@ -402,7 +423,7 @@ def attention_bwd_geometry(hq: int, hkv: int, sq: int, skv: int, d: int,
                      and (w <= 0 or t0 > first + wgr - 1 - w))
                 for first in (q0 + kv_offset, q0 + wgr + kv_offset))
             dq.append((qb, t0, masked))
-    return AttentionBwdWalk(bq, bn, nqb * blk, tuple(dkdv), tuple(dq))
+    return walk._replace(dkdv=tuple(dkdv), dq=tuple(dq))
 
 
 def check_cuda_f32(name: str, t: torch.Tensor) -> None:

@@ -1,13 +1,15 @@
 // The Hopper pieces both of kernel 12's bf16 routes are built from: the
 // forward (flash_attention.cu, attention_tc) and the backward
-// (flash_attention_bwd.cu, attention_bwd_dkdv_tc and attention_bwd_dq_tc).
+// (flash_attention_bwd.cu, attention_bwd_dkdv_tc, attention_bwd_dkdv_wide
+// and attention_bwd_dq_tc).
 //
 // Raw PTX, no CUTLASS/CuTe headers: mbarriers and TMA copies (3-D tiled
 // boxes of 64 bf16 columns with the 128-byte swizzle, and 1-D bulk copies),
 // wgmma shared-memory descriptors, fences and the products m64nNk16 with
-// bf16 operands and f32 accumulators (A and B in shared memory, or A in
-// registers with B read MN-major), ex2.approx, the bf16 packing of an
-// accumulator into wgmma's register A fragment, and the tensor maps,
+// bf16 operands and f32 accumulators (A and B in shared memory, B K-major
+// or MN-major, or A in registers with B read MN-major), ex2.approx, the
+// bf16 packing of an accumulator into wgmma's register A fragment or into
+// a swizzled tile in shared memory, and the tensor maps,
 // encoded through cudaGetDriverEntryPointByVersion so that a library needs
 // no -lcuda.
 //
@@ -129,6 +131,7 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #define EARL_F8(d, i)                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define EARL_F16(d) EARL_F8(d, 0), EARL_F8(d, 8)
 #define EARL_F32(d) \
   EARL_F8(d, 0), EARL_F8(d, 8), EARL_F8(d, 16), EARL_F8(d, 24)
 #define EARL_F64(d)                                                     \
@@ -140,6 +143,9 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #define EARL_F128(d)                                                    \
   EARL_F96(d), EARL_F8(d, 96), EARL_F8(d, 104), EARL_F8(d, 112),        \
       EARL_F8(d, 120)
+#define EARL_R16                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15}"
 #define EARL_R32                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
@@ -171,7 +177,7 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
   "%122, %123, %124, %125, %126, %127}"
 
 // D (64 x N, f32) = A·B over one k-step of 16, A and B K-major in
-// shared memory; `accumulate` 0 overwrites D.  N = 128 or 64.
+// shared memory; `accumulate` 0 overwrites D.  N = 128, 64 or 32.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
@@ -195,6 +201,50 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       "}\n"
       : EARL_F32(d)
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " EARL_R16
+      ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : EARL_F16(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x N, f32) += A·B over one k-step of 16, both in shared memory: A
+// K-major, B MN-major (the transpose bit).  N = 128 takes all of d, N = 64
+// its first 32 entries (the m64n64 layout is the m64n128 layout's first
+// half).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a,
+                                            uint64_t b) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " EARL_R64
+        ", %64, %65, p, 1, 1, 0, 1;\n"
+        "}\n"
+        : EARL_F64(d)
+        : "l"(a), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " EARL_R32
+        ", %32, %33, p, 1, 1, 0, 1;\n"
+        "}\n"
+        : EARL_F32(d)
+        : "l"(a), "l"(b), "r"(1));
+  }
 }
 
 // D (64 x N, f32) += A·B over one k-step of 16: A (bf16 pairs) in
@@ -258,6 +308,25 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // RNE
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The byte offset of bf16 column c (even, under 64) of row r in a tile of
+// 128-byte rows laid out as the 128-byte swizzle lays a TMA box (the tile
+// 1,024-byte aligned): 16-byte chunk c / 8 of row r sits at chunk (c / 8)
+// xor (r mod 8), so a wgmma descriptor reads the tile as it reads a box.
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return r * kRowBytes + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// Four bytes into shared memory at the shared-space address `addr`.
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma reading its operands, TMA), before a barrier.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

@@ -334,12 +334,11 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
     """Kernel 12's backward (csrc/flash_attention_bwd.cu) on the card:
     (dq, dk, dv) in the inputs' dtype, in three launches of one call (Δ,
     then dK and dV, then dQ); counted once a call in
-    ``flash_attention_backward_cuda.launches``.  bf16 up to head dim
-    BWD_TC_MAX_D runs on the tensor cores (wgmma fed by TMA, P and dS
-    rounded to bf16 before the products that take them, f32
+    ``flash_attention_backward_cuda.launches``.  bf16 (up to head dim
+    BWD_TC_MAX_D, MAX_HEAD_DIM) runs on the tensor cores (wgmma fed by
+    TMA, P and dS rounded to bf16 before the products that take them, f32
     accumulation; D zero-padded to a multiple of 8 for TMA), also counted
-    in ``.tc_launches``; f32, and bf16 past it, on the CUDA cores in IEEE
-    f32."""
+    in ``.tc_launches``; f32 on the CUDA cores in IEEE f32."""
     _check_shapes(q, k, v)
     _check_cuda(q, k, v)
     b, hq, sq, d = q.shape

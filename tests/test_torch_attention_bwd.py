@@ -1,10 +1,12 @@
-"""Kernel 12's backward on the tensor cores (bf16 up to head dim 128,
+"""Kernel 12's backward on the tensor cores (bf16 up to head dim 256,
 csrc/flash_attention_bwd.cu), what of it the CPU can hold.
 
 The tile walks: ``_pass.attention_bwd_geometry`` mirrors the dK/dV pass
-(a CTA a 128-key block, walking each query head of the group over the
-BQ-row query tiles its keys can see) and the dQ pass (a CTA a 128-row
-query block over the BN-key tiles its rows can see).  At
+(a CTA a block of keys, 128 up to head dim 128 and 64 past it, walking
+each query head of the group over the BQ-row query tiles its keys can
+see; its two warpgroups split the keys up to head dim 128 and a tile's
+query rows past it) and the dQ pass (a CTA a 128-row query block over
+the BN-key tiles its rows can see, BN = 64).  At
 tests/test_torch_cuda.py's FA_BWD_CASES, chip_smoke.py's BWD_CASES (the
 models' train-mode geometries, granite-3-2b's step among them) and
 hypothesis-drawn geometries: each pass covers every visible (key, row)
@@ -15,11 +17,14 @@ the scratch's rows.
 
 The tolerance: the route rounds P and dS to bf16 (RNE) before the three
 products that take them, so the card's checks add 2^-8·Σ|terms| to the
-CUDA-core route's.  A dense copy of the plain backward that rounds the
-same way lies within that of the unrounded copy, of
-``flash_attention_backward_plain`` and of ``jax.vjp`` through the JAX
-package's blockwise path (plus 1e-5·Σ|terms| for f32 summation order)
-at three small geometries.
+CUDA-core route's.  Up to head dim 128 the rounded values are wgmma's
+register fragments; past it they go through shared memory as bf16 (the
+dK/dV pass's Pᵀ and dSᵀ tiles), the same single RNE rounding of each
+value.  A dense copy of the plain backward that rounds the same way lies
+within that of the unrounded copy, of ``flash_attention_backward_plain``
+and of ``jax.vjp`` through the JAX package's blockwise path (plus
+1e-5·Σ|terms| for f32 summation order) at five small geometries, two of
+them at head dims 168 and 256.
 """
 import sys
 from pathlib import Path
@@ -33,8 +38,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels.flash_attention import ops as jfa
-from repro_torch.kernels._pass import (BWD_TC_BLOCK, BWD_TC_WG,
-                                       attention_bwd_geometry)
+from repro_torch.kernels._pass import (BWD_TC_BLOCK, attention_bwd_geometry,
+                                       attention_bwd_tiles)
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.flash_attention.ref import attention_mask
 from test_torch_train import bwd_bounds
@@ -69,7 +74,9 @@ def _check_walk(shape, causal=True, window=None, kv_offset=0):
     walk = attention_bwd_geometry(hq, hkv, sq, skv, d, causal, window,
                                   kv_offset)
     vis = _visible(sq, skv, causal, window, kv_offset)
-    blk, wg, bq, bn = BWD_TC_BLOCK, BWD_TC_WG, walk.bq, walk.bn
+    blk, wg, bq, bn = BWD_TC_BLOCK, 64, walk.bq, walk.bn
+    kbk = walk.keys
+    assert (bq, bn, kbk) == attention_bwd_tiles(d)
     assert walk.rows % blk == 0 and sq <= walk.rows < sq + blk
 
     # dK/dV: each head of the group walks the same tiles, key blocks in
@@ -83,18 +90,23 @@ def _check_walk(shape, causal=True, window=None, kv_offset=0):
     count = np.zeros((skv, sq), dtype=np.int32)
     for kb, r0 in by_head[0]:
         assert r0 % bq == 0 and r0 + bq <= walk.rows
-        count[kb * blk:(kb + 1) * blk, r0:r0 + bq] += 1
+        count[kb * kbk:(kb + 1) * kbk, r0:r0 + bq] += 1
     assert (count[vis] == 1).all()
-    for kb in range(-(-skv // blk)):
+    for kb in range(-(-skv // kbk)):
         for r0 in range(0, sq, bq):
             if (kb, r0) not in by_head[0]:
-                assert not vis[kb * blk:(kb + 1) * blk, r0:r0 + bq].any()
+                assert not vis[kb * kbk:(kb + 1) * kbk, r0:r0 + bq].any()
     for kb, _, r0, masked in walk.dkdv:
-        for w, m in enumerate(masked):
-            k0 = kb * blk + w * wg
+        parts = walk.dkdv_parts(kb, r0)
+        # the two warpgroups' shares tile the CTA's keys by the tile's rows
+        share = np.zeros((kbk, bq), dtype=np.int32)
+        for k0, nk, p0, nr in parts:
+            share[k0 - kb * kbk:k0 - kb * kbk + nk, p0 - r0:p0 - r0 + nr] += 1
+        assert (share == 1).all()
+        for (k0, nk, p0, nr), m in zip(parts, masked):
             if not m:
-                assert k0 + wg <= skv
-                assert vis[k0:k0 + wg, r0:min(r0 + bq, sq)].all()
+                assert k0 + nk <= skv
+                assert vis[k0:k0 + nk, p0:min(p0 + nr, sq)].all()
 
     # dQ: query blocks from the last, each over its key tiles in order
     qbs = [qb for qb, _, _ in walk.dq]
@@ -136,6 +148,21 @@ def test_attention_bwd_walks_on_drawn_geometries(hkv, g, sq, skv, causal,
                 kv_offset=kv_offset)
 
 
+@settings(max_examples=60, deadline=None)
+@given(hkv=st.integers(1, 2), g=st.integers(1, 3),
+       sq=st.integers(1, 700), skv=st.integers(1, 700),
+       causal=st.booleans(),
+       window=st.one_of(st.none(), st.integers(1, 800)),
+       kv_offset=st.integers(-300, 300),
+       d=st.integers(17, 32).map(lambda x: 8 * x))
+def test_attention_bwd_wide_walks_on_drawn_geometries(hkv, g, sq, skv, causal,
+                                                       window, kv_offset, d):
+    """The route past head dim 128 (d 136 .. 256, the wrapper's multiples
+    of 8): 64 keys a CTA split by query rows."""
+    _check_walk((1, g * hkv, hkv, sq, skv, d), causal=causal, window=window,
+                kv_offset=kv_offset)
+
+
 def _dense_backward(q, k, v, o, lse, do, causal, window, kv_offset, scale,
                     rounded):
     """dq, dk, dv (f32) of kernel 12 by dense products, P and dS rounded
@@ -159,12 +186,16 @@ def _dense_backward(q, k, v, o, lse, do, causal, window, kv_offset, scale,
             dv.reshape(b, hkv, g, skv, d).sum(2))
 
 
-#: three small geometries: causal GQA 4:1, a window with Sq = Skv = 67,
-#: and not causal with Sq != Skv and a kv_offset
+#: five small geometries: causal GQA 4:1, a window with Sq = Skv = 67,
+#: not causal with Sq != Skv and a kv_offset, and the wide route's head
+#: dims: gemma3-27b's 168 (GQA 2:1, a window) and recurrentgemma-2b's 256
+#: (one KV head, a window, a kv_offset)
 TOL_CASES = [
     ((1, 4, 1, 37, 37, 16), dict(causal=True)),
     ((2, 4, 2, 67, 67, 64), dict(causal=True, window=13)),
     ((1, 8, 2, 37, 67, 64), dict(causal=False, kv_offset=5)),
+    ((1, 4, 2, 45, 45, 168), dict(causal=True, window=17)),
+    ((1, 2, 1, 29, 41, 256), dict(causal=True, window=20, kv_offset=12)),
 ]
 
 
@@ -205,3 +236,30 @@ def test_bf16_rounding_of_p_and_ds_stays_within_its_term(shape, kw):
         for want in (pl, jx):
             assert bool(((g_ - want).abs() <= (term + 1e-5) * bd).all()), \
                 name
+
+
+def _causal_window_pairs(s, w):
+    """The hand count of a head's visible pairs under a causal window of
+    w over s tokens (w >= s: causal alone): the first w rows see 1 .. w
+    keys, every later row w."""
+    w = min(w, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def test_visible_pairs_counts_chip_smokes_causal_windows():
+    """``ops.visible_pairs``, the one count of visible pairs that
+    chip_smoke.py's bounds and the FLOP formulas use, equals the hand count
+    at every causal geometry chip_smoke.py bounds: the serving prefill's
+    window, the wide heads' local and global layers, the MoE prefills and
+    the training step."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    geos = [(cs.FA_S, w) for w in (cs.FA_W, cs.GEMMA_W, cs.RG_W, None)]
+    geos += [(cs.SERVE_PROMPT, w) for *_, w in cs.MOE_FA_TIMED]
+    geos += [(cs.TRAIN_S, None)]
+    geos += [(s, w) for _, (_, _, _, s, _, _), kw in cs.BWD_CASES
+             if kw["causal"] and not kw.get("kv_offset")
+             for w in (kw.get("window"),)]
+    for s, w in geos:
+        assert tfa.visible_pairs(s, s, True, w, 0) == \
+            _causal_window_pairs(s, w or s), (s, w)

@@ -1588,7 +1588,10 @@ def test_cuda_moe_drops_the_cpu_slots(cuda):
 # ---------------------------------------------------------------------------
 #: (b, hq, hkv, sq, skv, d), kwargs: causal GQA 4:1, a window, not causal
 #: with Sq != Skv, ragged 37 and 67, a negative and a positive kv_offset,
-#: a query block that sees no key, and head dims 20, 168 and 256
+#: a query block that sees no key, and head dims 20, 168 and 256; past 128
+#: (the tensor cores' wide route in bf16) also 136 and 200, which are not
+#: multiples of 64, a ragged Sq with a kv_offset and a block that sees no
+#: key at 256
 FA_BWD_CASES = [
     ((2, 8, 2, 128, 128, 64), dict(causal=True)),
     ((1, 4, 1, 200, 200, 64), dict(causal=True, window=50)),
@@ -1598,6 +1601,10 @@ FA_BWD_CASES = [
     ((1, 2, 1, 64, 32, 16), dict(causal=True, window=16, kv_offset=100)),
     ((1, 4, 2, 96, 96, 168), dict(causal=True)),
     ((1, 2, 1, 80, 80, 256), dict(causal=True, window=32)),
+    ((1, 6, 2, 150, 150, 136), dict(causal=True, window=70)),
+    ((2, 4, 1, 100, 140, 200), dict(causal=False)),
+    ((1, 4, 1, 67, 131, 256), dict(causal=True, kv_offset=64)),
+    ((1, 2, 1, 64, 32, 256), dict(causal=True, window=16, kv_offset=100)),
 ]
 
 
@@ -1644,9 +1651,9 @@ def _bwd_close(got, want, bound, tc=False):
 def test_cuda_flash_attention_backward_matches_plain(cuda, shape, kw, dtype):
     """The backward kernel against flash_attention_backward_plain on the
     same q, k, v, o, lse and dO (the kernel's forward), one launch a call
-    (bf16 up to D = 128 on the tensor-core route, the rest on the CUDA
-    cores), and lse against the plain version's; two launches give the
-    same bits."""
+    (bf16 on the tensor-core route at every D, f32 on the CUDA cores), and
+    lse against the plain version's; two launches give the same bits."""
+    from repro_torch.kernels._pass import BWD_TC_MAX_D
     from repro_torch.kernels.flash_attention import ops as tfa
     q, k, v = _fa_inputs(shape, dtype, cuda, shape[3] + shape[4])
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)
@@ -1665,7 +1672,8 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, shape, kw, dtype):
     tc0 = tfa.flash_attention_backward_cuda.tc_launches
     got = tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
     assert tfa.flash_attention_backward_cuda.launches == before + 1
-    tc = dtype == torch.bfloat16 and shape[5] <= 128
+    tc = dtype == torch.bfloat16 and shape[5] <= BWD_TC_MAX_D
+    assert tc == (dtype == torch.bfloat16)
     assert tfa.flash_attention_backward_cuda.tc_launches == tc0 + int(tc)
     want = tfa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
     bounds = _bwd_bounds(q, k, v, o, do, lse, kw["causal"], kw["window"],
