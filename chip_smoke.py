@@ -357,14 +357,27 @@ failure:
    launch/hlo_analysis.CollectiveBytes, which must agree), step wall and
    spawn-to-join s; then the flash-decoding layout in the same world:
    h2o-danube-3-4b at full width cut to 4 layers, an unsharded prefill of
-   1 x 8192 tokens (kernel 12) on each rank, its cache placed by
-   SERVE_RULES (the ring's slots over data) and 8 teacher-forced decode
-   steps within 2e-2 of max |logit| of the unsharded decode run here;
+   1 x 8192 tokens (kernel 12) on each rank, its cache and the params
+   placed by SERVE_RULES with the FSDP split of "embed" kept (the ring's
+   slots and d over data) and 8 teacher-forced decode steps within 2e-2
+   of max |logit| of the unsharded decode run here, each step's
+   collectives by kind (all-reduces only: no all-gather) and a step's
+   dot FLOPs a rank beside one step in the layout without the split;
+   then the gspmd MoE in the same world: mixtral-8x22b at full width cut
+   to 1 of its 56 layers (f32 params, bf16 compute, capacity 1.25), one
+   prompt of 4096 Zipf tokens prefilled under SERVE_RULES with "embed"
+   kept (each rank initialising the whole params in turn, then keeping
+   its shards), within 2e-2 of max |logit| of the unsharded prefill run
+   here, the MoE layer's kept slots bitwise the unsharded route of its
+   own input (gathered here) and its routing held against the unsharded
+   prefill's by phase 16's card == CPU law, its dropped slots,
+   collectives (all-reduces and all-to-alls) and seconds;
 20. (run after phase 19) the dry run and the last modules: the fake
    (FakeTensorMode, a "fake" process group) train step of phase 19's
    world of one counts the real step's dot FLOPs exactly, the fake 2 x 2
    train step and flash-decoding step issue the real world of 4's
-   collectives by kind with their bytes exactly, both the same on "cuda"
+   collectives by kind with their bytes exactly (the flash step also its
+   dot FLOPs), both the same on "cuda"
    and "cpu" fake tensors in every FLOP, byte and collective field; two
    production cells' records (launch/dryrun.lower_cell on the card);
    configs/earl_analytics.CONFIG's Mean, Median and group sessions
@@ -782,12 +795,25 @@ SHARD_LOGIT_SHARE, SHARD_RANK_TIMEOUT_S = 2e-2, 400
 SHARD_CARD4_UNSPLIT = "embed"
 #: the flash-decoding layout in phase 19's world of 4: h2o-danube-3-4b at
 #: full width cut to FLASH_LAYERS, an unsharded prefill of 1 x FLASH_S
-#: tokens (kernel 12), its cache placed by SERVE_RULES at batch 1 (the
-#: ring's slots over data; without SHARD_CARD4_UNSPLIT's split), then
+#: tokens (kernel 12), its cache and the params placed by SERVE_RULES at
+#: batch 1 (the ring's slots over data, and the FSDP split of "embed"
+#: kept: the stream d-split over data, all-reduces only), then
 #: FLASH_STEPS teacher-forced decode steps on the mesh against the
-#: unsharded decode within SHARD_LOGIT_SHARE of max |logit|
+#: unsharded decode within SHARD_LOGIT_SHARE of max |logit|, and one step
+#: in the layout without the split (SHARD_CARD4_UNSPLIT's) for its dot
+#: FLOPs a rank
 FLASH_ARCH, FLASH_LAYERS, FLASH_SEED = "h2o-danube-3-4b", 4, 23
 FLASH_S, FLASH_STEPS = 8192, 8
+#: the gspmd MoE in phase 19's world of 4: mixtral-8x22b at full width
+#: (MIXTRAL_SEED, phase 16's f32 params and bf16 compute) cut to
+#: SHARD_MOE_LAYERS of its 56 layers, moe_impl "gspmd" at capacity
+#: SHARD_MOE_CAPACITY, one prompt of SHARD_MOE_S phase-16-style (Zipf)
+#: tokens prefilled under SERVE_RULES with "embed" kept: the stream
+#: d-split over data, the router on each data rank's rows (one
+#: all-to-all), the dispatch by another, the experts on each rank's
+#: columns of d.  About 11.6 GB of f32 params unsharded (each rank
+#: initialises them whole in turn, then keeps its quarter)
+SHARD_MOE_LAYERS, SHARD_MOE_S, SHARD_MOE_CAPACITY = 1, 4096, 1.25
 #: phase 20's production cells, (arch, shape, multi-pod), dry-run on the
 #: card: every cell of launch/dryrun.py --all runs on the CPU (PERF.md).
 #: granite-3-2b's train_4k on 16 x 16 (10.5-15.6 s to trace on the H100
@@ -7791,38 +7817,153 @@ def flash_logits(torch, cfg, params, prompt, teacher):
 
 def flash_rank(torch, mesh) -> tuple:
     """A rank's flash-decoding run: the unsharded prefill, its cache and
-    the params placed by SERVE_RULES without SHARD_CARD4_UNSPLIT's split
-    (the cache's ring slots over data at batch 1), FLASH_STEPS decode
-    steps on the mesh.  Returns (the local logits, their placements, each
-    step's collectives, whether every cache k split its slots)."""
+    the params placed by SERVE_RULES (the cache's ring slots over data at
+    batch 1, and the FSDP split of "embed" kept: the stream d-split over
+    data), FLASH_STEPS decode steps on the mesh, the first under
+    ``DotFlops``; then the first step again in the layout without the
+    split (SHARD_CARD4_UNSPLIT's rules, the weights gathered whole over
+    data) on another placement of the same cache, under ``DotFlops``.
+    Returns (the local logits, their placements, each step's collectives,
+    whether every cache k split its slots, {"split", "unsplit": a step's
+    dot FLOPs record}, the unsplit step's collectives and local logits)."""
     from repro_torch.launch import sharding as sh
+    from repro_torch.launch.hlo_flops import DotFlops
     from repro_torch.models import decode_step, prefill
     from repro_torch.models.act_shard import (activation_sharding,
                                               mapping_from_mesh)
     from repro_torch.models.partitioning import (batch_axes, cache_axes,
                                                  param_axes)
-    rules = card4_rules(sh.SERVE_RULES)
+    rules, unsplit = sh.SERVE_RULES, card4_rules(sh.SERVE_RULES)
     cfg, params, prompt, teacher = flash_setup(torch)
     with torch.no_grad():
         _, cache = prefill(cfg, params, prompt,
                            cache_len=FLASH_S + FLASH_STEPS)
     p_sh = place(params, param_axes, mesh, rules)
     c_sh = place(cache, cache_axes, mesh, rules)
+    p_un = place(params, param_axes, mesh, unsplit)
+    c_un = place(cache, cache_axes, mesh, unsplit)
     del params, cache
     torch.cuda.empty_cache()
     split = all(placement_codes(t)[0] == ("S", t.ndim - 2)
                 for path, t in leaf_dict(c_sh).items() if path.endswith("/k"))
-    logits, colls = [], []
-    with torch.no_grad(), activation_sharding(mapping_from_mesh(mesh, rules),
-                                              mesh):
+    logits, colls, dots = [], [], {}
+
+    def step(p, c, r, i):
+        tok = place({"token": teacher[:, i:i + 1]}, batch_axes, mesh,
+                    r)["token"]
+        with activation_sharding(mapping_from_mesh(mesh, r), mesh), \
+                DotFlops() as d:
+            out = counted_collectives(
+                torch, lambda: decode_step(cfg, p, c, tok, FLASH_S + i))
+        return out, d.record_dict()
+    with torch.no_grad():
         for i in range(FLASH_STEPS):
-            tok = place({"token": teacher[:, i:i + 1]}, batch_axes, mesh,
-                        rules)["token"]
-            (lg, c_sh), coll, _ = counted_collectives(
-                torch, lambda: decode_step(cfg, p_sh, c_sh, tok, FLASH_S + i))
+            ((lg, c_sh), coll, _), d = step(p_sh, c_sh, rules, i)
+            if i == 0:
+                dots["split"] = d
             logits.append(lg.to_local().cpu())
             colls.append(coll)
-    return logits, placement_codes(lg), colls, split
+        ((lg_un, _), coll_un, _), dots["unsplit"] = step(p_un, c_un,
+                                                         unsplit, 0)
+    return (logits, placement_codes(lg), colls, split, dots, coll_un,
+            (lg_un.to_local().cpu(), placement_codes(lg_un)))
+
+
+def shard_moe_setup(torch):
+    """mixtral-8x22b cut to SHARD_MOE_LAYERS at full width, moe_impl
+    "gspmd" at SHARD_MOE_CAPACITY, its params on the card from
+    MIXTRAL_SEED by a generator on the card, and the 1 x SHARD_MOE_S
+    prompt (phase 16's ``synthetic_tokens``): the same values in every
+    process."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config(MIXTRAL_ARCH),
+                              n_layers=SHARD_MOE_LAYERS, moe_impl="gspmd",
+                              capacity_factor=SHARD_MOE_CAPACITY)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        MIXTRAL_SEED), device="cuda")
+    prompt = torch.from_numpy(synthetic_tokens(
+        1, SHARD_MOE_S, cfg.vocab, seed=MIXTRAL_SEED)).cuda()
+    return cfg, params, prompt
+
+
+#: the Route fields whose equality is the same kept slots
+ROUTE_KEPT = ("eidx", "se", "st", "keep", "slot")
+
+
+def moe_rank(torch, mesh, rank: int) -> tuple:
+    """A rank's gspmd MoE leg: the ranks initialise the whole params in
+    turn (each placing them by SERVE_RULES with "embed" kept, then
+    freeing them), then one prefill of the prompt from zeroed counts,
+    counting its collectives, the MoE layer's own (``CommDebugMode``) and
+    recording the Route it sorts (``layers.route_of``) and the layer's
+    local input.  Returns (info, tensors: the local logits and their
+    placements, the route's kept-slot fields and logits, the layer
+    input's local block and placements)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import layers, prefill, sharded
+    from repro_torch.models.act_shard import (activation_sharding,
+                                              mapping_from_mesh)
+    from repro_torch.models.partitioning import batch_axes, param_axes
+    t0 = time.perf_counter()
+    rules = sh.SERVE_RULES
+    for r in range(SHARD_WORLD):        # one rank's whole params at a time
+        if r == rank:
+            cfg, params, prompt = shard_moe_setup(torch)
+            p_sh = place(params, param_axes, mesh, rules)
+            del params
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    init_s = time.perf_counter() - t0
+    tok = place({"tokens": prompt}, batch_axes, mesh, rules)["tokens"]
+    seen = {"routes": [], "inputs": [], "comms": []}
+    moe, route_of = sharded._moe, layers.route_of
+
+    def tap_moe(cfg_, norm, p, x):
+        with CommDebugMode() as comm:
+            y = moe(cfg_, norm, p, x)
+        seen["comms"].append({str(k).split(".")[-1]: v for k, v in
+                              comm.get_comm_counts().items()})
+        seen["inputs"].append((x.to_local().cpu(), placement_codes(x)))
+        return y
+
+    def tap_route(*a):
+        r = route_of(*a)
+        seen["routes"].append(r)
+        return r
+    zero_counts()
+    sharded._moe, layers.route_of = tap_moe, tap_route
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad(), activation_sharding(
+                mapping_from_mesh(mesh, rules), mesh):
+            (logits, _), coll, _ = counted_collectives(
+                torch, lambda: prefill(cfg, p_sh, tok,
+                                       cache_len=SHARD_MOE_S))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+    finally:
+        sharded._moe, layers.route_of = moe, route_of
+    launches = LaunchLog.counts()
+    r = seen["routes"][0]
+    info = dict(init_s=init_s, prefill_s=prefill_s,
+                leg_s=time.perf_counter() - t0, collectives=coll,
+                moe_comms=seen["comms"], launches=launches,
+                dropped=int(layers.dropped_slots(r)),
+                stream=seen["inputs"][0][1])
+    out = dict(logits=logits.to_local().cpu(),
+               logit_placements=placement_codes(logits),
+               route={f: getattr(r, f).cpu() for f in ROUTE_KEPT},
+               route_logits=r.logits.cpu(),
+               moe_input=seen["inputs"][0][0],
+               moe_input_placements=seen["inputs"][0][1])
+    return info, out
 
 
 def place(tree, axes_of, mesh, rules):
@@ -8028,8 +8169,8 @@ def shard_rank(argv) -> int:
     split (``card4_rules``), each rank's local shapes against
     ``resolve_spec``; its local logits, gradients and updated params, the
     step's wall and collectives and kernel 12's launches and geometries,
-    then the flash-decoding steps (``flash_rank``), to DIR/rank<R>.pt and
-    DIR/rank<R>.json."""
+    then the flash-decoding steps (``flash_rank``) and the gspmd MoE leg
+    (``moe_rank``), to DIR/rank<R>.pt and DIR/rank<R>.json."""
     import faulthandler
     import os
     import torch
@@ -8119,8 +8260,11 @@ def shard_rank(argv) -> int:
         del state, grads, b_sh, p_sh, metrics
         torch.cuda.empty_cache()
         (res["flash_logits"], res["flash_placements"],
-         info["flash_collectives"], info["flash_split"]) = flash_rank(torch,
-                                                                       mesh)
+         info["flash_collectives"], info["flash_split"],
+         info["flash_dot_flops"], info["flash_unsplit_collectives"],
+         res["flash_unsplit"]) = flash_rank(torch, mesh)
+        torch.cuda.empty_cache()
+        info["moe"], res["moe"] = moe_rank(torch, mesh, rank)
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
@@ -8144,6 +8288,7 @@ def shard_world4(torch, tmp: str) -> dict:
     (``flash_rank``), stitched, within SHARD_LOGIT_SHARE of max |logit| of
     the unsharded decode, each step's collectives the same."""
     import os
+    from repro_torch.models import prefill
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.train import make_grad_step
     t0 = time.perf_counter()
@@ -8182,6 +8327,13 @@ def shard_world4(torch, tmp: str) -> dict:
                 print(f.read()[-6000:], file=sys.stderr)
         check(p.returncode == 0, f"sharded rank {rank} exited "
               f"{p.returncode}")
+    # the unsharded MoE prefill once the ranks are done, so that it shares
+    # the card with none of their timed steps
+    torch.cuda.empty_cache()
+    mcfg, mparams, mprompt = shard_moe_setup(torch)
+    with torch.no_grad(), RouteTap() as mtap:
+        moe_want, _ = prefill(mcfg, mparams, mprompt, cache_len=SHARD_MOE_S)
+    moe_want = moe_want.cpu()
     infos, ranks = [], []
     for rank in range(SHARD_WORLD):
         with open(os.path.join(tmp, f"rank{rank}.json")) as f:
@@ -8239,6 +8391,27 @@ def shard_world4(torch, tmp: str) -> dict:
                   for c in info["flash_collectives"]), f"sharded: rank "
               f"{rank}'s flash-decoding steps issued "
               f"{info['flash_collectives']}, not one count a step")
+        check(all(set(c) == {"all-reduce"} for c in info[
+            "flash_collectives"]), f"sharded: rank {rank}'s flash-decoding "
+            f"steps with \"embed\" split issued {info['flash_collectives']}"
+            f": all-reduces only were expected")
+        dots = info["flash_dot_flops"]
+        check(dots["split"]["flops"] < dots["unsplit"]["flops"],
+              f"sharded: rank {rank}'s flash-decoding step with \"embed\" "
+              f"split runs {dots}, not fewer products than without it")
+    got = stitch(torch, [(c, *r["flash_unsplit"])
+                         for c, r in zip(coords, ranks)],
+                 tuple(flash_want[0].shape))
+    err = float((got - flash_want[0]).abs().max())
+    tol = logits_tolerance(flash_want[0][..., :fcfg.vocab], SHARD_LOGIT_SHARE)
+    check(err <= tol, f"sharded: the flash-decoding step without the split "
+          f"of \"embed\": logits {err} from the unsharded decode, past "
+          f"{tol}")
+    unsplit_share = err / tol
+    moe = moe_checks(torch, mcfg, mparams, moe_want, mtap.routes[0], coords,
+                     infos, ranks)
+    del mparams
+    torch.cuda.empty_cache()
     flat_g = leaf_dict(grads)
     stitched, grad_share = {}, {}
     for path, want in flat_g.items():
@@ -8282,7 +8455,78 @@ def shard_world4(torch, tmp: str) -> dict:
                 logit_share_of_tolerance=worst_logit,
                 flash_collectives_per_step=infos[0]["flash_collectives"][0],
                 flash_logit_share_of_tolerance=worst_flash,
-                geometries=infos[0]["geometries"])
+                flash_dot_flops=infos[0]["flash_dot_flops"],
+                flash_unsplit_collectives=infos[0][
+                    "flash_unsplit_collectives"],
+                flash_unsplit_logit_share_of_tolerance=unsplit_share,
+                moe=moe, geometries=infos[0]["geometries"])
+
+
+def moe_checks(torch, cfg, params, want, route_want, coords, infos,
+               ranks) -> dict:
+    """The gspmd MoE leg against this process's unsharded prefill: the
+    ranks' logits, stitched, within SHARD_LOGIT_SHARE of max |logit|;
+    every rank's Route the same; its kept slots bitwise the unsharded
+    route (``layers.moe_route``) of the MoE layer's own input (the ranks'
+    blocks, stitched) and in agreement with the unsharded prefill's
+    routing as phase 16 holds card against CPU (``hold_routing``);
+    kernel 12 once a layer on each rank; no all-gather in the prefill or
+    the MoE layer.  Returns the figures printed."""
+    from repro_torch.models import layers as L
+    got = stitch(torch, [(c, r["moe"]["logits"], r["moe"]["logit_placements"])
+                         for c, r in zip(coords, ranks)], tuple(want.shape))
+    err = float((got - want).abs().max())
+    tol = logits_tolerance(want[..., :cfg.vocab], SHARD_LOGIT_SHARE)
+    check(err <= tol, f"sharded: the gspmd MoE prefill's logits {err} from "
+          f"the unsharded prefill's, past {tol}")
+    routes = [r["moe"]["route"] for r in ranks]
+    check(all(torch.equal(r[f], routes[0][f]) for r in routes
+              for f in ROUTE_KEPT), "sharded: the MoE ranks sorted "
+          "different routes")
+    x = stitch(torch, [(c, r["moe"]["moe_input"],
+                        r["moe"]["moe_input_placements"])
+                       for c, r in zip(coords, ranks) if c[1] == 0],
+               (1, SHARD_MOE_S, cfg.d_model))
+    layer = {k: v[0] for k, v in params["groups"]["0"]["mlp"].items()}
+    with torch.no_grad():
+        h = L.rms_norm(x.cuda(), params["groups"]["0"]["mlp_norm"][0],
+                       cfg.norm_eps).reshape(-1, cfg.d_model)
+        own = L.moe_route(cfg, layer, h)
+    logit_diff = float((ranks[0]["moe"]["route_logits"]
+                        - own.logits.cpu()).abs().max())
+    same = [f for f in ROUTE_KEPT
+            if not torch.equal(routes[0][f], getattr(own, f).cpu())]
+    check(not same, f"sharded: the gspmd MoE's {same} differ from the "
+          f"unsharded route of the same input (router logits "
+          f"{logit_diff} apart)")
+    # the layer's input is the sharded attention's, whose bf16 products
+    # sum their d-split partials in another order: phase 16's card == CPU
+    # law for the routing
+    held, _ = hold_routing(torch, [own], [route_want], "sharded: the gspmd "
+                           "MoE against the unsharded prefill's routing")
+    for rank, info in enumerate(infos):
+        m = info["moe"]
+        check(m["launches"].get("flash_attention") == SHARD_MOE_LAYERS
+              and sum(m["launches"].values()) == SHARD_MOE_LAYERS,
+              f"sharded: rank {rank}'s MoE prefill launched "
+              f"{m['launches']}")
+        check("all-gather" not in m["collectives"] and all(
+            "all_gather_into_tensor" not in c for c in m["moe_comms"]),
+            f"sharded: rank {rank}'s gspmd MoE prefill issued "
+            f"{m['collectives']}, its MoE layer {m['moe_comms']}")
+        check([list(q) for q in m["stream"]] == [["S", 2], ["R"]],
+              f"sharded: rank {rank}'s "
+              f"MoE input is placed {m['stream']}, not d-split over data")
+    return dict(logit_share_of_tolerance=err / tol,
+                dropped=infos[0]["moe"]["dropped"],
+                dropped_unsharded=int(L.dropped_slots(route_want)),
+                router_logits_max_diff=logit_diff,
+                against_unsharded_prefill=held,
+                leg_s=max(i["moe"]["leg_s"] for i in infos),
+                init_s=max(i["moe"]["init_s"] for i in infos),
+                prefill_s=max(i["moe"]["prefill_s"] for i in infos),
+                collectives=infos[0]["moe"]["collectives"],
+                moe_layer_comms=infos[0]["moe"]["moe_comms"])
 
 
 def phase_sharded_path(torch):
@@ -8369,7 +8613,8 @@ def dryrun_checks(torch, sharded: dict) -> dict:
     real step's (``hlo_flops.DotFlops``), exactly.  World 4: the fake
     2 x 2 train step's collectives (SHARD_CARD4_UNSPLIT's rules) equal to
     the real world's grad step and update, by kind with their bytes, and
-    the fake flash-decoding step's to each real one's, exactly.  Both fake
+    the fake flash-decoding step's (SERVE_RULES, "embed" kept) to each
+    real one's, and its dot FLOPs to the real step's, exactly.  Both fake
     runs again with CPU tensors: every FLOP, byte and collective field the
     same.  Then DRY_CELLS' production records (``lower_cell`` on the
     card)."""
@@ -8383,6 +8628,7 @@ def dryrun_checks(torch, sharded: dict) -> dict:
     fcfg = dataclasses.replace(get_config(FLASH_ARCH), n_layers=FLASH_LAYERS)
     fshape = ShapeConfig("flash", "decode", FLASH_S + FLASH_STEPS, 1)
     card4 = (card4_rules(sh.TRAIN_RULES), card4_rules(sh.SERVE_RULES))
+    serve = (card4[0], sh.SERVE_RULES)
     out = {}
     rec1 = dry_trace(torch, 1, (1, 1), "cuda", cfg, train, sh.TRAIN_RULES,
                      sh.SERVE_RULES)
@@ -8399,7 +8645,7 @@ def dryrun_checks(torch, sharded: dict) -> dict:
             dry_trace(torch, SHARD_WORLD, SHARD_MESH, device, cfg, train,
                       *card4),
             dry_trace(torch, SHARD_WORLD, SHARD_MESH, device, fcfg, fshape,
-                      *card4))
+                      *serve))
     w4 = sharded["world4"]
     want4 = summed_collectives(w4["collectives_grad"],
                                w4["collectives_update"])
@@ -8410,6 +8656,10 @@ def dryrun_checks(torch, sharded: dict) -> dict:
     wantf = w4["flash_collectives_per_step"]
     check(gotf == wantf, f"dry run: the fake flash-decoding step issues "
           f"{gotf}, each real one {wantf}")
+    flops_f = recs["cuda"][1]["dot_flops_per_chip"]
+    real_f = w4["flash_dot_flops"]["split"]["flops"]
+    check(flops_f == real_f, f"dry run: the fake flash-decoding step counts "
+          f"{flops_f} dot FLOPs, the real one {real_f}")
     for a, b, what in ((recs["cuda"][0], recs["cpu"][0], "train step"),
                        (recs["cuda"][1], recs["cpu"][1], "flash decode")):
         diff = {k: (a[k], b[k]) for k in DEVICE_FREE if a[k] != b[k]

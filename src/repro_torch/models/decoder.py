@@ -329,7 +329,7 @@ def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor,
     name = "embedding" if cfg.tie_embeddings else "out_proj"
     if is_dtensor(h):
         labels = sharded.rows_like(labels, h).to(torch.int64)
-        w = sharded.gather(params[name], name)
+        w = sharded.gather(params[name], name, sharded.embed_dims(h))
     else:
         labels = labels.to(device=h.device, dtype=torch.int64)
         w = sublayer_input(params[name])

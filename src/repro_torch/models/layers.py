@@ -90,10 +90,32 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
     return dtype_of(cfg.param_dtype)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
-             ) -> torch.Tensor:
+class EmbedSplit(NamedTuple):
+    """The model dim d split across ranks (a mesh's FSDP split of
+    "embed" kept where the activation has no data split): x holds this
+    rank's columns of d, and so does every weight's "embed" dim.
+    ``width``: the whole d; ``sum(*ts)``: the tensors, partial sums over
+    the split, each summed across it (one all-reduce; the gradient passes
+    as it is, since what follows runs alike on every rank); ``use(t)``: a
+    tensor that every rank of the split holds whole, fed to this rank's
+    columns (the identity; its gradient, a share a rank, is summed across
+    the split).  A product that contracts d is followed by ``sum``; a
+    product whose output is d reads its input through ``use``."""
+    width: int
+    sum: Any
+    use: Any
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             esplit: Optional[EmbedSplit] = None) -> torch.Tensor:
+    """With ``esplit``, x and scale are a rank's columns of d: the squares'
+    sum is summed across the split (``EmbedSplit``)."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if esplit is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ss, = esplit.sum((xf * xf).sum(dim=-1, keepdim=True))
+        var = esplit.use(ss) / esplit.width
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
 
@@ -317,7 +339,8 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                    mode: str = "train",
                    cache_len: Optional[int] = None, q_head0: int = 0,
                    kv_head0: int = 0, cast: bool = True,
-                   seq_split: Optional["SeqSplit"] = None
+                   seq_split: Optional["SeqSplit"] = None,
+                   esplit: Optional[EmbedSplit] = None
                    ) -> Tuple[torch.Tensor, Cache]:
     """The head counts are the weights' (a rank's local heads on a mesh,
     whose first query and kv heads are global ``q_head0`` and
@@ -325,16 +348,21 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     output product's dtype, so that a sum over the ranks' heads comes
     before the cast (the JAX package's all-reduce of the dot output).
     ``seq_split`` (decode only): the cache holds this rank's slice of the
-    ring's slots (the flash-decoding layout; ``SeqSplit``)."""
+    ring's slots (the flash-decoding layout; ``SeqSplit``).  ``esplit``:
+    x and the weights' d are a rank's columns (``EmbedSplit``)."""
     b, s, _ = x.shape
     hq, hkv, dh = p["wq"].shape[-2], p["wk"].shape[-2], cfg.head_dim_
     sel = kv_heads_for(cfg, hq, hkv, q_head0, kv_head0)
     cd = _cdtype(cfg)
     xc = x.to(cd)
+    use = (lambda t: t) if esplit is None else esplit.use
 
-    q = mmc(cfg, xc, p["wq"].to(cd)).to(cd)
-    k = mmc(cfg, xc, p["wk"].to(cd)).to(cd)
-    v = mmc(cfg, xc, p["wv"].to(cd)).to(cd)
+    q = mmc(cfg, xc, p["wq"].to(cd))
+    k = mmc(cfg, xc, p["wk"].to(cd))
+    v = mmc(cfg, xc, p["wv"].to(cd))
+    if esplit is not None:
+        q, k, v = esplit.sum(q, k, v)
+    q, k, v = q.to(cd), k.to(cd), v.to(cd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     q = q * (dh ** -0.5)
@@ -348,7 +376,7 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             window=window or None, scale=1.0, block_q=cfg.attn_block_q,
             block_k=cfg.attn_block_k)
         y = out.transpose(1, 2)
-        y = mmc(cfg, y.to(cd), p["wo"].to(cd), contract=2)
+        y = mmc(cfg, use(y.to(cd)), p["wo"].to(cd), contract=2)
         if cast:
             y = y.to(x.dtype)
         if mode == "train":
@@ -410,7 +438,7 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     else:
         ctx = _split_softmax_ctx(scores, svalid, vr, seq_split)
     ctx = ctx.reshape(b, hq, 1, dh).transpose(1, 2)
-    y = project(ctx.to(cd), p["wo"].to(cd), torch.float32, contract=2)
+    y = project(use(ctx.to(cd)), p["wo"].to(cd), torch.float32, contract=2)
     return (y.to(x.dtype) if cast else y), \
         {"k": newk, "v": newv, "slot_pos": slot_pos}
 
@@ -430,7 +458,8 @@ def init_cross_attention(cfg: ModelConfig, generator: torch.Generator,
 def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     aux: Optional[torch.Tensor], cache: Cache = None,
                     mode: str = "train", q_head0: int = 0,
-                    kv_head0: int = 0, cast: bool = True
+                    kv_head0: int = 0, cast: bool = True,
+                    esplit: Optional[EmbedSplit] = None
                     ) -> Tuple[torch.Tensor, Cache]:
     """x: (B, S, d) queries; aux: (B, Ta, d) keys/values (no rope).
 
@@ -439,21 +468,28 @@ def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     the projected K/V from the cache the prefill emitted and attends with
     plain products (the JAX package's ``"direct"`` backend).  The output
     is tanh(gate)·y in f32, returned in x's dtype (in f32 with
-    ``cast=False``; the heads and ``q_head0``/``kv_head0`` as in
-    ``self_attention``)."""
+    ``cast=False``; the heads, ``q_head0``/``kv_head0`` and ``esplit``
+    as in ``self_attention``; aux's d is split as x's)."""
     dh = cfg.head_dim_
     cd = _cdtype(cfg)
     xc = x.to(cd)
-    q = mmc(cfg, xc, p["wq"].to(cd)).to(cd)
+    use = (lambda t: t) if esplit is None else esplit.use
+    q = mmc(cfg, xc, p["wq"].to(cd))
     if mode == "decode":
+        if esplit is not None:
+            q, = esplit.sum(q)
+        q = q.to(cd)
         kh, vh = cache["k"], cache["v"]
     else:
         auxc = aux.to(device=x.device, dtype=cd)
+        kh = mmc(cfg, auxc, p["wk"].to(cd))
+        vh = mmc(cfg, auxc, p["wv"].to(cd))
+        if esplit is not None:
+            q, kh, vh = esplit.sum(q, kh, vh)
+        q = q.to(cd)
         # (B, Hkv, Ta, Dh) laid out as the cache holds it
-        kh = mmc(cfg, auxc, p["wk"].to(cd)).to(cd).transpose(1, 2) \
-            .contiguous()
-        vh = mmc(cfg, auxc, p["wv"].to(cd)).to(cd).transpose(1, 2) \
-            .contiguous()
+        kh = kh.to(cd).transpose(1, 2).contiguous()
+        vh = vh.to(cd).transpose(1, 2).contiguous()
     qh = (q * (dh ** -0.5)).transpose(1, 2)          # (B, Hq, S, Dh)
     sel = kv_heads_for(cfg, qh.shape[1], kh.shape[1], q_head0, kv_head0)
     if mode == "decode":
@@ -465,8 +501,8 @@ def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                               block_q=cfg.attn_block_q,
                               block_k=cfg.attn_block_k)
     y = out.transpose(1, 2)
-    y = mmc(cfg, y.to(cd), p["wo"].to(cd), contract=2)
-    y = torch.tanh(p["gate"].to(torch.float32)) * y.to(torch.float32)
+    y = mmc(cfg, use(y.to(cd)), p["wo"].to(cd), contract=2)
+    y = use(torch.tanh(p["gate"].to(torch.float32))) * y.to(torch.float32)
     new_cache = {"k": kh, "v": vh} if mode != "train" else None
     return (y.to(x.dtype) if cast else y), new_cache
 
@@ -488,16 +524,21 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, device,
     }
 
 
-def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor, cast: bool = True
-        ) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor, cast: bool = True,
+        esplit: Optional[EmbedSplit] = None) -> torch.Tensor:
     """SwiGLU; ``cast=False`` returns y in the output product's dtype (a
-    rank's partial sum over its ``mlp`` slice on a mesh)."""
+    rank's partial sum over its ``mlp`` slice on a mesh; ``esplit`` as in
+    ``self_attention``)."""
     cd = _cdtype(cfg)
     xc = x.to(cd)
     g = mmc(cfg, xc, p["w_gate"].to(cd))
     u = mmc(cfg, xc, p["w_up"].to(cd))
+    if esplit is not None:
+        g, u = esplit.sum(g, u)
     h = (torch.nn.functional.silu(g.to(torch.float32))
          * u.to(torch.float32)).to(cd)
+    if esplit is not None:
+        h = esplit.use(h)
     y = mmc(cfg, h, p["w_down"].to(cd))
     return y.to(x.dtype) if cast else y
 
@@ -561,29 +602,54 @@ class Route(NamedTuple):
     slot: torch.Tensor
 
 
-def moe_route(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> Route:
-    """Top-k routing of the tokens ``xt`` (T, d) with capacity
-    C = ceil(T·k·capacity_factor / E), as the JAX package routes: router
-    logits from compute-dtype operands in f32, softmax in f32, top-k,
-    then the token-slots in token-major order stably sorted by expert, so
-    that the slots past an expert's capacity are the JAX package's."""
-    t = xt.shape[0]
-    e, k = cfg.num_experts, cfg.top_k
-    cap = int(math.ceil(t * k * cfg.capacity_factor / e))
+def router_logits(cfg: ModelConfig, p: Params, xt: torch.Tensor
+                  ) -> torch.Tensor:
+    """The router's f32 logits (T, E) of the tokens ``xt`` (T, d), from
+    compute-dtype operands."""
     cd = _cdtype(cfg)
-    logits = project(xt.to(cd), p["router"].to(cd), torch.float32)
+    return project(xt.to(cd), p["router"].to(cd), torch.float32)
+
+
+def choose_experts(cfg: ModelConfig, logits: torch.Tensor):
+    """(probs, eidx, gate) of router logits (T, E): the softmax in f32,
+    each token's top k experts, best first, and their gates divided by
+    their sum."""
+    k = cfg.top_k
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k: descending, the lower index first on a tie;
     # torch.topk promises no order among ties, a stable sort does
     top, order_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     eidx = order_e[:, :k]
     gate = top[:, :k] / top[:, :k].sum(-1, keepdim=True)
+    return probs, eidx, gate
 
+
+def moe_route(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> Route:
+    """Top-k routing of the tokens ``xt`` (T, d) with capacity
+    C = ceil(T·k·capacity_factor / E), as the JAX package routes: router
+    logits from compute-dtype operands in f32, softmax in f32, top-k,
+    then the token-slots in token-major order stably sorted by expert, so
+    that the slots past an expert's capacity are the JAX package's."""
+    logits = router_logits(cfg, p, xt)
+    return route_of(cfg, logits, *choose_experts(cfg, logits))
+
+
+def route_of(cfg: ModelConfig, logits: torch.Tensor, probs: torch.Tensor,
+             eidx: torch.Tensor, gate: torch.Tensor) -> Route:
+    """The Route of T tokens' choices (``choose_experts``): the token-slots
+    in token-major order stably sorted by expert, each slot's rank in its
+    expert, and the slots past the capacity dropped.  A mesh's routing
+    (``models/sharded.py``) calls it on the choices of every rank's
+    tokens, so that its kept slots are the unsharded route's."""
+    t, k = eidx.shape
+    e = cfg.num_experts
+    cap = int(math.ceil(t * k * cfg.capacity_factor / e))
+    dev = eidx.device
     flat_e = eidx.reshape(-1)                                # (T·k,)
-    flat_t = torch.arange(t, device=xt.device).repeat_interleave(k)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], gate.reshape(-1)[order]
-    idx = torch.arange(t * k, device=xt.device)
+    idx = torch.arange(t * k, device=dev)
     is_start = torch.ones_like(se, dtype=torch.bool)
     is_start[1:] = se[1:] != se[:-1]
     # torch.cummax for the JAX package's associative_scan(max)
@@ -637,11 +703,18 @@ def route_agreement(a: Route, b: Route, rel: float = 1e-3
 
 
 def _expert_swiglu(cfg: ModelConfig, wg: torch.Tensor, wu: torch.Tensor,
-                   wd: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
+                   wd: torch.Tensor, xe: torch.Tensor,
+                   esplit: Optional[EmbedSplit] = None) -> torch.Tensor:
     """SwiGLU of each expert on its rows xe (e, C, d): the JAX package's
     "ecd,edf->ecf" and "ecf,efd->ecd" in matmul_out_dtype, the gate in
-    f32, h in the compute dtype."""
+    f32, h in the compute dtype (``esplit`` as in ``self_attention``)."""
     cd, od = _cdtype(cfg), _out_dtype(cfg)
+    if esplit is not None:
+        g, u = esplit.sum(bmm_out(xe, wg.to(cd), od),
+                          bmm_out(xe, wu.to(cd), od))
+        h = (torch.nn.functional.silu(g.to(torch.float32))
+             * u.to(torch.float32)).to(cd)
+        return bmm_out(esplit.use(h), wd.to(cd), od)
     g = bmm_out(xe, wg.to(cd), od).to(torch.float32)
     u = bmm_out(xe, wu.to(cd), od)
     # g is this function's own f32 tensor: silu and the product in place
@@ -688,34 +761,53 @@ def _moe_route_compute(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ... at hand (an expert-split mesh: the others' slots add zero rows), y
     is a partial sum (the caller sums it over the model axes)."""
     b, s, d = x.shape
-    t = b * s
+    xt = x.reshape(b * s, d)
+    return moe_experts(cfg, p, xt, moe_route(cfg, p, xt), e0).reshape(
+        b, s, d)
+
+
+def moe_experts(cfg: ModelConfig, p: Params, xt: torch.Tensor, r: Route,
+                e0: int = 0, esplit: Optional[EmbedSplit] = None
+                ) -> torch.Tensor:
+    """The dispatch, the experts' FFNs and the combine of the tokens
+    ``xt`` (T, d) routed by ``r``: (T, d) in f32, a partial sum where the
+    experts at hand are e0, e0 + 1, ... of E or f-slices of them
+    (``_moe_route_compute``).  With ``esplit`` xt and the experts' d are
+    a rank's columns (``EmbedSplit``): every expert at hand runs, in one
+    batched product a weight (the card's route), whatever the device."""
+    t, d = xt.shape
     e = cfg.num_experts
     cd = _cdtype(cfg)
-    xt = x.reshape(t, d)
-    r = moe_route(cfg, p, xt)
     cap = r.cap
     el = p["we_gate"].shape[-3]                 # the experts at hand
-    buf = torch.zeros((e * cap + 1, d), dtype=cd, device=x.device)
+    buf = torch.zeros((e * cap + 1, d), dtype=cd, device=xt.device)
     buf[r.slot] = xt[r.st].to(cd)
-    out = _experts(cfg, p, buf[e0 * cap:(e0 + el) * cap].view(el, cap, d),
-                   r, e0)
-    del buf
+    xe = buf[e0 * cap:(e0 + el) * cap].view(el, cap, d)
+    if esplit is None:
+        out = _experts(cfg, p, xe, r, e0)
+    else:
+        out = _expert_swiglu(cfg, p["we_gate"], p["we_up"], p["we_down"],
+                             xe, esplit)
+    del buf, xe
     if el == e:
         outf = torch.cat([out.reshape(e * cap, d).to(torch.float32),
                           torch.zeros((1, d), dtype=torch.float32,
-                                      device=x.device)])
+                                      device=xt.device)])
     else:
         outf = torch.zeros((e * cap + 1, d), dtype=torch.float32,
-                           device=x.device)
+                           device=xt.device)
         outf[e0 * cap:(e0 + el) * cap] = out.reshape(el * cap, d)
     del out
-    contrib = outf[r.slot] * (r.sg * r.keep)[:, None]
+    gate = r.sg * r.keep
+    if esplit is not None:
+        gate = esplit.use(gate)
+    contrib = outf[r.slot] * gate[:, None]
     del outf
     # each token's k addends land on a zero row; at k = 2, 0 + a + b is
     # exact in either order, so the card's atomic adds give one result
-    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    y = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
     y.index_add_(0, r.st, contrib)
-    return y.reshape(b, s, d)
+    return y
 
 
 def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -873,16 +965,20 @@ def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
 
 
 def rglru_in(cfg: ModelConfig, p: Params, x: torch.Tensor,
-             conv_state: Optional[torch.Tensor]):
+             conv_state: Optional[torch.Tensor],
+             esplit: Optional[EmbedSplit] = None):
     """The RG-LRU's input side: (u = conv(x·w_x), the gate branch x·w_y,
     the new conv state, and the gates' pre-activations u·w_a and u·w_i in
     f32 from compute-dtype operands).  On a mesh that splits ``rnn`` the
     pre-activations are a rank's partial sums, to be summed before the
-    sigmoids of ``rglru_out``."""
+    sigmoids of ``rglru_out``.  ``esplit`` as in ``self_attention``."""
     cd = _cdtype(cfg)
     xc = x.to(cd)
-    u = mmc(cfg, xc, p["w_x"].to(cd)).to(cd)
+    u = mmc(cfg, xc, p["w_x"].to(cd))
     gate_branch = mmc(cfg, xc, p["w_y"].to(cd))
+    if esplit is not None:
+        u, gate_branch = esplit.sum(u, gate_branch)
+    u = u.to(cd)
     u, new_conv = _causal_conv(u, p["conv"].to(cd), conv_state)
     ra = project(u, p["w_a"].to(cd), torch.float32)
     ia = project(u, p["w_i"].to(cd), torch.float32)
@@ -891,7 +987,8 @@ def rglru_in(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def rglru_out(cfg: ModelConfig, p: Params, u: torch.Tensor,
               gate_branch: torch.Tensor, ra: torch.Tensor, ia: torch.Tensor,
-              lru: Optional[torch.Tensor], mode: str):
+              lru: Optional[torch.Tensor], mode: str,
+              esplit: Optional[EmbedSplit] = None):
     """The RG-LRU's recurrence and output product from ``rglru_in``'s
     tensors: (y in the product's dtype, the last state h)."""
     cd = _cdtype(cfg)
@@ -914,7 +1011,10 @@ def rglru_out(cfg: ModelConfig, p: Params, u: torch.Tensor,
         del a, gated
     y = torch.nn.functional.gelu(gate_branch.to(torch.float32),
                                  approximate="tanh") * h
-    return mmc(cfg, y.to(cd), p["w_out"].to(cd)), new_h
+    y = y.to(cd)
+    if esplit is not None:
+        y = esplit.use(y)
+    return mmc(cfg, y, p["w_out"].to(cd)), new_h
 
 
 def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
@@ -1008,7 +1108,8 @@ def _mlstm_chunk(q, k, v, ig, lf, carry):
 
 
 def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                cache: Cache = None, mode: str = "train", cast: bool = True
+                cache: Cache = None, mode: str = "train", cast: bool = True,
+                esplit: Optional[EmbedSplit] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """The mLSTM: q, k (both scaled by dh^-0.5) and v in f32, input gate
     pre-activations ig and log forget gates lf = -softplus(-x·wf) in f32
@@ -1016,27 +1117,33 @@ def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     ``mlstm_chunk`` tokens (train pads the last; the prefill needs a whole
     number of chunks), and decode as one chunk of length 1, its state
     written into the cache in place.  The heads are the weights' (a
-    rank's on a mesh); ``cast=False`` returns y in the product's dtype."""
+    rank's on a mesh); ``cast=False`` returns y in the product's dtype;
+    ``esplit`` as in ``self_attention``."""
     b, s, _ = x.shape
     h_, dh = p["wq"].shape[-2], cfg.head_dim_
     cd = _cdtype(cfg)
     f32 = torch.float32
     xc = x.to(cd)
+    qkv = tuple(mmc(cfg, xc, p[n].to(cd)) for n in ("wq", "wk", "wv"))
+    gates = tuple(project(xc, p[n].to(cd), f32) for n in ("wi", "wf"))
+    if esplit is not None:
+        summed = esplit.sum(*qkv, *gates)
+        qkv, gates = summed[:3], summed[3:]
 
-    def heads(w, scale=None):                  # (B, H, S, dh) in f32
-        t = mmc(cfg, xc, w.to(cd)).to(f32).transpose(1, 2)
+    def heads(t, scale=None):                  # (B, H, S, dh) in f32
+        t = t.to(f32).transpose(1, 2)
         return t if scale is None else t * scale
-    q = heads(p["wq"], dh ** -0.5)
-    k = heads(p["wk"], dh ** -0.5)
-    v = heads(p["wv"])
-    ig = project(xc, p["wi"].to(cd), f32).transpose(1, 2)
-    lf = -torch.nn.functional.softplus(
-        -project(xc, p["wf"].to(cd), f32)).transpose(1, 2)
+    q = heads(qkv[0], dh ** -0.5)
+    k = heads(qkv[1], dh ** -0.5)
+    v = heads(qkv[2])
+    ig = gates[0].transpose(1, 2)
+    lf = -torch.nn.functional.softplus(-gates[1]).transpose(1, 2)
+    use = (lambda t: t) if esplit is None else esplit.use
 
     if mode == "decode":
         carry = (cache["mC"], cache["mn"], cache["mm"])
         hout, (C, nvec, m) = _mlstm_chunk(q, k, v, ig, lf, carry)
-        y = mmc(cfg, hout.transpose(1, 2).to(cd), p["wo"].to(cd),
+        y = mmc(cfg, use(hout.transpose(1, 2).to(cd)), p["wo"].to(cd),
                 contract=2)
         return (y.to(x.dtype) if cast else y), \
             _write(cache, {"mC": C, "mn": nvec, "mm": m})
@@ -1060,7 +1167,8 @@ def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                                    ig[..., sl], lf[..., sl], carry)
         hs.append(hout)
     hout = torch.cat(hs, dim=2)[:, :, :s]
-    y = mmc(cfg, hout.transpose(1, 2).to(cd), p["wo"].to(cd), contract=2)
+    y = mmc(cfg, use(hout.transpose(1, 2).to(cd)), p["wo"].to(cd),
+            contract=2)
     new_cache = None
     if mode == "prefill":
         new_cache = {"mC": carry[0], "mn": carry[1], "mm": carry[2]}
@@ -1115,20 +1223,24 @@ def _slstm_step(rmat, state, gx):
 
 
 def slstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                cache: Cache = None, mode: str = "train", cast: bool = True
+                cache: Cache = None, mode: str = "train", cast: bool = True,
+                esplit: Optional[EmbedSplit] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """The sLSTM: the gates' input projections for every token in one
     product (f32 from compute-dtype operands), then one ``_slstm_step`` a
     token with the recurrent matrices in f32 (IEEE: the package turns
     TF32 off).  Decode takes one step and writes sc, sn, sh and sm into
     its cache in place.  The heads are the weights' (a rank's on a mesh);
-    ``cast=False`` returns y in the product's dtype."""
+    ``cast=False`` returns y in the product's dtype; ``esplit`` as in
+    ``self_attention``."""
     b, s, _ = x.shape
     h_, dh = p["wx"].shape[-2], cfg.head_dim_
     cd = _cdtype(cfg)
     f32 = torch.float32
     # (B, S, 4, H, dh) -> (S, H, B, 4·dh): each step's slice contiguous
     gx = project(x.to(cd), p["wx"].to(cd), f32)
+    if esplit is not None:
+        gx, = esplit.sum(gx)
     gx = gx.permute(1, 3, 0, 2, 4).reshape(s, h_, b, 4 * dh)
     rmat = p["r"].to(f32).reshape(h_, dh, 4 * dh)
 
@@ -1146,7 +1258,10 @@ def slstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     hs = torch.stack(hs, dim=2).permute(1, 2, 0, 3)     # (B, S, H, dh)
     # decode's output product is f32 whatever matmul_out_dtype says, as
     # the JAX package's einsum32 there
-    y = project(hs.to(cd), p["wo"].to(cd),
+    hs = hs.to(cd)
+    if esplit is not None:
+        hs = esplit.use(hs)
+    y = project(hs, p["wo"].to(cd),
                 f32 if mode == "decode" else _out_dtype(cfg), contract=2)
     if cast:
         y = y.to(x.dtype)

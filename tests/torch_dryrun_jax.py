@@ -90,8 +90,9 @@ def standin_attention(q, k, v, **_):
     return q * jnp.repeat(kv, g, axis=1)
 
 
-def lower(mesh, arch, shape_name):
-    """``lower_cell``'s body on ``mesh`` with the smoke config and shape."""
+def lower(mesh, arch, shape_name, keep_hlo=False):
+    """``lower_cell``'s body on ``mesh`` with the smoke config and shape
+    (with ``keep_hlo`` the compiled HLO's text too, under "hlo")."""
     cfg = get_config(arch, smoke=True)
     shape = SMOKE_SHAPES[shape_name]
     specs = input_specs(cfg, shape)
@@ -151,7 +152,46 @@ def lower(mesh, arch, shape_name):
                state_bytes_per_chip=n_state / mesh.size,
                local_shapes=shapes, collective_bytes=collective_bytes(hlo),
                dot_flops=dot_flops(hlo), dot_flops_fused=dot_flops_fused(hlo))
+    if keep_hlo:
+        rec["hlo"] = hlo
     return rec
+
+
+_DEF_RE = re.compile(r"%([\w.\-]+) = (\w+)\[([\d,]*)\]")
+_DOT_RE = re.compile(r"%[\w.\-]+ = \S+ dot\(%([\w.\-]+), %([\w.\-]+)\)")
+
+
+def hlo_dots(hlo: str) -> list:
+    """Every ``dot`` of a compiled HLO text as (einsum, forward, (batch,
+    M, K, N)): the einsum of its ``op_name`` ("" where none), whether it
+    lies outside the backward pass and the remat's recompute, and its
+    batch, free and contracted sizes, each a product of the local operand
+    dims it names."""
+    shapes = {m.group(1): [int(n) for n in m.group(3).split(",") if n]
+              for m in _DEF_RE.finditer(hlo)}
+    out = []
+    for line in hlo.splitlines():
+        m = _DOT_RE.search(line)
+        if not m:
+            continue
+        dims = {k: [int(n) for n in v.split(",") if n] for k, v in re.findall(
+            r"(\w+_(?:contracting|batch)_dims)=\{([\d,]*)\}", line)}
+        lhs, rhs = shapes[m.group(1)], shapes[m.group(2)]
+
+        def size(shape, idx):
+            return int(np.prod([shape[i] for i in idx])) if idx else 1
+        lb, lc = dims.get("lhs_batch_dims", []), dims["lhs_contracting_dims"]
+        rb, rc = dims.get("rhs_batch_dims", []), dims["rhs_contracting_dims"]
+        free_l = [i for i in range(len(lhs)) if i not in lb + lc]
+        free_r = [i for i in range(len(rhs)) if i not in rb + rc]
+        op = re.search(r'op_name="([^"]*)"', line)
+        name = op.group(1) if op else ""
+        ein = re.search(r"/([^/]*->[^/]*)/dot_general$", name)
+        forward = "transpose(" not in name and "rematted" not in name
+        out.append((ein.group(1) if ein else "", forward,
+                    (size(lhs, lb), size(lhs, free_l), size(lhs, lc),
+                     size(rhs, free_r))))
+    return out
 
 
 def main(out: str) -> None:

@@ -65,7 +65,9 @@ FLASH_STEPS = 10
 #: (tests/test_torch_dryrun.py): (arch, smoke shape)
 DRYRUN_REAL_CELLS = (("granite-3-2b", "train_4k"),
                      ("granite-3-2b", "decode_32k"),
-                     ("granite-3-2b", "long_500k"))
+                     ("granite-3-2b", "long_500k"),
+                     ("mixtral-8x22b", "train_4k"),
+                     ("h2o-danube-3-4b", "long_500k"))
 
 
 def rules(case: str, name: str) -> dict:
